@@ -1,0 +1,135 @@
+"""Shared pieces of the tests of the PyTorch/CUDA port (tests/test_torch_*.py).
+
+The tests hand the same numpy inputs, made from a seed, to the JAX package
+and to the port.  Where the JAX function reaches a Pallas kernel, it runs in
+interpret mode, as the JAX package's own kernel tests run it on the CPU.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+
+def cuda_or_skip() -> torch.device:
+    """The card for a test marked `cuda`; skip where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def jax_knn_kernel_exact(x, k: int, tile_n: int):
+    """`_knn_kernel(exact=True)` over (B, N, C), interpret mode."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from r3dfsseg_tpu.ops import pallas_knn as pk
+
+    b, n, c = x.shape
+    return pl.pallas_call(
+        functools.partial(pk._knn_kernel, k=k, n_keys=n, exact=True),
+        out_shape=jax.ShapeDtypeStruct((b, n, k), jnp.int32),
+        grid=(b, n // tile_n),
+        in_specs=[pl.BlockSpec((1, tile_n, c), lambda i, j: (i, j, 0)),
+                  pl.BlockSpec((1, n, c), lambda i, j: (i, 0, 0))],
+        out_specs=pl.BlockSpec((1, tile_n, k), lambda i, j: (i, j, 0)),
+        interpret=True,
+    )(x, x)
+
+
+def jax_attention_kernel(q, k, v, tau: float, tq: int):
+    """`_attn_fwd_kernel` with train=False over (B, N, D), interpret mode."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+    from r3dfsseg_tpu.ops import pallas_attention as pa
+
+    b, n, d = q.shape
+    return pl.pallas_call(
+        functools.partial(pa._attn_fwd_kernel, tau=tau, rate=0.1, train=False),
+        out_shape=jax.ShapeDtypeStruct((b, n, d), jnp.float32),
+        grid_spec=pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=1, grid=(b, n // tq),
+            in_specs=[pl.BlockSpec((1, tq, d), lambda b_, t_, s_: (b_, t_, 0)),
+                      pl.BlockSpec((1, n, d), lambda b_, t_, s_: (b_, 0, 0)),
+                      pl.BlockSpec((1, n, d), lambda b_, t_, s_: (b_, 0, 0))],
+            out_specs=pl.BlockSpec((1, tq, d), lambda b_, t_, s_: (b_, t_, 0))),
+        interpret=True,
+    )(jnp.zeros((1,), jnp.int32), q, k, v)
+
+
+def random_flax_weights(variables, rng: np.random.Generator, *, wscale: float = 3.0,
+                        mean_sd: float = 0.5, var_lo: float = 0.1,
+                        vscale: float = 0.1):
+    """Numpy Flax trees (params, batch_stats) shaped like ``variables``
+    (arrays or `jax.eval_shape` structs): Dense kernels ~ N(0, wscale^2 /
+    fan_in), the attention value map scaled by ``vscale``, vectors ~
+    N(0, 0.1^2), running means ~ N(0, mean_sd^2), running variances ~
+    U(var_lo, 1.5): weights that make features vary from point to point."""
+    import flax
+    import jax
+
+    def param(path, a):
+        if len(a.shape) == 2:
+            out = rng.normal(size=a.shape) * (wscale / np.sqrt(a.shape[0]))
+            if any(getattr(p, "key", None) == "v_map" for p in path):
+                out = out * vscale
+            return out.astype(np.float32)
+        return (rng.normal(size=a.shape) * 0.1).astype(np.float32)
+
+    def stat(path, a):
+        if path[-1].key == "mean":
+            return (rng.normal(size=a.shape) * mean_sd).astype(np.float32)
+        return rng.uniform(var_lo, 1.5, size=a.shape).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(
+        param, flax.core.unfreeze(variables["params"]))
+    stats = jax.tree_util.tree_map_with_path(
+        stat, flax.core.unfreeze(variables.get("batch_stats", {})))
+    return params, stats
+
+
+def episode_arrays(cfg, rng: np.random.Generator):
+    """(support_x, support_y, query_x, query_y) numpy arrays of one episode,
+    with at least one fg point per shot."""
+    w, k, n, d = cfg.n_way, cfg.k_shot, cfg.pc_npts, cfg.pc_in_dim
+    q = cfg.n_queries * cfg.n_way
+    sy = (rng.uniform(size=(w, k, n)) < 0.3).astype(np.int32)
+    sy[..., 0] = 1
+    return (rng.normal(size=(w, k, n, d)).astype(np.float32), sy,
+            rng.normal(size=(q, n, d)).astype(np.float32),
+            rng.integers(0, w + 1, size=(q, n)).astype(np.int32))
+
+
+def jax_graph_margin(enc, jax_cfg, support_x, support_y, query_x, eval_mdns: bool) -> float:
+    """Smallest gap, over the rows of the JAX model's episode graph, between
+    the k-th and the (k+1)-th neighbour distance, relative to the squared
+    norms that the Gram form cancels (float64).  ``enc`` maps clouds to
+    JAX embeddings.  Near 1e-7 the two frameworks' f32 roundings can swap
+    those neighbours, and the logits then differ by O(0.1) while both are
+    right."""
+    import jax.numpy as jnp
+    from r3dfsseg_tpu.models import mpti as jax_mpti
+
+    w, k, n, c = support_x.shape
+    sf = enc(support_x.reshape(w * k, n, c)).reshape(w, k, n, -1)
+    qf = enc(query_x).reshape(-1, sf.shape[-1])
+    fg = support_y > 0
+    used = fg
+    if eval_mdns:
+        keep, _ = jax_mpti.mdns_keep_mask(jnp.asarray(sf), jnp.asarray(fg),
+                                          jnp.asarray(support_x[..., :3]), jax_cfg.mdns_scales)
+        used = fg & (np.asarray(keep)[..., None] > 0.5)
+    protos, pvalid, _, _ = jax_mpti.episode_graph_nodes(
+        jnp.asarray(sf), jnp.asarray(used), jnp.asarray(fg), jax_cfg)
+    node = np.concatenate([np.asarray(protos), qf]).astype(np.float64)
+    valid = np.concatenate([np.asarray(pvalid), np.ones(len(qf), bool)])
+    d = ((node[:, None] - node[None]) ** 2).sum(-1)
+    d[np.eye(len(d), dtype=bool) | ~valid[None]] = np.inf
+    s = np.sort(d, axis=1)
+    kc = jax_cfg.k_connect
+    nrm = (node * node).sum(1)
+    return float(((s[:, kc] - s[:, kc - 1]) / (nrm + np.median(nrm)))[valid].min())
