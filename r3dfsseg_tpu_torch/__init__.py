@@ -8,7 +8,9 @@ a CUDA tensor (`kernels/build.py`) and wrapped, beside its plain PyTorch
 version, in an `ops/cuda_*.py` module.  This package never imports jax.
 
 Ported so far: the eval-mode MPTI+MDNS serving path
-(`serve.FewShotPredictor.predict`).
+(`serve.FewShotPredictor.predict`) and the f32 MPTI + attention +
+WayContrast meta-training step (`learners.mpti_learner.MPTILearner.train`).
+Both run on "cuda" unless the caller passes device="cpu".
 """
 import torch
 

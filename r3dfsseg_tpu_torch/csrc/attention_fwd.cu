@@ -1,8 +1,8 @@
-// Single-head attention forward, softmax(q k^T * scale) v, eval mode.
+// Single-head attention forward, softmax(q k^T * scale) [dropout] v.
 //
 // Replaces the TPU kernel r3dfsseg_tpu/ops/pallas_attention.py:
-// _attn_fwd_kernel (via _fwd_impl) with train=False.  Dropout and the
-// backward (_attn_bwd_kernel) belong to training and are not here.
+// _attn_fwd_kernel (via _fwd_impl), in eval mode and in training with
+// dropout on the attention map.  The backward is attention_bwd.cu.
 //
 // Layout: q, k, v (B, N, D) f32 contiguous, D <= 64 and D % 4 == 0 ->
 // y (B, N, D) f32.  Grid: (ceil(N / kTile), B), kThreads threads.  A block
@@ -19,9 +19,19 @@
 //      (rows x channels) per thread.
 // Plain FFMA and expf throughout, no TF32.  Like the TPU kernel, q is
 // multiplied by scale = 1 / tau.
+//
+// Training (kDropout): the row max m and the row sum l come from the
+// undropped scores, so the normaliser is the softmax's own; only the
+// accumulator takes exp(s - m) * mask, the mask of philox.cuh regenerated
+// per element from (seed, b, i, j).  The kernel then also writes
+// lse = m + log l per row, (B, N) f32, from which the backward recomputes
+// P = exp(s - lse) tile by tile (lse is written whenever the wrapper
+// passes a buffer for it, with or without dropout).  With kDropout false
+// and no lse buffer the code is the eval kernel as it was.
 #include <cmath>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -29,10 +39,11 @@ constexpr int kTile = 64;
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kStride = kTile + 1;
 
+template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ y, int n, int d,
-                float scale) {
+                const float* __restrict__ v, float* __restrict__ y, float* __restrict__ lse,
+                int n, int d, float scale, r3d::Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem);  // d * kTile, channel-major, scaled
   float* k_s = q_s + d * kTile;                  // d * kTile, channel-major
@@ -117,6 +128,17 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       sr[j] = pj;
       part += pj;
     }
+    if constexpr (kDropout) {
+      // l above stays undropped; the accumulator takes the masked tile
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 f = drop.factors(b, row0 + srow, j0 + scol + 4 * g);
+        sr[4 * g] *= f.x;
+        sr[4 * g + 1] *= f.y;
+        sr[4 * g + 2] *= f.z;
+        sr[4 * g + 3] *= f.w;
+      }
+    }
     psum_s[t] = part;
     __syncthreads();
     if (t < kTile) {
@@ -153,6 +175,9 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   __syncthreads();
+  if (lse != nullptr && t < kTile && row0 + t < n) {
+    lse[static_cast<size_t>(b) * n + row0 + t] = m_s[t] + logf(l_s[t]);
+  }
   if (c0 < d) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -165,17 +190,59 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The mask's raw words, (B, N, N) uint32: word (b, i, j) as the kernels
+// above and attention_bwd.cu draw it.  Only for checking the bits against
+// the plain version; nothing on the model's path calls it.
+__global__ void dropout_words_kernel(uint32_t* __restrict__ out, int n, r3d::Dropout drop) {
+  const int j4 = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  const int i = blockIdx.y;
+  const int b = blockIdx.z;
+  if (j4 >= n) return;
+  const uint4 w = r3d::philox4x32_10(
+      make_uint4(static_cast<uint32_t>(j4) >> 2, static_cast<uint32_t>(i),
+                 static_cast<uint32_t>(b), 0u),
+      drop.seed_lo, drop.seed_hi);
+  const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+  uint32_t* row = out + (static_cast<size_t>(b) * n + i) * n;
+  for (int e = 0; e < 4 && j4 + e < n; ++e) row[j4 + e] = ws[e];
+}
+
 }  // namespace
 
-R3D_EXPORT int r3d_attn_fwd(const void* q, const void* k, const void* v, void* y, int b, int n,
-                            int d, float scale, void* stream) {
+// lse may be null (eval); otherwise it receives the (B, N) row
+// log-sum-exp.  dropout != 0 selects the kernel with the mask.
+R3D_EXPORT int r3d_attn_fwd(const void* q, const void* k, const void* v, void* y, void* lse,
+                            int b, int n, int d, float scale, int dropout,
+                            unsigned seed_lo, unsigned seed_hi, unsigned threshold,
+                            float keep_scale, void* stream) {
   const size_t smem = sizeof(float) * (3 * static_cast<size_t>(d) * kTile + kTile * kStride +
                                        3 * kTile + 2 * kThreads);
-  cudaError_t err = r3d_set_smem(attn_fwd_kernel, smem);
-  if (err != cudaSuccess) return err;
+  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
   dim3 grid((n + kTile - 1) / kTile, b);
-  attn_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(y), n, d, scale);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto qp = static_cast<const float*>(q);
+  auto kp = static_cast<const float*>(k);
+  auto vp = static_cast<const float*>(v);
+  auto yp = static_cast<float*>(y);
+  auto lp = static_cast<float*>(lse);
+  cudaError_t err;
+  if (dropout) {
+    err = r3d_set_smem(attn_fwd_kernel<true>, smem);
+    if (err != cudaSuccess) return err;
+    attn_fwd_kernel<true><<<grid, kThreads, smem, st>>>(qp, kp, vp, yp, lp, n, d, scale, drop);
+  } else {
+    err = r3d_set_smem(attn_fwd_kernel<false>, smem);
+    if (err != cudaSuccess) return err;
+    attn_fwd_kernel<false><<<grid, kThreads, smem, st>>>(qp, kp, vp, yp, lp, n, d, scale, drop);
+  }
+  return cudaGetLastError();
+}
+
+R3D_EXPORT int r3d_dropout_mask(void* out, int b, int n, unsigned seed_lo, unsigned seed_hi,
+                                void* stream) {
+  const r3d::Dropout drop{seed_lo, seed_hi, 0u, 1.f};
+  dim3 grid(((n + 3) / 4 + 127) / 128, n, b);
+  dropout_words_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out), n, drop);
   return cudaGetLastError();
 }

@@ -102,4 +102,5 @@ def stream_ptr(device) -> int:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 F = ctypes.c_float

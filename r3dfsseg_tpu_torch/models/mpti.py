@@ -1,15 +1,16 @@
-"""Multi-prototype transductive inference with MDNS, eval mode
+"""Multi-prototype transductive inference with noise robustness
 (counterpart of `r3dfsseg_tpu/models/mpti.py`).
 
-Pipeline per episode: features -> MDNS clean-shot detection -> FPS
-multi-prototypes (fg per way + bg) -> kNN affinity over [prototypes ++
-query points] -> label propagation -> query logits.  Shapes are fixed:
-every way and the background own `n_subprototypes` slots with validity
-masks, and invalid slots drop out of the graph.
+Pipeline per episode: features -> [train: WayContrast loss | eval: MDNS
+clean-shot detection] -> FPS multi-prototypes (fg per way + bg) -> kNN
+affinity over [prototypes ++ query points] -> label propagation -> query
+logits + cross-entropy.  Shapes are fixed: every way and the background
+own `n_subprototypes` slots with validity masks, and invalid slots drop
+out of the graph.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -17,7 +18,7 @@ from torch import nn
 
 from r3dfsseg_tpu_torch.config import R3DConfig
 from r3dfsseg_tpu_torch.models.episode import Episode
-from r3dfsseg_tpu_torch.nn.dgcnn import FeatureExtractor, _eval_only
+from r3dfsseg_tpu_torch.nn.dgcnn import FeatureExtractor
 from r3dfsseg_tpu_torch.ops.fps import multi_prototypes
 from r3dfsseg_tpu_torch.ops.grid import grid_seed_pool
 from r3dfsseg_tpu_torch.ops.lp import label_propagate, local_constrained_affinity
@@ -74,6 +75,63 @@ def mdns_keep_mask(support_feat: torch.Tensor, support_fg: torch.Tensor,
 
 
 # ======================================================================
+# WayContrast: per-way supervised contrastive loss (training)
+# ======================================================================
+def way_contrast_loss(proj_feat: torch.Tensor, proto_valid: torch.Tensor,
+                      labels: torch.Tensor, slot_valid: torch.Tensor,
+                      temp: float = 0.1) -> torch.Tensor:
+    """Supervised InfoNCE per way, averaged over ways.
+
+    proj_feat (n_way, k_shot+2, fps_k, p) projected prototypes,
+    proto_valid (n_way, k_shot+2, fps_k) bool, labels (n_way, k_shot+2)
+    absolute classes (-1 = borrowed negative), slot_valid (n_way,
+    k_shot+2) bool.  Anchors are valid rows with at least one positive."""
+    n_way, slots, fps_k, p = proj_feat.shape
+    z = proj_feat.reshape(n_way, slots * fps_k, p).float()
+    valid = (proto_valid & slot_valid[..., None]).reshape(n_way, -1)      # (w, S)
+    lab = labels.float().repeat_interleave(fps_k, dim=1)                 # (w, S)
+    n = z.shape[1]
+    eye = torch.eye(n, dtype=torch.bool, device=z.device)
+    pair_ok = valid[:, :, None] & valid[:, None, :] & ~eye
+    logits = torch.matmul(z, z.transpose(-1, -2)) / temp
+    gt = (lab[:, :, None] == lab[:, None, :]) & pair_ok
+    ex = torch.exp(logits) * pair_ok.float()
+    log_prob = logits - torch.log(ex.sum(-1, keepdim=True).clamp_min(1e-12))
+    pos_cnt = gt.float().sum(-1)
+    mean_log_prob_pos = (gt.float() * log_prob).sum(-1) / pos_cnt.clamp_min(1.0)
+    row_ok = valid & (pos_cnt > 0)
+    loss = -torch.where(row_ok, mean_log_prob_pos, 0.0).sum(-1)
+    return (loss / row_ok.float().sum(-1).clamp_min(1.0)).mean()
+
+
+def _contrast_prototypes(support_feat: torch.Tensor, support_y: torch.Tensor,
+                         support_flag: torch.Tensor, fps_k: int, fps_impl: str = "auto"):
+    """Per-shot FPS prototypes with labels and validity for WayContrast,
+    one episode: (n_way, k_shot+2, fps_k, d) prototypes, their validity,
+    (n_way, k_shot+2) labels and slot validity.
+
+    Slots [0:k_shot] are the way's own shots; slots [k_shot:k_shot+2] are
+    shots 0 and 1 borrowed from the next way as label -1 negatives, valid
+    only when the episode is clean, judged from way 0's flags only."""
+    n_way, k_shot, n, d = support_feat.shape
+    fg = support_y > 0
+    mp = multi_prototypes(support_feat.reshape(n_way * k_shot, n, d),
+                          fg.reshape(n_way * k_shot, n), fps_k, impl=fps_impl)
+    protos = mp.prototypes.reshape(n_way, k_shot, fps_k, d)
+    pvalid = mp.proto_valid.reshape(n_way, k_shot, fps_k)
+
+    flag = support_flag.float()
+    clean = (flag[0, 0] * k_shot) == flag[0].sum()
+    nxt = (torch.arange(n_way, device=protos.device) + 1) % n_way
+    protos = torch.cat([protos, protos[nxt][:, :2]], 1)
+    pvalid = torch.cat([pvalid, pvalid[nxt][:, :2]], 1)
+    labels = torch.cat([flag, torch.full((n_way, 2), -1.0, device=flag.device)], 1)
+    slot_valid = torch.cat([torch.ones((n_way, k_shot), dtype=torch.bool, device=flag.device),
+                            clean.expand(n_way, 2)], 1)
+    return protos, pvalid, labels, slot_valid
+
+
+# ======================================================================
 # The episode graph
 # ======================================================================
 def episode_graph_nodes(support_feat: torch.Tensor, fg_used: torch.Tensor,
@@ -98,17 +156,18 @@ def episode_graph_nodes(support_feat: torch.Tensor, fg_used: torch.Tensor,
 
 
 def _mpti_core(support_feat: torch.Tensor, query_feat: torch.Tensor, ep: Episode,
-               cfg: R3DConfig, *, eval_mdns: bool):
-    """One episode, eval mode: MDNS -> prototypes -> affinity -> LP -> CE."""
+               cfg: R3DConfig, *, train: bool = False, eval_mdns: bool = False):
+    """One episode: [eval: MDNS] -> prototypes -> affinity -> LP -> CE,
+    and in training the diagnostics of the JAX package's train step."""
     c = cfg
     n_way, k_shot, n, d = support_feat.shape
     fg = ep.support_y > 0
-    if eval_mdns:
+    if eval_mdns and not train:
         keep, _ = mdns_keep_mask(support_feat, fg, ep.support_x[..., :3], c.mdns_scales)
         fg_used = fg & (keep[..., None] > 0.5)
     else:
         fg_used = fg
-    protos, pvalid, proto_labels, _ = episode_graph_nodes(support_feat, fg_used, fg, c)
+    protos, pvalid, proto_labels, fg_assign = episode_graph_nodes(support_feat, fg_used, fg, c)
 
     qflat = query_feat.reshape(-1, d)
     nq = qflat.shape[0]
@@ -119,14 +178,35 @@ def _mpti_core(support_feat: torch.Tensor, query_feat: torch.Tensor, ep: Episode
 
     a = local_constrained_affinity(node_feat, c.k_connect, c.sigma, valid=node_valid,
                                    kth_impl=c.knn_impl)
-    z = label_propagate(a, y0, c.lp_alpha, cg_iters=c.lp_cg_iters)
-    query_logits = z[protos.shape[0]:].reshape(c.n_queries * n_way, n, c.n_classes)
+    z = label_propagate(a, y0, c.lp_alpha, cg_iters=c.lp_cg_iters,
+                        adjoint_iters=(c.lp_adjoint_iters or None) if train else None)
+    n_protos = protos.shape[0]
+    query_logits = z[n_protos:].reshape(c.n_queries * n_way, n, c.n_classes)
 
     query_y = ep.query_y.long()
     logp = F.log_softmax(query_logits, dim=-1)
     lp_loss = -logp.gather(-1, query_y[..., None]).mean()
-    accuracy = (query_logits.argmax(-1) == query_y).float().mean()
-    return query_logits, lp_loss, {"accuracy": accuracy}
+    pred = query_logits.argmax(-1)
+    aux = {"accuracy": (pred == query_y).float().mean()}
+    if train and ep.gt_query_y is not None:
+        gt_q = ep.gt_query_y.long()
+        aux["query_acc_LP"] = (pred == gt_q).float().mean()
+        aux["query_acc_original"] = (query_y == gt_q).float().mean()
+    if train and ep.gt_support_y is not None:
+        # clean ratio after LP: per way, each fg point takes its prototype's
+        # LP prediction, compared with the clean gt mask
+        with torch.no_grad():
+            proto_pred = z[:n_protos].reshape(n_way + 1, -1, c.n_classes)[1:].argmax(-1)
+            way_ids = torch.arange(n_way, device=dev)[:, None]
+            proto_is_cls = proto_pred == way_ids + 1                     # (w, NP)
+            point_pred = proto_is_cls.gather(1, fg_assign.long())        # (w, k*N)
+            gt_flat = ep.gt_support_y.reshape(n_way, -1) > 0
+            fgf = fg_used.reshape(n_way, -1).float()
+            denom = fgf.sum(-1).clamp_min(1.0)
+            aux["clean_ratio_LP"] = (((point_pred == gt_flat).float() * fgf).sum(-1)
+                                     / denom).mean()
+            aux["clean_ratio_original"] = ((gt_flat.float() * fgf).sum(-1) / denom).mean()
+    return query_logits, lp_loss, aux
 
 
 # ======================================================================
@@ -135,11 +215,13 @@ def _mpti_core(support_feat: torch.Tensor, query_feat: torch.Tensor, ep: Episode
 class MPTIOutput(NamedTuple):
     query_logits: torch.Tensor    # (E, n_q*n_way, n_points, n_classes)
     lp_loss: torch.Tensor
+    contrast_loss: torch.Tensor
     aux: Dict[str, torch.Tensor]
 
 
 def check_servable(cfg: R3DConfig) -> None:
-    """Raise on settings outside the port's float32 threshold/Chebyshev slice."""
+    """Raise on settings outside the port's float32 threshold/Chebyshev
+    slice (any `lp_adjoint_iters`; 0 means `lp_cg_iters`)."""
     gd = cfg.compute_dtype if cfg.graph_dtype == "auto" else cfg.graph_dtype
     if cfg.compute_dtype != "float32" or gd != "float32":
         raise NotImplementedError("bf16 compute/graph modes come later (ROADMAP.md)")
@@ -162,7 +244,7 @@ class MPTINet(nn.Module):
         self.features = FeatureExtractor(
             c.pc_in_dim, c.edgeconv_widths, c.dgcnn_mlp_widths, c.base_widths,
             c.output_dim, dgcnn_k=c.dgcnn_k, use_attention=c.use_attention,
-            knn_impl=c.knn_impl, attn_impl=c.attn_impl)
+            knn_impl=c.knn_impl, attn_impl=c.attn_impl, attn_dropout=c.attn_dropout)
         self.proj = nn.Linear(c.feat_dim, c.proj_dim)   # WayContrast head (training)
 
     @torch.no_grad()
@@ -177,26 +259,43 @@ class MPTINet(nn.Module):
                     if p is not None:
                         p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
 
-    def extract_features(self, ep: Episode):
-        """Encode support and query clouds as two separate batches."""
+    def extract_features(self, ep: Episode, train: bool = False,
+                         generator: Optional[torch.Generator] = None):
+        """Encode support and query clouds as two separate batches, so
+        training's BatchNorm statistics span each batch (per episode:
+        groups = E) and its running statistics take two updates."""
         c = self.cfg
         e = ep.support_x.shape[0]
         sx = ep.support_x.reshape(e * c.n_way * c.k_shot, c.pc_npts, -1)
         qx = ep.query_x.reshape(e * c.n_queries * c.n_way, c.pc_npts, -1)
-        sf = self.features(sx)
-        qf = self.features(qx)
+        sf = self.features(sx, train, e, generator)
+        qf = self.features(qx, train, e, generator)
         d = sf.shape[-1]
         return (sf.reshape(e, c.n_way, c.k_shot, c.pc_npts, d),
                 qf.reshape(e, c.n_queries * c.n_way, c.pc_npts, d))
 
-    def forward(self, ep: Episode, train: bool = False, eval_mdns: bool = False) -> MPTIOutput:
-        _eval_only(train)
+    def forward(self, ep: Episode, train: bool = False, eval_mdns: bool = False,
+                generator: Optional[torch.Generator] = None) -> MPTIOutput:
+        """Training needs ``ep.support_flag`` and, with attention dropout,
+        a ``generator`` for the mask seeds."""
+        c = self.cfg
         ep = ep.with_batch_dim()
-        sf, qf = self.extract_features(ep)
-        outs = [_mpti_core(sf[i], qf[i], Episode(*(None if a is None else a[i] for a in ep)),
-                           self.cfg, eval_mdns=eval_mdns)
-                for i in range(sf.shape[0])]
+        sf, qf = self.extract_features(ep, train, generator)
+        eps = [Episode(*(None if a is None else a[i] for a in ep)) for i in range(sf.shape[0])]
+        if train:
+            losses = []
+            for i, one in enumerate(eps):
+                protos, pvalid, labels, svalid = _contrast_prototypes(
+                    sf[i], one.support_y, one.support_flag, c.contrast_fps_k, c.fps_impl)
+                z = self.proj(protos)
+                z = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True).clamp_min(1e-12)
+                losses.append(way_contrast_loss(z, pvalid, labels, svalid, c.contrast_temp))
+            contrast = torch.stack(losses).mean()
+        else:
+            contrast = torch.zeros((), device=sf.device)
+        outs = [_mpti_core(sf[i], qf[i], one, c, train=train, eval_mdns=eval_mdns)
+                for i, one in enumerate(eps)]
         logits = torch.stack([o[0] for o in outs])
         lp_loss = torch.stack([o[1] for o in outs]).mean()
-        aux = {"accuracy": torch.stack([o[2]["accuracy"] for o in outs]).mean()}
-        return MPTIOutput(logits, lp_loss, aux)
+        aux = {k: torch.stack([o[2][k] for o in outs]).mean() for k in outs[0][2]}
+        return MPTIOutput(logits, lp_loss, contrast, aux)

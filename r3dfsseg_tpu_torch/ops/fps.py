@@ -1,5 +1,9 @@
 """Masked farthest point sampling and multi-prototypes (counterpart of
-`r3dfsseg_tpu/ops/fps.py`), batched over a leading instance axis."""
+`r3dfsseg_tpu/ops/fps.py`), batched over a leading instance axis.
+
+Gradients flow through the cluster means (and a seed's own feature where
+its cluster is empty); the FPS seeds and the nearest-seed assignment are
+chosen on detached features."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -20,7 +24,7 @@ def masked_fps(feat: torch.Tensor, valid: torch.Tensor, k: int,
     impl 'auto' runs the kernel on CUDA tensors (`ops/cuda_fps.py`), 'xla'
     the plain version everywhere; both use the direct sum((x - c)^2) form.
     """
-    feat = feat.float()
+    feat = feat.detach().float()
     n_valid = valid.sum(-1, keepdim=True)
     seed_valid = torch.arange(k, device=feat.device) < n_valid.clamp_max(k)
     if impl == "auto":
@@ -49,7 +53,7 @@ def multi_prototypes(feat: torch.Tensor, valid: torch.Tensor, k: int,
     feat32 = feat.float()
     seed_idx, seed_valid = masked_fps(feat32, valid, k, impl)
     seeds = torch.gather(feat32, 1, seed_idx.long()[..., None].expand(p, k, c))
-    d = pairwise_sqdist(feat32, seeds)                           # (P, N, k)
+    d = pairwise_sqdist(feat32.detach(), seeds.detach())         # (P, N, k)
     d = torch.where(seed_valid[:, None, :], d, 3.4e38)
     assign = torch.argmin(d, dim=-1)                             # (P, N)
 

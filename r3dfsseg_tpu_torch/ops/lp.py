@@ -1,6 +1,10 @@
 """Affinity graph and label propagation (counterpart of
-`r3dfsseg_tpu/ops/lp.py`), float32, threshold selection, Chebyshev solve,
-forward only."""
+`r3dfsseg_tpu/ops/lp.py`), float32, threshold selection, Chebyshev solve.
+
+Gradients: the affinity is differentiable through the distances and the
+gaussian weights, while neighbour selection sees a detached copy
+(`lp.py:139`).  The solve has the JAX package's implicit
+(`custom_linear_solve`) gradient, not the gradient of the unrolled loop."""
 from __future__ import annotations
 
 from typing import Callable
@@ -30,7 +34,7 @@ def local_constrained_affinity(node_feat: torch.Tensor, k: int, sigma: float = 1
     n = node_feat.shape[0]
     sqd = pairwise_sqdist(node_feat.float())
     eye = torch.eye(n, dtype=torch.bool, device=sqd.device)
-    sel = sqd.masked_fill(eye, _BIG)
+    sel = sqd.detach().masked_fill(eye, _BIG)
     if valid is not None:
         sel = sel.masked_fill(~valid[None, :], _BIG)
 
@@ -66,18 +70,48 @@ def _normalized_propagation_matrix(a: torch.Tensor) -> torch.Tensor:
     return a * r[:, None] * r[None, :]
 
 
-def label_propagate(a: torch.Tensor, y: torch.Tensor, alpha: float = 0.99, *,
-                    cg_iters: int = 50) -> torch.Tensor:
-    """Z ~= (I - alpha S)^-1 Y by `cg_iters` Chebyshev steps (the JAX
-    package's solver='cheby')."""
-    s = _normalized_propagation_matrix(a.float())
+def _cheby_solve(s: torch.Tensor, b: torch.Tensor, alpha: float, iters: int) -> torch.Tensor:
+    """`iters` Chebyshev steps of (I - alpha S) x = b."""
 
     def matvec(z):
         # z column-major: for this (M, M) x (M, 3) product cuBLAS then picks
         # a kernel 2.5x faster on an H100 (0.089 vs 0.223 ms at M = 4396).
         return z - alpha * torch.mm(s, z.t().contiguous().t())
 
-    return _chebyshev(matvec, y.float(), 1.0 - alpha, 1.0 + alpha, max(cg_iters, 1))
+    return _chebyshev(matvec, b, 1.0 - alpha, 1.0 + alpha, max(iters, 1))
+
+
+class _ChebySolve(torch.autograd.Function):
+    """x = (I - alpha S)^-1 y with the implicit gradient: for the symmetric
+    system, lambda = (I - alpha S)^-1 g (solved with `adjoint_iters`
+    steps), dS = alpha * lambda x^T and dy = lambda, as the JAX package's
+    `custom_linear_solve(..., symmetric=True)` differentiates it."""
+
+    @staticmethod
+    def forward(ctx, s, y, alpha, iters, adjoint_iters):
+        x = _cheby_solve(s, y, alpha, iters)
+        ctx.save_for_backward(s, x)
+        ctx.alpha, ctx.adjoint_iters = alpha, adjoint_iters
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        s, x = ctx.saved_tensors
+        lam = _cheby_solve(s, g, ctx.alpha, ctx.adjoint_iters)
+        ds = (ctx.alpha * lam) @ x.t() if ctx.needs_input_grad[0] else None
+        return ds, lam, None, None, None
+
+
+def label_propagate(a: torch.Tensor, y: torch.Tensor, alpha: float = 0.99, *,
+                    cg_iters: int = 50, adjoint_iters: int | None = None) -> torch.Tensor:
+    """Z ~= (I - alpha S)^-1 Y by `cg_iters` Chebyshev steps (the JAX
+    package's solver='cheby').  The gradient solves the adjoint system with
+    `adjoint_iters` steps (None: `cg_iters`)."""
+    s = _normalized_propagation_matrix(a.float())
+    t_iters = cg_iters if adjoint_iters is None else adjoint_iters
+    if not (torch.is_grad_enabled() and (s.requires_grad or y.requires_grad)):
+        return _cheby_solve(s, y.float(), alpha, cg_iters)
+    return _ChebySolve.apply(s, y.float(), alpha, cg_iters, t_iters)
 
 
 def _chebyshev(matvec: Callable, b: torch.Tensor, lmin: float, lmax: float,

@@ -3,13 +3,14 @@
     from r3dfsseg_tpu_torch.config import R3DConfig
     from r3dfsseg_tpu_torch.serve import FewShotPredictor
 
-    p = FewShotPredictor(R3DConfig(), device="cuda")
+    p = FewShotPredictor(R3DConfig())                   # on "cuda"
     labels = p.predict(support_x, support_y, query_x)   # (Q, N) int32
 
 `support_x` is (n_way, k_shot, n_points, 9) xyzrgbXYZ, `support_y`
 (n_way, k_shot, n_points) binary fg masks, `query_x` (Q, n_points, 9);
 labels are 0 = background, 1..n_way = way.  MDNS clean-shot suppression is
-on by default.  Whole-scene serving (`predict_scene`) is not ported yet.
+on by default.  The predictor runs on ``device``, "cuda" unless the caller
+asks for "cpu".  Whole-scene serving (`predict_scene`) is not ported yet.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ class FewShotPredictor:
     """An MPTI learner on ``device`` that segments query clouds."""
 
     def __init__(self, cfg: R3DConfig, learner: Optional[MPTILearner] = None, *,
-                 device: str | torch.device = "cpu", eval_mdns: bool = True):
+                 device: str | torch.device | None = None, eval_mdns: bool = True):
         if cfg.phase not in ("mptinoise_eval", "mptieval", "mptitrain"):
             raise NotImplementedError(f"phase {cfg.phase!r} is not servable by the port yet")
         self.cfg = cfg

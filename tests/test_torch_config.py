@@ -39,22 +39,28 @@ def test_tiny_config_matches():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and its serving path pulls in neither jax nor the
-    JAX package (a fresh interpreter, so this process's jax does not count)."""
+    """Importing the port, its serving path and its training step pulls in
+    neither jax nor the JAX package (a fresh interpreter, so this process's
+    jax does not count)."""
     code = (
         "import sys\n"
         "import r3dfsseg_tpu_torch, chip_smoke\n"
         "from r3dfsseg_tpu_torch.serve import FewShotPredictor\n"
         "from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner\n"
-        "from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_fps, cuda_knn, cuda_kth\n"
+        "from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_fps, cuda_knn, cuda_kth, "
+        "cuda_scatter\n"
         "from r3dfsseg_tpu_torch.utils.convert import state_dict_from_jax\n"
         "from r3dfsseg_tpu_torch.config import tiny_config\n"
         "import numpy as np\n"
-        "p = FewShotPredictor(tiny_config())\n"
+        "p = FewShotPredictor(tiny_config(), device='cpu')\n"
         "rng = np.random.default_rng(0)\n"
         "sy = np.zeros((2, 2, 64), np.int32); sy[..., :9] = 1\n"
         "out = p.predict(rng.normal(size=(2, 2, 64, 9)), sy, rng.normal(size=(2, 64, 9)))\n"
         "assert out.shape == (2, 64)\n"
+        "qy = rng.integers(0, 3, size=(2, 64)).astype(np.int32)\n"
+        "m = p._learner.train((rng.normal(size=(2, 2, 64, 9)), sy, rng.normal(size=(2, 64, 9)),\n"
+        "                      qy, None, None, np.array([[1, 1], [2, 2]])))\n"
+        "assert np.isfinite(float(m['loss']))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'r3dfsseg_tpu.'))\n"
         "             or m == 'r3dfsseg_tpu' or m == 'flax')\n"
         "assert not bad, bad\n"

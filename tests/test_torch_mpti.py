@@ -1,6 +1,7 @@
-"""Port MPTI serving path (`models/mpti.py`, `serve.py`) vs the JAX package.
+"""Port MPTI model (`models/mpti.py`, `serve.py`) vs the JAX package.
 
-MDNS flags and graph nodes are compared on the same features; the whole
+MDNS flags, graph nodes and WayContrast (prototypes, loss and its
+gradient) are compared on the same inputs; the whole
 slice on the same episode and the same weights (the JAX model's Flax trees,
 carried by `state_dict_from_jax`): query logits within atol = rtol = 1e-3
 and predictions agreeing on >= 99% of points.
@@ -76,6 +77,36 @@ def test_episode_graph_nodes_match_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("flags", [[[3, 3, 3], [5, 5, 5]], [[3, 5, 3], [5, 5, 3]]])
+def test_way_contrast_matches_jax(flags):
+    """`_contrast_prototypes` (a clean and a noisy episode: the borrowed
+    negatives count only when way 0's flags agree), `way_contrast_loss` and
+    its gradient vs the JAX package, rtol 1e-5."""
+    rng = np.random.default_rng(len(str(flags)))
+    w, k, n, d, fps_k = 2, 3, 40, 12, 2
+    feat = rng.normal(size=(w, k, n, d)).astype(np.float32)
+    sy = (rng.uniform(size=(w, k, n)) < 0.4).astype(np.int32)
+    sy[..., 0] = 1
+    flag = np.asarray(flags, np.int32)
+    want = jax_mpti._contrast_prototypes(jnp.asarray(feat), jnp.asarray(sy),
+                                         jnp.asarray(flag, jnp.float32), fps_k)
+    got = mpti._contrast_prototypes(torch.from_numpy(feat), torch.from_numpy(sy),
+                                    torch.from_numpy(flag), fps_k)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-5, atol=1e-6)
+    for g, wnt in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
+
+    z = rng.normal(size=(w, k + 2, fps_k, 8)).astype(np.float32)
+    z /= np.linalg.norm(z, axis=-1, keepdims=True)
+    jloss = lambda zz: jax_mpti.way_contrast_loss(zz, *want[1:], 0.1)  # noqa: E731
+    want_loss, want_grad = jax.value_and_grad(jloss)(jnp.asarray(z))
+    tz = torch.from_numpy(z).requires_grad_()
+    loss = mpti.way_contrast_loss(tz, *got[1:], 0.1)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    np.testing.assert_allclose(tz.grad.numpy(), np.asarray(want_grad), rtol=1e-5, atol=1e-6)
+
+
 @pytest.fixture(scope="module")
 def jax_side():
     """The JAX model's variable shapes and jitted logits/embedding functions."""
@@ -99,7 +130,7 @@ def test_slice_matches_jax(jax_side, seed, eval_mdns):
     rng = np.random.default_rng(seed)
     params, stats = random_flax_weights(shapes, rng)
     variables = {"params": params, "batch_stats": stats}
-    port = FewShotPredictor(cfg, eval_mdns=eval_mdns)
+    port = FewShotPredictor(cfg, device="cpu", eval_mdns=eval_mdns)
     port._learner.load_params(params, stats)
     sx, sy, qx, qy = episode_arrays(cfg, rng)
     margin = jax_graph_margin(lambda x: np.asarray(jax_features(variables, jnp.asarray(x))),
@@ -124,7 +155,7 @@ def test_slice_matches_jax(jax_side, seed, eval_mdns):
 
 def test_predictor_shape_guard_and_unported_modes():
     cfg = tiny_config()
-    p = FewShotPredictor(cfg)
+    p = FewShotPredictor(cfg, device="cpu")
     with pytest.raises(ValueError, match="episode shape mismatch"):
         p.predict(np.zeros((3, 5, cfg.pc_npts, 9)), np.zeros((3, 5, cfg.pc_npts)),
                   np.zeros((2, cfg.pc_npts, 9)))
@@ -140,7 +171,7 @@ def test_batched_episodes_match_one_by_one():
     cfg = tiny_config()
     rng = np.random.default_rng(5)
     eps = [episode_arrays(cfg, rng) for _ in range(2)]
-    net = FewShotPredictor(cfg)._learner.model
+    net = FewShotPredictor(cfg, device="cpu")._learner.model
     with torch.no_grad():
         both = net(Episode(*(torch.from_numpy(np.stack(a)) for a in zip(*eps))),
                    eval_mdns=True).query_logits
