@@ -14,13 +14,20 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      Philox words bit-equal; attention backward: within 1e-4 of each
      gradient's largest entry of torch autograd through the plain masked
      forward; FPS: the seeds, a divergence only at a near-tie; k-th
-     distance: bit-equal; scatter-add: within 1e-5 of sum |g|), and time
-     the kernel, the plain version and, where one exists, the one PyTorch
-     call computing the same function, with CUDA events;
+     distance: bit-equal, on f32 distances and on the bf16 compare copy
+     of a flagship episode's graph; scatter-add: within 1e-5 of sum |g|;
+     the Chebyshev solve on that episode's bf16 S: within 1e-4 of the
+     solution's largest entry), and time the kernel, the plain version
+     and, where one exists, the one PyTorch call computing the same
+     function, with CUDA events; and measure the peak memory of that
+     episode graph alone, forward and backward, in float32 and bf16;
   3. serve flagship episodes (R3DConfig(): 2-way 5-shot, 2048 points x 9,
      a 4396-node graph) through `FewShotPredictor.predict` with seeded
      random weights, count each kernel's launches, and compare the
      predictions with the same requests served by the plain versions;
+     then the same requests with the bf16 episode graph
+     (graph_dtype="bfloat16"), against its plain path (>= 99% of points)
+     and against the float32 graph's predictions (>= 98%);
   4. train: one f32 meta-training step (`MPTILearner.train`, attention
      dropout 0.1, WayContrast) on the kernel path and on the plain path
      from the same weights and generator seed, on the same kNN graphs
@@ -29,8 +36,12 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      losses rtol 1e-4, each parameter's gradient within a relative L2
      distance of 1e-3 (the biases feeding a train-mode BatchNorm, whose
      exact gradient is 0, below 1e-5 of the largest gradient entry); then
-     five kernel-path steps that must each launch all six kernels, and a
-     torch.profiler window over three more.
+     kernel-path steps that must each launch all six kernels of the f32
+     graph, and a torch.profiler window over three more; then the same
+     with the bf16 episode graph (gradients within a relative L2 distance
+     of 1e-1: see `train`), whose steps must each launch all seven
+     kernels, the Chebyshev solve twice (forward and adjoint) and the
+     k-th distance once.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}.  Without a
@@ -51,7 +62,10 @@ NEAR_TIE = 1e-5     # relative distance gap that counts as a tie
 F32_FLOPS = 67e12   # H100 SXM peak f32 FLOP/s outside the tensor cores
 HBM_BYTES = 3.35e12  # H100 SXM device-memory bytes/s
 GRAD_TOL = 1e-3     # kernel vs plain training step: relative L2 per parameter
-TRAIN_STEPS = 5     # timed kernel-path training steps after step 1
+BF16_GRAD_TOL = 1e-1  # the same on the bf16 graph, whose gradients carry ~1e-2 of
+                      # bf16 rounding noise (see `train`)
+CHEBY_TOL = 1e-4    # Chebyshev kernel vs plain: f32 sums in another order, 49 matvecs
+TRAIN_STEPS = 4     # timed kernel-path training steps after step 1, per graph dtype
 
 
 def log(*a):
@@ -329,6 +343,104 @@ def check_kth(torch, kth_mod):
     return row(err, ms, plain, lib, 32.0 * m * m, 4.0 * m * (m + 1))
 
 
+def flagship_graph(torch, cfg, episode, seed):
+    """A flagship episode's bf16 graph, as the serving path builds it with
+    seeded random weights: the bf16 compare copy (4396, 4396) with its
+    sentinels, the bf16 S, the label columns b (4396, 3), and the graph's
+    node features (4396, 192) and validity."""
+    from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
+    from r3dfsseg_tpu_torch.models import mpti
+    from r3dfsseg_tpu_torch.models.episode import Episode
+    from r3dfsseg_tpu_torch.ops import lp
+
+    model = MPTILearner(cfg, "cuda", torch.Generator().manual_seed(seed)).model
+    sx, sy, qx = (torch.as_tensor(a).cuda() for a in episode[:3])
+    with torch.inference_mode():
+        sf, qf = model.extract_features(Episode(sx[None], sy[None], qx[None], None))
+        sf, qf = sf[0], qf[0].reshape(-1, sf.shape[-1])
+        fg = sy > 0
+        keep, _ = mpti.mdns_keep_mask(sf, fg, sx[..., :3], cfg.mdns_scales)
+        protos, pvalid, labels, _ = mpti.episode_graph_nodes(sf, fg & (keep[..., None] > 0.5),
+                                                             fg, cfg)
+        node = torch.cat([protos, qf])
+        valid = torch.cat([pvalid, torch.ones(len(qf), dtype=torch.bool, device="cuda")])
+        _, sel = lp.graph_distances(node, valid, torch.bfloat16)
+        a = lp.local_constrained_affinity(node, cfg.k_connect, cfg.sigma, valid=valid,
+                                          compare_dtype=torch.bfloat16)
+        s = lp.propagation_matrix(a)
+        b = torch.cat([labels, torch.zeros((len(qf), cfg.n_classes), device="cuda")])
+    return sel, s, b, node.clone(), valid.clone()
+
+
+def graph_peak(torch, cfg, node, valid, b, compare_dtype):
+    """Peak device memory, above what was allocated before, of the episode
+    graph alone in training: the affinity and label propagation forward,
+    then the backward to the node features."""
+    from r3dfsseg_tpu_torch.ops import lp
+    x = node.detach().requires_grad_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a = lp.local_constrained_affinity(x, cfg.k_connect, cfg.sigma, valid=valid,
+                                      compare_dtype=compare_dtype)
+    z = lp.label_propagate(a, b.clone(), cfg.lp_alpha, cg_iters=cfg.lp_cg_iters)
+    z.square().sum().backward()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def check_kth_bf16(torch, kth_mod, sel):
+    """The bf16 compare copy of a flagship graph, k = 200, 16 steps:
+    bit-equal.  Returns the kth row's *_bf16 fields."""
+    m = sel.shape[0]
+    got = kth_mod.kth_smallest_per_row(sel, 200, 16)
+    want = kth_mod.kth_smallest_per_row_reference(sel, 200, 16)
+    equal = torch.equal(got, want)
+    log(f"  kth bf16 ({m}, {m}) k=200 iters=16: bit-equal {equal}")
+    if not equal:
+        raise AssertionError(f"kth bf16 differs from its plain version by up to "
+                             f"{(got - want).abs().max().item()}")
+    ms = cuda_ms(lambda: kth_mod.kth_smallest_per_row(sel, 200, 16), 10)
+    plain = cuda_ms(lambda: kth_mod.kth_smallest_per_row_reference(sel, 200, 16), 10)
+    lib = cuda_ms(lambda: torch.kthvalue(sel, 200, dim=1), 10)
+    r = row(0.0, ms, plain, lib, 16.0 * m * m, 2.0 * m * m + 4.0 * m)
+    return {f"{key}_bf16": v for key, v in r.items()}
+
+
+def check_cheby(torch, cheby_mod, s, b, alpha, iters):
+    """The Chebyshev solve on a flagship bf16 S, with the episode's label
+    columns b (the forward solve) and with a dense random b (as the
+    adjoint solve's): kernel vs plain within CHEBY_TOL of the solution's
+    largest entry; both are also held against the same solve in f64
+    (`exact_solve`) and the distances logged.  Its bound counts S read
+    once (it fits in the 50 MB L2); `bound_ms_hbm` is the time to read S
+    from device memory at every step."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    m = s.shape[0]
+    for rhs, bb in (("labels", b), ("dense", torch.randn(b.shape, generator=g, device="cuda"))):
+        got = cheby_mod.cheby_solve(s, bb, alpha, iters)
+        want = cheby_mod.cheby_solve_reference(s, bb, alpha, iters)
+        exact = exact_solve(cheby_mod)(s, bb, alpha, iters)
+        e, scale = (got - want).abs().max().item(), want.abs().max().item()
+        exact_err = {name: (x - exact).abs().max().item() / scale
+                     for name, x in (("kernel", got), ("plain", want))}
+        log(f"  cheby bf16 S ({m}, {m}), {rhs} b {tuple(bb.shape)}, {iters} steps: max abs err "
+            f"{e:.3e}, {e / scale:.3e} of max |x| = {scale:.4f}; from the f64 solve: kernel "
+            f"{exact_err['kernel']:.3e}, plain {exact_err['plain']:.3e} of max |x|")
+        if not (np.isfinite(e) and e <= CHEBY_TOL * scale):
+            raise AssertionError(f"cheby, {rhs} b: error {e} > {CHEBY_TOL} x {scale}")
+        if rhs == "labels":
+            err, rel_err, label_exact = e, e / scale, exact_err
+    ms = cuda_ms(lambda: cheby_mod.cheby_solve(s, b, alpha, iters), 10)
+    plain = cuda_ms(lambda: cheby_mod.cheby_solve_reference(s, b, alpha, iters), 10)
+    steps = iters - 1
+    s_bytes = 2.0 * m * m
+    return row(err, ms, plain, None, steps * 2.0 * m * m * b.shape[1],
+               s_bytes + 8.0 * b.numel(), max_rel_err=rel_err,
+               exact_rel_err=label_exact["kernel"], plain_exact_rel_err=label_exact["plain"],
+               bound_ms_hbm=steps * s_bytes / HBM_BYTES * 1e3)
+
+
 def check_scatter(torch, knn_mod, scatter_mod, sx, qx):
     """The gather backward at a training step's shapes: the kNN graphs of
     the episode's support (B = 10) and query (B = 2) clouds, a random
@@ -383,9 +495,10 @@ def zero_counts(kernels) -> None:
         setattr(mod, attr, 0)
 
 
-def serve(torch, cfg, episodes, kernels, seed):
+def serve(torch, cfg, episodes, kernels, seed, required=SERVE_KERNELS):
     """Serve every episode on the kernel path, then on the plain path with
-    the same weights; return latencies, predictions and launch counts."""
+    the same weights; return latencies, predictions and launch counts.
+    Every request must launch each kernel in ``required``."""
     from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
     from r3dfsseg_tpu_torch.models.episode import Episode
     from r3dfsseg_tpu_torch.serve import FewShotPredictor
@@ -407,7 +520,7 @@ def serve(torch, cfg, episodes, kernels, seed):
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
         grew = {n: c - before[n] for n, c in counts(kernels).items()}
-        if min(grew[n] for n in SERVE_KERNELS) <= 0:
+        if min(grew[n] for n in required) <= 0:
             raise AssertionError(f"request {i}: a kernel was not launched: {grew}")
         preds.append(pred)
     launches = counts(kernels)
@@ -492,15 +605,46 @@ class KnnReplay:
         return plain
 
 
-def train(torch, cfg, episodes, kernels, seed, steps=TRAIN_STEPS):
+def _rel_distances(g_a: dict, g_b: dict, skip) -> dict:
+    """Relative L2 distance of each parameter's gradient in g_a from g_b."""
+    return {n: ((g_a[n] - g_b[n]).norm() / g_b[n].norm().clamp_min(1e-30)).item()
+            for n in g_b if n not in skip}
+
+
+def exact_solve(cheby_mod):
+    """The plain Chebyshev solve run in f64 (S, iterates and sums),
+    rounded to f32 at the end: the reference both paths' f32 solves round
+    away from (by ~8e-7 of max |x| at the flagship graph)."""
+    def solve(s, b, alpha, iters):
+        sd = s.double()
+        return cheby_mod.chebyshev(lambda z: z - alpha * (sd @ z), b.double(), alpha,
+                                   max(iters, 1)).float()
+    return solve
+
+
+def train(torch, cfg, episodes, kernels, seed, required, per_step=None, steps=TRAIN_STEPS):
     """One kernel-path and one plain-path step from the same weights and
     generator seed, on the same kNN graphs (`KnnReplay`), compared; then
-    ``steps`` kernel-path steps, each of which must launch every kernel,
-    timed by the host clock; then one step split into forward, backward
-    and optimizer by CUDA events; then a profiled window."""
+    ``steps`` kernel-path steps, each of which must launch every kernel in
+    ``required`` (and exactly ``per_step[name]`` times where given), timed
+    by the host clock; then one step split into forward, backward and
+    optimizer by CUDA events; then a profiled window.
+
+    The bf16 graph's gradients are far more sensitive to f32 rounding than
+    the float32 graph's: dS is rounded to bf16 (as in the JAX package), so
+    a change of 4e-7 in the solution flips the rounding of thousands of its
+    19.3M entries, and the Gram's backward rounds d_xb to bf16 before the
+    norms' term cancels most of it; a parameter's gradient then moves by
+    up to ~2e-2, between two runs of the same path as between the kernel
+    and plain paths.  There the gradients are held to BF16_GRAD_TOL, which
+    a wrong solve (a wrong step count, coefficient or layout moves them by
+    O(1)) does not meet; the solves' precision is checked in the kernels
+    phase (`check_cheby`, label and dense right-hand sides).  A third step,
+    on the plain path with the solve in f64 (`exact_solve`), shows how far
+    each path's gradients are from it."""
     from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
     from r3dfsseg_tpu_torch.nn import dgcnn
-    from r3dfsseg_tpu_torch.ops import cuda_knn
+    from r3dfsseg_tpu_torch.ops import cuda_cheby, cuda_knn
 
     fast = MPTILearner(cfg, "cuda", torch.Generator().manual_seed(seed))
     plain_cfg = cfg.replace(knn_impl="xla", fps_impl="xla", attn_impl="xla")
@@ -529,7 +673,7 @@ def train(torch, cfg, episodes, kernels, seed, steps=TRAIN_STEPS):
         f"per call: {replay.swapped}")
     if counts(kernels) != first:
         raise AssertionError(f"the plain training path launched a kernel: {counts(kernels)}")
-    if min(first.values()) <= 0:
+    if min(first[n] for n in required) <= 0:
         raise AssertionError(f"step 1: a kernel was not launched: {first}")
     for key in ("loss", "lp_loss", "contrast_loss"):
         a, b = m_fast[key].item(), m_plain[key].item()
@@ -547,15 +691,29 @@ def train(torch, cfg, episodes, kernels, seed, steps=TRAIN_STEPS):
     top = max(g.abs().max().item() for g in g_plain.values())
     noise = max(max(g_fast[n].abs().max().item(), g_plain[n].abs().max().item())
                 for n in zero) if zero else 0.0
-    rel = {n: ((g_fast[n] - g_plain[n]).norm() / g_plain[n].norm().clamp_min(1e-30)).item()
-           for n in g_plain if n not in zero}
-    worst = max(rel, key=rel.get)
+    rel = _rel_distances(g_fast, g_plain, zero)
+    worst, med = max(rel, key=rel.get), statistics.median(rel.values())
     log(f"  step 1 gradients: {len(rel)} parameters, largest relative L2 distance "
-        f"{rel[worst]:.3e} ({worst}); median {statistics.median(rel.values()):.3e}; "
+        f"{rel[worst]:.3e} ({worst}); median {med:.3e}; "
         f"{len(zero)} biases with an exact zero gradient at {noise / top:.3e} of the "
         f"largest entry")
-    if rel[worst] > GRAD_TOL:
-        raise AssertionError(f"step 1 gradient of {worst}: relative distance {rel[worst]}")
+    if cfg.graph_dtype == "bfloat16":
+        exact = MPTILearner(plain_cfg, "cuda", torch.Generator().manual_seed(seed))
+        plain_knn, reference_solve = replay.replay(), cuda_cheby.cheby_solve_reference
+        cuda_cheby.cheby_solve_reference = exact_solve(cuda_cheby)
+        try:
+            exact.train(episodes[0])
+        finally:
+            dgcnn.knn_indices = plain_knn
+            cuda_cheby.cheby_solve_reference = reference_solve
+        g_exact = _grads(exact.model)
+        for name, g in (("kernel", g_fast), ("plain", g_plain)):
+            d = _rel_distances(g, g_exact, zero)
+            log(f"  step 1 gradients, {name} path vs the exact-solve path: largest relative "
+                f"L2 distance {max(d.values()):.3e}, median {statistics.median(d.values()):.3e}")
+    tol = BF16_GRAD_TOL if cfg.graph_dtype == "bfloat16" else GRAD_TOL
+    if rel[worst] > tol:
+        raise AssertionError(f"step 1 gradient of {worst}: relative distance {rel[worst]} > {tol}")
     if noise > 1e-5 * top:
         raise AssertionError(f"step 1: a zero-gradient bias holds {noise} (top {top})")
 
@@ -570,8 +728,9 @@ def train(torch, cfg, episodes, kernels, seed, steps=TRAIN_STEPS):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         grew = {n: c - before[n] for n, c in counts(kernels).items()}
-        if min(grew.values()) <= 0:
-            raise AssertionError(f"training step {i + 2}: a kernel was not launched: {grew}")
+        if min(grew[n] for n in required) <= 0 or any(
+                grew[n] != c for n, c in (per_step or {}).items()):
+            raise AssertionError(f"training step {i + 2}: launches {grew}")
         vals = {k: v.item() for k, v in m.items()}
         if not all(np.isfinite(v) for v in vals.values()):
             raise AssertionError(f"training step {i + 2}: non-finite metrics {vals}")
@@ -647,6 +806,7 @@ def stage_breakdown(torch, model, cfg, episode, reps: int = 5):
     from r3dfsseg_tpu_torch.ops.lp import label_propagate, local_constrained_affinity
 
     sx, sy, qx = (torch.as_tensor(a).cuda() for a in episode[:3])
+    lowp = torch.bfloat16 if cfg.graph_dtype == "bfloat16" else None
     names = ["encoder", "mdns", "graph_nodes", "affinity", "label_propagation"]
     times = {n: [] for n in names}
     with torch.inference_mode():
@@ -666,7 +826,8 @@ def stage_breakdown(torch, model, cfg, episode, reps: int = 5):
             q = qf.reshape(-1, qf.shape[-1])
             node = torch.cat([protos, q])
             valid = torch.cat([pvalid, torch.ones(len(q), dtype=torch.bool, device="cuda")])
-            a = local_constrained_affinity(node, cfg.k_connect, cfg.sigma, valid=valid)
+            a = local_constrained_affinity(node, cfg.k_connect, cfg.sigma, valid=valid,
+                                           compare_dtype=lowp)
             ev[4].record()
             y0 = torch.cat([labels, torch.zeros((len(q), cfg.n_classes), device="cuda")])
             label_propagate(a, y0, cfg.lp_alpha, cg_iters=cfg.lp_cg_iters)
@@ -675,6 +836,51 @@ def stage_breakdown(torch, model, cfg, episode, reps: int = 5):
             for i, n in enumerate(names):
                 times[n].append(ev[i].elapsed_time(ev[i + 1]))
     return {n: statistics.median(t[1:]) for n, t in times.items()}
+
+
+def serve_phase(torch, cfg, episodes, kernels, seed, required):
+    """Serve the episodes on the kernel and plain paths (`serve`), check the
+    labels and the agreement, log latency, memory, launches and the stage
+    split; return the kernel path's predictions and launch counts."""
+    graph = "bf16" if cfg.graph_dtype == "bfloat16" else "float32"
+    lat, preds, plain_lat, plain_preds, launches, peak, logits, model = serve(
+        torch, cfg, episodes, kernels, seed, required)
+    q, n = cfg.n_way * cfg.n_queries, cfg.pc_npts
+    if tuple(logits.shape) != (1, q, n, cfg.n_classes) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"logits: shape {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    for i, (a, b) in enumerate(zip(preds, plain_preds)):
+        if a.shape != (q, n) or a.dtype != np.int32 or a.min() < 0 or a.max() > cfg.n_way:
+            raise AssertionError(f"request {i}: bad labels {a.shape} {a.dtype} "
+                                 f"[{a.min()}, {a.max()}]")
+        agree = float((a == b).mean())
+        fg = float((a > 0).mean())
+        log(f"  request {i}: {lat[i]:.2f} ms kernels, {plain_lat[i]:.2f} ms plain; "
+            f"agreement with plain {agree:.4f}; fg share {fg:.3f}")
+        if agree < 0.99:
+            raise AssertionError(f"request {i}: kernel and plain paths agree on {agree}")
+    log(f"[serve] {graph} graph: {len(lat)} requests; median latency "
+        f"{statistics.median(lat):.2f} ms (kernels) vs {statistics.median(plain_lat):.2f} ms "
+        f"(plain); peak memory {peak / 2**20:.1f} MiB; launches {launches}")
+    stages = stage_breakdown(torch, model, cfg, episodes[0])
+    log(f"[stages] {graph} graph, kernel path, device ms per request (median of 5): " +
+        ", ".join(f"{n} {t:.3f}" for n, t in stages.items()) +
+        f"; sum {sum(stages.values()):.3f}")
+    return preds, launches
+
+
+def train_phase(torch, cfg, episodes, kernels, seed, required, per_step=None):
+    """`train` with its log lines."""
+    graph = "bf16" if cfg.graph_dtype == "bfloat16" else "float32"
+    log(f"[train] {graph} graph: meta-training step, kernel path vs plain path, then "
+        f"{TRAIN_STEPS} kernel-path steps")
+    tr = train(torch, cfg, episodes, kernels, seed, required, per_step)
+    log(f"[train] {graph} graph: median step {tr['step_ms']:.2f} ms (host clock, "
+        f"synchronised); device ms per step: " +
+        ", ".join(f"{n} {t:.3f}" for n, t in tr["stages"].items()) +
+        f"; peak memory {tr['peak'] / 2**20:.1f} MiB; launches over {TRAIN_STEPS} steps "
+        f"{tr['launches']}")
+    return tr
 
 
 def main() -> int:
@@ -690,7 +896,8 @@ def main() -> int:
     from r3dfsseg_tpu_torch import pin_f32_matmul
     from r3dfsseg_tpu_torch.config import R3DConfig
     from r3dfsseg_tpu_torch.kernels import build
-    from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_fps, cuda_knn, cuda_kth, cuda_scatter
+    from r3dfsseg_tpu_torch.ops import (cuda_attention, cuda_cheby, cuda_fps, cuda_knn, cuda_kth,
+                                        cuda_scatter)
     pin_f32_matmul()
 
     # ---- 1. build
@@ -722,63 +929,68 @@ def main() -> int:
     rows["kth"] = check_kth(torch, cuda_kth)
     rows["scatter_add"] = check_scatter(torch, cuda_knn, cuda_scatter, episodes[0][0],
                                         episodes[0][2])
+    cfg16 = cfg.replace(graph_dtype="bfloat16")
+    sel, s16, b16, node, valid = flagship_graph(torch, cfg16, episodes[0], args.seed)
+    rows["kth"].update(check_kth_bf16(torch, cuda_kth, sel))
+    rows["cheby"] = check_cheby(torch, cuda_cheby, s16, b16, cfg.lp_alpha, cfg.lp_cg_iters)
+    del sel, s16
+    peaks = {name: graph_peak(torch, cfg, node, valid, b16, dt)
+             for name, dt in (("float32", None), ("bf16", torch.bfloat16))}
+    log("  episode graph alone, forward and backward at the flagship nodes: peak memory " +
+        ", ".join(f"{name} graph {p / 2**20:.1f} MiB" for name, p in peaks.items()))
+    del b16, node, valid
     torch.cuda.synchronize()
     for name, r in rows.items():
         log(f"  {name}: {r['ms']:.3f} ms kernel, {r['plain_ms']:.3f} plain, library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)}, "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+    r = rows["kth"]
+    log(f"  kth bf16: {r['ms_bf16']:.3f} ms kernel, {r['plain_ms_bf16']:.3f} plain, library "
+        f"{r['library_ms_bf16']:.3f}, bound {r['bound_ms_bf16']:.4f} ({r['bound_by_bf16']})")
+    log(f"  cheby: bound with S read from device memory at every step "
+        f"{rows['cheby']['bound_ms_hbm']:.4f} ms")
 
     kernels = {"knn": (cuda_knn, "launches"), "attention_fwd": (cuda_attention, "launches"),
                "attention_bwd": (cuda_attention, "bwd_launches"), "fps": (cuda_fps, "launches"),
-               "kth": (cuda_kth, "launches"), "scatter_add": (cuda_scatter, "launches")}
+               "kth": (cuda_kth, "launches"), "scatter_add": (cuda_scatter, "launches"),
+               "cheby": (cuda_cheby, "launches")}
+    f32_kernels = tuple(n for n in kernels if n != "cheby")
 
-    # ---- 3. serving
-    lat, preds, plain_lat, plain_preds, serve_launches, peak, logits, model = serve(
-        torch, cfg, episodes, kernels, args.seed)
-    q, n = cfg.n_way * cfg.n_queries, cfg.pc_npts
-    if tuple(logits.shape) != (1, q, n, cfg.n_classes) or not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"logits: shape {tuple(logits.shape)}, finite "
-                             f"{bool(torch.isfinite(logits).all())}")
-    for i, (a, b) in enumerate(zip(preds, plain_preds)):
-        if a.shape != (q, n) or a.dtype != np.int32 or a.min() < 0 or a.max() > cfg.n_way:
-            raise AssertionError(f"request {i}: bad labels {a.shape} {a.dtype} "
-                                 f"[{a.min()}, {a.max()}]")
+    # ---- 3. serving, float32 graph then bf16 graph
+    preds, serve_launches = serve_phase(torch, cfg, episodes, kernels, args.seed, SERVE_KERNELS)
+    preds16, serve_launches16 = serve_phase(torch, cfg16, episodes, kernels, args.seed,
+                                            SERVE_KERNELS + ("cheby",))
+    for i, (a, b) in enumerate(zip(preds16, preds)):
         agree = float((a == b).mean())
-        fg = float((a > 0).mean())
-        log(f"  request {i}: {lat[i]:.2f} ms kernels, {plain_lat[i]:.2f} ms plain; "
-            f"agreement with plain {agree:.4f}; fg share {fg:.3f}")
-        if agree < 0.99:
-            raise AssertionError(f"request {i}: kernel and plain paths agree on {agree}")
-    log(f"[serve] {len(lat)} requests; median latency {statistics.median(lat):.2f} ms "
-        f"(kernels) vs {statistics.median(plain_lat):.2f} ms (plain); peak memory "
-        f"{peak / 2**20:.1f} MiB; launches {serve_launches}")
+        log(f"  request {i}: bf16 graph agrees with the float32 graph on {agree:.4f}")
+        if agree < 0.98:
+            raise AssertionError(f"request {i}: bf16 and float32 graphs agree on {agree}")
 
-    stages = stage_breakdown(torch, model, cfg, episodes[0])
-    log("[stages] kernel path, device ms per request (median of 5): " +
-        ", ".join(f"{n} {t:.3f}" for n, t in stages.items()) +
-        f"; sum {sum(stages.values()):.3f}")
-    del model
-
-    # ---- 4. training
-    log(f"[train] R3DConfig() meta-training step, kernel path vs plain path, then "
-        f"{TRAIN_STEPS} kernel-path steps")
-    tr = train(torch, cfg, episodes, kernels, args.seed)
-    log(f"[train] median step {tr['step_ms']:.2f} ms (host clock, synchronised); device ms "
-        f"per step: " + ", ".join(f"{n} {t:.3f}" for n, t in tr["stages"].items()) +
-        f"; peak memory {tr['peak'] / 2**20:.1f} MiB; launches over {TRAIN_STEPS} steps "
-        f"{tr['launches']}")
+    # ---- 4. training, float32 graph then bf16 graph
+    tr = train_phase(torch, cfg, episodes, kernels, args.seed, f32_kernels)
+    tr16 = train_phase(torch, cfg16, episodes, kernels, args.seed, tuple(kernels),
+                       per_step={"cheby": 2, "kth": 1})
+    log(f"[train] peak memory: float32 graph {tr['peak'] / 2**20:.1f} MiB, bf16 graph "
+        f"{tr16['peak'] / 2**20:.1f} MiB")
 
     sources = {"knn": ("knn.cu", "r3dfsseg_tpu/ops/pallas_knn.py:27"),
                "attention_fwd": ("attention_fwd.cu", "r3dfsseg_tpu/ops/pallas_attention.py:54"),
                "attention_bwd": ("attention_bwd.cu", "r3dfsseg_tpu/ops/pallas_attention.py:78"),
                "fps": ("fps.cu", "r3dfsseg_tpu/ops/pallas_fps.py:46"),
                "kth": ("kth.cu", "r3dfsseg_tpu/ops/pallas_kth.py:33"),
-               "scatter_add": ("scatter_add.cu", "r3dfsseg_tpu/ops/fast_gather.py:40")}
+               "scatter_add": ("scatter_add.cu", "r3dfsseg_tpu/ops/fast_gather.py:40"),
+               "cheby": ("cheby.cu", "r3dfsseg_tpu/ops/pallas_cheby.py:42")}
     log(smi)
+    # launches: the float32 graph's training run (the bf16 graph's for
+    # cheby, which only it launches); every path's counts beside them
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"r3dfsseg_tpu_torch/csrc/{src}",
-         "replaces": rep, "launches": tr["launches"][name],
-         "launches_serve": serve_launches[name], **rows[name]}
+         "replaces": rep,
+         "launches": (tr16 if name == "cheby" else tr)["launches"][name],
+         "launches_serve": (serve_launches16 if name == "cheby" else serve_launches)[name],
+         "launches_train_f32": tr["launches"][name], "launches_serve_f32": serve_launches[name],
+         "launches_train_bf16": tr16["launches"][name],
+         "launches_serve_bf16": serve_launches16[name], **rows[name]}
         for name, (src, rep) in sources.items()]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,10 @@ a CUDA tensor (`kernels/build.py`) and wrapped, beside its plain PyTorch
 version, in an `ops/cuda_*.py` module.  This package never imports jax.
 
 Ported so far: the eval-mode MPTI+MDNS serving path
-(`serve.FewShotPredictor.predict`) and the f32 MPTI + attention +
-WayContrast meta-training step (`learners.mpti_learner.MPTILearner.train`).
-Both run on "cuda" unless the caller passes device="cpu".
+(`serve.FewShotPredictor.predict`) and the MPTI + attention + WayContrast
+meta-training step (`learners.mpti_learner.MPTILearner.train`), with the
+float32 encoder on a float32 or bf16 episode graph (`graph_dtype`).  Both
+run on "cuda" unless the caller passes device="cpu".
 """
 import torch
 

@@ -104,8 +104,8 @@ class R3DConfig:
     fps_impl: str = "auto"                 # auto | xla
     attn_impl: str = "auto"                # auto | xla
     affinity_impl: str = "threshold"       # the port runs threshold only
-    compute_dtype: str = "float32"         # the port runs float32 only
-    graph_dtype: str = "auto"
+    compute_dtype: str = "float32"         # the port's encoder runs float32 only
+    graph_dtype: str = "auto"              # auto | float32 | bfloat16 (the episode graph)
     attn_f32: bool = False
     bn_mode: str = "fastvar"               # eval BN uses running stats: no effect
     exact_grad_gather: bool = False

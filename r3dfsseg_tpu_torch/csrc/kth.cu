@@ -8,10 +8,13 @@
 // integers and the mid-point is computed with round-to-nearest intrinsics
 // (no contraction), so the result equals the plain version bit for bit.
 //
-// Layout: d (R, M) f32 contiguous -> out (R,) f32.  One block per row: the
-// row is staged once in shared memory (M = 4396 -> 17.6 KB) and every
-// bisection step re-reads it from there instead of from device memory.
-// The bound is the shared-memory sweep, iters x M compares per row.
+// Layout: d (R, M) f32 or bf16 contiguous -> out (R,) f32.  One block per
+// row: the row is staged once in shared memory as f32 (M = 4396 -> 17.6 KB;
+// a bf16 row is upcast exactly while it is staged, as the TPU kernel
+// upcasts its tile, so the bf16 variant reads half the bytes from device
+// memory and runs the same f32 bisection) and every step re-reads it from
+// there instead of from device memory.  The bound is the shared-memory
+// sweep, iters x M compares per row.
 #include "common.cuh"
 
 namespace {
@@ -19,8 +22,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr float kBig = 1e30f;
 
+__device__ __forceinline__ float upcast(float v) { return v; }
+__device__ __forceinline__ float upcast(unsigned short bf16_bits) {
+  return __uint_as_float(static_cast<unsigned int>(bf16_bits) << 16);
+}
+
+template <typename T>  // float, or unsigned short holding bf16 bits
 __global__ void __launch_bounds__(kThreads)
-kth_kernel(const float* __restrict__ d, float* __restrict__ out, int m, int k, int iters) {
+kth_kernel(const T* __restrict__ d, float* __restrict__ out, int m, int k, int iters) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* row_s = reinterpret_cast<float*>(smem);          // m
   float* red_f = row_s + m;                                // kThreads
@@ -28,11 +37,11 @@ kth_kernel(const float* __restrict__ d, float* __restrict__ out, int m, int k, i
 
   const int r = blockIdx.x;
   const int t = threadIdx.x;
-  const float* dr = d + static_cast<size_t>(r) * m;
+  const T* dr = d + static_cast<size_t>(r) * m;
 
   float mx = 0.f;
   for (int j = t; j < m; j += kThreads) {
-    const float v = dr[j];
+    const float v = upcast(dr[j]);
     row_s[j] = v;
     if (v < 0.5f * kBig) mx = fmaxf(mx, v);
   }
@@ -66,14 +75,24 @@ kth_kernel(const float* __restrict__ d, float* __restrict__ out, int m, int k, i
   if (t == 0) out[r] = hi;
 }
 
+template <typename T>
+cudaError_t launch(const void* d, void* out, int rows, int m, int k, int iters, void* stream) {
+  const size_t smem = sizeof(float) * (static_cast<size_t>(m) + 2 * kThreads);
+  cudaError_t err = r3d_set_smem(kth_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  kth_kernel<T><<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(d), static_cast<float*>(out), m, k, iters);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 R3D_EXPORT int r3d_kth(const void* d, void* out, int rows, int m, int k, int iters,
                        void* stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(m) + 2 * kThreads);
-  cudaError_t err = r3d_set_smem(kth_kernel, smem);
-  if (err != cudaSuccess) return err;
-  kth_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(d), static_cast<float*>(out), m, k, iters);
-  return cudaGetLastError();
+  return launch<float>(d, out, rows, m, k, iters, stream);
+}
+
+R3D_EXPORT int r3d_kth_bf16(const void* d, void* out, int rows, int m, int k, int iters,
+                            void* stream) {
+  return launch<unsigned short>(d, out, rows, m, k, iters, stream);
 }

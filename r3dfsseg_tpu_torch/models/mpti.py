@@ -176,10 +176,15 @@ def _mpti_core(support_feat: torch.Tensor, query_feat: torch.Tensor, ep: Episode
     node_valid = torch.cat([pvalid, torch.ones(nq, dtype=torch.bool, device=dev)], 0)
     y0 = torch.cat([proto_labels, torch.zeros((nq, c.n_classes), device=dev)], 0)
 
+    # the bf16 graph: bf16 neighbour selection, affinity and S (kernel 7's
+    # solve); graph_dtype 'auto' follows the encoder's compute_dtype
+    gd = c.compute_dtype if c.graph_dtype == "auto" else c.graph_dtype
+    lowp = torch.bfloat16 if gd == "bfloat16" else None
     a = local_constrained_affinity(node_feat, c.k_connect, c.sigma, valid=node_valid,
-                                   kth_impl=c.knn_impl)
+                                   compare_dtype=lowp, kth_impl=c.knn_impl)
     z = label_propagate(a, y0, c.lp_alpha, cg_iters=c.lp_cg_iters,
-                        adjoint_iters=(c.lp_adjoint_iters or None) if train else None)
+                        adjoint_iters=(c.lp_adjoint_iters or None) if train else None,
+                        impl=c.knn_impl)
     n_protos = protos.shape[0]
     query_logits = z[n_protos:].reshape(c.n_queries * n_way, n, c.n_classes)
 
@@ -220,11 +225,15 @@ class MPTIOutput(NamedTuple):
 
 
 def check_servable(cfg: R3DConfig) -> None:
-    """Raise on settings outside the port's float32 threshold/Chebyshev
-    slice (any `lp_adjoint_iters`; 0 means `lp_cg_iters`)."""
-    gd = cfg.compute_dtype if cfg.graph_dtype == "auto" else cfg.graph_dtype
-    if cfg.compute_dtype != "float32" or gd != "float32":
-        raise NotImplementedError("bf16 compute/graph modes come later (ROADMAP.md)")
+    """Raise on settings outside the port's slice: the float32 encoder with
+    a float32 or bf16 episode graph (`graph_dtype`), threshold affinity and
+    Chebyshev solve (any `lp_adjoint_iters`; 0 means `lp_cg_iters`)."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "the bf16 encoder (compute_dtype='bfloat16') comes later (ROADMAP.md); "
+            "graph_dtype='bfloat16' runs the bf16 episode graph")
+    if cfg.graph_dtype not in ("auto", "float32", "bfloat16"):
+        raise NotImplementedError(f"graph_dtype {cfg.graph_dtype!r}")
     if cfg.affinity_impl != "threshold" or cfg.lp_solver != "cheby":
         raise NotImplementedError(
             "the port has affinity_impl='threshold' with lp_solver='cheby'; the "

@@ -5,15 +5,18 @@ Replaces the TPU kernel
 `r3dfsseg_tpu/ops/pallas_kth.py:kth_smallest_per_row_pallas` (`_kth_kernel`):
 a fixed-count bisection on count(d <= mid) >= k over the per-row bracket
 [0, max(row max finite, 1e-6)], returning the upper bracket.  Entries at or
-above 0.5 * 1e30 are the affinity's self/invalid sentinels.
+above 0.5 * 1e30 are the affinity's self/invalid sentinels.  The input is
+f32 or, for the bf16 episode graph, the bf16 compare copy: as in the TPU
+kernel, each bf16 entry is upcast to f32 and the bisection runs in f32.
 
 What bounds it on the H100: iters x M compares per row (32 x 4396^2 at the
-flagship graph).  The plain version re-reads the whole (M, M) matrix from
-device memory on every step (32 x 77 MB).  The kernel reads it once: one
-block per row stages the row in shared memory and runs every step there.
+f32 flagship graph, 16 x 4396^2 at the bf16 one).  The plain version
+re-reads the whole (M, M) matrix from device memory on every step (32 x
+77 MB).  The kernel reads it once (77 MB f32, 38.65 MB bf16): one block per
+row stages the row in shared memory as f32 and runs every step there.
 
-The kernel equals the plain version bit for bit: integer counts and the
-same f32 mid-point arithmetic.
+The kernel equals the plain version bit for bit: exact upcasts, integer
+counts and the same f32 mid-point arithmetic.
 
 Dispatch: a CPU tensor takes `kth_smallest_per_row_reference`; a CUDA
 tensor launches the kernel or raises.
@@ -32,8 +35,9 @@ launches = 0
 
 
 def kth_smallest_per_row_reference(d: torch.Tensor, k: int, iters: int) -> torch.Tensor:
-    """d (R, M) f32 -> (R, 1) f32 upward-biased k-th smallest per row, the
-    plain version."""
+    """d (R, M) f32 or bf16 -> (R, 1) f32 upward-biased k-th smallest per
+    row, the plain version."""
+    d = d.float()
     finite = d < 0.5 * SENTINEL
     hi = torch.where(finite, d, 0.0).amax(1, keepdim=True).clamp_min(1e-6)
     lo = torch.zeros_like(hi)
@@ -45,25 +49,26 @@ def kth_smallest_per_row_reference(d: torch.Tensor, k: int, iters: int) -> torch
 
 
 def kth_smallest_per_row(d: torch.Tensor, k: int, iters: int) -> torch.Tensor:
-    """d (R, M) f32 -> (R, 1) f32 per-row radius admitting >= k entries."""
+    """d (R, M) f32 or bf16 -> (R, 1) f32 per-row radius admitting >= k
+    entries."""
     global launches
     if d.device.type == "cpu":
         return kth_smallest_per_row_reference(d, k, iters)
     if d.device.type != "cuda":
         raise ValueError(f"kth_smallest_per_row: no kernel for device {d.device}")
-    if d.dtype != torch.float32 or d.dim() != 2:
-        raise ValueError(f"kth_smallest_per_row: want (R, M) float32, got "
+    if d.dtype not in (torch.float32, torch.bfloat16) or d.dim() != 2:
+        raise ValueError(f"kth_smallest_per_row: want (R, M) float32 or bfloat16, got "
                          f"{tuple(d.shape)} {d.dtype}")
     rows, m = d.shape
     if not (rows > 0 and 0 < m and 4 * (m + 2 * THREADS) <= SMEM_LIMIT and iters >= 0):
         raise ValueError(f"kth_smallest_per_row: unsupported shape R={rows} M={m}")
     d = d.contiguous()
     out = torch.empty((rows, 1), dtype=torch.float32, device=d.device)
-    fn = build.function("r3d_kth", [build.P, build.P, build.I, build.I, build.I,
-                                    build.I, build.P])
+    name = "r3d_kth" if d.dtype == torch.float32 else "r3d_kth_bf16"
+    fn = build.function(name, [build.P, build.P, build.I, build.I, build.I, build.I, build.P])
     with torch.cuda.device(d.device):
         err = fn(d.data_ptr(), out.data_ptr(), rows, m, k, iters,
                  build.stream_ptr(d.device))
-    build.check(err, "r3d_kth")
+    build.check(err, name)
     launches += 1
     return out

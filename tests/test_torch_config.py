@@ -47,8 +47,8 @@ def test_port_imports_no_jax():
         "import r3dfsseg_tpu_torch, chip_smoke\n"
         "from r3dfsseg_tpu_torch.serve import FewShotPredictor\n"
         "from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner\n"
-        "from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_fps, cuda_knn, cuda_kth, "
-        "cuda_scatter\n"
+        "from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_cheby, cuda_fps, cuda_knn, "
+        "cuda_kth, cuda_scatter\n"
         "from r3dfsseg_tpu_torch.utils.convert import state_dict_from_jax\n"
         "from r3dfsseg_tpu_torch.config import tiny_config\n"
         "import numpy as np\n"
@@ -61,6 +61,9 @@ def test_port_imports_no_jax():
         "m = p._learner.train((rng.normal(size=(2, 2, 64, 9)), sy, rng.normal(size=(2, 64, 9)),\n"
         "                      qy, None, None, np.array([[1, 1], [2, 2]])))\n"
         "assert np.isfinite(float(m['loss']))\n"
+        "lowp = FewShotPredictor(tiny_config(graph_dtype='bfloat16'), device='cpu')\n"
+        "assert lowp.predict(rng.normal(size=(2, 2, 64, 9)), sy,\n"
+        "                    rng.normal(size=(2, 64, 9))).shape == (2, 64)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'r3dfsseg_tpu.'))\n"
         "             or m == 'r3dfsseg_tpu' or m == 'flax')\n"
         "assert not bad, bad\n"

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_fps, cuda_knn, cuda_kth, cuda_scatter
+from r3dfsseg_tpu_torch.ops import (cuda_attention, cuda_cheby, cuda_fps, cuda_knn, cuda_kth,
+                                    cuda_scatter)
 from torch_port_helpers import cuda_or_skip
 
 
@@ -33,6 +34,11 @@ CALLS = {
         torch.zeros((1, 8, 3), device=dev), torch.ones((1, 8), dtype=torch.bool, device=dev), 2)),
     "kth": (cuda_kth, "launches", lambda dev: cuda_kth.kth_smallest_per_row(
         torch.zeros((8, 8), device=dev), 2, 4)),
+    "kth_bf16": (cuda_kth, "launches", lambda dev: cuda_kth.kth_smallest_per_row(
+        torch.zeros((8, 8), dtype=torch.bfloat16, device=dev), 2, 4)),
+    "cheby": (cuda_cheby, "launches", lambda dev: cuda_cheby.cheby_solve(
+        torch.zeros((8, 8), dtype=torch.bfloat16, device=dev), torch.ones((8, 3), device=dev),
+        0.99, 4)),
     "scatter_add": (cuda_scatter, "launches", lambda dev: cuda_scatter.scatter_add(
         torch.zeros((1, 8, 2, 8), device=dev), torch.zeros((1, 8, 2), dtype=torch.int32,
                                                           device=dev), 8)),
@@ -106,6 +112,53 @@ def test_kth_kernel_bit_equals_plain_on_card():
     d = torch.from_numpy(d).to(dev)
     got = cuda_kth.kth_smallest_per_row(d, 20, 32)
     assert torch.equal(got, cuda_kth.kth_smallest_per_row_reference(d, 20, 32))
+
+
+@pytest.mark.cuda
+def test_kth_bf16_kernel_bit_equals_plain_on_card():
+    """The bf16 compare copy at a ragged width, 16 steps as the bf16 graph
+    runs them."""
+    dev = cuda_or_skip()
+    d = np.random.default_rng(1).uniform(0.1, 9.0, size=(300, 701)).astype(np.float32)
+    d[:, -4:] = cuda_kth.SENTINEL
+    d[0] = cuda_kth.SENTINEL
+    d = torch.from_numpy(d).to(torch.bfloat16).to(dev)
+    before = cuda_kth.launches
+    got = cuda_kth.kth_smallest_per_row(d, 20, 16)
+    torch.cuda.synchronize()
+    assert cuda_kth.launches == before + 1
+    assert torch.equal(got, cuda_kth.kth_smallest_per_row_reference(d, 20, 16))
+
+
+def _graph_system(seed, m, dev):
+    """A bf16 S (M, M) normalised from a sparse random symmetric affinity,
+    and a 3-column right-hand side, as the episode graph gives them."""
+    rng = np.random.default_rng(seed)
+    a = rng.random((m, m), dtype=np.float32) * (rng.random((m, m), dtype=np.float32) < 0.05)
+    a = a + a.T
+    np.fill_diagonal(a, 0.0)
+    r = 1.0 / np.sqrt(a.sum(1) + 1e-16)
+    s = torch.from_numpy(a * r[:, None] * r[None, :]).to(torch.bfloat16).to(dev)
+    b = np.zeros((m, 3), np.float32)
+    b[:100] = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 100)]
+    return s, torch.from_numpy(b).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4396, 1001])
+@pytest.mark.parametrize("iters", [1, 50])
+def test_cheby_kernel_matches_plain_on_card(m, iters):
+    """The flagship graph's width (8-byte loads) and a ragged one (2-byte
+    loads): f32 sums in another order over iters - 1 matvecs, within 1e-4
+    of the solution's largest entry; one launch count per solve."""
+    dev = cuda_or_skip()
+    s, b = _graph_system(m, m, dev)
+    before = cuda_cheby.launches
+    got = cuda_cheby.cheby_solve(s, b, 0.99, iters)
+    torch.cuda.synchronize()
+    assert cuda_cheby.launches == before + 1
+    want = cuda_cheby.cheby_solve_reference(s, b, 0.99, iters)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 @pytest.mark.cuda

@@ -1,5 +1,7 @@
 """Port per-row k-th distance (`ops/cuda_kth.py`) vs the JAX package's
-`kth_smallest_per_row_pallas` in interpret mode: BIT-EQUAL in f32."""
+`kth_smallest_per_row_pallas` in interpret mode: BIT-EQUAL, on f32 input
+and on the bf16 compare copy of the bf16 episode graph (upcast to f32 in
+both, sentinel rounded to bf16 in both)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,3 +34,14 @@ def test_kth_bit_equals_pallas_interpret(n, m, k, iters):
     assert got.dtype == np.float32 and got.shape == (n, 1)
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
+
+
+@pytest.mark.parametrize("n,m,k", [(96, 96, 7), (40, 72, 9)])
+def test_kth_bf16_bit_equals_pallas_interpret(n, m, k):
+    """16 steps on a bf16 input, as the bf16 graph runs them."""
+    d = jnp.asarray(_distances(2 * n + k, n, m)).astype(jnp.bfloat16)
+    want = np.asarray(kth_smallest_per_row_pallas(d, k, iters=16, tile_n=8, interpret=True))
+    td = torch.from_numpy(np.array(d.astype(jnp.float32))).to(torch.bfloat16)
+    got = cuda_kth.kth_smallest_per_row(td, k, 16).numpy()
+    assert got.dtype == np.float32 and got.shape == (n, 1)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))

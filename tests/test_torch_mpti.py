@@ -167,6 +167,18 @@ def test_predictor_shape_guard_and_unported_modes():
         FewShotPredictor(cfg.replace(phase="protoeval"))
 
 
+@pytest.mark.parametrize("graph_dtype", ["bfloat16", "float32", "auto"])
+def test_graph_dtypes_are_served(graph_dtype):
+    """The float32 encoder serves both episode graphs; only the bf16
+    encoder (compute_dtype) is still refused."""
+    cfg = tiny_config(graph_dtype=graph_dtype)
+    pred = FewShotPredictor(cfg, device="cpu").predict(*episode_arrays(
+        cfg, np.random.default_rng(4))[:3])
+    assert pred.dtype == np.int32 and pred.shape == (cfg.n_way, cfg.pc_npts)
+    with pytest.raises(NotImplementedError, match="bf16 encoder"):
+        mpti.MPTINet(cfg.replace(compute_dtype="bfloat16"))
+
+
 def test_batched_episodes_match_one_by_one():
     cfg = tiny_config()
     rng = np.random.default_rng(5)

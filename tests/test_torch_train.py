@@ -25,20 +25,7 @@ from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
 from r3dfsseg_tpu_torch.models.episode import Episode
 from r3dfsseg_tpu_torch.serve import FewShotPredictor
 from r3dfsseg_tpu_torch.utils.convert import state_dict_from_jax
-from torch_port_helpers import episode_arrays, jax_graph_margin, random_flax_weights
-
-
-def train_episode(cfg, rng):
-    """Episode arrays with gt masks (one noisy shot in way 1) and the
-    support flags (absolute classes; the noisy shot carries way 0's)."""
-    sx, sy, qx, qy = episode_arrays(cfg, rng)
-    gt_sy = sy.copy()
-    gt_sy[1, -1] = 0
-    gt_qy = qy.copy()
-    gt_qy[0, :5] = 0
-    flag = np.tile(np.array([[3], [7]], np.int32), (1, cfg.k_shot))
-    flag[1, -1] = 3
-    return sx, sy, qx, qy, gt_sy, gt_qy, flag
+from torch_port_helpers import jax_graph_margin, random_flax_weights, train_episode
 
 
 @pytest.fixture(scope="module")

@@ -104,13 +104,22 @@ def episode_arrays(cfg, rng: np.random.Generator):
             rng.integers(0, w + 1, size=(q, n)).astype(np.int32))
 
 
-def jax_graph_margin(enc, jax_cfg, support_x, support_y, query_x, eval_mdns: bool) -> float:
-    """Smallest gap, over the rows of the JAX model's episode graph, between
-    the k-th and the (k+1)-th neighbour distance, relative to the squared
-    norms that the Gram form cancels (float64).  ``enc`` maps clouds to
-    JAX embeddings.  Near 1e-7 the two frameworks' f32 roundings can swap
-    those neighbours, and the logits then differ by O(0.1) while both are
-    right."""
+def train_episode(cfg, rng: np.random.Generator):
+    """Episode arrays with gt masks (one noisy shot in way 1) and the
+    support flags (absolute classes; the noisy shot carries way 0's)."""
+    sx, sy, qx, qy = episode_arrays(cfg, rng)
+    gt_sy = sy.copy()
+    gt_sy[1, -1] = 0
+    gt_qy = qy.copy()
+    gt_qy[0, :5] = 0
+    flag = np.tile(np.array([[3], [7]], np.int32), (1, cfg.k_shot))
+    flag[1, -1] = 3
+    return sx, sy, qx, qy, gt_sy, gt_qy, flag
+
+
+def jax_graph_nodes(enc, jax_cfg, support_x, support_y, query_x, eval_mdns: bool):
+    """The JAX model's episode-graph nodes, (node features (V, d), valid
+    (V,)) as numpy arrays; ``enc`` maps clouds to JAX embeddings."""
     import jax.numpy as jnp
     from r3dfsseg_tpu.models import mpti as jax_mpti
 
@@ -125,8 +134,19 @@ def jax_graph_margin(enc, jax_cfg, support_x, support_y, query_x, eval_mdns: boo
         used = fg & (np.asarray(keep)[..., None] > 0.5)
     protos, pvalid, _, _ = jax_mpti.episode_graph_nodes(
         jnp.asarray(sf), jnp.asarray(used), jnp.asarray(fg), jax_cfg)
-    node = np.concatenate([np.asarray(protos), qf]).astype(np.float64)
-    valid = np.concatenate([np.asarray(pvalid), np.ones(len(qf), bool)])
+    return (np.concatenate([np.asarray(protos), qf]),
+            np.concatenate([np.asarray(pvalid), np.ones(len(qf), bool)]))
+
+
+def jax_graph_margin(enc, jax_cfg, support_x, support_y, query_x, eval_mdns: bool) -> float:
+    """Smallest gap, over the rows of the JAX model's episode graph, between
+    the k-th and the (k+1)-th neighbour distance, relative to the squared
+    norms that the Gram form cancels (float64).  ``enc`` maps clouds to
+    JAX embeddings.  Near 1e-7 the two frameworks' f32 roundings can swap
+    those neighbours, and the logits then differ by O(0.1) while both are
+    right."""
+    node, valid = jax_graph_nodes(enc, jax_cfg, support_x, support_y, query_x, eval_mdns)
+    node = node.astype(np.float64)
     d = ((node[:, None] - node[None]) ** 2).sum(-1)
     d[np.eye(len(d), dtype=bool) | ~valid[None]] = np.inf
     s = np.sort(d, axis=1)
