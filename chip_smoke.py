@@ -17,7 +17,11 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      distance: bit-equal, on f32 distances and on the bf16 compare copy
      of a flagship episode's graph; scatter-add: within 1e-5 of sum |g|;
      the Chebyshev solve on that episode's bf16 S: within 1e-4 of the
-     solution's largest entry), and time the kernel, the plain version
+     solution's largest entry; on the three EdgeConv blocks' inputs of
+     the support batch: the row gather (kernel 8) bit-equal, f32 and
+     bf16, and the fused EdgeConv tail's five passes (kernel 9) in train
+     and eval, stats1 and fwd within 1e-5 and each backward output within
+     1e-4 of its largest entry), and time the kernel, the plain version
      and, where one exists, the one PyTorch call computing the same
      function, with CUDA events; and measure the peak memory of that
      episode graph alone, forward and backward, in float32 and bf16;
@@ -41,10 +45,16 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      with the bf16 episode graph (gradients within a relative L2 distance
      of 1e-1: see `train`), whose steps must each launch all seven
      kernels, the Chebyshev solve twice (forward and adjoint) and the
-     k-th distance once.
+     k-th distance once.  Serving and training launch kernels 8 and 9
+     no time, as in the JAX package;
+  5. the fused EdgeConv route (`fused_edgeconv`: kNN, kernel 8, kernel 9,
+     the scatter-add backward) through the encoder's three blocks, against
+     the blocks' own forward and backward (`fused_phase`: outputs, batch
+     statistics, gradients; the query batch in eval), each pass launched
+     once per block, and both routes timed per block.
 
 It prints the card's name and power limit, one JSON line describing the
-kernels, and as its last line {"ok": true, "device": {...}}.  Without a
+nine kernels, and as its last line {"ok": true, "device": {...}}.  Without a
 CUDA device it exits with code 1 and prints no result.
 """
 from __future__ import annotations
@@ -482,6 +492,350 @@ def check_scatter(torch, knn_mod, scatter_mod, sx, qx):
     return row(err, ms, plain, lib, sum(float(gr.numel()) for gr, _ in step), nbytes)
 
 
+# ----------------------------------------------------- fused EdgeConv --
+def fused_edgeconv(block, x, train: bool):
+    """One two-layer EdgeConv block of the port by the fused route: kNN ->
+    a, b of the factored first layer -> e_raw = gather(a, idx) + b (kernel
+    8, scatter-add backward) -> `edge_batch_stats` (train; eval takes the
+    BatchNorms' running statistics) -> `fused_edge_tail` (kernel 9).  The
+    block's own `knn_impl` picks kernels ('auto') or plain versions
+    ('xla').  Returns the pooled output and (m0, v0, m1, v1)."""
+    import torch.nn.functional as F
+    from r3dfsseg_tpu_torch.ops import cuda_knn, fused_edge
+    from r3dfsseg_tpu_torch.ops.knn import knn_indices
+
+    if block.n_layers != 2:
+        raise ValueError(f"the fused route takes two layers, not {block.n_layers}")
+    impl = block.knn_impl
+    xd = x.detach()
+    idx = cuda_knn.knn(xd, block.k) if impl == "auto" else knn_indices(xd, block.k)
+    l0, l1 = block.layer0, block.layer1
+    c = x.shape[-1]
+    w = l0.conv.weight
+    a = F.linear(x, w[:, :c])
+    b = F.linear(x, w[:, c:] - w[:, :c])
+    e_raw = fused_edge.edge_gather(a, idx, impl) + b[:, :, None, :]
+    w1 = l1.conv.weight.t()
+    if train:
+        stats = fused_edge.edge_batch_stats(e_raw, l0.bn.weight, l0.bn.bias, w1, impl)
+    else:
+        stats = (l0.bn.running_mean, l0.bn.running_var, l1.bn.running_mean, l1.bn.running_var)
+    out = fused_edge.fused_edge_tail(e_raw, l0.bn.weight, l0.bn.bias, w1, l1.bn.weight,
+                                     l1.bn.bias, *stats, train, impl)
+    return out, stats
+
+
+def unfused_edgeconv(block, x, train: bool):
+    """The block's own forward.  Returns its output, the batch statistics
+    of its two BatchNorms' inputs (mean and two-pass variance per channel,
+    as `BatchNorm` computes them at groups = 1) and layer 1's output before
+    the max over k."""
+    seen = {}
+    hooks = [block.layer0.bn.register_forward_pre_hook(
+                 lambda m, args: seen.__setitem__("bn0", args[0].detach())),
+             block.layer1.bn.register_forward_pre_hook(
+                 lambda m, args: seen.__setitem__("bn1", args[0].detach())),
+             block.layer1.register_forward_hook(
+                 lambda m, args, out: seen.__setitem__("edges", out.detach()))]
+    try:
+        out = block(x, train)
+    finally:
+        for h in hooks:
+            h.remove()
+    stats = []
+    for key in ("bn0", "bn1"):
+        f = seen[key].float().reshape(-1, seen[key].shape[-1])
+        m = f.mean(0)
+        stats += [m, (f - m).square().mean(0)]
+    return out, tuple(stats), seen["edges"]
+
+
+def near_ties(torch, edges, rel: float = NEAR_TIE):
+    """(exact, near): (B, N, C) masks of the (point, channel) pairs whose
+    two largest values over k are equal, or within ``rel`` of the largest
+    |value| of the tensor: there two roundings of the same product may
+    route the max's gradient to different rows."""
+    top = edges.topk(2, dim=2).values
+    gap = top[:, :, 0] - top[:, :, 1]
+    return gap == 0, gap <= rel * edges.abs().max()
+
+
+def encoder_block_inputs(torch, model, x, train: bool):
+    """The input of each EdgeConv block of the model's encoder, running the
+    batch through the unfused blocks."""
+    enc = model.features.encoder
+    xs = [x]
+    with torch.no_grad():
+        for i in range(enc.n_edgeconv - 1):
+            xs.append(getattr(enc, f"edgeconv{i}")(xs[-1], train))
+    return [getattr(enc, f"edgeconv{i}") for i in range(enc.n_edgeconv)], xs
+
+
+def edge_operands(torch, block, x):
+    """What the block's fused route hands the kernels: the table a, the kNN
+    idx, e_raw = a[idx] + b and W1 (C_in, C_out)."""
+    import torch.nn.functional as F
+    from r3dfsseg_tpu_torch.ops import cuda_knn
+    from r3dfsseg_tpu_torch.ops.fast_gather import flat_take
+    with torch.no_grad():
+        idx = cuda_knn.knn(x, block.k)
+        c = x.shape[-1]
+        w = block.layer0.conv.weight
+        a = F.linear(x, w[:, :c])
+        e_raw = flat_take(a, idx) + F.linear(x, w[:, c:] - w[:, :c])[:, :, None, :]
+        return a, idx, e_raw, block.layer1.conv.weight.t().contiguous()
+
+
+def check_gather(torch, gather_mod, operands):
+    """Kernel 8 on the three support blocks' tables a (10, 2048, 64) and
+    kNN idx: bit-equal to the plain version, f32 and on a bf16 copy."""
+    tables = {"f32": [(a, idx) for a, idx, *_ in operands],
+              "bf16": [(a.bfloat16(), idx) for a, idx, *_ in operands]}
+    for kind, calls in tables.items():
+        for a, idx in calls:
+            got = gather_mod.gather_onehot(a, idx)
+            if not torch.equal(got, gather_mod.gather_onehot_reference(a, idx)):
+                raise AssertionError(f"gather {kind} {tuple(a.shape)}: kernel and plain differ")
+        log(f"  gather {kind}: {len(calls)} tables {tuple(calls[0][0].shape)}, idx "
+            f"{tuple(calls[0][1].shape)}: bit-equal")
+    out = {}
+    for kind, calls in tables.items():
+        flats = []
+        for a, idx in calls:
+            off = (torch.arange(a.shape[0], device=a.device) * a.shape[1])[:, None, None]
+            flats.append((a.reshape(-1, a.shape[-1]), (idx.long() + off).reshape(-1)))
+        ms = cuda_ms(lambda: [gather_mod.gather_onehot(a, idx) for a, idx in calls], 10)
+        plain = cuda_ms(lambda: [gather_mod.gather_onehot_reference(a, idx)
+                                 for a, idx in calls], 10)
+        lib = cuda_ms(lambda: [t.index_select(0, f) for t, f in flats], 10)
+        nbytes = sum(a.element_size() * (idx.numel() * a.shape[-1] + a.numel())
+                     + 4.0 * idx.numel() for a, idx in calls)
+        out[kind] = row(0.0, ms, plain, lib, 0.0, nbytes)
+    return {**out["f32"], **{f"{key}_bf16": v for key, v in out["bf16"].items()}}
+
+
+FUSED_PRODUCTS = {"stats1": 1, "fwd": 1, "bwd1": 1, "bwd2": 3, "bwd3": 2}  # (C x C) per row
+
+
+def fused_pass_args(torch, cfe, block, e, w1, dout, train: bool):
+    """Each kernel-9 pass's arguments as `fused_edge_tail` builds them from
+    the block's BatchNorms: batch statistics of e (train) or the running
+    ones (eval); the backward's means from the plain sums (eval: zero).
+    dout is zeroed on the (point, channel) pairs with a near-tie in the max
+    (`near_ties`), where the kernel and cuBLAS may route the gradient to
+    different rows; returns the arguments and the number zeroed."""
+    from r3dfsseg_tpu_torch.ops import fused_edge
+    l0, l1 = block.layer0, block.layer1
+    g0, b0, g1, b1 = (t.detach() for t in (l0.bn.weight, l0.bn.bias, l1.bn.weight, l1.bn.bias))
+    with torch.no_grad():
+        if train:
+            m0, v0, m1, v1 = fused_edge.edge_batch_stats(e, g0, b0, w1, "xla")
+        else:
+            m0, v0, m1, v1 = (l0.bn.running_mean, l0.bn.running_var, l1.bn.running_mean,
+                              l1.bn.running_var)
+        aff0, sh0, inv0 = fused_edge.bn_affines(g0, b0, m0, v0)
+        aff1, sh1, inv1 = fused_edge.bn_affines(g1, b1, m1, v1)
+        _, near = near_ties(torch, cfe.forward_chain(e, aff0, sh0, w1, aff1, sh1)[-1])
+        dout = dout * ~near
+        count = e.shape[0] * e.shape[1] * e.shape[2]
+        zero = torch.zeros_like(m0)
+        v1_args = (aff0, sh0, aff1, sh1, inv1, m1)
+        r1, r2 = cfe.bwd1_reference(e, dout, *v1_args, w1)
+        v2_args = v1_args + ((g1 * inv1,) + ((r1 / count, r2 / count) if train else (zero, zero))
+                             + (inv0, m0))
+        _, q1, q2 = cfe.bwd2_reference(e, dout, *v2_args, w1)
+        v3_args = v2_args + ((g0 * inv0,) + ((q1 / count, q2 / count) if train else (zero, zero)))
+    args = {"stats1": (e, aff0, sh0, w1), "fwd": (e, aff0, sh0, aff1, sh1, w1),
+            "bwd1": (e, dout, *v1_args, w1), "bwd2": (e, dout, *v2_args, w1),
+            "bwd3": (e, dout, *v3_args, w1)}
+    if not train:
+        del args["stats1"]                  # eval takes the running statistics
+    return args, int(near.sum())
+
+
+def check_fused_passes(torch, cfe, blocks, operands, seed):
+    """Kernel 9's five passes on the three support blocks' e_raw (10, 2048,
+    20, 64), in train and eval: stats1 and fwd within 1e-5 of each output's
+    largest entry, each backward output within 1e-4 (f32 sums over 409,600
+    edge rows in another order).  Then each pass timed over the three
+    blocks' train calls, beside its plain version and its bound."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    err = {p: 0.0 for p in cfe.PASSES}
+    rel = {p: 0.0 for p in cfe.PASSES}
+    timed = []
+    for i, (blk, (_, _, e, w1)) in enumerate(zip(blocks, operands)):
+        dout = torch.randn((*e.shape[:2], e.shape[-1]), generator=g, device="cuda")
+        for train in (True, False):
+            args, zeroed = fused_pass_args(torch, cfe, blk, e, w1, dout, train)
+            worst = {}
+            for name, a in args.items():
+                got, want = getattr(cfe, name)(*a), getattr(cfe, f"{name}_reference")(*a)
+                got, want = ((got, want) if isinstance(got, tuple) else ((got,), (want,)))
+                tol = 1e-5 if name in ("stats1", "fwd") else 1e-4
+                for x, y in zip(got, want):
+                    e_abs, scale = (x - y).abs().max().item(), y.abs().max().item()
+                    if not (np.isfinite(e_abs) and e_abs <= tol * scale):
+                        raise AssertionError(f"fused_edge {name} block {i} train={train}: error "
+                                             f"{e_abs} > {tol} x {scale}")
+                    err[name] = max(err[name], e_abs)
+                    rel[name] = max(rel[name], e_abs / scale)
+                    worst[name] = max(worst.get(name, 0.0), e_abs / scale)
+            log(f"  fused_edge block {i} {'train' if train else 'eval'}: dout zeroed on {zeroed} "
+                f"near-tie (point, channel) pairs; error / largest entry " +
+                ", ".join(f"{n} {v:.2e}" for n, v in worst.items()))
+            if train:
+                timed.append(args)
+    passes = {}
+    all_flops = all_bytes = 0.0
+    for name in cfe.PASSES:
+        kernel, plain = getattr(cfe, name), getattr(cfe, f"{name}_reference")
+        ms = cuda_ms(lambda: [kernel(*a[name]) for a in timed], 10)
+        plain_ms = cuda_ms(lambda: [plain(*a[name]) for a in timed], 10)
+        flops = nbytes = 0.0
+        for a in timed:
+            e = a[name][0]
+            rows, points = e.numel() / e.shape[-1], e.shape[0] * e.shape[1]
+            flops += FUSED_PRODUCTS[name] * 2.0 * rows * e.shape[-1] ** 2
+            nbytes += 4.0 * e.numel() + 4.0 * e.shape[-1] * (
+                (points if name.startswith("bwd") else 0)          # dout
+                + (points if name == "fwd" else rows if name == "bwd3" else 0))  # output
+        passes[name] = row(err[name], ms, plain_ms, None, flops, nbytes, max_rel_err=rel[name])
+        all_flops, all_bytes = all_flops + flops, all_bytes + nbytes
+    # the entry: the five passes' sums; its bound, the work of all five
+    log("  fused_edge passes over the three blocks (train): " + ", ".join(
+        f"{n} {p['ms']:.3f} ms (plain {p['plain_ms']:.3f}, bound {p['bound_ms']:.4f})"
+        for n, p in passes.items()))
+    return dict(row(max(err.values()), sum(p["ms"] for p in passes.values()),
+                    sum(p["plain_ms"] for p in passes.values()), None, all_flops, all_bytes),
+                passes=passes)
+
+
+def device_kernels(torch, fn, reps: int = 3):
+    """`torch.profiler` over ``reps`` calls of fn(): [(kernel name, device
+    ms per call)], largest first (the device's busy time, no host gaps)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / reps) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def _close(a, b, rtol: float) -> float:
+    """The largest |a - b| / (rtol * (|b| + max |b|)): at most 1 when a
+    meets rtol with an atol of rtol times b's largest entry."""
+    return ((a - b).abs() / (rtol * (b.abs() + b.abs().max()))).max().item()
+
+
+def fused_phase(torch, blocks, xs, xq, kernels, seed):
+    """The fused route (`fused_edgeconv`) through all three EdgeConv blocks
+    of the flagship encoder, held against the blocks' own forward and
+    backward.  Support batch (B = 10), train: outputs (rtol 1e-5, atol
+    1e-5 x max), m0 and v0 against the BatchNorms' batch statistics (the
+    same), m1 and v1 (1e-4: v1 is the kernel's single-pass variance), and
+    the gradients of x and of the block's six parameters (relative L2
+    distance 1e-3) under a random cotangent that is zero on the (point,
+    channel) pairs with a near-tie in the max (`amax`'s backward splits a
+    tie, the kernel routes it to the lowest k).  Query batch (B = 2), eval:
+    the outputs.  Then both routes timed per block, forward (train) and
+    forward plus backward, by CUDA events (host gaps included) and by the
+    profiler (device busy time).  Returns the launch counts of the train
+    run and of the eval run, and the timings."""
+    from r3dfsseg_tpu_torch.ops import cuda_fused_edge as cfe
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+
+    def grads(blk, x):
+        return {"x": x.grad.clone(), **{n: p.grad.clone() for n, p in blk.named_parameters()}}
+
+    want = []
+    for blk, x in zip(blocks, xs):
+        xu = x.clone().requires_grad_()
+        blk.zero_grad(set_to_none=True)
+        out, stats, edges = unfused_edgeconv(blk, xu, True)
+        exact, near = near_ties(torch, edges)
+        w = torch.randn(out.shape, generator=g, device="cuda") * ~near
+        (out * w).sum().backward()
+        want.append(dict(out=out.detach(), stats=stats, w=w, grads=grads(blk, xu),
+                         ties=int(exact.sum()), near=int(near.sum())))
+        del edges
+
+    # ---- the main path of this phase: the fused route, train, fwd + bwd
+    zero_counts(kernels)
+    got = []
+    for blk, x, ref in zip(blocks, xs, want):
+        xf = x.clone().requires_grad_()
+        blk.zero_grad(set_to_none=True)
+        out, stats = fused_edgeconv(blk, xf, True)
+        (out * ref["w"]).sum().backward()
+        got.append(dict(out=out.detach(), stats=stats, grads=grads(blk, xf)))
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    per_block = ["gather_onehot", "scatter_add"] + [f"fused_{p}" for p in cfe.PASSES]
+    if any(launches[n] != len(blocks) for n in per_block):
+        raise AssertionError(f"fused route, train: launches {launches}")
+
+    for i, (ref, res) in enumerate(zip(want, got)):
+        out_err = _close(res["out"], ref["out"], 1e-5)
+        stat_err = [_close(a, b, tol) for a, b, tol in zip(res["stats"], ref["stats"],
+                                                           (1e-5, 1e-5, 1e-4, 1e-4))]
+        dist = {n: ((res["grads"][n] - gr).norm() / gr.norm().clamp_min(1e-30)).item()
+                for n, gr in ref["grads"].items()}
+        worst = max(dist, key=dist.get)
+        log(f"  fused block {i} train (B = {ref['out'].shape[0]}): output at {out_err:.3f} of its "
+            f"tolerance; m0, v0, m1, v1 at " + ", ".join(f"{s:.3f}" for s in stat_err) +
+            f"; gradients' largest relative L2 distance {dist[worst]:.3e} ({worst}); "
+            f"{ref['ties']} (point, channel) pairs with a tied max over k, {ref['near']} "
+            f"within {NEAR_TIE} of the largest |value| (cotangent zero there)")
+        if out_err > 1 or max(stat_err) > 1:
+            raise AssertionError(f"fused block {i}: output {out_err}, statistics {stat_err}")
+        if dist[worst] > GRAD_TOL:
+            raise AssertionError(f"fused block {i}: gradient of {worst} at {dist[worst]}")
+
+    zero_counts(kernels)
+    for i, (blk, x) in enumerate(zip(blocks, xq)):
+        with torch.no_grad():
+            out_f = fused_edgeconv(blk, x, False)[0]
+            out_u = blk(x, False)
+        err = _close(out_f, out_u, 1e-5)
+        log(f"  fused block {i} eval (B = {x.shape[0]}): output at {err:.3f} of its tolerance")
+        if err > 1:
+            raise AssertionError(f"fused block {i} eval: output error {err}")
+    torch.cuda.synchronize()
+    launches_eval = counts(kernels)
+    if (launches_eval["fused_fwd"] != len(blocks) or launches_eval["gather_onehot"] != len(blocks)
+            or launches_eval["fused_stats1"] or launches_eval["fused_bwd1"]):
+        raise AssertionError(f"fused route, eval: launches {launches_eval}")
+
+    times = []
+    for i, (blk, x, ref) in enumerate(zip(blocks, xs, want)):
+        xt = x.clone().requires_grad_()
+        w = ref["w"]
+        routes = {
+            "fwd_fused": lambda: fused_edgeconv(blk, xt, True),
+            "fwd_unfused": lambda: blk(xt, True),
+            "fwd_bwd_fused": lambda: (fused_edgeconv(blk, xt, True)[0] * w).sum().backward(),
+            "fwd_bwd_unfused": lambda: (blk(xt, True) * w).sum().backward()}
+        t = {name: cuda_ms(fn, 10) for name, fn in routes.items()}
+        busy = {name: device_kernels(torch, fn) for name, fn in routes.items()}
+        t.update({f"busy_{name}": sum(ms for _, ms in b) for name, b in busy.items()})
+        times.append(t)
+        log(f"  fused block {i} (B = {x.shape[0]}, C_in = {x.shape[-1]}), ms by CUDA events "
+            f"(device busy by the profiler): forward (train) fused {t['fwd_fused']:.3f} "
+            f"({t['busy_fwd_fused']:.3f}) vs unfused {t['fwd_unfused']:.3f} "
+            f"({t['busy_fwd_unfused']:.3f}); forward + backward fused {t['fwd_bwd_fused']:.3f} "
+            f"({t['busy_fwd_bwd_fused']:.3f}) vs unfused {t['fwd_bwd_unfused']:.3f} "
+            f"({t['busy_fwd_bwd_unfused']:.3f})")
+        if i == 1:
+            for name in ("fwd_bwd_fused", "fwd_bwd_unfused"):
+                log(f"    {name} largest device times: " + "; ".join(
+                    f"{ms:.3f} {k[:60]}" for k, ms in busy[name][:8]))
+    return launches, launches_eval, times
+
+
 # ------------------------------------------------------------ serving --
 SERVE_KERNELS = ("knn", "attention_fwd", "fps", "kth")
 
@@ -896,8 +1250,9 @@ def main() -> int:
     from r3dfsseg_tpu_torch import pin_f32_matmul
     from r3dfsseg_tpu_torch.config import R3DConfig
     from r3dfsseg_tpu_torch.kernels import build
-    from r3dfsseg_tpu_torch.ops import (cuda_attention, cuda_cheby, cuda_fps, cuda_knn, cuda_kth,
-                                        cuda_scatter)
+    from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
+    from r3dfsseg_tpu_torch.ops import (cuda_attention, cuda_cheby, cuda_fps, cuda_fused_edge,
+                                        cuda_gather, cuda_knn, cuda_kth, cuda_scatter)
     pin_f32_matmul()
 
     # ---- 1. build
@@ -929,6 +1284,14 @@ def main() -> int:
     rows["kth"] = check_kth(torch, cuda_kth)
     rows["scatter_add"] = check_scatter(torch, cuda_knn, cuda_scatter, episodes[0][0],
                                         episodes[0][2])
+    model = MPTILearner(cfg, "cuda", torch.Generator().manual_seed(args.seed)).model
+    sx = torch.from_numpy(episodes[0][0].reshape(-1, cfg.pc_npts, cfg.pc_in_dim)).cuda()
+    blocks, xs = encoder_block_inputs(torch, model, sx, True)
+    _, xq = encoder_block_inputs(torch, model, torch.from_numpy(episodes[0][2]).cuda(), False)
+    operands = [edge_operands(torch, blk, x) for blk, x in zip(blocks, xs)]
+    rows["gather_onehot"] = check_gather(torch, cuda_gather, operands)
+    rows["fused_edge"] = check_fused_passes(torch, cuda_fused_edge, blocks, operands, args.seed)
+    del operands
     cfg16 = cfg.replace(graph_dtype="bfloat16")
     sel, s16, b16, node, valid = flagship_graph(torch, cfg16, episodes[0], args.seed)
     rows["kth"].update(check_kth_bf16(torch, cuda_kth, sel))
@@ -947,14 +1310,22 @@ def main() -> int:
     r = rows["kth"]
     log(f"  kth bf16: {r['ms_bf16']:.3f} ms kernel, {r['plain_ms_bf16']:.3f} plain, library "
         f"{r['library_ms_bf16']:.3f}, bound {r['bound_ms_bf16']:.4f} ({r['bound_by_bf16']})")
+    r = rows["gather_onehot"]
+    log(f"  gather_onehot bf16: {r['ms_bf16']:.3f} ms kernel, {r['plain_ms_bf16']:.3f} plain, "
+        f"library {r['library_ms_bf16']:.3f}, bound {r['bound_ms_bf16']:.4f} "
+        f"({r['bound_by_bf16']})")
     log(f"  cheby: bound with S read from device memory at every step "
         f"{rows['cheby']['bound_ms_hbm']:.4f} ms")
 
     kernels = {"knn": (cuda_knn, "launches"), "attention_fwd": (cuda_attention, "launches"),
                "attention_bwd": (cuda_attention, "bwd_launches"), "fps": (cuda_fps, "launches"),
                "kth": (cuda_kth, "launches"), "scatter_add": (cuda_scatter, "launches"),
-               "cheby": (cuda_cheby, "launches")}
-    f32_kernels = tuple(n for n in kernels if n != "cheby")
+               "cheby": (cuda_cheby, "launches"), "gather_onehot": (cuda_gather, "launches"),
+               **{f"fused_{p}": (cuda_fused_edge, f"{p}_launches")
+                  for p in cuda_fused_edge.PASSES}}
+    f32_kernels = ("knn", "attention_fwd", "attention_bwd", "fps", "kth", "scatter_add")
+    fused_passes = tuple(f"fused_{p}" for p in cuda_fused_edge.PASSES)
+    fused_kernels = ("gather_onehot",) + fused_passes
 
     # ---- 3. serving, float32 graph then bf16 graph
     preds, serve_launches = serve_phase(torch, cfg, episodes, kernels, args.seed, SERVE_KERNELS)
@@ -968,10 +1339,21 @@ def main() -> int:
 
     # ---- 4. training, float32 graph then bf16 graph
     tr = train_phase(torch, cfg, episodes, kernels, args.seed, f32_kernels)
-    tr16 = train_phase(torch, cfg16, episodes, kernels, args.seed, tuple(kernels),
+    tr16 = train_phase(torch, cfg16, episodes, kernels, args.seed, f32_kernels + ("cheby",),
                        per_step={"cheby": 2, "kth": 1})
     log(f"[train] peak memory: float32 graph {tr['peak'] / 2**20:.1f} MiB, bf16 graph "
         f"{tr16['peak'] / 2**20:.1f} MiB")
+    phases = {"serve_f32": serve_launches, "serve_bf16": serve_launches16,
+              "train_f32": tr["launches"], "train_bf16": tr16["launches"]}
+    for phase, launched in phases.items():
+        if any(launched[n] for n in fused_kernels):
+            raise AssertionError(f"{phase}: kernels 8 or 9 were launched: {launched}")
+
+    # ---- 5. the fused EdgeConv route, all three blocks
+    log("[fused] the three EdgeConv blocks by the fused route (kernels 8, 9) vs the module")
+    fused_launches, fused_eval, block_ms = fused_phase(torch, blocks, xs, xq, kernels, args.seed)
+    phases.update(fused_train=fused_launches, fused_eval=fused_eval)
+    log(f"[fused] launches: train {fused_launches}; eval {fused_eval}")
 
     sources = {"knn": ("knn.cu", "r3dfsseg_tpu/ops/pallas_knn.py:27"),
                "attention_fwd": ("attention_fwd.cu", "r3dfsseg_tpu/ops/pallas_attention.py:54"),
@@ -979,18 +1361,28 @@ def main() -> int:
                "fps": ("fps.cu", "r3dfsseg_tpu/ops/pallas_fps.py:46"),
                "kth": ("kth.cu", "r3dfsseg_tpu/ops/pallas_kth.py:33"),
                "scatter_add": ("scatter_add.cu", "r3dfsseg_tpu/ops/fast_gather.py:40"),
-               "cheby": ("cheby.cu", "r3dfsseg_tpu/ops/pallas_cheby.py:42")}
+               "cheby": ("cheby.cu", "r3dfsseg_tpu/ops/pallas_cheby.py:42"),
+               "gather_onehot": ("gather.cu", "r3dfsseg_tpu/ops/fast_gather.py:89"),
+               "fused_edge": ("fused_edge.cu", "scripts/archive/fused_edge.py:213")}
+    # each entry's counters, and the phase whose count is its "launches":
+    # the float32 graph's training run; cheby's the bf16 graph's, which
+    # alone launches it; kernels 8 and 9 the fused route's
+    members = {name: (name,) for name in sources}
+    members["fused_edge"] = fused_passes
+    main_phase = {name: "train_f32" for name in sources}
+    main_phase.update(cheby="train_bf16", gather_onehot="fused_train", fused_edge="fused_train")
+    for p in cuda_fused_edge.PASSES:
+        rows["fused_edge"]["passes"][p].update(
+            {f"launches_{ph}": c[f"fused_{p}"] for ph, c in phases.items()},
+            launches=fused_launches[f"fused_{p}"])
+    rows["fused_edge"]["block_ms"] = block_ms
     log(smi)
-    # launches: the float32 graph's training run (the bf16 graph's for
-    # cheby, which only it launches); every path's counts beside them
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"r3dfsseg_tpu_torch/csrc/{src}",
          "replaces": rep,
-         "launches": (tr16 if name == "cheby" else tr)["launches"][name],
-         "launches_serve": (serve_launches16 if name == "cheby" else serve_launches)[name],
-         "launches_train_f32": tr["launches"][name], "launches_serve_f32": serve_launches[name],
-         "launches_train_bf16": tr16["launches"][name],
-         "launches_serve_bf16": serve_launches16[name], **rows[name]}
+         "launches": sum(phases[main_phase[name]][m] for m in members[name]),
+         **{f"launches_{ph}": sum(c[m] for m in members[name]) for ph, c in phases.items()},
+         **rows[name]}
         for name, (src, rep) in sources.items()]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,10 @@ Ported so far: the eval-mode MPTI+MDNS serving path
 (`serve.FewShotPredictor.predict`) and the MPTI + attention + WayContrast
 meta-training step (`learners.mpti_learner.MPTILearner.train`), with the
 float32 encoder on a float32 or bf16 episode graph (`graph_dtype`).  Both
-run on "cuda" unless the caller passes device="cpu".
+run on "cuda" unless the caller passes device="cpu".  Beside them, as in
+the JAX package, the one-hot row gather (`ops/cuda_gather.py`) and the
+archived fused EdgeConv tail (`ops/fused_edge.py`), which no entry point
+calls.
 """
 import torch
 

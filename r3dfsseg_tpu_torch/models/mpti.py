@@ -227,7 +227,12 @@ class MPTIOutput(NamedTuple):
 def check_servable(cfg: R3DConfig) -> None:
     """Raise on settings outside the port's slice: the float32 encoder with
     a float32 or bf16 episode graph (`graph_dtype`), threshold affinity and
-    Chebyshev solve (any `lp_adjoint_iters`; 0 means `lp_cg_iters`)."""
+    Chebyshev solve (any `lp_adjoint_iters`; 0 means `lp_cg_iters`), and
+    the unfused EdgeConv (`fuse_edge='on'` raises, as in the JAX package)."""
+    if cfg.fuse_edge == "on":
+        raise NotImplementedError(
+            "fuse_edge='on': the JAX package's EdgeConv refuses it too (the fused tail is an "
+            "archived kernel there); ops/fused_edge.py holds the port's version")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             "the bf16 encoder (compute_dtype='bfloat16') comes later (ROADMAP.md); "

@@ -4,6 +4,8 @@ import pathlib
 import subprocess
 import sys
 
+import jax
+import jax.numpy as jnp
 import pytest
 
 import r3dfsseg_tpu.config as jax_config
@@ -38,6 +40,26 @@ def test_tiny_config_matches():
         dataclasses.asdict(jax_config.tiny_config(k_shot=3))
 
 
+@pytest.mark.parametrize("mode", ["on", "auto", "off"])
+def test_fuse_edge_on_is_refused_by_both_packages(mode):
+    """The JAX package's EdgeConv raises on fuse_edge='on' (the fused tail
+    is archived there); the port's model refuses the config the same way,
+    and both run 'auto' and 'off'."""
+    from r3dfsseg_tpu.nn.dgcnn import EdgeConv as JaxEdgeConv
+    from r3dfsseg_tpu_torch.models.mpti import MPTINet
+
+    block = JaxEdgeConv(widths=(8, 8), k=4, knn_impl="xla", fuse_edge=mode)
+    cfg = torch_config.tiny_config(fuse_edge=mode)
+    if mode == "on":
+        with pytest.raises(NotImplementedError):
+            block.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 3)))
+        with pytest.raises(NotImplementedError, match="fuse_edge"):
+            MPTINet(cfg)
+    else:
+        block.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 3)))
+        MPTINet(cfg)
+
+
 def test_port_imports_no_jax():
     """Importing the port, its serving path and its training step pulls in
     neither jax nor the JAX package (a fresh interpreter, so this process's
@@ -48,7 +70,7 @@ def test_port_imports_no_jax():
         "from r3dfsseg_tpu_torch.serve import FewShotPredictor\n"
         "from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner\n"
         "from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_cheby, cuda_fps, cuda_knn, "
-        "cuda_kth, cuda_scatter\n"
+        "cuda_kth, cuda_scatter, cuda_gather, cuda_fused_edge, fused_edge\n"
         "from r3dfsseg_tpu_torch.utils.convert import state_dict_from_jax\n"
         "from r3dfsseg_tpu_torch.config import tiny_config\n"
         "import numpy as np\n"

@@ -1,7 +1,9 @@
 """Port neighbour gather and its scatter-add backward (`ops/fast_gather.py`,
 `ops/cuda_scatter.py`) vs the JAX package: its exact `_scatter_exact`
 (segment sum), its Pallas `_scatter_kernel` in interpret mode, and
-`jax.grad` through `gather_neighbors_fast`.
+`jax.grad` through `gather_neighbors_fast`; and the one-hot row gather
+(`ops/cuda_gather.py`, kernel 8) vs `_gather_kernel` in interpret mode,
+which is exact: every output element is one product 1 * x.
 
 The Pallas kernel rounds g to bf16 for its one-hot matrix product; with g
 bf16-representable that rounding is exact, and the kernel then equals the
@@ -16,7 +18,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from r3dfsseg_tpu.ops import fast_gather as jax_fg
-from r3dfsseg_tpu_torch.ops import cuda_scatter
+from r3dfsseg_tpu_torch.ops import cuda_gather, cuda_scatter
 from r3dfsseg_tpu_torch.ops.fast_gather import flat_take, gather_neighbors_fast
 
 
@@ -83,3 +85,32 @@ def test_gather_without_autograd_is_the_plain_take():
     assert cuda_scatter.launches == before
     with pytest.raises(NotImplementedError):
         gather_neighbors_fast(x, idx, impl="pallas")
+
+
+def _jax_gather_kernel(x, idx, tm):
+    """`_gather_kernel` over x (B, N, C) and idx (B, NQ, K), interpret mode."""
+    b, n, c = x.shape
+    m = idx.shape[1] * idx.shape[2]
+    return pl.pallas_call(
+        jax_fg._gather_kernel,
+        out_shape=jax.ShapeDtypeStruct((b, m, c), x.dtype),
+        grid=(b, m // tm),
+        in_specs=[pl.BlockSpec((1, tm, 1), lambda i, j: (i, j, 0)),
+                  pl.BlockSpec((1, n, c), lambda i, j: (i, 0, 0))],
+        out_specs=pl.BlockSpec((1, tm, c), lambda i, j: (i, j, 0)),
+        interpret=True,
+    )(idx.reshape(b, m, 1), x).reshape(*idx.shape, c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_onehot_equals_pallas_kernel(dtype):
+    rng = np.random.default_rng(12)
+    x = jnp.asarray(rng.normal(size=(2, 32, 8)).astype(np.float32)).astype(dtype)
+    idx = rng.integers(0, 32, size=(2, 16, 3)).astype(np.int32)
+    idx[:, :, 0] = 5                                   # a hub
+    want = np.asarray(_jax_gather_kernel(x, jnp.asarray(idx), tm=16).astype(jnp.float32))
+    tx = torch.from_numpy(np.array(x.astype(jnp.float32))).to(getattr(torch, dtype))
+    before = cuda_gather.launches
+    got = cuda_gather.gather_onehot(tx, torch.from_numpy(idx))
+    assert cuda_gather.launches == before and got.dtype == tx.dtype
+    np.testing.assert_array_equal(got.float().numpy(), want)

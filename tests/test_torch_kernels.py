@@ -12,13 +12,25 @@ import numpy as np
 import pytest
 import torch
 
-from r3dfsseg_tpu_torch.ops import (cuda_attention, cuda_cheby, cuda_fps, cuda_knn, cuda_kth,
-                                    cuda_scatter)
+import chip_smoke
+from r3dfsseg_tpu_torch.nn.dgcnn import EdgeConv
+from r3dfsseg_tpu_torch.ops import (cuda_attention, cuda_cheby, cuda_fps, cuda_fused_edge,
+                                    cuda_gather, cuda_knn, cuda_kth, cuda_scatter)
 from torch_port_helpers import cuda_or_skip
 
 
 def _qkv(dev, shape=(1, 8, 4)):
     return [torch.zeros(shape, device=dev) for _ in range(3)]
+
+
+def _fused_pass(name, dev):
+    """Pass ``name`` of kernel 9 on zeros of its shapes, (1, 8, 3, 64) edges."""
+    c = cuda_fused_edge.C
+    n_vecs = {"stats1": 2, "fwd": 4, "bwd1": 6, "bwd2": 11, "bwd3": 14}[name]
+    dout = [] if name in ("stats1", "fwd") else [torch.zeros((1, 8, c), device=dev)]
+    return getattr(cuda_fused_edge, name)(
+        torch.zeros((1, 8, 3, c), device=dev), *dout,
+        *(torch.ones(c, device=dev) for _ in range(n_vecs)), torch.zeros((c, c), device=dev))
 
 
 # name -> (module, its launch counter, a call on a device)
@@ -42,6 +54,15 @@ CALLS = {
     "scatter_add": (cuda_scatter, "launches", lambda dev: cuda_scatter.scatter_add(
         torch.zeros((1, 8, 2, 8), device=dev), torch.zeros((1, 8, 2), dtype=torch.int32,
                                                           device=dev), 8)),
+    "gather_onehot": (cuda_gather, "launches", lambda dev: cuda_gather.gather_onehot(
+        torch.zeros((1, 8, 4), device=dev), torch.zeros((1, 8, 2), dtype=torch.int32,
+                                                         device=dev))),
+    "gather_onehot_bf16": (cuda_gather, "launches", lambda dev: cuda_gather.gather_onehot(
+        torch.zeros((1, 8, 8), dtype=torch.bfloat16, device=dev),
+        torch.zeros((1, 8, 2), dtype=torch.int32, device=dev))),
+    **{f"fused_edge_{p}": (cuda_fused_edge, f"{p}_launches",
+                           lambda dev, p=p: _fused_pass(p, dev))
+       for p in cuda_fused_edge.PASSES},
 }
 
 
@@ -208,3 +229,74 @@ def test_scatter_add_kernel_matches_plain_on_card(b, n, k, c):
     want = cuda_scatter.scatter_add_reference(g, idx, n)
     bound = 1e-5 * cuda_scatter.scatter_add_reference(g.abs(), idx, n)
     assert bool(((got - want).abs() <= bound + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,k,c", [(2, 300, 20, 64), (1, 64, 5, 8)])
+def test_gather_kernel_bit_equals_plain_on_card(b, n, k, c, dtype):
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)).to(dev, dtype)
+    idx = torch.from_numpy(rng.integers(0, n, size=(b, n, k)).astype(np.int32)).to(dev)
+    before = cuda_gather.launches
+    got = cuda_gather.gather_onehot(x, idx)
+    torch.cuda.synchronize()
+    assert cuda_gather.launches == before + 1
+    assert torch.equal(got, cuda_gather.gather_onehot_reference(x, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("b,n,k", [(2, 256, 20), (1, 40, 5)])
+def test_fused_edge_passes_match_plain_on_card(b, n, k, train):
+    """Each pass of kernel 9 on a block's e_raw, with the arguments the
+    tail builds (`chip_smoke.fused_pass_args`): stats1 and fwd within 1e-5
+    of each output's largest entry, the backward outputs within 1e-4."""
+    dev = cuda_or_skip()
+    torch.manual_seed(0)
+    block = EdgeConv(9, (64, 64), k=k).to(dev)
+    with torch.no_grad():
+        for layer in (block.layer0, block.layer1):
+            layer.bn.weight.uniform_(0.5, 1.5)
+            layer.bn.bias.normal_(0.0, 0.1)
+            layer.bn.running_mean.normal_(0.0, 0.5)
+            layer.bn.running_var.uniform_(0.5, 1.5)
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(b, n, 9)).astype(np.float32))
+    _, _, e, w1 = chip_smoke.edge_operands(torch, block, x.to(dev))
+    dout = torch.randn((b, n, 64), device=dev)
+    args, _ = chip_smoke.fused_pass_args(torch, cuda_fused_edge, block, e, w1, dout, train)
+    for name, a in args.items():
+        before = getattr(cuda_fused_edge, f"{name}_launches")
+        got = getattr(cuda_fused_edge, name)(*a)
+        want = getattr(cuda_fused_edge, f"{name}_reference")(*a)
+        torch.cuda.synchronize()
+        assert getattr(cuda_fused_edge, f"{name}_launches") == before + 1
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        tol = 1e-5 if name in ("stats1", "fwd") else 1e-4
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= tol * float(w.abs().max()), name
+
+
+@pytest.mark.cuda
+def test_fused_route_matches_unfused_block_on_card():
+    """The fused route (kernels 8, 9, the scatter-add) through one block
+    against the module: outputs and gradients (relative L2 1e-3) under a
+    cotangent that is zero on near-ties of the max."""
+    dev = cuda_or_skip()
+    torch.manual_seed(2)
+    block = EdgeConv(9, (64, 64), k=20).to(dev)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 512, 9)).astype(np.float32))
+    xu = x.to(dev).requires_grad_()
+    out_u, _, edges = chip_smoke.unfused_edgeconv(block, xu, True)
+    w = torch.randn(out_u.shape, device=dev) * ~chip_smoke.near_ties(torch, edges)[1]
+    (out_u * w).sum().backward()
+    want = [xu.grad.clone()] + [p.grad.clone() for p in block.parameters()]
+    block.zero_grad(set_to_none=True)
+    xf = x.to(dev).requires_grad_()
+    out_f, _ = chip_smoke.fused_edgeconv(block, xf, True)
+    (out_f * w).sum().backward()
+    got = [xf.grad] + [p.grad for p in block.parameters()]
+    torch.testing.assert_close(out_f, out_u, rtol=1e-5, atol=1e-5 * out_u.abs().max().item())
+    for g, r in zip(got, want):
+        assert float((g - r).norm() / r.norm()) <= 1e-3
