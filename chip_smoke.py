@@ -17,7 +17,10 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      distance: bit-equal, on f32 distances and on the bf16 compare copy
      of a flagship episode's graph; scatter-add: within 1e-5 of sum |g|;
      the Chebyshev solve on that episode's bf16 S: within 1e-4 of the
-     solution's largest entry; on the three EdgeConv blocks' inputs of
+     solution's largest entry; kernel 10 (the same solve with d rounded
+     to one bf16, one cooperative launch) on that S, label and dense b:
+     within 1e-5 of max |x| at 3 steps and 5e-3 at 50, beside kernel 7,
+     both held against the f64 solve; on the three EdgeConv blocks' inputs of
      the support batch: the row gather (kernel 8) bit-equal, f32 and
      bf16, and the fused EdgeConv tail's five passes (kernel 9) in train
      and eval, stats1 and fwd within 1e-5 and each backward output within
@@ -45,16 +48,24 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      with the bf16 episode graph (gradients within a relative L2 distance
      of 1e-1: see `train`), whose steps must each launch all seven
      kernels, the Chebyshev solve twice (forward and adjoint) and the
-     k-th distance once.  Serving and training launch kernels 8 and 9
+     k-th distance once.  Serving and training launch kernels 8 to 11
      no time, as in the JAX package;
   5. the fused EdgeConv route (`fused_edgeconv`: kNN, kernel 8, kernel 9,
      the scatter-add backward) through the encoder's three blocks, against
      the blocks' own forward and backward (`fused_phase`: outputs, batch
      statistics, gradients; the query batch in eval), each pass launched
-     once per block, and both routes timed per block.
+     once per block, and both routes timed per block;
+  6. the archived Chebyshev probes' main() (`probe_phase`): kernel 10 on
+     `scripts/archive/proto_cheby_pallas.py`'s own problem (its "rel max
+     err" against kernel 7's plain version; within 1e-3 of max of its own
+     plain version; ms per solve over a chain of 10 beside kernel 7), and
+     kernel 11 on `scripts/archive/proto_cheby2.py`'s input at 8 and 128
+     columns (within 1e-4 of max at 3 steps; 5e-3 at 500 steps on that S
+     scaled by 1 / its row sums; us per matvec beside 500 single
+     `torch.mm` calls); each launched as counted, and by no other phase.
 
 It prints the card's name and power limit, one JSON line describing the
-nine kernels, and as its last line {"ok": true, "device": {...}}.  Without a
+eleven kernels, and as its last line {"ok": true, "device": {...}}.  Without a
 CUDA device it exits with code 1 and prints no result.
 """
 from __future__ import annotations
@@ -70,11 +81,17 @@ import numpy as np
 
 NEAR_TIE = 1e-5     # relative distance gap that counts as a tie
 F32_FLOPS = 67e12   # H100 SXM peak f32 FLOP/s outside the tensor cores
+BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak FLOP/s
 HBM_BYTES = 3.35e12  # H100 SXM device-memory bytes/s
 GRAD_TOL = 1e-3     # kernel vs plain training step: relative L2 per parameter
 BF16_GRAD_TOL = 1e-1  # the same on the bf16 graph, whose gradients carry ~1e-2 of
                       # bf16 rounding noise (see `train`)
 CHEBY_TOL = 1e-4    # Chebyshev kernel vs plain: f32 sums in another order, 49 matvecs
+# kernels 10 and 11 vs plain: their f32 sums run in another order, so a d entry
+# near a bf16 rounding boundary can round the other way, and the flip carries
+# through later steps; a few steps stay at f32 rounding
+PROTO_TOL = {3: 1e-5, 50: 5e-3}
+PROBE_TOL = {3: 1e-4, 500: 5e-3}
 TRAIN_STEPS = 4     # timed kernel-path training steps after step 1, per graph dtype
 
 
@@ -99,15 +116,17 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, peak: float = F32_FLOPS) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the
-    operations over the f32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    operations over the peak of their type (f32 on CUDA cores unless a
+    kernel's products are bf16 tensor-core tiles) and the bytes over the
+    memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def row(err, ms, plain_ms, library_ms, flops, nbytes, **extra):
-    b, by = bound(flops, nbytes)
+def row(err, ms, plain_ms, library_ms, flops, nbytes, peak=F32_FLOPS, **extra):
+    b, by = bound(flops, nbytes, peak)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                 library_ms=library_ms, **extra)
 
@@ -449,6 +468,54 @@ def check_cheby(torch, cheby_mod, s, b, alpha, iters):
                s_bytes + 8.0 * b.numel(), max_rel_err=rel_err,
                exact_rel_err=label_exact["kernel"], plain_exact_rel_err=label_exact["plain"],
                bound_ms_hbm=steps * s_bytes / HBM_BYTES * 1e3)
+
+
+def check_proto_cheby(torch, proto_mod, cheby_mod, s, b, alpha, iters):
+    """Kernel 10 (one bf16 d per step) on the flagship bf16 S beside kernel
+    7, with the label columns b and a dense random b: kernel 10 vs its plain
+    version within PROTO_TOL of max |x| at 3 and at `iters` steps; kernel 10,
+    its plain version and kernel 7 held against the f64 solve
+    (`exact_solve`) and the distances logged: what a single bf16 d costs.
+    Then the three timed on the label columns.  Its bound counts S read once
+    and the live columns' bf16 tensor-core products."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    m = s.shape[0]
+    exact = exact_solve(cheby_mod)
+    out = {}
+    for rhs, bb in (("labels", b), ("dense", torch.randn(b.shape, generator=g, device="cuda"))):
+        for steps in (3, iters):
+            got = proto_mod.proto_cheby_solve(s, bb, alpha, steps)
+            want = proto_mod.proto_cheby_solve_reference(s, bb, alpha, steps)
+            e, scale = (got - want).abs().max().item(), want.abs().max().item()
+            tol = PROTO_TOL[3 if steps == 3 else 50]
+            log(f"  proto_cheby bf16 S ({m}, {m}), {rhs} b {tuple(bb.shape)}, {steps} steps: "
+                f"max abs err {e:.3e}, {e / scale:.3e} of max |x| = {scale:.4f} (tolerance {tol})")
+            if not (np.isfinite(e) and e <= tol * scale):
+                raise AssertionError(f"proto_cheby, {rhs} b, {steps} steps: error {e} > "
+                                     f"{tol} x {scale}")
+        ref = exact(s, bb, alpha, iters)
+        dist = {name: (x - ref).abs().max().item() / scale for name, x in (
+            ("kernel 10", got), ("plain 10", want),
+            ("kernel 7", cheby_mod.cheby_solve(s, bb, alpha, iters)))}
+        log(f"  {rhs} b, {iters} steps, distance from the f64 solve / max |x|: " +
+            ", ".join(f"{n} {v:.3e}" for n, v in dist.items()))
+        if rhs == "labels":
+            out = dict(err=e, rel_err=e / scale, exact=dist)
+        else:
+            out["exact_dense"] = dist
+    ms = cuda_ms(lambda: proto_mod.proto_cheby_solve(s, b, alpha, iters), 10)
+    plain = cuda_ms(lambda: proto_mod.proto_cheby_solve_reference(s, b, alpha, iters), 10)
+    k7 = cuda_ms(lambda: cheby_mod.cheby_solve(s, b, alpha, iters), 10)
+    no_res = cuda_ms(lambda: proto_mod.proto_cheby_solve(s, b, alpha, iters, resident_rows=0),
+                     10)
+    log(f"  proto_cheby {iters} steps, label b: kernel 10 {ms:.3f} ms ({no_res:.3f} with no "
+        f"rows of S kept on chip), plain {plain:.3f}, kernel 7 {k7:.3f}")
+    return row(out["err"], ms, plain, None, (iters - 1) * 2.0 * m * m * b.shape[1],
+               2.0 * m * m + 8.0 * b.numel(), peak=BF16_TC_FLOPS, max_rel_err=out["rel_err"],
+               exact_rel_err=out["exact"]["kernel 10"],
+               plain_exact_rel_err=out["exact"]["plain 10"],
+               cheby_exact_rel_err=out["exact"]["kernel 7"],
+               exact_rel_err_dense=out["exact_dense"], cheby_ms=k7, ms_no_resident=no_res)
 
 
 def check_scatter(torch, knn_mod, scatter_mod, sx, qx):
@@ -834,6 +901,169 @@ def fused_phase(torch, blocks, xs, xq, kernels, seed):
                 log(f"    {name} largest device times: " + "; ".join(
                     f"{ms:.3f} {k[:60]}" for k, ms in busy[name][:8]))
     return launches, launches_eval, times
+
+
+# ------------------------------------------------------------- probes --
+def archive_cheby_problem(torch):
+    """`scripts/archive/proto_cheby_pallas.py:main`'s problem: numpy
+    default_rng(0), m = 4396, a = (a + a^T) / 2 uniform, S = a / sqrt(deg
+    deg^T) rounded to bf16, b (4396, 3) with b[:200, 0] = 1."""
+    m = 4396
+    a = np.random.default_rng(0).random((m, m), dtype=np.float32)
+    a = (a + a.T) * 0.5
+    deg = a.sum(1)
+    s = torch.from_numpy(a / np.sqrt(np.outer(deg, deg))).cuda().to(torch.bfloat16)
+    b = torch.zeros((m, 3), device="cuda")
+    b[:200, 0] = 1.0
+    return s, b
+
+
+def archive_probe_input(torch):
+    """`scripts/archive/proto_cheby2.py:main`'s S: numpy default_rng(0), M =
+    4480, uniform in [0, 1), rounded to bf16."""
+    a = np.random.default_rng(0).random((4480, 4480), dtype=np.float32)
+    return torch.from_numpy(a).cuda().to(torch.bfloat16)
+
+
+def chain_ms(torch, fn, b, n: int = 10, reps: int = 3) -> float:
+    """The archive's timing: ms per call over a chain of n calls, each fed
+    the previous one's output; the best of ``reps`` chains (CUDA events)."""
+    def chain():
+        z = b
+        for _ in range(n):
+            z = fn(z)
+    chain()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        chain()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / n)
+    return best
+
+
+def library_mm(torch, s, z):
+    """One PyTorch call for kernel 11's matvec: bf16 S times bf16 z with f32
+    output where this torch's `mm` takes `out_dtype`, else bf16 output.
+    Returns (the call, its name)."""
+    try:
+        torch.mm(s[:8, :8], z[:8], out_dtype=torch.float32)
+        return (lambda: torch.mm(s, z, out_dtype=torch.float32)), "torch.mm(out_dtype=float32)"
+    except (TypeError, RuntimeError):
+        return (lambda: torch.mm(s, z)), "torch.mm with bf16 output (no out_dtype in this torch)"
+
+
+def step_sweep(torch, proto_mod, cheby_mod, s, b, alpha, iters, sizes=(1024, 2048, 3072, 4396)):
+    """us per Chebyshev step of kernel 10 (as many rows of S kept on chip as
+    fit, 16 rows per block, then none) and of kernel 7 on the leading (m,
+    m) block of S, m from `sizes`: the difference of an `iters`-step and a
+    2-step solve over iters - 2 steps (CUDA events), which takes out the
+    launch and the set-up.  Shows what a step costs with S in registers and
+    shared memory (all of it, at these sizes), with S partly and wholly read
+    from L2, and with one launch per step."""
+    out = {}
+    for m in sizes:
+        sm, bm = s[:m, :m].contiguous(), b[:m].contiguous()
+        solves = {"kernel 10": proto_mod.proto_cheby_solve,
+                  "kernel 10, 16 rows on chip": lambda *a: proto_mod.proto_cheby_solve(
+                      *a, resident_rows=16),
+                  "kernel 10, none on chip": lambda *a: proto_mod.proto_cheby_solve(
+                      *a, resident_rows=0),
+                  "kernel 7": cheby_mod.cheby_solve}
+        out[m] = {name: (cuda_ms(lambda: f(sm, bm, alpha, iters), 20)
+                         - cuda_ms(lambda: f(sm, bm, alpha, 2), 20)) / (iters - 2) * 1e3
+                  for name, f in solves.items()}
+        log(f"  m = {m} (S {2 * m * m / 1e6:.2f} MB): us per step " +
+            ", ".join(f"{n} {v:.2f}" for n, v in out[m].items()))
+    return out
+
+
+def probe_phase(torch, proto_mod, cheby_mod, kernels, alpha: float = 0.99, iters: int = 50,
+                probe_iters: int = 500):
+    """The two archives' `main()` on the card.  The main path of this phase:
+    kernel 10 on `archive_cheby_problem` (one solve), kernel 11 on the
+    archive's input at 3 steps and on that S scaled by 1 / its row sums at
+    500 steps (the archive's own input overflows f32 after about 12 steps),
+    at 8 and 128 columns of ones; counted, then checked: kernel 10 within
+    1e-3 of max of its plain version (its distance from kernel 7's plain
+    version, the archive's `_chebyshev_xla`, printed as the archive prints
+    it), kernel 11 within PROBE_TOL of max of its plain version.  Then timed
+    as the archives time them: kernel 10 and kernel 7 in ms per solve over a
+    chain of 10, kernel 11 per 500-step call beside its plain version and
+    500 single PyTorch matvecs, in us per matvec.  Returns the launch counts
+    and the two kernels' probe rows."""
+    s, b = archive_cheby_problem(torch)
+    sp = archive_probe_input(torch)
+    scaled = (sp.float() / sp.float().sum(1, keepdim=True)).to(torch.bfloat16)
+    ones = {n: torch.ones((sp.shape[0], n), device="cuda") for n in (8, 128)}
+    cases = [(n, steps, src) for n in ones for steps, src in ((3, sp), (probe_iters, scaled))]
+
+    zero_counts(kernels)
+    zp = proto_mod.proto_cheby_solve(s, b, alpha, iters)
+    got = {(n, steps): proto_mod.matmul_only(src, ones[n], steps) for n, steps, src in cases}
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    if launches["proto_cheby"] != 1 or launches["matmul_only"] != len(cases) or any(
+            c for n, c in launches.items() if n not in ("proto_cheby", "matmul_only")):
+        raise AssertionError(f"probe phase: launches {launches}")
+
+    zx = cheby_mod.cheby_solve_reference(s, b, alpha, iters)
+    rel_xla = ((zp - zx).abs().max() / (zx.abs().max() + 1e-30)).item()
+    want = proto_mod.proto_cheby_solve_reference(s, b, alpha, iters)
+    e10 = (zp - want).abs().max().item()
+    rel10 = e10 / want.abs().max().item()
+    log(f"  proto_cheby, the archive's problem (m = {s.shape[0]}, 3 columns, {iters} steps): "
+        f"rel max err kernel 10 vs kernel 7's plain version (the archive's _chebyshev_xla): "
+        f"{rel_xla:.3e}; vs its own plain version {rel10:.3e} of max (tolerance 1e-3)")
+    if not (np.isfinite(e10) and rel10 <= 1e-3):
+        raise AssertionError(f"proto_cheby on the archive's problem: {rel10} of max > 1e-3")
+    t10 = chain_ms(torch, lambda z: proto_mod.proto_cheby_solve(s, z, alpha, iters), b)
+    t7 = chain_ms(torch, lambda z: cheby_mod.cheby_solve(s, z, alpha, iters), b)
+    for name, t in (("kernel 10", t10), ("kernel 7", t7)):
+        log(f"  {name}: {t:.3f} ms/solve ({t / iters * 1e3:.1f} us/iter), chain of 10")
+    proto_row = dict(max_abs_err=e10, max_rel_err=rel10, rel_err_vs_cheby_plain=rel_xla,
+                     chain_ms=t10, us_per_step=t10 / iters * 1e3, cheby_chain_ms=t7,
+                     step_us=step_sweep(torch, proto_mod, cheby_mod, s, b, alpha, iters))
+
+    err = 0.0
+    for (n, steps), x in got.items():
+        src = sp if steps == 3 else scaled
+        ref = proto_mod.matmul_only_reference(src, ones[n], steps)
+        e, scale = (x - ref).abs().max().item(), ref.abs().max().item()
+        tol = PROBE_TOL[steps]
+        log(f"  matmul_only ncols={n:3d}, {steps} steps on the archive's S"
+            f"{'' if steps == 3 else ' scaled by 1 / its row sums'}: max abs err {e:.3e}, "
+            f"{e / scale:.3e} of max (tolerance {tol})")
+        if not (np.isfinite(e) and e <= tol * scale):
+            raise AssertionError(f"matmul_only ncols={n}, {steps} steps: {e} > {tol} x {scale}")
+        if steps == probe_iters:
+            err = max(err, e)
+    cols = {}
+    for n, b1 in ones.items():
+        lib, lib_name = library_mm(torch, sp, b1.to(torch.bfloat16))
+        ms = cuda_ms(lambda: proto_mod.matmul_only(sp, b1, probe_iters), 5)
+        plain = cuda_ms(lambda: proto_mod.matmul_only_reference(sp, b1, probe_iters), 3)
+        lib_ms = cuda_ms(lambda: [lib() for _ in range(probe_iters)], 3)
+        m = sp.shape[0]
+        cols[n] = row(0.0, ms, plain, lib_ms, probe_iters * 2.0 * m * m * n,
+                      2.0 * m * m + 8.0 * m * n, peak=BF16_TC_FLOPS,
+                      us_per_matvec=ms / probe_iters * 1e3,
+                      library_us_per_matvec=lib_ms / probe_iters * 1e3, library=lib_name)
+        log(f"  matmul_only ncols={n:3d}: {ms / probe_iters * 1e3:7.1f} us/matvec "
+            f"({ms:.3f} ms per {probe_iters}-step call); plain {plain:.3f} ms; {lib_name} "
+            f"{lib_ms / probe_iters * 1e3:7.1f} us/matvec; bound "
+            f"{cols[n]['bound_ms']:.4f} ms ({cols[n]['bound_by']})")
+    m = sp.shape[0]
+    probe_row = row(err, sum(c["ms"] for c in cols.values()),
+                    sum(c["plain_ms"] for c in cols.values()),
+                    sum(c["library_ms"] for c in cols.values()),
+                    sum(probe_iters * 2.0 * m * m * n for n in cols),
+                    sum(2.0 * m * m + 8.0 * m * n for n in cols), peak=BF16_TC_FLOPS,
+                    cols={str(n): c for n, c in cols.items()})
+    return launches, proto_row, probe_row
 
 
 # ------------------------------------------------------------ serving --
@@ -1252,7 +1482,8 @@ def main() -> int:
     from r3dfsseg_tpu_torch.kernels import build
     from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
     from r3dfsseg_tpu_torch.ops import (cuda_attention, cuda_cheby, cuda_fps, cuda_fused_edge,
-                                        cuda_gather, cuda_knn, cuda_kth, cuda_scatter)
+                                        cuda_gather, cuda_knn, cuda_kth, cuda_proto_cheby,
+                                        cuda_scatter)
     pin_f32_matmul()
 
     # ---- 1. build
@@ -1296,6 +1527,8 @@ def main() -> int:
     sel, s16, b16, node, valid = flagship_graph(torch, cfg16, episodes[0], args.seed)
     rows["kth"].update(check_kth_bf16(torch, cuda_kth, sel))
     rows["cheby"] = check_cheby(torch, cuda_cheby, s16, b16, cfg.lp_alpha, cfg.lp_cg_iters)
+    rows["proto_cheby"] = check_proto_cheby(torch, cuda_proto_cheby, cuda_cheby, s16, b16,
+                                            cfg.lp_alpha, cfg.lp_cg_iters)
     del sel, s16
     peaks = {name: graph_peak(torch, cfg, node, valid, b16, dt)
              for name, dt in (("float32", None), ("bf16", torch.bfloat16))}
@@ -1322,10 +1555,13 @@ def main() -> int:
                "kth": (cuda_kth, "launches"), "scatter_add": (cuda_scatter, "launches"),
                "cheby": (cuda_cheby, "launches"), "gather_onehot": (cuda_gather, "launches"),
                **{f"fused_{p}": (cuda_fused_edge, f"{p}_launches")
-                  for p in cuda_fused_edge.PASSES}}
+                  for p in cuda_fused_edge.PASSES},
+               "proto_cheby": (cuda_proto_cheby, "launches"),
+               "matmul_only": (cuda_proto_cheby, "matmul_only_launches")}
     f32_kernels = ("knn", "attention_fwd", "attention_bwd", "fps", "kth", "scatter_add")
     fused_passes = tuple(f"fused_{p}" for p in cuda_fused_edge.PASSES)
     fused_kernels = ("gather_onehot",) + fused_passes
+    probe_kernels = ("proto_cheby", "matmul_only")
 
     # ---- 3. serving, float32 graph then bf16 graph
     preds, serve_launches = serve_phase(torch, cfg, episodes, kernels, args.seed, SERVE_KERNELS)
@@ -1346,14 +1582,24 @@ def main() -> int:
     phases = {"serve_f32": serve_launches, "serve_bf16": serve_launches16,
               "train_f32": tr["launches"], "train_bf16": tr16["launches"]}
     for phase, launched in phases.items():
-        if any(launched[n] for n in fused_kernels):
-            raise AssertionError(f"{phase}: kernels 8 or 9 were launched: {launched}")
+        if any(launched[n] for n in fused_kernels + probe_kernels):
+            raise AssertionError(f"{phase}: kernels 8, 9, 10 or 11 were launched: {launched}")
 
     # ---- 5. the fused EdgeConv route, all three blocks
     log("[fused] the three EdgeConv blocks by the fused route (kernels 8, 9) vs the module")
     fused_launches, fused_eval, block_ms = fused_phase(torch, blocks, xs, xq, kernels, args.seed)
     phases.update(fused_train=fused_launches, fused_eval=fused_eval)
     log(f"[fused] launches: train {fused_launches}; eval {fused_eval}")
+    if any(c[n] for c in (fused_launches, fused_eval) for n in probe_kernels):
+        raise AssertionError("the fused route launched kernel 10 or 11")
+
+    # ---- 6. the archived Chebyshev probes (kernels 10, 11)
+    log("[probe] the archived Chebyshev probes' main() on the card (kernels 10, 11)")
+    probe_launches, proto_probe, rows["matmul_only"] = probe_phase(
+        torch, cuda_proto_cheby, cuda_cheby, kernels)
+    phases["probe"] = probe_launches
+    rows["proto_cheby"]["probe"] = proto_probe
+    log(f"[probe] launches {probe_launches}")
 
     sources = {"knn": ("knn.cu", "r3dfsseg_tpu/ops/pallas_knn.py:27"),
                "attention_fwd": ("attention_fwd.cu", "r3dfsseg_tpu/ops/pallas_attention.py:54"),
@@ -1363,14 +1609,18 @@ def main() -> int:
                "scatter_add": ("scatter_add.cu", "r3dfsseg_tpu/ops/fast_gather.py:40"),
                "cheby": ("cheby.cu", "r3dfsseg_tpu/ops/pallas_cheby.py:42"),
                "gather_onehot": ("gather.cu", "r3dfsseg_tpu/ops/fast_gather.py:89"),
-               "fused_edge": ("fused_edge.cu", "scripts/archive/fused_edge.py:213")}
+               "fused_edge": ("fused_edge.cu", "scripts/archive/fused_edge.py:213"),
+               "proto_cheby": ("proto_cheby.cu", "scripts/archive/proto_cheby_pallas.py:22"),
+               "matmul_only": ("proto_cheby.cu", "scripts/archive/proto_cheby2.py:36")}
     # each entry's counters, and the phase whose count is its "launches":
     # the float32 graph's training run; cheby's the bf16 graph's, which
-    # alone launches it; kernels 8 and 9 the fused route's
+    # alone launches it; kernels 8 and 9 the fused route's; kernels 10 and
+    # 11 the probe phase's
     members = {name: (name,) for name in sources}
     members["fused_edge"] = fused_passes
     main_phase = {name: "train_f32" for name in sources}
-    main_phase.update(cheby="train_bf16", gather_onehot="fused_train", fused_edge="fused_train")
+    main_phase.update(cheby="train_bf16", gather_onehot="fused_train", fused_edge="fused_train",
+                      proto_cheby="probe", matmul_only="probe")
     for p in cuda_fused_edge.PASSES:
         rows["fused_edge"]["passes"][p].update(
             {f"launches_{ph}": c[f"fused_{p}"] for ph, c in phases.items()},

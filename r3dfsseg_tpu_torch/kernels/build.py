@@ -1,7 +1,8 @@
 """Build the port's hand-written CUDA kernels and bind them with ctypes.
 
 At first use on a CUDA tensor, every ``csrc/*.cu`` source is compiled by
-``nvcc`` into one shared library with a plain C interface, in
+its own ``nvcc`` process, all started together, and the objects are linked
+into one shared library with a plain C interface, in
 ``r3dfsseg_tpu_torch/_build/`` and named by a hash of the sources and
 flags, so an unchanged tree reuses its library.  Nothing here runs at
 import time: a machine without nvcc imports the package and uses the
@@ -19,14 +20,15 @@ import os
 import pathlib
 import shutil
 import subprocess
+import tempfile
 import threading
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -57,13 +59,24 @@ def library_path() -> pathlib.Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in srcs if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
-    build_log = proc.stdout + proc.stderr
+    obj_dir = pathlib.Path(tempfile.mkdtemp(prefix="obj_", dir=BUILD_DIR))
+    try:
+        nvcc = _nvcc()
+        objs = [obj_dir / f"{p.stem}.o" for p in srcs if p.suffix == ".cu"]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / f"{o.stem}.cu"),
+                                   "-o", str(o)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for o in objs]
+        logs = [p.communicate()[0] for p in procs]
+        for o, p, log in zip(objs, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {o.stem}.cu with code {p.returncode}:\n{log}")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with code {link.returncode}:\n{link.stderr}")
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
+    build_log = "".join(logs)
     os.replace(tmp, out)
     return out
 

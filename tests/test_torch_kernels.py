@@ -15,7 +15,8 @@ import torch
 import chip_smoke
 from r3dfsseg_tpu_torch.nn.dgcnn import EdgeConv
 from r3dfsseg_tpu_torch.ops import (cuda_attention, cuda_cheby, cuda_fps, cuda_fused_edge,
-                                    cuda_gather, cuda_knn, cuda_kth, cuda_scatter)
+                                    cuda_gather, cuda_knn, cuda_kth, cuda_proto_cheby,
+                                    cuda_scatter)
 from torch_port_helpers import cuda_or_skip
 
 
@@ -51,6 +52,13 @@ CALLS = {
     "cheby": (cuda_cheby, "launches", lambda dev: cuda_cheby.cheby_solve(
         torch.zeros((8, 8), dtype=torch.bfloat16, device=dev), torch.ones((8, 3), device=dev),
         0.99, 4)),
+    "proto_cheby": (cuda_proto_cheby, "launches", lambda dev: cuda_proto_cheby.proto_cheby_solve(
+        torch.zeros((8, 8), dtype=torch.bfloat16, device=dev), torch.ones((8, 3), device=dev),
+        0.99, 4)),
+    "matmul_only": (cuda_proto_cheby, "matmul_only_launches",
+                    lambda dev: cuda_proto_cheby.matmul_only(
+                        torch.zeros((8, 8), dtype=torch.bfloat16, device=dev),
+                        torch.ones((8, 8), device=dev), 3)),
     "scatter_add": (cuda_scatter, "launches", lambda dev: cuda_scatter.scatter_add(
         torch.zeros((1, 8, 2, 8), device=dev), torch.zeros((1, 8, 2), dtype=torch.int32,
                                                           device=dev), 8)),
@@ -180,6 +188,93 @@ def test_cheby_kernel_matches_plain_on_card(m, iters):
     assert cuda_cheby.launches == before + 1
     want = cuda_cheby.cheby_solve_reference(s, b, 0.99, iters)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4396, 1001, 37])
+@pytest.mark.parametrize("c", [1, 3, 8])
+@pytest.mark.parametrize("iters", [1, 3, 50])
+def test_proto_cheby_kernel_matches_plain_on_card(m, c, iters):
+    """Kernel 10 at the flagship width (8-byte loads of S), a ragged one and
+    a tiny one (2-byte loads), 1 to 8 label columns: within 1e-5 of max |x|
+    at 1 and 3 steps, 5e-3 at 50 (its f32 sums run in another order, so a d
+    entry near a bf16 rounding boundary can round the other way and the
+    flip carries through later steps); one cooperative launch per solve."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(m + c)
+    a = rng.random((m, m), dtype=np.float32) * (rng.random((m, m), dtype=np.float32) < 0.05)
+    a = a + a.T
+    r = 1.0 / np.sqrt(a.sum(1) + 1e-16)
+    s = torch.from_numpy(a * r[:, None] * r[None, :]).to(torch.bfloat16).to(dev)
+    b = np.zeros((m, c), np.float32)
+    b[: min(m, 100)] = np.eye(c, dtype=np.float32)[rng.integers(0, c, min(m, 100))]
+    b = torch.from_numpy(b).to(dev)
+    before = cuda_proto_cheby.launches
+    got = cuda_proto_cheby.proto_cheby_solve(s, b, 0.99, iters)
+    torch.cuda.synchronize()
+    assert cuda_proto_cheby.launches == before + 1
+    want = cuda_proto_cheby.proto_cheby_solve_reference(s, b, 0.99, iters)
+    tol = 5e-3 if iters == 50 else 1e-5
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4396, 1001])
+@pytest.mark.parametrize("resident_rows", [0, 16, 24])
+def test_proto_cheby_resident_rows_change_no_bit_on_card(m, resident_rows):
+    """Rows of S kept in registers or shared memory feed the same products
+    in the same order as rows read from L2: capping the rows kept on chip
+    (none; one register tile; a register tile and 8 shared-memory rows)
+    changes no bit of the solve."""
+    dev = cuda_or_skip()
+    s, b = _graph_system(m, m, dev)
+    got = cuda_proto_cheby.proto_cheby_solve(s, b, 0.99, 50)
+    assert torch.equal(got, cuda_proto_cheby.proto_cheby_solve(s, b, 0.99, 50,
+                                                                 resident_rows=resident_rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4480, 1000])
+@pytest.mark.parametrize("ncols", [8, 128])
+@pytest.mark.parametrize("iters", [3, 500])
+def test_matmul_only_kernel_matches_plain_on_card(m, ncols, iters):
+    """Kernel 11 on S uniform in [0, 1) scaled by 1 / its row sums (the
+    archive's unscaled S overflows f32 within ~12 steps) and a normal b:
+    within 1e-4 of max at 3 steps, 5e-3 at 500; one launch per call."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(m + ncols)
+    a = rng.random((m, m), dtype=np.float32)
+    s = torch.from_numpy(a / a.sum(1, keepdims=True)).to(torch.bfloat16).to(dev)
+    b = torch.from_numpy(rng.normal(size=(m, ncols)).astype(np.float32)).to(dev)
+    before = cuda_proto_cheby.matmul_only_launches
+    got = cuda_proto_cheby.matmul_only(s, b, iters)
+    torch.cuda.synchronize()
+    assert cuda_proto_cheby.matmul_only_launches == before + 1
+    want = cuda_proto_cheby.matmul_only_reference(s, b, iters)
+    tol = 5e-3 if iters == 500 else 1e-4
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cheby_c9", "probe_ncols12", "cheby_strided_s",
+                                  "probe_strided_s"])
+def test_proto_cheby_wrappers_raise_on_card(case):
+    """What the kernels do not take raises: 9 live columns, 12 probe
+    columns (not a multiple of 8), a non-contiguous S."""
+    dev = cuda_or_skip()
+    s = torch.zeros((64, 64), dtype=torch.bfloat16, device=dev)
+    strided = torch.zeros((64, 128), dtype=torch.bfloat16, device=dev)[:, ::2]
+    calls = {
+        "cheby_c9": lambda: cuda_proto_cheby.proto_cheby_solve(
+            s, torch.ones((64, 9), device=dev), 0.99, 3),
+        "probe_ncols12": lambda: cuda_proto_cheby.matmul_only(
+            s, torch.ones((64, 12), device=dev), 3),
+        "cheby_strided_s": lambda: cuda_proto_cheby.proto_cheby_solve(
+            strided, torch.ones((64, 3), device=dev), 0.99, 3),
+        "probe_strided_s": lambda: cuda_proto_cheby.matmul_only(
+            strided, torch.ones((64, 8), device=dev), 3)}
+    with pytest.raises(ValueError):
+        calls[case]()
 
 
 @pytest.mark.cuda
