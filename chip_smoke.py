@@ -26,7 +26,9 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      and eval, stats1 and fwd within 1e-5 and each backward output within
      1e-4 of its largest entry), and time the kernel, the plain version
      and, where one exists, the one PyTorch call computing the same
-     function, with CUDA events; and measure the peak memory of that
+     function (attention: SDPA pinned to its memory-efficient backend, its
+     forward against kernel 2 and its backward alone against kernel 5),
+     with CUDA events; and measure the peak memory of that
      episode graph alone, forward and backward, in float32 and bf16;
   3. serve flagship episodes (R3DConfig(): 2-way 5-shot, 2048 points x 9,
      a 4396-node graph) through `FewShotPredictor.predict` with seeded
@@ -81,6 +83,7 @@ import numpy as np
 
 NEAR_TIE = 1e-5     # relative distance gap that counts as a tie
 F32_FLOPS = 67e12   # H100 SXM peak f32 FLOP/s outside the tensor cores
+TF32_TC_FLOPS = 495e12  # H100 SXM dense tf32 tensor-core peak FLOP/s
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak FLOP/s
 HBM_BYTES = 3.35e12  # H100 SXM device-memory bytes/s
 GRAD_TOL = 1e-3     # kernel vs plain training step: relative L2 per parameter
@@ -119,8 +122,8 @@ def cuda_ms(fn, reps: int) -> float:
 def bound(flops: float, nbytes: float, peak: float = F32_FLOPS) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the
     operations over the peak of their type (f32 on CUDA cores unless a
-    kernel's products are bf16 tensor-core tiles) and the bytes over the
-    memory rate."""
+    kernel's products are bf16 or tf32 tensor-core tiles) and the bytes
+    over the memory rate."""
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -128,7 +131,7 @@ def bound(flops: float, nbytes: float, peak: float = F32_FLOPS) -> tuple[float, 
 def row(err, ms, plain_ms, library_ms, flops, nbytes, peak=F32_FLOPS, **extra):
     b, by = bound(flops, nbytes, peak)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                library_ms=library_ms, **extra)
+                share_of_bound=b / ms, library_ms=library_ms, **extra)
 
 
 # ---------------------------------------------------------------- data --
@@ -220,9 +223,23 @@ def check_knn(torch, knn_mod, sx):
     return row(worst_err, ms, plain, None, flops, nbytes)
 
 
-def check_attention(torch, attn_mod):
-    """Eval mode at the serving shapes (B = 10 and 2, no dropout)."""
+def sdpa(torch, q, k, v, rate, tau):
+    """The yardstick for kernels 2 and 5: one `scaled_dot_product_attention`
+    call on (B, 1, N, D) views (a 3-D input takes the unfused math
+    backend), pinned to the memory-efficient backend, the one SDPA picks
+    for f32 with dropout on sm80+ (CUTLASS's f32 kernels, `fmha_cutlassF`
+    and `fmha_cutlassB` in the profile); if that backend is refused the
+    call raises."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return F.scaled_dot_product_attention(q.unsqueeze(1), k.unsqueeze(1), v.unsqueeze(1),
+                                              dropout_p=rate, scale=1 / tau).squeeze(1)
+
+
+def check_attention(torch, attn_mod):
+    """Eval mode at the serving shapes (B = 10 and 2, no dropout): the
+    kernel against the plain version, and the times of each batch."""
     g = torch.Generator(device="cuda").manual_seed(1)
     q, k, v = (torch.randn((10, 2048, 64), generator=g, device="cuda") for _ in range(3))
     got = attn_mod.attention(q, k, v, 8.0)
@@ -233,8 +250,10 @@ def check_attention(torch, attn_mod):
     full = [(q, k, v), tuple(t[:2] for t in (q, k, v))]
     ms = cuda_ms(lambda: [attn_mod.attention(*a, 8.0) for a in full], 10)
     plain = cuda_ms(lambda: [attn_mod.attention_reference(*a, 8.0) for a in full], 10)
-    lib = cuda_ms(lambda: [F.scaled_dot_product_attention(*a, scale=1 / 8.0) for a in full], 10)
-    return err, ms, plain, lib
+    lib = cuda_ms(lambda: [sdpa(torch, *a, 0.0, 8.0) for a in full], 10)
+    per_b = {f"ms_eval_b{a[0].shape[0]}": cuda_ms(lambda: attn_mod.attention(*a, 8.0), 10)
+             for a in full}
+    return err, ms, plain, lib, per_b
 
 
 def check_dropout_mask(torch, attn_mod):
@@ -255,8 +274,14 @@ def check_attention_train(torch, attn_mod):
     """Training shapes (B = 10 and 2, N = 2048, D = 64, dropout 0.1): the
     forward (y and lse) against the plain version, rtol 1e-4 / atol 1e-5;
     the backward against torch autograd through the plain masked forward
-    with the same mask, each gradient within 1e-4 of its largest entry."""
-    import torch.nn.functional as F
+    with the same mask, each gradient within 1e-4 of its largest entry.
+    Times: kernels 2 and 5 per step (both batches), each batch alone, and
+    at rate 0; the yardstick SDPA (`sdpa`) forward alone and backward alone
+    (one forward keeps the graph, `torch.autograd.grad` is timed), so that
+    kernel 5 is held against a backward and the pair against SDPA's forward
+    + backward.  Bounds: 3 tf32 tensor-core passes per product (the old
+    FFMA bound beside it)."""
+    from torch.profiler import ProfilerActivity, profile
     g = torch.Generator(device="cuda").manual_seed(4)
     rate, tau = 0.1, 8.0
     calls = []
@@ -272,38 +297,68 @@ def check_attention_train(torch, attn_mod):
         torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
         fwd_err = max(fwd_err, (y - want_y).abs().max().item())
         got = attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
+        again = attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError("attention bwd: two calls on the same inputs differ")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         attn_mod.attention_reference(*leaves, tau, rate, seed).backward(dy)
         for name, a, t in zip("qkv", got, leaves):
             e = (a - t.grad).abs().max().item()
             scale = t.grad.abs().max().item()
             log(f"  attention bwd B={q.shape[0]} d{name}: max abs err {e:.3e} "
-                f"({e / scale:.3e} of the largest entry)")
+                f"({e / scale:.3e} of the largest entry); a second call bit-equal")
             if e > 1e-4 * scale:
                 raise AssertionError(f"attention bwd d{name}: error {e} > 1e-4 x {scale}")
             bwd_err = max(bwd_err, e)
         saved.append((q, k, v, dy, seed, y, lse))
     log(f"  attention fwd with dropout: max abs err {fwd_err:.3e}")
 
-    def sdpa_fwd():
-        for q, k, v, *_ in calls:
-            F.scaled_dot_product_attention(q, k, v, dropout_p=rate, scale=1 / tau)
+    def fwd(f, r=rate, which=saved):
+        return lambda: [f(q, k, v, tau, r, seed) for q, k, v, dy, seed, *_ in which]
 
-    def sdpa_fwd_bwd():
-        for q, k, v, dy, _ in calls:
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            F.scaled_dot_product_attention(*leaves, dropout_p=rate, scale=1 / tau).backward(dy)
+    def bwd(f, r=rate, which=saved):
+        return lambda: [f(q, k, v, y, dy, lse, tau, r, seed) for q, k, v, dy, seed, y, lse in which]
 
-    fwd = [cuda_ms(lambda: [f(q, k, v, tau, rate, seed) for q, k, v, _, seed in calls], 10)
-           for f in (attn_mod.attention_fwd, attn_mod.attention_fwd_reference)]
-    bwd = [cuda_ms(lambda: [f(q, k, v, y, dy, lse, tau, rate, seed)
-                            for q, k, v, dy, seed, y, lse in saved], 10)
-           for f in (attn_mod.attention_bwd, attn_mod.attention_bwd_reference)]
-    lib_fwd, lib_bwd = cuda_ms(sdpa_fwd, 10), cuda_ms(sdpa_fwd_bwd, 10)
+    sdpa_graphs = []
+    for q, k, v, dy, *_ in saved:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa_graphs.append((sdpa(torch, *leaves, rate, tau), leaves, dy))
+
+    def sdpa_bwd():
+        for out, leaves, dy in sdpa_graphs:
+            torch.autograd.grad(out, leaves, dy, retain_graph=True)
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sdpa(torch, *saved[0][:3], rate, tau)
+        sdpa_bwd()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages() if "fmha" in e.key or "ttention" in e.key})
+    log(f"  SDPA (memory-efficient backend pinned) ran: {[n[:70] for n in names]}")
+    t = dict(fwd=cuda_ms(fwd(attn_mod.attention_fwd), 10),
+             fwd_plain=cuda_ms(fwd(attn_mod.attention_fwd_reference), 10),
+             bwd=cuda_ms(bwd(attn_mod.attention_bwd), 10),
+             bwd_plain=cuda_ms(bwd(attn_mod.attention_bwd_reference), 10),
+             lib_fwd=cuda_ms(lambda: [sdpa(torch, q, k, v, rate, tau) for q, k, v, *_ in saved], 10),
+             lib_bwd=cuda_ms(sdpa_bwd, 10),
+             fwd_rate0=cuda_ms(fwd(attn_mod.attention_fwd, 0.0), 10),
+             bwd_rate0=cuda_ms(bwd(attn_mod.attention_bwd, 0.0), 10))
+    for i, b in enumerate(q.shape[0] for q, *_ in saved):
+        t[f"fwd_b{b}"] = cuda_ms(fwd(attn_mod.attention_fwd, rate, saved[i:i + 1]), 10)
+        t[f"bwd_b{b}"] = cuda_ms(bwd(attn_mod.attention_bwd, rate, saved[i:i + 1]), 10)
+    log("  attention per step (ms): " + ", ".join(f"{n} {v:.4f}" for n, v in t.items()) +
+        f"; kernels 2 + 5 {t['fwd'] + t['bwd']:.4f} against SDPA forward + backward "
+        f"{t['lib_fwd'] + t['lib_bwd']:.4f}")
     bn2d = sum(q.shape[0] for q, *_ in calls) * 2048 ** 2 * 64
     io = sum(q.numel() for q, *_ in calls) * 4.0
-    return (row(fwd_err, fwd[0], fwd[1], lib_fwd, 4.0 * bn2d, 4 * io),
-            row(bwd_err, bwd[0], bwd[1], lib_bwd, 10.0 * bn2d, 8 * io))
+    extra_fwd = dict(ms_rate0=t["fwd_rate0"], ms_b10=t["fwd_b10"], ms_b2=t["fwd_b2"],
+                     bound_ms_ffma=bound(4.0 * bn2d, 4 * io)[0])
+    extra_bwd = dict(ms_rate0=t["bwd_rate0"], ms_b10=t["bwd_b10"], ms_b2=t["bwd_b2"],
+                     bound_ms_ffma=bound(10.0 * bn2d, 8 * io)[0],
+                     ms_pair=t["fwd"] + t["bwd"], library_ms_pair=t["lib_fwd"] + t["lib_bwd"])
+    return (row(fwd_err, t["fwd"], t["fwd_plain"], t["lib_fwd"], 3 * 4.0 * bn2d, 4 * io,
+                TF32_TC_FLOPS, **extra_fwd),
+            row(bwd_err, t["bwd"], t["bwd_plain"], t["lib_bwd"], 3 * 10.0 * bn2d, 8 * io,
+                TF32_TC_FLOPS, **extra_bwd))
 
 
 def _fps_divergence_gap(torch, fps_mod, feat, valid, got, want):
@@ -1353,6 +1408,10 @@ def profile_train(torch, learner, episodes, steps: int = 3, top: int = 12) -> No
         f"largest device times per step:")
     for name, ms, n in rows[:top]:
         log(f"  {ms:8.3f} ms  x{n:<4d} {name[:90]}")
+    attn = [r for r in rows if "attn_" in r[0]]
+    log(f"[profile] attention kernels (2, 5): {sum(r[1] for r in attn):.3f} ms per step")
+    for name, ms, n in attn:
+        log(f"  {ms:8.3f} ms  x{n:<4d} {name[:90]}")
 
 
 def train_stages(torch, learner, episode, reps: int = 3) -> dict:
@@ -1510,7 +1569,8 @@ def main() -> int:
     check_dropout_mask(torch, cuda_attention)
     rows["attention_fwd"], rows["attention_bwd"] = check_attention_train(torch, cuda_attention)
     rows["attention_fwd"].update(ms_eval=attn_eval[1], plain_ms_eval=attn_eval[2],
-                                 library_ms_eval=attn_eval[3], max_abs_err_eval=attn_eval[0])
+                                 library_ms_eval=attn_eval[3], max_abs_err_eval=attn_eval[0],
+                                 **attn_eval[4])
     rows["fps"] = check_fps(torch, cuda_fps)
     rows["kth"] = check_kth(torch, cuda_kth)
     rows["scatter_add"] = check_scatter(torch, cuda_knn, cuda_scatter, episodes[0][0],

@@ -1,0 +1,311 @@
+// Tiles, fragments and mask bits shared by the attention kernels
+// (attention_fwd.cu, kernel 2; attention_bwd.cu, kernel 5).
+//
+// Every product is a 3xTF32 mma.sync.m16n8k8 (common.cuh).  A block has
+// kWarps warps and streams kChunk-row tiles of the "column" operands (K and
+// V; Q and dY in the dK/dV kernel) through a two-stage cp.async ring in
+// shared memory; a warp owns 16 "rows" (queries; keys in dK/dV) and keeps
+// their operands in registers, their sums in registers, and its softmax
+// statistics in registers (reduced across a quad with shuffles).
+//
+// Layout of a staged tile: kChunk rows x kDP channels f32 (D <= 64 zero
+// padded), row-major, 16-byte chunk c of row r stored at chunk c ^ swz(r):
+// (r, ch) at float r * kDP + 4 ((ch / 4) ^ swz(r)) + ch % 4.  Two kinds of fragment load read it without bank conflicts:
+//   - "along channels" (B of q k^T-like products): lane (g, t) reads the
+//     float4 at row 8j + g, channels 16kk + 4t .. + 3.  The channel order
+//     inside each 16 is permuted alike in A and B: k-step 2kk + h takes
+//     channels 16kk + 4t + 2h (as fragment k = t) and + 1 (k = t + 4), so
+//     one float4 feeds two k-steps.  A quarter warp reads rows 2m and 2m + 1,
+//     and swz puts them in opposite halves of the 32 banks.
+//   - "along rows" (B of p v-like products): lane (g, t) reads rows
+//     r0 + 2t and r0 + 2t + 1 at channel 8nn + g.  The key order of the
+//     k-step is permuted the same way in A: fragment k = t is key 2t, k =
+//     t + 4 is key 2t + 1, which is exactly where the m16n8 accumulator of
+//     the previous product holds them, so P (or dS) is the A operand
+//     straight from registers, with no shuffle.  swz sends rows 0, 2, 4, 6
+//     (and 1, 3, 5, 7) mod 8 to four different chunk pairs.
+// After a tile arrives, one pass of the block splits it in place into tf32
+// hi and a second buffer of lo (`split_tiles`), once per tile rather than
+// once per warp that reads it.
+#pragma once
+
+#include <cmath>
+
+#include "common.cuh"
+#include "philox.cuh"
+
+namespace r3d_attn {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kChunk = 64;             // rows of a staged tile
+constexpr int kDP = 64;                // channels of a staged tile
+constexpr int kTileF = kChunk * kDP;   // floats of a staged tile
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+
+// 2^x by the SFU (ex2.approx.ftz: relative error about 2^-22, results below
+// 2^-126 flushed to 0, 2^-inf = 0).
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ int swz(int r) { return (((r >> 1) & 3) ^ ((r & 1) << 1)) << 1; }
+
+// Issue the copy of rows [row0, row0 + kChunk) of an (n, d) f32 matrix into
+// a staged tile; rows past n and channels past d are zeros.
+__device__ __forceinline__ void stage_tile(const float* src, int row0, int n, int d, float* dst) {
+  for (int e = threadIdx.x; e < kChunk * (kDP / 4); e += kThreads) {
+    const int r = e >> 4;
+    const int c = e & 15;
+    const bool ok = row0 + r < n && 4 * c < d;
+    const float* from = ok ? src + static_cast<size_t>(row0 + r) * d + 4 * c : src;
+    r3d::cp_async16(dst + r * kDP + ((c ^ swz(r)) << 2), from, ok);
+  }
+}
+
+// Split `count` floats (a multiple of 4 * kThreads) of arrived tiles:
+// hi = tf32(x * mul) in place, lo = tf32(x * mul - hi) into `lo`.
+__device__ __forceinline__ void split_tiles(float* hi, float* lo, int count, float mul) {
+  for (int e = 4 * threadIdx.x; e < count; e += 4 * kThreads) {
+    const float4 x = *reinterpret_cast<const float4*>(hi + e);
+    const float xs[4] = {x.x * mul, x.y * mul, x.z * mul, x.w * mul};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r3d::split_tf32(xs[i], h[i], l[i]);
+    *reinterpret_cast<uint4*>(hi + e) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + e) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// A warp's 16 rows [row0, row0 + 16) of an (n, d) matrix times mul, as the
+// A operand of "along channels" products: x[kk][0] is row g, channels 16kk
+// + 4t .. + 3, x[kk][1] the same of row g + 8; zeros past n and d.
+__device__ __forceinline__ void load_rows(const float* src, int row0, int n, int d, float mul,
+                                          float4 (&x)[4][2]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = row0 + g + 8 * hf;
+      const int ch = 16 * kk + 4 * t;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < n && ch < d) {
+        v = *reinterpret_cast<const float4*>(src + static_cast<size_t>(r) * d + ch);
+        v = make_float4(v.x * mul, v.y * mul, v.z * mul, v.w * mul);
+      }
+      x[kk][hf] = v;
+    }
+  }
+}
+
+// The hi and lo A fragments of k-step ks (see the layout note).
+__device__ __forceinline__ void row_frag(const float4 (&x)[4][2], int ks, uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  const float4 u = x[ks >> 1][0];
+  const float4 w = x[ks >> 1][1];
+  const bool h = ks & 1;
+  r3d::split_tf32(h ? u.z : u.x, hi[0], lo[0]);
+  r3d::split_tf32(h ? w.z : w.x, hi[1], lo[1]);
+  r3d::split_tf32(h ? u.w : u.y, hi[2], lo[2]);
+  r3d::split_tf32(h ? w.w : w.y, hi[3], lo[3]);
+}
+
+// The hi and lo A fragments of an accumulator tile c (16 x 8, as an m16n8
+// product leaves it) used as the next product's 16 x 8 A over its columns.
+__device__ __forceinline__ void acc_frag(const float (&c)[4], uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  r3d::split_tf32(c[0], hi[0], lo[0]);
+  r3d::split_tf32(c[2], hi[1], lo[1]);
+  r3d::split_tf32(c[1], hi[2], lo[2]);
+  r3d::split_tf32(c[3], hi[3], lo[3]);
+}
+
+// A lane's offsets into a staged tile, fixed for the whole kernel, so that
+// every fragment load is one shared-memory load at a register plus an
+// immediate (r0 a multiple of 8; the layout note above):
+//   along channels, row r0 + 8j + g, channels 16kk + 4t ..:
+//     r0 * kDP + 512j + 16kk + (kk odd ? ch[1] : ch[0]);
+//   along rows, rows r0 + 8j + 2t + dl, channel 8nn + g:
+//     r0 * kDP + 512j + 32 (nn / 4) + row[dl][nn % 4].
+struct Lane {
+  int g, t;
+  int ch[2];
+  int row[2][4];
+};
+
+__device__ __forceinline__ Lane lane_offsets() {
+  Lane ln;
+  const int lane = threadIdx.x & 31;
+  ln.g = lane >> 2;
+  ln.t = lane & 3;
+  const int c = ln.t ^ swz(ln.g);  // chunk 4kk + t of row g sits at chunk 4kk ^ c
+  const int base = ln.g * kDP + 4 * (c & 3);
+  ln.ch[0] = base + 16 * (c >> 2);
+  ln.ch[1] = base - 16 * (c >> 2);
+#pragma unroll
+  for (int dl = 0; dl < 2; ++dl) {
+    const int r = 2 * ln.t + dl;
+    const int m = swz(r) >> 1;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      ln.row[dl][q] = r * kDP + 8 * (q ^ m) + 4 * (ln.g >> 2) + (ln.g & 3);
+  }
+  return ln;
+}
+
+// acc[j] += X Y^T over the channels for n-tiles j < NT: X the warp's rows
+// (registers), Y the staged rows r0 + 8j + g (tile hi, lo), in 3xTF32 with
+// the small terms first: a_lo b_hi, a_hi b_lo, a_hi b_hi, or with
+// kBLoFirst a_hi b_lo, a_lo b_hi, a_hi b_hi, so that a product taken with
+// its operands' roles swapped (B A for A B) adds the same exact terms in
+// the same order.  The B fragments of up to four n-tiles are loaded first
+// and each of the three passes runs over those accumulators in turn, so
+// consecutive mma.sync are independent.
+template <int NT, bool kBLoFirst>
+__device__ __forceinline__ void product_along_channels(float (&acc)[NT][4],
+                                                       const float4 (&x)[4][2],
+                                                       const float* hi, const float* lo,
+                                                       int r0, int d, const Lane& ln) {
+  constexpr int kGroup = NT < 4 ? NT : 4;
+  hi += r0 * kDP;
+  lo += r0 * kDP;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (16 * kk >= d) break;
+    const int off = 16 * kk + ln.ch[kk & 1];
+    uint32_t ah[2][4], al[2][4];
+    row_frag(x, 2 * kk, ah[0], al[0]);
+    row_frag(x, 2 * kk + 1, ah[1], al[1]);
+#pragma unroll
+    for (int j0 = 0; j0 < NT; j0 += kGroup) {
+      float4 bh[kGroup], bl[kGroup];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        bh[j] = *reinterpret_cast<const float4*>(hi + off + 512 * (j0 + j));
+        bl[j] = *reinterpret_cast<const float4*>(lo + off + 512 * (j0 + j));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int term = 0; term < 3; ++term) {
+          const bool b_lo = term == 2 ? false : (term == 0) == kBLoFirst;
+          const uint32_t(&a)[4] = term == 2 ? ah[h] : (b_lo ? ah[h] : al[h]);
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) {
+            const float4 b = b_lo ? bl[j] : bh[j];
+            r3d::mma_tf32(acc[j0 + j], a, bits(h ? b.z : b.x), bits(h ? b.w : b.y));
+          }
+        }
+      }
+    }
+  }
+}
+
+// out[nn] += P T over the rows, for k-steps j < NT: P the accumulator
+// tiles p[j] (columns r0 + 8j ..), T the staged rows (tile hi, lo),
+// output channels 8nn + .. < d, the passes ordered as above over four
+// output n-tiles at a time.
+template <int NT>
+__device__ __forceinline__ void product_along_rows(float (&out)[8][4], const float (&p)[NT][4],
+                                                   const float* hi, const float* lo, int r0,
+                                                   int d, const Lane& ln) {
+  hi += r0 * kDP;
+  lo += r0 * kDP;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t ph[4], pl[4];
+    acc_frag(p[j], ph, pl);
+#pragma unroll
+    for (int n0 = 0; n0 < 8; n0 += 4) {
+      if (8 * n0 >= d) break;
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int dl = 0; dl < 2; ++dl) {
+          const int off = 512 * j + 8 * n0 + ln.row[dl][q];
+          bh[q][dl] = bits(hi[off]);
+          bl[q][dl] = bits(lo[off]);
+        }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) r3d::mma_tf32(out[n0 + q], pl, bh[q][0], bh[q][1]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) r3d::mma_tf32(out[n0 + q], ph, bl[q][0], bl[q][1]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) r3d::mma_tf32(out[n0 + q], ph, bh[q][0], bh[q][1]);
+    }
+  }
+}
+
+// Mask factors of a lane's accumulator entries of a (query, key) tile:
+// rows i_g and i_g + 8, keys col and col + 1 (col = 8j + 2t, a multiple
+// of 2 in a 4-key Philox group).  The lane pair (t, t ^ 1) shares one
+// group: the even lane draws row i_g's four words, the odd lane row i_g +
+// 8's, and they swap halves, so no Philox call is computed twice.
+// Returns {(i_g, col), (i_g, col + 1), (i_g + 8, col), (i_g + 8, col + 1)}.
+__device__ __forceinline__ float4 row_mask(const r3d::Dropout& drop, int b, int i_g, int col) {
+  const bool odd = threadIdx.x & 1;
+  const uint4 w = drop.words(b, i_g + (odd ? 8 : 0), col >> 2);
+  const uint32_t got0 = __shfl_xor_sync(kFull, odd ? w.x : w.z, 1);
+  const uint32_t got1 = __shfl_xor_sync(kFull, odd ? w.y : w.w, 1);
+  return make_float4(drop.factor(odd ? got0 : w.x), drop.factor(odd ? got1 : w.y),
+                     drop.factor(odd ? w.z : got0), drop.factor(odd ? w.w : got1));
+}
+
+// Mask factors of a lane's entries of a (key, query) tile: keys k0 + g and
+// k0 + g + 8 (k0 % 16 == 0), queries i0 + 2t and i0 + 2t + 1 (i0 % 8 ==
+// 0).  Lane (g, t) draws query i0 + g's words of keys k0 + 4t .. + 3; a
+// quad ORs its four nibbles into the 16-key mask of its query, and each
+// lane fetches the masks of queries 2t and 2t + 1: one Philox call per
+// lane per 8 x 16 tile, none twice.
+// Returns {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
+__device__ __forceinline__ float4 col_mask(const r3d::Dropout& drop, int b, int k0, int i0) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const uint4 w = drop.words(b, i0 + g, (k0 >> 2) + t);
+  uint32_t m = (drop.kept(w.x) | drop.kept(w.y) << 1 | drop.kept(w.z) << 2 |
+                drop.kept(w.w) << 3) << (4 * t);
+  m |= __shfl_xor_sync(kFull, m, 1);
+  m |= __shfl_xor_sync(kFull, m, 2);
+  const uint32_t ma = __shfl_sync(kFull, m, 8 * t);
+  const uint32_t mb = __shfl_sync(kFull, m, 8 * t + 4);
+  const float s = drop.scale;
+  return make_float4((ma >> g & 1u) ? s : 0.f, (mb >> g & 1u) ? s : 0.f,
+                     (ma >> (g + 8) & 1u) ? s : 0.f, (mb >> (g + 8) & 1u) ? s : 0.f);
+}
+
+// Warps per key or query split of a block (S) and the launch shape.  A
+// block covers 16 * kWarps / S rows; each of its S splits of warps takes
+// kChunk / S columns of every staged tile, and the splits' partial sums
+// are merged in split order at the end.  S is the smallest of 1, 2, 4 that
+// starts at least four blocks per SM (two rounds of the two blocks an SM
+// holds): B = 10, N = 2048 takes 2 (640 blocks), B = 2 takes 4 (256).  On
+// the H100 that choice measured fastest for both batches (PERF.md).
+inline int splits(int b, int n) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  for (int s = 1; s < 4; s *= 2) {
+    const int rows = 16 * kWarps / s;
+    if (static_cast<long long>(b) * ((n + rows - 1) / rows) >= 4LL * sms) return s;
+  }
+  return 4;
+}
+
+// Warp `warp`'s lane-private area of `count` floats in shared memory, where
+// the S warps of a row group leave their partials for the group's first
+// warp to merge.
+__device__ __forceinline__ float* lane_slot(float* smem, int warp, int count) {
+  return smem + (warp * 32 + (threadIdx.x & 31)) * count;
+}
+
+}  // namespace r3d_attn

@@ -5,188 +5,215 @@
 // dropout on the attention map.  The backward is attention_bwd.cu.
 //
 // Layout: q, k, v (B, N, D) f32 contiguous, D <= 64 and D % 4 == 0 ->
-// y (B, N, D) f32.  Grid: (ceil(N / kTile), B), kThreads threads.  A block
-// owns kTile query rows; K and V stream through shared memory in tiles of
-// kTile keys, flash-style, so the (N, N) score matrix never exists.  Per
-// key tile:
-//   1. scores S = (q * scale) k^T, a kTile x kTile tile with a 4 x 4
-//      register sub-tile per thread (two float4 shared loads per 16 FFMAs,
-//      where one query per thread would pay a load per FFMA);
-//   2. online softmax in f32: per row the running max m and sum l, the
-//      tile's probabilities exp(s - m_new) and the factor exp(m - m_new)
-//      that rescales what was accumulated before;
-//   3. O = O * factor + P V, O held as a 4 x 4 register sub-tile of
-//      (rows x channels) per thread.
-// Plain FFMA and expf throughout, no TF32.  Like the TPU kernel, q is
-// multiplied by scale = 1 / tau.
+// y (B, N, D) f32.  Grid: (ceil(N / rows), B) blocks of 4 warps; a warp
+// owns 16 query rows and K, V stream through shared memory in 64-key tiles
+// (attention.cuh), flash-style, so the (N, N) score matrix never exists.
+// With S > 1 splits (small B, see `splits`) the block's S warps of a row
+// group each take 64 / S keys of every tile and their (max, sum, output)
+// are merged at the end.  Per key tile and warp:
+//   1. scores S = (q * scale) k^T, 3xTF32 mma.sync (common.cuh);
+//   2. online softmax in f32 registers: the row max across the quad by
+//      shuffles, P = exp(s - m_new), the factor exp(m - m_new) that
+//      rescales what was summed before; the row sum stays per lane until
+//      the end;
+//   3. O = O * factor + P V, P the A operand straight from the
+//      accumulator registers.
+// Like the TPU kernel, q is multiplied by scale = 1 / tau.
+//
+// What bounds it on the H100: 2 products of B x N^2 x D multiply-adds, 4
+// B N^2 D operations (12.9 GFLOP at B = 10 + 2, N = 2048, D = 64), each
+// run as 3 tf32 tensor-core passes against 495 TFLOP/s: 0.078 ms; the
+// bytes (q, k, v, y) are far below.  Measured, the kernel takes several
+// times that: at 8 warps per SM (255 registers each), the stream of
+// mma.sync, operand splits and fragment loads is bound by latency, not by
+// the tensor cores (PERF.md, sections 6 and 7).
 //
 // Training (kDropout): the row max m and the row sum l come from the
 // undropped scores, so the normaliser is the softmax's own; only the
-// accumulator takes exp(s - m) * mask, the mask of philox.cuh regenerated
-// per element from (seed, b, i, j).  The kernel then also writes
-// lse = m + log l per row, (B, N) f32, from which the backward recomputes
-// P = exp(s - lse) tile by tile (lse is written whenever the wrapper
-// passes a buffer for it, with or without dropout).  With kDropout false
-// and no lse buffer the code is the eval kernel as it was.
+// accumulator takes exp(s - m) * mask, the mask of philox.cuh drawn once
+// per element (`row_mask`).  lse = m + log l per row, (B, N) f32, is
+// written whenever the wrapper passes a buffer for it; the backward
+// recomputes P = exp(s - lse) from it.
 #include <cmath>
 
-#include "common.cuh"
-#include "philox.cuh"
+#include "attention.cuh"
 
 namespace {
 
-constexpr int kTile = 64;
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kStride = kTile + 1;
+using namespace r3d_attn;
 
-template <bool kDropout>
-__global__ void __launch_bounds__(kThreads)
+// ring: 2 stages x (K tile, V tile), then the lo halves of the current one
+constexpr size_t kSmem = sizeof(float) * 6 * kTileF;
+
+template <int S, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 2)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ y, float* __restrict__ lse,
                 int n, int d, float scale, r3d::Dropout drop) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);  // d * kTile, channel-major, scaled
-  float* k_s = q_s + d * kTile;                  // d * kTile, channel-major
-  float* v_s = k_s + d * kTile;                  // kTile * d, row-major
-  float* p_s = v_s + kTile * d;                  // kTile * kStride: scores, then probabilities
-  float* m_s = p_s + kTile * kStride;            // kTile running row max
-  float* l_s = m_s + kTile;                      // kTile running row sum
-  float* f_s = l_s + kTile;                      // kTile rescale factor of this tile
-  float* tmax_s = f_s + kTile;                   // kThreads partial tile maxima
-  float* psum_s = tmax_s + kThreads;             // kThreads partial tile sums
-
+  constexpr int kCols = kChunk / S;  // keys of a tile per warp
+  constexpr int NT = kCols / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* lo = smem + 4 * kTileF;
+  const int warp = threadIdx.x >> 5;
+  const Lane ln = lane_offsets();
+  const int g = ln.g;
+  const int t = ln.t;
   const int b = blockIdx.y;
-  const int t = threadIdx.x;
-  const int row0 = blockIdx.x * kTile;
-  const int r0 = (t / 16) * 4;  // this thread's 4 rows
-  const int c0 = (t % 16) * 4;  // and 4 keys (scores) or 4 channels (output)
-  const int srow = t / 4;       // softmax: 4 threads per row,
-  const int scol = (t % 4) * 16;  // 16 columns each
+  const int row0 = blockIdx.x * (16 * kWarps / S) + 16 * (warp / S);
+  const int col0 = (warp % S) * kCols;
   const size_t base = static_cast<size_t>(b) * n * d;
+  const int tiles = (n + kChunk - 1) / kChunk;
 
-  for (int e = t; e < kTile * d; e += kThreads) {
-    const int r = e % kTile;
-    const int ch = e / kTile;
-    q_s[ch * kTile + r] =
-        (row0 + r < n) ? q[base + static_cast<size_t>(row0 + r) * d + ch] * scale : 0.f;
-  }
-  if (t < kTile) {
-    m_s[t] = -INFINITY;
-    l_s[t] = 0.f;
-  }
-  float acc[4][4];
+  stage_tile(k + base, 0, n, d, smem);
+  stage_tile(v + base, 0, n, d, smem + kTileF);
+  r3d::cp_async_commit();
+  float4 qr[4][2];
+  load_rows(q + base, row0, n, d, scale, qr);
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float o[8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int nn = 0; nn < 8; ++nn)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) o[nn][e] = 0.f;
 
-  for (int j0 = 0; j0 < n; j0 += kTile) {
-    const int nk = min(kTile, n - j0);
-    __syncthreads();  // the previous tile is fully consumed
-    for (int e = t; e < kTile * d; e += kThreads) {
-      const int j = e % kTile;
-      const int ch = e / kTile;
-      k_s[ch * kTile + j] = (j < nk) ? k[base + static_cast<size_t>(j0 + j) * d + ch] : 0.f;
-      v_s[e] = (e / d < nk) ? v[base + static_cast<size_t>(j0) * d + e] : 0.f;
+  for (int c = 0; c < tiles; ++c) {
+    float* kh = smem + (c & 1) * 2 * kTileF;
+    r3d::cp_async_wait_all();
+    __syncthreads();  // tile c has arrived; every warp is done with tile c - 1
+    if (c + 1 < tiles) {
+      float* next = smem + ((c + 1) & 1) * 2 * kTileF;
+      stage_tile(k + base, (c + 1) * kChunk, n, d, next);
+      stage_tile(v + base, (c + 1) * kChunk, n, d, next + kTileF);
     }
+    r3d::cp_async_commit();
+    split_tiles(kh, lo, 2 * kTileF, 1.f);
     __syncthreads();
 
     // 1. scores
-    float s[4][4];
+    float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int ch = 0; ch < d; ++ch) {
-      const float4 a = *reinterpret_cast<const float4*>(q_s + ch * kTile + r0);
-      const float4 bk = *reinterpret_cast<const float4*>(k_s + ch * kTile + c0);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bk.x, bk.y, bk.z, bk.w};
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    product_along_channels<NT, false>(s, qr, kh, lo, col0, d, ln);
+    const int key0 = c * kChunk + col0;
+    if (key0 + kCols > n) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+        for (int e = 0; e < 4; ++e)
+          if (key0 + 8 * j + 2 * t + (e & 1) >= n) s[j][e] = -INFINITY;
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        p_s[(r0 + i) * kStride + c0 + j] = (c0 + j < nk) ? s[i][j] : -INFINITY;
-    __syncthreads();
 
-    // 2. online softmax
-    float* sr = p_s + srow * kStride + scol;
-    float tmax = -INFINITY;
-    for (int j = 0; j < 16; ++j) tmax = fmaxf(tmax, sr[j]);
-    tmax_s[t] = tmax;
-    __syncthreads();
-    const float m_new = fmaxf(m_s[srow], fmaxf(fmaxf(tmax_s[4 * srow], tmax_s[4 * srow + 1]),
-                                              fmaxf(tmax_s[4 * srow + 2], tmax_s[4 * srow + 3])));
-    float part = 0.f;
-    for (int j = 0; j < 16; ++j) {
-      const float pj = expf(sr[j] - m_new);  // 0 on masked columns
-      sr[j] = pj;
-      part += pj;
-    }
-    if constexpr (kDropout) {
-      // l above stays undropped; the accumulator takes the masked tile
+    // 2. online softmax; rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float4 f = drop.factors(b, row0 + srow, j0 + scol + 4 * g);
-        sr[4 * g] *= f.x;
-        sr[4 * g + 1] *= f.y;
-        sr[4 * g + 2] *= f.z;
-        sr[4 * g + 3] *= f.w;
+    for (int j = 0; j < NT; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float mb[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      mb[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // no key yet: everything stays 0
+      const float f = exp2_fast((m[r] - mb[r]) * kLog2e);  // 0 while m = -inf
+      m[r] = mx[r];
+      l[r] *= f;
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn) {
+        o[nn][2 * r] *= f;
+        o[nn][2 * r + 1] *= f;
       }
     }
-    psum_s[t] = part;
-    __syncthreads();
-    if (t < kTile) {
-      const float m_old = m_s[t];
-      const float mn = fmaxf(m_old, fmaxf(fmaxf(tmax_s[4 * t], tmax_s[4 * t + 1]),
-                                          fmaxf(tmax_s[4 * t + 2], tmax_s[4 * t + 3])));
-      const float f = expf(m_old - mn);  // 0 on the first tile (m_old = -inf)
-      l_s[t] = l_s[t] * f +
-               ((psum_s[4 * t] + psum_s[4 * t + 1]) + (psum_s[4 * t + 2] + psum_s[4 * t + 3]));
-      m_s[t] = mn;
-      f_s[t] = f;
-    }
-    __syncthreads();
-
-    // 3. O = O * f + P V
-    if (c0 < d) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float f = f_s[r0 + i];
+    for (int j = 0; j < NT; ++j) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= f;
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2_fast((s[j][e] - mb[e >> 1]) * kLog2e);  // 0 on masked keys
+        l[e >> 1] += s[j][e];
       }
-      for (int jj = 0; jj < nk; ++jj) {
-        const float4 vv = *reinterpret_cast<const float4*>(v_s + jj * d + c0);
-        const float vj[4] = {vv.x, vv.y, vv.z, vv.w};
+      if constexpr (kDropout) {
+        // l above stays undropped; the accumulator takes the masked tile
+        const float4 f = row_mask(drop, b, row0 + g, key0 + 8 * j + 2 * t);
+        s[j][0] *= f.x;
+        s[j][1] *= f.y;
+        s[j][2] *= f.z;
+        s[j][3] *= f.w;
+      }
+    }
+
+    // 3. O += P V
+    product_along_rows<NT>(o, s, kh + kTileF, lo + kTileF, col0, d, ln);
+  }
+
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pi = p_s[(r0 + i) * kStride + jj];
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+  if constexpr (S > 1) {
+    // merge the S splits of each row group, in split order
+    constexpr int kSlot = 36;  // o, m, l
+    __syncthreads();           // every warp is done with the ring
+    float* mine = lane_slot(smem, warp, kSlot);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pi, vj[j], acc[i][j]);
+    for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[4 * nn + e] = o[nn][e];
+    mine[32] = m[0];
+    mine[33] = m[1];
+    mine[34] = l[0];
+    mine[35] = l[1];
+    __syncthreads();
+    if (warp % S != 0) return;
+    float mm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int sp = 0; sp < S; ++sp) {
+      const float* other = lane_slot(smem, warp + sp, kSlot);
+      mm[0] = fmaxf(mm[0], other[32]);
+      mm[1] = fmaxf(mm[1], other[33]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = 0.f;
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn) o[nn][2 * r] = o[nn][2 * r + 1] = 0.f;
+    }
+#pragma unroll
+    for (int sp = 0; sp < S; ++sp) {
+      const float* other = lane_slot(smem, warp + sp, kSlot);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float w = other[32 + r] == -INFINITY ? 0.f : exp2_fast((other[32 + r] - mm[r]) * kLog2e);
+        l[r] += w * other[34 + r];
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn) {
+          o[nn][2 * r] += w * other[4 * nn + 2 * r];
+          o[nn][2 * r + 1] += w * other[4 * nn + 2 * r + 1];
         }
       }
     }
+    m[0] = mm[0];
+    m[1] = mm[1];
   }
 
-  __syncthreads();
-  if (lse != nullptr && t < kTile && row0 + t < n) {
-    lse[static_cast<size_t>(b) * n + row0 + t] = m_s[t] + logf(l_s[t]);
-  }
-  if (c0 < d) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (row0 + r0 + i >= n) continue;
-      const float inv = 1.f / l_s[r0 + i];
-      float* yr = y + base + static_cast<size_t>(row0 + r0 + i) * d + c0;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= n) continue;
+    const float inv = 1.f / l[r];
+    float* yr = y + base + static_cast<size_t>(row) * d;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) yr[j] = acc[i][j] * inv;
+    for (int nn = 0; nn < 8; ++nn) {
+      const int ch = 8 * nn + 2 * t;
+      if (ch < d)
+        *reinterpret_cast<float2*>(yr + ch) =
+            make_float2(o[nn][2 * r] * inv, o[nn][2 * r + 1] * inv);
     }
+    if (lse != nullptr && t == 0) lse[static_cast<size_t>(b) * n + row] = m[r] + logf(l[r]);
   }
 }
 
@@ -198,13 +225,21 @@ __global__ void dropout_words_kernel(uint32_t* __restrict__ out, int n, r3d::Dro
   const int i = blockIdx.y;
   const int b = blockIdx.z;
   if (j4 >= n) return;
-  const uint4 w = r3d::philox4x32_10(
-      make_uint4(static_cast<uint32_t>(j4) >> 2, static_cast<uint32_t>(i),
-                 static_cast<uint32_t>(b), 0u),
-      drop.seed_lo, drop.seed_hi);
+  const uint4 w = drop.words(b, i, j4 >> 2);
   const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
   uint32_t* row = out + (static_cast<size_t>(b) * n + i) * n;
   for (int e = 0; e < 4 && j4 + e < n; ++e) row[j4 + e] = ws[e];
+}
+
+template <int S>
+cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* y, float* lse,
+                       int b, int n, int d, float scale, bool dropout, r3d::Dropout drop,
+                       cudaStream_t st) {
+  const dim3 grid((n + 16 * kWarps / S - 1) / (16 * kWarps / S), b);
+  return dropout ? r3d_launch(attn_fwd_kernel<S, true>, grid, dim3(kThreads), kSmem, st, q, k,
+                              v, y, lse, n, d, scale, drop)
+                 : r3d_launch(attn_fwd_kernel<S, false>, grid, dim3(kThreads), kSmem, st, q, k,
+                              v, y, lse, n, d, scale, drop);
 }
 
 }  // namespace
@@ -215,27 +250,21 @@ R3D_EXPORT int r3d_attn_fwd(const void* q, const void* k, const void* v, void* y
                             int b, int n, int d, float scale, int dropout,
                             unsigned seed_lo, unsigned seed_hi, unsigned threshold,
                             float keep_scale, void* stream) {
-  const size_t smem = sizeof(float) * (3 * static_cast<size_t>(d) * kTile + kTile * kStride +
-                                       3 * kTile + 2 * kThreads);
   const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
-  dim3 grid((n + kTile - 1) / kTile, b);
   auto st = static_cast<cudaStream_t>(stream);
   auto qp = static_cast<const float*>(q);
   auto kp = static_cast<const float*>(k);
   auto vp = static_cast<const float*>(v);
   auto yp = static_cast<float*>(y);
   auto lp = static_cast<float*>(lse);
-  cudaError_t err;
-  if (dropout) {
-    err = r3d_set_smem(attn_fwd_kernel<true>, smem);
-    if (err != cudaSuccess) return err;
-    attn_fwd_kernel<true><<<grid, kThreads, smem, st>>>(qp, kp, vp, yp, lp, n, d, scale, drop);
-  } else {
-    err = r3d_set_smem(attn_fwd_kernel<false>, smem);
-    if (err != cudaSuccess) return err;
-    attn_fwd_kernel<false><<<grid, kThreads, smem, st>>>(qp, kp, vp, yp, lp, n, d, scale, drop);
+  switch (splits(b, n)) {
+    case 1:
+      return launch_fwd<1>(qp, kp, vp, yp, lp, b, n, d, scale, dropout != 0, drop, st);
+    case 2:
+      return launch_fwd<2>(qp, kp, vp, yp, lp, b, n, d, scale, dropout != 0, drop, st);
+    default:
+      return launch_fwd<4>(qp, kp, vp, yp, lp, b, n, d, scale, dropout != 0, drop, st);
   }
-  return cudaGetLastError();
 }
 
 R3D_EXPORT int r3d_dropout_mask(void* out, int b, int n, unsigned seed_lo, unsigned seed_hi,

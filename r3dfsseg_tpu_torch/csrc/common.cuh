@@ -7,6 +7,8 @@
 // refused launch.  Kernels allocate nothing: the wrapper owns every buffer.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 #define R3D_EXPORT extern "C"
@@ -19,3 +21,84 @@ static cudaError_t r3d_set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
+
+// kernel<<<grid, block, smem, stream>>>(args...) with `smem` bytes of
+// dynamic shared memory, the SM's carveout set to shared memory first so
+// that several such blocks fit on one SM; returns the launch's error.
+template <typename... Params, typename... Args>
+static cudaError_t r3d_launch(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                              cudaStream_t stream, Args... args) {
+  cudaError_t err = r3d_set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, block, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+namespace r3d {
+
+// ---- tf32 tensor-core products (mma.sync, sm_80 and later) ------------
+// An f32 x is split into hi = tf32(x), rounded to nearest with ties away
+// from zero, and lo = tf32(x - hi); x - hi is exact in f32, so hi + lo
+// keeps 22 significant bits of x.  A product a b is then taken as a_hi b_hi
+// + a_hi b_lo + a_lo b_hi on the tensor cores (each tf32 x tf32 product is
+// exact, the sums f32), dropping only a_lo b_lo, about 2^-22 of |a b|:
+// f32-level accuracy, where one tf32 pass keeps 11 bits.
+//
+// The rounding is cvt.rna.tf32.f32's, done on the bits: add half a unit of
+// the 10-bit mantissa to the magnitude and clear the 13 low bits (a carry
+// into the exponent is the correct result).  Two integer ops, where ptxas
+// expands cvt.rna.tf32 for sm_90 into a longer sequence that also handles
+// NaN and infinity; the operands here are finite.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a b for one 16 x 8 x 8 tile.  Lane (g, t) = (lane / 4, lane % 4)
+// holds a = {A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]}, b =
+// {B[t][g], B[t + 4][g]} and d = {D[g][2t], D[g][2t + 1], D[g + 8][2t],
+// D[g + 8][2t + 1]}.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- asynchronous copies from device memory into shared memory --------
+// 16 bytes through L2 (cp.async.cg), or zeros when !valid (src-size 0;
+// src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes (cp.async.ca), or zeros when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(to), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait for this thread's copies; a __syncthreads() after it makes every
+// thread's copies visible to the block.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+}  // namespace r3d

@@ -40,17 +40,20 @@ struct Dropout {
   uint32_t seed_lo, seed_hi, threshold;
   float scale;
 
-  // The mask factors of keys j4 .. j4 + 3 (j4 % 4 == 0) on query row i of
-  // cloud b: 0 or `scale`.
-  __device__ __forceinline__ float4 factors(int b, int i, int j4) const {
-    const uint4 w = philox4x32_10(
-        make_uint4(static_cast<uint32_t>(j4) >> 2, static_cast<uint32_t>(i),
-                   static_cast<uint32_t>(b), 0u),
-        seed_lo, seed_hi);
-    return make_float4((w.x >> 8) >= threshold ? scale : 0.f,
-                       (w.y >> 8) >= threshold ? scale : 0.f,
-                       (w.z >> 8) >= threshold ? scale : 0.f,
-                       (w.w >> 8) >= threshold ? scale : 0.f);
+  // The four words of keys 4 * j4 .. 4 * j4 + 3 on query row i of cloud b.
+  __device__ __forceinline__ uint4 words(int b, int i, int j4) const {
+    return philox4x32_10(make_uint4(static_cast<uint32_t>(j4), static_cast<uint32_t>(i),
+                                    static_cast<uint32_t>(b), 0u),
+                         seed_lo, seed_hi);
+  }
+
+  __device__ __forceinline__ uint32_t kept(uint32_t word) const {
+    return (word >> 8) >= threshold ? 1u : 0u;
+  }
+
+  // The mask factor of an entry: 0 or `scale`.
+  __device__ __forceinline__ float factor(uint32_t word) const {
+    return (word >> 8) >= threshold ? scale : 0.f;
   }
 };
 

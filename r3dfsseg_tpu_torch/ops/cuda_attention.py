@@ -15,15 +15,22 @@ instead, so its bits differ: the port's tests compare with JAX at rate 0
 and test the mask inside the port.  `dropout_words_reference` computes the
 same bits in plain PyTorch on any device.
 
-What bounds the kernels on the H100: FP32 FFMA on CUDA cores (no TF32, as
-the JAX f32 path keeps full precision).  Forward: 2 products of B x N^2 x
-D multiply-adds; backward: 5 (the kernels recompute 2 more).  The plain
-versions write the (B, N, N) scores, probabilities and mask to device
-memory (168 MB each at B = 10, N = 2048); the kernels keep them per 64 x 64
-tile on the SM: an online softmax in the forward, and in the backward a
+What bounds the kernels on the H100: the products, which run on the
+tensor cores as 3xTF32 `mma.sync.m16n8k8` tiles (`csrc/common.cuh`,
+`csrc/attention.cuh`).  Each f32 operand x is split into hi = tf32(x) and
+lo = tf32(x - hi) (`split_tf32` below), and a b is taken as a_hi b_hi +
+a_hi b_lo + a_lo b_hi with f32 sums: f32-level accuracy, where one tf32
+pass would round q and k to 11 bits and move the scores by ~1e-3 of
+themselves, past the gates (`tests/test_torch_attention.py` emulates both).
+Forward: 2 products of B x N^2 x D multiply-adds, 3 tensor-core passes
+each, 12 B N^2 D operations against 495 TFLOP/s of dense tf32; backward:
+5 products (the kernels recompute 2 more).  The plain versions write the
+(B, N, N) scores, probabilities and mask to device memory (168 MB each at
+B = 10, N = 2048); the kernels keep them per tile in registers, 16 rows
+per warp: an online softmax in the forward, and in the backward a
 recomputation of P from the forward's row log-sum-exp (`lse`).  The
 backward is two kernels with no float atomics (one sums dK and dV per key
-tile, the other dQ per query tile), so it is deterministic.
+tile, the other dQ per query tile), so it repeats bit for bit.
 
 Numerics: the kernels multiply q by 1/tau (as the TPU kernel does); the
 plain version divides q by tau (as the JAX package's XLA path does).  At
@@ -43,7 +50,7 @@ import torch
 
 from r3dfsseg_tpu_torch.kernels import build
 
-MAX_D = 64        # head width: one 64-wide register tile in csrc/attention_*.cu
+MAX_D = 64        # head width: one 64-channel staged tile in csrc/attention.cuh
 
 launches = 0       # forward kernel launches
 bwd_launches = 0   # backward kernel launches (one per call: Delta, dK/dV, dQ)
@@ -126,6 +133,24 @@ def dropout_words(b: int, n: int, seed: int, device) -> torch.Tensor:
         err = fn(out.data_ptr(), b, n, lo, hi, build.stream_ptr(device))
     build.check(err, "r3d_dropout_mask")
     return out
+
+
+# ----------------------------------------------------------------- tf32 --
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to tf32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 and the kernels' split do it: half a
+    unit of the last kept bit is added to the magnitude's bits and the 13
+    low bits are cleared.  For finite x."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & _U32
+    r = (u + 0x1000) & 0xFFFFE000
+    return torch.where(r >= 1 << 31, r - (1 << 32), r).to(torch.int32).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) = (tf32(x), tf32(x - hi)): the operand split of the
+    kernels' 3xTF32 products, hi + lo within 2^-22 of x relative."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
 
 
 # --------------------------------------------------------- plain versions --

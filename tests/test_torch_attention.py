@@ -168,3 +168,91 @@ def test_selfattention_training_matches_jax_at_rate_0():
     for name, p in m.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), rtol=1e-4, atol=1e-5)
 
+
+
+# ------------------------------------------------ the kernels' arithmetic --
+# Kernels 2 and 5 run every product as 3xTF32 on the tensor cores (see
+# `cuda_attention`'s docstring).  These tests emulate that arithmetic on
+# the CPU through `split_tf32`: tf32 x tf32 products are exact in f32, so
+# an f32 matmul of the halves gives each pass's terms.
+
+@pytest.mark.parametrize("bits_in,bits_out", [
+    (0x3F800000, 0x3F800000),    # 1.0 is a tf32 number
+    (0x3F800FFF, 0x3F800000),    # below half a unit: down
+    (0x3F801000, 0x3F802000),    # 1 + 2^-11, a tie: away from zero
+    (0xBF801000, 0xBF802000),    # -(1 + 2^-11): away from zero, negative
+    (0x3F803000, 0x3F804000),    # 1 + 3 * 2^-11, a tie with an odd unit: away
+    (0x3F801001, 0x3F802000),    # above half a unit: up
+    (0x3FFFF000, 0x40000000),    # the tie just below 2 carries into the exponent
+    (0xC0491000, 0xC0492000),    # -3.1416..., a tie: away from zero
+    (0x00001000, 0x00002000),    # a subnormal tie
+])
+def test_tf32_round_bit_patterns(bits_in, bits_out):
+    x = torch.tensor([bits_in], dtype=torch.int64)
+    x = torch.where(x >= 2**31, x - 2**32, x).to(torch.int32).view(torch.float32)
+    got = int(cuda_attention.tf32_round(x).view(torch.int32).to(torch.int64)[0]) & 0xFFFFFFFF
+    assert got == bits_out, f"{bits_in:08x} -> {got:08x}, want {bits_out:08x}"
+
+
+def test_split_tf32_keeps_22_bits():
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.normal(size=4096) * 10.0 ** rng.uniform(-20, 20, 4096))
+                         .astype(np.float32))
+    hi, lo = cuda_attention.split_tf32(x)
+    for h in (hi, lo):
+        assert not bool((h.view(torch.int32) & 0x1FFF).any())   # tf32: 13 low bits clear
+    rel = ((hi.double() + lo.double() - x.double()).abs() / x.double().abs()).max().item()
+    assert rel <= 2.0 ** -22
+    assert torch.equal(hi, cuda_attention.tf32_round(x))
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b as the kernels take it: 3 passes (lo hi, hi lo, hi hi), or a
+    single tf32 pass."""
+    ah, al = cuda_attention.split_tf32(a)
+    bh, bl = cuda_attention.split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh if passes == 3 else ah @ bh
+
+
+def _tf32_attention(q, k, v, dy, tau, rate, seed, passes):
+    """The kernels' forward and backward with every product in tf32 passes:
+    q scaled by 1/tau, P = exp(s - lse), Delta = rowsum(dY * Y)."""
+    scale = float(np.float32(1.0 / tau))
+    qs = q * scale
+    s = _tf32_matmul(qs, k.transpose(1, 2), passes)
+    m = (cuda_attention.dropout_mask_reference(q.shape[0], q.shape[1], rate, seed, "cpu")
+         if rate > 0 else torch.ones_like(s))
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    y = _tf32_matmul(p * m, v, passes)
+    ds = p * (_tf32_matmul(dy, v.transpose(1, 2), passes) * m - (dy * y).sum(-1, keepdim=True))
+    return (y, _tf32_matmul(ds, k, passes) * scale, _tf32_matmul(ds.transpose(1, 2), qs, passes),
+            _tf32_matmul((p * m).transpose(1, 2), dy, passes))
+
+
+def _worst_gate_ratio(b, n, d, rate, passes):
+    """The largest error of the emulated kernels against an f64 computation
+    over its chip gate: y rtol 1e-4 / atol 1e-5, each gradient 1e-4 of its
+    largest entry (`chip_smoke.check_attention_train`)."""
+    q, k, v, dy = map(torch.from_numpy, _inputs(n + d, b, n, d))
+    tau, seed = float(np.sqrt(d)), 3
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    want = cuda_attention.attention_reference(*leaves, tau, rate, seed)
+    want.backward(dy.double())
+    y, *grads = _tf32_attention(q, k, v, dy, tau, rate, seed, passes)
+    ratios = [((y.double() - want).abs() / (1e-5 + 1e-4 * want.abs())).max().item()]
+    ratios += [((g.double() - t.grad).abs().max() / (1e-4 * t.grad.abs().max())).item()
+               for g, t in zip(grads, leaves)]
+    return max(ratios)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,n,d", [(2, 64, 16), (1, 150, 64)])
+def test_3xtf32_products_meet_the_chip_gates(b, n, d, rate):
+    assert _worst_gate_ratio(b, n, d, rate, passes=3) < 0.1
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,n,d", [(2, 64, 16), (1, 150, 64)])
+def test_1xtf32_products_miss_the_chip_gates(b, n, d, rate):
+    """Why three passes: one tf32 pass rounds q, k, v and P to 11 bits."""
+    assert _worst_gate_ratio(b, n, d, rate, passes=1) > 2.0

@@ -108,14 +108,24 @@ def test_knn_kernel_matches_plain_on_card(b, n, c, k):
     torch.testing.assert_close(got, cuda_knn.knn_reference(x, k), rtol=0, atol=0)
 
 
+# attention shapes: the flagship support and query batches (B = 10 and 2,
+# whose launches take 2 and 4 key splits), a ragged N, channel counts that
+# are not a multiple of 8 (zero-padded in the staged tiles)
+ATTENTION_SHAPES = [(10, 2048, 64), (2, 2048, 64), (2, 150, 64), (1, 64, 8), (1, 100, 4),
+                    (2, 150, 12)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,d", [(2, 150, 64), (1, 64, 8)])
+@pytest.mark.parametrize("b,n,d", ATTENTION_SHAPES)
 def test_attention_kernel_matches_plain_on_card(b, n, d):
     dev = cuda_or_skip()
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn((b, n, d), generator=g, device=dev) for _ in range(3))
     tau = float(d) ** 0.5
+    before = cuda_attention.launches
     got = cuda_attention.attention(q, k, v, tau)
+    torch.cuda.synchronize()
+    assert cuda_attention.launches == before + 1
     torch.testing.assert_close(got, cuda_attention.attention_reference(q, k, v, tau),
                                rtol=1e-4, atol=1e-5)
 
@@ -286,7 +296,9 @@ def test_dropout_mask_bits_equal_plain_on_card(b, n, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,d,rate", [(2, 150, 64, 0.1), (1, 64, 8, 0.0), (2, 100, 16, 0.5)])
+@pytest.mark.parametrize("b,n,d,rate", [(2, 150, 64, 0.1), (1, 64, 8, 0.0), (2, 100, 16, 0.5),
+                                        (10, 2048, 64, 0.1), (2, 2048, 64, 0.1),
+                                        (1, 100, 4, 0.1), (2, 150, 12, 0.0)])
 def test_attention_train_kernels_match_plain_on_card(b, n, d, rate):
     """Forward (y, lse) rtol 1e-4 / atol 1e-5; backward dq, dk, dv against
     torch autograd of the plain masked forward, within 1e-4 of each
@@ -308,6 +320,25 @@ def test_attention_train_kernels_match_plain_on_card(b, n, d, rate):
     torch.cuda.synchronize()
     assert cuda_attention.launches == fwd_before + 1
     assert cuda_attention.bwd_launches == bwd_before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d", ATTENTION_SHAPES)
+def test_attention_backward_repeats_bit_for_bit_on_card(b, n, d):
+    """No float atomics: two backward calls on the same inputs give dq, dk
+    and dv equal bit for bit, one launch count each."""
+    dev = cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, dy = (torch.randn((b, n, d), generator=g, device=dev) for _ in range(4))
+    tau = float(d) ** 0.5
+    y, lse = cuda_attention.attention_fwd(q, k, v, tau, 0.1, 7)
+    before = cuda_attention.bwd_launches
+    first = cuda_attention.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, 7)
+    second = cuda_attention.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, 7)
+    torch.cuda.synchronize()
+    assert cuda_attention.bwd_launches == before + 2
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
 
 
 @pytest.mark.cuda
