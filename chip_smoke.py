@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (r3dfsseg_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--requests N]
+    python3 chip_smoke.py [--seed N] [--requests N] [--only knn,fps]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
 
-  1. build every kernel of `r3dfsseg_tpu_torch/csrc/` with nvcc;
+  1. build every kernel of `r3dfsseg_tpu_torch/csrc/` with nvcc, and print
+     the kNN and FPS kernels' registers and spills (-Xptxas -v);
   2. call each kernel at the flagship shapes of its path and hold it
      against its plain PyTorch version on the same inputs (kNN: the
-     neighbour sets, differences only at near-ties; attention forward:
+     neighbour sets, differences only at near-ties, two calls bit-equal,
+     the self-first share logged, each of the six calls of a request
+     timed; attention forward:
      rtol 1e-4, atol 1e-5, eval and with dropout; the dropout mask: the
      Philox words bit-equal; attention backward: within 1e-4 of each
      gradient's largest entry of torch autograd through the plain masked
-     forward; FPS: the seeds, a divergence only at a near-tie; k-th
+     forward; FPS, a request's two calls and a training step's WayContrast
+     call: the seeds, a divergence only at a near-tie, two calls
+     bit-equal, one launch per call, each call timed; k-th
      distance: bit-equal, on f32 distances and on the bf16 compare copy
      of a flagship episode's graph; scatter-add: within 1e-5 of sum |g|;
      the Chebyshev solve on that episode's bf16 S: within 1e-4 of the
@@ -32,7 +37,8 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      episode graph alone, forward and backward, in float32 and bf16;
   3. serve flagship episodes (R3DConfig(): 2-way 5-shot, 2048 points x 9,
      a 4396-node graph) through `FewShotPredictor.predict` with seeded
-     random weights, count each kernel's launches, and compare the
+     random weights, count each kernel's launches (FPS: exactly two, one
+     cooperative launch per call), and compare the
      predictions with the same requests served by the plain versions;
      then the same requests with the bf16 episode graph
      (graph_dtype="bfloat16"), against its plain path (>= 99% of points)
@@ -46,7 +52,8 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      distance of 1e-3 (the biases feeding a train-mode BatchNorm, whose
      exact gradient is 0, below 1e-5 of the largest gradient entry); then
      kernel-path steps that must each launch all six kernels of the f32
-     graph, and a torch.profiler window over three more; then the same
+     graph (FPS exactly three times), and a torch.profiler window over
+     three more (one FPS kernel per call there too); then the same
      with the bf16 episode graph (gradients within a relative L2 distance
      of 1e-1: see `train`), whose steps must each launch all seven
      kernels, the Chebyshev solve twice (forward and adjoint) and the
@@ -68,7 +75,10 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
 
 It prints the card's name and power limit, one JSON line describing the
 eleven kernels, and as its last line {"ok": true, "device": {...}}.  Without a
-CUDA device it exits with code 1 and prints no result.
+CUDA device it exits with code 1 and prints no result.  `--only knn,fps`
+runs the build and the kNN and FPS checks alone and prints their rows, so
+that another tree's kernels can be timed with the same code (put that
+tree's root first on sys.path and run this file with runpy).
 """
 from __future__ import annotations
 
@@ -102,8 +112,23 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of fn() in milliseconds (CUDA events)."""
+def ptxas_report(build_log: str, names=("knn_kernel", "fps_kernel")) -> list[str]:
+    """nvcc's -Xptxas -v lines of the entry functions whose mangled name
+    holds one of ``names``: registers, barriers, stack and spill."""
+    out, entry = [], None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = next((line.split("'")[1] for n in names if n in line), None)
+        elif entry and ("registers" in line or "spill" in line):
+            out.append(f"{entry[:60]}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def cuda_ms(fn, reps: int, per: int = 1) -> float:
+    """Median device time of fn() in milliseconds (CUDA events), over
+    ``per`` calls enqueued back to back between the events: with per > 1
+    the host enqueues a call while the card runs the one before, so a
+    short kernel is not timed with the host's gap in front of it."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -112,10 +137,11 @@ def cuda_ms(fn, reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(per):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
 
 
@@ -181,46 +207,71 @@ def make_episode(cfg, rng: np.random.Generator):
 
 
 # ------------------------------------------------------------ kernels --
+KNN_SHAPES = [(10, 9), (10, 64), (10, 64), (2, 9), (2, 64), (2, 64)]  # (B, C) per request
+
+
+def knn_agreement(torch, x, got, want) -> dict:
+    """The kNN kernel's lists ``got`` against the plain version's ``want``
+    on x: the share of rows whose sets differ, the worst differing
+    neighbour's gap to the row's k-th distance (relative to that distance
+    and to xx_i + xx_j: the Gram form (xx + yy) - 2 x.y rounds at the scale
+    of the norms), the largest error of the sorted distances, and the share
+    of rows that list their own point first."""
+    from r3dfsseg_tpu_torch.ops.knn import pairwise_sqdist
+    d = pairwise_sqdist(x)
+    xx = (x * x).sum(-1)
+    dk = d.gather(-1, want[..., -1:])                       # k-th distance
+    same = (got.sort(-1).values == want.sort(-1).values).all(-1)
+    extra = ~(got[..., :, None] == want[..., None, :]).any(-1)   # in got, not in want
+    diff = (d.gather(-1, got) - dk).abs() * extra
+    norm_scale = xx[..., None] + xx.gather(-1, got.flatten(1)).view_as(got)
+    err = d.gather(-1, got).sort(-1).values - d.gather(-1, want).sort(-1).values
+    return dict(mismatch=1.0 - same.float().mean().item(),
+                gap_rel=(diff / dk.clamp_min(1e-30)).amax().item(),
+                gap=(diff / norm_scale.clamp_min(1e-30)).amax().item(),
+                err=err.abs().max().item(),
+                self_first=(got[..., 0] == torch.arange(x.shape[1], device=x.device))
+                .float().mean().item())
+
+
 def check_knn(torch, knn_mod, sx):
     """Flagship EdgeConv shapes: the 10 support clouds at C = 9 (raw points)
     and C = 64 (features).  Sets must match on >= 99.9% of rows, and every
     differing neighbour must be a rounding-level tie of the row's k-th
-    distance: the Gram form (xx + yy) - 2 x.y rounds at the scale of the
-    norms, so the gap is measured against xx_i + xx_j, not against d."""
-    from r3dfsseg_tpu_torch.ops.knn import pairwise_sqdist
+    distance (`knn_agreement`: within NEAR_TIE of xx_i + xx_j); two calls
+    must be bit-equal.  Times: the six calls of a request, each shape
+    alone (five calls back to back), and each batch at C = 1 (the least
+    channel work a call can have: what stays is selection, staging and
+    launch).  Bound: three tf32 tensor-core passes per product (the FFMA
+    bound beside it)."""
     k = 20
     g = torch.Generator(device="cuda").manual_seed(0)
     xs = {9: torch.from_numpy(sx.reshape(-1, *sx.shape[2:])).cuda(),
           64: torch.randn((10, 2048, 64), generator=g, device="cuda")}
-    worst_err, mismatch = 0.0, {}
+    worst_err, self_first = 0.0, {}
     for c, x in xs.items():
-        got = knn_mod.knn(x, k).long()
-        want = knn_mod.knn_reference(x, k).long()
-        d = pairwise_sqdist(x)
-        xx = (x * x).sum(-1)
-        dk = d.gather(-1, want[..., -1:])                       # k-th distance
-        same = (got.sort(-1).values == want.sort(-1).values).all(-1)
-        mismatch[c] = 1.0 - same.float().mean().item()
-        extra = ~(got[..., :, None] == want[..., None, :]).any(-1)   # in got, not in want
-        diff = (d.gather(-1, got) - dk).abs() * extra
-        norm_scale = xx[..., None] + xx.gather(-1, got.flatten(1)).view_as(got)
-        gap_rel = (diff / dk.clamp_min(1e-30)).amax().item()
-        gap = (diff / norm_scale.clamp_min(1e-30)).amax().item()
-        err = (d.gather(-1, got).sort(-1).values - d.gather(-1, want).sort(-1).values)
-        worst_err = max(worst_err, err.abs().max().item())
-        self_first = (got[..., 0] == torch.arange(x.shape[1], device="cuda")).float().mean().item()
-        log(f"  knn C={c}: row mismatch rate {mismatch[c]:.3e}; worst differing neighbour "
-            f"off the k-th distance by {gap_rel:.3e} of it, {gap:.3e} of xx_i + xx_j; "
-            f"self first on {self_first:.5f} of rows")
-        if mismatch[c] > 1e-3 or gap > NEAR_TIE:
-            raise AssertionError(f"knn C={c}: mismatch {mismatch[c]}, gap {gap}")
-    shapes = [(10, 9), (10, 64), (10, 64), (2, 9), (2, 64), (2, 64)]
-    feats = {(b, c): torch.randn((b, 2048, c), generator=g, device="cuda") for b, c in set(shapes)}
-    ms = cuda_ms(lambda: [knn_mod.knn(feats[s], k) for s in shapes], 10)
-    plain = cuda_ms(lambda: [knn_mod.knn_reference(feats[s], k) for s in shapes], 10)
-    flops = sum(2.0 * b * 2048 ** 2 * c for b, c in shapes)
-    nbytes = sum(4.0 * b * 2048 * (c + k) for b, c in shapes)
-    return row(worst_err, ms, plain, None, flops, nbytes)
+        got = knn_mod.knn(x, k)
+        if not torch.equal(got, knn_mod.knn(x, k)):
+            raise AssertionError(f"knn C={c}: two calls on the same input differ")
+        a = knn_agreement(torch, x, got.long(), knn_mod.knn_reference(x, k).long())
+        worst_err = max(worst_err, a["err"])
+        self_first[f"self_first_c{c}"] = a["self_first"]
+        log(f"  knn C={c}: row mismatch rate {a['mismatch']:.3e}; worst differing neighbour "
+            f"off the k-th distance by {a['gap_rel']:.3e} of it, {a['gap']:.3e} of xx_i + xx_j; "
+            f"self first on {a['self_first']:.5f} of rows; a second call bit-equal")
+        if a["mismatch"] > 1e-3 or a["gap"] > NEAR_TIE:
+            raise AssertionError(f"knn C={c}: mismatch {a['mismatch']}, gap {a['gap']}")
+    feats = {(b, c): torch.randn((b, 2048, c), generator=g, device="cuda")
+             for b, c in set(KNN_SHAPES) | {(10, 1), (2, 1)}}
+    ms = cuda_ms(lambda: [knn_mod.knn(feats[s], k) for s in KNN_SHAPES], 10)
+    plain = cuda_ms(lambda: [knn_mod.knn_reference(feats[s], k) for s in KNN_SHAPES], 10)
+    shape_ms = {f"ms_b{b}_c{c}": cuda_ms(lambda x=feats[(b, c)]: knn_mod.knn(x, k), 10, per=5)
+                for b, c in sorted(feats)}
+    log("  knn ms per call: " + ", ".join(f"{n[3:]} {v:.4f}" for n, v in shape_ms.items()))
+    flops = sum(2.0 * b * 2048 ** 2 * c for b, c in KNN_SHAPES)
+    nbytes = sum(4.0 * b * 2048 * (c + k) for b, c in KNN_SHAPES)
+    return row(worst_err, ms, plain, None, 3 * flops, nbytes, TF32_TC_FLOPS,
+               bound_ms_ffma=bound(flops, nbytes)[0], **self_first, **shape_ms)
 
 
 def sdpa(torch, q, k, v, rate, tau):
@@ -384,27 +435,48 @@ def _fps_divergence_gap(torch, fps_mod, feat, valid, got, want):
 
 
 def check_fps(torch, fps_mod):
+    """The flagship calls: a request's two (the ways' foreground, 2 x
+    10,240 points at 25% valid; the background, 20,480 at 75%; k = 100) and
+    a training step's third (WayContrast, 10 clouds x 2048 at 25%, k = 4),
+    192 channels.  Seeds must be equal, or diverge only at a near-tie of
+    the running min distance (NEAR_TIE relative); two calls bit-equal; one
+    launch per call.  ms is the request's two calls; each call is also
+    timed alone."""
     g = torch.Generator(device="cuda").manual_seed(2)
-    ways = torch.randn((2, 10240, 192), generator=g, device="cuda")
-    ways_ok = torch.rand((2, 10240), generator=g, device="cuda") < 0.25
-    bg = torch.randn((1, 20480, 192), generator=g, device="cuda")
-    bg_ok = torch.rand((1, 20480), generator=g, device="cuda") < 0.75
-    err = 0.0
-    for feat, ok in ((ways, ways_ok), (bg, bg_ok)):
-        got = fps_mod.fps(feat, ok, 100)
-        want = fps_mod.fps_reference(feat, ok, 100)
+    calls = {"ways": (2, 10240, 0.25, 100), "bg": (1, 20480, 0.75, 100),
+             "contrast": (10, 2048, 0.25, 4)}
+    args, err = {}, 0.0
+    for name, (p, n, share, k) in calls.items():
+        feat = torch.randn((p, n, 192), generator=g, device="cuda")
+        ok = torch.rand((p, n), generator=g, device="cuda") < share
+        args[name] = (feat, ok, k)
+        before = fps_mod.launches
+        got = fps_mod.fps(feat, ok, k)
+        again = fps_mod.fps(feat, ok, k)
+        if fps_mod.launches != before + 2 or not torch.equal(got, again):
+            raise AssertionError(f"fps {name}: {fps_mod.launches - before} launches for two "
+                                 f"calls, bit-equal {torch.equal(got, again)}")
+        want = fps_mod.fps_reference(feat, ok, k)
         equal = bool((got == want).all())
-        log(f"  fps {tuple(feat.shape)} k=100: seeds equal {equal}")
+        log(f"  fps {tuple(feat.shape)} k={k}: seeds equal {equal}; a second call bit-equal")
         if not equal:
             abs_gap, gap = _fps_divergence_gap(torch, fps_mod, feat, ok, got, want)
             err = max(err, abs_gap)
             if gap > NEAR_TIE:
                 raise AssertionError(f"fps diverged at a relative gap of {gap}")
-    ms = cuda_ms(lambda: (fps_mod.fps(ways, ways_ok, 100), fps_mod.fps(bg, bg_ok, 100)), 5)
-    plain = cuda_ms(lambda: (fps_mod.fps_reference(ways, ways_ok, 100),
-                             fps_mod.fps_reference(bg, bg_ok, 100)), 5)
-    pts = 2 * 10240 + 20480
-    return row(err, ms, plain, None, 3.0 * pts * 192 * 100, pts * (192 * 4.0 + 1) + 3 * 100 * 4)
+    request = ("ways", "bg")
+    ms = cuda_ms(lambda: [fps_mod.fps(*args[c]) for c in request], 5)
+    plain = cuda_ms(lambda: [fps_mod.fps_reference(*args[c]) for c in request], 5)
+    call_ms = {f"ms_{c}": cuda_ms(lambda a=args[c]: fps_mod.fps(*a), 5, per=3) for c in calls}
+    log("  fps ms per call: " + ", ".join(f"{n[3:]} {v:.4f}" for n, v in call_ms.items()))
+    # operations: the distance to each round's centre of every valid point
+    # (3 per channel); bytes: the valid points' features and the masks read
+    # once, the seeds written once
+    valid = {c: int(args[c][1].sum()) for c in request}
+    flops = sum(3.0 * valid[c] * 192 * (args[c][2] - 1) for c in request)
+    nbytes = sum(valid[c] * 192 * 4.0 + args[c][1].numel() + 4.0 * args[c][2] * args[c][1].shape[0]
+                 for c in request)
+    return row(err, ms, plain, None, flops, nbytes, **call_ms)
 
 
 def check_kth(torch, kth_mod):
@@ -1137,7 +1209,8 @@ def zero_counts(kernels) -> None:
 def serve(torch, cfg, episodes, kernels, seed, required=SERVE_KERNELS):
     """Serve every episode on the kernel path, then on the plain path with
     the same weights; return latencies, predictions and launch counts.
-    Every request must launch each kernel in ``required``."""
+    Every request must launch each kernel in ``required``, and FPS exactly
+    twice (one cooperative launch per call: the ways and the background)."""
     from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
     from r3dfsseg_tpu_torch.models.episode import Episode
     from r3dfsseg_tpu_torch.serve import FewShotPredictor
@@ -1159,8 +1232,8 @@ def serve(torch, cfg, episodes, kernels, seed, required=SERVE_KERNELS):
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
         grew = {n: c - before[n] for n, c in counts(kernels).items()}
-        if min(grew[n] for n in required) <= 0:
-            raise AssertionError(f"request {i}: a kernel was not launched: {grew}")
+        if min(grew[n] for n in required) <= 0 or grew["fps"] != 2:
+            raise AssertionError(f"request {i}: launches {grew}")
         preds.append(pred)
     launches = counts(kernels)
     peak = torch.cuda.max_memory_allocated()
@@ -1187,19 +1260,6 @@ def serve(torch, cfg, episodes, kernels, seed, required=SERVE_KERNELS):
 def _grads(model) -> dict:
     return {n: p.grad.detach().clone() for n, p in model.named_parameters()
             if p.grad is not None}
-
-
-def near_tie_gap(torch, x, got, want) -> float:
-    """Largest gap, relative to xx_i + xx_j, between a neighbour in ``got``
-    but not in ``want`` and the k-th distance of ``want`` (see check_knn)."""
-    from r3dfsseg_tpu_torch.ops.knn import pairwise_sqdist
-    d = pairwise_sqdist(x)
-    xx = (x * x).sum(-1)
-    dk = d.gather(-1, want[..., -1:])
-    extra = ~(got[..., :, None] == want[..., None, :]).any(-1)
-    diff = (d.gather(-1, got) - dk).abs() * extra
-    norm_scale = xx[..., None] + xx.gather(-1, got.flatten(1)).view_as(got)
-    return (diff / norm_scale.clamp_min(1e-30)).amax().item()
 
 
 class KnnReplay:
@@ -1236,7 +1296,7 @@ class KnnReplay:
             rows = (want.sort(-1).values != rec.sort(-1).values).any(-1)
             self.swapped.append(int(rows.sum()))
             if bool(rows.any()):
-                gap = near_tie_gap(self.torch, x, rec, want)
+                gap = knn_agreement(self.torch, x, rec, want)["gap"]
                 if gap > NEAR_TIE:
                     raise AssertionError(f"kNN kernel and plain differ beyond a tie: {gap}")
             return rec.to(self.torch.int32)
@@ -1408,10 +1468,15 @@ def profile_train(torch, learner, episodes, steps: int = 3, top: int = 12) -> No
         f"largest device times per step:")
     for name, ms, n in rows[:top]:
         log(f"  {ms:8.3f} ms  x{n:<4d} {name[:90]}")
-    attn = [r for r in rows if "attn_" in r[0]]
-    log(f"[profile] attention kernels (2, 5): {sum(r[1] for r in attn):.3f} ms per step")
-    for name, ms, n in attn:
-        log(f"  {ms:8.3f} ms  x{n:<4d} {name[:90]}")
+    for what, key in (("attention kernels (2, 5)", "attn_"), ("kNN kernel (1)", "knn_kernel"),
+                      ("FPS kernel (3)", "fps_kernel")):
+        mine = [r for r in rows if key in r[0]]
+        log(f"[profile] {what}: {sum(r[1] for r in mine):.3f} ms per step")
+        for name, ms, n in mine:
+            log(f"  {ms:8.3f} ms  x{n:<4d} {name[:90]}")
+    fps_calls = sum(n for name, _, n in rows if "fps_kernel" in name)
+    if fps_calls != 3:
+        raise AssertionError(f"profile: {fps_calls} FPS kernels per step, not 3 (one per call)")
 
 
 def train_stages(torch, learner, episode, reps: int = 3) -> dict:
@@ -1530,6 +1595,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--only", choices=["knn,fps"],
+                    help="build, then only the kNN and FPS kernel checks, and print their "
+                         "rows (to time them beside another tree's kernels)")
     args = ap.parse_args()
 
     import torch
@@ -1554,6 +1622,8 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log("  " + line.strip())
+    for line in ptxas_report(build.build_log):
+        log("  [ptxas] " + line)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -1565,6 +1635,11 @@ def main() -> int:
     episodes = [make_episode(cfg, rng) for _ in range(max(args.requests, 3))]
     log("[kernels] flagship shapes, kernel vs plain PyTorch on the card")
     rows = {"knn": check_knn(torch, cuda_knn, episodes[0][0])}
+    if args.only:
+        rows["fps"] = check_fps(torch, cuda_fps)
+        log(smi)
+        log(json.dumps(rows))
+        return 0
     attn_eval = check_attention(torch, cuda_attention)
     check_dropout_mask(torch, cuda_attention)
     rows["attention_fwd"], rows["attention_bwd"] = check_attention_train(torch, cuda_attention)
@@ -1634,9 +1709,11 @@ def main() -> int:
             raise AssertionError(f"request {i}: bf16 and float32 graphs agree on {agree}")
 
     # ---- 4. training, float32 graph then bf16 graph
-    tr = train_phase(torch, cfg, episodes, kernels, args.seed, f32_kernels)
+    # FPS: one cooperative launch per call, three calls per step (the ways,
+    # the background, WayContrast's)
+    tr = train_phase(torch, cfg, episodes, kernels, args.seed, f32_kernels, per_step={"fps": 3})
     tr16 = train_phase(torch, cfg16, episodes, kernels, args.seed, f32_kernels + ("cheby",),
-                       per_step={"cheby": 2, "kth": 1})
+                       per_step={"cheby": 2, "kth": 1, "fps": 3})
     log(f"[train] peak memory: float32 graph {tr['peak'] / 2**20:.1f} MiB, bf16 graph "
         f"{tr16['peak'] / 2**20:.1f} MiB")
     phases = {"serve_f32": serve_launches, "serve_bf16": serve_launches16,

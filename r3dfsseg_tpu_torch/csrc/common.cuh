@@ -39,6 +39,51 @@ static cudaError_t r3d_launch(void (*kernel)(Params...), dim3 grid, dim3 block, 
 
 namespace r3d {
 
+// Shared memory one block may use on sm_90 (227 KB).
+constexpr size_t kSmemLimit = 232448;
+
+// ---- cooperative launches (one grid-wide barrier per step or round) ---
+// A kernel that calls cooperative_groups' this_grid().sync() must have all
+// its blocks resident at once; the launch below checks that with the
+// occupancy API and refuses a grid that would not be, rather than risk a
+// barrier that never opens.
+struct CoopLaunch {
+  int grid;  // blocks
+  int sms;
+};
+
+// One block per SM, at most `blocks`; refuses a device without cooperative
+// launches.
+static cudaError_t coop_plan(int blocks, CoopLaunch& out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int coop = 0;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  cudaDeviceGetAttribute(&out.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (!coop) return cudaErrorNotSupported;
+  out.grid = blocks < 1 ? 1 : (blocks < out.sms ? blocks : out.sms);
+  return cudaSuccess;
+}
+
+// The cooperative launch of p.grid blocks of `threads` threads with `smem`
+// bytes of dynamic shared memory, or the error that refuses it.
+template <typename Kernel>
+static cudaError_t coop_launch(Kernel kernel, const CoopLaunch& p, int threads, size_t smem,
+                               void** args, cudaStream_t stream) {
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t err = r3d_set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm * p.sms < p.grid) return cudaErrorCooperativeLaunchTooLarge;  // not co-resident
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(p.grid),
+                                    dim3(threads), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 // ---- tf32 tensor-core products (mma.sync, sm_80 and later) ------------
 // An f32 x is split into hi = tf32(x), rounded to nearest with ties away
 // from zero, and lo = tf32(x - hi); x - hi is exact in f32, so hi + lo

@@ -89,7 +89,7 @@ constexpr int kRegTiles = 18;        // kernel 10: a warp's k-tiles held in regi
 constexpr int kMaxCols = 8;          // kernel 10: live columns of b
 constexpr int kMaxProbeCols = 128;   // kernel 11
 constexpr float kProbeScale = 0.99f;
-constexpr size_t kSmemLimit = 232448;
+using r3d::kSmemLimit;
 
 struct Geometry {
   const unsigned short* s;
@@ -626,43 +626,6 @@ matmul_only_kernel(Geometry g, const float* __restrict__ b, float* out, unsigned
   }
 }
 
-struct Launch {
-  int grid;
-  int sms;
-};
-
-// One block per SM (at most one per tile of 16 rows): every block stages
-// its column group of bf16(d) at every step, so more blocks would read more
-// of it.
-cudaError_t plan(int tiles, Launch& out) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int coop = 0;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  cudaDeviceGetAttribute(&out.sms, cudaDevAttrMultiProcessorCount, dev);
-  if (!coop) return cudaErrorNotSupported;
-  out.grid = std::max(1, std::min(out.sms, tiles));
-  return cudaSuccess;
-}
-
-// The cooperative launch, or the error that refuses it.
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, const Launch& p, size_t smem, void** args,
-                   cudaStream_t stream) {
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  cudaError_t err = r3d_set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm * p.sms < p.grid) return cudaErrorCooperativeLaunchTooLarge;  // not co-resident
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(p.grid),
-                                    dim3(kThreads), args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
 bool ldk_ok(int m, int ldk) { return ldk % 64 == 16 && ldk >= ceil_div(m, 16) * 16; }
 
 bool vec_ok(const void* s, int m, int lds) {
@@ -681,8 +644,11 @@ R3D_EXPORT int r3d_proto_cheby(const void* s, int lds, const void* b, void* x, v
   if (c < 1 || c > kMaxCols || m < 1 || iters < 1 || lds < m || !ldk_ok(m, ldk)) {
     return cudaErrorInvalidValue;
   }
-  Launch p{};
-  cudaError_t err = plan(ceil_div(m, kTileRows), p);
+  // One block per SM (at most one per tile of 16 rows): every block stages
+  // its column group of bf16(d) at every step, so more blocks would read
+  // more of it.
+  r3d::CoopLaunch p{};
+  cudaError_t err = r3d::coop_plan(ceil_div(m, kTileRows), p);
   if (err != cudaSuccess) return err;
   const size_t used = base_smem(c, 1, ldk, kSharedTiles) + state_smem(max_tiles(m, p.grid));
   const size_t row_bytes = sizeof(unsigned short) * static_cast<size_t>(ldk);
@@ -699,11 +665,11 @@ R3D_EXPORT int r3d_proto_cheby(const void* s, int lds, const void* b, void* x, v
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = vec_ok(s, m, lds);
   if (ceil_div(g.ktiles, kWarps) <= kRegTiles) {  // a warp's k-tiles fit its registers
-    return vec ? launch(proto_cheby_kernel<true, kRegTiles>, p, smem, args, st)
-               : launch(proto_cheby_kernel<false, kRegTiles>, p, smem, args, st);
+    return vec ? r3d::coop_launch(proto_cheby_kernel<true, kRegTiles>, p, kThreads, smem, args, st)
+               : r3d::coop_launch(proto_cheby_kernel<false, kRegTiles>, p, kThreads, smem, args, st);
   }
-  return vec ? launch(proto_cheby_kernel<true, 0>, p, smem, args, st)
-             : launch(proto_cheby_kernel<false, 0>, p, smem, args, st);
+  return vec ? r3d::coop_launch(proto_cheby_kernel<true, 0>, p, kThreads, smem, args, st)
+             : r3d::coop_launch(proto_cheby_kernel<false, 0>, p, kThreads, smem, args, st);
 }
 
 // Kernel 11, one call: out (m, ncols) after `iters` steps.  dbuf: 2 * ncols
@@ -716,8 +682,8 @@ R3D_EXPORT int r3d_matmul_only(const void* s, int lds, const void* b, void* out,
   }
   const bool two = ncols % 16 == 0 && base_smem(16, 2, ldk) <= kSmemLimit;
   const int groups = ncols / (two ? 16 : 8);
-  Launch p{};
-  cudaError_t err = plan(groups * ceil_div(m, kTileRows), p);
+  r3d::CoopLaunch p{};
+  cudaError_t err = r3d::coop_plan(groups * ceil_div(m, kTileRows), p);
   if (err != cudaSuccess) return err;
   Geometry g{static_cast<const unsigned short*>(s), lds, m, ldk, ceil_div(m, 16)};
   const float* bp = static_cast<const float*>(b);
@@ -728,10 +694,10 @@ R3D_EXPORT int r3d_matmul_only(const void* s, int lds, const void* b, void* out,
   const bool vec = vec_ok(s, m, lds);
   if (two) {
     const size_t smem = base_smem(16, 2, ldk);
-    return vec ? launch(matmul_only_kernel<2, true>, p, smem, args, st)
-               : launch(matmul_only_kernel<2, false>, p, smem, args, st);
+    return vec ? r3d::coop_launch(matmul_only_kernel<2, true>, p, kThreads, smem, args, st)
+               : r3d::coop_launch(matmul_only_kernel<2, false>, p, kThreads, smem, args, st);
   }
   const size_t smem = base_smem(8, 1, ldk);
-  return vec ? launch(matmul_only_kernel<1, true>, p, smem, args, st)
-             : launch(matmul_only_kernel<1, false>, p, smem, args, st);
+  return vec ? r3d::coop_launch(matmul_only_kernel<1, true>, p, kThreads, smem, args, st)
+             : r3d::coop_launch(matmul_only_kernel<1, false>, p, kThreads, smem, args, st);
 }

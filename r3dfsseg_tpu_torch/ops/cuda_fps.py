@@ -9,12 +9,15 @@ ties), invalid points held at -1.
 
 What bounds it on the H100: k strictly sequential rounds, each a sweep
 over N x C features (20,480 x 192 = 15.7 MB at the flagship background
-instance, which stays in the 50 MB L2) plus an argmax over N.  The plain
-version launches about six kernels per round.  The kernel launches one
-per round over a grid of 64-point blocks per instance, so a round's
-sweep spreads over the SMs; the last block to finish reduces the block
-argmaxes and leaves the pick for the next launch.  What remains is one
-launch latency per round.
+instance) plus an argmax over N.  The plain version launches about six
+kernels per round.  The kernel runs all k rounds in one cooperative launch
+of one block per SM: the instances share the blocks, each block keeps its
+range's valid points' features and running min distance in shared memory
+for the whole call, and the rounds are separated by one grid-wide barrier
+each, after which every block reduces the block argmaxes of its instance
+itself.  What remains per round is a short sweep, two block barriers and
+the grid barrier.  Batches of more instances than SMs take one launch per
+SM count of instances.
 
 Dispatch: a CPU tensor takes `fps_reference`; a CUDA tensor launches the
 kernel or raises.
@@ -25,7 +28,7 @@ import torch
 
 from r3dfsseg_tpu_torch.kernels import build
 
-POINTS_PER_BLOCK = 64          # csrc/fps.cu kPoints
+POINTS_PER_BLOCK = 64          # csrc/fps.cu kMinPoints: a block's range, at least
 BIG = 3.4e38
 NEG = -1.0
 
@@ -61,22 +64,23 @@ def fps(feat: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:
     p, n, c = feat.shape
     if valid.shape != (p, n) or valid.dtype != torch.bool or valid.device != feat.device:
         raise ValueError(f"fps: want a ({p}, {n}) bool mask on {feat.device}")
-    if not (p > 0 and n > 0 and c > 0 and k > 0 and p < 65536):
+    if not (p > 0 and n > 0 and c > 0 and k > 0):
         raise ValueError(f"fps: unsupported shape P={p} N={n} C={c} k={k}")
     feat, valid = feat.contiguous(), valid.contiguous()
     dev = feat.device
-    g = -(-n // POINTS_PER_BLOCK)
     seeds = torch.empty((p, k), dtype=torch.int32, device=dev)
-    mind = torch.empty((p, n), dtype=torch.float32, device=dev)
-    cand_v = torch.empty((p, g), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((p, g), dtype=torch.int32, device=dev)
-    arrived = torch.zeros((p,), dtype=torch.int32, device=dev)
-    pick = torch.empty((p,), dtype=torch.int32, device=dev)
     fn = build.function("r3d_fps", [build.P] * 8 + [build.I] * 4 + [build.P])
-    with torch.cuda.device(dev):
-        err = fn(feat.data_ptr(), valid.data_ptr(), seeds.data_ptr(), mind.data_ptr(),
-                 cand_v.data_ptr(), cand_i.data_ptr(), arrived.data_ptr(), pick.data_ptr(),
-                 p, n, c, k, build.stream_ptr(dev))
-    build.check(err, "r3d_fps")
-    launches += 1
+    step = torch.cuda.get_device_properties(dev).multi_processor_count
+    for p0 in range(0, p, step):
+        p1 = min(p, p0 + step)
+        mind = torch.empty((p1 - p0, n), dtype=torch.float32, device=dev)
+        cand = 2 * (p1 - p0) * -(-n // POINTS_PER_BLOCK)   # both parities' candidates
+        cand_v = torch.empty((cand,), dtype=torch.float32, device=dev)
+        cand_i = torch.empty((cand,), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = fn(feat[p0:p1].data_ptr(), valid[p0:p1].data_ptr(), seeds[p0:p1].data_ptr(),
+                     mind.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(), None, None,
+                     p1 - p0, n, c, k, build.stream_ptr(dev))
+        build.check(err, "r3d_fps")
+        launches += 1
     return seeds

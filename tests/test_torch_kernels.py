@@ -108,6 +108,63 @@ def test_knn_kernel_matches_plain_on_card(b, n, c, k):
     torch.testing.assert_close(got, cuda_knn.knn_reference(x, k), rtol=0, atol=0)
 
 
+@pytest.mark.cuda
+def test_fps_kernel_more_instances_than_sms_on_card():
+    """A batch of more instances than SMs takes one cooperative launch per
+    SM count of instances, with the plain version's seeds."""
+    dev = cuda_or_skip()
+    p = torch.cuda.get_device_properties(dev).multi_processor_count + 3
+    rng = np.random.default_rng(10)
+    feat = torch.from_numpy(rng.normal(size=(p, 100, 8)).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.uniform(size=(p, 100)) < 0.5).to(dev)
+    before = cuda_fps.launches
+    got = cuda_fps.fps(feat, valid, 6)
+    torch.cuda.synchronize()
+    assert cuda_fps.launches == before + 2
+    assert torch.equal(got, cuda_fps.fps_reference(feat, valid, 6))
+
+
+# kNN: the flagship shapes (support and query batches, raw points and
+# features; the query batch takes key splits), a ragged N, k = 1 and 32, C = 256
+KNN_CASES = [(10, 2048, 9, 20), (10, 2048, 64, 20), (2, 2048, 9, 20), (2, 2048, 64, 20),
+             (2, 130, 9, 20), (1, 300, 16, 1), (2, 300, 64, 32), (2, 500, 256, 20),
+             (1, 130, 200, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,k", KNN_CASES)
+def test_knn_kernel_flagship_and_edge_shapes_on_card(b, n, c, k):
+    """Held to `chip_smoke.knn_agreement`'s criterion (sets differ on at
+    most 1e-3 of the rows, each differing neighbour within NEAR_TIE of xx_i
+    + xx_j of the k-th distance), two calls bit-equal, one launch per call."""
+    dev = cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(b * n + c + k)
+    x = torch.randn((b, n, c), generator=g, device=dev)
+    before = cuda_knn.launches
+    got = cuda_knn.knn(x, k)
+    again = cuda_knn.knn(x, k)
+    torch.cuda.synchronize()
+    assert cuda_knn.launches == before + 2
+    assert torch.equal(got, again)
+    a = chip_smoke.knn_agreement(torch, x, got.long(), cuda_knn.knn_reference(x, k).long())
+    assert a["mismatch"] <= 1e-3 and a["gap"] <= chip_smoke.NEAR_TIE, a
+
+
+@pytest.mark.cuda
+def test_knn_query_batch_takes_key_splits_on_card():
+    """B = 2, N = 2048 on the card: more than one key split per row tile
+    (the merge path), and the result equals the plain version's on points
+    whose distances have no near-ties (an integer grid scaled by 1/8: every
+    distance is exact in f32, ties are exact and go to the lowest index)."""
+    dev = cuda_or_skip()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert cuda_knn.splits(2, 2048, sms) > 1
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, 8, size=(2, 2048, 9)).astype(np.float32) / 8
+    x = torch.from_numpy(x).to(dev)
+    assert torch.equal(cuda_knn.knn(x, 20), cuda_knn.knn_reference(x, 20))
+
+
 # attention shapes: the flagship support and query batches (B = 10 and 2,
 # whose launches take 2 and 4 key splits), a ragged N, channel counts that
 # are not a multiple of 8 (zero-padded in the staged tiles)
@@ -140,6 +197,55 @@ def test_fps_kernel_matches_plain_on_card():
     valid[1, 10:40:3] = True                           # fewer valid points than k
     got = cuda_fps.fps(feat, valid, 20)
     torch.testing.assert_close(got, cuda_fps.fps_reference(feat, valid, 20), rtol=0, atol=0)
+
+
+# FPS calls of the main paths (a request's two, a training step's third),
+# and (1, 50000, 192): 38 MB of features, more than the grid's shared
+# memory holds, so the kernel reads them from global memory every round
+FPS_CALLS = [(2, 10240, 100), (1, 20480, 100), (10, 2048, 4), (1, 50000, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.25, 0.75])
+@pytest.mark.parametrize("p,n,k", FPS_CALLS)
+def test_fps_kernel_flagship_calls_on_card(p, n, k, share):
+    """Seeds equal to the plain version's, or diverging only at a near-tie
+    of the running min distance (the two sum the channels in another
+    order); two calls bit-equal; one launch per call."""
+    dev = cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(p * n + k)
+    feat = torch.randn((p, n, 192), generator=g, device=dev)
+    valid = torch.rand((p, n), generator=g, device=dev) < share
+    before = cuda_fps.launches
+    got = cuda_fps.fps(feat, valid, k)
+    again = cuda_fps.fps(feat, valid, k)
+    torch.cuda.synchronize()
+    assert cuda_fps.launches == before + 2
+    assert torch.equal(got, again)
+    want = cuda_fps.fps_reference(feat, valid, k)
+    if not torch.equal(got, want):
+        _, gap = chip_smoke._fps_divergence_gap(torch, cuda_fps, feat, valid, got, want)
+        assert gap <= chip_smoke.NEAR_TIE
+
+
+@pytest.mark.cuda
+def test_fps_kernel_no_valid_point_and_exhausted_instances_on_card():
+    """An instance with no valid point picks index 0 in every slot; one
+    whose valid points run out repeats its lowest valid index; duplicate
+    points tie across block boundaries (lowest index wins)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(8)
+    feat = rng.normal(size=(3, 4096, 16)).astype(np.float32)
+    feat[2, 2000:2200] = feat[2, 100]                  # duplicates over several blocks
+    valid = rng.uniform(size=(3, 4096)) < 0.5
+    valid[0] = False
+    valid[1] = False
+    valid[1, [70, 900, 3000]] = True
+    feat, valid = torch.from_numpy(feat).to(dev), torch.from_numpy(valid).to(dev)
+    got = cuda_fps.fps(feat, valid, 10)
+    assert torch.equal(got, cuda_fps.fps_reference(feat, valid, 10))
+    assert not bool(got[0].any())
+    assert sorted(got[1, :3].tolist()) == [70, 900, 3000] and bool(got[1, 3:].eq(70).all())
 
 
 @pytest.mark.cuda

@@ -11,7 +11,7 @@ import torch
 from r3dfsseg_tpu.ops.knn import gather_neighbors as jax_gather
 from r3dfsseg_tpu.ops.knn import knn_indices as jax_knn
 from r3dfsseg_tpu.ops.knn import pairwise_sqdist as jax_sqdist
-from r3dfsseg_tpu_torch.ops import cuda_knn
+from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_knn
 from r3dfsseg_tpu_torch.ops.knn import gather_neighbors, knn_indices, pairwise_sqdist
 from torch_port_helpers import jax_knn_kernel_exact
 
@@ -55,3 +55,74 @@ def test_pairwise_sqdist_and_gather_match_jax():
         gather_neighbors(torch.from_numpy(x), torch.from_numpy(idx)).numpy(),
         np.asarray(jax_gather(jnp.asarray(x), jnp.asarray(idx))))
 
+
+
+# ---- csrc/knn.cu's arithmetic and decomposition, emulated on the CPU ----
+def _tf32_inner(x, passes=3):
+    """x x^T as the kernel takes it: each operand split into tf32 hi and lo
+    (`cuda_attention.split_tf32`), the products lo hi + hi lo + hi hi (each
+    tf32 x tf32 product exact in f32) summed in f32; or one hi hi pass."""
+    hi, lo = cuda_attention.split_tf32(x)
+    t = lambda a: a.transpose(-1, -2)             # noqa: E731
+    return lo @ t(hi) + hi @ t(lo) + hi @ t(hi) if passes == 3 else hi @ t(hi)
+
+
+def _knn_emulated(x, k, splits=1, passes=3):
+    """The kernel's distances d = max((qq + kk) - 2 inner, 0) with a 3xTF32
+    inner product, the keys of each of `splits` ranges of 64-key tiles
+    reduced to their k smallest by (d, index), and the partial lists
+    merged by (d, index) in split order."""
+    b, n, _ = x.shape
+    xx = (x * x).sum(-1)
+    d = ((xx[..., :, None] + xx[..., None, :]) - 2.0 * _tf32_inner(x, passes)).clamp_min(0.0)
+    tiles = -(-n // cuda_knn.ROWS)
+    span = -(-tiles // splits) * cuda_knn.ROWS
+    parts = []
+    for s in range(splits):
+        lo, hi = min(n, s * span), min(n, (s + 1) * span)
+        top = torch.sort(d[..., lo:hi], dim=-1, stable=True)
+        parts.append((top.values[..., :k], top.indices[..., :k] + lo))
+    vals = torch.cat([v for v, _ in parts], -1)
+    idx = torch.cat([i for _, i in parts], -1)
+    order = torch.sort(vals, dim=-1, stable=True).indices[..., :k]   # ties: split order
+    return idx.gather(-1, order).to(torch.int32)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+def test_knn_emulation_equals_plain_on_exact_ties(splits):
+    """On the integer grid (every distance exact in f32 and in tf32 passes)
+    and on duplicate and triple points, the emulated kernel equals the
+    plain version, order included, whatever the number of key splits."""
+    g = np.stack(np.meshgrid(np.arange(8), np.arange(8), np.arange(4)), -1)
+    grid = torch.from_numpy(g.reshape(1, -1, 3).astype(np.float32))
+    np.testing.assert_array_equal(_knn_emulated(grid, 20, splits).numpy(),
+                                  knn_indices(grid, 20).numpy())
+    x = torch.from_numpy(_points(3, n=256, c=9))
+    np.testing.assert_array_equal(_knn_emulated(x, 20, splits).numpy(),
+                                  knn_indices(x, 20).numpy())
+
+
+@pytest.mark.parametrize("c", [9, 64])
+def test_knn_emulation_meets_the_chip_gates(c):
+    """At a flagship size (B = 2, N = 2048, k = 20, 4 key splits as the
+    query batch takes them) the emulated 3xTF32 kernel keeps the plain
+    version's sets on all but 1e-3 of the rows, each differing neighbour
+    within NEAR_TIE of xx_i + xx_j of the k-th distance; one tf32 pass
+    (11 bits) misses both gates."""
+    import chip_smoke
+    x = torch.from_numpy(np.random.default_rng(c).normal(size=(2, 2048, c)).astype(np.float32))
+    want = knn_indices(x, 20).long()
+    a = chip_smoke.knn_agreement(torch, x, _knn_emulated(x, 20, 4).long(), want)
+    assert a["mismatch"] <= 1e-3 and a["gap"] <= chip_smoke.NEAR_TIE, a
+    one = chip_smoke.knn_agreement(torch, x, _knn_emulated(x, 20, 4, passes=1).long(), want)
+    assert one["mismatch"] > 1e-3 and one["gap"] > chip_smoke.NEAR_TIE, one
+
+
+def test_knn_key_splits_by_batch():
+    """One scan per row tile where the grid fills the card (B = 10, 320
+    blocks on 132 SMs), four for the query batch (B = 2), and no more than
+    half the key tiles."""
+    assert cuda_knn.splits(10, 2048, 132) == 1
+    assert cuda_knn.splits(2, 2048, 132) == 4
+    assert cuda_knn.splits(2, 130, 132) == 2
+    assert cuda_knn.splits(1, 64, 132) == 1
