@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (r3dfsseg_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--requests N] [--only knn,fps]
+    python3 chip_smoke.py [--seed N] [--requests N] [--only knn,fps | --only cheby,scatter]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
 
   1. build every kernel of `r3dfsseg_tpu_torch/csrc/` with nvcc, and print
-     the kNN and FPS kernels' registers and spills (-Xptxas -v);
+     the kNN, FPS, Chebyshev and scatter-add kernels' registers and spills
+     (-Xptxas -v);
   2. call each kernel at the flagship shapes of its path and hold it
      against its plain PyTorch version on the same inputs (kNN: the
      neighbour sets, differences only at near-ties, two calls bit-equal,
@@ -20,12 +21,17 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      call: the seeds, a divergence only at a near-tie, two calls
      bit-equal, one launch per call, each call timed; k-th
      distance: bit-equal, on f32 distances and on the bf16 compare copy
-     of a flagship episode's graph; scatter-add: within 1e-5 of sum |g|;
-     the Chebyshev solve on that episode's bf16 S: within 1e-4 of the
-     solution's largest entry; kernel 10 (the same solve with d rounded
-     to one bf16, one cooperative launch) on that S, label and dense b:
-     within 1e-5 of max |x| at 3 steps and 5e-3 at 50, beside kernel 7,
-     both held against the f64 solve; on the three EdgeConv blocks' inputs of
+     of a flagship episode's graph; scatter-add at a training step's two
+     batch shapes: within 1e-5 of sum |g|, bit-equal to its order of sums
+     emulated in PyTorch and across two calls, each call timed; the
+     Chebyshev solve (kernel 7, one cooperative launch, d split into bf16
+     hi + lo) on that episode's bf16 S, label and dense b: within 1e-5 of
+     max |x| of its split plain version at 1 and 3 steps and 1e-4 at 50,
+     within 1e-4 of the f32-product plain version, two solves bit-equal;
+     kernel 10 (the same solve with d rounded to one bf16) on that S:
+     within 1e-5 of max |x| at 3 steps and 5e-3 at 50, bit-equal across a
+     kernel 7 call, beside kernel 7, all held against the f64 solve; on
+     the three EdgeConv blocks' inputs of
      the support batch: the row gather (kernel 8) bit-equal, f32 and
      bf16, and the fused EdgeConv tail's five passes (kernel 9) in train
      and eval, stats1 and fwd within 1e-5 and each backward output within
@@ -56,8 +62,8 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      three more (one FPS kernel per call there too); then the same
      with the bf16 episode graph (gradients within a relative L2 distance
      of 1e-1: see `train`), whose steps must each launch all seven
-     kernels, the Chebyshev solve twice (forward and adjoint) and the
-     k-th distance once.  Serving and training launch kernels 8 to 11
+     kernels, the Chebyshev solve twice (forward and adjoint; the profile
+     shows its kernel twice per step) and the k-th distance once.  Serving and training launch kernels 8 to 11
      no time, as in the JAX package;
   5. the fused EdgeConv route (`fused_edgeconv`: kNN, kernel 8, kernel 9,
      the scatter-add backward) through the encoder's three blocks, against
@@ -76,9 +82,12 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
 It prints the card's name and power limit, one JSON line describing the
 eleven kernels, and as its last line {"ok": true, "device": {...}}.  Without a
 CUDA device it exits with code 1 and prints no result.  `--only knn,fps`
-runs the build and the kNN and FPS checks alone and prints their rows, so
-that another tree's kernels can be timed with the same code (put that
-tree's root first on sys.path and run this file with runpy).
+runs the build and the kNN and FPS checks alone and prints their rows, and
+`--only cheby,scatter` the Chebyshev and scatter-add checks, so that
+another tree's kernels can be timed with the same code (put that tree's
+root first on sys.path and run this file with runpy; the tree's modules
+need the plain versions these checks call: `cheby_solve_split_reference`
+and `scatter_add_ordered_reference`).
 """
 from __future__ import annotations
 
@@ -99,7 +108,11 @@ HBM_BYTES = 3.35e12  # H100 SXM device-memory bytes/s
 GRAD_TOL = 1e-3     # kernel vs plain training step: relative L2 per parameter
 BF16_GRAD_TOL = 1e-1  # the same on the bf16 graph, whose gradients carry ~1e-2 of
                       # bf16 rounding noise (see `train`)
-CHEBY_TOL = 1e-4    # Chebyshev kernel vs plain: f32 sums in another order, 49 matvecs
+CHEBY_TOL = 1e-4    # Chebyshev kernel vs the f32-product plain version: the split of d
+                    # (5e-6 of max |x| on a dense b) and f32 sums in another order, 49 steps
+# Chebyshev kernel vs its plain version (the same split-bf16 arithmetic): f32 sums
+# in another order; after 49 steps a lo piece can round the other way
+SPLIT_TOL = {1: 1e-5, 3: 1e-5, 50: 1e-4}
 # kernels 10 and 11 vs plain: their f32 sums run in another order, so a d entry
 # near a bf16 rounding boundary can round the other way, and the flip carries
 # through later steps; a few steps stay at f32 rounding
@@ -112,7 +125,8 @@ def log(*a):
     print(*a, flush=True)
 
 
-def ptxas_report(build_log: str, names=("knn_kernel", "fps_kernel")) -> list[str]:
+def ptxas_report(build_log: str, names=("knn_kernel", "fps_kernel", "cheby_kernel",
+                                        "scatter_add_kernel")) -> list[str]:
     """nvcc's -Xptxas -v lines of the entry functions whose mangled name
     holds one of ``names``: registers, barriers, stack and spill."""
     out, entry = [], None
@@ -143,6 +157,22 @@ def cuda_ms(fn, reps: int, per: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
+
+
+def device_ms(fn, key: str, reps: int = 20) -> float:
+    """Device time (ms) per call of fn() of the kernels whose name holds
+    ``key``, from `torch.profiler`: the kernels alone, without the host's
+    gaps that CUDA events around a call include."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if key in e.key) / reps / 1e3
 
 
 def bound(flops: float, nbytes: float, peak: float = F32_FLOPS) -> tuple[float, str]:
@@ -564,36 +594,71 @@ def check_kth_bf16(torch, kth_mod, sel):
 
 
 def check_cheby(torch, cheby_mod, s, b, alpha, iters):
-    """The Chebyshev solve on a flagship bf16 S, with the episode's label
-    columns b (the forward solve) and with a dense random b (as the
-    adjoint solve's): kernel vs plain within CHEBY_TOL of the solution's
-    largest entry; both are also held against the same solve in f64
-    (`exact_solve`) and the distances logged.  Its bound counts S read
-    once (it fits in the 50 MB L2); `bound_ms_hbm` is the time to read S
-    from device memory at every step."""
+    """The Chebyshev solve (kernel 7) on a flagship bf16 S, with the
+    episode's label columns b (the forward solve) and with a dense random b
+    (as the adjoint solve's): the kernel within SPLIT_TOL of max |x| of its
+    plain version (`cheby_solve_split_reference`, the same split-bf16
+    arithmetic) at 1, 3 and `iters` steps, and within CHEBY_TOL of the
+    f32-product plain version (`cheby_solve_reference`, the plain path); the
+    three are held against the same solve in f64 (`exact_solve`) and the
+    distances logged; two calls bit-equal, one launch per solve; timed with
+    CUDA events and by the profiler (its kernels' device time).  Its bound
+    counts S read once and the bf16 tensor-core products of both pieces of
+    d; `bound_ms_hbm` is the time to read S from device memory at every
+    step.  `max_abs_err` and `plain_ms` are against the f32-product plain
+    version, as in earlier rows; `split_max_abs_err` and `split_plain_ms`
+    against the split one."""
     g = torch.Generator(device="cuda").manual_seed(6)
     m = s.shape[0]
+    split = cheby_mod.cheby_solve_split_reference
     for rhs, bb in (("labels", b), ("dense", torch.randn(b.shape, generator=g, device="cuda"))):
+        before = cheby_mod.launches
         got = cheby_mod.cheby_solve(s, bb, alpha, iters)
+        again = cheby_mod.cheby_solve(s, bb, alpha, iters)
+        torch.cuda.synchronize()
+        if cheby_mod.launches != before + 2 or not torch.equal(got, again):
+            raise AssertionError(f"cheby, {rhs} b: launches {cheby_mod.launches - before} for two "
+                                 f"solves, bit-equal {torch.equal(got, again)}")
         want = cheby_mod.cheby_solve_reference(s, bb, alpha, iters)
         exact = exact_solve(cheby_mod)(s, bb, alpha, iters)
         e, scale = (got - want).abs().max().item(), want.abs().max().item()
-        exact_err = {name: (x - exact).abs().max().item() / scale
-                     for name, x in (("kernel", got), ("plain", want))}
-        log(f"  cheby bf16 S ({m}, {m}), {rhs} b {tuple(bb.shape)}, {iters} steps: max abs err "
-            f"{e:.3e}, {e / scale:.3e} of max |x| = {scale:.4f}; from the f64 solve: kernel "
-            f"{exact_err['kernel']:.3e}, plain {exact_err['plain']:.3e} of max |x|")
+        versions = {"kernel": got, "f32 plain": want, "split plain": split(s, bb, alpha, iters)}
+        for steps in sorted(SPLIT_TOL):
+            k_t = got if steps == iters else cheby_mod.cheby_solve(s, bb, alpha, steps)
+            p_t = versions["split plain"] if steps == iters else split(s, bb, alpha, steps)
+            e_t, sc_t = (k_t - p_t).abs().max().item(), p_t.abs().max().item()
+            log(f"  cheby {rhs} b, {steps} steps: kernel vs split plain {e_t:.3e}, "
+                f"{e_t / sc_t:.3e} of max |x| (tolerance {SPLIT_TOL[steps]})")
+            if not (np.isfinite(e_t) and e_t <= SPLIT_TOL[steps] * sc_t):
+                raise AssertionError(f"cheby, {rhs} b, {steps} steps: {e_t} > "
+                                     f"{SPLIT_TOL[steps]} x {sc_t}")
+            if rhs == "labels" and steps == iters:
+                split_err = (e_t, e_t / sc_t)
+        exact_err = {name: (x - exact).abs().max().item() / scale for name, x in versions.items()}
+        log(f"  cheby bf16 S ({m}, {m}), {rhs} b {tuple(bb.shape)}, {iters} steps: kernel vs f32 "
+            f"plain {e:.3e}, {e / scale:.3e} of max |x| = {scale:.4f}; from the f64 solve: " +
+            ", ".join(f"{n} {v:.3e}" for n, v in exact_err.items()) + " of max |x|")
         if not (np.isfinite(e) and e <= CHEBY_TOL * scale):
             raise AssertionError(f"cheby, {rhs} b: error {e} > {CHEBY_TOL} x {scale}")
         if rhs == "labels":
             err, rel_err, label_exact = e, e / scale, exact_err
+        else:
+            dense_exact = exact_err
     ms = cuda_ms(lambda: cheby_mod.cheby_solve(s, b, alpha, iters), 10)
+    dev = device_ms(lambda: cheby_mod.cheby_solve(s, b, alpha, iters), "cheby")
     plain = cuda_ms(lambda: cheby_mod.cheby_solve_reference(s, b, alpha, iters), 10)
+    split_plain = cuda_ms(lambda: split(s, b, alpha, iters), 10)
     steps = iters - 1
     s_bytes = 2.0 * m * m
-    return row(err, ms, plain, None, steps * 2.0 * m * m * b.shape[1],
-               s_bytes + 8.0 * b.numel(), max_rel_err=rel_err,
-               exact_rel_err=label_exact["kernel"], plain_exact_rel_err=label_exact["plain"],
+    log(f"  cheby {iters} steps, label b: kernel {ms:.3f} ms (device {dev:.3f}), f32 plain "
+        f"{plain:.3f}, split plain {split_plain:.3f}")
+    return row(err, ms, plain, None, steps * 2.0 * m * m * 2 * b.shape[1],
+               s_bytes + 8.0 * b.numel(), peak=BF16_TC_FLOPS, max_rel_err=rel_err,
+               split_max_abs_err=split_err[0], split_max_rel_err=split_err[1],
+               split_plain_ms=split_plain, exact_rel_err=label_exact["kernel"],
+               plain_exact_rel_err=label_exact["f32 plain"],
+               split_plain_exact_rel_err=label_exact["split plain"],
+               exact_rel_err_dense=dense_exact, device_ms=dev,
                bound_ms_hbm=steps * s_bytes / HBM_BYTES * 1e3)
 
 
@@ -626,6 +691,8 @@ def check_proto_cheby(torch, proto_mod, cheby_mod, s, b, alpha, iters):
             ("kernel 7", cheby_mod.cheby_solve(s, bb, alpha, iters)))}
         log(f"  {rhs} b, {iters} steps, distance from the f64 solve / max |x|: " +
             ", ".join(f"{n} {v:.3e}" for n, v in dist.items()))
+        if not torch.equal(got, proto_mod.proto_cheby_solve(s, bb, alpha, iters)):
+            raise AssertionError(f"proto_cheby, {rhs} b: not bit-equal across a kernel 7 call")
         if rhs == "labels":
             out = dict(err=e, rel_err=e / scale, exact=dist)
         else:
@@ -648,8 +715,12 @@ def check_proto_cheby(torch, proto_mod, cheby_mod, s, b, alpha, iters):
 def check_scatter(torch, knn_mod, scatter_mod, sx, qx):
     """The gather backward at a training step's shapes: the kNN graphs of
     the episode's support (B = 10) and query (B = 2) clouds, a random
-    (B, 2048, 20, 64) cotangent.  The atomics add in a varying order:
-    |got - want| <= 1e-5 * sum |g| per entry."""
+    (B, 2048, 20, 64) cotangent.  Within 1e-5 * sum |g| of `index_add_` per
+    entry, bit-equal to the kernel's order of sums emulated in PyTorch
+    (`scatter_add_ordered_reference`) and across two calls, one launch per
+    call.  Each call is timed (five back to back; and the kernel's device
+    time from the profiler) and the six calls of a training step (three
+    EdgeConv blocks per batch), beside `index_add_`."""
     g = torch.Generator(device="cuda").manual_seed(5)
     calls = []
     for x in (sx.reshape(-1, *sx.shape[2:]), qx):
@@ -657,33 +728,53 @@ def check_scatter(torch, knn_mod, scatter_mod, sx, qx):
         idx = knn_mod.knn(xt, 20)
         calls.append((torch.randn((*idx.shape, 64), generator=g, device="cuda"), idx))
     err = 0.0
+    per_call = {}
     for gr, idx in calls:
+        before = scatter_mod.launches
         got = scatter_mod.scatter_add(gr, idx, 2048)
+        again = scatter_mod.scatter_add(gr, idx, 2048)
+        torch.cuda.synchronize()
         want = scatter_mod.scatter_add_reference(gr, idx, 2048)
         tol = 1e-5 * scatter_mod.scatter_add_reference(gr.abs(), idx, 2048)
         e = (got - want).abs()
-        hub = torch.bincount(idx[0].flatten().long()).max().item()
+        hub = max(torch.bincount(i.flatten().long()).max().item() for i in idx)
+        same = torch.equal(got, again)
+        emulated = torch.equal(got, scatter_mod.scatter_add_ordered_reference(gr, idx, 2048))
         log(f"  scatter-add {tuple(gr.shape)}: max abs err {e.max().item():.3e}, "
-            f"largest share of the bound {(e / tol.clamp_min(1e-30)).max().item():.3e}; "
-            f"busiest point of cloud 0 is the neighbour of {hub} rows")
+            f"largest share of the bound {(e / tol.clamp_min(1e-30)).max().item():.3e}; two calls "
+            f"bit-equal {same}; bit-equal to the ordered emulation {emulated}; busiest point is "
+            f"the neighbour of {hub} rows")
         if not bool((e <= tol).all()):
             raise AssertionError("scatter-add outside 1e-5 * sum |g|")
+        if scatter_mod.launches != before + 2:
+            raise AssertionError(f"scatter-add: {scatter_mod.launches - before} launches for 2 calls")
+        if not (same and emulated):
+            raise AssertionError("scatter-add: not bit-equal across calls or to its emulation")
         err = max(err, e.max().item())
+        call = (lambda: scatter_mod.scatter_add(gr, idx, 2048))
+        per_call[f"B{gr.shape[0]}"] = dict(   # five calls back to back: see `cuda_ms`
+            ms=cuda_ms(call, 10, per=5), device_ms=device_ms(call, "scatter_add"),
+            library_ms=cuda_ms(lambda: index_add(torch, gr, idx), 10, per=5), hub=hub)
     step = calls * 3                        # three EdgeConv blocks per batch
-
-    def library():
-        for gr, idx in step:
-            b = gr.shape[0]
-            off = (torch.arange(b, device="cuda") * 2048)[:, None, None]
-            flat = (idx.long() + off).reshape(-1)
-            gr.new_zeros((b * 2048, 64)).index_add_(0, flat, gr.reshape(-1, 64))
-
     ms = cuda_ms(lambda: [scatter_mod.scatter_add(gr, idx, 2048) for gr, idx in step], 10)
     plain = cuda_ms(lambda: [scatter_mod.scatter_add_reference(gr, idx, 2048)
                              for gr, idx in step], 10)
-    lib = cuda_ms(library, 10)
+    lib = cuda_ms(lambda: [index_add(torch, gr, idx) for gr, idx in step], 10)
+    log("  scatter-add per call: " + ", ".join(
+        f"{k} {v['ms']:.4f} ms, device {v['device_ms']:.4f} (index_add_ {v['library_ms']:.4f})"
+        for k, v in per_call.items()) +
+        f"; a training step's six calls {ms:.4f} ms (index_add_ {lib:.4f})")
     nbytes = sum(4.0 * (gr.numel() + idx.numel() + gr.shape[0] * 2048 * 64) for gr, idx in step)
-    return row(err, ms, plain, lib, sum(float(gr.numel()) for gr, _ in step), nbytes)
+    return row(err, ms, plain, lib, sum(float(gr.numel()) for gr, _ in step), nbytes,
+               per_call=per_call)
+
+
+def index_add(torch, gr, idx, n: int = 2048):
+    """One `index_add_` call computing the scatter-add: the library yardstick."""
+    b, c = gr.shape[0], gr.shape[-1]
+    off = (torch.arange(b, device="cuda") * n)[:, None, None]
+    flat = (idx.long() + off).reshape(-1)
+    return gr.new_zeros((b * n, c)).index_add_(0, flat, gr.reshape(-1, c))
 
 
 # ----------------------------------------------------- fused EdgeConv --
@@ -1469,7 +1560,8 @@ def profile_train(torch, learner, episodes, steps: int = 3, top: int = 12) -> No
     for name, ms, n in rows[:top]:
         log(f"  {ms:8.3f} ms  x{n:<4d} {name[:90]}")
     for what, key in (("attention kernels (2, 5)", "attn_"), ("kNN kernel (1)", "knn_kernel"),
-                      ("FPS kernel (3)", "fps_kernel")):
+                      ("FPS kernel (3)", "fps_kernel"), ("scatter-add kernel (6)", "scatter_add"),
+                      ("Chebyshev kernel (7)", "cheby_kernel")):
         mine = [r for r in rows if key in r[0]]
         log(f"[profile] {what}: {sum(r[1] for r in mine):.3f} ms per step")
         for name, ms, n in mine:
@@ -1477,6 +1569,10 @@ def profile_train(torch, learner, episodes, steps: int = 3, top: int = 12) -> No
     fps_calls = sum(n for name, _, n in rows if "fps_kernel" in name)
     if fps_calls != 3:
         raise AssertionError(f"profile: {fps_calls} FPS kernels per step, not 3 (one per call)")
+    # kernel 7: one cooperative launch per solve, the forward and the adjoint
+    cheby_calls = sum(n for name, _, n in rows if "cheby_kernel" in name)
+    if cheby_calls != (2 if learner.cfg.graph_dtype == "bfloat16" else 0):
+        raise AssertionError(f"profile: {cheby_calls} Chebyshev kernels per step")
 
 
 def train_stages(torch, learner, episode, reps: int = 3) -> dict:
@@ -1595,9 +1691,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
-    ap.add_argument("--only", choices=["knn,fps"],
-                    help="build, then only the kNN and FPS kernel checks, and print their "
-                         "rows (to time them beside another tree's kernels)")
+    ap.add_argument("--only", choices=["knn,fps", "cheby,scatter"],
+                    help="build, then only the kNN and FPS (or the Chebyshev and scatter-add) "
+                         "kernel checks, and print their rows (to time them beside another "
+                         "tree's kernels)")
     args = ap.parse_args()
 
     import torch
@@ -1634,6 +1731,15 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     episodes = [make_episode(cfg, rng) for _ in range(max(args.requests, 3))]
     log("[kernels] flagship shapes, kernel vs plain PyTorch on the card")
+    cfg16 = cfg.replace(graph_dtype="bfloat16")
+    if args.only == "cheby,scatter":
+        _, s16, b16, _, _ = flagship_graph(torch, cfg16, episodes[0], args.seed)
+        rows = {"cheby": check_cheby(torch, cuda_cheby, s16, b16, cfg.lp_alpha, cfg.lp_cg_iters),
+                "scatter_add": check_scatter(torch, cuda_knn, cuda_scatter, episodes[0][0],
+                                             episodes[0][2])}
+        log(smi)
+        log(json.dumps(rows))
+        return 0
     rows = {"knn": check_knn(torch, cuda_knn, episodes[0][0])}
     if args.only:
         rows["fps"] = check_fps(torch, cuda_fps)
@@ -1658,7 +1764,6 @@ def main() -> int:
     rows["gather_onehot"] = check_gather(torch, cuda_gather, operands)
     rows["fused_edge"] = check_fused_passes(torch, cuda_fused_edge, blocks, operands, args.seed)
     del operands
-    cfg16 = cfg.replace(graph_dtype="bfloat16")
     sel, s16, b16, node, valid = flagship_graph(torch, cfg16, episodes[0], args.seed)
     rows["kth"].update(check_kth_bf16(torch, cuda_kth, sel))
     rows["cheby"] = check_cheby(torch, cuda_cheby, s16, b16, cfg.lp_alpha, cfg.lp_cg_iters)
@@ -1744,7 +1849,7 @@ def main() -> int:
                "fps": ("fps.cu", "r3dfsseg_tpu/ops/pallas_fps.py:46"),
                "kth": ("kth.cu", "r3dfsseg_tpu/ops/pallas_kth.py:33"),
                "scatter_add": ("scatter_add.cu", "r3dfsseg_tpu/ops/fast_gather.py:40"),
-               "cheby": ("cheby.cu", "r3dfsseg_tpu/ops/pallas_cheby.py:42"),
+               "cheby": ("proto_cheby.cu", "r3dfsseg_tpu/ops/pallas_cheby.py:42"),
                "gather_onehot": ("gather.cu", "r3dfsseg_tpu/ops/fast_gather.py:89"),
                "fused_edge": ("fused_edge.cu", "scripts/archive/fused_edge.py:213"),
                "proto_cheby": ("proto_cheby.cu", "scripts/archive/proto_cheby_pallas.py:22"),

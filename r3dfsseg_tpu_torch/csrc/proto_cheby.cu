@@ -1,23 +1,31 @@
-// Two persistent bf16 tensor-core kernels over an on-chip S: the
-// single-launch Chebyshev solve (kernel 10) and the S.d matvec probe
-// (kernel 11).
+// Three persistent bf16 tensor-core kernels over an on-chip S: the
+// Chebyshev solve of the bf16 episode graph (kernel 7, on the main paths),
+// the archived single-launch Chebyshev probe (kernel 10) and the S.d
+// matvec probe (kernel 11).
 //
-// Replaces the TPU kernels scripts/archive/proto_cheby_pallas.py:_cheby_kernel
-// (via cheby_pallas) and scripts/archive/proto_cheby2.py:make_matmul_only's
-// `kernel`.  Both keep S in the TPU's VMEM and loop over the steps inside
-// one kernel; each step rounds the iterate to bf16 and takes one bf16 x bf16
-// -> f32 dot with S.
-//   kernel 10: r = b, d = r / theta, x = d, then for each of iters - 1 steps
-//     r <- r - (d - alpha * S bf16(d));  d <- c1 * d + c2 * r;  x <- x + d
+// Replaces the TPU kernels r3dfsseg_tpu/ops/pallas_cheby.py:_cheby_kernel
+// (via cheby_solve_pallas; kernel 7),
+// scripts/archive/proto_cheby_pallas.py:_cheby_kernel (via cheby_pallas;
+// kernel 10) and scripts/archive/proto_cheby2.py:make_matmul_only's
+// `kernel` (kernel 11).  All three keep S in the TPU's VMEM and loop over
+// the steps inside one kernel; each step feeds the iterate to one bf16 x
+// bf16 -> f32 dot with S.
+//   kernels 7 and 10: r = b, d = r / theta, x = d, then for each of iters -
+//     1 steps
+//       r <- r - (d - alpha * sd);  d <- c1 * d + c2 * r;  x <- x + d
 //     with (c1, c2) computed once on the host, in double, by
-//     ops/cuda_cheby.py:coefficients (shared with the plain version and
-//     kernel 7); the updates use round-to-nearest intrinsics in the plain
-//     version's operation order.
+//     ops/cuda_cheby.py:coefficients (shared with the plain versions); the
+//     updates use round-to-nearest intrinsics in the plain versions' order.
+//     Kernel 7 takes d as P = 2 bf16 pieces, hi = bf16(d) and lo = bf16(d -
+//     hi), and sd = (S hi) + (S lo), the two f32 sums added in f32: the TPU
+//     kernel's `body_packed`, which packs hi and lo as the two halves of one
+//     operand so that one dot gives both.  Kernel 10 takes one piece, sd = S
+//     bf16(d): the TPU's rejected first version.
 //   kernel 11: acc = b, then iters times acc <- (S bf16(acc)) * 0.99.
 //
 // What bounds them on the H100: each step reads all of S (4396^2 bf16 =
-// 38.65 MB for kernel 10's flagship graph, 4480^2 = 40.14 MB for kernel
-// 11's probe).  Read once, S bounds kernel 10 by bytes (0.0115 ms) and
+// 38.65 MB at the flagship graph, 4480^2 = 40.14 MB for kernel 11's
+// probe).  Read once, S bounds kernels 7 and 10 by bytes (0.0115 ms) and
 // kernel 11 at 128 columns by the tensor cores' operations.  What the
 // design pays instead is reading S again at every step (from the 50 MB L2,
 // whose aggregate bandwidth limits that part, or from on chip), the
@@ -31,27 +39,32 @@
 //   positions, cut into equal contiguous ranges, one per block and fixed
 //   across steps, so every SM reads the same number of rows of S.  A block
 //   walks its range in tiles of at most 16 rows (`TileWalk`).
-// - Products: the block stages the live columns of its column group of
-//   bf16(d) for all rows in shared memory (cp.async, zero past m), and its
-//   16 warps split the K range of each tile: a warp runs mma.sync.m16n8k16
-//   bf16 tiles (A = up to 16 rows of S; B = d from shared memory; the k
-//   order inside a tile is permuted identically in A and B so that one
-//   8-byte load fills two fragment registers), f32 accumulation.  Rows of S
-//   read from L2 take 8-byte __ldg loads, and a warp issues its first ones
-//   before it waits for the staged d, so the staging hides behind them.
-// - Kernel 10 keeps S on chip across the steps, as the TPU kernel keeps it
-//   in VMEM: of each block's range, one tile of 16 rows lives in the warps'
-//   registers (each warp holds the A fragments of its k-tiles, 18 at most)
-//   and the shared memory left over holds the next rows (20 at the
-//   flagship graph with 3 columns), both loaded once per solve; at the
-//   flagship graph (33-34 rows per block) all of S is on chip and no step
-//   reads it from L2.  Shared-memory rows are swept two tiles at a time,
-//   one B fragment for both.
+// - Products: the block stages the live columns of its column group of the
+//   bf16 pieces of d for all rows in shared memory (cp.async, zero past m),
+//   and its 16 warps split the K range of each tile: a warp runs
+//   mma.sync.m16n8k16 bf16 tiles (A = up to 16 rows of S; B = the pieces
+//   from shared memory; the k order inside a tile is permuted identically
+//   in A and B so that one 8-byte load fills two fragment registers), f32
+//   accumulation.  Kernel 7's B holds hi in columns 0 .. c - 1 and lo in c
+//   .. 2c - 1: one n = 8 tile for c <= 4 (one mma per A fragment, as the
+//   TPU packs both into one dot), two for c = 5 .. 8.  Rows of S read from
+//   L2 take 8-byte __ldg loads, and a warp issues its first ones before it
+//   waits for the staged pieces, so the staging hides behind them.
+// - Kernels 7 and 10 keep S on chip across the steps, as the TPU kernels
+//   keep it in VMEM: of each block's range, one tile of 16 rows lives in
+//   the warps' registers (each warp holds the A fragments of its k-tiles,
+//   18 at most; one n tile only) and the shared memory left over holds the
+//   next rows, both loaded once per solve; at the flagship graph (33-34
+//   rows per block, 3 columns) all of S is on chip and no step reads it
+//   from L2: kernel 10 keeps 20 rows in shared memory, kernel 7 18 (its
+//   second piece of d takes 26 KB more, so it sweeps its shared-memory rows
+//   one tile at a time, where kernel 10 sweeps two tiles with one B
+//   fragment, and the reduction buffer halves).
 // - The 16 warps' partial tiles are summed in warp order in shared memory
 //   (no atomics: a call repeats bit for bit, wherever its rows of S live),
-//   and the tile's owner threads apply the update and write bf16(d) for the
-//   next step into the other of two global buffers, so one barrier per step
-//   suffices.  Kernel 10's r, d and x stay in shared memory across the
+//   and the tile's owner threads apply the update and write the pieces of
+//   d for the next step into the other of two global buffers, so one
+//   barrier per step suffices.  r, d and x stay in shared memory across the
 //   steps.  The bf16 buffers are read through L2 (cp.async.cg): another
 //   block wrote them in the same launch, and L1 is not coherent.
 // - Kernel 11's bf16(acc) at 128 columns (1.15 MB) does not fit one
@@ -64,7 +77,7 @@
 // load S with 2-byte loads instead.
 //
 // Layout: s (m, lds) bf16 row-major; b, x and out (m, ncols) f32
-// row-major; the bf16 buffers (2, ncols_pad, ldk), column-major, zero-filled
+// row-major; the bf16 buffers (2, 8 * NT, ldk), column-major, zero-filled
 // by the wrapper, with ldk >= m rounded up to 16 and ldk % 64 == 16 (the
 // shared-memory fragment loads of a warp then hit distinct banks).
 #include "common.cuh"
@@ -84,9 +97,9 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTileRows = 16;
 constexpr int kBatch = 4;            // k-tiles of A loaded at once by a warp
 constexpr int kSharedTiles = 2;      // kernel 10: tiles of shared-memory rows per sweep
-constexpr int kRegTiles = 18;        // kernel 10: a warp's k-tiles held in registers
+constexpr int kRegTiles = 18;        // kernels 7, 10: a warp's k-tiles held in registers
                                      // (m <= 16 * 16 * 18 = 4608)
-constexpr int kMaxCols = 8;          // kernel 10: live columns of b
+constexpr int kMaxCols = 8;          // kernels 7, 10: live columns of b
 constexpr int kMaxProbeCols = 128;   // kernel 11
 constexpr float kProbeScale = 0.99f;
 using r3d::kSmemLimit;
@@ -135,14 +148,18 @@ __device__ __forceinline__ void block_range(int positions, int& lo, int& hi) {
   hi = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * positions / gridDim.x);
 }
 
-// Kernel 10's most tiles per block: a range of at most ceil(m / grid) rows
-// is walked in three parts (see `proto_cheby_kernel`).
+// Kernels 7 and 10's most tiles per block: a range of at most ceil(m / grid) rows
+// is walked in three parts (see `cheby_kernel`).
 __host__ __device__ __forceinline__ int max_tiles(int m, int grid) {
   return ceil_div(ceil_div(m, grid), kTileRows) + 2;
 }
 
 __device__ __forceinline__ unsigned short bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float bf16_value(unsigned short bits) {
+  return __uint_as_float(static_cast<unsigned int>(bits) << 16);
 }
 
 // Entries k .. k + 3 of one row of S in device memory as two packed bf16
@@ -292,12 +309,13 @@ __device__ __forceinline__ void warp_product_registers(const Geometry& g,
 // in one sweep over the warp's k-tiles that loads each B fragment once.
 // a_s[i] is tile i's first row (row stride ldk), of n[i] rows; rows past a
 // tile repeat its last row, and the caller drops those outputs.
-template <int TT>
+template <int TT, int NT>
 __device__ __forceinline__ void warp_product_shared(const Geometry& g,
                                                     const unsigned short* const (&a_s)[TT],
                                                     const int (&n)[TT], int ntl, int kt0,
                                                     int kt1, const unsigned short* b_s,
-                                                    int live, bool wait, float (&acc)[TT][4]) {
+                                                    int live, bool wait,
+                                                    float (&acc)[TT][NT][4]) {
   const int lane = threadIdx.x & 31;
   const int gid = lane >> 2;
   const int tig4 = 4 * (lane & 3);
@@ -308,20 +326,28 @@ __device__ __forceinline__ void warp_product_shared(const Geometry& g,
     pa[i] = a_s[i] + min(gid, n[i] - 1) * g.ldk + tig4;
     pb[i] = a_s[i] + min(gid + 8, n[i] - 1) * g.ldk + tig4;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+    }
   }
-  const unsigned short* bp = b_s + min(gid, live - 1) * g.ldk + tig4;
+  const unsigned short* bp[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) bp[j] = b_s + min(8 * j + gid, live - 1) * g.ldk + tig4;
   if (wait) stage_wait();
 #pragma unroll 4
   for (int kt = kt0; kt < kt1; ++kt) {
     const int k = kt * 16;
-    const uint2 bv = *reinterpret_cast<const uint2*>(bp + k);
+    uint2 bv[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) bv[j] = *reinterpret_cast<const uint2*>(bp[j] + k);
 #pragma unroll
     for (int i = 0; i < TT; ++i) {
       if (i < ntl) {
         const uint2 lo = *reinterpret_cast<const uint2*>(pa[i] + k);
         const uint2 hi = *reinterpret_cast<const uint2*>(pb[i] + k);
-        mma_bf16(acc[i], lo.x, hi.x, lo.y, hi.y, bv.x, bv.y);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], lo.x, hi.x, lo.y, hi.y, bv[j].x, bv[j].y);
       }
     }
   }
@@ -332,17 +358,20 @@ __device__ __forceinline__ void warp_product_shared(const Geometry& g,
 // sweep) or from the registers areg (a walk of one tile).  The block
 // stages the first `live` columns of a tile's column group of d_in
 // ((ncols_pad, ldk) bf16, this step's buffer) whenever the group changes.
-// epi(slot, row, col, (S bf16(d))[row, col]) applies the update of one
-// entry, where slot = tile * 16 * 8 * NT + (the thread's entry of the tile)
-// numbers the block's entries; `tile` counts on across walks.  red holds
-// TT * 16 warps' partial tiles.
-template <int NT, bool kVec, Source kSrc, int TT, int KREG, class Epi>
+// epi(slot, row, col, sd) applies the update of one entry, where sd =
+// (S piece)[row, col] with one piece of d (P = 1) and (S hi)[row, col] +
+// (S lo)[row, col] with two (P = 2: hi in columns 0 .. live / 2 - 1, lo in
+// the next live / 2; each summed over the warps, then the two added), and
+// slot = tile * 16 * 8 + row in the tile * 8 + col numbers the block's
+// entries of up to 8 columns; `tile` counts on across walks.  red holds TT
+// * 16 warps' partial tiles.
+template <int NT, bool kVec, Source kSrc, int TT, int P, int KREG, class Epi>
 __device__ void step_walk(const Geometry& g, TileWalk w, int& tile, int& staged,
                           const unsigned short* res_s, int res_row0,
                           const unsigned int (&areg)[KREG][4], int live,
                           const unsigned short* d_in, unsigned short* b_s, float* red,
                           const Epi& epi) {
-  static_assert(TT == 1 || (kSrc == kFromShared && NT == 1), "several tiles: shared rows only");
+  static_assert(TT == 1 || kSrc == kFromShared, "several tiles: shared rows only");
   static_assert(kSrc != kFromRegisters || (NT == 1 && TT == 1), "one register tile");
   constexpr int kCols = 8 * NT;
   constexpr int kOut = kTileRows * kCols;  // entries of a tile
@@ -378,15 +407,9 @@ __device__ void step_walk(const Geometry& g, TileWalk w, int& tile, int& staged,
       warp_product_registers<KREG>(g, areg, kt0, b_s, live, fresh, acc[0][0]);
     } else if constexpr (kSrc == kFromShared) {
       const unsigned short* a_s[TT];
-      float part[TT][4];
 #pragma unroll
       for (int i = 0; i < TT; ++i) a_s[i] = res_s + static_cast<size_t>(row0[i] - res_row0) * g.ldk;
-      warp_product_shared<TT>(g, a_s, n, ntl, kt0, kt1, b_s, live, fresh, part);
-#pragma unroll
-      for (int i = 0; i < TT; ++i) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][0][q] = part[i][q];
-      }
+      warp_product_shared<TT, NT>(g, a_s, n, ntl, kt0, kt1, b_s, live, fresh, acc);
     } else {
       warp_product<NT, kVec>(g, row0[0], n[0], kt0, kt1, b_s, live, fresh, acc[0]);
     }
@@ -406,10 +429,17 @@ __device__ void step_walk(const Geometry& g, TileWalk w, int& tile, int& staged,
       const int e = threadIdx.x - i * kOut;
       const int r = e / kCols;
       const int col = e - r * kCols;
-      const int src = (r & 7) * 4 + ((col & 7) >> 1);
-      const int reg = 4 * (col >> 3) + 2 * (r >> 3) + (col & 1);
-      float sum = 0.f;
-      for (int v = 0; v < kWarps; ++v) sum += red[((i * kWarps + v) * 4 * NT + reg) * 32 + src];
+      auto total = [&](int cc) {  // entry (r, cc) of the tile, summed in warp order
+        const int src = (r & 7) * 4 + ((cc & 7) >> 1);
+        const int reg = 4 * (cc >> 3) + 2 * (r >> 3) + (cc & 1);
+        float sum = 0.f;
+        for (int v = 0; v < kWarps; ++v) sum += red[((i * kWarps + v) * 4 * NT + reg) * 32 + src];
+        return sum;
+      };
+      float sum = total(col);
+      if constexpr (P == 2) {
+        if (col < live / 2) sum = __fadd_rn(sum, total(col + live / 2));  // S hi + S lo
+      }
       int r0 = row0[0];
       int nr = n[0];
 #pragma unroll
@@ -419,16 +449,29 @@ __device__ void step_walk(const Geometry& g, TileWalk w, int& tile, int& staged,
           nr = n[q];
         }
       }
-      if (r < nr) epi((tile + i) * kOut + e, r0 + r, group * kCols + col, sum);
+      if (r < nr) epi((tile + i) * kTileRows * 8 + r * 8 + col, r0 + r, group * kCols + col, sum);
     }
     __syncthreads();  // red and b_s are rewritten by the next sweep
     tile += ntl;
   }
 }
 
-// Kernel 10's update of entry (row, col) for one step.  The block's entries
-// of r, d and x stay in shared memory across the steps (st, three arrays of
-// `per` floats); only bf16(d) goes through device memory.
+// The P bf16 pieces of d[row, col] into a (8 * NT, ldk) buffer: hi = bf16(d)
+// in column col and, with P = 2, lo = bf16(d - hi) in column c + col (d - hi
+// is exact in f32).
+template <int P>
+__device__ __forceinline__ void store_pieces(unsigned short* buf, int c, int ldk, int row,
+                                             int col, float d) {
+  const unsigned short hi = bf16_bits(d);
+  buf[col * ldk + row] = hi;
+  if constexpr (P == 2) buf[(c + col) * ldk + row] = bf16_bits(__fsub_rn(d, bf16_value(hi)));
+}
+
+// Kernels 7 and 10's update of entry (row, col) for one step.  The block's
+// entries of r, d and x stay in shared memory across the steps (st, three
+// arrays of `per` floats); only the P bf16 pieces of d go through device
+// memory.
+template <int P>
 struct ChebyUpdate {
   float* st;
   int per;
@@ -451,7 +494,7 @@ struct ChebyUpdate {
     *r = rv;
     *d = dn;
     *x = __fadd_rn(*x, dn);
-    d_out[col * ldk + row] = bf16_bits(dn);
+    store_pieces<P>(d_out, c, ldk, row, col, dn);
   }
 };
 
@@ -474,9 +517,9 @@ struct ProbeUpdate {
   }
 };
 
-// Shared memory: `cols` columns of bf16(d), the warps' partial tiles of
-// `tt` tiles, then (kernel 10) the state of `tiles` tiles and the resident
-// rows of S.
+// Shared memory: `cols` columns of the pieces of d, the warps' partial
+// tiles of `tt` tiles, then (kernels 7 and 10) the state of `tiles` tiles
+// and the resident rows of S.
 size_t base_smem(int cols, int nt, int ldk, int tt = 1) {
   return sizeof(unsigned short) * cols * static_cast<size_t>(ldk) +
          sizeof(float) * tt * kWarps * 4 * nt * 32;
@@ -484,25 +527,28 @@ size_t base_smem(int cols, int nt, int ldk, int tt = 1) {
 
 size_t state_smem(int tiles) { return sizeof(float) * 3 * tiles * kTileRows * 8; }
 
-// Kernel 10.  A block's range of rows [lo, hi) is walked in three parts:
-// rows read from L2 at every step [lo, a), one tile held in the warps'
-// registers [a, b) (with KREG > 0: each warp keeps its k-tiles' A
-// fragments, KREG at most), and rows kept in shared memory [b, hi).
-// `onchip` caps the rows kept in registers and shared memory, `resident`
-// the rows shared memory has room for.
-template <bool kVec, int KREG>
+// Kernels 7 (P = 2 pieces of d, NT = 1 or 2 column tiles, TT = 1 shared
+// tile per sweep) and 10 (P = 1, NT = 1, TT = 2).  A block's range of rows
+// [lo, hi) is walked in three parts: rows read from L2 at every step [lo,
+// a), one tile held in the warps' registers [a, b) (with KREG > 0: each
+// warp keeps its k-tiles' A fragments, KREG at most), and rows kept in
+// shared memory [b, hi).  `onchip` caps the rows kept in registers and
+// shared memory, `resident` the rows shared memory has room for.
+template <bool kVec, int KREG, int P, int NT, int TT>
 __global__ void __launch_bounds__(kThreads, 1)
-proto_cheby_kernel(Geometry g, const float* __restrict__ b, float* x, unsigned short* dbuf,
-                   int c, int iters, float alpha, float theta, const float* __restrict__ coef,
-                   int resident, int onchip) {
+cheby_kernel(Geometry g, const float* __restrict__ b, float* x, unsigned short* dbuf, int c,
+             int iters, float alpha, float theta, const float* __restrict__ coef, int resident,
+             int onchip) {
+  static_assert(KREG == 0 || NT == 1, "the register tile takes one column tile");
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned short* b_s = reinterpret_cast<unsigned short*>(smem);
-  float* red = reinterpret_cast<float*>(smem + sizeof(unsigned short) * c * g.ldk);
-  float* st = red + kSharedTiles * kWarps * 4 * 32;
+  float* red = reinterpret_cast<float*>(smem + sizeof(unsigned short) * P * c * g.ldk);
+  float* st = red + TT * kWarps * 4 * NT * 32;
   const int per = max_tiles(g.m, gridDim.x) * kTileRows * 8;
   unsigned short* res_s = reinterpret_cast<unsigned short*>(st + 3 * per);
   cg::grid_group grid = cg::this_grid();
-  const size_t buf = static_cast<size_t>(8) * g.ldk;
+  const size_t buf = static_cast<size_t>(8) * NT * g.ldk;
+  const int live = P * c;
   int lo, hi;
   block_range(g.m, lo, hi);
   const int in_regs = KREG > 0 ? min(kTileRows, min(hi - lo, onchip)) : 0;
@@ -514,8 +560,8 @@ proto_cheby_kernel(Geometry g, const float* __restrict__ b, float* x, unsigned s
   const int kt0 = warp * g.ktiles / kWarps;
   const int kt1 = (warp + 1) * g.ktiles / kWarps;
 
-  // The block's entries: r = b, d = b / theta, x = d, bf16(d) into buffer 0;
-  // thread i < 128 owns entry (i / 8, i % 8) of each tile, as in
+  // The block's entries: r = b, d = b / theta, x = d, the pieces of d into
+  // buffer 0; thread i < 128 owns entry (i / 8, i % 8) of each tile, as in
   // `step_walk`.  The register tile's fragments, and the shared-memory rows
   // of S (zero past m).
   const int r_in = threadIdx.x >> 3;
@@ -532,7 +578,7 @@ proto_cheby_kernel(Geometry g, const float* __restrict__ b, float* x, unsigned s
         st[slot] = v;
         st[slot + per] = dv;
         st[slot + 2 * per] = dv;
-        dbuf[col * g.ldk + row] = bf16_bits(dv);
+        store_pieces<P>(dbuf, c, g.ldk, row, col, dv);
       }
     }
   }
@@ -562,7 +608,7 @@ proto_cheby_kernel(Geometry g, const float* __restrict__ b, float* x, unsigned s
   stage_wait();  // the shared-memory rows have landed
   if (iters > 1) grid.sync();
 
-  ChebyUpdate epi{st, per, nullptr, c, g.ldk, alpha, 0.f, 0.f};
+  ChebyUpdate<P> epi{st, per, nullptr, c, g.ldk, alpha, 0.f, 0.f};
   for (int t = 0; t + 1 < iters; ++t) {
     epi.d_out = dbuf + ((t + 1) & 1) * buf;
     epi.c1 = coef[2 * t];
@@ -570,14 +616,14 @@ proto_cheby_kernel(Geometry g, const float* __restrict__ b, float* x, unsigned s
     const unsigned short* d_in = dbuf + (t & 1) * buf;
     int tl = 0;
     int staged = -1;
-    step_walk<1, kVec, kFromL2, 1>(g, parts[0], tl, staged, nullptr, 0, areg, c, d_in, b_s, red,
-                                epi);
+    step_walk<NT, kVec, kFromL2, 1, P>(g, parts[0], tl, staged, nullptr, 0, areg, live, d_in, b_s,
+                                       red, epi);
     if constexpr (KREG > 0) {
-      step_walk<1, kVec, kFromRegisters, 1>(g, parts[1], tl, staged, nullptr, 0, areg, c, d_in,
-                                         b_s, red, epi);
+      step_walk<1, kVec, kFromRegisters, 1, P>(g, parts[1], tl, staged, nullptr, 0, areg, live,
+                                               d_in, b_s, red, epi);
     }
-    step_walk<1, kVec, kFromShared, kSharedTiles>(g, parts[2], tl, staged, res_s, bnd, areg, c, d_in, b_s,
-                                    red, epi);
+    step_walk<NT, kVec, kFromShared, TT, P>(g, parts[2], tl, staged, res_s, bnd, areg, live, d_in,
+                                            b_s, red, epi);
     if (t + 2 < iters) grid.sync();
   }
 
@@ -620,7 +666,7 @@ matmul_only_kernel(Geometry g, const float* __restrict__ b, float* out, unsigned
     epi.last = t + 1 == iters;
     int tile = 0;
     int staged = -1;
-    step_walk<NT, kVec, kFromL2, 1>(g, walk(lo, hi, g.m), tile, staged, nullptr, 0, none, kCols,
+    step_walk<NT, kVec, kFromL2, 1, 1>(g, walk(lo, hi, g.m), tile, staged, nullptr, 0, none, kCols,
                                  dbuf + (t & 1) * buf, b_s, red, epi);
     if (t + 1 < iters) grid.sync();
   }
@@ -632,25 +678,44 @@ bool vec_ok(const void* s, int m, int lds) {
   return m % 4 == 0 && lds % 4 == 0 && reinterpret_cast<std::uintptr_t>(s) % 8 == 0;
 }
 
-}  // namespace
+template <bool kVec, int P, int NT, int TT>
+cudaError_t launch_solve(const r3d::CoopLaunch& p, bool regs, size_t smem, void** args,
+                         cudaStream_t st) {
+  if constexpr (NT == 1) {
+    if (regs) return r3d::coop_launch(cheby_kernel<kVec, kRegTiles, P, NT, TT>, p, kThreads,
+                                      smem, args, st);
+  }
+  return r3d::coop_launch(cheby_kernel<kVec, 0, P, NT, TT>, p, kThreads, smem, args, st);
+}
 
-// Kernel 10, one solve: x (m, c) after `iters` steps.  dbuf: 2 * 8 * ldk
-// bf16, zero-filled; coef: 2 * (iters - 1) device floats, (c1, c2) per step.
-// max_resident caps the rows of S a block keeps on chip, in registers and
-// shared memory (-1: as many as fit).
-R3D_EXPORT int r3d_proto_cheby(const void* s, int lds, const void* b, void* x, void* dbuf,
-                               int m, int c, int ldk, int iters, float alpha, float theta,
-                               const void* coef, int max_resident, void* stream) {
+// One solve of kernel 7 (P = 2) or 10 (P = 1): x (m, c) after `iters`
+// steps.  dbuf: 2 * 8 * ceil(P * c / 8) * ldk bf16, zero-filled; coef: 2 *
+// (iters - 1) device floats, (c1, c2) per step.  max_resident caps the rows
+// of S a block keeps on chip, in registers and shared memory (-1: as many
+// as fit).
+// Shared memory one block of the solve needs besides rows of S, on a grid
+// of `grid` blocks: the pieces of d of every row, the warps' partial tiles,
+// and r, d and x of the block's tiles.
+template <int P>
+size_t solve_smem(int m, int c, int ldk, int grid) {
+  return base_smem(P * c, ceil_div(P * c, 8), ldk, P == 1 ? kSharedTiles : 1) +
+         state_smem(max_tiles(m, grid));
+}
+
+template <int P>
+int solve(const void* s, int lds, const void* b, void* x, void* dbuf, int m, int c, int ldk,
+          int iters, float alpha, float theta, const void* coef, int max_resident, void* stream) {
   if (c < 1 || c > kMaxCols || m < 1 || iters < 1 || lds < m || !ldk_ok(m, ldk)) {
     return cudaErrorInvalidValue;
   }
   // One block per SM (at most one per tile of 16 rows): every block stages
-  // its column group of bf16(d) at every step, so more blocks would read
-  // more of it.
+  // its column group of the pieces of d at every step, so more blocks would
+  // read more of it.
   r3d::CoopLaunch p{};
   cudaError_t err = r3d::coop_plan(ceil_div(m, kTileRows), p);
   if (err != cudaSuccess) return err;
-  const size_t used = base_smem(c, 1, ldk, kSharedTiles) + state_smem(max_tiles(m, p.grid));
+  const int nt = ceil_div(P * c, 8);
+  const size_t used = solve_smem<P>(m, c, ldk, p.grid);
   const size_t row_bytes = sizeof(unsigned short) * static_cast<size_t>(ldk);
   int resident = used > kSmemLimit ? 0 : static_cast<int>((kSmemLimit - used) / row_bytes);
   resident = std::min(resident, ceil_div(m, p.grid));
@@ -664,12 +729,44 @@ R3D_EXPORT int r3d_proto_cheby(const void* s, int lds, const void* b, void* x, v
   void* args[] = {&g, &bp, &xp, &db, &c, &iters, &alpha, &theta, &cp, &resident, &onchip};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = vec_ok(s, m, lds);
-  if (ceil_div(g.ktiles, kWarps) <= kRegTiles) {  // a warp's k-tiles fit its registers
-    return vec ? r3d::coop_launch(proto_cheby_kernel<true, kRegTiles>, p, kThreads, smem, args, st)
-               : r3d::coop_launch(proto_cheby_kernel<false, kRegTiles>, p, kThreads, smem, args, st);
+  const bool regs = ceil_div(g.ktiles, kWarps) <= kRegTiles;  // a warp's k-tiles fit its registers
+  if constexpr (P == 1) {
+    return vec ? launch_solve<true, 1, 1, kSharedTiles>(p, regs, smem, args, st)
+               : launch_solve<false, 1, 1, kSharedTiles>(p, regs, smem, args, st);
+  } else if (nt == 1) {
+    return vec ? launch_solve<true, P, 1, 1>(p, regs, smem, args, st)
+               : launch_solve<false, P, 1, 1>(p, regs, smem, args, st);
+  } else {
+    return vec ? launch_solve<true, P, 2, 1>(p, regs, smem, args, st)
+               : launch_solve<false, P, 2, 1>(p, regs, smem, args, st);
   }
-  return vec ? r3d::coop_launch(proto_cheby_kernel<true, 0>, p, kThreads, smem, args, st)
-             : r3d::coop_launch(proto_cheby_kernel<false, 0>, p, kThreads, smem, args, st);
+}
+
+}  // namespace
+
+// Kernel 7, one solve with d split into bf16 hi + lo (see `solve`).
+R3D_EXPORT int r3d_cheby(const void* s, int lds, const void* b, void* x, void* dbuf, int m, int c,
+                         int ldk, int iters, float alpha, float theta, const void* coef,
+                         void* stream) {
+  return solve<2>(s, lds, b, x, dbuf, m, c, ldk, iters, alpha, theta, coef, -1, stream);
+}
+
+// 1 when kernel 7's block fits shared memory for (m, c) on the current
+// device, else 0.
+R3D_EXPORT int r3d_cheby_fits(int m, int c, int ldk) {
+  r3d::CoopLaunch p{};
+  if (c < 1 || c > kMaxCols || m < 1 || !ldk_ok(m, ldk) ||
+      r3d::coop_plan(ceil_div(m, kTileRows), p) != cudaSuccess) {
+    return 0;
+  }
+  return solve_smem<2>(m, c, ldk, p.grid) <= kSmemLimit ? 1 : 0;
+}
+
+// Kernel 10, one solve with d rounded to one bf16 (see `solve`).
+R3D_EXPORT int r3d_proto_cheby(const void* s, int lds, const void* b, void* x, void* dbuf,
+                               int m, int c, int ldk, int iters, float alpha, float theta,
+                               const void* coef, int max_resident, void* stream) {
+  return solve<1>(s, lds, b, x, dbuf, m, c, ldk, iters, alpha, theta, coef, max_resident, stream);
 }
 
 // Kernel 11, one call: out (m, ncols) after `iters` steps.  dbuf: 2 * ncols

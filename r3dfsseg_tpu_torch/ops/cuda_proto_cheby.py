@@ -1,6 +1,8 @@
 """The archived Chebyshev probes on a bf16 S: the single-launch Chebyshev
 solve (kernel 10) and the S.d matvec probe (kernel 11), as the persistent
 tensor-core kernels of `csrc/proto_cheby.cu`, each with its plain version.
+Kernel 10 runs the tile code of kernel 7 (`cuda_cheby`) with one bf16 piece
+of d where kernel 7 takes two.
 
 Replaces the TPU kernels `scripts/archive/proto_cheby_pallas.py:cheby_pallas`
 (`_cheby_kernel`) and `scripts/archive/proto_cheby2.py:make_matmul_only`
@@ -10,12 +12,13 @@ take a bf16 x bf16 -> f32 dot, which is the operand type of Hopper's
 
 - `proto_cheby_solve(s, b, alpha, iters)`: `iters` Chebyshev steps of (I -
   alpha S) x = b, d rounded to bf16 before each S.d.  The TPU's rejected
-  first version of kernel 7 (`cuda_cheby`): rounding d to a single bf16
-  hurt meta-training there, so nothing on the serving or training path
-  calls it, in the port as in the JAX package.  The per-step scalars are
-  `cuda_cheby.coefficients` (double, on the host), as for kernel 7.  The
-  archive's 128 padded columns are the TPU's lane width: the kernel takes 1
-  to 8 live columns and pads to the mma's n = 8 inside.
+  first version of kernel 7 (`cuda_cheby`), which splits d into bf16 hi +
+  lo instead: rounding d to a single bf16 hurt meta-training there, so
+  nothing on the serving or training path calls it, in the port as in the
+  JAX package.  The per-step scalars are `cuda_cheby.coefficients`
+  (double, on the host), as for kernel 7.  The archive's 128 padded
+  columns are the TPU's lane width: the kernel takes 1 to 8 live columns
+  and pads to the mma's n = 8 inside.
 - `matmul_only(s, b, iters)`: acc = b, then `iters` times acc = (S
   bf16(acc)) * 0.99.  The archive's `tile_rows` has no counterpart: it
   only cut the TPU's VMEM dot into row tiles and gives the same numbers.
@@ -51,14 +54,7 @@ SMEM_LIMIT = 232448
 launches = 0
 matmul_only_launches = 0
 
-_coef_cache: dict = {}
-
-
-def ldk(m: int) -> int:
-    """The bf16 iterate buffers' leading dimension: m rounded up to 16, then
-    to 16 mod 64 (a warp's B-fragment loads hit distinct banks)."""
-    k = (m + 15) // 16 * 16
-    return k + (16 - k % 64) % 64
+ldk = cuda_cheby.ldk
 
 
 def smem_bytes(nt: int, m: int) -> int:
@@ -105,17 +101,6 @@ def _check(name: str, s: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"{name}: S and b must be contiguous")
 
 
-def _coefficients(alpha: float, iters: int, device) -> tuple[float, torch.Tensor]:
-    """theta and the (c1, c2) of every step as a device tensor, kept per
-    (alpha, iters, device) so that a call copies nothing from the host."""
-    key = (alpha, iters, str(device))
-    if key not in _coef_cache:
-        theta, steps = cuda_cheby.coefficients(alpha, iters)
-        flat = [v for st in steps for v in st] or [0.0]
-        _coef_cache[key] = theta, torch.tensor(flat, dtype=torch.float32, device=device)
-    return _coef_cache[key]
-
-
 def proto_cheby_solve(s: torch.Tensor, b: torch.Tensor, alpha: float, iters: int,
                       resident_rows: int | None = None) -> torch.Tensor:
     """s (M, M) bf16, b (M, C) f32 with 1 <= C <= 8, both contiguous -> the
@@ -131,7 +116,7 @@ def proto_cheby_solve(s: torch.Tensor, b: torch.Tensor, alpha: float, iters: int
     if not (m > 0 and 1 <= c <= MAX_COLS and smem_bytes(1, m) <= SMEM_LIMIT):
         raise ValueError(f"proto_cheby_solve: unsupported shape M={m} C={c}")
     iters = max(iters, 1)
-    theta, coef = _coefficients(alpha, iters, s.device)
+    theta, coef = cuda_cheby.device_coefficients(alpha, iters, s.device)
     x = torch.empty_like(b)
     dbuf = torch.zeros(2 * MAX_COLS * ldk(m), dtype=torch.bfloat16, device=s.device)
     fn = build.function("r3d_proto_cheby", [build.P, build.I, build.P, build.P, build.P,

@@ -1,30 +1,34 @@
 """Scatter-add, the backward of the neighbour gather: the Hopper kernel
-`csrc/scatter_add.cu` and its plain version.
+`csrc/scatter_add.cu` and its plain versions.
 
 Replaces the TPU kernel `r3dfsseg_tpu/ops/fast_gather.py:scatter_add_pallas`
 (`_scatter_kernel`): dx[b, j] = sum of g[b, n, k, :] over idx[b, n, k] = j.
 The TPU kernel rounds g to bf16 for its one-hot matrix product; the kernel
 here sums in f32, which is what the JAX package's `exact_grad_gather=True`
-(`_scatter_exact`, a segment sum) computes.
+(`_scatter_exact`, a segment sum) computes.  Ids outside [0, N) are dropped.
 
 What bounds it on the H100: bytes (g is 105 MB at the flagship support
-batch, B = 10, N = 2048, K = 20, C = 64).  One block per (cloud, 8-channel
-slice) keeps its slice of dx in shared memory and adds with shared-memory
-atomics, then writes it once.  The order of the adds varies from run to
-run: the kernel agrees with the plain version to f32 rounding of the sum,
-|got - want| <= 1e-5 * sum |g| over the same rows.
+batch, B = 10, N = 2048, K = 20, C = 64).  The kernel inverts the graph
+(`inverse_graph_reference` builds the same CSR by target, rows in source
+order) with every SM taking a unit of a cloud's rows, and lets warps sum
+each target's rows in pieces of at most `PIECE` rows, a hub's pieces
+merged in piece order, all in one cooperative launch (`csrc/scatter_add.cu`
+says how).  No float atomics: a call repeats bit for bit, and
+`scatter_add_ordered_reference` takes its sums in its order, so on the card
+it equals the kernel bit for bit.  `launches` counts calls.
 
-Dispatch: a CPU tensor takes `scatter_add_reference`; a CUDA tensor
-launches the kernel or raises.
+Dispatch: a CPU tensor takes `scatter_add_reference` (`index_add_`); a
+CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from r3dfsseg_tpu_torch.kernels import build
 
-SLICE = 8                    # csrc/scatter_add.cu kSlice: channels per block
-SMEM_LIMIT = 232448
+PIECE = 32                   # csrc/scatter_add.cu kPiece: rows per piece
 
 launches = 0
 
@@ -39,8 +43,58 @@ def scatter_add_reference(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.T
     return out.index_add_(0, flat, g.reshape(-1, c)).reshape(b, n, c)
 
 
+def inverse_graph_reference(idx: torch.Tensor, n: int):
+    """idx (B, M) -> the inverse graph as a CSR by target, as the kernel's
+    build makes it: counts (B, n), offsets (B, n + 1) and perm (B, M), all
+    int64; perm[b, offsets[b, j]:offsets[b, j + 1]] lists the rows m with
+    idx[b, m] == j in increasing m, and -1 fills perm past the rows whose
+    id lies in [0, n)."""
+    idx = idx.long()
+    b, m = idx.shape
+    valid = (idx >= 0) & (idx < n)
+    key = torch.where(valid, idx, torch.full_like(idx, n))
+    perm = torch.sort(key, dim=1, stable=True).indices
+    counts = torch.zeros((b, n + 1), dtype=torch.int64, device=idx.device)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    counts = counts[:, :n]
+    offsets = torch.cat([counts.new_zeros((b, 1)), counts.cumsum(1)], dim=1)
+    perm = torch.where(torch.arange(m, device=idx.device) < offsets[:, -1:], perm,
+                       torch.full_like(perm, -1))
+    return counts, offsets, perm
+
+
+def scatter_add_ordered_reference(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """g (B, NQ, K, C) f32, idx (B, NQ, K) -> dx (B, n, C) with the kernel's
+    f32 sums in the kernel's order: each target's rows (source order) cut
+    into pieces of PIECE rows (one piece for a target with none), each piece
+    summed in order from 0, the pieces added in order from 0."""
+    b, nq, k, c = g.shape
+    gf = g.reshape(b, nq * k, c).float()
+    counts, offsets, perm = inverse_graph_reference(idx.reshape(b, nq * k), n)
+    out = gf.new_empty((b, n, c))
+    for cb in range(b):
+        cnt = counts[cb]
+        npc = ((cnt + PIECE - 1) // PIECE).clamp_min(1)
+        first = npc.cumsum(0) - npc
+        target = torch.repeat_interleave(torch.arange(n, device=g.device), npc)
+        q = torch.arange(len(target), device=g.device) - first[target]
+        start = offsets[cb, target] + q * PIECE
+        rows = (cnt[target] - q * PIECE).clamp(0, PIECE)
+        part = gf.new_zeros((len(target), c))
+        for r in range(PIECE):
+            sel = rows > r
+            part[sel] = part[sel] + gf[cb, perm[cb, start[sel] + r]]
+        total = gf.new_zeros((n, c))
+        for p in range(int(npc.max())):
+            sel = npc > p
+            total[sel] = total[sel] + part[first[sel] + p]
+        out[cb] = total
+    return out
+
+
 def scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """g (B, NQ, K, C) f32, idx (B, NQ, K) int32 -> dx (B, n, C) f32."""
+    """g (B, NQ, K, C) f32 with C even, idx (B, NQ, K) int32 -> dx (B, n, C)
+    f32: one cooperative launch."""
     global launches
     if g.device.type == "cpu":
         return scatter_add_reference(g, idx, n)
@@ -52,14 +106,17 @@ def scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     b, nq, k, c = g.shape
     if idx.shape != (b, nq, k) or idx.dtype != torch.int32 or idx.device != g.device:
         raise ValueError(f"scatter_add: want a ({b}, {nq}, {k}) int32 idx on {g.device}")
-    if not (b > 0 and 0 < n and c % SLICE == 0 and 4 * n * SLICE <= SMEM_LIMIT
-            and b < 65536):
+    warps = build.function("r3d_scatter_add_warps", [build.I])
+    if not (b > 0 and n > 0 and c > 0 and c % 2 == 0 and warps(n) >= 1):
         raise ValueError(f"scatter_add: unsupported shape B={b} N={n} C={c}")
     g, idx = g.contiguous(), idx.contiguous()
+    m = nq * k
+    nbytes = build.function("r3d_scatter_add_scratch", [build.I] * 4, ctypes.c_longlong)
+    scratch = torch.empty(nbytes(b, n, m, c), dtype=torch.uint8, device=g.device)
     dx = torch.empty((b, n, c), dtype=torch.float32, device=g.device)
-    fn = build.function("r3d_scatter_add", [build.P] * 3 + [build.I] * 4 + [build.P])
+    fn = build.function("r3d_scatter_add", [build.P] * 4 + [build.I] * 4 + [build.P])
     with torch.cuda.device(g.device):
-        err = fn(g.data_ptr(), idx.data_ptr(), dx.data_ptr(), b, n, nq * k, c,
+        err = fn(g.data_ptr(), idx.data_ptr(), dx.data_ptr(), scratch.data_ptr(), b, n, m, c,
                  build.stream_ptr(g.device))
     build.check(err, "r3d_scatter_add")
     launches += 1

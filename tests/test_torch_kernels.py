@@ -306,6 +306,70 @@ def test_cheby_kernel_matches_plain_on_card(m, iters):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
+# kernel 7: the one-query 2-, 3- and 4-way episode graphs, then ragged M
+# (2-byte loads of S) at every column count
+CHEBY_SPLIT_CASES = [(4396, 3), (6544, 4), (8692, 5)] + [(m, c) for m in (1001, 37)
+                                                        for c in range(1, 9)]
+
+
+def _label_system(seed, m, c, dev):
+    """A bf16 S (M, M) normalised from a sparse random symmetric affinity,
+    and c label columns over its first 100 rows."""
+    rng = np.random.default_rng(seed)
+    a = rng.random((m, m), dtype=np.float32) * (rng.random((m, m), dtype=np.float32) < 0.05)
+    a = a + a.T
+    r = 1.0 / np.sqrt(a.sum(1) + 1e-16)
+    s = torch.from_numpy(a * r[:, None] * r[None, :]).to(torch.bfloat16).to(dev)
+    b = np.zeros((m, c), np.float32)
+    b[: min(m, 100)] = np.eye(c, dtype=np.float32)[rng.integers(0, c, min(m, 100))]
+    return s, torch.from_numpy(b).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", CHEBY_SPLIT_CASES)
+@pytest.mark.parametrize("iters", [1, 3, 50])
+def test_cheby_kernel_matches_split_plain_on_card(m, c, iters):
+    """Kernel 7 against its plain version (`cheby_solve_split_reference`,
+    the same split-bf16 arithmetic): within 1e-5 of max |x| at 1 and 3
+    steps, 1e-4 at 50 (f32 sums in another order; after many steps a lo
+    piece can round the other way); one cooperative launch per solve, two
+    solves bit-equal."""
+    dev = cuda_or_skip()
+    s, b = _label_system(m + c, m, c, dev)
+    before = cuda_cheby.launches
+    got = cuda_cheby.cheby_solve(s, b, 0.99, iters)
+    again = cuda_cheby.cheby_solve(s, b, 0.99, iters)
+    torch.cuda.synchronize()
+    assert cuda_cheby.launches == before + 2
+    assert torch.equal(got, again)
+    want = cuda_cheby.cheby_solve_split_reference(s, b, 0.99, iters)
+    tol = 1e-4 if iters == 50 else 1e-5
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(64, 9), (7000, 8)])
+def test_cheby_wrapper_refuses_what_does_not_fit_on_card(m, c):
+    """9 columns; 7000 rows of 8 columns (both pieces of d and r, d, x of a
+    block's rows take more than 227 KB of shared memory)."""
+    dev = cuda_or_skip()
+    with pytest.raises(ValueError):
+        cuda_cheby.cheby_solve(torch.zeros((m, m), dtype=torch.bfloat16, device=dev),
+                               torch.ones((m, c), device=dev), 0.99, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4396, 1001])
+def test_proto_cheby_bit_equal_across_a_cheby_call_on_card(m):
+    """Kernels 7 and 10 share one tile code: a kernel 7 solve between two
+    kernel 10 solves leaves kernel 10's result unchanged, bit for bit."""
+    dev = cuda_or_skip()
+    s, b = _graph_system(m, m, dev)
+    first = cuda_proto_cheby.proto_cheby_solve(s, b, 0.99, 50)
+    cuda_cheby.cheby_solve(s, b, 0.99, 50)
+    assert torch.equal(first, cuda_proto_cheby.proto_cheby_solve(s, b, 0.99, 50))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [4396, 1001, 37])
 @pytest.mark.parametrize("c", [1, 3, 8])
@@ -450,7 +514,7 @@ def test_attention_backward_repeats_bit_for_bit_on_card(b, n, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,k,c", [(2, 300, 20, 64), (1, 64, 5, 8)])
 def test_scatter_add_kernel_matches_plain_on_card(b, n, k, c):
-    """The order of the atomic adds varies: |err| <= 1e-5 * sum |g|."""
+    """f32 sums in another order than `index_add_`: |err| <= 1e-5 * sum |g|."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(3)
     g = torch.from_numpy(rng.normal(size=(b, n, k, c)).astype(np.float32)).to(dev)
@@ -532,3 +596,38 @@ def test_fused_route_matches_unfused_block_on_card():
     torch.testing.assert_close(out_f, out_u, rtol=1e-5, atol=1e-5 * out_u.abs().max().item())
     for g, r in zip(got, want):
         assert float((g - r).norm() / r.norm()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [10, 2])
+@pytest.mark.parametrize("graph", ["knn", "hub", "out_of_range"])
+def test_scatter_add_kernel_flagship_on_card(b, graph):
+    """The training step's two batch shapes (B, 2048, 20, 64) on kNN graphs of
+    random clouds; with a hub that every row points at (2048 rows: 64
+    pieces merged in order); with ids outside [0, N), which are dropped.
+    Within 1e-5 * sum |g| of `index_add_` over the in-range rows, bit-equal
+    to the kernel's order of sums emulated in PyTorch and across two calls,
+    one launch per call."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(b)
+    x = torch.from_numpy(rng.normal(size=(b, 2048, 9)).astype(np.float32)).to(dev)
+    idx = cuda_knn.knn_reference(x, 20)
+    if graph == "hub":
+        idx[:, :, 1] = 5
+    elif graph == "out_of_range":
+        bad = torch.from_numpy(rng.random(size=tuple(idx.shape)) < 0.01).to(dev)
+        idx = torch.where(bad, torch.full_like(idx, 2048), idx)
+        idx[:, :7, 0] = -3
+    g = torch.from_numpy(rng.normal(size=(*idx.shape, 64)).astype(np.float32)).to(dev)
+    before = cuda_scatter.launches
+    got = cuda_scatter.scatter_add(g, idx, 2048)
+    again = cuda_scatter.scatter_add(g, idx, 2048)
+    torch.cuda.synchronize()
+    assert cuda_scatter.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, cuda_scatter.scatter_add_ordered_reference(g, idx, 2048))
+    ok = ((idx >= 0) & (idx < 2048))
+    gv, iv = g * ok[..., None], torch.where(ok, idx, torch.zeros_like(idx))
+    want = cuda_scatter.scatter_add_reference(gv, iv, 2048)
+    bound = 1e-5 * cuda_scatter.scatter_add_reference(gv.abs(), iv, 2048)
+    assert bool(((got - want).abs() <= bound + 1e-30).all())
