@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (r3dfsseg_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--requests N] [--only knn,fps | --only cheby,scatter]
+    python3 chip_smoke.py [--seed N] [--requests N] [--only knn,fps | cheby,scatter | kth]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
 
   1. build every kernel of `r3dfsseg_tpu_torch/csrc/` with nvcc, and print
-     the kNN, FPS, Chebyshev and scatter-add kernels' registers and spills
+     the kNN, FPS, Chebyshev, scatter-add and k-th distance kernels'
+     registers and spills
      (-Xptxas -v);
   2. call each kernel at the flagship shapes of its path and hold it
      against its plain PyTorch version on the same inputs (kNN: the
@@ -20,8 +21,9 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      forward; FPS, a request's two calls and a training step's WayContrast
      call: the seeds, a divergence only at a near-tie, two calls
      bit-equal, one launch per call, each call timed; k-th
-     distance: bit-equal, on f32 distances and on the bf16 compare copy
-     of a flagship episode's graph; scatter-add at a training step's two
+     distance: bit-equal and two calls bit-equal, on f32 distances, on the
+     bf16 compare copy of a flagship episode's graph and on rows that break
+     naive selects (`kth_rows`) at the flagship width; scatter-add at a training step's two
      batch shapes: within 1e-5 of sum |g|, bit-equal to its order of sums
      emulated in PyTorch and across two calls, each call timed; the
      Chebyshev solve (kernel 7, one cooperative launch, d split into bf16
@@ -82,8 +84,9 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
 It prints the card's name and power limit, one JSON line describing the
 eleven kernels, and as its last line {"ok": true, "device": {...}}.  Without a
 CUDA device it exits with code 1 and prints no result.  `--only knn,fps`
-runs the build and the kNN and FPS checks alone and prints their rows, and
-`--only cheby,scatter` the Chebyshev and scatter-add checks, so that
+runs the build and the kNN and FPS checks alone and prints their rows,
+`--only cheby,scatter` the Chebyshev and scatter-add checks, and `--only
+kth` the k-th distance's three checks (f32, adversarial rows, bf16), so that
 another tree's kernels can be timed with the same code (put that tree's
 root first on sys.path and run this file with runpy; the tree's modules
 need the plain versions these checks call: `cheby_solve_split_reference`
@@ -126,7 +129,7 @@ def log(*a):
 
 
 def ptxas_report(build_log: str, names=("knn_kernel", "fps_kernel", "cheby_kernel",
-                                        "scatter_add_kernel")) -> list[str]:
+                                        "scatter_add_kernel", "kth_kernel")) -> list[str]:
     """nvcc's -Xptxas -v lines of the entry functions whose mangled name
     holds one of ``names``: registers, barriers, stack and spill."""
     out, entry = [], None
@@ -234,6 +237,88 @@ def make_episode(cfg, rng: np.random.Generator):
     for q in range(w * cfg.n_queries):
         qx[q], qy[q] = cloud(list(range(w)))
     return sx, sy, qx, qy, gt_sy, qy.copy(), flag
+
+
+def _bisection_mid(v: float, hi: float, step: int) -> np.float32:
+    """The mid-point that the k-th distance's bisection tests at ``step``
+    when the row's k-th value is v and its bracket top hi (f32 steps)."""
+    lo, hi, half = np.float32(0), np.float32(hi), np.float32(0.5)
+    for _ in range(step):
+        mid = half * (lo + hi)
+        lo, hi = (lo, mid) if np.float32(v) <= mid else (mid, hi)
+    return half * (lo + hi)
+
+
+# Rows that break a naive k-th select, by kind (`kth_rows`).
+KTH_KINDS = ("uniform", "ties_at_radius", "ties_over_cap", "sentinels_only", "few_finite",
+             "k_is_0", "k_is_1", "k_is_m", "special_values", "midpoint", "wide_cluster",
+             "all_equal")
+
+
+def kth_rows(kind: str, n: int, m: int, seed: int, big: float = 1e30):
+    """(d, k): n rows of m >= 701 f32 distances of one kind of KTH_KINDS,
+    the entries of each row shuffled, and the k to select.
+
+    ties_at_radius: 20 equal entries around rank k; ties_over_cap: 300; a
+    row of sentinels only; fewer than k entries below the sentinel; k = 0,
+    1 and m; zeros, -0.0, subnormals, +-inf and NaN with k among them;
+    the k-th entry equal to the bisection's 7th mid-point (bf16-exact);
+    a cluster 5e-4 wide holding rank k between outliers at 1e-30 and 1e20,
+    so that the select narrows the key range more than once; all equal."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.1, 9.0, (n, m)).astype(np.float32)
+    k = 37
+    for row in d:
+        if kind == "ties_at_radius":
+            row[:30] = rng.uniform(0.1, 2.0, 30)
+            row[30:50] = 2.5
+            row[50:] = rng.uniform(3.0, 9.0, m - 50)
+        elif kind == "ties_over_cap":
+            k = 200
+            row[:150] = rng.uniform(0.1, 2.0, 150)
+            row[150:450] = 2.5
+            row[450:] = rng.uniform(3.0, 9.0, m - 450)
+        elif kind == "sentinels_only":
+            row[:] = big
+        elif kind == "few_finite":
+            row[30:] = big
+        elif kind == "k_is_0":
+            k = 0
+        elif kind == "k_is_1":
+            k = 1
+        elif kind == "k_is_m":
+            k = m
+        elif kind == "special_values":
+            k = 25      # among the subnormals, after 2 -inf and 20 signed zeros
+            row[:2] = -np.inf
+            row[2:12] = -0.0
+            row[12:22] = 0.0
+            row[22:32] = [1e-45, 1e-44, 1e-42, 1e-40, 1e-39, 5e-39, 1e-38, 1.1e-38,
+                          1e-45, 3e-41]
+            row[32:37] = np.inf
+            row[37:40] = np.nan
+            row[40:44] = big
+        elif kind == "midpoint":
+            x = _bisection_mid(rng.uniform(1.0, 7.0), 8.0, 6)
+            row[:k - 1] = rng.uniform(0.1, 0.9 * x, k - 1)
+            row[k - 1] = x
+            row[k:] = rng.uniform(1.1 * x, 8.0, m - k)
+            row[k] = 8.0        # the bracket's top
+        elif kind == "wide_cluster":
+            k = 300
+            row[:5] = 1e-30
+            row[5:10] = 1e20
+            row[10:110] = rng.uniform(0.1, 1.9, 100)
+            c = min(600, m - 114)
+            row[110:110 + c] = rng.uniform(2.0, 2.0005, c)
+        elif kind == "all_equal":
+            row[:] = 3.0
+        elif kind != "uniform":
+            raise ValueError(kind)
+        if kind not in ("sentinels_only", "few_finite", "k_is_m", "special_values"):
+            row[-4:] = big      # invalid columns
+        rng.shuffle(row)
+    return d, k
 
 
 # ------------------------------------------------------------ kernels --
@@ -519,14 +604,47 @@ def check_kth(torch, kth_mod):
     got = kth_mod.kth_smallest_per_row(d, 200, 32)
     want = kth_mod.kth_smallest_per_row_reference(d, 200, 32)
     equal = torch.equal(got, want)
+    repeat = torch.equal(got, kth_mod.kth_smallest_per_row(d, 200, 32))
     err = (got - want).abs().max().item()
-    log(f"  kth ({m}, {m}) k=200 iters=32: bit-equal {equal}")
-    if not equal:
-        raise AssertionError(f"kth differs from its plain version by up to {err}")
-    ms = cuda_ms(lambda: kth_mod.kth_smallest_per_row(d, 200, 32), 10)
-    plain = cuda_ms(lambda: kth_mod.kth_smallest_per_row_reference(d, 200, 32), 10)
+    log(f"  kth ({m}, {m}) k=200 iters=32: bit-equal {equal}, two calls bit-equal {repeat}")
+    if not (equal and repeat):
+        raise AssertionError(f"kth differs from its plain version by up to {err}, or "
+                             f"between two calls")
+    return kth_row(torch, kth_mod, d, 32, 4.0)
+
+
+def kth_row(torch, kth_mod, d, iters, itemsize):
+    """Times of the k-th distance at k = 200 on d: the kernel (CUDA events
+    over calls enqueued back to back, and its device time from the
+    profiler), the plain version and `torch.kthvalue`, with the bound: the
+    bisection's compares, and d read once and the radii written once."""
+    m = d.shape[0]
+    ms = cuda_ms(lambda: kth_mod.kth_smallest_per_row(d, 200, iters), 10, per=10)
+    dev = device_ms(lambda: kth_mod.kth_smallest_per_row(d, 200, iters), "kth_kernel")
+    plain = cuda_ms(lambda: kth_mod.kth_smallest_per_row_reference(d, 200, iters), 10)
     lib = cuda_ms(lambda: torch.kthvalue(d, 200, dim=1), 10)
-    return row(err, ms, plain, lib, 32.0 * m * m, 4.0 * m * (m + 1))
+    return row(0.0, ms, plain, lib, float(iters) * m * m, itemsize * m * m + 4.0 * m,
+               device_ms=dev)
+
+
+def check_kth_rows(torch, kth_mod, m: int = 4396, n: int = 3):
+    """n rows of each kind of KTH_KINDS at width m (n odd: a bf16 row of
+    4396 entries starts 8 bytes off a 16-byte boundary every other row), f32
+    with 32 steps and bf16 with 16: the kernel bit-equal to its plain
+    version, and two calls bit-equal."""
+    for kind in KTH_KINDS:
+        d, k = kth_rows(kind, n, m, seed=len(kind))
+        for dt, iters in ((torch.float32, 32), (torch.bfloat16, 16)):
+            x = torch.from_numpy(d).to(dt).cuda()
+            got = kth_mod.kth_smallest_per_row(x, k, iters)
+            want = kth_mod.kth_smallest_per_row_reference(x, k, iters)
+            again = kth_mod.kth_smallest_per_row(x, k, iters)
+            if not (torch.equal(got, want) and torch.equal(got, again)):
+                raise AssertionError(f"kth {kind} {dt} k={k}: kernel {got.flatten().tolist()}, "
+                                     f"again {again.flatten().tolist()}, plain "
+                                     f"{want.flatten().tolist()}")
+    log(f"  kth adversarial rows ({len(KTH_KINDS)} kinds x {n} rows, m = {m}, f32 and bf16): "
+        f"bit-equal to plain, two calls bit-equal")
 
 
 def flagship_graph(torch, cfg, episode, seed):
@@ -577,20 +695,17 @@ def graph_peak(torch, cfg, node, valid, b, compare_dtype):
 
 def check_kth_bf16(torch, kth_mod, sel):
     """The bf16 compare copy of a flagship graph, k = 200, 16 steps:
-    bit-equal.  Returns the kth row's *_bf16 fields."""
+    bit-equal, two calls bit-equal.  Returns the kth row's *_bf16 fields."""
     m = sel.shape[0]
     got = kth_mod.kth_smallest_per_row(sel, 200, 16)
     want = kth_mod.kth_smallest_per_row_reference(sel, 200, 16)
     equal = torch.equal(got, want)
-    log(f"  kth bf16 ({m}, {m}) k=200 iters=16: bit-equal {equal}")
-    if not equal:
+    repeat = torch.equal(got, kth_mod.kth_smallest_per_row(sel, 200, 16))
+    log(f"  kth bf16 ({m}, {m}) k=200 iters=16: bit-equal {equal}, two calls bit-equal {repeat}")
+    if not (equal and repeat):
         raise AssertionError(f"kth bf16 differs from its plain version by up to "
-                             f"{(got - want).abs().max().item()}")
-    ms = cuda_ms(lambda: kth_mod.kth_smallest_per_row(sel, 200, 16), 10)
-    plain = cuda_ms(lambda: kth_mod.kth_smallest_per_row_reference(sel, 200, 16), 10)
-    lib = cuda_ms(lambda: torch.kthvalue(sel, 200, dim=1), 10)
-    r = row(0.0, ms, plain, lib, 16.0 * m * m, 2.0 * m * m + 4.0 * m)
-    return {f"{key}_bf16": v for key, v in r.items()}
+                             f"{(got - want).abs().max().item()}, or between two calls")
+    return {f"{key}_bf16": v for key, v in kth_row(torch, kth_mod, sel, 16, 2.0).items()}
 
 
 def check_cheby(torch, cheby_mod, s, b, alpha, iters):
@@ -1691,10 +1806,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
-    ap.add_argument("--only", choices=["knn,fps", "cheby,scatter"],
-                    help="build, then only the kNN and FPS (or the Chebyshev and scatter-add) "
-                         "kernel checks, and print their rows (to time them beside another "
-                         "tree's kernels)")
+    ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth"],
+                    help="build, then only the kNN and FPS (or the Chebyshev and scatter-add, "
+                         "or the k-th distance) kernel checks, and print their rows (to time "
+                         "them beside another tree's kernels)")
     args = ap.parse_args()
 
     import torch
@@ -1740,6 +1855,17 @@ def main() -> int:
         log(smi)
         log(json.dumps(rows))
         return 0
+    if args.only == "kth":
+        rows = {"kth": check_kth(torch, cuda_kth)}
+        check_kth_rows(torch, cuda_kth)
+        sel, _, _, _, _ = flagship_graph(torch, cfg16, episodes[0], args.seed)
+        rows["kth"].update(check_kth_bf16(torch, cuda_kth, sel))
+        r = rows["kth"]
+        log(f"  kth: f32 {r['ms']:.4f} ms (device {r['device_ms']:.4f}), bf16 "
+            f"{r['ms_bf16']:.4f} (device {r['device_ms_bf16']:.4f})")
+        log(smi)
+        log(json.dumps(rows))
+        return 0
     rows = {"knn": check_knn(torch, cuda_knn, episodes[0][0])}
     if args.only:
         rows["fps"] = check_fps(torch, cuda_fps)
@@ -1754,6 +1880,7 @@ def main() -> int:
                                  **attn_eval[4])
     rows["fps"] = check_fps(torch, cuda_fps)
     rows["kth"] = check_kth(torch, cuda_kth)
+    check_kth_rows(torch, cuda_kth)
     rows["scatter_add"] = check_scatter(torch, cuda_knn, cuda_scatter, episodes[0][0],
                                         episodes[0][2])
     model = MPTILearner(cfg, "cuda", torch.Generator().manual_seed(args.seed)).model
@@ -1781,7 +1908,8 @@ def main() -> int:
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)}, "
             f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
     r = rows["kth"]
-    log(f"  kth bf16: {r['ms_bf16']:.3f} ms kernel, {r['plain_ms_bf16']:.3f} plain, library "
+    log(f"  kth: device {r['device_ms']:.4f} ms; bf16: {r['ms_bf16']:.3f} ms kernel (device "
+        f"{r['device_ms_bf16']:.4f}), {r['plain_ms_bf16']:.3f} plain, library "
         f"{r['library_ms_bf16']:.3f}, bound {r['bound_ms_bf16']:.4f} ({r['bound_by_bf16']})")
     r = rows["gather_onehot"]
     log(f"  gather_onehot bf16: {r['ms_bf16']:.3f} ms kernel, {r['plain_ms_bf16']:.3f} plain, "

@@ -9,14 +9,17 @@ above 0.5 * 1e30 are the affinity's self/invalid sentinels.  The input is
 f32 or, for the bf16 episode graph, the bf16 compare copy: as in the TPU
 kernel, each bf16 entry is upcast to f32 and the bisection runs in f32.
 
-What bounds it on the H100: iters x M compares per row (32 x 4396^2 at the
-f32 flagship graph, 16 x 4396^2 at the bf16 one).  The plain version
-re-reads the whole (M, M) matrix from device memory on every step (32 x
-77 MB).  The kernel reads it once (77 MB f32, 38.65 MB bf16): one block per
-row stages the row in shared memory as f32 and runs every step there.
+What bounds it on the H100: the bytes of one read of the matrix (77 MB f32,
+38.65 MB bf16 at the flagship 4396 x 4396).  The plain version re-reads the
+whole (M, M) matrix on every step (32 x 77 MB).  The kernel reads each row
+once: one block per row keeps the row's order-preserving keys in shared
+memory, selects the k-th smallest finite entry v_k exactly (radix passes
+over the live key range, then a direct rank of the last few entries), and
+replays the bisection on scalars, since count(d <= mid) >= k exactly when
+v_k <= mid (`csrc/kth.cu`).
 
-The kernel equals the plain version bit for bit: exact upcasts, integer
-counts and the same f32 mid-point arithmetic.
+The kernel equals the plain version bit for bit: exact upcasts, an exact
+select and the same f32 mid-point arithmetic.
 
 Dispatch: a CPU tensor takes `kth_smallest_per_row_reference`; a CUDA
 tensor launches the kernel or raises.
@@ -27,8 +30,6 @@ import torch
 
 from r3dfsseg_tpu_torch.kernels import build
 
-THREADS = 256                  # csrc/kth.cu kThreads
-SMEM_LIMIT = 232448
 SENTINEL = 1e30                # ops/lp.py _BIG
 
 launches = 0
@@ -60,7 +61,8 @@ def kth_smallest_per_row(d: torch.Tensor, k: int, iters: int) -> torch.Tensor:
         raise ValueError(f"kth_smallest_per_row: want (R, M) float32 or bfloat16, got "
                          f"{tuple(d.shape)} {d.dtype}")
     rows, m = d.shape
-    if not (rows > 0 and 0 < m and 4 * (m + 2 * THREADS) <= SMEM_LIMIT and iters >= 0):
+    fits = build.function("r3d_kth_fits", [build.I, build.I])
+    if not (rows > 0 and iters >= 0 and fits(m, d.element_size())):
         raise ValueError(f"kth_smallest_per_row: unsupported shape R={rows} M={m}")
     d = d.contiguous()
     out = torch.empty((rows, 1), dtype=torch.float32, device=d.device)

@@ -275,6 +275,50 @@ def test_kth_bf16_kernel_bit_equals_plain_on_card():
     assert torch.equal(got, cuda_kth.kth_smallest_per_row_reference(d, 20, 16))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", chip_smoke.KTH_KINDS)
+def test_kth_kernel_adversarial_rows_bit_equal_on_card(kind, dtype):
+    """Rows that break naive selects (`chip_smoke.kth_rows`), 9 rows of a
+    ragged width: each row starts at another offset from a 16-byte
+    boundary.  Bit-equal to the plain version, two calls bit-equal, one
+    launch per call."""
+    dev = cuda_or_skip()
+    d, k = chip_smoke.kth_rows(kind, 9, 701, seed=len(kind))
+    d = torch.from_numpy(d).to(dtype).to(dev)
+    iters = 32 if dtype == torch.float32 else 16
+    before = cuda_kth.launches
+    got = cuda_kth.kth_smallest_per_row(d, k, iters)
+    again = cuda_kth.kth_smallest_per_row(d, k, iters)
+    torch.cuda.synchronize()
+    assert cuda_kth.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, cuda_kth.kth_smallest_per_row_reference(d, k, iters))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kth_kernel_views_and_tiny_rows_on_card(dtype):
+    """Rows narrower than one 16-byte load, and a view that starts one
+    entry into its storage."""
+    dev = cuda_or_skip()
+    d = torch.from_numpy(np.random.default_rng(2).uniform(0.1, 9.0, size=(5, 301))
+                         .astype(np.float32)).to(dtype).to(dev)
+    for x, k in ((d[:, :3], 2), (d[:, :1], 1), (d.reshape(-1)[1:1 + 4 * 300].view(4, 300), 40)):
+        got = cuda_kth.kth_smallest_per_row(x, k, 32)
+        assert torch.equal(got, cuda_kth.kth_smallest_per_row_reference(x, k, 32))
+
+
+@pytest.mark.cuda
+def test_kth_wrapper_refuses_rows_too_wide_on_card():
+    dev = cuda_or_skip()
+    with pytest.raises(ValueError, match="unsupported shape"):
+        cuda_kth.kth_smallest_per_row(torch.zeros((1, 60000), device=dev), 2, 4)
+    x = torch.zeros((1, 60000), dtype=torch.bfloat16, device=dev)      # 120 KB: fits
+    assert torch.equal(cuda_kth.kth_smallest_per_row(x, 2, 4),
+                       cuda_kth.kth_smallest_per_row_reference(x, 2, 4))
+
+
 def _graph_system(seed, m, dev):
     """A bf16 S (M, M) normalised from a sparse random symmetric affinity,
     and a 3-column right-hand side, as the episode graph gives them."""
