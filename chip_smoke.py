@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (r3dfsseg_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--requests N] [--only knn,fps | cheby,scatter | kth]
+    python3 chip_smoke.py [--seed N] [--requests N] [--only knn,fps | cheby,scatter | kth | bf16]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
@@ -42,7 +42,16 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      function (attention: SDPA pinned to its memory-efficient backend, its
      forward against kernel 2 and its backward alone against kernel 5),
      with CUDA events; and measure the peak memory of that
-     episode graph alone, forward and backward, in float32 and bf16;
+     episode graph alone, forward and backward, in float32 and bf16.
+     The bf16 forms of the bf16 encoder: attention forward and backward
+     on bf16 q, k, v (B = 10 and 2, with dropout 0.1 and without; the
+     forward within ATTN_BF16_FWD_TOL of its plain version, the backward
+     within ATTN_BF16_BWD_TOL, a second call of each bit-equal;
+     SDPA pinned to flash on the same bf16 inputs as the yardstick), the
+     scatter-add on a bf16 cotangent (bit-equal to the f32 form on its
+     upcast, to its emulated order and across calls) and kNN on a bf16
+     input (equal to kNN on its f32 upcast, and to its plain version up to
+    rounding-level ties);
   3. serve flagship episodes (R3DConfig(): 2-way 5-shot, 2048 points x 9,
      a 4396-node graph) through `FewShotPredictor.predict` with seeded
      random weights, count each kernel's launches (FPS: exactly two, one
@@ -66,7 +75,19 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      of 1e-1: see `train`), whose steps must each launch all seven
      kernels, the Chebyshev solve twice (forward and adjoint; the profile
      shows its kernel twice per step) and the k-th distance once.  Serving and training launch kernels 8 to 11
-     no time, as in the JAX package;
+     no time, as in the JAX package, and the float32 encoder launches no
+     bf16 form;
+  4b. the bf16 encoder (R3DConfig(compute_dtype="bfloat16"): bf16 convs,
+     the default 'fastvar' BatchNorm, bf16 attention operands, the bf16
+     graph): the same requests against its plain path (>= 99% of points;
+     its agreement with the float32 encoder on the same weights logged),
+     two requests under bn_mode 'hybrid' (kNN on bf16 block outputs),
+     then the training step against its plain path on the same kNN graphs
+     (losses rtol BF16_ENC_LOSS_RTOL, gradients within
+     BF16_ENC_CARD_GRAD_TOL per parameter and BF16_ENC_CARD_GLOBAL_TOL
+     over all) and four steps, each launching kernels 1, 2 (bf16), 3, 4
+     (bf16), 5 (bf16), 6 (bf16) and 7; peak memory of a request and of a
+     step;
   5. the fused EdgeConv route (`fused_edgeconv`: kNN, kernel 8, kernel 9,
      the scatter-add backward) through the encoder's three blocks, against
      the blocks' own forward and backward (`fused_phase`: outputs, batch
@@ -82,11 +103,13 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      `torch.mm` calls); each launched as counted, and by no other phase.
 
 It prints the card's name and power limit, one JSON line describing the
-eleven kernels, and as its last line {"ok": true, "device": {...}}.  Without a
+eleven kernels (kernels 1, 2, 5 and 6 with a second row each for their
+bf16 form), and as its last line {"ok": true, "device": {...}}.  Without a
 CUDA device it exits with code 1 and prints no result.  `--only knn,fps`
 runs the build and the kNN and FPS checks alone and prints their rows,
 `--only cheby,scatter` the Chebyshev and scatter-add checks, and `--only
-kth` the k-th distance's three checks (f32, adversarial rows, bf16), so that
+kth` the k-th distance's three checks (f32, adversarial rows, bf16), `--only
+bf16` the checks of the bf16 forms of kernels 1, 2, 5 and 6, so that
 another tree's kernels can be timed with the same code (put that tree's
 root first on sys.path and run this file with runpy; the tree's modules
 need the plain versions these checks call: `cheby_solve_split_reference`
@@ -111,6 +134,40 @@ HBM_BYTES = 3.35e12  # H100 SXM device-memory bytes/s
 GRAD_TOL = 1e-3     # kernel vs plain training step: relative L2 per parameter
 BF16_GRAD_TOL = 1e-1  # the same on the bf16 graph, whose gradients carry ~1e-2 of
                       # bf16 rounding noise (see `train`)
+# The bf16 encoder (compute_dtype="bfloat16") at training step 1: losses,
+# and each parameter's gradient (relative L2) and all of them at once.
+# tests/test_torch_bf16_encoder.py holds the port's plain path to the JAX
+# package on the CPU with BF16_ENC_GRAD_TOL and BF16_ENC_GLOBAL_TOL, set
+# from the spread measured there: the backward rounds every cotangent to bf16 at
+# the same points in both, but its train-mode BatchNorms cancel most of
+# each sum, so a rounding one bf16 step apart moves a small gradient by far
+# more than 2^-8 of itself.  Measured on the CPU against the JAX package:
+# the tiny encoder alone (12 cases, 'exact' and 'fastvar', train mode) per
+# parameter median 0.9-1.7e-2, largest 0.175 (a BN bias), over all
+# parameters at most 0.052; the tiny model's training step (6 seeds whose
+# graphs select alike) largest 0.083, over all at most 0.014, losses
+# within 1.5e-5.  Between the bf16 and the f32 encoder on the same weights
+# the median distance is 0.25-0.54, for JAX as for the port.
+BF16_ENC_LOSS_RTOL = 1e-2
+BF16_ENC_GRAD_TOL = 0.25
+BF16_ENC_GLOBAL_TOL = 0.08
+# On the card, kernel path vs plain path (same weights, same kNN graphs):
+# measured on an H100 at most 2.5e-2 per parameter and 1.7e-2 over all
+# (PERF.md), so these limits keep about 2x room above that spread and stay
+# far below a fault that moves a few gradients by 20%
+BF16_ENC_CARD_GRAD_TOL = 0.06
+BF16_ENC_CARD_GLOBAL_TOL = 0.03
+# The bf16 attention forward (kernel 2) vs its plain version, of the largest
+# |y|: both round the normalised P to bf16 before P V, so they differ only
+# where their f32 P (exp and sums in another order) straddles a bf16
+# rounding boundary, each such entry moving y by a bf16 step of p v.
+# Measured on an H100 up to 5.7e-4 (PERF.md); rounding the unnormalised P
+# instead, 3.1e-3
+ATTN_BF16_FWD_TOL = 2e-3
+# The bf16 attention backward (kernel 5) vs its plain version, of each
+# gradient's largest entry: the same bf16 roundings at the same points, but
+# f32 sums in another order can round a dS or Pd entry the other way
+ATTN_BF16_BWD_TOL = 1e-2
 CHEBY_TOL = 1e-4    # Chebyshev kernel vs the f32-product plain version: the split of d
                     # (5e-6 of max |x| on a dense b) and f32 sums in another order, 49 steps
 # Chebyshev kernel vs its plain version (the same split-bf16 arithmetic): f32 sums
@@ -128,16 +185,27 @@ def log(*a):
     print(*a, flush=True)
 
 
+def describe(cfg) -> str:
+    """The encoder and graph of cfg, for the log."""
+    enc = "float32 encoder" if cfg.compute_dtype == "float32" else \
+        f"bf16 encoder ({cfg.bn_mode}{', attn_f32' if cfg.attn_f32 else ''})"
+    return f"{enc}, {'bf16' if cfg.graph_bf16 else 'float32'} graph"
+
+
 def ptxas_report(build_log: str, names=("knn_kernel", "fps_kernel", "cheby_kernel",
-                                        "scatter_add_kernel", "kth_kernel")) -> list[str]:
+                                        "scatter_add_kernel", "kth_kernel", "attn_fwd_bf16",
+                                        "attn_bwd_dkdv_bf16", "attn_bwd_dq_bf16")) -> list[str]:
     """nvcc's -Xptxas -v lines of the entry functions whose mangled name
-    holds one of ``names``: registers, barriers, stack and spill."""
+    holds one of ``names``: registers, barriers, stack and spill, each
+    under the mangled name from that name on (its template arguments:
+    ILi2ELb1E is <2, true>)."""
     out, entry = [], None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            entry = next((line.split("'")[1] for n in names if n in line), None)
+            mangled = line.split("'")[1]
+            entry = next((mangled[mangled.index(n):][:48] for n in names if n in mangled), None)
         elif entry and ("registers" in line or "spill" in line):
-            out.append(f"{entry[:60]}: {line.split(':', 1)[-1].strip()}")
+            out.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
     return out
 
 
@@ -527,6 +595,103 @@ def check_attention_train(torch, attn_mod):
                 TF32_TC_FLOPS, **extra_bwd))
 
 
+def sdpa_flash(torch, q, k, v, rate, tau):
+    """The yardstick for the bf16 forms of kernels 2 and 5: one
+    `scaled_dot_product_attention` call on bf16 (B, 1, N, D) views pinned
+    to the flash backend (its own dropout mask; a bf16 output); if that
+    backend is refused the call raises."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        return F.scaled_dot_product_attention(q.unsqueeze(1), k.unsqueeze(1), v.unsqueeze(1),
+                                              dropout_p=rate, scale=1 / tau).squeeze(1)
+
+
+def check_attention_bf16(torch, attn_mod):
+    """The bf16 forms of kernels 2 and 5 (the bf16 encoder's) at the
+    training shapes, B = 10 and 2, N = 2048, D = 64, with dropout 0.1 and
+    without: the forward against its plain version (lse rtol/atol 1e-5; y
+    within ATTN_BF16_FWD_TOL of its largest entry), the backward within
+    ATTN_BF16_BWD_TOL of each gradient's largest entry of its plain
+    version, a second call of each bit-equal.
+    Times per step (both batches, rate 0.1): kernels, plain versions, and
+    SDPA pinned to flash on the same bf16 inputs (`sdpa_flash`), forward
+    alone and backward alone.  Bounds: 4 B N^2 D and 10 B N^2 D operations
+    on the bf16 tensor cores; bytes: q, k, v bf16 read, y (and dy) f32,
+    lse, and dq, dk, dv f32 written."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    tau, bf16 = 8.0, torch.bfloat16
+    calls = []
+    for b, seed in ((10, 87), (2, 88)):
+        q, k, v, dy = (torch.randn((b, 2048, 64), generator=g, device="cuda") for _ in range(4))
+        calls.append((q.to(bf16), k.to(bf16), v.to(bf16), dy, seed))
+    fwd_err = bwd_err = 0.0
+    saved = []
+    for q, k, v, dy, seed in calls:
+        for rate in (0.1, 0.0):
+            y, lse = attn_mod.attention_fwd(q, k, v, tau, rate, seed)
+            y2, lse2 = attn_mod.attention_fwd(q, k, v, tau, rate, seed)
+            want_y, want_lse = attn_mod.attention_fwd_reference(q, k, v, tau, rate, seed)
+            torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+            e = (y - want_y).abs().max().item()
+            bound_y = ATTN_BF16_FWD_TOL * want_y.abs().max().item()
+            got = attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
+            again = attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
+            want = attn_mod.attention_bwd_reference(q, k, v, y, dy, lse, tau, rate, seed)
+            rel = [((a - w).abs().max() / w.abs().max()).item() for a, w in zip(got, want)]
+            same = (torch.equal(y, y2) and torch.equal(lse, lse2)
+                    and all(torch.equal(a, c) for a, c in zip(got, again)))
+            log(f"  attention bf16 B={q.shape[0]} rate {rate}: forward max abs err {e:.3e} "
+                f"(bound {bound_y:.3e}); backward dq, dk, dv off their plain versions by "
+                f"{', '.join(f'{r:.3e}' for r in rel)} of their largest entry; a second call "
+                f"of each bit-equal {same}")
+            if e > bound_y or max(rel) > ATTN_BF16_BWD_TOL or not same:
+                raise AssertionError(f"attention bf16 B={q.shape[0]} rate {rate}: forward {e}, "
+                                     f"backward {rel}, repeat bit-equal {same}")
+            fwd_err, bwd_err = max(fwd_err, e), max(bwd_err, max(rel))
+            if rate > 0.0:
+                saved.append((q, k, v, dy, seed, y, lse))
+    rate = 0.1
+
+    def fwd(f, which=saved):
+        return lambda: [f(q, k, v, tau, rate, seed) for q, k, v, dy, seed, *_ in which]
+
+    def bwd(f, which=saved):
+        return lambda: [f(q, k, v, y, dy, lse, tau, rate, seed)
+                        for q, k, v, dy, seed, y, lse in which]
+
+    graphs = []
+    for q, k, v, dy, *_ in saved:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        graphs.append((sdpa_flash(torch, *leaves, rate, tau), leaves, dy.to(bf16)))
+
+    def sdpa_bwd():
+        for out, leaves, dy in graphs:
+            torch.autograd.grad(out, leaves, dy, retain_graph=True)
+
+    t = dict(fwd=cuda_ms(fwd(attn_mod.attention_fwd), 10),
+             fwd_plain=cuda_ms(fwd(attn_mod.attention_fwd_reference), 10),
+             bwd=cuda_ms(bwd(attn_mod.attention_bwd), 10),
+             bwd_plain=cuda_ms(bwd(attn_mod.attention_bwd_reference), 10),
+             lib_fwd=cuda_ms(lambda: [sdpa_flash(torch, q, k, v, rate, tau)
+                                      for q, k, v, *_ in saved], 10),
+             lib_bwd=cuda_ms(sdpa_bwd, 10))
+    for i, b in enumerate(q.shape[0] for q, *_ in saved):
+        t[f"fwd_b{b}"] = cuda_ms(fwd(attn_mod.attention_fwd, saved[i:i + 1]), 10)
+        t[f"bwd_b{b}"] = cuda_ms(bwd(attn_mod.attention_bwd, saved[i:i + 1]), 10)
+    log("  attention bf16 per step (ms): " + ", ".join(f"{n} {v:.4f}" for n, v in t.items()))
+    bn2d = sum(q.shape[0] for q, *_ in saved) * 2048 ** 2 * 64
+    n = sum(q.numel() for q, *_ in saved)
+    rows = sum(q.shape[0] * q.shape[1] for q, *_ in saved)
+    fwd_bytes = 3 * 2.0 * n + 4.0 * n + 4.0 * rows
+    bwd_bytes = 3 * 2.0 * n + 2 * 4.0 * n + 4.0 * rows + 3 * 4.0 * n
+    return (row(fwd_err, t["fwd"], t["fwd_plain"], t["lib_fwd"], 4.0 * bn2d, fwd_bytes,
+                BF16_TC_FLOPS, ms_b10=t["fwd_b10"], ms_b2=t["fwd_b2"]),
+            row(bwd_err, t["bwd"], t["bwd_plain"], t["lib_bwd"], 10.0 * bn2d, bwd_bytes,
+                BF16_TC_FLOPS, ms_b10=t["bwd_b10"], ms_b2=t["bwd_b2"],
+                ms_pair=t["fwd"] + t["bwd"], library_ms_pair=t["lib_fwd"] + t["lib_bwd"]))
+
+
 def _fps_divergence_gap(torch, fps_mod, feat, valid, got, want):
     """Replay the plain FPS up to the first differing slot; return the
     largest absolute and relative gap between the two candidates' running
@@ -882,6 +1047,87 @@ def check_scatter(torch, knn_mod, scatter_mod, sx, qx):
     nbytes = sum(4.0 * (gr.numel() + idx.numel() + gr.shape[0] * 2048 * 64) for gr, idx in step)
     return row(err, ms, plain, lib, sum(float(gr.numel()) for gr, _ in step), nbytes,
                per_call=per_call)
+
+
+def check_scatter_bf16(torch, knn_mod, scatter_mod, sx, qx):
+    """Kernel 6 on a bf16 cotangent (the bf16 encoder's) at a training
+    step's shapes: bit-equal to the f32 form on its upcast, to the ordered
+    emulation and across two calls, one launch per call.  Times: a step's
+    six calls, kernel and plain version (the f32 `index_add_` of the
+    upcast).  No one PyTorch call computes it: `index_add_` wants the
+    table's dtype, and a bf16 table would round its sums.  Bound: bytes, g
+    read at 2 bytes an entry."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+    calls = []
+    for x in (sx.reshape(-1, *sx.shape[2:]), qx):
+        xt = torch.from_numpy(np.ascontiguousarray(x)).cuda()
+        idx = knn_mod.knn(xt, 20)
+        gr = torch.randn((*idx.shape, 64), generator=g, device="cuda").to(torch.bfloat16)
+        calls.append((gr, idx))
+    err = 0.0
+    for gr, idx in calls:
+        before = scatter_mod.bf16_launches
+        got = scatter_mod.scatter_add(gr, idx, 2048)
+        again = scatter_mod.scatter_add(gr, idx, 2048)
+        torch.cuda.synchronize()
+        upcast = torch.equal(got, scatter_mod.scatter_add(gr.float(), idx, 2048))
+        emulated = torch.equal(got, scatter_mod.scatter_add_ordered_reference(gr, idx, 2048))
+        same = torch.equal(got, again)
+        e = (got - scatter_mod.scatter_add_reference(gr, idx, 2048)).abs().max().item()
+        log(f"  scatter-add bf16 {tuple(gr.shape)}: bit-equal to the f32 form on the upcast "
+            f"{upcast}, to the ordered emulation {emulated}, across two calls {same}; "
+            f"max abs err against index_add_ {e:.3e}")
+        if scatter_mod.bf16_launches != before + 2 or not (upcast and emulated and same):
+            raise AssertionError("scatter-add bf16: not bit-equal, or not one launch per call")
+        err = max(err, e)
+    step = calls * 3
+    ms = cuda_ms(lambda: [scatter_mod.scatter_add(gr, idx, 2048) for gr, idx in step], 10)
+    plain = cuda_ms(lambda: [scatter_mod.scatter_add_reference(gr, idx, 2048)
+                             for gr, idx in step], 10)
+    per_call = {f"ms_b{gr.shape[0]}": cuda_ms(lambda gr=gr, idx=idx: scatter_mod.scatter_add(
+        gr, idx, 2048), 10, per=5) for gr, idx in calls}
+    log(f"  scatter-add bf16: a training step's six calls {ms:.4f} ms (plain {plain:.4f}); "
+        + ", ".join(f"{k[3:]} {v:.4f} ms per call" for k, v in per_call.items()))
+    nbytes = sum(2.0 * gr.numel() + 4.0 * (idx.numel() + gr.shape[0] * 2048 * 64)
+                 for gr, idx in step)
+    return row(err, ms, plain, None, sum(float(gr.numel()) for gr, _ in step), nbytes,
+               **per_call)
+
+
+def check_knn_bf16(torch, knn_mod):
+    """Kernel 1 on a bf16 input (under the 'stats', 'relaxed' and 'hybrid'
+    BN modes the second and third EdgeConv blocks take a bf16 block
+    output): equal to kNN on its f32 upcast, one launch per call, and to
+    the plain version up to rounding-level ties (`knn_agreement`).  Times:
+    those four calls of a request (B = 10 and 2, C = 64), kernel and plain
+    version, both on the bf16 input.  Bound: the distances' products on
+    the bf16 tensor cores, 2 B N^2 C operations: bf16 fits in tf32, so the
+    lo parts of the kernel's 3xTF32 split are zero and one bf16 pass with
+    f32 sums gives the same sums; bytes: x bf16 read, indices written."""
+    k = 20
+    g = torch.Generator(device="cuda").manual_seed(16)
+    xs = [torch.randn((b, 2048, 64), generator=g, device="cuda").to(torch.bfloat16)
+          for b in (10, 10, 2, 2)]
+    err = 0.0
+    for x in xs[::2]:
+        before = knn_mod.bf16_launches
+        got = knn_mod.knn(x, k)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, knn_mod.knn(x.float(), k))
+        a = knn_agreement(torch, x.float(), got.long(), knn_mod.knn_reference(x, k).long())
+        err = max(err, a["err"])
+        log(f"  knn bf16 input {tuple(x.shape)}: equal to the kNN of its f32 upcast {equal}; "
+            f"against the plain version: row mismatch rate {a['mismatch']:.3e}, sorted "
+            f"distances off by {a['err']:.3e}")
+        if not equal or knn_mod.bf16_launches != before + 1 or a["gap"] > NEAR_TIE:
+            raise AssertionError(f"knn bf16: differs from its upcast, or not one launch, or "
+                                 f"from the plain version beyond a tie ({a['gap']})")
+    ms = cuda_ms(lambda: [knn_mod.knn(x, k) for x in xs], 10)
+    plain = cuda_ms(lambda: [knn_mod.knn_reference(x, k) for x in xs], 10)
+    log(f"  knn bf16: a request's four calls {ms:.4f} ms (plain {plain:.4f})")
+    flops = sum(2.0 * x.shape[0] * 2048 ** 2 * 64 for x in xs)
+    nbytes = sum(2.0 * x.numel() + 4.0 * x.shape[0] * 2048 * k for x in xs)
+    return row(err, ms, plain, None, flops, nbytes, BF16_TC_FLOPS)
 
 
 def index_add(torch, gr, idx, n: int = 2048):
@@ -1580,11 +1826,13 @@ def train(torch, cfg, episodes, kernels, seed, required, per_step=None, steps=TR
         raise AssertionError(f"the plain training path launched a kernel: {counts(kernels)}")
     if min(first[n] for n in required) <= 0:
         raise AssertionError(f"step 1: a kernel was not launched: {first}")
+    bf16_enc = cfg.compute_dtype == "bfloat16"
+    loss_rtol = BF16_ENC_LOSS_RTOL if bf16_enc else 1e-4
     for key in ("loss", "lp_loss", "contrast_loss"):
         a, b = m_fast[key].item(), m_plain[key].item()
         log(f"  step 1 {key}: kernels {a:.7f}, plain {b:.7f}, rel diff "
             f"{abs(a - b) / max(abs(b), 1e-30):.3e}")
-        if not (np.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)):
+        if not (np.isfinite(a) and abs(a - b) <= loss_rtol * abs(b)):
             raise AssertionError(f"step 1 {key}: kernel path {a} vs plain path {b}")
     g_fast, g_plain = _grads(fast.model), _grads(plain.model)
     if set(g_fast) != set(g_plain) or len(g_fast) != len(list(fast.model.parameters())):
@@ -1602,7 +1850,7 @@ def train(torch, cfg, episodes, kernels, seed, required, per_step=None, steps=TR
         f"{rel[worst]:.3e} ({worst}); median {med:.3e}; "
         f"{len(zero)} biases with an exact zero gradient at {noise / top:.3e} of the "
         f"largest entry")
-    if cfg.graph_dtype == "bfloat16":
+    if cfg.graph_bf16:
         exact = MPTILearner(plain_cfg, "cuda", torch.Generator().manual_seed(seed))
         plain_knn, reference_solve = replay.replay(), cuda_cheby.cheby_solve_reference
         cuda_cheby.cheby_solve_reference = exact_solve(cuda_cheby)
@@ -1616,10 +1864,18 @@ def train(torch, cfg, episodes, kernels, seed, required, per_step=None, steps=TR
             d = _rel_distances(g, g_exact, zero)
             log(f"  step 1 gradients, {name} path vs the exact-solve path: largest relative "
                 f"L2 distance {max(d.values()):.3e}, median {statistics.median(d.values()):.3e}")
-    tol = BF16_GRAD_TOL if cfg.graph_dtype == "bfloat16" else GRAD_TOL
+    tol = BF16_ENC_CARD_GRAD_TOL if bf16_enc else BF16_GRAD_TOL if cfg.graph_bf16 else GRAD_TOL
     if rel[worst] > tol:
         raise AssertionError(f"step 1 gradient of {worst}: relative distance {rel[worst]} > {tol}")
-    if noise > 1e-5 * top:
+    if bf16_enc:
+        glob = (sum(float((g_fast[n] - g_plain[n]).square().sum()) for n in rel)
+                / sum(float(g_plain[n].square().sum()) for n in rel)) ** 0.5
+        log(f"  step 1 gradients: relative L2 distance over all parameters {glob:.3e}")
+        if glob > BF16_ENC_CARD_GLOBAL_TOL:
+            raise AssertionError(f"step 1 gradients: relative distance {glob} over all "
+                                 f"parameters > {BF16_ENC_CARD_GLOBAL_TOL}")
+    # bf16 cotangents leave those zero-gradient biases bf16 noise
+    if noise > (1e-2 if bf16_enc else 1e-5) * top:
         raise AssertionError(f"step 1: a zero-gradient bias holds {noise} (top {top})")
 
     # ---- the kernel path's steps: the main path of this phase
@@ -1686,7 +1942,7 @@ def profile_train(torch, learner, episodes, steps: int = 3, top: int = 12) -> No
         raise AssertionError(f"profile: {fps_calls} FPS kernels per step, not 3 (one per call)")
     # kernel 7: one cooperative launch per solve, the forward and the adjoint
     cheby_calls = sum(n for name, _, n in rows if "cheby_kernel" in name)
-    if cheby_calls != (2 if learner.cfg.graph_dtype == "bfloat16" else 0):
+    if cheby_calls != (2 if learner.cfg.graph_bf16 else 0):
         raise AssertionError(f"profile: {cheby_calls} Chebyshev kernels per step")
 
 
@@ -1725,7 +1981,7 @@ def stage_breakdown(torch, model, cfg, episode, reps: int = 5):
     from r3dfsseg_tpu_torch.ops.lp import label_propagate, local_constrained_affinity
 
     sx, sy, qx = (torch.as_tensor(a).cuda() for a in episode[:3])
-    lowp = torch.bfloat16 if cfg.graph_dtype == "bfloat16" else None
+    lowp = torch.bfloat16 if cfg.graph_bf16 else None
     names = ["encoder", "mdns", "graph_nodes", "affinity", "label_propagation"]
     times = {n: [] for n in names}
     with torch.inference_mode():
@@ -1760,8 +2016,9 @@ def stage_breakdown(torch, model, cfg, episode, reps: int = 5):
 def serve_phase(torch, cfg, episodes, kernels, seed, required):
     """Serve the episodes on the kernel and plain paths (`serve`), check the
     labels and the agreement, log latency, memory, launches and the stage
-    split; return the kernel path's predictions and launch counts."""
-    graph = "bf16" if cfg.graph_dtype == "bfloat16" else "float32"
+    split; return the kernel path's predictions, launch counts and peak
+    memory."""
+    graph = describe(cfg)
     lat, preds, plain_lat, plain_preds, launches, peak, logits, model = serve(
         torch, cfg, episodes, kernels, seed, required)
     q, n = cfg.n_way * cfg.n_queries, cfg.pc_npts
@@ -1778,23 +2035,23 @@ def serve_phase(torch, cfg, episodes, kernels, seed, required):
             f"agreement with plain {agree:.4f}; fg share {fg:.3f}")
         if agree < 0.99:
             raise AssertionError(f"request {i}: kernel and plain paths agree on {agree}")
-    log(f"[serve] {graph} graph: {len(lat)} requests; median latency "
+    log(f"[serve] {graph}: {len(lat)} requests; median latency "
         f"{statistics.median(lat):.2f} ms (kernels) vs {statistics.median(plain_lat):.2f} ms "
         f"(plain); peak memory {peak / 2**20:.1f} MiB; launches {launches}")
     stages = stage_breakdown(torch, model, cfg, episodes[0])
-    log(f"[stages] {graph} graph, kernel path, device ms per request (median of 5): " +
+    log(f"[stages] {graph}, kernel path, device ms per request (median of 5): " +
         ", ".join(f"{n} {t:.3f}" for n, t in stages.items()) +
         f"; sum {sum(stages.values()):.3f}")
-    return preds, launches
+    return preds, launches, peak
 
 
 def train_phase(torch, cfg, episodes, kernels, seed, required, per_step=None):
     """`train` with its log lines."""
-    graph = "bf16" if cfg.graph_dtype == "bfloat16" else "float32"
-    log(f"[train] {graph} graph: meta-training step, kernel path vs plain path, then "
+    graph = describe(cfg)
+    log(f"[train] {graph}: meta-training step, kernel path vs plain path, then "
         f"{TRAIN_STEPS} kernel-path steps")
     tr = train(torch, cfg, episodes, kernels, seed, required, per_step)
-    log(f"[train] {graph} graph: median step {tr['step_ms']:.2f} ms (host clock, "
+    log(f"[train] {graph}: median step {tr['step_ms']:.2f} ms (host clock, "
         f"synchronised); device ms per step: " +
         ", ".join(f"{n} {t:.3f}" for n, t in tr["stages"].items()) +
         f"; peak memory {tr['peak'] / 2**20:.1f} MiB; launches over {TRAIN_STEPS} steps "
@@ -1806,10 +2063,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
-    ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth"],
+    ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth", "bf16"],
                     help="build, then only the kNN and FPS (or the Chebyshev and scatter-add, "
-                         "or the k-th distance) kernel checks, and print their rows (to time "
-                         "them beside another tree's kernels)")
+                         "the k-th distance, or the bf16 forms of kernels 1, 2, 5 and 6) "
+                         "kernel checks, and print their rows (to time them beside another "
+                         "tree's kernels)")
     args = ap.parse_args()
 
     import torch
@@ -1866,6 +2124,16 @@ def main() -> int:
         log(smi)
         log(json.dumps(rows))
         return 0
+    if args.only == "bf16":
+        rows = {}
+        rows["attention_fwd_bf16"], rows["attention_bwd_bf16"] = check_attention_bf16(
+            torch, cuda_attention)
+        rows["scatter_add_bf16"] = check_scatter_bf16(torch, cuda_knn, cuda_scatter,
+                                                      episodes[0][0], episodes[0][2])
+        rows["knn_bf16"] = check_knn_bf16(torch, cuda_knn)
+        log(smi)
+        log(json.dumps(rows))
+        return 0
     rows = {"knn": check_knn(torch, cuda_knn, episodes[0][0])}
     if args.only:
         rows["fps"] = check_fps(torch, cuda_fps)
@@ -1878,11 +2146,16 @@ def main() -> int:
     rows["attention_fwd"].update(ms_eval=attn_eval[1], plain_ms_eval=attn_eval[2],
                                  library_ms_eval=attn_eval[3], max_abs_err_eval=attn_eval[0],
                                  **attn_eval[4])
+    rows["attention_fwd_bf16"], rows["attention_bwd_bf16"] = check_attention_bf16(
+        torch, cuda_attention)
     rows["fps"] = check_fps(torch, cuda_fps)
     rows["kth"] = check_kth(torch, cuda_kth)
     check_kth_rows(torch, cuda_kth)
     rows["scatter_add"] = check_scatter(torch, cuda_knn, cuda_scatter, episodes[0][0],
                                         episodes[0][2])
+    rows["scatter_add_bf16"] = check_scatter_bf16(torch, cuda_knn, cuda_scatter, episodes[0][0],
+                                                  episodes[0][2])
+    rows["knn_bf16"] = check_knn_bf16(torch, cuda_knn)
     model = MPTILearner(cfg, "cuda", torch.Generator().manual_seed(args.seed)).model
     sx = torch.from_numpy(episodes[0][0].reshape(-1, cfg.pc_npts, cfg.pc_in_dim)).cuda()
     blocks, xs = encoder_block_inputs(torch, model, sx, True)
@@ -1918,8 +2191,13 @@ def main() -> int:
     log(f"  cheby: bound with S read from device memory at every step "
         f"{rows['cheby']['bound_ms_hbm']:.4f} ms")
 
+    # the bf16 forms' counters count their calls apart, within their kernel's
     kernels = {"knn": (cuda_knn, "launches"), "attention_fwd": (cuda_attention, "launches"),
                "attention_bwd": (cuda_attention, "bwd_launches"), "fps": (cuda_fps, "launches"),
+               "knn_bf16": (cuda_knn, "bf16_launches"),
+               "attention_fwd_bf16": (cuda_attention, "bf16_launches"),
+               "attention_bwd_bf16": (cuda_attention, "bwd_bf16_launches"),
+               "scatter_add_bf16": (cuda_scatter, "bf16_launches"),
                "kth": (cuda_kth, "launches"), "scatter_add": (cuda_scatter, "launches"),
                "cheby": (cuda_cheby, "launches"), "gather_onehot": (cuda_gather, "launches"),
                **{f"fused_{p}": (cuda_fused_edge, f"{p}_launches")
@@ -1927,13 +2205,18 @@ def main() -> int:
                "proto_cheby": (cuda_proto_cheby, "launches"),
                "matmul_only": (cuda_proto_cheby, "matmul_only_launches")}
     f32_kernels = ("knn", "attention_fwd", "attention_bwd", "fps", "kth", "scatter_add")
+    bf16_forms = ("knn_bf16", "attention_fwd_bf16", "attention_bwd_bf16", "scatter_add_bf16")
+    # the bf16 encoder's step: kernels 1, 2 (bf16), 3, 4 (bf16), 5 (bf16), 6 (bf16), 7
+    enc_kernels = ("knn", "attention_fwd_bf16", "attention_bwd_bf16", "fps", "kth",
+                   "scatter_add_bf16", "cheby")
     fused_passes = tuple(f"fused_{p}" for p in cuda_fused_edge.PASSES)
     fused_kernels = ("gather_onehot",) + fused_passes
     probe_kernels = ("proto_cheby", "matmul_only")
 
     # ---- 3. serving, float32 graph then bf16 graph
-    preds, serve_launches = serve_phase(torch, cfg, episodes, kernels, args.seed, SERVE_KERNELS)
-    preds16, serve_launches16 = serve_phase(torch, cfg16, episodes, kernels, args.seed,
+    preds, serve_launches, _ = serve_phase(torch, cfg, episodes, kernels, args.seed,
+                                           SERVE_KERNELS)
+    preds16, serve_launches16, peak16 = serve_phase(torch, cfg16, episodes, kernels, args.seed,
                                             SERVE_KERNELS + ("cheby",))
     for i, (a, b) in enumerate(zip(preds16, preds)):
         agree = float((a == b).mean())
@@ -1951,6 +2234,30 @@ def main() -> int:
         f"{tr16['peak'] / 2**20:.1f} MiB")
     phases = {"serve_f32": serve_launches, "serve_bf16": serve_launches16,
               "train_f32": tr["launches"], "train_bf16": tr16["launches"]}
+    for phase, launched in phases.items():
+        if any(launched[n] for n in bf16_forms):
+            raise AssertionError(f"{phase}: the float32 encoder launched a bf16 form: {launched}")
+
+    # ---- 4b. the bf16 encoder (compute_dtype="bfloat16"; graph 'auto': the bf16 graph)
+    cfg_enc = cfg.replace(compute_dtype="bfloat16")
+    preds_enc, serve_launches_enc, peak_enc = serve_phase(
+        torch, cfg_enc, episodes, kernels, args.seed,
+        SERVE_KERNELS + ("cheby", "attention_fwd_bf16"))
+    for i, (a, b16, b32) in enumerate(zip(preds_enc, preds16, preds)):
+        log(f"  request {i}: the bf16 encoder agrees with the float32 encoder (same weights) "
+            f"on {float((a == b16).mean()):.4f} of points on the bf16 graph, "
+            f"{float((a == b32).mean()):.4f} against the float32 encoder's float32 graph")
+    # 'hybrid' (and 'stats', 'relaxed') feed bf16 block outputs to the kNN
+    _, serve_launches_hybrid, _ = serve_phase(
+        torch, cfg_enc.replace(bn_mode="hybrid"), episodes[:2], kernels, args.seed,
+        SERVE_KERNELS + ("cheby", "attention_fwd_bf16", "knn_bf16"))
+    tr_enc = train_phase(torch, cfg_enc, episodes, kernels, args.seed, enc_kernels,
+                         per_step={"cheby": 2, "kth": 1, "fps": 3})
+    log(f"[bf16 encoder] peak memory: a request {peak_enc / 2**20:.1f} MiB (float32 encoder, "
+        f"bf16 graph: {peak16 / 2**20:.1f}); a training step {tr_enc['peak'] / 2**20:.1f} MiB "
+        f"(float32 encoder, bf16 graph: {tr16['peak'] / 2**20:.1f})")
+    phases.update(serve_bf16enc=serve_launches_enc, serve_hybrid=serve_launches_hybrid,
+                  train_bf16enc=tr_enc["launches"])
     for phase, launched in phases.items():
         if any(launched[n] for n in fused_kernels + probe_kernels):
             raise AssertionError(f"{phase}: kernels 8, 9, 10 or 11 were launched: {launched}")
@@ -1974,6 +2281,12 @@ def main() -> int:
     sources = {"knn": ("knn.cu", "r3dfsseg_tpu/ops/pallas_knn.py:27"),
                "attention_fwd": ("attention_fwd.cu", "r3dfsseg_tpu/ops/pallas_attention.py:54"),
                "attention_bwd": ("attention_bwd.cu", "r3dfsseg_tpu/ops/pallas_attention.py:78"),
+               "attention_fwd_bf16": ("attention_fwd.cu",
+                                      "r3dfsseg_tpu/ops/pallas_attention.py:54"),
+               "attention_bwd_bf16": ("attention_bwd.cu",
+                                      "r3dfsseg_tpu/ops/pallas_attention.py:78"),
+               "knn_bf16": ("knn.cu", "r3dfsseg_tpu/ops/pallas_knn.py:27"),
+               "scatter_add_bf16": ("scatter_add.cu", "r3dfsseg_tpu/ops/fast_gather.py:40"),
                "fps": ("fps.cu", "r3dfsseg_tpu/ops/pallas_fps.py:46"),
                "kth": ("kth.cu", "r3dfsseg_tpu/ops/pallas_kth.py:33"),
                "scatter_add": ("scatter_add.cu", "r3dfsseg_tpu/ops/fast_gather.py:40"),
@@ -1984,13 +2297,17 @@ def main() -> int:
                "matmul_only": ("proto_cheby.cu", "scripts/archive/proto_cheby2.py:36")}
     # each entry's counters, and the phase whose count is its "launches":
     # the float32 graph's training run; cheby's the bf16 graph's, which
-    # alone launches it; kernels 8 and 9 the fused route's; kernels 10 and
-    # 11 the probe phase's
+    # alone launches it; the bf16 forms of kernels 2, 5 and 6 the bf16
+    # encoder's training run, kernel 1's bf16 input its 'hybrid' serving
+    # run (the default 'fastvar' feeds kNN f32); kernels 8 and 9 the fused
+    # route's; kernels 10 and 11 the probe phase's
     members = {name: (name,) for name in sources}
     members["fused_edge"] = fused_passes
     main_phase = {name: "train_f32" for name in sources}
     main_phase.update(cheby="train_bf16", gather_onehot="fused_train", fused_edge="fused_train",
-                      proto_cheby="probe", matmul_only="probe")
+                      proto_cheby="probe", matmul_only="probe",
+                      attention_fwd_bf16="train_bf16enc", attention_bwd_bf16="train_bf16enc",
+                      scatter_add_bf16="train_bf16enc", knn_bf16="serve_hybrid")
     for p in cuda_fused_edge.PASSES:
         rows["fused_edge"]["passes"][p].update(
             {f"launches_{ph}": c[f"fused_{p}"] for ph, c in phases.items()},

@@ -104,10 +104,10 @@ class R3DConfig:
     fps_impl: str = "auto"                 # auto | xla
     attn_impl: str = "auto"                # auto | xla
     affinity_impl: str = "threshold"       # the port runs threshold only
-    compute_dtype: str = "float32"         # the port's encoder runs float32 only
+    compute_dtype: str = "float32"         # float32 | bfloat16 (the encoder)
     graph_dtype: str = "auto"              # auto | float32 | bfloat16 (the episode graph)
-    attn_f32: bool = False
-    bn_mode: str = "fastvar"               # eval BN uses running stats: no effect
+    attn_f32: bool = False                 # bf16 encoder: f32 attention operands
+    bn_mode: str = "fastvar"               # BN precision under the bf16 encoder
     exact_grad_gather: bool = False
     fuse_edge: str = "auto"
     mesh_shape: Optional[Tuple[int, ...]] = None
@@ -139,6 +139,13 @@ class R3DConfig:
     def num_nodes(self) -> int:
         """Label-propagation graph size: prototype slots ++ query points."""
         return self.num_proto_slots + self.num_query_points
+
+    @property
+    def graph_bf16(self) -> bool:
+        """Whether the episode graph is bf16: `graph_dtype`, where 'auto'
+        follows the encoder's `compute_dtype`."""
+        gd = self.compute_dtype if self.graph_dtype == "auto" else self.graph_dtype
+        return gd == "bfloat16"
 
     def replace(self, **kw) -> "R3DConfig":
         return dataclasses.replace(self, **kw)

@@ -283,6 +283,127 @@ __device__ __forceinline__ float4 col_mask(const r3d::Dropout& drop, int b, int 
                      (ma >> (g + 8) & 1u) ? s : 0.f, (mb >> (g + 8) & 1u) ? s : 0.f);
 }
 
+// ---- the bf16 forms (q, k, v bf16: the bf16 encoder) ------------------
+// Products are single bf16 mma.sync.m16n8k16 tiles (common.cuh) with f32
+// sums; tiles and fragments are the f32 forms' in shape (a warp owns 16
+// rows, kChunk-row tiles of the column operands stream through a
+// two-stage cp.async ring), in bf16:
+//   - a staged tile is kChunk rows x kDP bf16 channels (8 KB), row r's
+//     16-byte chunk c (channels 8c .. 8c + 7) stored at chunk c ^ (r % 8),
+//     so that the eight rows an ldmatrix tile reads lie in eight different
+//     bank groups;
+//   - B fragments come from it by ldmatrix: "along channels" (B of q k^T-
+//     like products, ldsm_x4: two n-tiles of 8 rows x one k-step of 16
+//     channels) and "along rows" (B of p v-like products, ldsm_x4_trans:
+//     one k-step of 16 rows x two n-tiles of 8 channels);
+//   - a warp's own rows are A operands in registers, read once from device
+//     memory as bf16 pairs;
+//   - an m16n8 accumulator pair (n-tiles 2s, 2s + 1) is the A operand of
+//     the next product's k-step s as it stands, rounded to bf16 pairs
+//     (`acc_frag_bf16`): P (or dS) goes from registers to the tensor cores
+//     with no shuffle.
+// D % 8 == 0 (whole 16-byte chunks), D <= 64.
+
+// Issue the copy of rows [row0, row0 + kChunk) of an (n, d) bf16 matrix
+// into a staged bf16 tile; rows past n and channels past d are zeros.
+__device__ __forceinline__ void stage_tile_bf16(const uint16_t* src, int row0, int n, int d,
+                                                uint16_t* dst) {
+  for (int e = threadIdx.x; e < kChunk * (kDP / 8); e += kThreads) {
+    const int r = e >> 3;
+    const int c = e & 7;
+    const bool ok = row0 + r < n && 8 * c < d;
+    const uint16_t* from = ok ? src + static_cast<size_t>(row0 + r) * d + 8 * c : src;
+    r3d::cp_async16(dst + r * kDP + ((c ^ (r & 7)) << 3), from, ok);
+  }
+}
+
+// A warp's 16 rows [row0, row0 + 16) of an (n, d) bf16 matrix, each entry
+// times mul and rounded to bf16 (exact for mul = 1), as the A operand of
+// "along channels" products: a[kk] is k-step kk (channels 16kk ..); zeros
+// past n and d.
+__device__ __forceinline__ void load_rows_bf16(const uint16_t* src, int row0, int n, int d,
+                                               float mul, uint32_t (&a)[4][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + g + 8 * (i & 1);
+      const int ch = 16 * kk + 2 * t + 8 * (i >> 1);
+      uint32_t w = 0u;
+      if (r < n && ch < d) {
+        w = *reinterpret_cast<const uint32_t*>(src + static_cast<size_t>(r) * d + ch);
+        w = r3d::pack_bf16(r3d::bf16_lo(w) * mul, r3d::bf16_hi(w) * mul);
+      }
+      a[kk][i] = w;
+    }
+  }
+}
+
+// acc[j] += X Y^T over the channels for n-tiles j < NT (NT even): X the
+// warp's rows (registers, a), Y the staged rows r0 + 8j .. of `tile`.
+template <int NT>
+__device__ __forceinline__ void product_along_channels_bf16(float (&acc)[NT][4],
+                                                            const uint32_t (&a)[4][4],
+                                                            const uint16_t* tile, int r0,
+                                                            int d) {
+  const int lane = threadIdx.x & 31;
+  const int mi = lane >> 3;  // the ldmatrix tile this lane addresses
+  const int rr = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (16 * kk >= d) break;
+    const int chunk = 2 * kk + (mi & 1);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      const int row = r0 + 8 * (j + (mi >> 1)) + rr;
+      uint32_t b[4];
+      r3d::ldsm_x4(b, tile + row * kDP + ((chunk ^ rr) << 3));
+      r3d::mma_bf16(acc[j], a[kk], b[0], b[1]);
+      r3d::mma_bf16(acc[j + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// k-step s of an accumulator tile pair (columns 16s .. 16s + 15) as a bf16
+// A operand.
+template <int NT>
+__device__ __forceinline__ void acc_frag_bf16(const float (&p)[NT][4], int s,
+                                              uint32_t (&a)[4]) {
+  a[0] = r3d::pack_bf16(p[2 * s][0], p[2 * s][1]);
+  a[1] = r3d::pack_bf16(p[2 * s][2], p[2 * s][3]);
+  a[2] = r3d::pack_bf16(p[2 * s + 1][0], p[2 * s + 1][1]);
+  a[3] = r3d::pack_bf16(p[2 * s + 1][2], p[2 * s + 1][3]);
+}
+
+// out[nn] += P T over the rows, for the NT / 2 k-steps of the accumulator
+// tiles p (columns r0 .. r0 + 8 NT of the staged `tile`, P rounded to
+// bf16), output channels 8nn .. < d.
+template <int NT>
+__device__ __forceinline__ void product_along_rows_bf16(float (&out)[8][4],
+                                                        const float (&p)[NT][4],
+                                                        const uint16_t* tile, int r0, int d) {
+  const int lane = threadIdx.x & 31;
+  const int mi = lane >> 3;
+  const int rr = lane & 7;
+#pragma unroll
+  for (int s = 0; s < NT / 2; ++s) {
+    uint32_t a[4];
+    acc_frag_bf16<NT>(p, s, a);
+    const int row = r0 + 16 * s + 8 * (mi & 1) + rr;
+#pragma unroll
+    for (int nn = 0; nn < 8; nn += 2) {
+      if (8 * nn >= d) break;
+      uint32_t b[4];
+      r3d::ldsm_x4_trans(b, tile + row * kDP + (((nn + (mi >> 1)) ^ rr) << 3));
+      r3d::mma_bf16(out[nn], a, b[0], b[1]);
+      r3d::mma_bf16(out[nn + 1], a, b[2], b[3]);
+    }
+  }
+}
+
 // Warps per key or query split of a block (S) and the launch shape.  A
 // block covers 16 * kWarps / S rows; each of its S splits of warps takes
 // kChunk / S columns of every staged tile, and the splits' partial sums

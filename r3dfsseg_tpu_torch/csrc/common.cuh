@@ -118,6 +118,49 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---- bf16 tensor-core products (mma.sync, sm_80 and later) ------------
+// d += a b for one 16 x 16 x 16 tile of bf16 products (exact in f32) with
+// f32 sums.  Lane (g, t) = (lane / 4, lane % 4) holds, as bf16 pairs (low
+// half first), a = {A[g][2t..2t+1], A[g + 8][2t..], A[g][2t + 8..],
+// A[g + 8][2t + 8..]}, b = {B[2t..2t+1][g], B[2t + 8..2t + 9][g]}, and d as
+// mma_tf32's (the same m16n8 accumulator layout).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded to nearest even into a bf16 pair, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// The two bf16 of a pair as f32 (exact: bf16 is an f32's high half).
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// ldmatrix: four 8 x 8 tiles of 16-bit entries from shared memory, lane l
+// giving the address of row l % 8 of tile l / 8 (16 contiguous bytes).
+// Without .trans register i of lane (g, t) holds row g, entries 2t and 2t +
+// 1 of tile i; with .trans rows 2t and 2t + 1 of entry g.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 // ---- asynchronous copies from device memory into shared memory --------
 // 16 bytes through L2 (cp.async.cg), or zeros when !valid (src-size 0;
 // src must still be a valid address).

@@ -48,8 +48,14 @@
 // The fill's histograms take 4 * hw * N bytes of shared memory, hw up to
 // 16, and at least 1.
 //
-// Layout: g (B, M, C) f32 contiguous, idx (B, M) int32, C % 2 == 0 -> dx
-// (B, N, C) f32.  Scratch: one buffer of `r3d_scatter_add_scratch` bytes
+// A bf16 g (the bf16 encoder's cotangent; r3d_scatter_add_bf16) is read at
+// its own width, 4 bytes per pair of channels, as the TPU kernel reads it
+// (fast_gather.py:63-66), widened to f32 in registers (exact) and summed in
+// the same order: the same bits as the f32 form on the upcast g, with half
+// the bytes of g to read.
+//
+// Layout: g (B, M, C) f32 or bf16 contiguous, idx (B, M) int32, C % 2 == 0
+// -> dx (B, N, C) f32.  Scratch: one buffer of `r3d_scatter_add_scratch` bytes
 // from the caller, no initial values, cut by `layout`: the piece records
 // (B, cap) int4 {target, offset, rows of the target, its first piece} with
 // cap = N + ceil(M / kPiece), perm (B, M) int32, the arrival counters (B,
@@ -73,8 +79,33 @@ constexpr int kWarpRows = 128;  // the fill's rows per histogram warp, about
 constexpr int kUnits = 16;      // units per cloud of the build, at most
 using r3d::kSmemLimit;
 
+// How the sum phase reads a pair of channels of g: f32 as one 8-byte load,
+// bf16 as one 4-byte load widened in registers (bf16 is the high half of
+// an f32).
+struct F32 {
+  using T = float;
+  using Raw = float2;
+  static __device__ __forceinline__ Raw load(const T* p) {
+    return __ldg(reinterpret_cast<const float2*>(p));
+  }
+  static __device__ __forceinline__ Raw zero() { return make_float2(0.f, 0.f); }
+  static __device__ __forceinline__ float2 widen(Raw r) { return r; }
+};
+
+struct BF16 {
+  using T = uint16_t;
+  using Raw = uint32_t;
+  static __device__ __forceinline__ Raw load(const T* p) {
+    return __ldg(reinterpret_cast<const uint32_t*>(p));
+  }
+  static __device__ __forceinline__ Raw zero() { return 0u; }
+  static __device__ __forceinline__ float2 widen(Raw r) {
+    return make_float2(__uint_as_float(r << 16), __uint_as_float(r & 0xffff0000u));
+  }
+};
+
 struct Args {
-  const float* g;
+  const void* g;
   const int* idx;
   float* dx;
   int* perm;
@@ -297,6 +328,7 @@ __device__ __forceinline__ int row_of(const Args& a, long long t, int4 rc) {
                     : 0;
 }
 
+template <typename G>
 __global__ void __launch_bounds__(kThreads, 1) scatter_add_kernel(Args a) {
   extern __shared__ __align__(16) int smem[];
   cg::grid_group grid = cg::this_grid();
@@ -332,27 +364,27 @@ __global__ void __launch_bounds__(kThreads, 1) scatter_add_kernel(Args a) {
       const int q = static_cast<int>(t - static_cast<long long>(cb) * a.cap) - rc.w;
       const int np = pieces_of(rc.z);
       const int len = min(kPiece, rc.z - q * kPiece);
-      const float* gb = a.g + static_cast<size_t>(cb) * a.m * a.c;
+      const typename G::T* gb =
+          static_cast<const typename G::T*>(a.g) + static_cast<size_t>(cb) * a.m * a.c;
       float* out = np == 1 ? a.dx + (static_cast<size_t>(cb) * a.n + j) * a.c
                            : a.part + static_cast<size_t>(t) * a.c;
       for (int c0 = 0; c0 < a.c; c0 += 64) {
         const int ch = c0 + 2 * lane;
         const bool on = ch < a.c;
-        float2 v[kPiece];
+        typename G::Raw v[kPiece];
 #pragma unroll
         for (int u = 0; u < kPiece; ++u) {
           const int row = __shfl_sync(0xffffffffu, mrow, u);
-          v[u] = (on && u < len)
-                     ? __ldg(reinterpret_cast<const float2*>(gb + static_cast<size_t>(row) * a.c + ch))
-                     : make_float2(0.f, 0.f);
+          v[u] = (on && u < len) ? G::load(gb + static_cast<size_t>(row) * a.c + ch) : G::zero();
         }
         if (c0 == 0) mrown = row_of(a, tn, rcn);  // in flight with this piece's rows
         float2 acc = make_float2(0.f, 0.f);
 #pragma unroll
         for (int u = 0; u < kPiece; ++u) {
           if (u < len) {
-            acc.x = __fadd_rn(acc.x, v[u].x);
-            acc.y = __fadd_rn(acc.y, v[u].y);
+            const float2 w = G::widen(v[u]);
+            acc.x = __fadd_rn(acc.x, w.x);
+            acc.y = __fadd_rn(acc.y, w.y);
           }
         }
         if (on) *reinterpret_cast<float2*>(out + ch) = acc;
@@ -423,10 +455,11 @@ R3D_EXPORT long long r3d_scatter_add_scratch(int b, int n, int m, int c) {
   return static_cast<long long>(layout(b, n, m, c).end);
 }
 
-// One call: dx (B, N, C) from g and idx, with `r3d_scatter_add_scratch`
-// bytes of scratch.
-R3D_EXPORT int r3d_scatter_add(const void* g, const void* idx, void* dx, void* scratch, int b,
-                               int n, int m, int c, void* stream) {
+namespace {
+
+template <typename G>
+int scatter_add(const void* g, const void* idx, void* dx, void* scratch, int b, int n, int m,
+                int c, void* stream) {
   if (b < 1 || n < 1 || m < 0 || c < 2 || c % 2 != 0 || r3d_scatter_add_warps(n) < 1) {
     return cudaErrorInvalidValue;
   }
@@ -435,7 +468,7 @@ R3D_EXPORT int r3d_scatter_add(const void* g, const void* idx, void* dx, void* s
   if (err != cudaSuccess) return err;
   const Layout l = layout(b, n, m, c);
   char* base = static_cast<char*>(scratch);
-  Args a{static_cast<const float*>(g), static_cast<const int*>(idx), static_cast<float*>(dx),
+  Args a{g, static_cast<const int*>(idx), static_cast<float*>(dx),
          reinterpret_cast<int*>(base + l.perm), reinterpret_cast<int4*>(base + l.rec),
          reinterpret_cast<int*>(base + l.arrive), reinterpret_cast<int*>(base + l.offs),
          reinterpret_cast<int*>(base + l.cnt), reinterpret_cast<float*>(base + l.part), b, n, m,
@@ -443,6 +476,21 @@ R3D_EXPORT int r3d_scatter_add(const void* g, const void* idx, void* dx, void* s
          std::max(1, std::min(kUnits, p.grid / b))};
   const size_t smem = sizeof(int) * (static_cast<size_t>(a.hw) * n + n + 96);
   void* args[] = {&a};
-  return r3d::coop_launch(scatter_add_kernel, p, kThreads, smem, args,
+  return r3d::coop_launch(scatter_add_kernel<G>, p, kThreads, smem, args,
                           static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// One call: dx (B, N, C) from g and idx, with `r3d_scatter_add_scratch`
+// bytes of scratch; g f32.
+R3D_EXPORT int r3d_scatter_add(const void* g, const void* idx, void* dx, void* scratch, int b,
+                               int n, int m, int c, void* stream) {
+  return scatter_add<F32>(g, idx, dx, scratch, b, n, m, c, stream);
+}
+
+// The same with a bf16 g.
+R3D_EXPORT int r3d_scatter_add_bf16(const void* g, const void* idx, void* dx, void* scratch,
+                                    int b, int n, int m, int c, void* stream) {
+  return scatter_add<BF16>(g, idx, dx, scratch, b, n, m, c, stream);
 }

@@ -18,7 +18,7 @@ from torch import nn
 
 from r3dfsseg_tpu_torch.config import R3DConfig
 from r3dfsseg_tpu_torch.models.episode import Episode
-from r3dfsseg_tpu_torch.nn.dgcnn import FeatureExtractor
+from r3dfsseg_tpu_torch.nn.dgcnn import BN_MODES, FeatureExtractor
 from r3dfsseg_tpu_torch.ops.fps import multi_prototypes
 from r3dfsseg_tpu_torch.ops.grid import grid_seed_pool
 from r3dfsseg_tpu_torch.ops.lp import label_propagate, local_constrained_affinity
@@ -177,9 +177,8 @@ def _mpti_core(support_feat: torch.Tensor, query_feat: torch.Tensor, ep: Episode
     y0 = torch.cat([proto_labels, torch.zeros((nq, c.n_classes), device=dev)], 0)
 
     # the bf16 graph: bf16 neighbour selection, affinity and S (kernel 7's
-    # solve); graph_dtype 'auto' follows the encoder's compute_dtype
-    gd = c.compute_dtype if c.graph_dtype == "auto" else c.graph_dtype
-    lowp = torch.bfloat16 if gd == "bfloat16" else None
+    # solve)
+    lowp = torch.bfloat16 if c.graph_bf16 else None
     a = local_constrained_affinity(node_feat, c.k_connect, c.sigma, valid=node_valid,
                                    compare_dtype=lowp, kth_impl=c.knn_impl)
     z = label_propagate(a, y0, c.lp_alpha, cg_iters=c.lp_cg_iters,
@@ -225,18 +224,21 @@ class MPTIOutput(NamedTuple):
 
 
 def check_servable(cfg: R3DConfig) -> None:
-    """Raise on settings outside the port's slice: the float32 encoder with
-    a float32 or bf16 episode graph (`graph_dtype`), threshold affinity and
+    """Raise on settings outside the port's slice: the float32 or bf16
+    encoder (`compute_dtype`, with every `bn_mode` and `attn_f32`) on a
+    float32 or bf16 episode graph (`graph_dtype`), threshold affinity and
     Chebyshev solve (any `lp_adjoint_iters`; 0 means `lp_cg_iters`), and
     the unfused EdgeConv (`fuse_edge='on'` raises, as in the JAX package)."""
     if cfg.fuse_edge == "on":
         raise NotImplementedError(
             "fuse_edge='on': the JAX package's EdgeConv refuses it too (the fused tail is an "
             "archived kernel there); ops/fused_edge.py holds the port's version")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "the bf16 encoder (compute_dtype='bfloat16') comes later (ROADMAP.md); "
-            "graph_dtype='bfloat16' runs the bf16 episode graph")
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r}")
+    if cfg.bn_mode not in BN_MODES:
+        raise NotImplementedError(f"bn_mode {cfg.bn_mode!r}: one of {BN_MODES}")
+    if not isinstance(cfg.attn_f32, bool):
+        raise TypeError(f"attn_f32 must be a bool, got {cfg.attn_f32!r}")
     if cfg.graph_dtype not in ("auto", "float32", "bfloat16"):
         raise NotImplementedError(f"graph_dtype {cfg.graph_dtype!r}")
     if cfg.affinity_impl != "threshold" or cfg.lp_solver != "cheby":
@@ -258,7 +260,9 @@ class MPTINet(nn.Module):
         self.features = FeatureExtractor(
             c.pc_in_dim, c.edgeconv_widths, c.dgcnn_mlp_widths, c.base_widths,
             c.output_dim, dgcnn_k=c.dgcnn_k, use_attention=c.use_attention,
-            knn_impl=c.knn_impl, attn_impl=c.attn_impl, attn_dropout=c.attn_dropout)
+            knn_impl=c.knn_impl, attn_impl=c.attn_impl, attn_dropout=c.attn_dropout,
+            dtype=torch.bfloat16 if c.compute_dtype == "bfloat16" else None,
+            bn_mode=c.bn_mode, attn_f32=c.attn_f32)
         self.proj = nn.Linear(c.feat_dim, c.proj_dim)   # WayContrast head (training)
 
     @torch.no_grad()

@@ -37,9 +37,25 @@ plain version divides q by tau (as the JAX package's XLA path does).  At
 the flagship D = 64, tau = 8 and the two are bit-identical; sums run in
 another order (forward: rtol 1e-4, atol 1e-5).
 
+The bf16 form (q, k, v bf16, the bf16 encoder's; `bf16_launches` and
+`bwd_bf16_launches` count its calls apart) takes the TPU kernel's `lowp`
+arithmetic (`pallas_attention.py:54-125`): q * bf16(1/tau) rounded to bf16,
+`mma.sync.m16n8k16` bf16 products with f32 sums in place of the 3xTF32
+split, the softmax and the mask in f32, the normalised P rounded to bf16
+before P V (the forward takes a first pass over the keys for each row's
+max and sum), an f32 output; the backward rounds dY, Pd and dS to bf16
+before their products, takes dQ = dS K / tau and dK = dS^T q / tau with
+the unscaled q, and `fused_attention` casts the f32 cotangents to bf16.
+One difference from the TPU kernel: the backward takes rowsum(dP * P) as
+rowsum(dY * Y), as the f32 form does.  The plain versions compute the
+same in PyTorch, the scores as the JAX package's XLA path does (q /
+bf16(tau) in bf16), or with ``kernel_scale`` as the kernels do (q *
+bf16(1/tau)); the two agree wherever 1/tau is a power of two.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises.  `fused_attention(..., impl="xla")` takes the plain
-version on every device.
+kernel or raises (D > 64, or D not a multiple of 4 in f32 or of 8 in
+bf16, raise: limits of these kernels that the TPU kernel does not have).
+`fused_attention(..., impl="xla")` takes the plain version on every device.
 """
 from __future__ import annotations
 
@@ -54,6 +70,8 @@ MAX_D = 64        # head width: one 64-channel staged tile in csrc/attention.cuh
 
 launches = 0       # forward kernel launches
 bwd_launches = 0   # backward kernel launches (one per call: Delta, dK/dV, dQ)
+bf16_launches = 0      # of the forward's, calls on bf16 q, k, v
+bwd_bf16_launches = 0  # of the backward's, calls on bf16 q, k, v
 
 _U32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -154,47 +172,77 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 # --------------------------------------------------------- plain versions --
-def _scores(q, k, tau):
+def bf16_value(x: float) -> float:
+    """x rounded to bf16, as a Python float."""
+    return float(torch.tensor(x, dtype=torch.float32).to(torch.bfloat16))
+
+
+def _scores(q, k, tau, kernel_scale=False):
+    if q.dtype == torch.bfloat16:
+        # the JAX package's XLA path: q / tau in q's dtype (the kernels: q *
+        # bf16(1 / tau)), then bf16 products (exact in f32) with f32 sums
+        qs = q.float() * bf16_value(1.0 / tau) if kernel_scale else q.float() / bf16_value(tau)
+        return torch.matmul(qs.to(torch.bfloat16).float(), k.float().transpose(-1, -2))
     return torch.matmul(q / tau, k.transpose(-1, -2))
 
 
-def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tau: float,
-                        rate: float = 0.0, seed: int = 0) -> torch.Tensor:
-    """softmax(q k^T / tau) [* mask] v for (B, N, D) tensors, the plain
-    version (differentiable by torch autograd; no log-sum-exp pass)."""
-    p = torch.softmax(_scores(q, k, tau), dim=-1)
-    if rate > 0.0:
-        p = p * dropout_mask_reference(q.shape[0], q.shape[1], rate, seed, q.device)
+def _pv(p, v):
+    """P V; for bf16 v, P rounded to bf16 first and f32 sums."""
+    if v.dtype == torch.bfloat16:
+        return torch.matmul(p.to(torch.bfloat16).float(), v.float())
     return torch.matmul(p, v)
 
 
-def attention_fwd_reference(q, k, v, tau: float, rate: float = 0.0, seed: int = 0):
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tau: float,
+                        rate: float = 0.0, seed: int = 0,
+                        kernel_scale: bool = False) -> torch.Tensor:
+    """softmax(q k^T / tau) [* mask] v for (B, N, D) tensors, f32 or bf16,
+    -> f32, the plain version (differentiable by torch autograd; no
+    log-sum-exp pass).  ``kernel_scale``: bf16 q scaled as the kernels
+    scale it."""
+    p = torch.softmax(_scores(q, k, tau, kernel_scale), dim=-1)
+    if rate > 0.0:
+        p = p * dropout_mask_reference(q.shape[0], q.shape[1], rate, seed, q.device)
+    return _pv(p, v)
+
+
+def attention_fwd_reference(q, k, v, tau: float, rate: float = 0.0, seed: int = 0,
+                            kernel_scale: bool = False):
     """(y, lse): the output and the (B, N) row log-sum-exp of the scores."""
-    s = _scores(q, k, tau)
+    s = _scores(q, k, tau, kernel_scale)
     p = torch.softmax(s, dim=-1)
     if rate > 0.0:
         p = p * dropout_mask_reference(q.shape[0], q.shape[1], rate, seed, q.device)
-    return torch.matmul(p, v), torch.logsumexp(s, dim=-1)
+    return _pv(p, v), torch.logsumexp(s, dim=-1)
 
 
 def attention_bwd_reference(q, k, v, y, dy, lse, tau: float, rate: float = 0.0,
-                            seed: int = 0):
-    """(dq, dk, dv) by the kernel's algebra: P = exp(s - lse), Pd = P * M,
-    dV = Pd^T dY, dS = P * (dY V^T * M - rowsum(dY * Y)), dQ = dS K / tau,
-    dK = dS^T Q / tau."""
-    p = torch.exp(_scores(q, k, tau) - lse[..., None])
+                            seed: int = 0, kernel_scale: bool = False):
+    """(dq, dk, dv), f32, by the kernel's algebra: P = exp(s - lse), Pd = P
+    * M, dV = Pd^T dY, dS = P * (dY V^T * M - rowsum(dY * Y)), dQ = dS K /
+    tau, dK = dS^T Q / tau.  For bf16 q, k, v: dY, Pd and dS rounded to
+    bf16 before their products, f32 sums, and 1 / tau an f32 factor, as in
+    the TPU kernel."""
+    p = torch.exp(_scores(q, k, tau, kernel_scale) - lse[..., None])
     m = (dropout_mask_reference(q.shape[0], q.shape[1], rate, seed, q.device)
          if rate > 0.0 else None)
     pd = p if m is None else p * m
+    lowp = q.dtype == torch.bfloat16
+    if lowp:
+        dy = dy.to(torch.bfloat16).float()
+        q, k, v = q.float(), k.float(), v.float()
+        pd = pd.to(torch.bfloat16).float()
     dpd = torch.matmul(dy, v.transpose(-1, -2))
     if m is not None:
         dpd = dpd * m
     delta = (dy * y).sum(-1, keepdim=True)
     ds = p * (dpd - delta)
-    dq = torch.matmul(ds, k) / tau
-    dk = torch.matmul(ds.transpose(-1, -2), q) / tau
     dv = torch.matmul(pd.transpose(-1, -2), dy)
-    return dq, dk, dv
+    if lowp:
+        ds = ds.to(torch.bfloat16).float()
+        inv = 1.0 / tau
+        return torch.matmul(ds, k) * inv, torch.matmul(ds.transpose(-1, -2), q) * inv, dv
+    return torch.matmul(ds, k) / tau, torch.matmul(ds.transpose(-1, -2), q) / tau, dv
 
 
 # ---------------------------------------------------------------- kernels --
@@ -205,39 +253,52 @@ def _check(name: str, *ts: torch.Tensor) -> None:
     if not (all(t.shape == q.shape for t in ts) and q.dim() == 3):
         raise ValueError(f"{name}: want equal (B, N, D) shapes, got "
                          f"{[tuple(t.shape) for t in ts]}")
-    if not all(t.dtype == torch.float32 for t in ts):
-        raise ValueError(f"{name}: want float32 tensors")
+    if not (all(t.dtype == q.dtype for t in ts[:3]) and q.dtype in (torch.float32, torch.bfloat16)
+            and all(t.dtype == torch.float32 for t in ts[3:])):
+        raise ValueError(f"{name}: want float32 or bfloat16 q, k, v (and float32 y, dy)")
     b, n, d = q.shape
-    if not (b > 0 and n > 0 and 0 < d <= MAX_D and d % 4 == 0):
-        raise ValueError(f"{name}: unsupported shape B={b} N={n} D={d}")
+    align = 8 if q.dtype == torch.bfloat16 else 4
+    if not (b > 0 and n > 0 and 0 < d <= MAX_D and d % align == 0):
+        raise ValueError(f"{name}: unsupported shape B={b} N={n} D={d} ({q.dtype})")
+
+
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and starting on a 16-byte boundary, as the kernels'
+    16-byte copies and loads need (a view may start anywhere)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _kernel_fwd(q, k, v, tau, rate, seed, want_lse):
-    global launches
-    _check("attention", q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    global launches, bf16_launches
+    q, k, v = _staged(q), _staged(k), _staged(v)
     b, n, d = q.shape
-    y = torch.empty_like(q)
+    lowp = q.dtype == torch.bfloat16
+    y = torch.empty((b, n, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device) if want_lse else None
-    fn = build.function("r3d_attn_fwd", [build.P] * 5 + [build.I] * 3 + [build.F, build.I]
+    name = "r3d_attn_fwd_bf16" if lowp else "r3d_attn_fwd"
+    fn = build.function(name, [build.P] * 5 + [build.I] * 3 + [build.F, build.I]
                         + [build.U] * 3 + [build.F, build.P])
     lo, hi = _seed_words(seed)
+    scale = bf16_value(1.0 / tau) if lowp else 1.0 / tau
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
-                 lse.data_ptr() if want_lse else None, b, n, d, 1.0 / tau,
+                 lse.data_ptr() if want_lse else None, b, n, d, scale,
                  int(rate > 0.0), lo, hi, dropout_threshold(rate), keep_scale(rate),
                  build.stream_ptr(q.device))
-    build.check(err, "r3d_attn_fwd")
+    build.check(err, name)
     launches += 1
+    bf16_launches += lowp
     return y, lse
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tau: float,
               rate: float = 0.0, seed: int = 0) -> torch.Tensor:
-    """softmax(q k^T / tau) [* mask] v; q, k, v (B, N, D) f32 -> (B, N, D)
-    f32, forward only."""
+    """softmax(q k^T / tau) [* mask] v; q, k, v (B, N, D) f32 or bf16 ->
+    (B, N, D) f32, forward only."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, tau, rate, seed)
+    _check("attention", q, k, v)
     return _kernel_fwd(q, k, v, tau, rate, seed, want_lse=False)[0]
 
 
@@ -246,31 +307,45 @@ def attention_fwd(q, k, v, tau: float, rate: float = 0.0, seed: int = 0):
     backward."""
     if q.device.type == "cpu":
         return attention_fwd_reference(q, k, v, tau, rate, seed)
+    _check("attention", q, k, v)
     return _kernel_fwd(q, k, v, tau, rate, seed, want_lse=True)
 
 
 def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int = 0):
-    """(dq, dk, dv) of the forward's output cotangent dy."""
-    global bwd_launches
+    """(dq, dk, dv), f32, of the forward's f32 output cotangent dy."""
+    global bwd_launches, bwd_bf16_launches
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, y, dy, lse, tau, rate, seed)
     _check("attention_bwd", q, k, v, y, dy)
     b, n, d = q.shape
     if lse.shape != (b, n) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"attention_bwd: want a ({b}, {n}) float32 lse on {q.device}")
-    q, k, v, y, dy, lse = (t.contiguous() for t in (q, k, v, y, dy, lse))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    lowp = q.dtype == torch.bfloat16
+    q, k, v, y, dy, lse = (_staged(t) for t in (q, k, v, y, dy, lse))
+    dq, dk, dv = (torch.empty((b, n, d), dtype=torch.float32, device=q.device)
+                  for _ in range(3))
     delta = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    fn = build.function("r3d_attn_bwd", [build.P] * 10 + [build.I] * 3 + [build.F, build.I]
-                        + [build.U] * 3 + [build.F, build.P])
     lo, hi = _seed_words(seed)
+    tail = (int(rate > 0.0), lo, hi, dropout_threshold(rate), keep_scale(rate),
+            build.stream_ptr(q.device))
+    if lowp:
+        name = "r3d_attn_bwd_bf16"
+        qs, dyb = torch.empty_like(q), torch.empty_like(q)     # the kernel's scratch
+        fn = build.function(name, [build.P] * 12 + [build.I] * 3 + [build.F, build.F, build.I]
+                            + [build.U] * 3 + [build.F, build.P])
+        ptrs = (q, k, v, y, dy, lse, delta, qs, dyb, dq, dk, dv)
+        scales = (1.0 / tau, bf16_value(1.0 / tau))
+    else:
+        name = "r3d_attn_bwd"
+        fn = build.function(name, [build.P] * 10 + [build.I] * 3 + [build.F, build.I]
+                            + [build.U] * 3 + [build.F, build.P])
+        ptrs = (q, k, v, y, dy, lse, delta, dq, dk, dv)
+        scales = (1.0 / tau,)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), dy.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, n, d, 1.0 / tau, int(rate > 0.0), lo, hi,
-                 dropout_threshold(rate), keep_scale(rate), build.stream_ptr(q.device))
-    build.check(err, "r3d_attn_bwd")
+        err = fn(*(t.data_ptr() for t in ptrs), b, n, d, *scales, *tail)
+    build.check(err, name)
     bwd_launches += 1
+    bwd_bf16_launches += lowp
     return dq, dk, dv
 
 
@@ -288,15 +363,17 @@ class _FusedAttention(torch.autograd.Function):
     def backward(ctx, dy):
         seed, tau, rate, plain = ctx.args
         bwd = attention_bwd_reference if plain else attention_bwd
-        dq, dk, dv = bwd(*ctx.saved_tensors[:4], dy.contiguous(), ctx.saved_tensors[4],
-                         tau, rate, seed)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, y, lse = ctx.saved_tensors
+        dq, dk, dv = bwd(q, k, v, y, dy.float().contiguous(), lse, tau, rate, seed)
+        # f32 sums, cotangents in the primal dtype (pallas_attention.py:233-237)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: int,
                     tau: float, rate: float, train: bool, impl: str = "auto") -> torch.Tensor:
-    """softmax(q k^T / tau) [dropout] v with the kernels' backward, the
-    counterpart of the JAX package's `fused_attention`.  Dropout runs when
+    """softmax(q k^T / tau) [dropout] v, f32, with the kernels' backward,
+    the counterpart of the JAX package's `fused_attention`: q, k, v f32, or
+    bf16 for the bf16 forms (cotangents in bf16).  Dropout runs when
     ``train`` and ``rate > 0``, its mask drawn from ``seed``.  impl 'auto'
     takes the kernels on CUDA tensors, 'xla' the plain versions everywhere.
     Without autograd only the forward runs (no lse)."""

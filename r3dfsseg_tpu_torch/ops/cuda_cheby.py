@@ -24,9 +24,11 @@ the warps' registers, the rest in shared memory); partial tiles summed in
 warp order, so a solve repeats bit for bit.  `launches` counts solves, one
 launch each.
 
-Shapes: 1 <= C <= 8, and the block's shared memory (both pieces of d for
-every row, the reduction tile, r/d/x of its rows; the kernel's
-`r3d_cheby_fits` says) must fit 227 KB.  That takes every main-path episode graph (one query per way: M =
+Shapes: 1 <= C <= 8 per launch, and the block's shared memory (both pieces
+of d for every row, the reduction tile, r/d/x of its rows; the kernel's
+`r3d_cheby_fits` says) must fit 227 KB.  More than 8 columns (an 8-way
+episode has C = 9) take one launch per group of at most 8: the Chebyshev
+scalars are fixed on the host, so each column's solve is independent.  That takes every main-path episode graph (one query per way: M =
 4396, C = 3; 6544, 4; 8692, 5).  It refuses some shapes that the
 one-launch-per-step kernel it replaced took (that kernel staged only d, 4 *
 C * M bytes): on a 132-SM H100, M in 46465-58112 at C = 1, 25297-29056 at C
@@ -36,10 +38,14 @@ C * M bytes): on a 132-SM H100, M in 46465-58112 at C = 1, 25297-29056 at C
 Dispatch: a CPU tensor takes `cheby_solve_reference`, f32 products of the
 upcast S, as the JAX package takes its XLA loop off the TPU
 (`r3dfsseg_tpu/ops/lp.py:_chebyshev`); a CUDA tensor launches the kernel
-or raises.
+or raises.  Where the kernel does not fit a graph (`fits`), the caller
+(`ops/lp.py:_solve`) takes `cheby_solve_reference` instead, as the JAX
+package takes its XLA loop past 64 MiB of S (`r3dfsseg_tpu/ops/lp.py:412-418`):
+every M the kernel refuses at C <= 8 is above 5792, where S passes 64 MiB.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -138,27 +144,23 @@ def cheby_solve_split_reference(s: torch.Tensor, b: torch.Tensor, alpha: float,
     return chebyshev(matvec, b, alpha, max(iters, 1))
 
 
-def cheby_solve(s: torch.Tensor, b: torch.Tensor, alpha: float, iters: int) -> torch.Tensor:
-    """s (M, M) bf16, b (M, C) f32 with C <= 8, both contiguous -> the
-    solution after `iters` steps, (M, C) f32: one cooperative launch."""
+def _groups(c: int) -> list[tuple[int, int]]:
+    """Column ranges of at most MAX_COLS, in order."""
+    return [(i, min(i + MAX_COLS, c)) for i in range(0, c, MAX_COLS)]
+
+
+def fits(m: int, c: int, device=None) -> bool:
+    """Whether kernel 7 takes an (M, M) S with C columns, one launch per
+    group of at most MAX_COLS (the kernel's `r3d_cheby_fits` for each
+    group), on ``device`` (default: the current CUDA device)."""
+    fit = build.function("r3d_cheby_fits", [build.I] * 3)
+    with torch.cuda.device(device) if device is not None else contextlib.nullcontext():
+        return m > 0 and c > 0 and all(fit(m, hi - lo, ldk(m)) for lo, hi in _groups(c))
+
+
+def _launch(s: torch.Tensor, b: torch.Tensor, alpha: float, iters: int) -> torch.Tensor:
     global launches
-    if s.device.type == "cpu":
-        return cheby_solve_reference(s, b, alpha, iters)
-    if s.device.type != "cuda":
-        raise ValueError(f"cheby_solve: no kernel for device {s.device}")
-    if (s.dtype != torch.bfloat16 or b.dtype != torch.float32 or s.dim() != 2
-            or b.dim() != 2 or s.shape != (b.shape[0], b.shape[0]) or b.device != s.device):
-        raise ValueError(f"cheby_solve: want S (M, M) bfloat16 and b (M, C) float32 on one "
-                         f"device, got {tuple(s.shape)} {s.dtype} {s.device}, "
-                         f"{tuple(b.shape)} {b.dtype} {b.device}")
-    if not (s.is_contiguous() and b.is_contiguous()):
-        raise ValueError("cheby_solve: S and b must be contiguous")
     m, c = b.shape
-    fits = build.function("r3d_cheby_fits", [build.I] * 3)
-    with torch.cuda.device(s.device):
-        if not (m > 0 and 1 <= c <= MAX_COLS and fits(m, c, ldk(m))):
-            raise ValueError(f"cheby_solve: unsupported shape M={m} C={c}")
-    iters = max(iters, 1)
     theta, coef = device_coefficients(alpha, iters, s.device)
     x = torch.empty_like(b)
     dbuf = torch.zeros(2 * 8 * ((2 * c + 7) // 8) * ldk(m), dtype=torch.bfloat16,
@@ -172,3 +174,28 @@ def cheby_solve(s: torch.Tensor, b: torch.Tensor, alpha: float, iters: int) -> t
     build.check(err, "r3d_cheby")
     launches += 1
     return x
+
+
+def cheby_solve(s: torch.Tensor, b: torch.Tensor, alpha: float, iters: int) -> torch.Tensor:
+    """s (M, M) bf16, b (M, C) f32, both contiguous -> the solution after
+    `iters` steps, (M, C) f32: one cooperative launch per group of at most
+    8 columns."""
+    if s.device.type == "cpu":
+        return cheby_solve_reference(s, b, alpha, iters)
+    if s.device.type != "cuda":
+        raise ValueError(f"cheby_solve: no kernel for device {s.device}")
+    if (s.dtype != torch.bfloat16 or b.dtype != torch.float32 or s.dim() != 2
+            or b.dim() != 2 or s.shape != (b.shape[0], b.shape[0]) or b.device != s.device):
+        raise ValueError(f"cheby_solve: want S (M, M) bfloat16 and b (M, C) float32 on one "
+                         f"device, got {tuple(s.shape)} {s.dtype} {s.device}, "
+                         f"{tuple(b.shape)} {b.dtype} {b.device}")
+    if not (s.is_contiguous() and b.is_contiguous()):
+        raise ValueError("cheby_solve: S and b must be contiguous")
+    m, c = b.shape
+    if not fits(m, c, s.device):
+        raise ValueError(f"cheby_solve: unsupported shape M={m} C={c}")
+    iters = max(iters, 1)
+    if c <= MAX_COLS:
+        return _launch(s, b, alpha, iters)
+    return torch.cat([_launch(s, b[:, lo:hi].contiguous(), alpha, iters)
+                      for lo, hi in _groups(c)], dim=1)

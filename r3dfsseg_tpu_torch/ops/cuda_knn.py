@@ -17,8 +17,15 @@ Where B x ceil(N / 64) row tiles would leave SMs idle (the B = 2 query
 batch), `splits` cuts each row tile's keys into S scans whose lists the
 last block to finish merges.
 
+A bf16 input (the bf16 encoder's EdgeConv output under the 'stats',
+'relaxed' and 'hybrid' BN modes) is searched in its f32 upcast, as the TPU
+kernel upcasts on load (`pallas_knn.py:52-53`).  The wrapper upcasts, which
+gives the same bits as an upcast on the kernel's load (the upcast is
+exact); `bf16_launches` counts those calls apart.
+
 Dispatch: a CPU tensor takes `knn_reference`; a CUDA tensor launches the
-kernel or raises.
+kernel or raises (k > MAX_K or C > MAX_C raise: limits of this kernel
+that the TPU kernel does not have).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ ROWS = 64         # query rows per block, keys per staged tile
 MAX_SPLITS = 8
 
 launches = 0
+bf16_launches = 0   # of them, calls on a bf16 input
 
 
 def splits(b: int, n: int, sms: int) -> int:
@@ -48,23 +56,26 @@ def splits(b: int, n: int, sms: int) -> int:
 
 
 def knn_reference(x: torch.Tensor, k: int) -> torch.Tensor:
-    """x (B, N, C) f32 -> (B, N, k) int32, the plain PyTorch version."""
-    return knn_indices(x, k)
+    """x (B, N, C) f32 or bf16 -> (B, N, k) int32, the plain PyTorch
+    version, on the f32 upcast."""
+    return knn_indices(x.float(), k)
 
 
 def knn(x: torch.Tensor, k: int) -> torch.Tensor:
-    """x (B, N, C) f32 -> (B, N, k) int32 nearest-neighbour indices."""
-    global launches
+    """x (B, N, C) f32 or bf16 -> (B, N, k) int32 nearest-neighbour indices."""
+    global launches, bf16_launches
     if x.device.type == "cpu":
         return knn_reference(x, k)
     if x.device.type != "cuda":
         raise ValueError(f"knn: no kernel for device {x.device}")
-    if x.dtype != torch.float32 or x.dim() != 3:
-        raise ValueError(f"knn: want (B, N, C) float32, got {tuple(x.shape)} {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 3:
+        raise ValueError(f"knn: want (B, N, C) float32 or bfloat16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
     b, n, c = x.shape
     if not (b > 0 and 0 < k <= min(n, MAX_K) and 0 < c <= MAX_C):
         raise ValueError(f"knn: unsupported shape B={b} N={n} C={c} k={k}")
-    x = x.contiguous()
+    bf16 = x.dtype == torch.bfloat16
+    x = x.float().contiguous()
     dev = x.device
     out = torch.empty((b, n, k), dtype=torch.int32, device=dev)
     s = splits(b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -80,4 +91,5 @@ def knn(x: torch.Tensor, k: int) -> torch.Tensor:
                      k, s, build.stream_ptr(dev))
     build.check(err, "r3d_knn")
     launches += 1
+    bf16_launches += bf16
     return out

@@ -22,7 +22,9 @@ The kernel equals the plain version bit for bit: exact upcasts, an exact
 select and the same f32 mid-point arithmetic.
 
 Dispatch: a CPU tensor takes `kth_smallest_per_row_reference`; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises (rows too wide for one block's shared
+memory, as the kernel's `r3d_kth_fits` says, raise: a limit of this kernel
+that the TPU kernel does not have).
 """
 from __future__ import annotations
 

@@ -17,8 +17,15 @@ says how).  No float atomics: a call repeats bit for bit, and
 `scatter_add_ordered_reference` takes its sums in its order, so on the card
 it equals the kernel bit for bit.  `launches` counts calls.
 
-Dispatch: a CPU tensor takes `scatter_add_reference` (`index_add_`); a
-CUDA tensor launches the kernel or raises.
+A bf16 cotangent (the bf16 encoder's) is read at its own width, 2 bytes an
+entry, as the TPU kernel reads it ("upcasting before the kernel would
+double the HBM read", `fast_gather.py:63-66`): each pair of channels is
+widened to f32 in registers and summed in the same order, so the bf16 form
+equals the f32 form on ``g.float()`` bit for bit; dx is f32, and the
+caller casts it to bf16.  `bf16_launches` counts those calls apart.
+
+Dispatch: a CPU tensor takes `scatter_add_reference` (`index_add_` in
+f32); a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -31,16 +38,18 @@ from r3dfsseg_tpu_torch.kernels import build
 PIECE = 32                   # csrc/scatter_add.cu kPiece: rows per piece
 
 launches = 0
+bf16_launches = 0          # of them, calls on a bf16 cotangent
 
 
 def scatter_add_reference(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """g (B, NQ, K, C), idx (B, NQ, K) -> (B, n, C): `index_add_` of the
-    rows into the flattened (B * n, C) table, the plain version."""
+    """g (B, NQ, K, C) f32 or bf16, idx (B, NQ, K) -> (B, n, C) f32:
+    `index_add_` of the f32 rows into the flattened (B * n, C) table, the
+    plain version."""
     b, c = g.shape[0], g.shape[-1]
     off = (torch.arange(b, device=idx.device, dtype=torch.int64) * n)[:, None, None]
     flat = (idx.long() + off).reshape(-1)
-    out = g.new_zeros((b * n, c))
-    return out.index_add_(0, flat, g.reshape(-1, c)).reshape(b, n, c)
+    out = torch.zeros((b * n, c), dtype=torch.float32, device=g.device)
+    return out.index_add_(0, flat, g.reshape(-1, c).float()).reshape(b, n, c)
 
 
 def inverse_graph_reference(idx: torch.Tensor, n: int):
@@ -64,7 +73,7 @@ def inverse_graph_reference(idx: torch.Tensor, n: int):
 
 
 def scatter_add_ordered_reference(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """g (B, NQ, K, C) f32, idx (B, NQ, K) -> dx (B, n, C) with the kernel's
+    """g (B, NQ, K, C) f32 or bf16, idx (B, NQ, K) -> dx (B, n, C) f32 with the kernel's
     f32 sums in the kernel's order: each target's rows (source order) cut
     into pieces of PIECE rows (one piece for a target with none), each piece
     summed in order from 0, the pieces added in order from 0."""
@@ -93,15 +102,15 @@ def scatter_add_ordered_reference(g: torch.Tensor, idx: torch.Tensor, n: int) ->
 
 
 def scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """g (B, NQ, K, C) f32 with C even, idx (B, NQ, K) int32 -> dx (B, n, C)
-    f32: one cooperative launch."""
-    global launches
+    """g (B, NQ, K, C) f32 or bf16 with C even, idx (B, NQ, K) int32 -> dx
+    (B, n, C) f32: one cooperative launch."""
+    global launches, bf16_launches
     if g.device.type == "cpu":
         return scatter_add_reference(g, idx, n)
     if g.device.type != "cuda":
         raise ValueError(f"scatter_add: no kernel for device {g.device}")
-    if g.dtype != torch.float32 or g.dim() != 4:
-        raise ValueError(f"scatter_add: want (B, NQ, K, C) float32, got "
+    if g.dtype not in (torch.float32, torch.bfloat16) or g.dim() != 4:
+        raise ValueError(f"scatter_add: want (B, NQ, K, C) float32 or bfloat16, got "
                          f"{tuple(g.shape)} {g.dtype}")
     b, nq, k, c = g.shape
     if idx.shape != (b, nq, k) or idx.dtype != torch.int32 or idx.device != g.device:
@@ -110,14 +119,18 @@ def scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     if not (b > 0 and n > 0 and c > 0 and c % 2 == 0 and warps(n) >= 1):
         raise ValueError(f"scatter_add: unsupported shape B={b} N={n} C={c}")
     g, idx = g.contiguous(), idx.contiguous()
+    if g.data_ptr() % 16:                 # a view: the kernel loads g in 4- or 8-byte pairs
+        g = g.clone()
     m = nq * k
     nbytes = build.function("r3d_scatter_add_scratch", [build.I] * 4, ctypes.c_longlong)
     scratch = torch.empty(nbytes(b, n, m, c), dtype=torch.uint8, device=g.device)
     dx = torch.empty((b, n, c), dtype=torch.float32, device=g.device)
-    fn = build.function("r3d_scatter_add", [build.P] * 4 + [build.I] * 4 + [build.P])
+    name = "r3d_scatter_add" if g.dtype == torch.float32 else "r3d_scatter_add_bf16"
+    fn = build.function(name, [build.P] * 4 + [build.I] * 4 + [build.P])
     with torch.cuda.device(g.device):
         err = fn(g.data_ptr(), idx.data_ptr(), dx.data_ptr(), scratch.data_ptr(), b, n, m, c,
                  build.stream_ptr(g.device))
-    build.check(err, "r3d_scatter_add")
+    build.check(err, name)
     launches += 1
+    bf16_launches += g.dtype == torch.bfloat16
     return dx

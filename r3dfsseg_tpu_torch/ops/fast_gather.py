@@ -11,7 +11,10 @@ launches no kernel.
 The config's `exact_grad_gather` changes nothing here: the JAX package's
 default backward rounds the cotangent to bf16 for the TPU's matrix unit
 and `exact_grad_gather=True` asks for the f32 segment sum, and the kernel
-sums in f32 either way.
+sums in f32 either way.  Under the bf16 encoder the table and its
+cotangent are bf16: the kernel reads the bf16 cotangent (the plain
+version its f32 upcast), sums in f32, and the gradient is cast to the
+table's dtype, as the JAX package's `_bwd` returns `dx.astype(token.dtype)`.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ class _GatherNeighbors(torch.autograd.Function):
         ctx.save_for_backward(idx)
         ctx.n = x.shape[1]
         ctx.impl = impl
+        ctx.dtype = x.dtype
         return flat_take(x, idx)
 
     @staticmethod
@@ -42,7 +46,7 @@ class _GatherNeighbors(torch.autograd.Function):
         (idx,) = ctx.saved_tensors
         scatter = (cuda_scatter.scatter_add if ctx.impl == "auto"
                    else cuda_scatter.scatter_add_reference)
-        return scatter(g.contiguous(), idx, ctx.n), None, None
+        return scatter(g.contiguous(), idx, ctx.n).to(ctx.dtype), None, None
 
 
 def gather_neighbors_fast(x: torch.Tensor, idx: torch.Tensor,

@@ -132,8 +132,12 @@ def propagation_matrix(a: torch.Tensor) -> torch.Tensor:
 def _solve(s: torch.Tensor, b: torch.Tensor, alpha: float, iters: int,
            impl: str) -> torch.Tensor:
     """`iters` Chebyshev steps of (I - alpha S) x = b: kernel 7 for a bf16
-    S under impl 'auto', else the plain `torch.mm` loop."""
-    if s.dtype == torch.bfloat16 and impl == "auto":
+    S under impl 'auto' (more than 8 columns as groups), else the plain
+    `torch.mm` loop.  A CUDA graph that kernel 7 does not fit takes the
+    plain loop too: past 64 MiB of S, where the JAX package leaves its
+    Pallas solve for its XLA loop (`r3dfsseg_tpu/ops/lp.py:412-418`)."""
+    if s.dtype == torch.bfloat16 and impl == "auto" and (
+            s.device.type != "cuda" or cuda_cheby.fits(*b.shape, s.device)):
         return cuda_cheby.cheby_solve(s, b.contiguous(), alpha, iters)
     return cuda_cheby.cheby_solve_reference(s, b, alpha, iters)
 

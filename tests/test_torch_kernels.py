@@ -20,8 +20,8 @@ from r3dfsseg_tpu_torch.ops import (cuda_attention, cuda_cheby, cuda_fps, cuda_f
 from torch_port_helpers import cuda_or_skip
 
 
-def _qkv(dev, shape=(1, 8, 4)):
-    return [torch.zeros(shape, device=dev) for _ in range(3)]
+def _qkv(dev, shape=(1, 8, 4), dtype=torch.float32):
+    return [torch.zeros(shape, dtype=dtype, device=dev) for _ in range(3)]
 
 
 def _fused_pass(name, dev):
@@ -43,6 +43,17 @@ CALLS = {
         *_qkv(dev), 2.0, 0.1, 5)),
     "attention_bwd": (cuda_attention, "bwd_launches", lambda dev: cuda_attention.attention_bwd(
         *_qkv(dev), *_qkv(dev)[:2], torch.zeros((1, 8), device=dev), 2.0, 0.1, 5)),
+    "attention_bf16": (cuda_attention, "bf16_launches", lambda dev: cuda_attention.attention(
+        *_qkv(dev, (1, 8, 8), torch.bfloat16), 2.0)),
+    "attention_bwd_bf16": (cuda_attention, "bwd_bf16_launches",
+                           lambda dev: cuda_attention.attention_bwd(
+                               *_qkv(dev, (1, 8, 8), torch.bfloat16), *_qkv(dev, (1, 8, 8))[:2],
+                               torch.zeros((1, 8), device=dev), 2.0, 0.1, 5)),
+    "knn_bf16": (cuda_knn, "bf16_launches", lambda dev: cuda_knn.knn(
+        torch.zeros((1, 8, 3), dtype=torch.bfloat16, device=dev), 4)),
+    "scatter_add_bf16": (cuda_scatter, "bf16_launches", lambda dev: cuda_scatter.scatter_add(
+        torch.zeros((1, 8, 2, 8), dtype=torch.bfloat16, device=dev),
+        torch.zeros((1, 8, 2), dtype=torch.int32, device=dev), 8)),
     "fps": (cuda_fps, "launches", lambda dev: cuda_fps.fps(
         torch.zeros((1, 8, 3), device=dev), torch.ones((1, 8), dtype=torch.bool, device=dev), 2)),
     "kth": (cuda_kth, "launches", lambda dev: cuda_kth.kth_smallest_per_row(
@@ -88,6 +99,49 @@ def test_other_devices_raise(name):
         else CALLS[name][2]
     with pytest.raises(ValueError, match="no kernel for device"):
         call("meta")
+
+
+def test_shape_limits_ask_the_kernels_fit_entries(monkeypatch):
+    """Kernel 7's fit is its own entry's answer for each group of at most
+    8 columns (stubbed here: the rule follows whatever it answers), and
+    under impl 'auto' the solve of a bf16 S takes kernel 7's wrapper where
+    that fits and the plain loop elsewhere, as the JAX package leaves its
+    Pallas solve for its XLA loop past 64 MiB of S."""
+    from r3dfsseg_tpu_torch.kernels import build
+    from r3dfsseg_tpu_torch.ops import lp
+    asked = []
+
+    def function(name, argtypes, restype=None):
+        if name == "r3d_cheby_fits":
+            return lambda m, c, ldk: asked.append((m, c)) or int(m * c <= 1000)
+        raise AssertionError(f"unexpected entry {name}")
+
+    monkeypatch.setattr(build, "function", function)
+    assert cuda_cheby._groups(9) == [(0, 8), (8, 9)] and cuda_cheby._groups(3) == [(0, 3)]
+    assert cuda_cheby.fits(100, 9) and asked == [(100, 8), (100, 1)]
+    assert not cuda_cheby.fits(126, 8) and cuda_cheby.fits(125, 8)
+    assert not cuda_cheby.fits(0, 3) and not cuda_cheby.fits(10, 0)
+
+    taken = []
+    monkeypatch.setattr(cuda_cheby, "cheby_solve", lambda *a: taken.append("kernel"))
+    monkeypatch.setattr(cuda_cheby, "cheby_solve_reference", lambda *a: taken.append("plain"))
+    monkeypatch.setattr(cuda_cheby, "fits", lambda m, c, device=None: m * c <= 1000)
+    s = torch.zeros((1, 1), dtype=torch.bfloat16)
+    for m, c, impl in ((100, 9, "auto"), (126, 8, "auto"), (100, 3, "xla")):
+        lp._solve(_FakeCuda(m), torch.zeros((m, c)), 0.99, 3, impl)
+    assert taken == ["kernel", "plain", "plain"]
+    lp._solve(s, torch.zeros((1, 3)), 0.99, 3, "auto")        # a CPU S: the wrapper
+    lp._solve(s.float(), torch.zeros((1, 3)), 0.99, 3, "auto")  # an f32 S: the plain loop
+    assert taken[3:] == ["kernel", "plain"]
+
+
+class _FakeCuda:
+    """A bf16 (M, M) S that reports a CUDA device, for the routing rule."""
+    dtype = torch.bfloat16
+    device = torch.device("cuda")
+
+    def __init__(self, m):
+        self.shape = (m, m)
 
 
 def _points(seed, b, n, c):
@@ -394,12 +448,26 @@ def test_cheby_kernel_matches_split_plain_on_card(m, c, iters):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,c", [(64, 9), (7000, 8)])
 def test_cheby_wrapper_refuses_what_does_not_fit_on_card(m, c):
-    """9 columns; 7000 rows of 8 columns (both pieces of d and r, d, x of a
-    block's rows take more than 227 KB of shared memory)."""
+    """What one launch of kernel 7 refuses: 9 columns take two launches (8
+    + 1), each group's solve equal to its own call bit for bit; 7000 rows
+    of 8 columns (both pieces of d and r, d, x of a block's rows take more
+    than 227 KB of shared memory) raise, with no launch."""
     dev = cuda_or_skip()
-    with pytest.raises(ValueError):
-        cuda_cheby.cheby_solve(torch.zeros((m, m), dtype=torch.bfloat16, device=dev),
-                               torch.ones((m, c), device=dev), 0.99, 3)
+    s, b = _label_system(m + c, m, c, dev)
+    launched = cuda_cheby.launches
+    if c <= cuda_cheby.MAX_COLS:
+        with pytest.raises(ValueError, match="unsupported shape"):
+            cuda_cheby.cheby_solve(s, b, 0.99, 3)
+        assert cuda_cheby.launches == launched
+        return
+    got = cuda_cheby.cheby_solve(s, b, 0.99, 3)
+    torch.cuda.synchronize()
+    assert cuda_cheby.launches == launched + 2
+    groups = [cuda_cheby.cheby_solve(s, b[:, :8].contiguous(), 0.99, 3),
+              cuda_cheby.cheby_solve(s, b[:, 8:].contiguous(), 0.99, 3)]
+    assert torch.equal(got, torch.cat(groups, 1))
+    want = cuda_cheby.cheby_solve_reference(s, b, 0.99, 3)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 @pytest.mark.cuda
@@ -675,3 +743,178 @@ def test_scatter_add_kernel_flagship_on_card(b, graph):
     want = cuda_scatter.scatter_add_reference(gv, iv, 2048)
     bound = 1e-5 * cuda_scatter.scatter_add_reference(gv.abs(), iv, 2048)
     assert bool(((got - want).abs() <= bound + 1e-30).all())
+
+
+# ------------------------------------------------ F1: shape limits under auto --
+@pytest.mark.cuda
+def test_cheby_graph_past_the_kernel_takes_the_plain_solve_on_card():
+    """M = 20000 at C = 3 (kernel 7 refuses M >= 17233 at 3 columns; the JAX
+    package takes its XLA loop past 64 MiB of S): the Chebyshev solve under
+    impl 'auto' takes the plain loop, within CHEBY_TOL of
+    `cheby_solve_reference` (it is that function), with no launch."""
+    from r3dfsseg_tpu_torch.ops import lp
+    dev = cuda_or_skip()
+    s, b = _label_system(7, 20000, 3, dev)
+    assert not cuda_cheby.fits(20000, 3, s.device)
+    launched = cuda_cheby.launches
+    got = lp._solve(s, b, 0.99, 50, "auto")
+    torch.cuda.synchronize()
+    assert cuda_cheby.launches == launched
+    want = cuda_cheby.cheby_solve_reference(s, b, 0.99, 50)
+    assert float((got - want).abs().max()) <= chip_smoke.CHEBY_TOL * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_cheby_nine_columns_at_the_flagship_graph_take_two_launches_on_card():
+    """An 8-way episode's 9 label columns at the flagship M: two launches
+    under impl 'auto', within CHEBY_TOL of the f32-product plain version."""
+    from r3dfsseg_tpu_torch.ops import lp
+    dev = cuda_or_skip()
+    s, b = _label_system(8, 4396, 9, dev)
+    launched = cuda_cheby.launches
+    got = lp._solve(s, b, 0.99, 50, "auto")
+    torch.cuda.synchronize()
+    assert cuda_cheby.launches == launched + 2
+    want = cuda_cheby.cheby_solve_reference(s, b, 0.99, 50)
+    assert float((got - want).abs().max()) <= chip_smoke.CHEBY_TOL * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,c", [(40, 9), (20, 300)])
+def test_knn_past_the_kernel_raises_on_card(k, c):
+    """k > 32 or C > 256: limits of this kernel, which raise on the card."""
+    dev = cuda_or_skip()
+    x = torch.from_numpy(_points(9, 2, 300, c)).to(dev)
+    launched = cuda_knn.launches
+    with pytest.raises(ValueError, match="unsupported shape"):
+        cuda_knn.knn(x, k)
+    assert cuda_knn.launches == launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(128, torch.float32), (6, torch.float32),
+                                     (12, torch.bfloat16), (80, torch.bfloat16)])
+def test_attention_past_the_kernel_raises_on_card(d, dtype):
+    """D > 64, or D not a multiple of 4 (f32) or 8 (bf16): limits of these
+    kernels, which raise on the card, forward and backward."""
+    dev = cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, dy = (torch.randn((2, 100, d), generator=g, device=dev) for _ in range(4))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    tau = float(d) ** 0.5
+    counts = (cuda_attention.launches, cuda_attention.bwd_launches)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        cuda_attention.attention_fwd(q, k, v, tau, 0.1, 3)
+    y, lse = cuda_attention.attention_fwd_reference(q, k, v, tau, 0.1, 3)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        cuda_attention.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, 3)
+    assert (cuda_attention.launches, cuda_attention.bwd_launches) == counts
+
+
+# ------------------------------------------------ the bf16 encoder's forms --
+def _bf16_qkv(seed, b, n, d, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dy = (torch.randn((b, n, d), generator=g, device=dev) for _ in range(4))
+    return q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16), dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,rate", [(10, 2048, 64, 0.1), (2, 2048, 64, 0.1),
+                                        (10, 2048, 64, 0.0), (2, 2048, 64, 0.0),
+                                        (2, 150, 64, 0.1), (1, 100, 16, 0.5), (2, 130, 16, 0.0),
+                                        (2, 200, 8, 0.1)])
+def test_attention_bf16_kernels_match_plain_on_card(b, n, d, rate):
+    """The bf16 forms of kernels 2 and 5 against their plain versions with
+    q scaled as the kernels scale it (q * bf16(1 / tau); at D = 8, 1 / tau
+    is no power of two and the JAX XLA path's q / bf16(tau) rounds q
+    differently).  Forward: lse rtol/atol 1e-5 (f32 scores of exact bf16
+    products); y within ATTN_BF16_FWD_TOL of its largest entry (both round
+    the normalised P to bf16; an f32 P at a rounding boundary can round the
+    other way).  Backward (the same roundings at the same places, f32 sums
+    in another order): each gradient within 1e-2 of its largest entry (a
+    dS or Pd entry at a bf16 rounding boundary can round the other way).
+    A second call of each is bit-equal; one launch count each."""
+    dev = cuda_or_skip()
+    q, k, v, dy = _bf16_qkv(11, b, n, d, dev)
+    tau, seed = float(d) ** 0.5, 21
+    counts = (cuda_attention.bf16_launches, cuda_attention.bwd_bf16_launches)
+    y, lse = cuda_attention.attention_fwd(q, k, v, tau, rate, seed)
+    y2, lse2 = cuda_attention.attention_fwd(q, k, v, tau, rate, seed)
+    assert torch.equal(y, y2) and torch.equal(lse, lse2)
+    want_y, want_lse = cuda_attention.attention_fwd_reference(q, k, v, tau, rate, seed,
+                                                              kernel_scale=True)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    bound = chip_smoke.ATTN_BF16_FWD_TOL * float(want_y.abs().max())
+    assert float((y - want_y).abs().max()) <= bound
+    got = cuda_attention.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
+    again = cuda_attention.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
+    want = cuda_attention.attention_bwd_reference(q, k, v, y, dy, lse, tau, rate, seed,
+                                                  kernel_scale=True)
+    for a, a2, w in zip(got, again, want):
+        assert a.dtype == torch.float32 and torch.equal(a, a2)
+        assert float((a - w).abs().max()) <= 1e-2 * float(w.abs().max())
+    torch.cuda.synchronize()
+    assert (cuda_attention.bf16_launches, cuda_attention.bwd_bf16_launches) == \
+        (counts[0] + 2, counts[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [10, 2])
+def test_scatter_add_bf16_bit_equals_the_f32_form_on_card(b):
+    """Kernel 6 on a bf16 cotangent: bit-equal to the f32 form on its
+    upcast and to the ordered emulation, and across two calls."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(b + 40)
+    x = torch.from_numpy(rng.normal(size=(b, 2048, 9)).astype(np.float32)).to(dev)
+    idx = cuda_knn.knn_reference(x, 20)
+    idx[:, :, 1] = 5                                   # a hub
+    g = torch.from_numpy(rng.normal(size=(*idx.shape, 64)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    before = cuda_scatter.bf16_launches
+    got = cuda_scatter.scatter_add(g, idx, 2048)
+    again = cuda_scatter.scatter_add(g, idx, 2048)
+    torch.cuda.synchronize()
+    assert cuda_scatter.bf16_launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert torch.equal(got, cuda_scatter.scatter_add(g.float(), idx, 2048))
+    assert torch.equal(got, cuda_scatter.scatter_add_ordered_reference(g, idx, 2048))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c", [(10, 64), (2, 64), (2, 9)])
+def test_knn_bf16_input_equals_knn_of_its_upcast_on_card(b, c):
+    dev = cuda_or_skip()
+    x = torch.from_numpy(_points(b + c, b, 2048, c)).to(dev, torch.bfloat16)
+    before = cuda_knn.bf16_launches
+    got = cuda_knn.knn(x, 20)
+    assert cuda_knn.bf16_launches == before + 1
+    assert torch.equal(got, cuda_knn.knn(x.float(), 20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_and_scatter_take_unaligned_views_on_card(dtype):
+    """Views that start one entry into their storage (off the 16-byte
+    boundary the kernels' copies and loads need) give the results of
+    their aligned copies."""
+    dev = cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def view(*shape):
+        count = int(np.prod(shape))
+        return torch.randn(count + 1, generator=g, device=dev).to(dtype)[1:].view(*shape)
+
+    q, k, v, dy = view(2, 100, 16), view(2, 100, 16), view(2, 100, 16), view(2, 100, 16).float()
+    assert q.data_ptr() % 16 != 0
+    aligned = [t.clone() for t in (q, k, v)]
+    y, lse = cuda_attention.attention_fwd(q, k, v, 4.0, 0.1, 5)
+    want_y, want_lse = cuda_attention.attention_fwd(*aligned, 4.0, 0.1, 5)
+    assert torch.equal(y, want_y) and torch.equal(lse, want_lse)
+    yv = torch.empty(y.numel() + 1, device=dev)[1:].view_as(y).copy_(y)
+    got = cuda_attention.attention_bwd(q, k, v, yv, dy, lse, 4.0, 0.1, 5)
+    want = cuda_attention.attention_bwd(*aligned, y, dy.clone(), lse, 4.0, 0.1, 5)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    gr = view(1, 50, 4, 8)
+    idx = torch.randint(0, 50, (1, 50, 4), generator=g, device=dev, dtype=torch.int32)
+    assert torch.equal(cuda_scatter.scatter_add(gr, idx, 50),
+                       cuda_scatter.scatter_add(gr.clone(), idx, 50))

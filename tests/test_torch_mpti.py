@@ -159,24 +159,28 @@ def test_predictor_shape_guard_and_unported_modes():
     with pytest.raises(ValueError, match="episode shape mismatch"):
         p.predict(np.zeros((3, 5, cfg.pc_npts, 9)), np.zeros((3, 5, cfg.pc_npts)),
                   np.zeros((2, cfg.pc_npts, 9)))
-    for bad in ({"compute_dtype": "bfloat16"}, {"lp_solver": "solve"},
-                {"affinity_impl": "topk"}):
+    for bad in ({"lp_solver": "solve"}, {"affinity_impl": "topk"},
+                {"bn_mode": "bogus"}, {"compute_dtype": "float16"}):
         with pytest.raises(NotImplementedError):
             mpti.MPTINet(cfg.replace(**bad))
+    # the bf16 encoder is served now; the parity modes still raise under it
+    mpti.MPTINet(cfg.replace(compute_dtype="bfloat16"))
+    with pytest.raises(NotImplementedError):
+        mpti.MPTINet(cfg.replace(compute_dtype="bfloat16", lp_solver="solve"))
     with pytest.raises(NotImplementedError):
         FewShotPredictor(cfg.replace(phase="protoeval"))
 
 
 @pytest.mark.parametrize("graph_dtype", ["bfloat16", "float32", "auto"])
 def test_graph_dtypes_are_served(graph_dtype):
-    """The float32 encoder serves both episode graphs; only the bf16
-    encoder (compute_dtype) is still refused."""
+    """Both encoders, float32 and bf16 (compute_dtype), serve both episode
+    graphs; 'auto' follows the encoder."""
     cfg = tiny_config(graph_dtype=graph_dtype)
-    pred = FewShotPredictor(cfg, device="cpu").predict(*episode_arrays(
-        cfg, np.random.default_rng(4))[:3])
-    assert pred.dtype == np.int32 and pred.shape == (cfg.n_way, cfg.pc_npts)
-    with pytest.raises(NotImplementedError, match="bf16 encoder"):
-        mpti.MPTINet(cfg.replace(compute_dtype="bfloat16"))
+    arrays = episode_arrays(cfg, np.random.default_rng(4))[:3]
+    for c in (cfg, cfg.replace(compute_dtype="bfloat16")):
+        pred = FewShotPredictor(c, device="cpu").predict(*arrays)
+        assert pred.dtype == np.int32 and pred.shape == (c.n_way, c.pc_npts)
+        assert 0 <= pred.min() and pred.max() <= c.n_way
 
 
 def test_batched_episodes_match_one_by_one():
