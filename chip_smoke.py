@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (r3dfsseg_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--requests N] [--only knn,fps | cheby,scatter | kth | bf16]
+    python3 chip_smoke.py [--seed N] [--requests N]
+                          [--only knn,fps | cheby,scatter | kth | bf16 | f1]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
@@ -102,14 +103,38 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      scaled by 1 / its row sums; us per matvec beside 500 single
      `torch.mm` calls); each launched as counted, and by no other phase.
 
+  2b. the F1 kernels, at shapes the JAX package's Pallas kernels run and
+     the tuned kernels do not take (`check_f1`): the general kNN (k = 40
+     at C = 9 and 64, C = 320), the packed-key kNN (knn_impl "pallas") at
+     a request's six calls, attention at D = 128 (B = 10 and 2, f32 and
+     bf16, rate 0.1 and 0, forward and backward) and at D = 12 (f32, and
+     bf16 through the zero pad: the tuned kernels), the k-th distance on
+     rows of 60000 f32 and 120000 bf16 entries, the scatter-add at C = 63
+     and at N = 32768; each shape's own counter moves and the tuned
+     kernel's not, against the plain versions (kNN as kernel 1, the packed
+     kNN's differences explained by rounding at a bucket edge, attention
+     within the tuned gates scaled to D, k-th distance and scatter-add bit
+     for bit), two calls bit-equal;
+  4c. a configuration past the tuned shapes (dgcnn_k 40, output_dim 128, a
+     63-wide first EdgeConv layer), two requests and a training step on
+     the float32 encoder and a step on the bf16 encoder, against their
+     plain paths, through the general kNN, the wide attention and the
+     general scatter-add (the tuned kNN and attention launch no time);
+  4d. knn_impl "pallas" at full flagship width: two requests and a
+     training step through the packed-key kNN, against the packed mode's
+     plain path (labels >= 99%, step 1 within the f32 gates), the labels'
+     agreement with the exact kNN path printed;
+
 It prints the card's name and power limit, one JSON line describing the
 eleven kernels (kernels 1, 2, 5 and 6 with a second row each for their
-bf16 form), and as its last line {"ok": true, "device": {...}}.  Without a
+bf16 form, and a row for each F1 kernel and the packed kNN), and as its
+last line {"ok": true, "device": {...}}.  Without a
 CUDA device it exits with code 1 and prints no result.  `--only knn,fps`
 runs the build and the kNN and FPS checks alone and prints their rows,
 `--only cheby,scatter` the Chebyshev and scatter-add checks, and `--only
 kth` the k-th distance's three checks (f32, adversarial rows, bf16), `--only
-bf16` the checks of the bf16 forms of kernels 1, 2, 5 and 6, so that
+bf16` the checks of the bf16 forms of kernels 1, 2, 5 and 6, `--only f1`
+phase 2b alone, so that
 another tree's kernels can be timed with the same code (put that tree's
 root first on sys.path and run this file with runpy; the tree's modules
 need the plain versions these checks call: `cheby_solve_split_reference`
@@ -168,6 +193,15 @@ ATTN_BF16_FWD_TOL = 2e-3
 # gradient's largest entry: the same bf16 roundings at the same points, but
 # f32 sums in another order can round a dS or Pd entry the other way
 ATTN_BF16_BWD_TOL = 1e-2
+# The F1 kernels (shapes past the tuned kernels: csrc/knn_general.cu,
+# attention_wide.cu, kth.cu's wide variant, scatter_general.cu) hold the
+# tuned forms' gates.  Attention's are scaled to the head width: a score
+# sums D products whose roundings add like a random walk, so its error, and
+# with it the chance of a P entry at a bf16 rounding boundary, grows as
+# sqrt(D); the tuned gates were set at D = 64, so a wide call's bound is
+# the tuned bound times sqrt(D / 64) (1.41 at D = 128), and never below it.
+ATTN_F32_FWD_RTOL, ATTN_F32_FWD_ATOL = 1e-4, 1e-5   # the tuned f32 forward's
+ATTN_F32_BWD_TOL = 1e-4     # the tuned f32 backward's, of each gradient's largest entry
 CHEBY_TOL = 1e-4    # Chebyshev kernel vs the f32-product plain version: the split of d
                     # (5e-6 of max |x| on a dense b) and f32 sums in another order, 49 steps
 # Chebyshev kernel vs its plain version (the same split-bf16 arithmetic): f32 sums
@@ -189,12 +223,18 @@ def describe(cfg) -> str:
     """The encoder and graph of cfg, for the log."""
     enc = "float32 encoder" if cfg.compute_dtype == "float32" else \
         f"bf16 encoder ({cfg.bn_mode}{', attn_f32' if cfg.attn_f32 else ''})"
-    return f"{enc}, {'bf16' if cfg.graph_bf16 else 'float32'} graph"
+    base = type(cfg)()
+    knobs = [f"{f} {getattr(cfg, f)}" for f in ("knn_impl", "dgcnn_k", "output_dim",
+                                               "edgeconv_widths")
+             if getattr(cfg, f) != getattr(base, f)]
+    return ", ".join([enc, f"{'bf16' if cfg.graph_bf16 else 'float32'} graph"] + knobs)
 
 
 def ptxas_report(build_log: str, names=("knn_kernel", "fps_kernel", "cheby_kernel",
                                         "scatter_add_kernel", "kth_kernel", "attn_fwd_bf16",
-                                        "attn_bwd_dkdv_bf16", "attn_bwd_dq_bf16")) -> list[str]:
+                                        "attn_bwd_dkdv_bf16", "attn_bwd_dq_bf16",
+                                        "knn_general_kernel", "attn_wide", "kth_wide_kernel",
+                                        "fill_kernel", "sum_kernel")) -> list[str]:
     """nvcc's -Xptxas -v lines of the entry functions whose mangled name
     holds one of ``names``: registers, barriers, stack and spill, each
     under the mangled name from that name on (its template arguments:
@@ -415,6 +455,59 @@ def knn_agreement(torch, x, got, want) -> dict:
                 err=err.abs().max().item(),
                 self_first=(got[..., 0] == torch.arange(x.shape[1], device=x.device))
                 .float().mean().item())
+
+
+def packed_agreement(torch, knn_mod, x, got, want) -> dict:
+    """The packed-key kNN's lists ``got`` against the plain packed
+    version's ``want`` on x: the share of rows that differ, and how many of
+    those no f32 rounding explains.  A packed key keeps the distance's bits
+    above the low packed_bits(N) ones, so two computations whose distances
+    differ by rounding (at the scale of xx_i + xx_j, as the Gram form
+    rounds) put a distance near a bucket edge in different buckets and move
+    its column; a differing row is explained when one of its columns in
+    either list lies within NEAR_TIE of xx_i + xx_j of its bucket's edge."""
+    n = x.shape[1]
+    xx = (x * x).sum(-1, keepdim=True)
+    d = ((xx - 2.0 * torch.matmul(x, x.transpose(-1, -2))) + xx.transpose(-1, -2)).clamp_min(0.0)
+    low = (1 << knn_mod.packed_bits(n)) - 1
+    r = d.view(torch.int32) & low
+    ulp = torch.nextafter(d, torch.full_like(d, float("inf"))) - d
+    gap = torch.minimum(r, low + 1 - r).float() * ulp
+    del d, r, ulp
+    scale = xx + xx.transpose(-1, -2)
+    near = gap <= NEAR_TIE * scale
+    del gap, scale
+    rows = (got != want).any(-1)
+    hit = near.gather(-1, got.long()).any(-1) | near.gather(-1, want.long()).any(-1)
+    return dict(mismatch=rows.float().mean().item(), unexplained=int((rows & ~hit).sum()))
+
+
+def attention_gates(torch, attn_mod, q, k, v, dy, tau, rate, seed, y, lse, grads) -> dict:
+    """Each error of a kernel call's (y, lse, dq, dk, dv) as a share of its
+    bound (<= 1 passes), against the plain versions on the same inputs
+    with q scaled as the kernels scale it (the backward's from the
+    kernel's y and lse).  f32: y within ATTN_F32_FWD_RTOL |y| +
+    ATTN_F32_FWD_ATOL, each gradient within ATTN_F32_BWD_TOL of its largest
+    entry; bf16: y within ATTN_BF16_FWD_TOL of the largest |y|, each
+    gradient within ATTN_BF16_BWD_TOL; every bound times sqrt(max(D, 64) /
+    64) (see ATTN_F32_FWD_RTOL); lse within 1e-5 relative and absolute."""
+    scale = (max(q.shape[-1], 64) / 64) ** 0.5
+    want_y, want_lse = attn_mod.attention_fwd_reference(q, k, v, tau, rate, seed,
+                                                        kernel_scale=True)
+    want = attn_mod.attention_bwd_reference(q, k, v, y, dy, lse, tau, rate, seed,
+                                            kernel_scale=True)
+    out = {"lse": ((lse - want_lse).abs() / (1e-5 + 1e-5 * want_lse.abs())).max().item()}
+    if q.dtype == torch.bfloat16:
+        out["y"] = ((y - want_y).abs().max() / (ATTN_BF16_FWD_TOL * scale
+                                                * want_y.abs().max())).item()
+        tol = ATTN_BF16_BWD_TOL * scale
+    else:
+        out["y"] = ((y - want_y).abs() / (scale * (ATTN_F32_FWD_ATOL + ATTN_F32_FWD_RTOL
+                                                   * want_y.abs()))).max().item()
+        tol = ATTN_F32_BWD_TOL * scale
+    for name, a, w in zip(("dq", "dk", "dv"), grads, want):
+        out[name] = ((a - w).abs().max() / (tol * w.abs().max())).item()
+    return out
 
 
 def check_knn(torch, knn_mod, sx):
@@ -1130,6 +1223,326 @@ def check_knn_bf16(torch, knn_mod):
     return row(err, ms, plain, None, flops, nbytes, BF16_TC_FLOPS)
 
 
+# ------------------------------------------------------------ F1 kernels --
+# Shapes the JAX package's Pallas kernels run and the tuned kernels do not
+# take: each goes to its own simple kernel (or, for attention at an
+# unaligned D <= 64, to the tuned kernels after an exact zero pad).
+KNN_F1_SHAPES = [(2, 9, 40), (2, 64, 40), (2, 320, 20)]     # (B, C, k) at N = 2048
+
+
+def expect_launches(counters: dict, call, want: dict, what: str):
+    """Run call(), and fail unless each counter moved by exactly want[name]
+    (0 for the tuned kernel a shape must not reach)."""
+    import torch
+    before = counts(counters)
+    out = call()
+    torch.cuda.synchronize()
+    got = {n: c - before[n] for n, c in counts(counters).items()}
+    if any(got[n] != c for n, c in want.items()):
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+    return out
+
+
+def check_knn_general(torch, knn_mod):
+    """The general kNN kernel at k = 40 (N = 2048, C = 9 and 64, B = 2) and
+    C = 320 (k = 20): the general counter moves once per call and the tuned
+    one not; the lists held to kernel 1's criterion (`knn_agreement`: sets
+    differ on at most 1e-3 of the rows, each differing neighbour within
+    NEAR_TIE of xx_i + xx_j of the k-th distance), two calls bit-equal.
+    Times: the three calls, kernel and plain version; no single PyTorch
+    call computes a kNN.  Bound: 2 B N^2 C f32 FFMA operations (the
+    kernel's products), x read and the lists written."""
+    counters = {"general": (knn_mod, "general_launches"), "tuned": (knn_mod, "launches")}
+    g = torch.Generator(device="cuda").manual_seed(21)
+    xs = [(torch.randn((b, 2048, c), generator=g, device="cuda"), k) for b, c, k in KNN_F1_SHAPES]
+    err, rates = 0.0, {}
+    for x, k in xs:
+        got = expect_launches(counters, lambda: knn_mod.knn(x, k), {"general": 1, "tuned": 0},
+                              f"knn general {tuple(x.shape)} k={k}")
+        same = torch.equal(got, knn_mod.knn(x, k))
+        a = knn_agreement(torch, x, got.long(), knn_mod.knn_reference(x, k).long())
+        err = max(err, a["err"])
+        rates[f"mismatch_c{x.shape[-1]}_k{k}"] = a["mismatch"]
+        log(f"  knn general {tuple(x.shape)} k={k}: row mismatch rate {a['mismatch']:.3e} "
+            f"(bound 1e-3); worst differing neighbour {a['gap']:.3e} of xx_i + xx_j (bound "
+            f"{NEAR_TIE:.0e}); a second call bit-equal {same}")
+        if a["mismatch"] > 1e-3 or a["gap"] > NEAR_TIE or not same:
+            raise AssertionError(f"knn general {tuple(x.shape)} k={k}: {a}, repeat {same}")
+    ms = cuda_ms(lambda: [knn_mod.knn(x, k) for x, k in xs], 5)
+    plain = cuda_ms(lambda: [knn_mod.knn_reference(x, k) for x, k in xs], 5)
+    per = {f"ms_c{x.shape[-1]}_k{k}": cuda_ms(lambda x=x, k=k: knn_mod.knn(x, k), 5)
+           for x, k in xs}
+    log("  knn general ms per call: " + ", ".join(f"{n[3:]} {v:.4f}" for n, v in per.items()))
+    flops = sum(2.0 * x.shape[0] * x.shape[1] ** 2 * x.shape[2] for x, _ in xs)
+    nbytes = sum(4.0 * x.numel() + 4.0 * x.shape[0] * x.shape[1] * k for x, k in xs)
+    return row(err, ms, plain, None, flops, nbytes, **rates, **per)
+
+
+def check_knn_packed(torch, knn_mod, sx):
+    """The packed-key kNN (knn_impl "pallas") at a request's six EdgeConv
+    calls (`KNN_SHAPES`, k = 20): on integer points (every sum exact) equal
+    to `knn_packed_reference`; on the episode's points and random features
+    every differing row explained by rounding at a bucket edge
+    (`packed_agreement`; the rate is printed, not bounded: at C = 9 the
+    neighbours' distances are far below the norms, whose rounding is then
+    a sizeable share of a bucket), two calls bit-equal, one packed launch
+    per call and no tuned one.  Times: the six calls, kernel and plain
+    version (no single PyTorch call).  Bound: 2 B N^2 C f32 FFMA, x read,
+    the lists written."""
+    k = 20
+    counters = {"packed": (knn_mod, "packed_launches"), "tuned": (knn_mod, "launches")}
+    rng = np.random.default_rng(22)
+    xi = torch.from_numpy(rng.integers(-4, 5, size=(2, 2048, 64)).astype(np.float32)).cuda()
+    if not torch.equal(knn_mod.knn(xi, k, packed=True), knn_mod.knn_packed_reference(xi, k)):
+        raise AssertionError("knn packed: differs from its plain version on integer points")
+    g = torch.Generator(device="cuda").manual_seed(23)
+    xs = {9: torch.from_numpy(sx.reshape(-1, *sx.shape[2:])).cuda(),
+          64: torch.randn((10, 2048, 64), generator=g, device="cuda")}
+    rates = {}
+    for c, x in xs.items():
+        got = expect_launches(counters, lambda: knn_mod.knn(x, k, packed=True),
+                              {"packed": 1, "tuned": 0}, f"knn packed C={c}")
+        same = torch.equal(got, knn_mod.knn(x, k, packed=True))
+        a = packed_agreement(torch, knn_mod, x, got, knn_mod.knn_packed_reference(x, k))
+        rates[f"mismatch_c{c}"] = a["mismatch"]
+        log(f"  knn packed {tuple(x.shape)}: equal to plain on integer points; rows that differ "
+            f"from plain {a['mismatch']:.3e}, of them unexplained by rounding at a bucket edge "
+            f"{a['unexplained']}; a second call bit-equal {same}")
+        if a["unexplained"] or not same:
+            raise AssertionError(f"knn packed C={c}: {a}, repeat {same}")
+    feats = {(b, c): torch.randn((b, 2048, c), generator=g, device="cuda")
+             for b, c in set(KNN_SHAPES)}
+    ms = cuda_ms(lambda: [knn_mod.knn(feats[s], k, packed=True) for s in KNN_SHAPES], 10)
+    plain = cuda_ms(lambda: [knn_mod.knn_packed_reference(feats[s], k) for s in KNN_SHAPES], 10)
+    per = {f"ms_b{b}_c{c}": cuda_ms(lambda x=feats[(b, c)]: knn_mod.knn(x, k, packed=True), 5)
+           for b, c in sorted(feats)}
+    log("  knn packed ms per call: " + ", ".join(f"{n[3:]} {v:.4f}" for n, v in per.items()))
+    flops = sum(2.0 * b * 2048 ** 2 * c for b, c in KNN_SHAPES)
+    nbytes = sum(4.0 * b * 2048 * (c + k) for b, c in KNN_SHAPES)
+    return row(0.0, ms, plain, None, flops, nbytes, **rates, **per)
+
+
+def check_attention_wide(torch, attn_mod):
+    """Attention at D = 128 (the pretraining network's head), B = 10 and 2,
+    N = 2048, f32 and bf16, rate 0.1 and 0, forward and backward: the wide
+    kernels launch (their counters move, the tuned ones' do not), within
+    `attention_gates`' bounds, a second call of each bit-equal; then D = 12
+    in f32 (aligned: the tuned kernels as they are) and in bf16 (the zero
+    pad to 16, then the tuned bf16 kernels).  Times per step (both batches,
+    rate 0.1): kernels, plain versions, and SDPA (f32: the
+    memory-efficient backend; bf16: flash) forward alone and backward
+    alone.  Bounds: 4 B N^2 D and 10 B N^2 D operations as f32 FFMA (the
+    kernels' products, f32 and bf16 alike); bytes as the tuned rows
+    count them.  Returns the four wide rows."""
+    tuned = {"fwd": (attn_mod, "launches"), "bwd": (attn_mod, "bwd_launches")}
+    wide = {"fwd": (attn_mod, "wide_launches"), "bwd": (attn_mod, "wide_bwd_launches")}
+    counters = {**{f"tuned_{n}": c for n, c in tuned.items()},
+                **{f"wide_{n}": c for n, c in wide.items()}}
+    g = torch.Generator(device="cuda").manual_seed(24)
+    rows = {}
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        calls = []
+        for b, seed in ((10, 97), (2, 98)):
+            q, k, v, dy = (torch.randn((b, 2048, 128), generator=g, device="cuda")
+                           for _ in range(4))
+            calls.append((q.to(dtype), k.to(dtype), v.to(dtype), dy, seed))
+        tau = 128 ** 0.5
+        worst = {"y": 0.0, "grads": 0.0}
+        for q, k, v, dy, seed in calls:
+            for rate in (0.1, 0.0):
+                def step():
+                    y, lse = attn_mod.attention_fwd(q, k, v, tau, rate, seed)
+                    return y, lse, attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
+                y, lse, grads = expect_launches(
+                    counters, step, {"wide_fwd": 1, "wide_bwd": 1, "tuned_fwd": 0,
+                                     "tuned_bwd": 0},
+                    f"attention D=128 {dtype} B={q.shape[0]} rate {rate}")
+                y2, lse2, grads2 = step()
+                same = (torch.equal(y, y2) and torch.equal(lse, lse2)
+                        and all(torch.equal(a, c) for a, c in zip(grads, grads2)))
+                e = attention_gates(torch, attn_mod, q, k, v, dy, tau, rate, seed, y, lse, grads)
+                log(f"  attention D=128 {dtype} B={q.shape[0]} rate {rate}: errors as shares "
+                    f"of their bounds " + ", ".join(f"{n} {x:.3e}" for n, x in e.items()) +
+                    f"; a second call of each bit-equal {same}")
+                if max(e.values()) > 1.0 or not same:
+                    raise AssertionError(f"attention D=128 {dtype}: {e}, repeat {same}")
+                worst["y"] = max(worst["y"], e["y"])
+                worst["grads"] = max(worst["grads"], e["dq"], e["dk"], e["dv"])
+        saved = []
+        rate = 0.1
+        for q, k, v, dy, seed in calls:
+            y, lse = attn_mod.attention_fwd(q, k, v, tau, rate, seed)
+            saved.append((q, k, v, dy, seed, y, lse))
+        err_y = max((y - attn_mod.attention_fwd_reference(q, k, v, tau, rate, seed,
+                                                          kernel_scale=True)[0]).abs().max().item()
+                    for q, k, v, dy, seed, y, lse in saved)
+        err_g = max((a - w).abs().max().item() for q, k, v, dy, seed, y, lse in saved
+                    for a, w in zip(attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed),
+                                    attn_mod.attention_bwd_reference(q, k, v, y, dy, lse, tau,
+                                                                     rate, seed,
+                                                                     kernel_scale=True)))
+
+        def fwd(f, which=saved):
+            return lambda: [f(q, k, v, tau, rate, seed) for q, k, v, dy, seed, *_ in which]
+
+        def bwd(f, which=saved):
+            return lambda: [f(q, k, v, y, dy, lse, tau, rate, seed)
+                            for q, k, v, dy, seed, y, lse in which]
+
+        lib = sdpa_flash if dtype == torch.bfloat16 else sdpa
+        graphs = []
+        for q, k, v, dy, *_ in saved:
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            graphs.append((lib(torch, *leaves, rate, tau), leaves, dy.to(dtype)))
+
+        def lib_bwd():
+            for out, leaves, dy in graphs:
+                torch.autograd.grad(out, leaves, dy, retain_graph=True)
+
+        t = dict(fwd=cuda_ms(fwd(attn_mod.attention_fwd), 5),
+                 fwd_plain=cuda_ms(fwd(attn_mod.attention_fwd_reference), 5),
+                 bwd=cuda_ms(bwd(attn_mod.attention_bwd), 5),
+                 bwd_plain=cuda_ms(bwd(attn_mod.attention_bwd_reference), 5),
+                 lib_fwd=cuda_ms(lambda: [lib(torch, q, k, v, rate, tau)
+                                          for q, k, v, *_ in saved], 5),
+                 lib_bwd=cuda_ms(lib_bwd, 5))
+        for i, b in enumerate(q.shape[0] for q, *_ in saved):
+            t[f"fwd_b{b}"] = cuda_ms(fwd(attn_mod.attention_fwd, saved[i:i + 1]), 5)
+            t[f"bwd_b{b}"] = cuda_ms(bwd(attn_mod.attention_bwd, saved[i:i + 1]), 5)
+        log(f"  attention D=128 {dtype} per step (ms): " +
+            ", ".join(f"{n} {v:.4f}" for n, v in t.items()))
+        bn2d = sum(q.shape[0] for q, *_ in saved) * 2048 ** 2 * 128
+        n = sum(q.numel() for q, *_ in saved)
+        nrows = sum(q.shape[0] * q.shape[1] for q, *_ in saved)
+        el = 2.0 if dtype == torch.bfloat16 else 4.0
+        fwd_bytes = 3 * el * n + 4.0 * n + 4.0 * nrows
+        bwd_bytes = 3 * el * n + 2 * 4.0 * n + 4.0 * nrows + 3 * 4.0 * n
+        rows[f"attention_wide_fwd{tag}"] = row(
+            err_y, t["fwd"], t["fwd_plain"], t["lib_fwd"], 4.0 * bn2d, fwd_bytes,
+            ms_b10=t["fwd_b10"], ms_b2=t["fwd_b2"], share_of_gate=worst["y"])
+        rows[f"attention_wide_bwd{tag}"] = row(
+            err_g, t["bwd"], t["bwd_plain"], t["lib_bwd"], 10.0 * bn2d, bwd_bytes,
+            ms_b10=t["bwd_b10"], ms_b2=t["bwd_b2"], share_of_gate=worst["grads"],
+            ms_pair=t["fwd"] + t["bwd"], library_ms_pair=t["lib_fwd"] + t["lib_bwd"])
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, dy = (torch.randn((2, 2048, 12), generator=g, device="cuda") for _ in range(4))
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        tau = 12 ** 0.5
+
+        def step():
+            y, lse = attn_mod.attention_fwd(q, k, v, tau, 0.1, 5)
+            return y, lse, attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, 5)
+        y, lse, grads = expect_launches(
+            counters, step, {"wide_fwd": 0, "wide_bwd": 0, "tuned_fwd": 1, "tuned_bwd": 1},
+            f"attention D=12 {dtype}")
+        e = attention_gates(torch, attn_mod, q, k, v, dy, tau, 0.1, 5, y, lse, grads)
+        log(f"  attention D=12 {dtype} ({'zero pad to 16, ' if dtype == torch.bfloat16 else ''}"
+            f"tuned kernels): errors as shares of their bounds " +
+            ", ".join(f"{n} {x:.3e}" for n, x in e.items()))
+        if max(e.values()) > 1.0:
+            raise AssertionError(f"attention D=12 {dtype}: {e}")
+    return rows
+
+
+def check_kth_wide(torch, kth_mod):
+    """The k-th distance on rows one block's shared memory does not hold:
+    8 rows of 60000 f32 and of 120000 bf16 distances (k = 200), and the
+    adversarial rows (`kth_rows`) at those widths: the wide variant's
+    counter moves once per call and the tuned one's not, bit-equal to the
+    plain version, two calls bit-equal.  Times: the kernel (CUDA events
+    over five calls back to back), the plain version; no single PyTorch
+    call gives the bisection's radius.  Bound: the rows read once, the
+    radii written."""
+    counters = {"wide": (kth_mod, "wide_launches"), "tuned": (kth_mod, "launches")}
+    g = torch.Generator(device="cuda").manual_seed(25)
+    out = {}
+    for dtype, m, iters, tag in ((torch.float32, 60000, 32, ""),
+                                 (torch.bfloat16, 120000, 16, "_bf16")):
+        d = (torch.rand((8, m), generator=g, device="cuda") * 9.0 + 0.1).to(dtype)
+        d[:, -4:] = kth_mod.SENTINEL
+        cases = [(d, 200, "uniform")]
+        for kind in KTH_KINDS:
+            rows_k, k_k = kth_rows(kind, 3, m, seed=len(kind))
+            cases.append((torch.from_numpy(rows_k).cuda().to(dtype), k_k, kind))
+        for x, k, what in cases:
+            got = expect_launches(counters, lambda: kth_mod.kth_smallest_per_row(x, k, iters),
+                                  {"wide": 1, "tuned": 0}, f"kth wide {what} {dtype}")
+            if not (torch.equal(got, kth_mod.kth_smallest_per_row_reference(x, k, iters))
+                    and torch.equal(got, kth_mod.kth_smallest_per_row(x, k, iters))):
+                raise AssertionError(f"kth wide {what} {dtype}: not bit-equal to plain or across "
+                                     f"calls")
+        log(f"  kth wide {dtype} m={m}: 8 uniform rows and {len(KTH_KINDS)} kinds of adversarial "
+            f"rows bit-equal to plain, two calls bit-equal")
+        ms = cuda_ms(lambda: kth_mod.kth_smallest_per_row(d, 200, iters), 10, per=5)
+        plain = cuda_ms(lambda: kth_mod.kth_smallest_per_row_reference(d, 200, iters), 5)
+        r = row(0.0, ms, plain, None, float(iters) * d.numel(),
+                d.element_size() * d.numel() + 4.0 * d.shape[0])
+        out.update({f"{key}{tag}": v for key, v in r.items()})
+        log(f"  kth wide {dtype}: {ms:.4f} ms per call, plain {plain:.4f}")
+    return out
+
+
+def check_scatter_general(torch, knn_mod, scatter_mod, sx, qx):
+    """The general scatter-add at C = 63 on a training step's kNN graphs
+    (support B = 10 and query B = 2, N = 2048, K = 20), f32 and bf16 g, and
+    at N = 32768 with C = 64 (one cloud's kNN graph of random points, K =
+    20): the general counter moves once per call and the tuned one's not,
+    bit-equal to the ordered emulation and across two calls (bf16 g: also to
+    the f32 form on the upcast).  Times: the three f32 calls, kernel, plain
+    version and `index_add_`; each call alone.  Bound: g and idx read, dx
+    written."""
+    counters = {"general": (scatter_mod, "general_launches"), "tuned": (scatter_mod, "launches")}
+    g = torch.Generator(device="cuda").manual_seed(26)
+    calls = []
+    for x in (sx.reshape(-1, *sx.shape[2:]), qx):
+        idx = knn_mod.knn(torch.from_numpy(np.ascontiguousarray(x)).cuda(), 20)
+        calls.append((torch.randn((*idx.shape, 63), generator=g, device="cuda"), idx, 2048))
+    pts = torch.rand((1, 32768, 9), generator=g, device="cuda")
+    idx = knn_mod.knn(pts, 20)
+    calls.append((torch.randn((*idx.shape, 64), generator=g, device="cuda"), idx, 32768))
+    err = 0.0
+    for gr, idx, n in calls:
+        for gg in (gr, gr.to(torch.bfloat16)):
+            got = expect_launches(counters, lambda: scatter_mod.scatter_add(gg, idx, n),
+                                  {"general": 1, "tuned": 0},
+                                  f"scatter general {tuple(gg.shape)} {gg.dtype} N={n}")
+            same = torch.equal(got, scatter_mod.scatter_add(gg, idx, n))
+            emulated = torch.equal(got, scatter_mod.scatter_add_ordered_reference(gg, idx, n))
+            upcast = (gg.dtype == torch.float32
+                      or torch.equal(got, scatter_mod.scatter_add(gg.float(), idx, n)))
+            e = (got - scatter_mod.scatter_add_reference(gg, idx, n)).abs().max().item()
+            log(f"  scatter general {tuple(gg.shape)} {gg.dtype} N={n}: bit-equal to the "
+                f"ordered emulation {emulated}, across two calls {same}, to the f32 form on the "
+                f"upcast {upcast}; max abs err against index_add_ {e:.3e}")
+            if not (same and emulated and upcast):
+                raise AssertionError("scatter general: not bit-equal")
+            err = max(err, e)
+    ms = cuda_ms(lambda: [scatter_mod.scatter_add(gr, idx, n) for gr, idx, n in calls], 5)
+    plain = cuda_ms(lambda: [scatter_mod.scatter_add_reference(gr, idx, n)
+                             for gr, idx, n in calls], 5)
+    lib = cuda_ms(lambda: [index_add(torch, gr, idx, n) for gr, idx, n in calls], 5)
+    per = {f"ms_b{gr.shape[0]}_c{gr.shape[-1]}_n{n}": cuda_ms(
+        lambda gr=gr, idx=idx, n=n: scatter_mod.scatter_add(gr, idx, n), 5)
+        for gr, idx, n in calls}
+    log("  scatter general ms per call: " + ", ".join(f"{k[3:]} {v:.4f}" for k, v in per.items())
+        + f"; the three {ms:.4f} (index_add_ {lib:.4f})")
+    nbytes = sum(4.0 * (gr.numel() + idx.numel() + gr.shape[0] * n * gr.shape[-1])
+                 for gr, idx, n in calls)
+    return row(err, ms, plain, lib, sum(float(gr.numel()) for gr, _, _ in calls), nbytes, **per)
+
+
+def check_f1(torch, mods, sx, qx) -> dict:
+    """Every F1 kernel against its plain version at the F1 shapes (above);
+    returns their rows."""
+    log("[f1] shapes past the tuned kernels, each on its own kernel, against its plain version")
+    rows = {"knn_general": check_knn_general(torch, mods["knn"]),
+            "knn_packed": check_knn_packed(torch, mods["knn"], sx)}
+    rows.update(check_attention_wide(torch, mods["attention"]))
+    rows["kth_wide"] = check_kth_wide(torch, mods["kth"])
+    rows["scatter_general"] = check_scatter_general(torch, mods["knn"], mods["scatter"], sx, qx)
+    return rows
+
+
 def index_add(torch, gr, idx, n: int = 2048):
     """One `index_add_` call computing the scatter-add: the library yardstick."""
     b, c = gr.shape[0], gr.shape[-1]
@@ -1660,11 +2073,14 @@ def zero_counts(kernels) -> None:
 
 def serve(torch, cfg, episodes, kernels, seed, required=SERVE_KERNELS):
     """Serve every episode on the kernel path, then on the plain path with
-    the same weights; return latencies, predictions and launch counts.
+    the same weights (under knn_impl 'pallas' its kNN is the packed mode's
+    plain version); return latencies, predictions and launch counts.
     Every request must launch each kernel in ``required``, and FPS exactly
     twice (one cooperative launch per call: the ways and the background)."""
     from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
     from r3dfsseg_tpu_torch.models.episode import Episode
+    from r3dfsseg_tpu_torch.nn import dgcnn
+    from r3dfsseg_tpu_torch.ops import cuda_knn
     from r3dfsseg_tpu_torch.serve import FewShotPredictor
 
     fast = FewShotPredictor(cfg, MPTILearner(cfg, "cuda", torch.Generator().manual_seed(seed)))
@@ -1690,13 +2106,19 @@ def serve(torch, cfg, episodes, kernels, seed, required=SERVE_KERNELS):
     launches = counts(kernels)
     peak = torch.cuda.max_memory_allocated()
 
-    plain.predict(*episodes[0][:3])
-    plain_lat, plain_preds = [], []
-    for ep in episodes:
-        t0 = time.perf_counter()
-        plain_preds.append(plain.predict(*ep[:3]))
-        torch.cuda.synchronize()
-        plain_lat.append((time.perf_counter() - t0) * 1e3)
+    plain_knn = dgcnn.knn_indices
+    if cfg.knn_impl == "pallas":         # the packed mode's plain path
+        dgcnn.knn_indices = cuda_knn.knn_packed_reference
+    try:
+        plain.predict(*episodes[0][:3])
+        plain_lat, plain_preds = [], []
+        for ep in episodes:
+            t0 = time.perf_counter()
+            plain_preds.append(plain.predict(*ep[:3]))
+            torch.cuda.synchronize()
+            plain_lat.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        dgcnn.knn_indices = plain_knn
     if counts(kernels) != launches:
         raise AssertionError("the plain path launched a kernel")
 
@@ -1725,26 +2147,38 @@ class KnnReplay:
     <= NEAR_TIE of xx_i + xx_j) and takes the kernel path's row.  The
     plain path launches no kernel doing so."""
 
-    def __init__(self, torch, knn_mod, dgcnn_mod):
+    def __init__(self, torch, knn_mod, dgcnn_mod, packed: bool = False):
         self.torch, self.knn_mod, self.dgcnn_mod = torch, knn_mod, dgcnn_mod
+        self.packed = packed
         self.recorded, self.swapped = [], []
 
     def record(self):
         kernel = self.knn_mod.knn
 
-        def knn(x, k):
-            out = kernel(x, k)
+        def knn(x, k, **kw):
+            out = kernel(x, k, **kw)
             self.recorded.append(out.clone())
             return out
         self.knn_mod.knn = knn
         return kernel
 
     def replay(self):
-        plain = self.dgcnn_mod.knn_indices
+        """Under ``packed`` (knn_impl 'pallas') the plain path's kNN is the
+        packed mode's plain version, and a differing row must be explained
+        by rounding at a bucket edge (`packed_agreement`)."""
+        saved = self.dgcnn_mod.knn_indices
+        plain = self.knn_mod.knn_packed_reference if self.packed else saved
         queue = list(self.recorded)
 
         def knn_indices(x, k):
             want, rec = plain(x, k).long(), queue.pop(0).long()
+            if self.packed:
+                a = packed_agreement(self.torch, self.knn_mod, x, rec, want)
+                self.swapped.append(int(round(a["mismatch"] * x.shape[0] * x.shape[1])))
+                if a["unexplained"]:
+                    raise AssertionError(f"packed kNN kernel and plain differ beyond rounding: "
+                                         f"{a}")
+                return rec.to(self.torch.int32)
             rows = (want.sort(-1).values != rec.sort(-1).values).any(-1)
             self.swapped.append(int(rows.sum()))
             if bool(rows.any()):
@@ -1753,7 +2187,7 @@ class KnnReplay:
                     raise AssertionError(f"kNN kernel and plain differ beyond a tie: {gap}")
             return rec.to(self.torch.int32)
         self.dgcnn_mod.knn_indices = knn_indices
-        return plain
+        return saved
 
 
 def _rel_distances(g_a: dict, g_b: dict, skip) -> dict:
@@ -1805,7 +2239,7 @@ def train(torch, cfg, episodes, kernels, seed, required, per_step=None, steps=TR
             raise AssertionError(f"the two learners start from different weights at {n}")
 
     # ---- step 1 on both paths
-    replay = KnnReplay(torch, cuda_knn, dgcnn)
+    replay = KnnReplay(torch, cuda_knn, dgcnn, packed=cfg.knn_impl == "pallas")
     zero_counts(kernels)
     kernel_knn = replay.record()
     try:
@@ -1932,7 +2366,9 @@ def profile_train(torch, learner, episodes, steps: int = 3, top: int = 12) -> No
         log(f"  {ms:8.3f} ms  x{n:<4d} {name[:90]}")
     for what, key in (("attention kernels (2, 5)", "attn_"), ("kNN kernel (1)", "knn_kernel"),
                       ("FPS kernel (3)", "fps_kernel"), ("scatter-add kernel (6)", "scatter_add"),
-                      ("Chebyshev kernel (7)", "cheby_kernel")):
+                      ("Chebyshev kernel (7)", "cheby_kernel"),
+                      ("general and packed kNN (1)", "knn_general"),
+                      ("general scatter-add, its sum pass (6)", "sum_kernel")):
         mine = [r for r in rows if key in r[0]]
         log(f"[profile] {what}: {sum(r[1] for r in mine):.3f} ms per step")
         for name, ms, n in mine:
@@ -2045,16 +2481,17 @@ def serve_phase(torch, cfg, episodes, kernels, seed, required):
     return preds, launches, peak
 
 
-def train_phase(torch, cfg, episodes, kernels, seed, required, per_step=None):
+def train_phase(torch, cfg, episodes, kernels, seed, required, per_step=None,
+                steps=TRAIN_STEPS):
     """`train` with its log lines."""
     graph = describe(cfg)
     log(f"[train] {graph}: meta-training step, kernel path vs plain path, then "
-        f"{TRAIN_STEPS} kernel-path steps")
-    tr = train(torch, cfg, episodes, kernels, seed, required, per_step)
+        f"{steps} kernel-path steps")
+    tr = train(torch, cfg, episodes, kernels, seed, required, per_step, steps)
     log(f"[train] {graph}: median step {tr['step_ms']:.2f} ms (host clock, "
         f"synchronised); device ms per step: " +
         ", ".join(f"{n} {t:.3f}" for n, t in tr["stages"].items()) +
-        f"; peak memory {tr['peak'] / 2**20:.1f} MiB; launches over {TRAIN_STEPS} steps "
+        f"; peak memory {tr['peak'] / 2**20:.1f} MiB; launches over {steps} steps "
         f"{tr['launches']}")
     return tr
 
@@ -2063,11 +2500,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
-    ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth", "bf16"],
+    ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth", "bf16", "f1"],
                     help="build, then only the kNN and FPS (or the Chebyshev and scatter-add, "
-                         "the k-th distance, or the bf16 forms of kernels 1, 2, 5 and 6) "
-                         "kernel checks, and print their rows (to time them beside another "
-                         "tree's kernels)")
+                         "the k-th distance, the bf16 forms of kernels 1, 2, 5 and 6, or the "
+                         "F1 kernels: general kNN, packed kNN, wide attention, wide-row k-th "
+                         "distance, general scatter-add) kernel checks, and print their rows "
+                         "(to time them beside another tree's kernels)")
     args = ap.parse_args()
 
     import torch
@@ -2121,6 +2559,13 @@ def main() -> int:
         r = rows["kth"]
         log(f"  kth: f32 {r['ms']:.4f} ms (device {r['device_ms']:.4f}), bf16 "
             f"{r['ms_bf16']:.4f} (device {r['device_ms_bf16']:.4f})")
+        log(smi)
+        log(json.dumps(rows))
+        return 0
+    f1_mods = {"knn": cuda_knn, "attention": cuda_attention, "kth": cuda_kth,
+               "scatter": cuda_scatter}
+    if args.only == "f1":
+        rows = check_f1(torch, f1_mods, episodes[0][0], episodes[0][2])
         log(smi)
         log(json.dumps(rows))
         return 0
@@ -2191,8 +2636,25 @@ def main() -> int:
     log(f"  cheby: bound with S read from device memory at every step "
         f"{rows['cheby']['bound_ms_hbm']:.4f} ms")
 
+    # ---- 2b. the F1 kernels: shapes past the tuned kernels, and the packed kNN
+    f1_kernels = ("knn_general", "knn_packed", "attention_wide_fwd", "attention_wide_bwd",
+                  "attention_wide_fwd_bf16", "attention_wide_bwd_bf16", "kth_wide",
+                  "scatter_general")
+    f1_counters = {"knn_general": (cuda_knn, "general_launches"),
+                   "knn_packed": (cuda_knn, "packed_launches"),
+                   "attention_wide_fwd": (cuda_attention, "wide_launches"),
+                   "attention_wide_bwd": (cuda_attention, "wide_bwd_launches"),
+                   "attention_wide_fwd_bf16": (cuda_attention, "wide_bf16_launches"),
+                   "attention_wide_bwd_bf16": (cuda_attention, "wide_bwd_bf16_launches"),
+                   "kth_wide": (cuda_kth, "wide_launches"),
+                   "scatter_general": (cuda_scatter, "general_launches")}
+    zero_counts(f1_counters)
+    rows.update(check_f1(torch, f1_mods, episodes[0][0], episodes[0][2]))
+    f1_checks = counts(f1_counters)
+
     # the bf16 forms' counters count their calls apart, within their kernel's
-    kernels = {"knn": (cuda_knn, "launches"), "attention_fwd": (cuda_attention, "launches"),
+    kernels = {**f1_counters,
+               "knn": (cuda_knn, "launches"), "attention_fwd": (cuda_attention, "launches"),
                "attention_bwd": (cuda_attention, "bwd_launches"), "fps": (cuda_fps, "launches"),
                "knn_bf16": (cuda_knn, "bf16_launches"),
                "attention_fwd_bf16": (cuda_attention, "bf16_launches"),
@@ -2259,6 +2721,44 @@ def main() -> int:
     phases.update(serve_bf16enc=serve_launches_enc, serve_hybrid=serve_launches_hybrid,
                   train_bf16enc=tr_enc["launches"])
     for phase, launched in phases.items():
+        if any(launched[n] for n in f1_kernels):
+            raise AssertionError(f"{phase}: a flagship path launched an F1 kernel: {launched}")
+
+    # ---- 4c. configurations past the tuned kernels' shapes (F1): dgcnn_k 40
+    # (the general kNN), a 128-wide attention head (the wide kernels), an
+    # odd first EdgeConv width (the general scatter-add), float32 and bf16
+    # encoders; the tuned kNN, attention and scatter-add launch no time there
+    cfg_f1 = cfg.replace(dgcnn_k=40, output_dim=128, edgeconv_widths=((63, 64), (64, 64),
+                                                                      (64, 64)))
+    not_tuned = {"knn": 0, "attention_fwd": 0, "attention_bwd": 0}   # the 64-wide blocks
+    # 2 and 3 keep the tuned scatter-add
+    _, serve_launches_f1, _ = serve_phase(torch, cfg_f1, episodes[:2], kernels, args.seed,
+                                          ("knn_general", "attention_wide_fwd", "fps", "kth"))
+    tr_f1 = train_phase(torch, cfg_f1, episodes, kernels, args.seed,
+                        ("knn_general", "attention_wide_fwd", "attention_wide_bwd", "fps", "kth",
+                         "scatter_general"), per_step={"fps": 3, **not_tuned}, steps=1)
+    tr_f1_enc = train_phase(
+        torch, cfg_f1.replace(compute_dtype="bfloat16"), episodes, kernels, args.seed,
+        ("knn_general", "attention_wide_fwd_bf16", "attention_wide_bwd_bf16", "fps", "kth",
+         "scatter_general", "cheby"),
+        per_step={"fps": 3, "cheby": 2, "attention_fwd_bf16": 0, "attention_bwd_bf16": 0,
+                  **not_tuned}, steps=1)
+
+    # ---- 4d. knn_impl "pallas": the packed-key kNN at full flagship width
+    cfg_p = cfg.replace(knn_impl="pallas", fps_impl="pallas", attn_impl="pallas")
+    preds_p, serve_launches_p, _ = serve_phase(torch, cfg_p, episodes[:2], kernels, args.seed,
+                                               ("knn_packed", "attention_fwd", "fps", "kth"))
+    for i, (a, b) in enumerate(zip(preds_p, preds)):
+        log(f"  request {i}: knn_impl 'pallas' agrees with the exact kNN path (same weights) "
+            f"on {float((a == b).mean()):.4f} of points")
+    tr_p = train_phase(torch, cfg_p, episodes, kernels, args.seed,
+                       ("knn_packed",) + f32_kernels[1:], per_step={"fps": 3, "knn": 0},
+                       steps=1)
+    phases.update(f1_checks={**{n: 0 for n in kernels}, **f1_checks},
+                  serve_f1=serve_launches_f1, train_f1=tr_f1["launches"],
+                  train_f1_bf16enc=tr_f1_enc["launches"], serve_pallas=serve_launches_p,
+                  train_pallas=tr_p["launches"])
+    for phase, launched in phases.items():
         if any(launched[n] for n in fused_kernels + probe_kernels):
             raise AssertionError(f"{phase}: kernels 8, 9, 10 or 11 were launched: {launched}")
 
@@ -2294,20 +2794,42 @@ def main() -> int:
                "gather_onehot": ("gather.cu", "r3dfsseg_tpu/ops/fast_gather.py:89"),
                "fused_edge": ("fused_edge.cu", "scripts/archive/fused_edge.py:213"),
                "proto_cheby": ("proto_cheby.cu", "scripts/archive/proto_cheby_pallas.py:22"),
-               "matmul_only": ("proto_cheby.cu", "scripts/archive/proto_cheby2.py:36")}
+               "matmul_only": ("proto_cheby.cu", "scripts/archive/proto_cheby2.py:36"),
+               "knn_general": ("knn_general.cu", "r3dfsseg_tpu/ops/pallas_knn.py:27"),
+               "knn_packed": ("knn_general.cu", "r3dfsseg_tpu/ops/pallas_knn.py:27"),
+               "attention_wide_fwd": ("attention_wide.cu",
+                                      "r3dfsseg_tpu/ops/pallas_attention.py:54"),
+               "attention_wide_bwd": ("attention_wide.cu",
+                                      "r3dfsseg_tpu/ops/pallas_attention.py:78"),
+               "attention_wide_fwd_bf16": ("attention_wide.cu",
+                                           "r3dfsseg_tpu/ops/pallas_attention.py:54"),
+               "attention_wide_bwd_bf16": ("attention_wide.cu",
+                                           "r3dfsseg_tpu/ops/pallas_attention.py:78"),
+               "kth_wide": ("kth.cu", "r3dfsseg_tpu/ops/pallas_kth.py:33"),
+               "scatter_general": ("scatter_general.cu", "r3dfsseg_tpu/ops/fast_gather.py:40")}
     # each entry's counters, and the phase whose count is its "launches":
     # the float32 graph's training run; cheby's the bf16 graph's, which
     # alone launches it; the bf16 forms of kernels 2, 5 and 6 the bf16
     # encoder's training run, kernel 1's bf16 input its 'hybrid' serving
     # run (the default 'fastvar' feeds kNN f32); kernels 8 and 9 the fused
-    # route's; kernels 10 and 11 the probe phase's
+    # route's; kernels 10 and 11 the probe phase's; the general kNN, wide
+    # attention and general scatter-add the F1 configuration's training run
+    # (the bf16 forms its bf16 encoder's), the packed kNN the 'pallas'
+    # training run, and the wide-row k-th distance, which no configuration
+    # of these sizes reaches (rows past 57.7k nodes), the F1 checks'
+    # (the counters zeroed before them)
     members = {name: (name,) for name in sources}
     members["fused_edge"] = fused_passes
     main_phase = {name: "train_f32" for name in sources}
     main_phase.update(cheby="train_bf16", gather_onehot="fused_train", fused_edge="fused_train",
                       proto_cheby="probe", matmul_only="probe",
                       attention_fwd_bf16="train_bf16enc", attention_bwd_bf16="train_bf16enc",
-                      scatter_add_bf16="train_bf16enc", knn_bf16="serve_hybrid")
+                      scatter_add_bf16="train_bf16enc", knn_bf16="serve_hybrid",
+                      knn_general="train_f1", attention_wide_fwd="train_f1",
+                      attention_wide_bwd="train_f1", scatter_general="train_f1",
+                      attention_wide_fwd_bf16="train_f1_bf16enc",
+                      attention_wide_bwd_bf16="train_f1_bf16enc", knn_packed="train_pallas",
+                      kth_wide="f1_checks")
     for p in cuda_fused_edge.PASSES:
         rows["fused_edge"]["passes"][p].update(
             {f"launches_{ph}": c[f"fused_{p}"] for ph, c in phases.items()},

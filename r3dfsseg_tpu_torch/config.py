@@ -100,9 +100,9 @@ class R3DConfig:
     lp_adjoint_iters: int = 0
     wire_format: str = "int8"
     transfer_batch: int = 8
-    knn_impl: str = "auto"                 # auto | xla
-    fps_impl: str = "auto"                 # auto | xla
-    attn_impl: str = "auto"                # auto | xla
+    knn_impl: str = "auto"                 # auto | pallas_exact | pallas | xla
+    fps_impl: str = "auto"                 # auto | pallas | xla
+    attn_impl: str = "auto"                # auto | pallas | xla
     affinity_impl: str = "threshold"       # the port runs threshold only
     compute_dtype: str = "float32"         # float32 | bfloat16 (the encoder)
     graph_dtype: str = "auto"              # auto | float32 | bfloat16 (the episode graph)

@@ -281,6 +281,163 @@ kth_kernel(const T* __restrict__ d, float* __restrict__ out, int m, int k, int i
   }
 }
 
+// The variant for rows that one block's shared memory does not hold
+// (`r3d_kth_fits` refuses them): the same select and the same replay, bit
+// for bit, with the row read from device memory (through L2) once per
+// pass instead of once into shared memory: a pass for the min, max and
+// count of the finite keys, one per radix pass, one to compact the last
+// range.  256 threads per row, entries read in order by neighbouring
+// threads; a row is 240 KB or more, so few rows are in flight at once and
+// most passes hit L2.
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideCap = kWideThreads;
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+kth_wide_kernel(const T* __restrict__ d, float* __restrict__ out, int m, int k, int iters) {
+  using K = Keys<T>;
+  __shared__ unsigned hist[kBins];
+  __shared__ unsigned cand[kWideCap];
+  __shared__ unsigned red[3][kWideWarps];
+  __shared__ unsigned sel[4];  // bucket, remaining rank, entries in it; the k-th key
+  __shared__ unsigned ncand;
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const T* row = d + static_cast<size_t>(blockIdx.x) * m;
+  // the key of entry i, or kNone when it is not finite
+  auto key_at = [&](int i) -> unsigned {
+    const T x = row[i];
+    return K::value(x) < kFinite ? static_cast<unsigned>(K::key(x))
+                                 : static_cast<unsigned>(K::kNone);
+  };
+
+  // ---- 1. min, max and count of the finite keys
+  unsigned kmin = 0xFFFFFFFFu, kmax = 0u, cnt = 0u;
+  for (int i = t; i < m; i += kWideThreads) {
+    const unsigned key = key_at(i);
+    if (key != static_cast<unsigned>(K::kNone)) {
+      kmin = min(kmin, key);
+      kmax = max(kmax, key);
+      ++cnt;
+    }
+  }
+  kmin = __reduce_min_sync(0xFFFFFFFFu, kmin);
+  kmax = __reduce_max_sync(0xFFFFFFFFu, kmax);
+  cnt = __reduce_add_sync(0xFFFFFFFFu, cnt);
+  if (lane == 0) {
+    red[0][warp] = kmin;
+    red[1][warp] = kmax;
+    red[2][warp] = cnt;
+  }
+  if (t == 0) ncand = 0;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kWideWarps; ++w) {
+    kmin = min(kmin, red[0][w]);
+    kmax = max(kmax, red[1][w]);
+  }
+  cnt = red[2][0];
+#pragma unroll
+  for (int w = 1; w < kWideWarps; ++w) cnt += red[2][w];
+
+  // ---- 2. select v_k among the finite keys
+  float vk;
+  if (k <= 0) {
+    vk = -__int_as_float(0x7F800000);   // every count passes
+  } else if (static_cast<unsigned>(k) > cnt) {
+    vk = __int_as_float(0x7F800000);    // no count passes
+  } else {
+    unsigned lo = kmin, span = kmax - kmin, rank = k, live = cnt;
+    while (span != 0 && live > kWideCap) {
+      const int shift = max(32 - __clz(span) - kBits, 0);
+      for (int i = t; i < kBins; i += kWideThreads) hist[i] = 0;
+      __syncthreads();
+      for (int i = t; i < m; i += kWideThreads) {
+        const unsigned off = key_at(i) - lo;   // kNone is above lo + span
+        if (off <= span) atomicAdd(&hist[off >> shift], 1u);
+      }
+      __syncthreads();
+      if (warp == 0) {  // the bucket holding `rank`: lane l scans bins 8l .. 8l + 7
+        constexpr int per = kBins / 32;
+        unsigned h[per], sum = 0;
+#pragma unroll
+        for (int i = 0; i < per; ++i) sum += h[i] = hist[lane * per + i];
+        unsigned incl = sum;
+#pragma unroll
+        for (int s = 1; s < 32; s <<= 1) {
+          const unsigned o = __shfl_up_sync(0xFFFFFFFFu, incl, s);
+          if (lane >= s) incl += o;
+        }
+        unsigned before = incl - sum;
+        if (before < rank && rank <= incl) {
+#pragma unroll
+          for (int i = 0; i < per; ++i) {
+            if (rank > before && rank <= before + h[i]) {
+              sel[0] = lane * per + i;
+              sel[1] = rank - before;
+              sel[2] = h[i];
+            }
+            before += h[i];
+          }
+        }
+      }
+      __syncthreads();
+      const unsigned b = sel[0];
+      rank = sel[1];
+      live = sel[2];
+      lo += b << shift;
+      span = min(span - (b << shift), (1u << shift) - 1u);
+    }
+    if (span == 0) {
+      vk = K::unkey(lo);
+    } else {  // at most kWideCap entries in range: compact, then rank each
+      for (int i = t; i < m; i += kWideThreads) {
+        const unsigned key = key_at(i);
+        if (key - lo <= span) cand[atomicAdd(&ncand, 1u)] = key;
+      }
+      __syncthreads();
+      if (static_cast<unsigned>(t) < live) {
+        const unsigned mine = cand[t];
+        unsigned below = 0;
+        for (unsigned j = 0; j < live; ++j) {
+          const unsigned c = cand[j];
+          below += (c < mine) | ((c == mine) & (j < static_cast<unsigned>(t)));
+        }
+        if (below == rank - 1) sel[3] = mine;
+      }
+      __syncthreads();
+      vk = K::unkey(sel[3]);
+    }
+  }
+
+  // ---- 3. the bisection, replayed on scalars
+  if (t == 0) {
+    const float mx = cnt ? K::unkey(kmax) : 0.f;
+    float hi = fmaxf(fmaxf(mx, 0.f), 1e-6f);
+    float lo = 0.f;
+    for (int it = 0; it < iters; ++it) {
+      const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+      if (vk <= mid) {
+        hi = mid;
+      } else {
+        lo = mid;
+      }
+    }
+    out[blockIdx.x] = hi;
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* d, void* out, int rows, int m, int k, int iters,
+                        void* stream) {
+  if (rows < 1 || m < 1) return cudaErrorInvalidValue;
+  return r3d_launch(kth_wide_kernel<T>, dim3(rows), dim3(kWideThreads), 0,
+                    static_cast<cudaStream_t>(stream), static_cast<const T*>(d),
+                    static_cast<float*>(out), m, k, iters);
+}
+
 template <typename T>
 size_t smem_bytes(int m) {
   return sizeof(T) * static_cast<size_t>(slots<T>(m));
@@ -316,4 +473,16 @@ R3D_EXPORT int r3d_kth_bf16(const void* d, void* out, int rows, int m, int k, in
 R3D_EXPORT int r3d_kth_fits(int m, int elem_bytes) {
   const size_t row = elem_bytes == 4 ? smem_bytes<float>(m) : smem_bytes<unsigned short>(m);
   return m >= 1 && row + kStaticSmem <= r3d::kSmemLimit ? 1 : 0;
+}
+
+// The variant for rows of any width (read from device memory per pass),
+// f32 and bf16: the same result as r3d_kth and r3d_kth_bf16.
+R3D_EXPORT int r3d_kth_wide(const void* d, void* out, int rows, int m, int k, int iters,
+                            void* stream) {
+  return launch_wide<float>(d, out, rows, m, k, iters, stream);
+}
+
+R3D_EXPORT int r3d_kth_wide_bf16(const void* d, void* out, int rows, int m, int k, int iters,
+                                 void* stream) {
+  return launch_wide<unsigned short>(d, out, rows, m, k, iters, stream);
 }

@@ -19,6 +19,7 @@ from torch import nn
 from r3dfsseg_tpu_torch.config import R3DConfig
 from r3dfsseg_tpu_torch.models.episode import Episode
 from r3dfsseg_tpu_torch.nn.dgcnn import BN_MODES, FeatureExtractor
+from r3dfsseg_tpu_torch.ops import cuda_knn
 from r3dfsseg_tpu_torch.ops.fps import multi_prototypes
 from r3dfsseg_tpu_torch.ops.grid import grid_seed_pool
 from r3dfsseg_tpu_torch.ops.lp import label_propagate, local_constrained_affinity
@@ -179,11 +180,12 @@ def _mpti_core(support_feat: torch.Tensor, query_feat: torch.Tensor, ep: Episode
     # the bf16 graph: bf16 neighbour selection, affinity and S (kernel 7's
     # solve)
     lowp = torch.bfloat16 if c.graph_bf16 else None
+    impl = cuda_knn.followers(c.knn_impl)
     a = local_constrained_affinity(node_feat, c.k_connect, c.sigma, valid=node_valid,
-                                   compare_dtype=lowp, kth_impl=c.knn_impl)
+                                   compare_dtype=lowp, kth_impl=impl)
     z = label_propagate(a, y0, c.lp_alpha, cg_iters=c.lp_cg_iters,
                         adjoint_iters=(c.lp_adjoint_iters or None) if train else None,
-                        impl=c.knn_impl)
+                        impl=impl)
     n_protos = protos.shape[0]
     query_logits = z[n_protos:].reshape(c.n_queries * n_way, n, c.n_classes)
 

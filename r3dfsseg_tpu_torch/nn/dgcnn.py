@@ -185,8 +185,10 @@ class _EdgeFirstLayer(nn.Module):
 
 class EdgeConv(nn.Module):
     """kNN on the current (detached) features -> edge MLP -> max over the k
-    neighbours.  knn_impl 'auto' runs the kNN and scatter-add kernels on
-    CUDA tensors, 'xla' the plain versions.  A bf16 input (a bf16 block's
+    neighbours.  knn_impl 'auto' (or 'pallas_exact') runs the kNN and
+    scatter-add kernels on CUDA tensors, 'pallas' the kNN in the TPU
+    kernel's packed-key mode (its plain version on CPU tensors), 'xla' the
+    plain versions.  A bf16 input (a bf16 block's
     output under 'stats', 'relaxed' or 'hybrid') is searched in its exact
     f32 upcast, as the TPU kernel loads it.  ``bn_modes`` gives each
     layer's BN mode (default 'exact')."""
@@ -195,12 +197,11 @@ class EdgeConv(nn.Module):
                  knn_impl: str = "auto", dtype: Optional[torch.dtype] = None,
                  bn_modes: Optional[Sequence[str]] = None):
         super().__init__()
-        if knn_impl not in ("auto", "xla"):
-            raise NotImplementedError(f"knn_impl {knn_impl!r}: the port has 'auto' and 'xla'")
+        gather_impl = cuda_knn.followers(knn_impl)
         modes = tuple(bn_modes or ("exact",) * len(widths))
         self.k = k
         self.knn_impl = knn_impl
-        self.layer0 = _EdgeFirstLayer(in_features, widths[0], knn_impl, dtype, modes[0])
+        self.layer0 = _EdgeFirstLayer(in_features, widths[0], gather_impl, dtype, modes[0])
         for i in range(1, len(widths)):
             self.add_module(f"layer{i}", ConvBN(widths[i - 1], widths[i], dtype=dtype,
                                                 bn_mode=modes[i]))
@@ -208,8 +209,12 @@ class EdgeConv(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False, groups: int = 1) -> torch.Tensor:
         xd = x.detach()
-        idx = (cuda_knn.knn(xd, self.k) if self.knn_impl == "auto"
-               else knn_indices(xd.float(), self.k))
+        if self.knn_impl == "xla":
+            idx = knn_indices(xd.float(), self.k)
+        elif self.knn_impl == "pallas":
+            idx = cuda_knn.knn(xd, self.k, packed=True)
+        else:
+            idx = cuda_knn.knn(xd, self.k)
         e = self.layer0(x, idx, train, groups)
         for i in range(1, self.n_layers):
             e = getattr(self, f"layer{i}")(e, train, groups)
@@ -284,8 +289,9 @@ class BaseLearner(nn.Module):
 class SelfAttention(nn.Module):
     """Single-head attention over all points of a cloud:
     softmax(q k^T / sqrt(d)) v with bias-free q, k, v maps and, in
-    training, dropout on the attention map.  attn_impl 'auto' runs the
-    attention kernels on CUDA tensors, 'xla' the plain versions.
+    training, dropout on the attention map.  attn_impl 'auto' (or
+    'pallas') runs the attention kernels on CUDA tensors, 'xla' the plain
+    versions.
 
     In training with dropout each call draws its mask seed from
     ``generator`` (a CPU `torch.Generator`, so no device sync), as the JAX
@@ -300,8 +306,9 @@ class SelfAttention(nn.Module):
                  attn_dropout: float = 0.1, dtype: Optional[torch.dtype] = None,
                  attn_f32: bool = False):
         super().__init__()
-        if attn_impl not in ("auto", "xla"):
-            raise NotImplementedError(f"attn_impl {attn_impl!r}: the port has 'auto' and 'xla'")
+        if attn_impl not in cuda_attention.IMPLS:
+            raise NotImplementedError(f"attn_impl {attn_impl!r}: the port has "
+                                      f"{cuda_attention.IMPLS}")
         self.q_map = nn.Linear(in_features, out_channel, bias=False)
         self.k_map = nn.Linear(in_features, out_channel, bias=False)
         self.v_map = nn.Linear(in_features, out_channel, bias=False)

@@ -52,10 +52,21 @@ same in PyTorch, the scores as the JAX package's XLA path does (q /
 bf16(tau) in bf16), or with ``kernel_scale`` as the kernels do (q *
 bf16(1/tau)); the two agree wherever 1/tau is a power of two.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises (D > 64, or D not a multiple of 4 in f32 or of 8 in
-bf16, raise: limits of these kernels that the TPU kernel does not have).
-`fused_attention(..., impl="xla")` takes the plain version on every device.
+Head widths the TPU kernel takes and these kernels do not (`_layout`):
+- D <= 64 not a multiple of 4 (f32) or 8 (bf16): the wrapper zero-pads q,
+  k, v (and y, dy in the backward) to the next multiple and slices the
+  outputs back.  This is exact: zero columns add exact zeros to q k^T and
+  to rowsum(dY * Y), and the padded columns of y, dq, dk, dv are zero; tau
+  stays the caller's (sqrt of the unpadded D).  The tuned kernels run.
+- D > 64: `csrc/attention_wide.cu`, a simple FFMA forward and backward pair
+  for any D with the same mask, roundings and lse (`wide_launches`,
+  `wide_bwd_launches`; `wide_bf16_launches`, `wide_bwd_bf16_launches`
+  count the bf16 calls among them).
+
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches a
+kernel or raises.  `fused_attention(..., impl="xla")` takes the plain
+version on every device; "pallas" is the same as "auto", as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -72,6 +83,11 @@ launches = 0       # forward kernel launches
 bwd_launches = 0   # backward kernel launches (one per call: Delta, dK/dV, dQ)
 bf16_launches = 0      # of the forward's, calls on bf16 q, k, v
 bwd_bf16_launches = 0  # of the backward's, calls on bf16 q, k, v
+wide_launches = 0          # csrc/attention_wide.cu forward (D > MAX_D)
+wide_bwd_launches = 0      # csrc/attention_wide.cu backward
+wide_bf16_launches = 0     # of the wide forward's, calls on bf16 q, k, v
+wide_bwd_bf16_launches = 0  # of the wide backward's, calls on bf16 q, k, v
+IMPLS = ("auto", "pallas", "xla")
 
 _U32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -257,9 +273,23 @@ def _check(name: str, *ts: torch.Tensor) -> None:
             and all(t.dtype == torch.float32 for t in ts[3:])):
         raise ValueError(f"{name}: want float32 or bfloat16 q, k, v (and float32 y, dy)")
     b, n, d = q.shape
-    align = 8 if q.dtype == torch.bfloat16 else 4
-    if not (b > 0 and n > 0 and 0 < d <= MAX_D and d % align == 0):
+    if not (b > 0 and n > 0 and d > 0):
         raise ValueError(f"{name}: unsupported shape B={b} N={n} D={d} ({q.dtype})")
+
+
+def _layout(q: torch.Tensor) -> int:
+    """How a CUDA call of head width D runs: -1, the wide kernels (D >
+    MAX_D); else the zero columns that take D to the tuned kernels'
+    alignment (a multiple of 4 in f32, of 8 in bf16), 0 when aligned."""
+    d = q.shape[-1]
+    if d > MAX_D:
+        return -1
+    align = 8 if q.dtype == torch.bfloat16 else 4
+    return -d % align
+
+
+def _pad(pad: int, *ts: torch.Tensor):
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in ts)
 
 
 def _staged(t: torch.Tensor) -> torch.Tensor:
@@ -270,13 +300,18 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_fwd(q, k, v, tau, rate, seed, want_lse):
-    global launches, bf16_launches
+    global launches, bf16_launches, wide_launches, wide_bf16_launches
+    pad = _layout(q)
+    if pad > 0:
+        y, lse = _kernel_fwd(*_pad(pad, q, k, v), tau, rate, seed, want_lse)
+        return y[..., :q.shape[-1]].contiguous(), lse
     q, k, v = _staged(q), _staged(k), _staged(v)
     b, n, d = q.shape
     lowp = q.dtype == torch.bfloat16
     y = torch.empty((b, n, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device) if want_lse else None
-    name = "r3d_attn_fwd_bf16" if lowp else "r3d_attn_fwd"
+    wide = pad < 0
+    name = ("r3d_attn_wide_fwd" if wide else "r3d_attn_fwd") + ("_bf16" if lowp else "")
     fn = build.function(name, [build.P] * 5 + [build.I] * 3 + [build.F, build.I]
                         + [build.U] * 3 + [build.F, build.P])
     lo, hi = _seed_words(seed)
@@ -287,8 +322,12 @@ def _kernel_fwd(q, k, v, tau, rate, seed, want_lse):
                  int(rate > 0.0), lo, hi, dropout_threshold(rate), keep_scale(rate),
                  build.stream_ptr(q.device))
     build.check(err, name)
-    launches += 1
-    bf16_launches += lowp
+    if wide:
+        wide_launches += 1
+        wide_bf16_launches += lowp
+    else:
+        launches += 1
+        bf16_launches += lowp
     return y, lse
 
 
@@ -313,13 +352,17 @@ def attention_fwd(q, k, v, tau: float, rate: float = 0.0, seed: int = 0):
 
 def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int = 0):
     """(dq, dk, dv), f32, of the forward's f32 output cotangent dy."""
-    global bwd_launches, bwd_bf16_launches
+    global bwd_launches, bwd_bf16_launches, wide_bwd_launches, wide_bwd_bf16_launches
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, y, dy, lse, tau, rate, seed)
     _check("attention_bwd", q, k, v, y, dy)
     b, n, d = q.shape
     if lse.shape != (b, n) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"attention_bwd: want a ({b}, {n}) float32 lse on {q.device}")
+    pad = _layout(q)
+    if pad > 0:
+        grads = attention_bwd(*_pad(pad, q, k, v, y, dy), lse, tau, rate, seed)
+        return tuple(g[..., :d].contiguous() for g in grads)
     lowp = q.dtype == torch.bfloat16
     q, k, v, y, dy, lse = (_staged(t) for t in (q, k, v, y, dy, lse))
     dq, dk, dv = (torch.empty((b, n, d), dtype=torch.float32, device=q.device)
@@ -328,6 +371,17 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
     lo, hi = _seed_words(seed)
     tail = (int(rate > 0.0), lo, hi, dropout_threshold(rate), keep_scale(rate),
             build.stream_ptr(q.device))
+    if pad < 0:
+        name = "r3d_attn_wide_bwd" + ("_bf16" if lowp else "")
+        fn = build.function(name, [build.P] * 10 + [build.I] * 3 + [build.F, build.F, build.I]
+                            + [build.U] * 3 + [build.F, build.P])
+        with torch.cuda.device(q.device):
+            err = fn(*(t.data_ptr() for t in (q, k, v, y, dy, lse, delta, dq, dk, dv)), b, n, d,
+                     1.0 / tau, bf16_value(1.0 / tau) if lowp else 1.0 / tau, *tail)
+        build.check(err, name)
+        wide_bwd_launches += 1
+        wide_bwd_bf16_launches += lowp
+        return dq, dk, dv
     if lowp:
         name = "r3d_attn_bwd_bf16"
         qs, dyb = torch.empty_like(q), torch.empty_like(q)     # the kernel's scratch
@@ -375,10 +429,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: int
     the counterpart of the JAX package's `fused_attention`: q, k, v f32, or
     bf16 for the bf16 forms (cotangents in bf16).  Dropout runs when
     ``train`` and ``rate > 0``, its mask drawn from ``seed``.  impl 'auto'
-    takes the kernels on CUDA tensors, 'xla' the plain versions everywhere.
+    (or 'pallas') takes the kernels on CUDA tensors, 'xla' the plain
+    versions everywhere.
     Without autograd only the forward runs (no lse)."""
-    if impl not in ("auto", "xla"):
-        raise NotImplementedError(f"attn_impl {impl!r}: the port has 'auto' and 'xla'")
+    if impl not in IMPLS:
+        raise NotImplementedError(f"attn_impl {impl!r}: the port has {IMPLS}")
     rate = rate if train else 0.0
     plain = impl == "xla"
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):

@@ -23,11 +23,23 @@ kernel upcasts on load (`pallas_knn.py:52-53`).  The wrapper upcasts, which
 gives the same bits as an upcast on the kernel's load (the upcast is
 exact); `bf16_launches` counts those calls apart.
 
-Dispatch: a CPU tensor takes `knn_reference`; a CUDA tensor launches the
-kernel or raises (k > MAX_K or C > MAX_C raise: limits of this kernel
-that the TPU kernel does not have).
+Shapes that kernel does not take (k > MAX_K or C > MAX_C; the TPU kernel
+takes any k <= N and any C) go to the general kernel `csrc/knn_general.cu`
+(`general_launches`): simple FFMA distances and per-row lists of the k
+smallest keys, with exact keys bits(d) << 32 | col, so it equals
+`knn_indices` wherever the distances agree.  The same kernel runs the TPU
+kernel's packed mode (`packed=True`, knn_impl "pallas", `packed_launches`)
+at every shape: d = max((qq - 2 inner) + kk, 0) with the low
+bit_length(N - 1) bits of its f32 pattern replaced by the column, the k
+smallest such keys in order (`knn_packed_reference`), so neighbours whose
+distances agree to about 2^-12 relative may swap.
+
+Dispatch: a CPU tensor takes `knn_reference` (`knn_packed_reference` when
+packed); a CUDA tensor launches a kernel or raises.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -39,8 +51,15 @@ MAX_C = 256       # csrc/knn.cu kMaxC
 ROWS = 64         # query rows per block, keys per staged tile
 MAX_SPLITS = 8
 
+# knn_impl values, as the JAX package's (`r3dfsseg_tpu/nn/dgcnn.py:199-206`)
+# less 'approx': 'auto' and 'pallas_exact' the exact kernels on CUDA
+# tensors, 'pallas' the packed mode, 'xla' the plain versions everywhere
+IMPLS = ("auto", "pallas_exact", "pallas", "xla")
+
 launches = 0
 bf16_launches = 0   # of them, calls on a bf16 input
+general_launches = 0    # csrc/knn_general.cu, exact keys
+packed_launches = 0     # csrc/knn_general.cu, packed keys
 
 
 def splits(b: int, n: int, sms: int) -> int:
@@ -55,28 +74,64 @@ def splits(b: int, n: int, sms: int) -> int:
     return s
 
 
+def followers(knn_impl: str) -> str:
+    """The impl of the kernels that follow knn_impl (the scatter-add
+    backward, the k-th distance, the Chebyshev solve): 'xla' under 'xla',
+    else 'auto'."""
+    if knn_impl not in IMPLS:
+        raise NotImplementedError(f"knn_impl {knn_impl!r}: the port has {IMPLS}")
+    return "xla" if knn_impl == "xla" else "auto"
+
+
 def knn_reference(x: torch.Tensor, k: int) -> torch.Tensor:
     """x (B, N, C) f32 or bf16 -> (B, N, k) int32, the plain PyTorch
     version, on the f32 upcast."""
     return knn_indices(x.float(), k)
 
 
-def knn(x: torch.Tensor, k: int) -> torch.Tensor:
-    """x (B, N, C) f32 or bf16 -> (B, N, k) int32 nearest-neighbour indices."""
-    global launches, bf16_launches
+def packed_bits(n: int) -> int:
+    """Low bits of a packed key that hold the column: bit_length(N - 1), at
+    least 1 (`pallas_knn.py:88`)."""
+    return max((n - 1).bit_length(), 1)
+
+
+def knn_packed_reference(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x (B, N, C) f32 or bf16 -> (B, N, k) int32, the packed mode's plain
+    version on the f32 upcast: d = max((qq - 2 inner) + kk, 0), the key
+    (bits(d) & ~low) | col as an int32, the k smallest keys in order, each
+    key's low bits."""
+    x = x.float()
+    n = x.shape[-2]
+    xx = (x * x).sum(-1, keepdim=True)
+    d = ((xx - 2.0 * torch.matmul(x, x.transpose(-1, -2))) + xx.transpose(-1, -2))
+    low = (1 << packed_bits(n)) - 1
+    col = torch.arange(n, dtype=torch.int32, device=x.device)
+    key = (d.clamp_min(0.0).view(torch.int32) & ~low) | col
+    return torch.sort(key, dim=-1).values[..., :k] & low
+
+
+def knn(x: torch.Tensor, k: int, packed: bool = False) -> torch.Tensor:
+    """x (B, N, C) f32 or bf16 -> (B, N, k) int32 nearest-neighbour indices;
+    ``packed``: the TPU kernel's packed keys."""
+    global launches, bf16_launches, general_launches, packed_launches
     if x.device.type == "cpu":
-        return knn_reference(x, k)
+        return (knn_packed_reference if packed else knn_reference)(x, k)
     if x.device.type != "cuda":
         raise ValueError(f"knn: no kernel for device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 3:
         raise ValueError(f"knn: want (B, N, C) float32 or bfloat16, got "
                          f"{tuple(x.shape)} {x.dtype}")
     b, n, c = x.shape
-    if not (b > 0 and 0 < k <= min(n, MAX_K) and 0 < c <= MAX_C):
+    if not (b > 0 and 0 < k <= n and c > 0):
         raise ValueError(f"knn: unsupported shape B={b} N={n} C={c} k={k}")
     bf16 = x.dtype == torch.bfloat16
     x = x.float().contiguous()
     dev = x.device
+    if packed or k > MAX_K or c > MAX_C:
+        out = _knn_general(x, k, packed)
+        packed_launches += packed
+        general_launches += not packed
+        return out
     out = torch.empty((b, n, k), dtype=torch.int32, device=dev)
     s = splits(b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
     with torch.cuda.device(dev):
@@ -92,4 +147,21 @@ def knn(x: torch.Tensor, k: int) -> torch.Tensor:
     build.check(err, "r3d_knn")
     launches += 1
     bf16_launches += bf16
+    return out
+
+
+def _knn_general(x: torch.Tensor, k: int, packed: bool) -> torch.Tensor:
+    """One call of `csrc/knn_general.cu` on a contiguous f32 CUDA x."""
+    b, n, c = x.shape
+    dev = x.device
+    out = torch.empty((b, n, k), dtype=torch.int32, device=dev)
+    nrm = torch.empty((b, n), dtype=torch.float32, device=dev)
+    nbytes = build.function("r3d_knn_general_scratch", [build.I] * 3, ctypes.c_longlong)(b, n, k)
+    lists = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
+    fn = build.function("r3d_knn_general", [build.P] * 4 + [build.I] * 5 + [build.P])
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), out.data_ptr(), nrm.data_ptr(),
+                 lists.data_ptr() if lists is not None else None, b, n, c, k, int(packed),
+                 build.stream_ptr(dev))
+    build.check(err, "r3d_knn_general")
     return out

@@ -21,10 +21,14 @@ v_k <= mid (`csrc/kth.cu`).
 The kernel equals the plain version bit for bit: exact upcasts, an exact
 select and the same f32 mid-point arithmetic.
 
+Rows too wide for one block's shared memory (`r3d_kth_fits` refuses them:
+about 57.7k f32 or 115k bf16 entries; the TPU kernel shrinks its row tile
+instead) go to the variant `kth_wide_kernel` in the same source
+(`wide_launches`): the same select and replay, bit-equal too, with the row
+read from device memory once per pass instead of into shared memory.
+
 Dispatch: a CPU tensor takes `kth_smallest_per_row_reference`; a CUDA
-tensor launches the kernel or raises (rows too wide for one block's shared
-memory, as the kernel's `r3d_kth_fits` says, raise: a limit of this kernel
-that the TPU kernel does not have).
+tensor launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from r3dfsseg_tpu_torch.kernels import build
 SENTINEL = 1e30                # ops/lp.py _BIG
 
 launches = 0
+wide_launches = 0      # the wide-row variant
 
 
 def kth_smallest_per_row_reference(d: torch.Tensor, k: int, iters: int) -> torch.Tensor:
@@ -54,7 +59,7 @@ def kth_smallest_per_row_reference(d: torch.Tensor, k: int, iters: int) -> torch
 def kth_smallest_per_row(d: torch.Tensor, k: int, iters: int) -> torch.Tensor:
     """d (R, M) f32 or bf16 -> (R, 1) f32 per-row radius admitting >= k
     entries."""
-    global launches
+    global launches, wide_launches
     if d.device.type == "cpu":
         return kth_smallest_per_row_reference(d, k, iters)
     if d.device.type != "cuda":
@@ -63,16 +68,19 @@ def kth_smallest_per_row(d: torch.Tensor, k: int, iters: int) -> torch.Tensor:
         raise ValueError(f"kth_smallest_per_row: want (R, M) float32 or bfloat16, got "
                          f"{tuple(d.shape)} {d.dtype}")
     rows, m = d.shape
-    fits = build.function("r3d_kth_fits", [build.I, build.I])
-    if not (rows > 0 and iters >= 0 and fits(m, d.element_size())):
+    if not (rows > 0 and m > 0 and iters >= 0):
         raise ValueError(f"kth_smallest_per_row: unsupported shape R={rows} M={m}")
+    wide = not build.function("r3d_kth_fits", [build.I, build.I])(m, d.element_size())
     d = d.contiguous()
     out = torch.empty((rows, 1), dtype=torch.float32, device=d.device)
-    name = "r3d_kth" if d.dtype == torch.float32 else "r3d_kth_bf16"
+    name = ("r3d_kth_wide" if wide else "r3d_kth") + ("" if d.dtype == torch.float32 else "_bf16")
     fn = build.function(name, [build.P, build.P, build.I, build.I, build.I, build.I, build.P])
     with torch.cuda.device(d.device):
         err = fn(d.data_ptr(), out.data_ptr(), rows, m, k, iters,
                  build.stream_ptr(d.device))
     build.check(err, name)
-    launches += 1
+    if wide:
+        wide_launches += 1
+    else:
+        launches += 1
     return out

@@ -24,8 +24,15 @@ widened to f32 in registers and summed in the same order, so the bf16 form
 equals the f32 form on ``g.float()`` bit for bit; dx is f32, and the
 caller casts it to bf16.  `bf16_launches` counts those calls apart.
 
+An odd C, or more targets than the build's histograms hold in one block's
+shared memory (about 28k, `r3d_scatter_add_warps`; the TPU kernel takes
+any C and n), goes to `csrc/scatter_general.cu` (`general_launches`): the
+same function and order of sums (bit-equal to
+`scatter_add_ordered_reference` too), the inverse graph built in device
+memory by five simple launches, one warp per target, a lane per channel.
+
 Dispatch: a CPU tensor takes `scatter_add_reference` (`index_add_` in
-f32); a CUDA tensor launches the kernel or raises.
+f32); a CUDA tensor launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ PIECE = 32                   # csrc/scatter_add.cu kPiece: rows per piece
 
 launches = 0
 bf16_launches = 0          # of them, calls on a bf16 cotangent
+general_launches = 0       # csrc/scatter_general.cu (odd C, wide n)
 
 
 def scatter_add_reference(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -102,9 +110,10 @@ def scatter_add_ordered_reference(g: torch.Tensor, idx: torch.Tensor, n: int) ->
 
 
 def scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """g (B, NQ, K, C) f32 or bf16 with C even, idx (B, NQ, K) int32 -> dx
-    (B, n, C) f32: one cooperative launch."""
-    global launches, bf16_launches
+    """g (B, NQ, K, C) f32 or bf16, idx (B, NQ, K) int32 -> dx (B, n, C)
+    f32: one cooperative launch of the tuned kernel where C is even and n
+    fits its build, else the general kernel."""
+    global launches, bf16_launches, general_launches
     if g.device.type == "cpu":
         return scatter_add_reference(g, idx, n)
     if g.device.type != "cuda":
@@ -115,13 +124,25 @@ def scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     b, nq, k, c = g.shape
     if idx.shape != (b, nq, k) or idx.dtype != torch.int32 or idx.device != g.device:
         raise ValueError(f"scatter_add: want a ({b}, {nq}, {k}) int32 idx on {g.device}")
-    warps = build.function("r3d_scatter_add_warps", [build.I])
-    if not (b > 0 and n > 0 and c > 0 and c % 2 == 0 and warps(n) >= 1):
+    if not (b > 0 and n > 0 and c > 0):
         raise ValueError(f"scatter_add: unsupported shape B={b} N={n} C={c}")
     g, idx = g.contiguous(), idx.contiguous()
+    m = nq * k
+    if c % 2 or build.function("r3d_scatter_add_warps", [build.I])(n) < 1:
+        nbytes = build.function("r3d_scatter_general_scratch", [build.I] * 3,
+                                ctypes.c_longlong)(b, n, m)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=g.device)
+        dx = torch.empty((b, n, c), dtype=torch.float32, device=g.device)
+        name = "r3d_scatter_general" + ("" if g.dtype == torch.float32 else "_bf16")
+        fn = build.function(name, [build.P] * 4 + [build.I] * 4 + [build.P])
+        with torch.cuda.device(g.device):
+            err = fn(g.data_ptr(), idx.data_ptr(), dx.data_ptr(), scratch.data_ptr(), b, n, m, c,
+                     build.stream_ptr(g.device))
+        build.check(err, name)
+        general_launches += 1
+        return dx
     if g.data_ptr() % 16:                 # a view: the kernel loads g in 4- or 8-byte pairs
         g = g.clone()
-    m = nq * k
     nbytes = build.function("r3d_scatter_add_scratch", [build.I] * 4, ctypes.c_longlong)
     scratch = torch.empty(nbytes(b, n, m, c), dtype=torch.uint8, device=g.device)
     dx = torch.empty((b, n, c), dtype=torch.float32, device=g.device)

@@ -21,18 +21,19 @@ def masked_fps(feat: torch.Tensor, valid: torch.Tensor, k: int,
 
     feat (P, N, C), valid (P, N) bool -> seed_idx (P, k) int32 and
     seed_valid (P, k) bool: slot i is a real seed iff i < min(k, n_valid).
-    impl 'auto' runs the kernel on CUDA tensors (`ops/cuda_fps.py`), 'xla'
-    the plain version everywhere; both use the direct sum((x - c)^2) form.
+    impl 'auto' (or 'pallas', as in the JAX package) runs the kernel on
+    CUDA tensors (`ops/cuda_fps.py`), 'xla' the plain version everywhere;
+    both use the direct sum((x - c)^2) form.
     """
     feat = feat.detach().float()
     n_valid = valid.sum(-1, keepdim=True)
     seed_valid = torch.arange(k, device=feat.device) < n_valid.clamp_max(k)
-    if impl == "auto":
+    if impl in ("auto", "pallas"):
         seeds = cuda_fps.fps(feat, valid, k)
     elif impl == "xla":
         seeds = cuda_fps.fps_reference(feat, valid, k)
     else:
-        raise NotImplementedError(f"fps_impl {impl!r}: the port has 'auto' and 'xla'")
+        raise NotImplementedError(f"fps_impl {impl!r}: the port has 'auto', 'pallas' and 'xla'")
     return seeds, seed_valid
 
 

@@ -82,6 +82,22 @@ CALLS = {
     **{f"fused_edge_{p}": (cuda_fused_edge, f"{p}_launches",
                            lambda dev, p=p: _fused_pass(p, dev))
        for p in cuda_fused_edge.PASSES},
+    # the shapes past the tuned kernels, and the packed-key kNN
+    "knn_general": (cuda_knn, "general_launches", lambda dev: cuda_knn.knn(
+        torch.zeros((1, 40, 3), device=dev), 33)),
+    "knn_packed": (cuda_knn, "packed_launches", lambda dev: cuda_knn.knn(
+        torch.zeros((1, 8, 3), device=dev), 4, packed=True)),
+    "attention_wide": (cuda_attention, "wide_launches", lambda dev: cuda_attention.attention(
+        *_qkv(dev, (1, 8, 65)), 2.0)),
+    "attention_wide_bwd": (cuda_attention, "wide_bwd_launches",
+                           lambda dev: cuda_attention.attention_bwd(
+                               *_qkv(dev, (1, 8, 72), torch.bfloat16), *_qkv(dev, (1, 8, 72))[:2],
+                               torch.zeros((1, 8), device=dev), 2.0, 0.1, 5)),
+    "kth_wide": (cuda_kth, "wide_launches", lambda dev: cuda_kth.kth_smallest_per_row(
+        torch.zeros((1, 60000), device=dev), 2, 4)),
+    "scatter_general": (cuda_scatter, "general_launches", lambda dev: cuda_scatter.scatter_add(
+        torch.zeros((1, 8, 2, 7), device=dev), torch.zeros((1, 8, 2), dtype=torch.int32,
+                                                          device=dev), 8)),
 }
 
 
@@ -365,12 +381,19 @@ def test_kth_kernel_views_and_tiny_rows_on_card(dtype):
 
 @pytest.mark.cuda
 def test_kth_wrapper_refuses_rows_too_wide_on_card():
+    """A row the tuned kernel's shared memory refuses (60000 f32 entries)
+    takes the wide variant, where it used to raise; 60000 bf16 entries
+    (120 KB) still fit the tuned kernel.  Both bit-equal to the plain
+    version."""
     dev = cuda_or_skip()
-    with pytest.raises(ValueError, match="unsupported shape"):
-        cuda_kth.kth_smallest_per_row(torch.zeros((1, 60000), device=dev), 2, 4)
-    x = torch.zeros((1, 60000), dtype=torch.bfloat16, device=dev)      # 120 KB: fits
-    assert torch.equal(cuda_kth.kth_smallest_per_row(x, 2, 4),
-                       cuda_kth.kth_smallest_per_row_reference(x, 2, 4))
+    for dtype, tuned in ((torch.float32, False), (torch.bfloat16, True)):
+        x = torch.rand((2, 60000), device=dev).to(dtype)
+        counts = (cuda_kth.launches, cuda_kth.wide_launches)
+        got = cuda_kth.kth_smallest_per_row(x, 2, 4)
+        torch.cuda.synchronize()
+        assert (cuda_kth.launches, cuda_kth.wide_launches) == \
+            (counts[0] + tuned, counts[1] + (not tuned))
+        assert torch.equal(got, cuda_kth.kth_smallest_per_row_reference(x, 2, 4))
 
 
 def _graph_system(seed, m, dev):
@@ -782,33 +805,183 @@ def test_cheby_nine_columns_at_the_flagship_graph_take_two_launches_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,c", [(40, 9), (20, 300)])
 def test_knn_past_the_kernel_raises_on_card(k, c):
-    """k > 32 or C > 256: limits of this kernel, which raise on the card."""
+    """k > 32 or C > 256, past the tuned kernel (csrc/knn.cu): the general
+    kernel launches there, and the tuned one does not (the shapes no
+    longer raise: the TPU kernel takes any k <= N and any C).  Held to
+    `chip_smoke.knn_agreement`'s criterion, as the tuned kernel."""
     dev = cuda_or_skip()
     x = torch.from_numpy(_points(9, 2, 300, c)).to(dev)
-    launched = cuda_knn.launches
-    with pytest.raises(ValueError, match="unsupported shape"):
-        cuda_knn.knn(x, k)
-    assert cuda_knn.launches == launched
+    counts = (cuda_knn.launches, cuda_knn.general_launches)
+    got = cuda_knn.knn(x, k)
+    torch.cuda.synchronize()
+    assert (cuda_knn.launches, cuda_knn.general_launches) == (counts[0], counts[1] + 1)
+    a = chip_smoke.knn_agreement(torch, x, got.long(), cuda_knn.knn_reference(x, k).long())
+    assert a["mismatch"] <= 1e-2 and a["gap"] <= chip_smoke.NEAR_TIE, a
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,dtype", [(128, torch.float32), (6, torch.float32),
                                      (12, torch.bfloat16), (80, torch.bfloat16)])
 def test_attention_past_the_kernel_raises_on_card(d, dtype):
-    """D > 64, or D not a multiple of 4 (f32) or 8 (bf16): limits of these
-    kernels, which raise on the card, forward and backward."""
+    """D > 64 takes the wide kernels (csrc/attention_wide.cu), an unaligned
+    D <= 64 the tuned ones after the zero pad, forward and backward (the
+    shapes no longer raise).  Against the plain versions with q scaled as
+    the kernels scale it: f32 rtol 1e-4, atol 1e-5 forward and 1e-4 of each
+    gradient's largest entry; bf16 ATTN_BF16_FWD_TOL and ATTN_BF16_BWD_TOL
+    (`chip_smoke.attention_gates`)."""
     dev = cuda_or_skip()
     g = torch.Generator(device=dev).manual_seed(3)
     q, k, v, dy = (torch.randn((2, 100, d), generator=g, device=dev) for _ in range(4))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     tau = float(d) ** 0.5
-    counts = (cuda_attention.launches, cuda_attention.bwd_launches)
-    with pytest.raises(ValueError, match="unsupported shape"):
-        cuda_attention.attention_fwd(q, k, v, tau, 0.1, 3)
-    y, lse = cuda_attention.attention_fwd_reference(q, k, v, tau, 0.1, 3)
-    with pytest.raises(ValueError, match="unsupported shape"):
-        cuda_attention.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, 3)
-    assert (cuda_attention.launches, cuda_attention.bwd_launches) == counts
+    wide = d > cuda_attention.MAX_D
+    names = ("wide_launches", "wide_bwd_launches") if wide else ("launches", "bwd_launches")
+    counts = [getattr(cuda_attention, n) for n in names]
+    y, lse = cuda_attention.attention_fwd(q, k, v, tau, 0.1, 3)
+    got = cuda_attention.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, 3)
+    torch.cuda.synchronize()
+    assert [getattr(cuda_attention, n) for n in names] == [c + 1 for c in counts]
+    errs = chip_smoke.attention_gates(torch, cuda_attention, q, k, v, dy, tau, 0.1, 3, y, lse,
+                                      got)
+    assert all(e <= 1.0 for e in errs.values()), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,k", [(2, 2048, 9, 40), (2, 2048, 64, 40), (2, 2048, 320, 20),
+                                     (1, 300, 16, 300), (2, 130, 300, 33)])
+def test_knn_general_kernel_f1_shapes_on_card(b, n, c, k):
+    """The general kernel at the F1 shapes (k = 40 at the flagship N, C =
+    320, k = N, ragged N): `knn_agreement`'s criterion, two calls
+    bit-equal, one general launch per call and no tuned one."""
+    dev = cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(b * n + c + k)
+    x = torch.randn((b, n, c), generator=g, device=dev)
+    counts = (cuda_knn.launches, cuda_knn.general_launches)
+    got = cuda_knn.knn(x, k)
+    again = cuda_knn.knn(x, k)
+    torch.cuda.synchronize()
+    assert (cuda_knn.launches, cuda_knn.general_launches) == (counts[0], counts[1] + 2)
+    assert torch.equal(got, again)
+    a = chip_smoke.knn_agreement(torch, x, got.long(), cuda_knn.knn_reference(x, k).long())
+    assert a["mismatch"] <= 1e-2 and a["gap"] <= chip_smoke.NEAR_TIE, a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,c,n", [(40, 9, 2048), (20, 300, 500), (2600, 3, 2700)])
+def test_knn_general_kernel_exact_ties_on_card(k, c, n):
+    """On an integer grid scaled by 1/8 every distance is exact in f32:
+    the general kernel equals the plain version, ties to the lowest index;
+    k = 2600 keeps its lists in device memory."""
+    dev = cuda_or_skip()
+    x = np.random.default_rng(k + c).integers(0, 8, size=(1, n, c)).astype(np.float32) / 8
+    x = torch.from_numpy(x).to(dev)
+    assert torch.equal(cuda_knn.knn(x, k), cuda_knn.knn_reference(x, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,k", [(10, 2048, 9, 20), (2, 2048, 64, 20), (2, 300, 300, 40)])
+def test_knn_packed_kernel_on_card(b, n, c, k):
+    """The packed-key mode (knn_impl 'pallas'): on integer points equal to
+    `knn_packed_reference`; on float points every row whose lists differ
+    holds a distance within one ulp of its bucket's edge
+    (`chip_smoke.packed_agreement`), few rows differ, and two calls are
+    bit-equal with one packed launch each."""
+    dev = cuda_or_skip()
+    xi = np.random.default_rng(n + c).integers(-4, 5, size=(b, n, c)).astype(np.float32)
+    xi = torch.from_numpy(xi).to(dev)
+    assert torch.equal(cuda_knn.knn(xi, k, packed=True), cuda_knn.knn_packed_reference(xi, k))
+    g = torch.Generator(device=dev).manual_seed(b + n + c)
+    x = torch.randn((b, n, c), generator=g, device=dev)
+    before = cuda_knn.packed_launches
+    got = cuda_knn.knn(x, k, packed=True)
+    again = cuda_knn.knn(x, k, packed=True)
+    torch.cuda.synchronize()
+    assert cuda_knn.packed_launches == before + 2 and torch.equal(got, again)
+    a = chip_smoke.packed_agreement(torch, cuda_knn, x, got, cuda_knn.knn_packed_reference(x, k))
+    assert a["unexplained"] == 0 and a["mismatch"] <= 1e-2, a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,dtype,rate", [(10, 128, torch.float32, 0.1),
+                                            (2, 128, torch.float32, 0.0),
+                                            (10, 128, torch.bfloat16, 0.1),
+                                            (2, 128, torch.bfloat16, 0.0),
+                                            (2, 300, torch.float32, 0.1),
+                                            (2, 12, torch.bfloat16, 0.1),
+                                            (2, 12, torch.float32, 0.0)])
+def test_attention_f1_shapes_on_card(b, d, dtype, rate):
+    """D = 128 at the training batches (N = 2048), D = 300 (three output
+    passes), and D = 12 in bf16 (the pad) and f32 (aligned): forward and
+    backward within `chip_smoke.attention_gates`, a second call of each
+    bit-equal, and the counters of the kernels that should run."""
+    dev = cuda_or_skip()
+    n = 2048 if d == 128 else 200
+    g = torch.Generator(device=dev).manual_seed(b * d)
+    q, k, v, dy = (torch.randn((b, n, d), generator=g, device=dev) for _ in range(4))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    tau, seed = float(d) ** 0.5, 17
+    wide = d > cuda_attention.MAX_D
+    names = ("wide_launches", "wide_bwd_launches") if wide else ("launches", "bwd_launches")
+    counts = [getattr(cuda_attention, n) for n in names]
+    y, lse = cuda_attention.attention_fwd(q, k, v, tau, rate, seed)
+    y2, lse2 = cuda_attention.attention_fwd(q, k, v, tau, rate, seed)
+    got = cuda_attention.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
+    again = cuda_attention.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
+    torch.cuda.synchronize()
+    assert [getattr(cuda_attention, n) for n in names] == [c + 2 for c in counts]
+    assert torch.equal(y, y2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
+    errs = chip_smoke.attention_gates(torch, cuda_attention, q, k, v, dy, tau, rate, seed, y,
+                                      lse, got)
+    assert all(e <= 1.0 for e in errs.values()), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m", [(torch.float32, 60000), (torch.bfloat16, 120000)])
+@pytest.mark.parametrize("kind", chip_smoke.KTH_KINDS)
+def test_kth_wide_kernel_adversarial_rows_on_card(kind, dtype, m):
+    """Rows past one block's shared memory (`chip_smoke.kth_rows` at 60000
+    f32 and 120000 bf16 entries): the wide variant, bit-equal to the plain
+    version, two calls bit-equal, one wide launch per call."""
+    dev = cuda_or_skip()
+    d, k = chip_smoke.kth_rows(kind, 3, m, seed=len(kind))
+    d = torch.from_numpy(d).to(dtype).to(dev)
+    iters = 32 if dtype == torch.float32 else 16
+    counts = (cuda_kth.launches, cuda_kth.wide_launches)
+    got = cuda_kth.kth_smallest_per_row(d, k, iters)
+    again = cuda_kth.kth_smallest_per_row(d, k, iters)
+    torch.cuda.synchronize()
+    assert (cuda_kth.launches, cuda_kth.wide_launches) == (counts[0], counts[1] + 2)
+    assert torch.equal(got, again)
+    assert torch.equal(got, cuda_kth.kth_smallest_per_row_reference(d, k, iters))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,dtype", [(10, 2048, 63, torch.float32),
+                                         (2, 2048, 63, torch.bfloat16),
+                                         (1, 32768, 64, torch.float32),
+                                         (2, 40000, 7, torch.bfloat16)])
+def test_scatter_general_kernel_on_card(b, n, c, dtype):
+    """An odd C at the flagship kNN graph, and N past the tuned build's
+    shared memory: the general kernel, bit-equal to the ordered emulation
+    and across two calls (a bf16 g also to the f32 form on its upcast),
+    with ids out of range dropped; one general launch per call."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(b + n + c)
+    x = torch.from_numpy(rng.normal(size=(b, n, 9)).astype(np.float32)).to(dev)
+    idx = cuda_knn.knn(x, 20) if n == 2048 else torch.from_numpy(
+        rng.integers(-2, n + 2, size=(b, n // 4, 20)).astype(np.int32)).to(dev)
+    idx[:, :, 1] = 5                                   # a hub
+    g = torch.from_numpy(rng.normal(size=(*idx.shape, c)).astype(np.float32)).to(dev, dtype)
+    counts = (cuda_scatter.launches, cuda_scatter.general_launches)
+    got = cuda_scatter.scatter_add(g, idx, n)
+    again = cuda_scatter.scatter_add(g, idx, n)
+    torch.cuda.synchronize()
+    assert (cuda_scatter.launches, cuda_scatter.general_launches) == (counts[0], counts[1] + 2)
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert torch.equal(got, cuda_scatter.scatter_add_ordered_reference(g, idx, n))
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, cuda_scatter.scatter_add(g.float(), idx, n))
 
 
 # ------------------------------------------------ the bf16 encoder's forms --

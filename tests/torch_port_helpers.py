@@ -22,6 +22,12 @@ def cuda_or_skip() -> torch.device:
 
 def jax_knn_kernel_exact(x, k: int, tile_n: int):
     """`_knn_kernel(exact=True)` over (B, N, C), interpret mode."""
+    return jax_knn_kernel(x, k, tile_n, exact=True)
+
+
+def jax_knn_kernel(x, k: int, tile_n: int, exact: bool = True):
+    """`_knn_kernel` over (B, N, C), interpret mode; ``exact`` False: the
+    packed-key mode (knn_impl 'pallas')."""
     import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
@@ -29,7 +35,7 @@ def jax_knn_kernel_exact(x, k: int, tile_n: int):
 
     b, n, c = x.shape
     return pl.pallas_call(
-        functools.partial(pk._knn_kernel, k=k, n_keys=n, exact=True),
+        functools.partial(pk._knn_kernel, k=k, n_keys=n, exact=exact),
         out_shape=jax.ShapeDtypeStruct((b, n, k), jnp.int32),
         grid=(b, n // tile_n),
         in_specs=[pl.BlockSpec((1, tile_n, c), lambda i, j: (i, j, 0)),
