@@ -112,7 +112,8 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      rows of 60000 f32 and 120000 bf16 entries, the scatter-add at C = 63
      and at N = 32768; each shape's own counter moves and the tuned
      kernel's not, against the plain versions (kNN as kernel 1, the packed
-     kNN's differences explained by rounding at a bucket edge, attention
+     kNN's differing rows at most 1e-2, each explained by the rounding of
+     the distances, attention
      within the tuned gates scaled to D, k-th distance and scatter-add bit
      for bit), two calls bit-equal;
   4c. a configuration past the tuned shapes (dgcnn_k 40, output_dim 128, a
@@ -152,6 +153,8 @@ import time
 import numpy as np
 
 NEAR_TIE = 1e-5     # relative distance gap that counts as a tie
+PACKED_MISMATCH = 1e-2  # share of rows whose packed-kNN lists may differ from the plain
+                        # version's (2.2e-3 at C = 9, 2.0e-4 at C = 64 on an H100)
 F32_FLOPS = 67e12   # H100 SXM peak f32 FLOP/s outside the tensor cores
 TF32_TC_FLOPS = 495e12  # H100 SXM dense tf32 tensor-core peak FLOP/s
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak FLOP/s
@@ -459,27 +462,66 @@ def knn_agreement(torch, x, got, want) -> dict:
 
 def packed_agreement(torch, knn_mod, x, got, want) -> dict:
     """The packed-key kNN's lists ``got`` against the plain packed
-    version's ``want`` on x: the share of rows that differ, and how many of
-    those no f32 rounding explains.  A packed key keeps the distance's bits
-    above the low packed_bits(N) ones, so two computations whose distances
-    differ by rounding (at the scale of xx_i + xx_j, as the Gram form
-    rounds) put a distance near a bucket edge in different buckets and move
-    its column; a differing row is explained when one of its columns in
-    either list lies within NEAR_TIE of xx_i + xx_j of its bucket's edge."""
-    n = x.shape[1]
-    xx = (x * x).sum(-1, keepdim=True)
-    d = ((xx - 2.0 * torch.matmul(x, x.transpose(-1, -2))) + xx.transpose(-1, -2)).clamp_min(0.0)
-    low = (1 << knn_mod.packed_bits(n)) - 1
-    r = d.view(torch.int32) & low
-    ulp = torch.nextafter(d, torch.full_like(d, float("inf"))) - d
-    gap = torch.minimum(r, low + 1 - r).float() * ulp
-    del d, r, ulp
-    scale = xx + xx.transpose(-1, -2)
-    near = gap <= NEAR_TIE * scale
-    del gap, scale
+    version's ``want`` on x: the share of rows that differ, how many of
+    them the rounding of the distances cannot explain, and the least share
+    of that rounding's bound (``tol_share``, of 1/16, 1/8, ... 1) that
+    explains them all.
+
+    The kernel and the plain version sum d = (qq - 2 inner) + kk in
+    different orders, so their distances differ by rounding, of the order
+    of eps = 2^-23 times the magnitudes summed, s = qq + kk + 2 sum_c
+    |x_ic x_jc|, and growing as sqrt(C + 2) for C + 2 summed products.
+    The bound used is tol = sqrt(C + 2) eps s: an emulation of the
+    kernel's fma chains on the CPU, against the plain version, measured at
+    most 1.0 eps s on the episode's points (C = 9) and 2.4 on normal
+    features (C = 64), a third of sqrt(11) and sqrt(66).  A packed key
+    keeps d's bits above the low packed_bits(N) ones, so such a difference
+    moves a column near a bucket's edge into the next bucket.  A differing
+    row is explained when ``got`` is the packed top k for some distances
+    within tol of the plain ones: each column's key may be that of any
+    bucket [d - tol, d + tol] reaches (its low bits stay the column), the
+    keys must rise along the list (a greedy choice of the least key at
+    each place decides it), and every column not listed must be able to
+    lie above the last.  A column whose interval reaches no edge keeps its
+    key, so a list out of order, or one that misses a neighbour, is
+    explained only where each column it moves lies within tol of an edge;
+    a list with a repeated column never is."""
+    n, c = x.shape[1], x.shape[2]
     rows = (got != want).any(-1)
-    hit = near.gather(-1, got.long()).any(-1) | near.gather(-1, want.long()).any(-1)
-    return dict(mismatch=rows.float().mean().item(), unexplained=int((rows & ~hit).sum()))
+    out = dict(mismatch=rows.float().mean().item(), unexplained=0, tol_share=0.0)
+    if not bool(rows.any()):
+        return out
+    bi, ri = rows.nonzero(as_tuple=True)
+    xx = (x * x).sum(-1, keepdim=True)
+    d = ((xx - 2.0 * torch.matmul(x, x.transpose(-1, -2))) + xx.transpose(-1, -2))[bi, ri]
+    ax = x.abs()
+    s = xx[bi, ri] + xx[bi, :, 0] + 2.0 * torch.matmul(ax[bi], ax[bi, ri][..., None])[..., 0]
+    tol = (c + 2) ** 0.5 * 2.0 ** -23 * s
+    g = got[bi, ri].long()
+    low = (1 << knn_mod.packed_bits(n)) - 1
+    col = torch.arange(n, device=x.device)
+
+    def key(v):
+        return (v.clamp_min(0.0).view(torch.int32).long() & ~low) | col
+
+    repeated = (g.sort(-1).values.diff(dim=-1) == 0).any(-1)
+    listed = torch.zeros_like(d, dtype=torch.bool).scatter_(1, g, True)
+
+    def explained(t):
+        k_min, k_max = key(d - t).gather(1, g), key(d + t)
+        last = torch.full_like(g[:, 0], -1)
+        ok = ~repeated
+        for p in range(g.shape[1]):
+            least = (last & ~low) | g[:, p]          # the least key of the column above last
+            least = torch.where(least > last, least, least + low + 1)
+            last = torch.maximum(least, k_min[:, p])
+            ok &= last <= k_max.gather(1, g[:, p:p + 1])[:, 0]
+        return ok & ((k_max > last[:, None]) | listed).all(-1)
+
+    out["unexplained"] = int((~explained(tol)).sum())
+    shares = [f for f in (1 / 16, 1 / 8, 1 / 4, 1 / 2, 1.0) if bool(explained(f * tol).all())]
+    out["tol_share"] = shares[0] if shares else float("inf")
+    return out
 
 
 def attention_gates(torch, attn_mod, q, k, v, dy, tau, rate, seed, y, lse, grads) -> dict:
@@ -1250,8 +1292,9 @@ def check_knn_general(torch, knn_mod):
     differ on at most 1e-3 of the rows, each differing neighbour within
     NEAR_TIE of xx_i + xx_j of the k-th distance), two calls bit-equal.
     Times: the three calls, kernel and plain version; no single PyTorch
-    call computes a kNN.  Bound: 2 B N^2 C f32 FFMA operations (the
-    kernel's products), x read and the lists written."""
+    call computes a kNN.  Bound: the products 2 B N^2 C as three tf32
+    tensor-core passes, as kernel 1's row (the FFMA bound, what this
+    kernel runs, beside it); x read and the lists written."""
     counters = {"general": (knn_mod, "general_launches"), "tuned": (knn_mod, "launches")}
     g = torch.Generator(device="cuda").manual_seed(21)
     xs = [(torch.randn((b, 2048, c), generator=g, device="cuda"), k) for b, c, k in KNN_F1_SHAPES]
@@ -1275,20 +1318,20 @@ def check_knn_general(torch, knn_mod):
     log("  knn general ms per call: " + ", ".join(f"{n[3:]} {v:.4f}" for n, v in per.items()))
     flops = sum(2.0 * x.shape[0] * x.shape[1] ** 2 * x.shape[2] for x, _ in xs)
     nbytes = sum(4.0 * x.numel() + 4.0 * x.shape[0] * x.shape[1] * k for x, k in xs)
-    return row(err, ms, plain, None, flops, nbytes, **rates, **per)
+    return row(err, ms, plain, None, 3 * flops, nbytes, TF32_TC_FLOPS,
+               bound_ms_ffma=bound(flops, nbytes)[0], **rates, **per)
 
 
 def check_knn_packed(torch, knn_mod, sx):
     """The packed-key kNN (knn_impl "pallas") at a request's six EdgeConv
     calls (`KNN_SHAPES`, k = 20): on integer points (every sum exact) equal
     to `knn_packed_reference`; on the episode's points and random features
-    every differing row explained by rounding at a bucket edge
-    (`packed_agreement`; the rate is printed, not bounded: at C = 9 the
-    neighbours' distances are far below the norms, whose rounding is then
-    a sizeable share of a bucket), two calls bit-equal, one packed launch
-    per call and no tuned one.  Times: the six calls, kernel and plain
-    version (no single PyTorch call).  Bound: 2 B N^2 C f32 FFMA, x read,
-    the lists written."""
+    at most PACKED_MISMATCH of the rows differ from it and each differing
+    row is explained by the rounding of the distances (`packed_agreement`),
+    two calls bit-equal, one packed launch per call and no tuned one.
+    Times: the six calls, kernel and plain version (no single PyTorch
+    call).  Bound: the products 2 B N^2 C as three tf32 tensor-core passes,
+    as kernel 1's row (FFMA beside it); x read, the lists written."""
     k = 20
     counters = {"packed": (knn_mod, "packed_launches"), "tuned": (knn_mod, "launches")}
     rng = np.random.default_rng(22)
@@ -1305,10 +1348,12 @@ def check_knn_packed(torch, knn_mod, sx):
         same = torch.equal(got, knn_mod.knn(x, k, packed=True))
         a = packed_agreement(torch, knn_mod, x, got, knn_mod.knn_packed_reference(x, k))
         rates[f"mismatch_c{c}"] = a["mismatch"]
+        rates[f"tol_share_c{c}"] = a["tol_share"]
         log(f"  knn packed {tuple(x.shape)}: equal to plain on integer points; rows that differ "
-            f"from plain {a['mismatch']:.3e}, of them unexplained by rounding at a bucket edge "
-            f"{a['unexplained']}; a second call bit-equal {same}")
-        if a["unexplained"] or not same:
+            f"from plain {a['mismatch']:.3e} (bound {PACKED_MISMATCH:.0e}), of them unexplained "
+            f"by rounding {a['unexplained']}, explained within {a['tol_share']} of the rounding "
+            f"bound; a second call bit-equal {same}")
+        if a["unexplained"] or a["mismatch"] > PACKED_MISMATCH or not same:
             raise AssertionError(f"knn packed C={c}: {a}, repeat {same}")
     feats = {(b, c): torch.randn((b, 2048, c), generator=g, device="cuda")
              for b, c in set(KNN_SHAPES)}
@@ -1319,7 +1364,8 @@ def check_knn_packed(torch, knn_mod, sx):
     log("  knn packed ms per call: " + ", ".join(f"{n[3:]} {v:.4f}" for n, v in per.items()))
     flops = sum(2.0 * b * 2048 ** 2 * c for b, c in KNN_SHAPES)
     nbytes = sum(4.0 * b * 2048 * (c + k) for b, c in KNN_SHAPES)
-    return row(0.0, ms, plain, None, flops, nbytes, **rates, **per)
+    return row(0.0, ms, plain, None, 3 * flops, nbytes, TF32_TC_FLOPS,
+               bound_ms_ffma=bound(flops, nbytes)[0], **rates, **per)
 
 
 def check_attention_wide(torch, attn_mod):
@@ -1331,9 +1377,11 @@ def check_attention_wide(torch, attn_mod):
     pad to 16, then the tuned bf16 kernels).  Times per step (both batches,
     rate 0.1): kernels, plain versions, and SDPA (f32: the
     memory-efficient backend; bf16: flash) forward alone and backward
-    alone.  Bounds: 4 B N^2 D and 10 B N^2 D operations as f32 FFMA (the
-    kernels' products, f32 and bf16 alike); bytes as the tuned rows
-    count them.  Returns the four wide rows."""
+    alone.  Bounds: 4 B N^2 D and 10 B N^2 D operations at the peak of
+    the function's type, as the tuned rows count them: f32 as three tf32
+    tensor-core passes (the FFMA bound, what these kernels run, beside
+    it), bf16 on the bf16 tensor cores; bytes as the tuned rows count
+    them.  Returns the four wide rows."""
     tuned = {"fwd": (attn_mod, "launches"), "bwd": (attn_mod, "bwd_launches")}
     wide = {"fwd": (attn_mod, "wide_launches"), "bwd": (attn_mod, "wide_bwd_launches")}
     counters = {**{f"tuned_{n}": c for n, c in tuned.items()},
@@ -1417,11 +1465,14 @@ def check_attention_wide(torch, attn_mod):
         el = 2.0 if dtype == torch.bfloat16 else 4.0
         fwd_bytes = 3 * el * n + 4.0 * n + 4.0 * nrows
         bwd_bytes = 3 * el * n + 2 * 4.0 * n + 4.0 * nrows + 3 * 4.0 * n
+        passes, peak = (1, BF16_TC_FLOPS) if dtype == torch.bfloat16 else (3, TF32_TC_FLOPS)
         rows[f"attention_wide_fwd{tag}"] = row(
-            err_y, t["fwd"], t["fwd_plain"], t["lib_fwd"], 4.0 * bn2d, fwd_bytes,
+            err_y, t["fwd"], t["fwd_plain"], t["lib_fwd"], passes * 4.0 * bn2d, fwd_bytes,
+            peak, bound_ms_ffma=bound(4.0 * bn2d, fwd_bytes)[0],
             ms_b10=t["fwd_b10"], ms_b2=t["fwd_b2"], share_of_gate=worst["y"])
         rows[f"attention_wide_bwd{tag}"] = row(
-            err_g, t["bwd"], t["bwd_plain"], t["lib_bwd"], 10.0 * bn2d, bwd_bytes,
+            err_g, t["bwd"], t["bwd_plain"], t["lib_bwd"], passes * 10.0 * bn2d, bwd_bytes,
+            peak, bound_ms_ffma=bound(10.0 * bn2d, bwd_bytes)[0],
             ms_b10=t["bwd_b10"], ms_b2=t["bwd_b2"], share_of_gate=worst["grads"],
             ms_pair=t["fwd"] + t["bwd"], library_ms_pair=t["lib_fwd"] + t["lib_bwd"])
     for dtype in (torch.float32, torch.bfloat16):
@@ -2164,8 +2215,9 @@ class KnnReplay:
 
     def replay(self):
         """Under ``packed`` (knn_impl 'pallas') the plain path's kNN is the
-        packed mode's plain version, and a differing row must be explained
-        by rounding at a bucket edge (`packed_agreement`)."""
+        packed mode's plain version: at most PACKED_MISMATCH of the rows
+        may differ, each explained by the rounding of the distances
+        (`packed_agreement`)."""
         saved = self.dgcnn_mod.knn_indices
         plain = self.knn_mod.knn_packed_reference if self.packed else saved
         queue = list(self.recorded)
@@ -2175,7 +2227,7 @@ class KnnReplay:
             if self.packed:
                 a = packed_agreement(self.torch, self.knn_mod, x, rec, want)
                 self.swapped.append(int(round(a["mismatch"] * x.shape[0] * x.shape[1])))
-                if a["unexplained"]:
+                if a["unexplained"] or a["mismatch"] > PACKED_MISMATCH:
                     raise AssertionError(f"packed kNN kernel and plain differ beyond rounding: "
                                          f"{a}")
                 return rec.to(self.torch.int32)

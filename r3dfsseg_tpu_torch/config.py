@@ -141,6 +141,13 @@ class R3DConfig:
         return self.num_proto_slots + self.num_query_points
 
     @property
+    def follower_impl(self) -> str:
+        """The impl of the kernels that follow the kNN (the scatter-add in
+        EdgeConv's backward, the k-th distance, the Chebyshev solve):
+        'xla' under knn_impl 'xla', 'auto' under every kernel value."""
+        return "xla" if self.knn_impl == "xla" else "auto"
+
+    @property
     def graph_bf16(self) -> bool:
         """Whether the episode graph is bf16: `graph_dtype`, where 'auto'
         follows the encoder's `compute_dtype`."""

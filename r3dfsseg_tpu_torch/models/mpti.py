@@ -19,7 +19,6 @@ from torch import nn
 from r3dfsseg_tpu_torch.config import R3DConfig
 from r3dfsseg_tpu_torch.models.episode import Episode
 from r3dfsseg_tpu_torch.nn.dgcnn import BN_MODES, FeatureExtractor
-from r3dfsseg_tpu_torch.ops import cuda_knn
 from r3dfsseg_tpu_torch.ops.fps import multi_prototypes
 from r3dfsseg_tpu_torch.ops.grid import grid_seed_pool
 from r3dfsseg_tpu_torch.ops.lp import label_propagate, local_constrained_affinity
@@ -180,7 +179,7 @@ def _mpti_core(support_feat: torch.Tensor, query_feat: torch.Tensor, ep: Episode
     # the bf16 graph: bf16 neighbour selection, affinity and S (kernel 7's
     # solve)
     lowp = torch.bfloat16 if c.graph_bf16 else None
-    impl = cuda_knn.followers(c.knn_impl)
+    impl = c.follower_impl
     a = local_constrained_affinity(node_feat, c.k_connect, c.sigma, valid=node_valid,
                                    compare_dtype=lowp, kth_impl=impl)
     z = label_propagate(a, y0, c.lp_alpha, cg_iters=c.lp_cg_iters,
@@ -264,7 +263,7 @@ class MPTINet(nn.Module):
             c.output_dim, dgcnn_k=c.dgcnn_k, use_attention=c.use_attention,
             knn_impl=c.knn_impl, attn_impl=c.attn_impl, attn_dropout=c.attn_dropout,
             dtype=torch.bfloat16 if c.compute_dtype == "bfloat16" else None,
-            bn_mode=c.bn_mode, attn_f32=c.attn_f32)
+            bn_mode=c.bn_mode, attn_f32=c.attn_f32, gather_impl=c.follower_impl)
         self.proj = nn.Linear(c.feat_dim, c.proj_dim)   # WayContrast head (training)
 
     @torch.no_grad()

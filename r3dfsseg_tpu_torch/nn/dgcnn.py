@@ -185,19 +185,21 @@ class _EdgeFirstLayer(nn.Module):
 
 class EdgeConv(nn.Module):
     """kNN on the current (detached) features -> edge MLP -> max over the k
-    neighbours.  knn_impl 'auto' (or 'pallas_exact') runs the kNN and
-    scatter-add kernels on CUDA tensors, 'pallas' the kNN in the TPU
-    kernel's packed-key mode (its plain version on CPU tensors), 'xla' the
-    plain versions.  A bf16 input (a bf16 block's
+    neighbours.  knn_impl 'auto' (or 'pallas_exact') runs the kNN kernels
+    on CUDA tensors, 'pallas' the kNN in the TPU kernel's packed-key mode
+    (its plain version on CPU tensors), 'xla' the plain version;
+    ``gather_impl`` 'auto' runs the scatter-add kernel in the backward,
+    'xla' `index_add_` (`R3DConfig.follower_impl`).  A bf16 input (a bf16 block's
     output under 'stats', 'relaxed' or 'hybrid') is searched in its exact
     f32 upcast, as the TPU kernel loads it.  ``bn_modes`` gives each
     layer's BN mode (default 'exact')."""
 
     def __init__(self, in_features: int, widths: Sequence[int], k: int = 20,
                  knn_impl: str = "auto", dtype: Optional[torch.dtype] = None,
-                 bn_modes: Optional[Sequence[str]] = None):
+                 bn_modes: Optional[Sequence[str]] = None, gather_impl: str = "auto"):
         super().__init__()
-        gather_impl = cuda_knn.followers(knn_impl)
+        if knn_impl not in cuda_knn.IMPLS:
+            raise NotImplementedError(f"knn_impl {knn_impl!r}: the port has {cuda_knn.IMPLS}")
         modes = tuple(bn_modes or ("exact",) * len(widths))
         self.k = k
         self.knn_impl = knn_impl
@@ -230,7 +232,7 @@ class DGCNN(nn.Module):
                  edgeconv_widths: Sequence[Sequence[int]] = ((64, 64), (64, 64), (64, 64)),
                  mlp_widths: Sequence[int] = (512, 256), k: int = 20,
                  knn_impl: str = "auto", dtype: Optional[torch.dtype] = None,
-                 bn_modes: Optional[Dict[str, str]] = None):
+                 bn_modes: Optional[Dict[str, str]] = None, gather_impl: str = "auto"):
         super().__init__()
         modes = bn_modes or {}
         c = in_features
@@ -238,7 +240,8 @@ class DGCNN(nn.Module):
             layer_modes = [modes.get(f"encoder.edgeconv{i}.layer{j}", "exact")
                            for j in range(len(widths))]
             self.add_module(f"edgeconv{i}", EdgeConv(c, widths, k=k, knn_impl=knn_impl,
-                                                     dtype=dtype, bn_modes=layer_modes))
+                                                     dtype=dtype, bn_modes=layer_modes,
+                                                     gather_impl=gather_impl))
             c = widths[-1]
         c = sum(w[-1] for w in edgeconv_widths)
         for i, w in enumerate(mlp_widths):
@@ -337,8 +340,8 @@ class SelfAttention(nn.Module):
 class FeatureExtractor(nn.Module):
     """The few-shot embedding concat(level1, attention | mapper, base),
     (B, N, C_in) -> (B, N, feat_dim) float32.  ``dtype`` (None or
-    torch.bfloat16), ``bn_mode`` and ``attn_f32`` as the config's
-    `compute_dtype`, `bn_mode` and `attn_f32`."""
+    torch.bfloat16), ``bn_mode``, ``attn_f32`` and ``gather_impl`` as the
+    config's `compute_dtype`, `bn_mode`, `attn_f32` and `follower_impl`."""
 
     def __init__(self, in_features: int,
                  edgeconv_widths: Sequence[Sequence[int]] = ((64, 64), (64, 64), (64, 64)),
@@ -347,11 +350,12 @@ class FeatureExtractor(nn.Module):
                  dgcnn_k: int = 20, use_attention: bool = True,
                  knn_impl: str = "auto", attn_impl: str = "auto", attn_dropout: float = 0.1,
                  dtype: Optional[torch.dtype] = None, bn_mode: str = "exact",
-                 attn_f32: bool = False):
+                 attn_f32: bool = False, gather_impl: str = "auto"):
         super().__init__()
         modes = resolve_bn_modes(bn_mode, edgeconv_widths, dgcnn_mlp_widths, base_widths)
         self.encoder = DGCNN(in_features, edgeconv_widths, dgcnn_mlp_widths, k=dgcnn_k,
-                             knn_impl=knn_impl, dtype=dtype, bn_modes=modes)
+                             knn_impl=knn_impl, dtype=dtype, bn_modes=modes,
+                             gather_impl=gather_impl)
         c = dgcnn_mlp_widths[-1]
         self.base_learner = BaseLearner(c, base_widths, dtype=dtype, bn_modes=modes)
         if use_attention:

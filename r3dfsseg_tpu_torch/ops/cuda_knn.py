@@ -74,15 +74,6 @@ def splits(b: int, n: int, sms: int) -> int:
     return s
 
 
-def followers(knn_impl: str) -> str:
-    """The impl of the kernels that follow knn_impl (the scatter-add
-    backward, the k-th distance, the Chebyshev solve): 'xla' under 'xla',
-    else 'auto'."""
-    if knn_impl not in IMPLS:
-        raise NotImplementedError(f"knn_impl {knn_impl!r}: the port has {IMPLS}")
-    return "xla" if knn_impl == "xla" else "auto"
-
-
 def knn_reference(x: torch.Tensor, k: int) -> torch.Tensor:
     """x (B, N, C) f32 or bf16 -> (B, N, k) int32, the plain PyTorch
     version, on the f32 upcast."""

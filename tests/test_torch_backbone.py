@@ -24,7 +24,8 @@ def _pair(cfg, use_attention=True, knn_impl="auto", attn_impl="auto", attn_dropo
                              attn_dropout=attn_dropout)
     tm = FeatureExtractor(cfg.pc_in_dim, widths, cfg.dgcnn_mlp_widths, cfg.base_widths,
                           cfg.output_dim, dgcnn_k=cfg.dgcnn_k, use_attention=use_attention,
-                          knn_impl=knn_impl, attn_impl=attn_impl, attn_dropout=attn_dropout)
+                          knn_impl=knn_impl, attn_impl=attn_impl, attn_dropout=attn_dropout,
+                          gather_impl=knn_impl)
     return jm, tm
 
 

@@ -267,7 +267,8 @@ def _encoder_pair(cfg, bn_mode):
                                     bn_mode=bn_mode)
     tm = dgcnn.FeatureExtractor(cfg.pc_in_dim, widths, cfg.dgcnn_mlp_widths, cfg.base_widths,
                                 cfg.output_dim, dgcnn_k=cfg.dgcnn_k, knn_impl="xla",
-                                attn_impl="xla", attn_dropout=0.0, dtype=BF16, bn_mode=bn_mode)
+                                attn_impl="xla", attn_dropout=0.0, dtype=BF16, bn_mode=bn_mode,
+                                gather_impl="xla")
     return jm, tm
 
 

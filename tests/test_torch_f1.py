@@ -7,7 +7,8 @@ on the CPU.  Inputs are made from seeds with numpy.
 
 Tolerances: the kNN selections are compared exactly (integer coordinates
 make every sum exact; float inputs are held to a one-ulp margin at the
-packed keys' bucket edges); the k-th distance bit for bit; the
+packed keys' bucket edges, and the card's gate on the packed kernel to
+the rounding bound of `chip_smoke.packed_agreement`); the k-th distance bit for bit; the
 scatter-add at rtol = atol = 1e-6 on bf16-representable cotangents (every
 version is the same f32 sum in another order); attention as the tuned
 forms' CPU tests hold it (f32 rtol 1e-5, atol 1e-6; bf16 within
@@ -189,6 +190,57 @@ def test_general_knn_packed_keys_through_the_lists(n, k):
     np.testing.assert_array_equal(got, cuda_knn.knn_packed_reference(x, k)[0].numpy())
 
 
+def _fma_chain_packed_knn(x: np.ndarray, k: int) -> torch.Tensor:
+    """csrc/knn_general.cu's packed-mode arithmetic on the CPU: each norm
+    and inner product one fma chain over the channels in order (the
+    product exact in f64, each step rounded to f32), d = max((qq - 2
+    inner) + kk, 0), the k smallest packed keys' columns."""
+    n = x.shape[1]
+    low = (1 << cuda_knn.packed_bits(n)) - 1
+    out = []
+    for xb in x.astype(np.float64):
+        nrm, inner = np.zeros(n, np.float32), np.zeros((n, n), np.float32)
+        for c in range(xb.shape[1]):
+            nrm = (xb[:, c] * xb[:, c] + nrm).astype(np.float32)
+            inner = (np.outer(xb[:, c], xb[:, c]) + inner).astype(np.float32)
+        d = np.maximum((nrm[:, None] - np.float32(2) * inner) + nrm[None, :], np.float32(0))
+        key = (d.view(np.int32) & ~low) | np.arange(n, dtype=np.int32)
+        out.append(np.sort(key, -1)[:, :k] & low)
+    return torch.from_numpy(np.stack(out))
+
+
+def test_packed_agreement_explains_rounding_and_flags_wrong_lists():
+    """`chip_smoke.packed_agreement`, the card's gate on the packed kNN:
+    the kernel's arithmetic (`_fma_chain_packed_knn`) on four support
+    clouds of a flagship episode (C = 9) gives lists that differ from the
+    plain version's on a few rows, each explained within an eighth of the
+    rounding bound; a row with two places swapped (far apart or the last
+    two), its last neighbour replaced by the farthest point, or a repeated
+    column is not explained."""
+    from chip_smoke import make_episode, packed_agreement
+    from r3dfsseg_tpu_torch.config import R3DConfig
+    x = make_episode(R3DConfig(), np.random.default_rng(0))[0].reshape(-1, 2048, 9)[:4]
+    xt = torch.from_numpy(x)
+    got, want = _fma_chain_packed_knn(x, 20), cuda_knn.knn_packed_reference(xt, 20)
+    a = packed_agreement(torch, cuda_knn, xt, got, want)
+    assert 0 < a["mismatch"] <= 1e-2 and a["unexplained"] == 0 and a["tol_share"] <= 1 / 8, a
+    b, r = (~(got != want).any(-1)).nonzero()[7].tolist()
+
+    def swap(v, i, j):
+        v[[i, j]] = v[[j, i]]
+
+    def farthest(v):
+        v[-1] = int(((xt[b] - xt[b, r]) ** 2).sum(-1).argmax())
+
+    def repeat(v):
+        v[5] = v[4]
+
+    for wrong in (lambda v: swap(v, 3, 12), lambda v: swap(v, 18, 19), farthest, repeat):
+        bad = got.clone()
+        wrong(bad[b, r])
+        assert packed_agreement(torch, cuda_knn, xt, bad, want)["unexplained"] == 1
+
+
 # ------------------------------------ kernel 1 packed: EdgeConv and serving --
 @pytest.fixture
 def jax_pallas_knn(monkeypatch):
@@ -273,7 +325,8 @@ def test_knob_values_follow_the_jax_package():
                 {"attn_impl": "bogus"}):
         with pytest.raises(NotImplementedError):
             FewShotPredictor(cfg.replace(**bad), device="cpu").predict(*arrays)
-    assert [cuda_knn.followers(v) for v in cuda_knn.IMPLS] == ["auto", "auto", "auto", "xla"]
+    assert [cfg.replace(knn_impl=v).follower_impl for v in cuda_knn.IMPLS] == \
+        ["auto", "auto", "auto", "xla"]
 
 
 # ------------------------------------------ kernels 2 and 5 at any width --

@@ -153,7 +153,7 @@ def _edgeconv(seed, c_in=6, width=16, k=4, knn_impl="auto"):
     """A port EdgeConv with random weights, BatchNorm affines and running
     statistics."""
     torch.manual_seed(seed)
-    block = EdgeConv(c_in, (width, width), k=k, knn_impl=knn_impl)
+    block = EdgeConv(c_in, (width, width), k=k, knn_impl=knn_impl, gather_impl=knn_impl)
     with torch.no_grad():
         for layer in (block.layer0, block.layer1):
             layer.bn.weight.uniform_(0.5, 1.5)
