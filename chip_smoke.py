@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (r3dfsseg_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
-                          [--only knn,fps | cheby,scatter | kth | bf16 | f1]
+                          [--only knn,fps | cheby,scatter | kth | bf16 | f1 | f2 | fused]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
@@ -38,7 +38,9 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      the support batch: the row gather (kernel 8) bit-equal, f32 and
      bf16, and the fused EdgeConv tail's five passes (kernel 9) in train
      and eval, stats1 and fwd within 1e-5 and each backward output within
-     1e-4 of its largest entry), and time the kernel, the plain version
+     1e-4 of its largest entry; then the same on the bf16 encoder's blocks'
+     bf16 e_raw through kernel 9's bf16 form, each pass also bit for bit the
+     f32 form on e's upcast), and time the kernel, the plain version
      and, where one exists, the one PyTorch call computing the same
      function (attention: SDPA pinned to its memory-efficient backend, its
      forward against kernel 2 and its backward alone against kernel 5),
@@ -93,7 +95,11 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      the scatter-add backward) through the encoder's three blocks, against
      the blocks' own forward and backward (`fused_phase`: outputs, batch
      statistics, gradients; the query batch in eval), each pass launched
-     once per block, and both routes timed per block;
+     once per block, and both routes timed per block; then the same on the
+     bf16 encoder (R3DConfig(compute_dtype="bfloat16")): bf16 a, b and
+     e_raw, kernel 8 and kernel 9 in their bf16 forms and kernel 6's bf16
+     form, against the bf16 blocks (FUSED_BF16_GATES: the block rounds h0,
+     W1 and l1 to bf16 where the fused tail keeps f32);
   6. the archived Chebyshev probes' main() (`probe_phase`): kernel 10 on
      `scripts/archive/proto_cheby_pallas.py`'s own problem (its "rel max
      err" against kernel 7's plain version; within 1e-3 of max of its own
@@ -125,17 +131,30 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      training step through the packed-key kNN, against the packed mode's
      plain path (labels >= 99%, step 1 within the f32 gates), the labels'
      agreement with the exact kNN path printed;
+  2c. the F2 paths, at shapes the archived TPU kernels 8-11 take and the
+     tuned kernels do not (`check_f2`): the general kernel 9
+     (`csrc/fused_edge_general.cu`) at FUSED_F2_SHAPES, f32 and bf16, every
+     pass in train and eval, within the tuned tolerances of its plain
+     version and, at the flagship shape, of the tuned kernel; kernel 8 on
+     rows that are not a multiple of 16 bytes; kernel 10 at 16 and 128
+     columns (groups of 8); kernel 11 at 12 columns (zero-padded); each
+     path's own counter moves and the tuned one's not, repeats bit-equal;
 
 It prints the card's name and power limit, one JSON line describing the
 eleven kernels (kernels 1, 2, 5 and 6 with a second row each for their
-bf16 form, and a row for each F1 kernel and the packed kNN), and as its
+bf16 form, a row for each F1 kernel and the packed kNN, a row for each
+pass of kernel 9's bf16 form and of its general kernel, and the narrow
+gather's), and as its
 last line {"ok": true, "device": {...}}.  Without a
 CUDA device it exits with code 1 and prints no result.  `--only knn,fps`
 runs the build and the kNN and FPS checks alone and prints their rows,
 `--only cheby,scatter` the Chebyshev and scatter-add checks, and `--only
 kth` the k-th distance's three checks (f32, adversarial rows, bf16), `--only
 bf16` the checks of the bf16 forms of kernels 1, 2, 5 and 6, `--only f1`
-phase 2b alone, so that
+phase 2b alone, `--only f2` phase 2c alone, and `--only fused` a digest
+of kernel 9's f32 passes' output bits at the flagship shape on seeded
+inputs with their times (the same on two trees shows the f32 form
+unchanged), so that
 another tree's kernels can be timed with the same code (put that tree's
 root first on sys.path and run this file with runpy; the tree's modules
 need the plain versions these checks call: `cheby_solve_split_reference`
@@ -144,6 +163,7 @@ and `scatter_add_ordered_reference`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -237,7 +257,9 @@ def ptxas_report(build_log: str, names=("knn_kernel", "fps_kernel", "cheby_kerne
                                         "scatter_add_kernel", "kth_kernel", "attn_fwd_bf16",
                                         "attn_bwd_dkdv_bf16", "attn_bwd_dq_bf16",
                                         "knn_general_kernel", "attn_wide", "kth_wide_kernel",
-                                        "fill_kernel", "sum_kernel")) -> list[str]:
+                                        "fill_kernel", "sum_kernel", "fused_edge_kernel",
+                                        "edge_route_kernel", "edge_rows_kernel",
+                                        "gather_rows_kernel")) -> list[str]:
     """nvcc's -Xptxas -v lines of the entry functions whose mangled name
     holds one of ``names``: registers, barriers, stack and spill, each
     under the mangled name from that name on (its template arguments:
@@ -1594,6 +1616,242 @@ def check_f1(torch, mods, sx, qx) -> dict:
     return rows
 
 
+# ------------------------------------------------------------------ F2 --
+# Shapes the archived TPU kernels 8-11 take and their tuned counterparts do
+# not (fault F2): kernel 9 at C != 64, a K past the tuned tile, B * N not a
+# multiple of 8 (B, N, K, C), and C = 64 at the flagship support shape,
+# where the general kernel is held against the tuned one
+FUSED_F2_SHAPES = [(10, 2048, 20, 32), (10, 2048, 20, 128), (2, 2048, 20, 63),
+                   (2, 2048, 20, 256), (2, 2048, 64, 64), (1, 100, 20, 64)]
+FUSED_F2_TIMED = (10, 2048, 20, 128)      # the general kernel's timed shape
+GATHER_F2 = [(63, "float32"), (60, "bfloat16"), (63, "bfloat16")]   # C: 4- and 2-byte pieces
+PROTO_F2_COLS = (16, 128)                 # kernel 10, groups of 8 columns
+PROBE_F2_COLS = 12                        # kernel 11, zero-padded to 16
+
+
+def fused_tuned_takes(name: str, b: int, n: int, k: int, c: int) -> bool:
+    """Whether kernel 9's tuned tile takes pass ``name`` at (B, N, K, C), by
+    `csrc/fused_edge.cu`'s rule: C = 64, B * N a multiple of 8, and its
+    shared memory (`smem_floats`: W1 [and W1^T for bwd2, bwd3], the vector
+    table, one or two tiles of 8 K rows) within the 227 KB a block may use
+    (up to K = 103 for stats1, 51 for fwd and bwd1, 47 for bwd2 and bwd3)."""
+    tile = (1 if name == "stats1" else 2) * 8 * k * 64
+    floats = 64 * 64 * (2 if name in ("bwd2", "bwd3") else 1) + 14 * 64 + max(tile, 2 * 256 * 8)
+    return c == 64 and (b * n) % 8 == 0 and 4 * floats <= 232448
+
+
+def f2_block(torch, c: int, k: int, seed: int):
+    """An EdgeConv (9 -> c, c) on the card with seeded weights and random
+    BatchNorm affines and running statistics."""
+    from r3dfsseg_tpu_torch.nn.dgcnn import EdgeConv
+    torch.manual_seed(seed)
+    block = EdgeConv(9, (c, c), k=k).cuda()
+    with torch.no_grad():
+        for layer in (block.layer0, block.layer1):
+            layer.bn.weight.uniform_(0.5, 1.5)
+            layer.bn.bias.normal_(0.0, 0.1)
+            layer.bn.running_mean.normal_(0.0, 0.5)
+            layer.bn.running_var.uniform_(0.5, 1.5)
+    return block
+
+
+def check_fused_general(torch, cfe, seed) -> dict:
+    """Kernel 9's general kernel (`csrc/fused_edge_general.cu`) at
+    FUSED_F2_SHAPES, f32 and bf16 e, each pass in train and eval, with the
+    arguments the tail builds from an EdgeConv block's e_raw: the general
+    counter moves once per call and the tuned kernel's not (but for the
+    passes whose tile fits the K it is given, `fused_tuned_takes`: stats1
+    at K = 64 runs the tuned kernel, as the dispatch asks), a second call
+    is bit-equal, and each output is within the tuned kernel's tolerances
+    of its plain version (stats1, fwd 1e-5 of the largest entry; backward
+    1e-4; a bf16 d_e as `output_error` allows).  At the flagship support
+    shape (10, 2048, 20, 64) the general kernel, forced by `general_only`,
+    is held to the same tolerances against the tuned kernel.  Then each pass timed at FUSED_F2_TIMED, f32 and bf16
+    (train arguments), beside its plain version and its bound, and at the
+    flagship shape beside the tuned kernel.  Returns a row per pass."""
+    counters = {f"fused_{pre}{p}": (cfe, f"{pre}{p}_launches")
+                for pre in ("", "bf16_", "general_") for p in cfe.PASSES}
+    g = torch.Generator(device="cuda").manual_seed(seed + 19)
+    err = {p: 0.0 for p in cfe.PASSES}
+    timed = {}
+    for i, (b, n, k, c) in enumerate(FUSED_F2_SHAPES + [(10, 2048, 20, 64)]):
+        vs_tuned = i == len(FUSED_F2_SHAPES)
+        block = f2_block(torch, c, k, seed + i)
+        x = torch.randn((b, n, 9), generator=g, device="cuda")
+        _, _, e32, w1 = edge_operands(torch, block, x)
+        dout = torch.randn((b, n, c), generator=g, device="cuda")
+        worst = {}
+        flips = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            e = e32.to(dtype)
+            for train in (True, False):
+                args, _ = fused_pass_args(torch, cfe, block, e, w1, dout, train)
+                for name, a in args.items():
+                    what = f"fused_edge general {name} {(b, n, k, c)} {dtype} train={train}"
+                    tuned = fused_tuned_takes(name, b, n, k, c) and not vs_tuned
+                    want_moved = {f"fused_{name}": int(tuned),
+                                  f"fused_bf16_{name}": int(tuned and dtype == torch.bfloat16),
+                                  f"fused_general_{name}": int(not tuned)}
+                    with cfe.general_only() if vs_tuned else contextlib.nullcontext():
+                        got = _as_tuple(expect_launches(counters, lambda: getattr(cfe, name)(*a),
+                                                        want_moved, what))
+                        again = _as_tuple(getattr(cfe, name)(*a))
+                    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                        raise AssertionError(f"{what}: two calls differ")
+                    want = _as_tuple(getattr(cfe, name)(*a) if vs_tuned
+                                     else getattr(cfe, f"{name}_reference")(*a))
+                    tol = 1e-5 if name in ("stats1", "fwd") else 1e-4
+                    for u, v in zip(got, want):
+                        if u.dtype != v.dtype or u.shape != v.shape:
+                            raise AssertionError(f"{what}: {u.dtype} {tuple(u.shape)}, want "
+                                                 f"{v.dtype} {tuple(v.shape)}")
+                        r, n_flip = output_error(u, v, tol, what)
+                        flips += n_flip
+                        err[name] = max(err[name], r * v.float().abs().max().item())
+                        worst[name] = max(worst.get(name, 0.0), r)
+                if train and ((b, n, k, c) == FUSED_F2_TIMED or vs_tuned):
+                    timed[(dtype, vs_tuned)] = args
+        log(f"  fused_edge general (B, N, K, C) = {(b, n, k, c)}, f32 and bf16 e, train and "
+            f"eval: error / largest entry against "
+            f"{'the tuned kernel' if vs_tuned else 'the plain version'} " +
+            ", ".join(f"{n_} {v:.2e}" for n_, v in worst.items()) +
+            f" (bf16 d_e entries one bf16 step apart: {flips}); repeats bit-equal; the general "
+            f"counter moved, the tuned one not" +
+            "".join(f" ({p_} took the tuned tile, which fits K = {k})" for p_ in cfe.PASSES
+                    if fused_tuned_takes(p_, b, n, k, c) and not vs_tuned))
+    rows = {}
+    for name in cfe.PASSES:
+        out = {}
+        for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            a = timed[(dtype, False)][name]
+            with cfe.general_only():
+                ms = cuda_ms(lambda: getattr(cfe, name)(*a), 10)
+            plain = cuda_ms(lambda: getattr(cfe, f"{name}_reference")(*a), 5)
+            flops, nbytes = fused_pass_flops(name, a[0]), fused_pass_bytes(name, a[0])
+            r = row(err[name], ms, plain, None, 3 * flops, nbytes, TF32_TC_FLOPS,
+                    bound_ffma_ms=bound(flops, nbytes)[0])
+            out.update({f"{key}{tag}": v for key, v in r.items()})
+        a = timed[(torch.float32, True)][name]
+        with cfe.general_only():
+            out["ms_c64"] = cuda_ms(lambda: getattr(cfe, name)(*a), 10)
+        out["tuned_ms_c64"] = cuda_ms(lambda: getattr(cfe, name)(*a), 10)
+        out["shape"] = list(FUSED_F2_TIMED)
+        rows[name] = out
+        log(f"  fused_edge general {name} at {FUSED_F2_TIMED}: f32 {out['ms']:.3f} ms, bf16 "
+            f"{out['ms_bf16']:.3f} (plain {out['plain_ms']:.3f} / {out['plain_ms_bf16']:.3f}, "
+            f"bound {out['bound_ms']:.4f} / {out['bound_ms_bf16']:.4f}, FFMA "
+            f"{out['bound_ffma_ms']:.4f}); at (10, 2048, 20, 64) {out['ms_c64']:.3f} against "
+            f"the tuned kernel's {out['tuned_ms_c64']:.3f}")
+    return rows
+
+
+def check_gather_narrow(torch, gather_mod, sx) -> dict:
+    """Kernel 8 on rows that are not a multiple of 16 bytes (GATHER_F2: C =
+    63 f32 and 60 bf16 in 4-byte pieces, 63 bf16 in 2-byte ones) on the
+    flagship support batch's kNN idx (the first EdgeConv block's, (10, 2048,
+    20)): bit-equal to the plain version, the narrow counter moving once per
+    call and the 16-byte one not, and timed."""
+    from r3dfsseg_tpu_torch.ops import cuda_knn
+    idx = cuda_knn.knn(sx, 20)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    counters = {"gather_onehot": (gather_mod, "launches"),
+                "gather_onehot_narrow": (gather_mod, "narrow_launches")}
+    out = {}
+    for c, dt in GATHER_F2:
+        dtype = getattr(torch, dt)
+        a = torch.randn((*sx.shape[:2], c), generator=g, device="cuda").to(dtype)
+        got = expect_launches(counters, lambda: gather_mod.gather_onehot(a, idx),
+                              {"gather_onehot": 0, "gather_onehot_narrow": 1},
+                              f"gather C = {c} {dt}")
+        if not torch.equal(got, gather_mod.gather_onehot_reference(a, idx)):
+            raise AssertionError(f"gather C = {c} {dt}: kernel and plain differ")
+        off = (torch.arange(a.shape[0], device="cuda") * a.shape[1])[:, None, None]
+        flat = (idx.long() + off).reshape(-1)
+        ms = cuda_ms(lambda: gather_mod.gather_onehot(a, idx), 10)
+        plain = cuda_ms(lambda: gather_mod.gather_onehot_reference(a, idx), 10)
+        lib = cuda_ms(lambda: a.reshape(-1, c).index_select(0, flat), 10)
+        nbytes = a.element_size() * (idx.numel() * c + a.numel()) + 4.0 * idx.numel()
+        out[f"C{c}_{dt}"] = row(0.0, ms, plain, lib, 0.0, nbytes)
+        log(f"  gather narrow C = {c} {dt}: bit-equal; {ms:.3f} ms (plain {plain:.3f}, "
+            f"index_select {lib:.3f}, bound {out[f'C{c}_{dt}']['bound_ms']:.4f})")
+    first = out[f"C{GATHER_F2[0][0]}_{GATHER_F2[0][1]}"]
+    return {**first, "cases": out}
+
+
+def check_probe_f2(torch, proto_mod, cheby_mod, alpha: float = 0.99, iters: int = 50) -> dict:
+    """Kernel 10 at PROTO_F2_COLS columns on the archive's problem (m =
+    4396), one launch per group of 8 columns, within 1e-3 of max of its
+    plain version (phase 6's gate at 3 columns); kernel 11 at PROBE_F2_COLS
+    columns on the archive's input, one launch per call, within PROBE_TOL
+    (3 steps on its S, 500 on it scaled by 1 / its row sums)."""
+    s, _ = archive_cheby_problem(torch)
+    m = s.shape[0]
+    counters = {"proto_cheby": (proto_mod, "launches"),
+                "matmul_only": (proto_mod, "matmul_only_launches")}
+    rng = np.random.default_rng(29)
+    out = {"proto_cheby": {}, "matmul_only": {}}
+    for cols in PROTO_F2_COLS:
+        b = np.zeros((m, cols), np.float32)
+        b[np.arange(1000), rng.integers(0, cols, 1000)] = 1.0
+        b = torch.from_numpy(b).cuda()
+        got = expect_launches(counters, lambda: proto_mod.proto_cheby_solve(s, b, alpha, iters),
+                              {"proto_cheby": -(-cols // 8), "matmul_only": 0},
+                              f"proto_cheby {cols} columns")
+        want = proto_mod.proto_cheby_solve_reference(s, b, alpha, iters)
+        e = (got - want).abs().max().item()
+        rel = e / want.abs().max().item()
+        if not (np.isfinite(e) and rel <= 1e-3):
+            raise AssertionError(f"proto_cheby {cols} columns: {rel} of max > 1e-3")
+        ms = cuda_ms(lambda: proto_mod.proto_cheby_solve(s, b, alpha, iters), 5)
+        plain = cuda_ms(lambda: proto_mod.proto_cheby_solve_reference(s, b, alpha, iters), 3)
+        out["proto_cheby"][str(cols)] = row(e, ms, plain, None, iters * 2.0 * m * m * cols,
+                                            2.0 * m * m + 8.0 * m * cols, peak=BF16_TC_FLOPS,
+                                            max_rel_err=rel, launches_per_call=-(-cols // 8))
+        log(f"  proto_cheby {cols} columns ({-(-cols // 8)} launches): {rel:.3e} of max "
+            f"(tolerance 1e-3); {ms:.3f} ms per solve (plain {plain:.3f})")
+    sp = archive_probe_input(torch)
+    scaled = (sp.float() / sp.float().sum(1, keepdim=True)).to(torch.bfloat16)
+    b = torch.ones((sp.shape[0], PROBE_F2_COLS), device="cuda")
+    err = 0.0
+    for steps, src in ((3, sp), (500, scaled)):
+        got = expect_launches(counters, lambda: proto_mod.matmul_only(src, b, steps),
+                              {"proto_cheby": 0, "matmul_only": 1},
+                              f"matmul_only ncols={PROBE_F2_COLS}")
+        want = proto_mod.matmul_only_reference(src, b, steps)
+        e, scale = (got - want).abs().max().item(), want.abs().max().item()
+        if got.shape != want.shape or not (np.isfinite(e) and e <= PROBE_TOL[steps] * scale):
+            raise AssertionError(f"matmul_only ncols={PROBE_F2_COLS}, {steps} steps: {e} > "
+                                 f"{PROBE_TOL[steps]} x {scale}")
+        err = max(err, e)
+        log(f"  matmul_only ncols={PROBE_F2_COLS}, {steps} steps: {e / scale:.3e} of max "
+            f"(tolerance {PROBE_TOL[steps]})")
+    ms = cuda_ms(lambda: proto_mod.matmul_only(sp, b, 500), 5)
+    plain = cuda_ms(lambda: proto_mod.matmul_only_reference(sp, b, 500), 3)
+    lib, lib_name = library_mm(torch, sp, b.to(torch.bfloat16))
+    lib_ms = cuda_ms(lambda: [lib() for _ in range(500)], 3)
+    mp = sp.shape[0]
+    out["matmul_only"][str(PROBE_F2_COLS)] = row(
+        err, ms, plain, lib_ms, 500 * 2.0 * mp * mp * PROBE_F2_COLS,
+        2.0 * mp * mp + 8.0 * mp * PROBE_F2_COLS, peak=BF16_TC_FLOPS,
+        us_per_matvec=ms / 500 * 1e3, library_us_per_matvec=lib_ms / 500 * 1e3, library=lib_name)
+    log(f"  matmul_only ncols={PROBE_F2_COLS}: {ms / 500 * 1e3:.1f} us/matvec ({ms:.3f} ms per "
+        f"500-step call; plain {plain:.3f}; {lib_name} {lib_ms / 500 * 1e3:.1f} us/matvec)")
+    return out
+
+
+def check_f2(torch, mods, sx, seed) -> dict:
+    """Every F2 path against its plain version (above); returns their rows:
+    one per pass of the general kernel 9, the narrow gather's, and the
+    F2 rows of kernels 10 and 11."""
+    log("[f2] shapes of kernels 8-11 past the tuned kernels, against their plain versions")
+    general = check_fused_general(torch, mods["fused_edge"], seed)
+    rows = {f"fused_edge_general_{p}": r for p, r in general.items()}
+    rows["gather_onehot_narrow"] = check_gather_narrow(torch, mods["gather"], sx)
+    rows.update({f"{k}_f2": v for k, v in check_probe_f2(torch, mods["proto_cheby"],
+                                                         mods["cheby"]).items()})
+    return rows
+
+
 def index_add(torch, gr, idx, n: int = 2048):
     """One `index_add_` call computing the scatter-add: the library yardstick."""
     b, c = gr.shape[0], gr.shape[-1]
@@ -1605,12 +1863,13 @@ def index_add(torch, gr, idx, n: int = 2048):
 # ----------------------------------------------------- fused EdgeConv --
 def fused_edgeconv(block, x, train: bool):
     """One two-layer EdgeConv block of the port by the fused route: kNN ->
-    a, b of the factored first layer -> e_raw = gather(a, idx) + b (kernel
-    8, scatter-add backward) -> `edge_batch_stats` (train; eval takes the
-    BatchNorms' running statistics) -> `fused_edge_tail` (kernel 9).  The
-    block's own `knn_impl` picks kernels ('auto') or plain versions
-    ('xla').  Returns the pooled output and (m0, v0, m1, v1)."""
-    import torch.nn.functional as F
+    a, b of the factored first layer, in the block's compute type as the
+    layer computes them -> e_raw = gather(a, idx) + b (kernel 8, scatter-add
+    backward; bf16 on the bf16 encoder) -> `edge_batch_stats` (train; eval
+    takes the BatchNorms' running statistics) -> `fused_edge_tail` (kernel
+    9, on e_raw's type).  The block's own `knn_impl` picks kernels ('auto')
+    or plain versions ('xla').  Returns the pooled output and (m0, v0, m1,
+    v1)."""
     from r3dfsseg_tpu_torch.ops import cuda_knn, fused_edge
     from r3dfsseg_tpu_torch.ops.knn import knn_indices
 
@@ -1620,10 +1879,7 @@ def fused_edgeconv(block, x, train: bool):
     xd = x.detach()
     idx = cuda_knn.knn(xd, block.k) if impl == "auto" else knn_indices(xd, block.k)
     l0, l1 = block.layer0, block.layer1
-    c = x.shape[-1]
-    w = l0.conv.weight
-    a = F.linear(x, w[:, :c])
-    b = F.linear(x, w[:, c:] - w[:, :c])
+    a, b = l0.operands(x)
     e_raw = fused_edge.edge_gather(a, idx, impl) + b[:, :, None, :]
     w1 = l1.conv.weight.t()
     if train:
@@ -1664,7 +1920,11 @@ def near_ties(torch, edges, rel: float = NEAR_TIE):
     """(exact, near): (B, N, C) masks of the (point, channel) pairs whose
     two largest values over k are equal, or within ``rel`` of the largest
     |value| of the tensor: there two roundings of the same product may
-    route the max's gradient to different rows."""
+    route the max's gradient to different rows.  With one row per point
+    (K = 1) there is no tie."""
+    if edges.shape[2] < 2:
+        none = torch.zeros(edges.amax(2).shape, dtype=torch.bool, device=edges.device)
+        return none, none
     top = edges.topk(2, dim=2).values
     gap = top[:, :, 0] - top[:, :, 1]
     return gap == 0, gap <= rel * edges.abs().max()
@@ -1683,16 +1943,14 @@ def encoder_block_inputs(torch, model, x, train: bool):
 
 def edge_operands(torch, block, x):
     """What the block's fused route hands the kernels: the table a, the kNN
-    idx, e_raw = a[idx] + b and W1 (C_in, C_out)."""
-    import torch.nn.functional as F
+    idx, e_raw = a[idx] + b (in the block's compute type) and W1 (C_in,
+    C_out)."""
     from r3dfsseg_tpu_torch.ops import cuda_knn
     from r3dfsseg_tpu_torch.ops.fast_gather import flat_take
     with torch.no_grad():
         idx = cuda_knn.knn(x, block.k)
-        c = x.shape[-1]
-        w = block.layer0.conv.weight
-        a = F.linear(x, w[:, :c])
-        e_raw = flat_take(a, idx) + F.linear(x, w[:, c:] - w[:, :c])[:, :, None, :]
+        a, b = block.layer0.operands(x)
+        e_raw = flat_take(a, idx) + b[:, :, None, :]
         return a, idx, e_raw, block.layer1.conv.weight.t().contiguous()
 
 
@@ -1763,36 +2021,115 @@ def fused_pass_args(torch, cfe, block, e, w1, dout, train: bool):
     return args, int(near.sum())
 
 
+def fused_counts(cfe) -> dict:
+    """Kernel 9's launch counters: per pass the tuned kernel's, of them its
+    bf16 form's, and the general kernel's."""
+    return {f"{pre}{p}": getattr(cfe, f"{pre}{p}_launches")
+            for pre in ("", "bf16_", "general_") for p in cfe.PASSES}
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+BF16_FLIP_SHARE = 1e-2  # entries of a bf16 d_e one bf16 step from the plain version's
+
+
+def output_error(got, want, tol: float, what: str) -> tuple[float, int]:
+    """(largest |got - want| / max |want|, entries flipped): fails past
+    ``tol``.  A bf16 output (d_e on a bf16 e) is the rounding of an f32
+    value within tol of the plain version's f32 value: where the two
+    straddle a bf16 rounding edge they round one bf16 step apart, which
+    may exceed tol, so such an entry counts as flipped and not in the
+    error; at most BF16_FLIP_SHARE of the entries may flip, each by at
+    most one step."""
+    import torch
+    g, w = got.float(), want.float()
+    scale = w.abs().max().item()
+    diff = (g - w).abs()
+    flipped = 0
+    if got.dtype == torch.bfloat16:
+        off = diff > tol * scale
+        mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+        step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        flipped = int(off.sum())
+        if bool((diff[off] > step[off]).any()) or flipped > BF16_FLIP_SHARE * diff.numel():
+            raise AssertionError(f"{what}: {flipped} bf16 entries past {tol} x {scale}, not all "
+                                 f"one bf16 step from the plain version's")
+        diff = diff.masked_fill(off, 0.0)
+    e = diff.max().item()
+    if not (np.isfinite(e) and e <= tol * scale):
+        raise AssertionError(f"{what}: error {e} > {tol} x {scale}")
+    return e / max(scale, 1e-30), flipped
+
+
+def fused_pass_bytes(name: str, e) -> float:
+    """Bytes a pass must move: e read once at its element size, dout
+    (f32) for the backward passes, and the output (fwd f32, bwd3 at e's
+    size; the sums are a few KB and not counted)."""
+    c = e.shape[-1]
+    rows, points = e.numel() / c, e.shape[0] * e.shape[1]
+    return (e.element_size() * e.numel() + 4.0 * c * points * name.startswith("bwd")
+            + (4.0 * c * points if name == "fwd" else 0.0)
+            + (e.element_size() * c * rows if name == "bwd3" else 0.0))
+
+
+def fused_pass_flops(name: str, e) -> float:
+    c = e.shape[-1]
+    return FUSED_PRODUCTS[name] * 2.0 * (e.numel() / c) * c * c
+
+
 def check_fused_passes(torch, cfe, blocks, operands, seed):
     """Kernel 9's five passes on the three support blocks' e_raw (10, 2048,
     20, 64), in train and eval: stats1 and fwd within 1e-5 of each output's
     largest entry, each backward output within 1e-4 (f32 sums over 409,600
-    edge rows in another order).  Then each pass timed over the three
-    blocks' train calls, beside its plain version and its bound."""
+    edge rows in another order; a bf16 d_e as `output_error` allows).  The
+    bound takes the products as three
+    tf32 passes on the tensor cores, the peak of their type as for kernels
+    1, 2 and 5 (the kernel runs them as FFMA, whose bound is printed
+    beside).  On the bf16 encoder's e_raw (bf16
+    operands) each pass runs the tuned kernel's bf16 form and is also bit
+    for bit the f32 form on e's upcast (bwd3 after rounding to bf16).  Then
+    each pass timed over the three blocks' train calls, beside its plain
+    version and its bound (bytes at e's element size)."""
     g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    bf16 = operands[0][2].dtype == torch.bfloat16
+    kind = "bf16" if bf16 else "f32"
     err = {p: 0.0 for p in cfe.PASSES}
     rel = {p: 0.0 for p in cfe.PASSES}
     timed = []
+    flips = 0
     for i, (blk, (_, _, e, w1)) in enumerate(zip(blocks, operands)):
         dout = torch.randn((*e.shape[:2], e.shape[-1]), generator=g, device="cuda")
         for train in (True, False):
             args, zeroed = fused_pass_args(torch, cfe, blk, e, w1, dout, train)
             worst = {}
             for name, a in args.items():
-                got, want = getattr(cfe, name)(*a), getattr(cfe, f"{name}_reference")(*a)
-                got, want = ((got, want) if isinstance(got, tuple) else ((got,), (want,)))
+                before = fused_counts(cfe)
+                got = _as_tuple(getattr(cfe, name)(*a))
+                torch.cuda.synchronize()
+                moved = {n: c - before[n] for n, c in fused_counts(cfe).items() if c != before[n]}
+                if moved != ({name: 1, f"bf16_{name}": 1} if bf16 else {name: 1}):
+                    raise AssertionError(f"fused_edge {kind} {name}: launches {moved}")
+                want = _as_tuple(getattr(cfe, f"{name}_reference")(*a))
+                if bf16:
+                    up = _as_tuple(getattr(cfe, name)(a[0].float(), *a[1:]))
+                    if not all(torch.equal(x, y.to(x.dtype)) for x, y in zip(got, up)):
+                        raise AssertionError(f"fused_edge bf16 {name} block {i}: not the f32 "
+                                             f"form's bits on e's upcast")
                 tol = 1e-5 if name in ("stats1", "fwd") else 1e-4
                 for x, y in zip(got, want):
-                    e_abs, scale = (x - y).abs().max().item(), y.abs().max().item()
-                    if not (np.isfinite(e_abs) and e_abs <= tol * scale):
-                        raise AssertionError(f"fused_edge {name} block {i} train={train}: error "
-                                             f"{e_abs} > {tol} x {scale}")
-                    err[name] = max(err[name], e_abs)
-                    rel[name] = max(rel[name], e_abs / scale)
-                    worst[name] = max(worst.get(name, 0.0), e_abs / scale)
-            log(f"  fused_edge block {i} {'train' if train else 'eval'}: dout zeroed on {zeroed} "
-                f"near-tie (point, channel) pairs; error / largest entry " +
-                ", ".join(f"{n} {v:.2e}" for n, v in worst.items()))
+                    r, n_flip = output_error(x, y, tol, f"fused_edge {kind} {name} block {i} "
+                                                        f"train={train}")
+                    flips += n_flip
+                    err[name] = max(err[name], r * y.float().abs().max().item())
+                    rel[name] = max(rel[name], r)
+                    worst[name] = max(worst.get(name, 0.0), r)
+            log(f"  fused_edge {kind} block {i} {'train' if train else 'eval'}: dout zeroed on "
+                f"{zeroed} near-tie (point, channel) pairs; error / largest entry " +
+                ", ".join(f"{n} {v:.2e}" for n, v in worst.items()) +
+                ("; each pass bit-equal to the f32 form on e's upcast; d_e entries one bf16 "
+                 f"step from the plain version's so far: {flips}" if bf16 else ""))
             if train:
                 timed.append(args)
     passes = {}
@@ -1801,23 +2138,55 @@ def check_fused_passes(torch, cfe, blocks, operands, seed):
         kernel, plain = getattr(cfe, name), getattr(cfe, f"{name}_reference")
         ms = cuda_ms(lambda: [kernel(*a[name]) for a in timed], 10)
         plain_ms = cuda_ms(lambda: [plain(*a[name]) for a in timed], 10)
-        flops = nbytes = 0.0
-        for a in timed:
-            e = a[name][0]
-            rows, points = e.numel() / e.shape[-1], e.shape[0] * e.shape[1]
-            flops += FUSED_PRODUCTS[name] * 2.0 * rows * e.shape[-1] ** 2
-            nbytes += 4.0 * e.numel() + 4.0 * e.shape[-1] * (
-                (points if name.startswith("bwd") else 0)          # dout
-                + (points if name == "fwd" else rows if name == "bwd3" else 0))  # output
-        passes[name] = row(err[name], ms, plain_ms, None, flops, nbytes, max_rel_err=rel[name])
+        flops = sum(fused_pass_flops(name, a[name][0]) for a in timed)
+        nbytes = sum(fused_pass_bytes(name, a[name][0]) for a in timed)
+        passes[name] = row(err[name], ms, plain_ms, None, 3 * flops, nbytes, TF32_TC_FLOPS,
+                           max_rel_err=rel[name], bound_ffma_ms=bound(flops, nbytes)[0])
         all_flops, all_bytes = all_flops + flops, all_bytes + nbytes
     # the entry: the five passes' sums; its bound, the work of all five
-    log("  fused_edge passes over the three blocks (train): " + ", ".join(
-        f"{n} {p['ms']:.3f} ms (plain {p['plain_ms']:.3f}, bound {p['bound_ms']:.4f})"
-        for n, p in passes.items()))
+    log(f"  fused_edge {kind} passes over the three blocks (train): " + ", ".join(
+        f"{n} {p['ms']:.3f} ms (plain {p['plain_ms']:.3f}, bound {p['bound_ms']:.4f}, "
+        f"FFMA {p['bound_ffma_ms']:.4f})" for n, p in passes.items()))
     return dict(row(max(err.values()), sum(p["ms"] for p in passes.values()),
-                    sum(p["plain_ms"] for p in passes.values()), None, all_flops, all_bytes),
+                    sum(p["plain_ms"] for p in passes.values()), None, 3 * all_flops, all_bytes,
+                    TF32_TC_FLOPS, bound_ffma_ms=bound(all_flops, all_bytes)[0]),
                 passes=passes)
+
+
+def fused_digest(torch, cfe, seed: int) -> dict:
+    """Kernel 9's f32 form at the flagship support shape (10, 2048, 20, 64)
+    on inputs drawn from ``seed``: a sha256 of each pass's output bits and
+    its time (CUDA events), by the wrapper API every tree since the port
+    began has, so that two trees' f32 kernels can be held bit for bit
+    (run this file under each tree's root, see the module docstring)."""
+    import hashlib
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    c = cfe.C
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale + shift
+
+    e = randn(10, 2048, 20, c, scale=1.5, shift=0.5)
+    dout = randn(10, 2048, c)
+    w1 = randn(c, c, scale=c ** -0.5)
+    pos = [randn(c, scale=0.2, shift=1.0).abs() for _ in range(6)]   # aff, inv, g*inv
+    aff0, aff1, inv1, g1inv, inv0, g0inv = pos
+    sh0, sh1, mu1, mr1, mr2, mu0, mq1, mq2 = (randn(c, scale=0.1) for _ in range(8))
+    args = {"stats1": (e, aff0, sh0, w1), "fwd": (e, aff0, sh0, aff1, sh1, w1),
+            "bwd1": (e, dout, aff0, sh0, aff1, sh1, inv1, mu1, w1),
+            "bwd2": (e, dout, aff0, sh0, aff1, sh1, inv1, mu1, g1inv, mr1, mr2, inv0, mu0, w1),
+            "bwd3": (e, dout, aff0, sh0, aff1, sh1, inv1, mu1, g1inv, mr1, mr2, inv0, mu0,
+                     g0inv, mq1, mq2, w1)}
+    out = {}
+    for name, a in args.items():
+        got = _as_tuple(getattr(cfe, name)(*a))
+        h = hashlib.sha256()
+        for t in got:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        out[name] = dict(sha256=h.hexdigest()[:16],
+                         ms=cuda_ms(lambda: getattr(cfe, name)(*a), 10))
+        log(f"  fused_edge f32 {name}: sha256 {out[name]['sha256']}, {out[name]['ms']:.3f} ms")
+    return out
 
 
 def device_kernels(torch, fn, reps: int = 3):
@@ -1841,22 +2210,56 @@ def _close(a, b, rtol: float) -> float:
     return ((a - b).abs() / (rtol * (b.abs() + b.abs().max()))).max().item()
 
 
-def fused_phase(torch, blocks, xs, xq, kernels, seed):
+# The fused route's gates against the block's own forward and backward
+# (`fused_phase`).  On the float32 encoder the two compute the same chain in
+# f32: outputs and m0, v0 at rtol 1e-5 (with an atol of 1e-5 of the largest
+# entry), m1 and v1 at 1e-4 (v1 is the kernel's single-pass variance), the
+# gradients within GRAD_TOL (relative L2), the cotangent zero where the max
+# over k has its top two within NEAR_TIE of the largest |value|.
+FUSED_F32_GATES = dict(out=1e-5, stats=(1e-5, 1e-5, 1e-4, 1e-4), grad=GRAD_TOL, near=NEAR_TIE)
+# On the bf16 encoder both take the same bf16 e_raw = gather(a, idx) + b,
+# so m0 and v0 agree as in f32.  Past it the bf16 block rounds h0 =
+# leaky(BN0(e_raw)) and W1 to bf16 for its conv and l1 to bf16 after it,
+# where the fused tail keeps all three in f32, as the archived tail does:
+# each l1 differs by about 2^-8 of its size, which moves the outputs, m1
+# and v1 by well under 1e-2 of their largest entry (bound BF16_ROUTE_RTOL,
+# the JAX package's own bound on a bf16 layer's values,
+# tests/test_backbone.py).  The block's bf16 backward rounds its cotangents
+# to bf16 on the way (d_e too, as the fused tail does), and the train-mode
+# BatchNorms cancel most of each sum, so its gradients sit a few 1e-2
+# (relative L2) from the f32 tail's, most of all the first conv weight of
+# block 0, whose 9 input channels sum the most rows: held to BF16_GRAD_TOL,
+# the bound of the other bf16 gradient checks.  Two l1 rows within a bf16
+# step of l1 of each other may take the max apart, so the cotangent is zero
+# where the top two over k lie within 2^-9 of the largest |value|.
+# `fused_phase` prints each measured value beside its bound.
+BF16_ROUTE_RTOL = 2e-2
+FUSED_BF16_GATES = dict(out=BF16_ROUTE_RTOL, stats=(1e-5, 1e-5, BF16_ROUTE_RTOL, BF16_ROUTE_RTOL),
+                        grad=BF16_GRAD_TOL, near=2.0 ** -9)
+
+
+def fused_phase(torch, blocks, xs, xq, kernels, seed, gates=FUSED_F32_GATES):
     """The fused route (`fused_edgeconv`) through all three EdgeConv blocks
-    of the flagship encoder, held against the blocks' own forward and
-    backward.  Support batch (B = 10), train: outputs (rtol 1e-5, atol
-    1e-5 x max), m0 and v0 against the BatchNorms' batch statistics (the
-    same), m1 and v1 (1e-4: v1 is the kernel's single-pass variance), and
-    the gradients of x and of the block's six parameters (relative L2
-    distance 1e-3) under a random cotangent that is zero on the (point,
-    channel) pairs with a near-tie in the max (`amax`'s backward splits a
-    tie, the kernel routes it to the lowest k).  Query batch (B = 2), eval:
-    the outputs.  Then both routes timed per block, forward (train) and
-    forward plus backward, by CUDA events (host gaps included) and by the
-    profiler (device busy time).  Returns the launch counts of the train
-    run and of the eval run, and the timings."""
+    of the flagship encoder, float32 or bf16 (the blocks' own compute
+    type), held against the blocks' own forward and backward with
+    ``gates`` (FUSED_F32_GATES, FUSED_BF16_GATES).  Support batch (B = 10),
+    train: outputs, m0 and v0 against the BatchNorms' batch statistics,
+    m1 and v1, and the gradients of x and of the block's six parameters
+    (relative L2 distance) under a random cotangent that is zero on the
+    (point, channel) pairs with a near-tie in the max (`amax`'s backward
+    splits a tie, the kernel routes it to the lowest k).  Query batch (B =
+    2), eval: the outputs.  Each block launches kernel 8 once, and kernel
+    9's tuned form (its bf16 form on the bf16 encoder) once per pass, and
+    the general kernel no time; in train kernel 6 once (its bf16 form on
+    the bf16 encoder).  Then both routes timed per block, forward (train)
+    and forward plus backward, by CUDA events (host gaps included) and by
+    the profiler (device busy time).  Returns the launch counts of the
+    train run and of the eval run, the timings and the largest share of
+    each gate measured."""
     from r3dfsseg_tpu_torch.ops import cuda_fused_edge as cfe
     g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    bf16 = blocks[0].layer0.dtype == torch.bfloat16
+    kind = "bf16" if bf16 else "f32"
 
     def grads(blk, x):
         return {"x": x.grad.clone(), **{n: p.grad.clone() for n, p in blk.named_parameters()}}
@@ -1866,12 +2269,18 @@ def fused_phase(torch, blocks, xs, xq, kernels, seed):
         xu = x.clone().requires_grad_()
         blk.zero_grad(set_to_none=True)
         out, stats, edges = unfused_edgeconv(blk, xu, True)
-        exact, near = near_ties(torch, edges)
+        exact, near = near_ties(torch, edges, gates["near"])
         w = torch.randn(out.shape, generator=g, device="cuda") * ~near
         (out * w).sum().backward()
         want.append(dict(out=out.detach(), stats=stats, w=w, grads=grads(blk, xu),
                          ties=int(exact.sum()), near=int(near.sum())))
         del edges
+
+    # the tuned kernel 9 (its bf16 form here on bf16 e_raw) once per pass a
+    # block, the general kernel no time
+    tuned = {f"fused_{p}": len(blocks) for p in cfe.PASSES}
+    tuned.update({f"fused_{pre}{p}": len(blocks) if pre == "bf16_" and bf16 else 0
+                  for pre in ("bf16_", "general_") for p in cfe.PASSES})
 
     # ---- the main path of this phase: the fused route, train, fwd + bwd
     zero_counts(kernels)
@@ -1884,41 +2293,53 @@ def fused_phase(torch, blocks, xs, xq, kernels, seed):
         got.append(dict(out=out.detach(), stats=stats, grads=grads(blk, xf)))
     torch.cuda.synchronize()
     launches = counts(kernels)
-    per_block = ["gather_onehot", "scatter_add"] + [f"fused_{p}" for p in cfe.PASSES]
-    if any(launches[n] != len(blocks) for n in per_block):
-        raise AssertionError(f"fused route, train: launches {launches}")
+    want_train = {**tuned, "gather_onehot": len(blocks), "gather_onehot_narrow": 0,
+                  "scatter_add": len(blocks), "scatter_add_bf16": len(blocks) if bf16 else 0}
+    if any(launches[n] != c for n, c in want_train.items()):
+        raise AssertionError(f"fused route {kind}, train: launches {launches}, want {want_train}")
 
+    shares = dict(out=0.0, stats=0.0, grad=0.0, eval_out=0.0)
     for i, (ref, res) in enumerate(zip(want, got)):
-        out_err = _close(res["out"], ref["out"], 1e-5)
+        out_err = _close(res["out"], ref["out"], gates["out"])
         stat_err = [_close(a, b, tol) for a, b, tol in zip(res["stats"], ref["stats"],
-                                                           (1e-5, 1e-5, 1e-4, 1e-4))]
-        dist = {n: ((res["grads"][n] - gr).norm() / gr.norm().clamp_min(1e-30)).item()
+                                                           gates["stats"])]
+        dist = {n: ((res["grads"][n].float() - gr.float()).norm()
+                    / gr.float().norm().clamp_min(1e-30)).item()
                 for n, gr in ref["grads"].items()}
         worst = max(dist, key=dist.get)
-        log(f"  fused block {i} train (B = {ref['out'].shape[0]}): output at {out_err:.3f} of its "
-            f"tolerance; m0, v0, m1, v1 at " + ", ".join(f"{s:.3f}" for s in stat_err) +
-            f"; gradients' largest relative L2 distance {dist[worst]:.3e} ({worst}); "
-            f"{ref['ties']} (point, channel) pairs with a tied max over k, {ref['near']} "
-            f"within {NEAR_TIE} of the largest |value| (cotangent zero there)")
+        shares.update(out=max(shares["out"], out_err), stats=max(shares["stats"], *stat_err),
+                      grad=max(shares["grad"], dist[worst] / gates["grad"]))
+        log(f"  fused {kind} block {i} train (B = {ref['out'].shape[0]}): output at {out_err:.3f} "
+            f"of its tolerance (rtol {gates['out']}); m0, v0, m1, v1 at " +
+            ", ".join(f"{s:.3f}" for s in stat_err) +
+            f" (rtol {gates['stats']}); gradients' largest relative L2 distance "
+            f"{dist[worst]:.3e} ({worst}; bound {gates['grad']}); {ref['ties']} (point, channel) "
+            f"pairs with a tied max over k, {ref['near']} within {gates['near']:.3g} of the "
+            f"largest |value| (cotangent zero there)")
         if out_err > 1 or max(stat_err) > 1:
-            raise AssertionError(f"fused block {i}: output {out_err}, statistics {stat_err}")
-        if dist[worst] > GRAD_TOL:
-            raise AssertionError(f"fused block {i}: gradient of {worst} at {dist[worst]}")
+            raise AssertionError(f"fused {kind} block {i}: output {out_err}, statistics "
+                                 f"{stat_err}")
+        if dist[worst] > gates["grad"]:
+            raise AssertionError(f"fused {kind} block {i}: gradient of {worst} at {dist[worst]}")
 
     zero_counts(kernels)
     for i, (blk, x) in enumerate(zip(blocks, xq)):
         with torch.no_grad():
             out_f = fused_edgeconv(blk, x, False)[0]
             out_u = blk(x, False)
-        err = _close(out_f, out_u, 1e-5)
-        log(f"  fused block {i} eval (B = {x.shape[0]}): output at {err:.3f} of its tolerance")
+        err = _close(out_f, out_u, gates["out"])
+        shares["eval_out"] = max(shares["eval_out"], err)
+        log(f"  fused {kind} block {i} eval (B = {x.shape[0]}): output at {err:.3f} of its "
+            f"tolerance (rtol {gates['out']})")
         if err > 1:
-            raise AssertionError(f"fused block {i} eval: output error {err}")
+            raise AssertionError(f"fused {kind} block {i} eval: output error {err}")
     torch.cuda.synchronize()
     launches_eval = counts(kernels)
-    if (launches_eval["fused_fwd"] != len(blocks) or launches_eval["gather_onehot"] != len(blocks)
-            or launches_eval["fused_stats1"] or launches_eval["fused_bwd1"]):
-        raise AssertionError(f"fused route, eval: launches {launches_eval}")
+    want_eval = {n: (c if n in ("fused_fwd", "fused_bf16_fwd") else 0) for n, c in tuned.items()}
+    want_eval.update(gather_onehot=len(blocks), scatter_add=0)
+    if any(launches_eval[n] != c for n, c in want_eval.items()):
+        raise AssertionError(f"fused route {kind}, eval: launches {launches_eval}, "
+                             f"want {want_eval}")
 
     times = []
     for i, (blk, x, ref) in enumerate(zip(blocks, xs, want)):
@@ -1933,8 +2354,8 @@ def fused_phase(torch, blocks, xs, xq, kernels, seed):
         busy = {name: device_kernels(torch, fn) for name, fn in routes.items()}
         t.update({f"busy_{name}": sum(ms for _, ms in b) for name, b in busy.items()})
         times.append(t)
-        log(f"  fused block {i} (B = {x.shape[0]}, C_in = {x.shape[-1]}), ms by CUDA events "
-            f"(device busy by the profiler): forward (train) fused {t['fwd_fused']:.3f} "
+        log(f"  fused {kind} block {i} (B = {x.shape[0]}, C_in = {x.shape[-1]}), ms by CUDA "
+            f"events (device busy by the profiler): forward (train) fused {t['fwd_fused']:.3f} "
             f"({t['busy_fwd_fused']:.3f}) vs unfused {t['fwd_unfused']:.3f} "
             f"({t['busy_fwd_unfused']:.3f}); forward + backward fused {t['fwd_bwd_fused']:.3f} "
             f"({t['busy_fwd_bwd_fused']:.3f}) vs unfused {t['fwd_bwd_unfused']:.3f} "
@@ -1943,7 +2364,7 @@ def fused_phase(torch, blocks, xs, xq, kernels, seed):
             for name in ("fwd_bwd_fused", "fwd_bwd_unfused"):
                 log(f"    {name} largest device times: " + "; ".join(
                     f"{ms:.3f} {k[:60]}" for k, ms in busy[name][:8]))
-    return launches, launches_eval, times
+    return launches, launches_eval, times, shares
 
 
 # ------------------------------------------------------------- probes --
@@ -2552,11 +2973,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
-    ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth", "bf16", "f1"],
+    ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth", "bf16", "f1", "f2",
+                                       "fused"],
                     help="build, then only the kNN and FPS (or the Chebyshev and scatter-add, "
-                         "the k-th distance, the bf16 forms of kernels 1, 2, 5 and 6, or the "
+                         "the k-th distance, the bf16 forms of kernels 1, 2, 5 and 6, the "
                          "F1 kernels: general kNN, packed kNN, wide attention, wide-row k-th "
-                         "distance, general scatter-add) kernel checks, and print their rows "
+                         "distance, general scatter-add; the F2 paths: general kernel 9, the "
+                         "narrow gather, kernels 10 and 11 past 8 columns; or kernel 9's f32 "
+                         "passes' output digests) kernel checks, and print their rows "
                          "(to time them beside another tree's kernels)")
     args = ap.parse_args()
 
@@ -2616,6 +3040,19 @@ def main() -> int:
         return 0
     f1_mods = {"knn": cuda_knn, "attention": cuda_attention, "kth": cuda_kth,
                "scatter": cuda_scatter}
+    f2_mods = {"fused_edge": cuda_fused_edge, "gather": cuda_gather,
+               "proto_cheby": cuda_proto_cheby, "cheby": cuda_cheby}
+    support = torch.from_numpy(episodes[0][0].reshape(-1, cfg.pc_npts, cfg.pc_in_dim)).cuda()
+    if args.only == "fused":
+        rows = {"fused_edge": fused_digest(torch, cuda_fused_edge, args.seed)}
+        log(smi)
+        log(json.dumps(rows))
+        return 0
+    if args.only == "f2":
+        rows = check_f2(torch, f2_mods, support, args.seed)
+        log(smi)
+        log(json.dumps(rows))
+        return 0
     if args.only == "f1":
         rows = check_f1(torch, f1_mods, episodes[0][0], episodes[0][2])
         log(smi)
@@ -2654,12 +3091,22 @@ def main() -> int:
                                                   episodes[0][2])
     rows["knn_bf16"] = check_knn_bf16(torch, cuda_knn)
     model = MPTILearner(cfg, "cuda", torch.Generator().manual_seed(args.seed)).model
-    sx = torch.from_numpy(episodes[0][0].reshape(-1, cfg.pc_npts, cfg.pc_in_dim)).cuda()
-    blocks, xs = encoder_block_inputs(torch, model, sx, True)
-    _, xq = encoder_block_inputs(torch, model, torch.from_numpy(episodes[0][2]).cuda(), False)
+    query = torch.from_numpy(episodes[0][2]).cuda()
+    blocks, xs = encoder_block_inputs(torch, model, support, True)
+    _, xq = encoder_block_inputs(torch, model, query, False)
     operands = [edge_operands(torch, blk, x) for blk, x in zip(blocks, xs)]
     rows["gather_onehot"] = check_gather(torch, cuda_gather, operands)
     rows["fused_edge"] = check_fused_passes(torch, cuda_fused_edge, blocks, operands, args.seed)
+    del operands
+    # the bf16 encoder's blocks: bf16 a, b and e_raw (kernel 9's bf16 form)
+    model16 = MPTILearner(cfg.replace(compute_dtype="bfloat16"), "cuda",
+                          torch.Generator().manual_seed(args.seed)).model
+    blocks16, xs16 = encoder_block_inputs(torch, model16, support, True)
+    _, xq16 = encoder_block_inputs(torch, model16, query, False)
+    operands = [edge_operands(torch, blk, x) for blk, x in zip(blocks16, xs16)]
+    fused16 = check_fused_passes(torch, cuda_fused_edge, blocks16, operands, args.seed)
+    rows.update({f"fused_edge_bf16_{p}": r for p, r in fused16.pop("passes").items()})
+    rows["fused_edge"]["bf16"] = fused16
     del operands
     sel, s16, b16, node, valid = flagship_graph(torch, cfg16, episodes[0], args.seed)
     rows["kth"].update(check_kth_bf16(torch, cuda_kth, sel))
@@ -2704,6 +3151,16 @@ def main() -> int:
     rows.update(check_f1(torch, f1_mods, episodes[0][0], episodes[0][2]))
     f1_checks = counts(f1_counters)
 
+    # ---- 2c. F2: kernels 8-11 at the shapes their TPU kernels take past the tuned ones
+    f2_counters = {**{f"fused_general_{p}": (cuda_fused_edge, f"general_{p}_launches")
+                      for p in cuda_fused_edge.PASSES},
+                   "gather_onehot_narrow": (cuda_gather, "narrow_launches")}
+    zero_counts(f2_counters)
+    rows.update(check_f2(torch, f2_mods, support, args.seed))
+    f2_checks = counts(f2_counters)
+    rows["proto_cheby"]["f2"] = rows.pop("proto_cheby_f2")
+    matmul_f2 = rows.pop("matmul_only_f2")      # joins phase 6's row
+
     # the bf16 forms' counters count their calls apart, within their kernel's
     kernels = {**f1_counters,
                "knn": (cuda_knn, "launches"), "attention_fwd": (cuda_attention, "launches"),
@@ -2714,8 +3171,9 @@ def main() -> int:
                "scatter_add_bf16": (cuda_scatter, "bf16_launches"),
                "kth": (cuda_kth, "launches"), "scatter_add": (cuda_scatter, "launches"),
                "cheby": (cuda_cheby, "launches"), "gather_onehot": (cuda_gather, "launches"),
-               **{f"fused_{p}": (cuda_fused_edge, f"{p}_launches")
-                  for p in cuda_fused_edge.PASSES},
+               **{f"fused_{pre}{p}": (cuda_fused_edge, f"{pre}{p}_launches")
+                  for pre in ("", "bf16_", "general_") for p in cuda_fused_edge.PASSES},
+               "gather_onehot_narrow": (cuda_gather, "narrow_launches"),
                "proto_cheby": (cuda_proto_cheby, "launches"),
                "matmul_only": (cuda_proto_cheby, "matmul_only_launches")}
     f32_kernels = ("knn", "attention_fwd", "attention_bwd", "fps", "kth", "scatter_add")
@@ -2724,7 +3182,8 @@ def main() -> int:
     enc_kernels = ("knn", "attention_fwd_bf16", "attention_bwd_bf16", "fps", "kth",
                    "scatter_add_bf16", "cheby")
     fused_passes = tuple(f"fused_{p}" for p in cuda_fused_edge.PASSES)
-    fused_kernels = ("gather_onehot",) + fused_passes
+    fused_kernels = ("gather_onehot", "gather_onehot_narrow") + tuple(
+        f"fused_{pre}{p}" for pre in ("", "bf16_", "general_") for p in cuda_fused_edge.PASSES)
     probe_kernels = ("proto_cheby", "matmul_only")
 
     # ---- 3. serving, float32 graph then bf16 graph
@@ -2814,18 +3273,31 @@ def main() -> int:
         if any(launched[n] for n in fused_kernels + probe_kernels):
             raise AssertionError(f"{phase}: kernels 8, 9, 10 or 11 were launched: {launched}")
 
-    # ---- 5. the fused EdgeConv route, all three blocks
+    phases["f2_checks"] = {**{n: 0 for n in kernels}, **f2_checks}
+
+    # ---- 5. the fused EdgeConv route, all three blocks, float32 then bf16 encoder
     log("[fused] the three EdgeConv blocks by the fused route (kernels 8, 9) vs the module")
-    fused_launches, fused_eval, block_ms = fused_phase(torch, blocks, xs, xq, kernels, args.seed)
-    phases.update(fused_train=fused_launches, fused_eval=fused_eval)
-    log(f"[fused] launches: train {fused_launches}; eval {fused_eval}")
-    if any(c[n] for c in (fused_launches, fused_eval) for n in probe_kernels):
+    fused_launches, fused_eval, block_ms, fused_shares = fused_phase(
+        torch, blocks, xs, xq, kernels, args.seed)
+    log("[fused] the bf16 encoder's blocks (bf16 e_raw: kernel 8 and kernel 9 in their bf16 "
+        "forms, kernel 6's bf16 form) vs the bf16 module")
+    fused_launches16, fused_eval16, block_ms16, fused_shares16 = fused_phase(
+        torch, blocks16, xs16, xq16, kernels, args.seed, FUSED_BF16_GATES)
+    phases.update(fused_train=fused_launches, fused_eval=fused_eval,
+                  fused_train_bf16=fused_launches16, fused_eval_bf16=fused_eval16)
+    log(f"[fused] launches: train {fused_launches}; eval {fused_eval}; bf16 encoder train "
+        f"{fused_launches16}; eval {fused_eval16}")
+    log(f"[fused] largest share of each gate, f32 route {fused_shares}; bf16 route "
+        f"{fused_shares16}")
+    if any(c[n] for c in (fused_launches, fused_eval, fused_launches16, fused_eval16)
+           for n in probe_kernels):
         raise AssertionError("the fused route launched kernel 10 or 11")
 
     # ---- 6. the archived Chebyshev probes (kernels 10, 11)
     log("[probe] the archived Chebyshev probes' main() on the card (kernels 10, 11)")
     probe_launches, proto_probe, rows["matmul_only"] = probe_phase(
         torch, cuda_proto_cheby, cuda_cheby, kernels)
+    rows["matmul_only"]["f2"] = matmul_f2
     phases["probe"] = probe_launches
     rows["proto_cheby"]["probe"] = proto_probe
     log(f"[probe] launches {probe_launches}")
@@ -2845,6 +3317,12 @@ def main() -> int:
                "cheby": ("proto_cheby.cu", "r3dfsseg_tpu/ops/pallas_cheby.py:42"),
                "gather_onehot": ("gather.cu", "r3dfsseg_tpu/ops/fast_gather.py:89"),
                "fused_edge": ("fused_edge.cu", "scripts/archive/fused_edge.py:213"),
+               **{f"fused_edge_bf16_{p}": ("fused_edge.cu", "scripts/archive/fused_edge.py:213")
+                  for p in cuda_fused_edge.PASSES},
+               **{f"fused_edge_general_{p}": ("fused_edge_general.cu",
+                                              "scripts/archive/fused_edge.py:213")
+                  for p in cuda_fused_edge.PASSES},
+               "gather_onehot_narrow": ("gather.cu", "r3dfsseg_tpu/ops/fast_gather.py:89"),
                "proto_cheby": ("proto_cheby.cu", "scripts/archive/proto_cheby_pallas.py:22"),
                "matmul_only": ("proto_cheby.cu", "scripts/archive/proto_cheby2.py:36"),
                "knn_general": ("knn_general.cu", "r3dfsseg_tpu/ops/pallas_knn.py:27"),
@@ -2869,14 +3347,22 @@ def main() -> int:
     # (the bf16 forms its bf16 encoder's), the packed kNN the 'pallas'
     # training run, and the wide-row k-th distance, which no configuration
     # of these sizes reaches (rows past 57.7k nodes), the F1 checks'
-    # (the counters zeroed before them)
+    # (the counters zeroed before them); kernel 9's bf16 form the bf16
+    # encoder's fused route, and the general kernel 9 and the narrow gather
+    # the F2 checks' (no configuration reaches them)
     members = {name: (name,) for name in sources}
     members["fused_edge"] = fused_passes
+    members.update({f"fused_edge_{pre}{p}": (f"fused_{pre}{p}",) for pre in ("bf16_", "general_")
+                    for p in cuda_fused_edge.PASSES})
     main_phase = {name: "train_f32" for name in sources}
     main_phase.update(cheby="train_bf16", gather_onehot="fused_train", fused_edge="fused_train",
                       proto_cheby="probe", matmul_only="probe",
                       attention_fwd_bf16="train_bf16enc", attention_bwd_bf16="train_bf16enc",
                       scatter_add_bf16="train_bf16enc", knn_bf16="serve_hybrid",
+                      gather_onehot_narrow="f2_checks",
+                      **{f"fused_edge_bf16_{p}": "fused_train_bf16"
+                         for p in cuda_fused_edge.PASSES},
+                      **{f"fused_edge_general_{p}": "f2_checks" for p in cuda_fused_edge.PASSES},
                       knn_general="train_f1", attention_wide_fwd="train_f1",
                       attention_wide_bwd="train_f1", scatter_general="train_f1",
                       attention_wide_fwd_bf16="train_f1_bf16enc",
@@ -2887,6 +3373,8 @@ def main() -> int:
             {f"launches_{ph}": c[f"fused_{p}"] for ph, c in phases.items()},
             launches=fused_launches[f"fused_{p}"])
     rows["fused_edge"]["block_ms"] = block_ms
+    rows["fused_edge"]["bf16"].update(block_ms=block_ms16, gate_shares=fused_shares16)
+    rows["fused_edge"]["gate_shares"] = fused_shares
     log(smi)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"r3dfsseg_tpu_torch/csrc/{src}",

@@ -42,6 +42,20 @@ namespace r3d {
 // Shared memory one block may use on sm_90 (227 KB).
 constexpr size_t kSmemLimit = 232448;
 
+// sums[o] = sum over blocks, in block order, of partial[block][o]: the
+// second pass of a kernel whose blocks each write one partial of its sums
+// (no float atomics, so a result repeats from run to run).  A template, so
+// a source that does not launch it compiles none.
+template <int = 0>
+__global__ void sum_partials_kernel(const float* __restrict__ partial,
+                                           float* __restrict__ sums, int blocks, int n) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= n) return;
+  float s = 0.f;
+  for (int b = 0; b < blocks; ++b) s += partial[static_cast<size_t>(b) * n + o];
+  sums[o] = s;
+}
+
 // ---- cooperative launches (one grid-wide barrier per step or round) ---
 // A kernel that calls cooperative_groups' this_grid().sync() must have all
 // its blocks resident at once; the launch below checks that with the

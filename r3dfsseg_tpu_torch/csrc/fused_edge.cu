@@ -14,7 +14,7 @@
 // (:242-244).  Hopper's blocks run in no order, so here a persistent grid
 // (as many blocks as fit on the SMs at once) loops over tiles of kPoints
 // points, each block keeps its share of the sums in registers and writes
-// one partial, and sum_partials_kernel adds the partials in block order:
+// one partial, and r3d::sum_partials_kernel adds the partials in block order:
 // no float atomics, so a result repeats from run to run.
 //
 // What bounds it on the H100: operations.  Each pass runs one (rows x 64)
@@ -34,11 +34,22 @@
 // the staging and BN1 use round-to-nearest multiply then add in the plain
 // version's order, so h0 and z1 differ from it only through the product.
 //
-// Layout: e (P, K, 64) f32 contiguous with P = B * N a multiple of
-// kPoints; dout (P, 64); W1 (64, 64) as (C_in, C_out); vec (kNumVec, 64),
-// the rows named by Vec (rows a pass does not read may hold anything);
-// out: fwd (P, 64), bwd3 (P, K, 64); partial (grid, n_sums); sums
-// (n_sums): stats1 [s1, s2], bwd1 [r1, r2], bwd2 [dW1 (64 x 64), q1, q2].
+// e of either type: the kernel is a template on e's element type, f32
+// (r3d_fused_edge) or bf16 (r3d_fused_edge_bf16, the bf16 encoder's
+// e_raw, as the archive's bodies take it: `e_ref[0].astype(jnp.float32)`,
+// d_e written in e's type, :209).  A bf16 entry is widened to f32 as it
+// is loaded (exact), and everything after the load is the f32 code, so
+// every pass of the bf16 form gives the f32 form's bits on e's upcast, d_e
+// rounded once to bf16 (round to nearest even).  It reads 2 bytes per
+// entry of e and writes 2 per entry of d_e.
+//
+// Layout: e (P, K, 64) f32 or bf16 contiguous and 16-byte aligned, with P =
+// B * N a multiple of kPoints; dout (P, 64) f32; W1 (64, 64) as (C_in,
+// C_out); vec (kNumVec, 64), the rows named by Vec (rows a pass does not
+// read may hold anything); out: fwd (P, 64) f32, bwd3 (P, K, 64) of e's
+// type; partial (grid, n_sums); sums (n_sums): stats1 [s1, s2], bwd1 [r1,
+// r2], bwd2 [dW1 (64 x 64), q1, q2].  Shapes past this tile (C != 64, P
+// not a multiple of 8, K past shared memory) take csrc/fused_edge_general.cu.
 #include <cmath>
 
 #include "common.cuh"
@@ -120,11 +131,26 @@ __device__ __forceinline__ void mm_tile(const float* __restrict__ a, const float
 
 __device__ __forceinline__ int col(int cg, int j) { return j < 4 ? 4 * cg + j : 28 + 4 * cg + j; }
 
-template <int kPass>
+// Four consecutive entries of e as f32 (16 bytes of f32, or 8 of bf16: a
+// bf16 is the high half of its f32), and four f32 stored in e's type.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const uint16_t* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(r3d::bf16_lo(u.x), r3d::bf16_hi(u.x), r3d::bf16_lo(u.y), r3d::bf16_hi(u.y));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(uint16_t* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(r3d::pack_bf16(v.x, v.y), r3d::pack_bf16(v.z, v.w));
+}
+
+// T: e's element type, float or uint16_t (the bits of a bf16)
+template <int kPass, typename T>
 __global__ void __launch_bounds__(kThreads)
-fused_edge_kernel(const float* __restrict__ e, const float* __restrict__ dout,
+fused_edge_kernel(const T* __restrict__ e, const float* __restrict__ dout,
                   const float* __restrict__ w1g, const float* __restrict__ vecg,
-                  float* __restrict__ out, float* __restrict__ partial, int n_points, int k) {
+                  void* __restrict__ out_, float* __restrict__ partial, int n_points, int k) {
   extern __shared__ __align__(16) float smem[];
   constexpr bool kBack = backward_product(kPass);
   const int rows = kPoints * k;
@@ -156,9 +182,9 @@ fused_edge_kernel(const float* __restrict__ e, const float* __restrict__ dout,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     __syncthreads();  // W1 and vec staged; the last tile's readers are done
     const size_t row0 = static_cast<size_t>(tile) * rows;  // first edge row of the tile
-    const float4* et4 = reinterpret_cast<const float4*>(e + row0 * kC);
+    const T* et = e + row0 * kC;
     for (int i = tid; i < rows * kC / 4; i += kThreads) {
-      float4 v = et4[i];
+      float4 v = load4(et + 4 * i);
       const int c = (4 * i) % kC;
       v.x = leaky(bn(v.x, vec[kAff0 * kC + c], vec[kSh0 * kC + c]));
       v.y = leaky(bn(v.y, vec[kAff0 * kC + c + 1], vec[kSh0 * kC + c + 1]));
@@ -211,7 +237,7 @@ fused_edge_kernel(const float* __restrict__ e, const float* __restrict__ dout,
       }
       const size_t point = static_cast<size_t>(tile) * kPoints + p;
       if (kPass == kFwd) {
-        out[point * kC + c] = best;
+        static_cast<float*>(out_)[point * kC + c] = best;
         continue;
       }
       const float inv1 = vec[kInv1 * kC + c], mu1 = vec[kMu1 * kC + c];
@@ -257,8 +283,7 @@ fused_edge_kernel(const float* __restrict__ e, const float* __restrict__ dout,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const size_t row = row0 + r0 + i;
-        const float4* eg = reinterpret_cast<const float4*>(e + row * kC);
-        const float4 e0 = eg[cg], e1 = eg[8 + cg];
+        const float4 e0 = load4(e + row * kC + 4 * cg), e1 = load4(e + row * kC + 32 + 4 * cg);
         const float ev[8] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
         float de[8];
 #pragma unroll
@@ -275,9 +300,9 @@ fused_edge_kernel(const float* __restrict__ e, const float* __restrict__ dout,
           }
         }
         if (kPass == kBwd3) {
-          float4* og = reinterpret_cast<float4*>(out + row * kC);
-          og[cg] = make_float4(de[0], de[1], de[2], de[3]);
-          og[8 + cg] = make_float4(de[4], de[5], de[6], de[7]);
+          T* og = static_cast<T*>(out_) + row * kC;
+          store4(og + 4 * cg, make_float4(de[0], de[1], de[2], de[3]));
+          store4(og + 32 + 4 * cg, make_float4(de[4], de[5], de[6], de[7]));
         }
       }
     }
@@ -332,76 +357,90 @@ fused_edge_kernel(const float* __restrict__ e, const float* __restrict__ dout,
   }
 }
 
-// sums[o] = sum over blocks, in block order, of partial[block][o]
-__global__ void sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ sums,
-                                    int blocks, int n) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= n) return;
-  float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partial[static_cast<size_t>(b) * n + o];
-  sums[o] = s;
-}
-
-template <int kPass>
+template <int kPass, typename T>
 cudaError_t prepare(int k, size_t* smem, int* blocks) {
   *smem = sizeof(float) * static_cast<size_t>(smem_floats(kPass, k));
-  cudaError_t err = r3d_set_smem(fused_edge_kernel<kPass>, *smem);
+  if (blocks != nullptr) *blocks = 0;
+  if (blocks != nullptr && *smem > r3d::kSmemLimit) return cudaSuccess;  // K past the tile
+  cudaError_t err = r3d_set_smem(fused_edge_kernel<kPass, T>, *smem);
   if (err != cudaSuccess || blocks == nullptr) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_edge_kernel<kPass>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_edge_kernel<kPass, T>,
                                                       kThreads, *smem);
   if (err != cudaSuccess) return err;
-  if (per_sm == 0) return cudaErrorInvalidConfiguration;  // the tile does not fit
-  *blocks = per_sm * sms;
+  *blocks = per_sm * sms;  // 0: the tile does not fit
   return cudaSuccess;
 }
 
-template <int kPass>
+template <int kPass, typename T>
 cudaError_t launch(const void* e, const void* dout, const void* w1, const void* vec, void* out,
                    void* partial, void* sums, int n_points, int k, int grid,
                    cudaStream_t stream) {
   size_t smem = 0;
-  cudaError_t err = prepare<kPass>(k, &smem, nullptr);
+  cudaError_t err = prepare<kPass, T>(k, &smem, nullptr);
   if (err != cudaSuccess) return err;
-  fused_edge_kernel<kPass><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(e), static_cast<const float*>(dout),
-      static_cast<const float*>(w1), static_cast<const float*>(vec), static_cast<float*>(out),
+  fused_edge_kernel<kPass, T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(e), static_cast<const float*>(dout),
+      static_cast<const float*>(w1), static_cast<const float*>(vec), out,
       static_cast<float*>(partial), n_points, k);
   if ((err = cudaGetLastError()) != cudaSuccess || n_sums(kPass) == 0) return err;
-  sum_partials_kernel<<<(n_sums(kPass) + 255) / 256, 256, 0, stream>>>(
+  r3d::sum_partials_kernel<><<<(n_sums(kPass) + 255) / 256, 256, 0, stream>>>(
       static_cast<const float*>(partial), static_cast<float*>(sums), grid, n_sums(kPass));
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// The grid of a pass: as many blocks as fit on the device's SMs at once.
-R3D_EXPORT int r3d_fused_edge_blocks(int pass, int k, int* blocks) {
+template <typename T>
+int blocks_of(int pass, int k, int* blocks) {
   size_t smem = 0;
   switch (pass) {
-    case kStats1: return prepare<kStats1>(k, &smem, blocks);
-    case kFwd: return prepare<kFwd>(k, &smem, blocks);
-    case kBwd1: return prepare<kBwd1>(k, &smem, blocks);
-    case kBwd2: return prepare<kBwd2>(k, &smem, blocks);
-    case kBwd3: return prepare<kBwd3>(k, &smem, blocks);
+    case kStats1: return prepare<kStats1, T>(k, &smem, blocks);
+    case kFwd: return prepare<kFwd, T>(k, &smem, blocks);
+    case kBwd1: return prepare<kBwd1, T>(k, &smem, blocks);
+    case kBwd2: return prepare<kBwd2, T>(k, &smem, blocks);
+    case kBwd3: return prepare<kBwd3, T>(k, &smem, blocks);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// One pass over n_points points with grid blocks (<= the number of tiles).
+template <typename T>
+int run(int pass, const void* e, const void* dout, const void* w1, const void* vec, void* out,
+        void* partial, void* sums, int n_points, int k, int grid, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (pass) {
+    case kStats1:
+      return launch<kStats1, T>(e, dout, w1, vec, out, partial, sums, n_points, k, grid, s);
+    case kFwd: return launch<kFwd, T>(e, dout, w1, vec, out, partial, sums, n_points, k, grid, s);
+    case kBwd1: return launch<kBwd1, T>(e, dout, w1, vec, out, partial, sums, n_points, k, grid, s);
+    case kBwd2: return launch<kBwd2, T>(e, dout, w1, vec, out, partial, sums, n_points, k, grid, s);
+    case kBwd3: return launch<kBwd3, T>(e, dout, w1, vec, out, partial, sums, n_points, k, grid, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The grid of a pass: as many blocks as fit on the device's SMs at once;
+// 0 where the tile of K rows per point does not fit (the wrapper then
+// takes csrc/fused_edge_general.cu).
+R3D_EXPORT int r3d_fused_edge_blocks(int pass, int k, int* blocks) {
+  return blocks_of<float>(pass, k, blocks);
+}
+R3D_EXPORT int r3d_fused_edge_bf16_blocks(int pass, int k, int* blocks) {
+  return blocks_of<uint16_t>(pass, k, blocks);
+}
+
+// One pass over n_points points with grid blocks (<= the number of tiles),
+// on an f32 or a bf16 e.
 R3D_EXPORT int r3d_fused_edge(int pass, const void* e, const void* dout, const void* w1,
                               const void* vec, void* out, void* partial, void* sums,
                               int n_points, int k, int grid, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pass) {
-    case kStats1: return launch<kStats1>(e, dout, w1, vec, out, partial, sums, n_points, k, grid, s);
-    case kFwd: return launch<kFwd>(e, dout, w1, vec, out, partial, sums, n_points, k, grid, s);
-    case kBwd1: return launch<kBwd1>(e, dout, w1, vec, out, partial, sums, n_points, k, grid, s);
-    case kBwd2: return launch<kBwd2>(e, dout, w1, vec, out, partial, sums, n_points, k, grid, s);
-    case kBwd3: return launch<kBwd3>(e, dout, w1, vec, out, partial, sums, n_points, k, grid, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return run<float>(pass, e, dout, w1, vec, out, partial, sums, n_points, k, grid, stream);
+}
+R3D_EXPORT int r3d_fused_edge_bf16(int pass, const void* e, const void* dout, const void* w1,
+                                   const void* vec, void* out, void* partial, void* sums,
+                                   int n_points, int k, int grid, void* stream) {
+  return run<uint16_t>(pass, e, dout, w1, vec, out, partial, sums, n_points, k, grid, stream);
 }

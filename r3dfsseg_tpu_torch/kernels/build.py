@@ -115,5 +115,6 @@ def stream_ptr(device) -> int:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 U = ctypes.c_uint
 F = ctypes.c_float

@@ -168,17 +168,21 @@ class _EdgeFirstLayer(nn.Module):
         self.dtype = dtype
         self.bn_mode = bn_mode
 
-    def forward(self, x: torch.Tensor, idx: torch.Tensor, train: bool = False,
-                groups: int = 1) -> torch.Tensor:
+    def operands(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(a, b), (B, N, C1) each in the layer's compute type, with conv(edge)
+        = gather(a, idx) + b: the table the neighbour gather reads and the
+        centre term."""
         if self.dtype is None:
             c = x.shape[-1]
             w_n, w_c = self.conv.weight[:, :c], self.conv.weight[:, c:]
-            a = F.linear(x, w_n)
-            b = F.linear(x, w_c - w_n)
-        else:
-            xd = x.to(self.dtype)
-            a = dense(torch.cat([xd, torch.zeros_like(xd)], -1), self.conv, self.dtype)
-            b = dense(torch.cat([-xd, xd], -1), self.conv, self.dtype)
+            return F.linear(x, w_n), F.linear(x, w_c - w_n)
+        xd = x.to(self.dtype)
+        return (dense(torch.cat([xd, torch.zeros_like(xd)], -1), self.conv, self.dtype),
+                dense(torch.cat([-xd, xd], -1), self.conv, self.dtype))
+
+    def forward(self, x: torch.Tensor, idx: torch.Tensor, train: bool = False,
+                groups: int = 1) -> torch.Tensor:
+        a, b = self.operands(x)
         e = gather_neighbors_fast(a, idx, impl=self.impl) + b[:, :, None, :]
         return F.leaky_relu(self.bn(e, train, groups), 0.2)
 

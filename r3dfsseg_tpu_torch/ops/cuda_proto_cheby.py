@@ -16,13 +16,19 @@ take a bf16 x bf16 -> f32 dot, which is the operand type of Hopper's
   lo instead: rounding d to a single bf16 hurt meta-training there, so
   nothing on the serving or training path calls it, in the port as in the
   JAX package.  The per-step scalars are `cuda_cheby.coefficients`
-  (double, on the host), as for kernel 7.  The archive's 128 padded
-  columns are the TPU's lane width: the kernel takes 1 to 8 live columns
-  and pads to the mma's n = 8 inside.
+  (double, on the host), as for kernel 7.  The archive pads b to 128
+  columns, the TPU's lane width, so it takes up to 128 live ones: the
+  kernel takes 1 to 8 and pads to the mma's n = 8 inside, and the wrapper
+  runs more as groups of at most 8, one launch each, as kernel 7 does
+  (the columns are independent, so each group is the solve on its columns
+  alone).
 - `matmul_only(s, b, iters)`: acc = b, then `iters` times acc = (S
   bf16(acc)) * 0.99.  The archive's `tile_rows` has no counterpart: it
   only cut the TPU's VMEM dot into row tiles and gives the same numbers.
-  `iters` is the archive's module constant `ITERS`.
+  `iters` is the archive's module constant `ITERS`.  The kernel takes a
+  multiple of 8 columns; any other count up to 128 (the archive takes any)
+  is zero-padded to the next multiple of 8 and sliced back, which is
+  exact: a zero column adds nothing to the others and stays zero.
 
 What bounds them on the H100: each step reads all of S (38.65 MB at m =
 4396, 40.14 MB at the probe's M = 4480): kernel 11 from the 50 MB L2,
@@ -45,8 +51,8 @@ import torch
 from r3dfsseg_tpu_torch.kernels import build
 from r3dfsseg_tpu_torch.ops import cuda_cheby
 
-MAX_COLS = 8                   # csrc/proto_cheby.cu kMaxCols
-MAX_PROBE_COLS = 128           # kMaxProbeCols
+MAX_COLS = 8                   # csrc/proto_cheby.cu kMaxCols: columns per launch
+MAX_PROBE_COLS = 128           # kMaxProbeCols; also the archive's padded width
 SCALE = 0.99                   # the archive's per-step scale
 WARPS = 16                     # kWarps
 SMEM_LIMIT = 232448
@@ -103,18 +109,27 @@ def _check(name: str, s: torch.Tensor, b: torch.Tensor) -> None:
 
 def proto_cheby_solve(s: torch.Tensor, b: torch.Tensor, alpha: float, iters: int,
                       resident_rows: int | None = None) -> torch.Tensor:
-    """s (M, M) bf16, b (M, C) f32 with 1 <= C <= 8, both contiguous -> the
-    solution after `iters` steps, (M, C) f32: one cooperative launch.
-    `resident_rows` caps the rows of S each block keeps on chip, in its
-    warps' registers and its shared memory (None: as many as fit), to
-    measure what that residency saves."""
-    global launches
+    """s (M, M) bf16, b (M, C) f32 with 1 <= C <= 128, both contiguous -> the
+    solution after `iters` steps, (M, C) f32: one cooperative launch per
+    group of at most 8 columns.  `resident_rows` caps the rows of S each
+    block keeps on chip, in its warps' registers and its shared memory
+    (None: as many as fit), to measure what that residency saves."""
     if s.device.type == "cpu":
         return proto_cheby_solve_reference(s, b, alpha, iters)
     _check("proto_cheby_solve", s, b)
     m, c = b.shape
-    if not (m > 0 and 1 <= c <= MAX_COLS and smem_bytes(1, m) <= SMEM_LIMIT):
+    if not (m > 0 and 1 <= c <= MAX_PROBE_COLS and smem_bytes(1, m) <= SMEM_LIMIT):
         raise ValueError(f"proto_cheby_solve: unsupported shape M={m} C={c}")
+    if c <= MAX_COLS:
+        return _proto_cheby_launch(s, b, alpha, iters, resident_rows)
+    return torch.cat([_proto_cheby_launch(s, b[:, lo:lo + MAX_COLS].contiguous(), alpha, iters,
+                                          resident_rows) for lo in range(0, c, MAX_COLS)], 1)
+
+
+def _proto_cheby_launch(s, b, alpha, iters, resident_rows):
+    """One launch of kernel 10 on at most MAX_COLS columns."""
+    global launches
+    m, c = b.shape
     iters = max(iters, 1)
     theta, coef = cuda_cheby.device_coefficients(alpha, iters, s.device)
     x = torch.empty_like(b)
@@ -132,17 +147,20 @@ def proto_cheby_solve(s: torch.Tensor, b: torch.Tensor, alpha: float, iters: int
 
 
 def matmul_only(s: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
-    """s (M, M) bf16, b (M, ncols) f32 with ncols a multiple of 8 up to 128,
-    both contiguous, iters >= 1 -> acc (M, ncols) f32: one cooperative
-    launch."""
+    """s (M, M) bf16, b (M, ncols) f32 with 1 <= ncols <= 128, both
+    contiguous, iters >= 1 -> acc (M, ncols) f32: one cooperative launch
+    (ncols zero-padded to a multiple of 8 inside)."""
     global matmul_only_launches
     if s.device.type == "cpu":
         return matmul_only_reference(s, b, iters)
     _check("matmul_only", s, b)
-    m, ncols = b.shape
-    if not (m > 0 and 8 <= ncols <= MAX_PROBE_COLS and ncols % 8 == 0 and iters >= 1
+    m, live = b.shape
+    if not (m > 0 and 1 <= live <= MAX_PROBE_COLS and iters >= 1
             and smem_bytes(1, m) <= SMEM_LIMIT):
-        raise ValueError(f"matmul_only: unsupported shape M={m} ncols={ncols} iters={iters}")
+        raise ValueError(f"matmul_only: unsupported shape M={m} ncols={live} iters={iters}")
+    ncols = -(-live // 8) * 8
+    if ncols != live:
+        b = torch.nn.functional.pad(b, (0, ncols - live))
     out = torch.empty_like(b)
     dbuf = torch.zeros(2 * ncols * ldk(m), dtype=torch.bfloat16, device=s.device)
     fn = build.function("r3d_matmul_only", [build.P, build.I, build.P, build.P, build.P,
@@ -152,4 +170,4 @@ def matmul_only(s: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
                  ldk(m), iters, build.stream_ptr(s.device))
     build.check(err, "r3d_matmul_only")
     matmul_only_launches += 1
-    return out
+    return out[:, :live].contiguous() if ncols != live else out

@@ -80,14 +80,16 @@ def edge_batch_stats(e_raw, gamma0, beta0, w1, impl: str = "auto"):
     E[x^2] - m^2 cancels; and dbeta0, a small difference of large sums in
     train, moves by ~1e-3 relative under a variance that rounds
     otherwise); v1 is single pass, s2 / count - m1^2, the kernel's own
-    form.  No gradient flows through them: the tail's backward accounts
-    for the statistics' dependence on its inputs."""
+    form.  A bf16 e_raw goes to the stats1 pass as it is (2 bytes an
+    entry); m0 and v0 are taken on its f32 upcast.  No gradient flows
+    through them: the tail's backward accounts for the statistics'
+    dependence on its inputs."""
     ops = _passes(impl)
     f = e_raw.float()
     m0 = f.mean((0, 1, 2))
     v0 = (f - m0).square().mean((0, 1, 2))
     aff0, sh0, _ = bn_affines(gamma0, beta0, m0, v0)
-    s1, s2 = ops.stats1(f, aff0, sh0, w1)
+    s1, s2 = ops.stats1(e_raw, aff0, sh0, w1)   # e_raw in its own type, as the archive's _call
     count = e_raw.shape[0] * e_raw.shape[1] * e_raw.shape[2]
     m1 = s1 / count
     return m0, v0, m1, s2 / count - m1 * m1
@@ -129,11 +131,13 @@ class _FusedEdgeTail(torch.autograd.Function):
 
 def fused_edge_tail(e_raw, gamma0, beta0, w1, gamma1, beta1, m0, v0, m1, v1, train: bool,
                     impl: str = "auto") -> torch.Tensor:
-    """pooled (B, N, C) = max_k leaky(BN1(leaky(BN0(e_raw)) @ w1)).
+    """pooled (B, N, C) f32 = max_k leaky(BN1(leaky(BN0(e_raw)) @ w1)).
 
-    e_raw (B, N, K, C) f32; w1 (C_in, C_out), so l1 = h0 @ w1 (the port's
-    `ConvBN.conv.weight.T`); the other arguments (C,).  The statistics are
-    inputs: batch statistics in train (from `edge_batch_stats`), running
-    statistics in eval."""
+    e_raw (B, N, K, C) f32 or bf16 (the bf16 encoder's; the chain runs on
+    its f32 upcast and its gradient comes back in its type, rounded once,
+    as the archive's `_bwd3_kernel` writes it); w1 (C_in, C_out) f32, so l1
+    = h0 @ w1 (the port's `ConvBN.conv.weight.T`); the other arguments
+    (C,) f32.  The statistics are inputs: batch statistics in train (from
+    `edge_batch_stats`), running statistics in eval."""
     return _FusedEdgeTail.apply(e_raw, gamma0, beta0, w1, gamma1, beta1, m0, v0, m1, v1,
                                 bool(train), impl)

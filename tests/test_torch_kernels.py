@@ -24,13 +24,13 @@ def _qkv(dev, shape=(1, 8, 4), dtype=torch.float32):
     return [torch.zeros(shape, dtype=dtype, device=dev) for _ in range(3)]
 
 
-def _fused_pass(name, dev):
-    """Pass ``name`` of kernel 9 on zeros of its shapes, (1, 8, 3, 64) edges."""
-    c = cuda_fused_edge.C
+def _fused_pass(name, dev, c=cuda_fused_edge.C, dtype=torch.float32):
+    """Pass ``name`` of kernel 9 on zeros of its shapes, (1, 8, 3, c) edges
+    of ``dtype``."""
     n_vecs = {"stats1": 2, "fwd": 4, "bwd1": 6, "bwd2": 11, "bwd3": 14}[name]
     dout = [] if name in ("stats1", "fwd") else [torch.zeros((1, 8, c), device=dev)]
     return getattr(cuda_fused_edge, name)(
-        torch.zeros((1, 8, 3, c), device=dev), *dout,
+        torch.zeros((1, 8, 3, c), dtype=dtype, device=dev), *dout,
         *(torch.ones(c, device=dev) for _ in range(n_vecs)), torch.zeros((c, c), device=dev))
 
 
@@ -82,6 +82,16 @@ CALLS = {
     **{f"fused_edge_{p}": (cuda_fused_edge, f"{p}_launches",
                            lambda dev, p=p: _fused_pass(p, dev))
        for p in cuda_fused_edge.PASSES},
+    # the fused tail's bf16 form, and every shape past its tuned tile (F2)
+    **{f"fused_edge_bf16_{p}": (cuda_fused_edge, f"bf16_{p}_launches",
+                                lambda dev, p=p: _fused_pass(p, dev, dtype=torch.bfloat16))
+       for p in cuda_fused_edge.PASSES},
+    **{f"fused_edge_general_{p}": (cuda_fused_edge, f"general_{p}_launches",
+                                   lambda dev, p=p: _fused_pass(p, dev, c=12))
+       for p in cuda_fused_edge.PASSES},
+    "gather_onehot_narrow": (cuda_gather, "narrow_launches", lambda dev: cuda_gather.gather_onehot(
+        torch.zeros((1, 8, 3), device=dev), torch.zeros((1, 8, 2), dtype=torch.int32,
+                                                         device=dev))),
     # the shapes past the tuned kernels, and the packed-key kNN
     "knn_general": (cuda_knn, "general_launches", lambda dev: cuda_knn.knn(
         torch.zeros((1, 40, 3), device=dev), 33)),
@@ -571,19 +581,19 @@ def test_matmul_only_kernel_matches_plain_on_card(m, ncols, iters):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["cheby_c9", "probe_ncols12", "cheby_strided_s",
+@pytest.mark.parametrize("case", ["cheby_c129", "probe_ncols129", "cheby_strided_s",
                                   "probe_strided_s"])
 def test_proto_cheby_wrappers_raise_on_card(case):
-    """What the kernels do not take raises: 9 live columns, 12 probe
-    columns (not a multiple of 8), a non-contiguous S."""
+    """What the kernels do not take raises: 129 live columns (the archives
+    pad to 128), a non-contiguous S."""
     dev = cuda_or_skip()
     s = torch.zeros((64, 64), dtype=torch.bfloat16, device=dev)
     strided = torch.zeros((64, 128), dtype=torch.bfloat16, device=dev)[:, ::2]
     calls = {
-        "cheby_c9": lambda: cuda_proto_cheby.proto_cheby_solve(
-            s, torch.ones((64, 9), device=dev), 0.99, 3),
-        "probe_ncols12": lambda: cuda_proto_cheby.matmul_only(
-            s, torch.ones((64, 12), device=dev), 3),
+        "cheby_c129": lambda: cuda_proto_cheby.proto_cheby_solve(
+            s, torch.ones((64, 129), device=dev), 0.99, 3),
+        "probe_ncols129": lambda: cuda_proto_cheby.matmul_only(
+            s, torch.ones((64, 129), device=dev), 3),
         "cheby_strided_s": lambda: cuda_proto_cheby.proto_cheby_solve(
             strided, torch.ones((64, 3), device=dev), 0.99, 3),
         "probe_strided_s": lambda: cuda_proto_cheby.matmul_only(
@@ -707,6 +717,174 @@ def test_fused_edge_passes_match_plain_on_card(b, n, k, train):
         tol = 1e-5 if name in ("stats1", "fwd") else 1e-4
         for g, w in zip(got, want):
             assert float((g - w).abs().max()) <= tol * float(w.abs().max()), name
+
+
+def _fused_args(b, n, k, c, train, dtype, dev, seed=0):
+    """Each kernel-9 pass's arguments on an EdgeConv (9 -> c, c) block's
+    e_raw of ``dtype``, as the tail builds them (`chip_smoke.fused_pass_args`)."""
+    torch.manual_seed(seed)
+    block = EdgeConv(9, (c, c), k=k).to(dev)
+    with torch.no_grad():
+        for layer in (block.layer0, block.layer1):
+            layer.bn.weight.uniform_(0.5, 1.5)
+            layer.bn.bias.normal_(0.0, 0.1)
+            layer.bn.running_mean.normal_(0.0, 0.5)
+            layer.bn.running_var.uniform_(0.5, 1.5)
+    rng = np.random.default_rng(seed + 1)
+    x = torch.from_numpy(rng.normal(size=(b, n, 9)).astype(np.float32)).to(dev)
+    _, _, e, w1 = chip_smoke.edge_operands(torch, block, x)
+    dout = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)).to(dev)
+    return chip_smoke.fused_pass_args(torch, cuda_fused_edge, block, e.to(dtype), w1, dout,
+                                      train)[0]
+
+
+def _fused_launches():
+    return chip_smoke.fused_counts(cuda_fused_edge)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("b,n,k", [(2, 256, 20), (1, 40, 5)])
+def test_fused_edge_bf16_bit_equals_the_f32_form_on_card(b, n, k, train):
+    """Kernel 9 on a bf16 e: the tuned kernel's bf16 form (its own counter
+    moves, the general kernel's not), each pass bit for bit the f32 form on
+    e's upcast, d_e after one rounding to bf16."""
+    dev = cuda_or_skip()
+    args = _fused_args(b, n, k, 64, train, torch.bfloat16, dev)
+    for name, a in args.items():
+        before = _fused_launches()
+        got = chip_smoke._as_tuple(getattr(cuda_fused_edge, name)(*a))
+        torch.cuda.synchronize()
+        moved = {m: c - before[m] for m, c in _fused_launches().items() if c != before[m]}
+        assert moved == {name: 1, f"bf16_{name}": 1}, moved
+        up = chip_smoke._as_tuple(getattr(cuda_fused_edge, name)(a[0].float(), *a[1:]))
+        for g, u in zip(got, up):
+            assert g.dtype == (torch.bfloat16 if name == "bwd3" else torch.float32)
+            assert torch.equal(g, u.to(g.dtype)), name
+
+
+# shapes past the tuned tile: C != 64, K past shared memory, B * N not a
+# multiple of 8 (B, N, K, C); K = 1 at C = 2 (at C = 1 the train-mode BN1
+# gradient is orthogonal to h0, so dW1 is zero but for rounding and has no
+# scale to hold an error to)
+FUSED_F2_CARD = [(1, 12, 9, 12), (1, 12, 9, 7), (2, 100, 20, 63), (1, 100, 64, 64),
+                 (3, 7, 3, 130), (1, 5, 1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,k,c", FUSED_F2_CARD)
+def test_fused_edge_general_kernel_f2_shapes_on_card(b, n, k, c, dtype):
+    """The general kernel 9 (`csrc/fused_edge_general.cu`): its counter
+    moves once per call and the tuned kernel's not (where the tuned tile
+    fits the K it is given, as stats1 at K = 64, the tuned kernel's); a
+    second call is
+    bit-equal; each output has the plain version's type and lies within
+    the tuned kernel's tolerances of it (stats1, fwd 1e-5 of the largest
+    entry; backward 1e-4; a bf16 d_e may sit one bf16 step from it where
+    the two f32 values straddle a rounding edge, `chip_smoke.output_error`),
+    train and eval."""
+    dev = cuda_or_skip()
+    for train in (True, False):
+        for name, a in _fused_args(b, n, k, c, train, dtype, dev, seed=c + k).items():
+            before = _fused_launches()
+            got = chip_smoke._as_tuple(getattr(cuda_fused_edge, name)(*a))
+            again = chip_smoke._as_tuple(getattr(cuda_fused_edge, name)(*a))
+            torch.cuda.synchronize()
+            moved = {m: v - before[m] for m, v in _fused_launches().items() if v != before[m]}
+            if chip_smoke.fused_tuned_takes(name, b, n, k, c):     # stats1 at K = 64
+                assert moved == ({name: 2, f"bf16_{name}": 2} if dtype == torch.bfloat16
+                                 else {name: 2}), moved
+            else:
+                assert moved == {f"general_{name}": 2}, moved
+            want = chip_smoke._as_tuple(getattr(cuda_fused_edge, f"{name}_reference")(*a))
+            tol = 1e-5 if name in ("stats1", "fwd") else 1e-4
+            for g, g2, w in zip(got, again, want):
+                assert torch.equal(g, g2) and g.dtype == w.dtype and g.shape == w.shape, name
+                chip_smoke.output_error(g, w, tol, f"{name} train={train}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_edge_general_kernel_matches_the_tuned_one_on_card(dtype):
+    """At a shape both take (C = 64, B * N a multiple of 8), the general
+    kernel, forced by `general_only`, within the tuned kernel's tolerances
+    of the tuned kernel."""
+    dev = cuda_or_skip()
+    for train in (True, False):
+        for name, a in _fused_args(2, 256, 20, 64, train, dtype, dev).items():
+            before = _fused_launches()
+            with cuda_fused_edge.general_only():
+                got = chip_smoke._as_tuple(getattr(cuda_fused_edge, name)(*a))
+            torch.cuda.synchronize()
+            moved = {m: v - before[m] for m, v in _fused_launches().items() if v != before[m]}
+            assert moved == {f"general_{name}": 1}, moved
+            want = chip_smoke._as_tuple(getattr(cuda_fused_edge, name)(*a))
+            tol = 1e-5 if name in ("stats1", "fwd") else 1e-4
+            for g, w in zip(got, want):
+                assert float((g.float() - w.float()).abs().max()) <= \
+                    tol * float(w.float().abs().max()), (name, train)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,dtype", [(63, torch.float32), (60, torch.bfloat16),
+                                     (63, torch.bfloat16), (1, torch.float32),
+                                     (3, torch.bfloat16)])
+def test_gather_kernel_narrow_rows_bit_equal_on_card(c, dtype):
+    """Kernel 8 on rows that are not a multiple of 16 bytes (4- and 2-byte
+    pieces): bit-equal to the plain version, one narrow launch per call."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy(rng.normal(size=(2, 300, c)).astype(np.float32)).to(dev, dtype)
+    idx = torch.from_numpy(rng.integers(0, 300, size=(2, 300, 20)).astype(np.int32)).to(dev)
+    counts = (cuda_gather.launches, cuda_gather.narrow_launches)
+    got = cuda_gather.gather_onehot(x, idx)
+    torch.cuda.synchronize()
+    assert (cuda_gather.launches, cuda_gather.narrow_launches) == (counts[0], counts[1] + 1)
+    assert torch.equal(got, cuda_gather.gather_onehot_reference(x, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [9, 16, 128])
+def test_proto_cheby_more_than_eight_columns_on_card(c):
+    """Kernel 10 on more than 8 columns: one launch per group of 8, equal
+    bit for bit to the groups solved alone, within 1e-3 of max of the plain
+    version at 50 steps."""
+    dev = cuda_or_skip()
+    s, _ = _graph_system(c, 1001, dev)
+    labels = np.random.default_rng(c).integers(0, c, 300)
+    b = torch.from_numpy(np.eye(c, dtype=np.float32)[labels]).to(dev)
+    b = torch.cat([b, torch.zeros((701, c), device=dev)])
+    before = cuda_proto_cheby.launches
+    got = cuda_proto_cheby.proto_cheby_solve(s, b, 0.99, 50)
+    torch.cuda.synchronize()
+    assert cuda_proto_cheby.launches == before + -(-c // 8)
+    groups = [cuda_proto_cheby.proto_cheby_solve(s, b[:, lo:lo + 8].contiguous(), 0.99, 50)
+              for lo in range(0, c, 8)]
+    assert torch.equal(got, torch.cat(groups, 1))
+    want = cuda_proto_cheby.proto_cheby_solve_reference(s, b, 0.99, 50)
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncols", [1, 12, 127])
+def test_matmul_only_any_ncols_on_card(ncols):
+    """Kernel 11 at a column count that is not a multiple of 8: one launch,
+    the zero-padded call's columns bit for bit, within 1e-4 of max of the
+    plain version at 3 steps."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(ncols)
+    a = rng.random((1000, 1000), dtype=np.float32)
+    s = torch.from_numpy(a / a.sum(1, keepdims=True)).to(torch.bfloat16).to(dev)
+    b = torch.from_numpy(rng.normal(size=(1000, ncols)).astype(np.float32)).to(dev)
+    before = cuda_proto_cheby.matmul_only_launches
+    got = cuda_proto_cheby.matmul_only(s, b, 3)
+    torch.cuda.synchronize()
+    assert cuda_proto_cheby.matmul_only_launches == before + 1 and got.shape == b.shape
+    padded = torch.nn.functional.pad(b, (0, -ncols % 8))
+    assert torch.equal(got, cuda_proto_cheby.matmul_only(s, padded, 3)[:, :ncols])
+    want = cuda_proto_cheby.matmul_only_reference(s, b, 3)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 @pytest.mark.cuda
