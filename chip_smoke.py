@@ -2,15 +2,16 @@
 """Smoke test of the PyTorch/CUDA port (r3dfsseg_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--seed N] [--requests N]
-                          [--only knn,fps | cheby,scatter | kth | bf16 | f1 | f2 | fused]
+                          [--only knn,fps | cheby,scatter | kth | bf16 | f1 | f2 | fused
+                                  | attn]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
 
   1. build every kernel of `r3dfsseg_tpu_torch/csrc/` with nvcc, and print
-     the kNN, FPS, Chebyshev, scatter-add and k-th distance kernels'
-     registers and spills
-     (-Xptxas -v);
+     the kNN, FPS, Chebyshev, scatter-add, k-th distance and attention
+     kernels' registers and spills (-Xptxas -v); the wide tensor-core
+     attention kernels must not spill;
   2. call each kernel at the flagship shapes of its path and hold it
      against its plain PyTorch version on the same inputs (kNN: the
      neighbour sets, differences only at near-ties, two calls bit-equal,
@@ -112,9 +113,11 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
   2b. the F1 kernels, at shapes the JAX package's Pallas kernels run and
      the tuned kernels do not take (`check_f1`): the general kNN (k = 40
      at C = 9 and 64, C = 320), the packed-key kNN (knn_impl "pallas") at
-     a request's six calls, attention at D = 128 (B = 10 and 2, f32 and
-     bf16, rate 0.1 and 0, forward and backward) and at D = 12 (f32, and
-     bf16 through the zero pad: the tuned kernels), the k-th distance on
+     a request's six calls, attention (B = 10 and 2, rate 0.1 and 0,
+     forward and backward) at D = 128 in f32 and in bf16 at D = 128, 100
+     (the zero pad to 104) and 256 (the wide tensor-core kernels) and 320
+     (FFMA), and at D = 12 (f32, and bf16 through the zero pad: the tuned
+     kernels), the k-th distance on
      rows of 60000 f32 and 120000 bf16 entries, the scatter-add at C = 63
      and at N = 32768; each shape's own counter moves and the tuned
      kernel's not, against the plain versions (kNN as kernel 1, the packed
@@ -125,8 +128,9 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
   4c. a configuration past the tuned shapes (dgcnn_k 40, output_dim 128, a
      63-wide first EdgeConv layer), two requests and a training step on
      the float32 encoder and a step on the bf16 encoder, against their
-     plain paths, through the general kNN, the wide attention and the
-     general scatter-add (the tuned kNN and attention launch no time);
+     plain paths, through the general kNN, the wide attention (FFMA in
+     f32, the wide tensor-core pair on the bf16 encoder) and the general
+     scatter-add (the tuned kNN and attention launch no time);
   4d. knn_impl "pallas" at full flagship width: two requests and a
      training step through the packed-key kNN, against the packed mode's
      plain path (labels >= 99%, step 1 within the f32 gates), the labels'
@@ -142,7 +146,8 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
 
 It prints the card's name and power limit, one JSON line describing the
 eleven kernels (kernels 1, 2, 5 and 6 with a second row each for their
-bf16 form, a row for each F1 kernel and the packed kNN, a row for each
+bf16 form, a row for each F1 kernel, the packed kNN and the wide
+tensor-core attention pair, a row for each
 pass of kernel 9's bf16 form and of its general kernel, and the narrow
 gather's), and as its
 last line {"ok": true, "device": {...}}.  Without a
@@ -151,10 +156,12 @@ runs the build and the kNN and FPS checks alone and prints their rows,
 `--only cheby,scatter` the Chebyshev and scatter-add checks, and `--only
 kth` the k-th distance's three checks (f32, adversarial rows, bf16), `--only
 bf16` the checks of the bf16 forms of kernels 1, 2, 5 and 6, `--only f1`
-phase 2b alone, `--only f2` phase 2c alone, and `--only fused` a digest
+phase 2b alone, `--only f2` phase 2c alone, `--only fused` a digest
 of kernel 9's f32 passes' output bits at the flagship shape on seeded
 inputs with their times (the same on two trees shows the f32 form
-unchanged), so that
+unchanged), and `--only attn` the same for the attention kernels that the
+wide tensor-core pair leaves as they were (`attention_digest`), with the
+bf16 pair's times at D = 128 on whichever kernels the tree runs, so that
 another tree's kernels can be timed with the same code (put that tree's
 root first on sys.path and run this file with runpy; the tree's modules
 need the plain versions these checks call: `cheby_solve_split_reference`
@@ -256,7 +263,8 @@ def describe(cfg) -> str:
 def ptxas_report(build_log: str, names=("knn_kernel", "fps_kernel", "cheby_kernel",
                                         "scatter_add_kernel", "kth_kernel", "attn_fwd_bf16",
                                         "attn_bwd_dkdv_bf16", "attn_bwd_dq_bf16",
-                                        "knn_general_kernel", "attn_wide", "kth_wide_kernel",
+                                        "knn_general_kernel", "attn_wide_tc", "attn_wide",
+                                        "kth_wide_kernel",
                                         "fill_kernel", "sum_kernel", "fused_edge_kernel",
                                         "edge_route_kernel", "edge_rows_kernel",
                                         "gather_rows_kernel")) -> list[str]:
@@ -619,8 +627,8 @@ def sdpa(torch, q, k, v, rate, tau):
     call on (B, 1, N, D) views (a 3-D input takes the unfused math
     backend), pinned to the memory-efficient backend, the one SDPA picks
     for f32 with dropout on sm80+ (CUTLASS's f32 kernels, `fmha_cutlassF`
-    and `fmha_cutlassB` in the profile); if that backend is refused the
-    call raises."""
+    and `fmha_cutlassB` in the profile) and the one that takes bf16 past
+    flash's D = 256; if that backend is refused the call raises."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
@@ -1390,59 +1398,111 @@ def check_knn_packed(torch, knn_mod, sx):
                bound_ms_ffma=bound(flops, nbytes)[0], **rates, **per)
 
 
+# Attention past the tuned kernels' 64 channels: (dtype, D, the route's
+# counters).  bf16 at 64 < D <= 256 takes csrc/attention_wide_bf16.cu's
+# tensor-core tiles (D = 100 through the zero pad to 104), f32 at D > 64
+# and bf16 past 256 csrc/attention_wide.cu's FFMA kernels.
+ATTN_WIDE_CASES = [("float32", 128, "wide"), ("bfloat16", 128, "wide_tc"),
+                   ("bfloat16", 100, "wide_tc"), ("bfloat16", 256, "wide_tc"),
+                   ("bfloat16", 320, "wide")]
+ATTN_ROUTE_COUNTERS = {"tuned": ("launches", "bwd_launches"),
+                       "wide": ("wide_launches", "wide_bwd_launches"),
+                       "wide_tc": ("wide_tc_bf16_launches", "wide_tc_bwd_bf16_launches")}
+
+
+def attention_step(attn_mod, q, k, v, dy, tau, rate, seed):
+    """A training step's attention: the forward (y, lse), then the
+    backward's (dq, dk, dv)."""
+    y, lse = attn_mod.attention_fwd(q, k, v, tau, rate, seed)
+    return y, lse, attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
+
+
+def attention_times(torch, attn_mod, saved, tau, rate, lib, reps: int = 5) -> dict:
+    """Per step (the saved calls of B = 10 and 2): the forward and the
+    backward, kernels and plain versions, each batch alone, and ``lib``
+    (SDPA pinned to a backend) forward alone and backward alone (one
+    forward keeps the graph; `torch.autograd.grad` is timed)."""
+    def fwd(f, which=saved):
+        return lambda: [f(q, k, v, tau, rate, seed) for q, k, v, dy, seed, *_ in which]
+
+    def bwd(f, which=saved):
+        return lambda: [f(q, k, v, y, dy, lse, tau, rate, seed)
+                        for q, k, v, dy, seed, y, lse in which]
+
+    t = dict(fwd=cuda_ms(fwd(attn_mod.attention_fwd), reps),
+             fwd_plain=cuda_ms(fwd(attn_mod.attention_fwd_reference), reps),
+             bwd=cuda_ms(bwd(attn_mod.attention_bwd), reps),
+             bwd_plain=cuda_ms(bwd(attn_mod.attention_bwd_reference), reps))
+    for i, b in enumerate(q.shape[0] for q, *_ in saved):
+        t[f"fwd_b{b}"] = cuda_ms(fwd(attn_mod.attention_fwd, saved[i:i + 1]), reps)
+        t[f"bwd_b{b}"] = cuda_ms(bwd(attn_mod.attention_bwd, saved[i:i + 1]), reps)
+    graphs = []
+    for q, k, v, dy, *_ in saved:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        graphs.append((lib(torch, *leaves, rate, tau), leaves, dy.to(q.dtype)))
+
+    def lib_bwd():
+        for out, leaves, dy in graphs:
+            torch.autograd.grad(out, leaves, dy, retain_graph=True)
+
+    t["lib_fwd"] = cuda_ms(lambda: [lib(torch, q, k, v, rate, tau) for q, k, v, *_ in saved],
+                           reps)
+    t["lib_bwd"] = cuda_ms(lib_bwd, reps)
+    return t
+
+
 def check_attention_wide(torch, attn_mod):
-    """Attention at D = 128 (the pretraining network's head), B = 10 and 2,
-    N = 2048, f32 and bf16, rate 0.1 and 0, forward and backward: the wide
-    kernels launch (their counters move, the tuned ones' do not), within
-    `attention_gates`' bounds, a second call of each bit-equal; then D = 12
-    in f32 (aligned: the tuned kernels as they are) and in bf16 (the zero
-    pad to 16, then the tuned bf16 kernels).  Times per step (both batches,
-    rate 0.1): kernels, plain versions, and SDPA (f32: the
-    memory-efficient backend; bf16: flash) forward alone and backward
-    alone.  Bounds: 4 B N^2 D and 10 B N^2 D operations at the peak of
-    the function's type, as the tuned rows count them: f32 as three tf32
-    tensor-core passes (the FFMA bound, what these kernels run, beside
-    it), bf16 on the bf16 tensor cores; bytes as the tuned rows count
-    them.  Returns the four wide rows."""
-    tuned = {"fwd": (attn_mod, "launches"), "bwd": (attn_mod, "bwd_launches")}
-    wide = {"fwd": (attn_mod, "wide_launches"), "bwd": (attn_mod, "wide_bwd_launches")}
-    counters = {**{f"tuned_{n}": c for n, c in tuned.items()},
-                **{f"wide_{n}": c for n, c in wide.items()}}
+    """Attention past the tuned kernels' width (`ATTN_WIDE_CASES`): f32 at
+    D = 128 (the pretraining network's head), bf16 at D = 128, 100 (zero
+    pad to 104) and 256 on the wide tensor-core kernels, bf16 at D = 320 on
+    the FFMA kernels; each at B = 10 and 2, N = 2048, rate 0.1 and 0,
+    forward and backward: the route's counters move once each and no other
+    route's, every error within `attention_gates`' bound, a second call of
+    each bit-equal; then D = 12 in f32 (aligned: the tuned kernels as they
+    are) and in bf16 (the zero pad to 16, then the tuned bf16 kernels).
+    Times per step (both batches, rate 0.1) at each width: kernels, plain
+    versions, and SDPA (f32, and bf16 at D = 320, past flash's 256: the
+    memory-efficient backend; bf16 up to 256: flash) forward alone and
+    backward alone.  Bounds: 4 B N^2 D and 10 B N^2 D operations
+    at the peak of the function's type, as the tuned rows count them: f32
+    as three tf32 tensor-core passes (the FFMA bound, what those kernels
+    run, beside it), bf16 on the bf16 tensor cores; bytes as the tuned rows
+    count them.  Returns the rows: the FFMA pair in f32 at D = 128 and in
+    bf16 at D = 320, the tensor-core pair at D = 128 (D = 100 and 256
+    beside)."""
+    counters = {f"{route}_{i}": (attn_mod, name) for route, names in ATTN_ROUTE_COUNTERS.items()
+                for i, name in zip(("fwd", "bwd"), names)}
     g = torch.Generator(device="cuda").manual_seed(24)
-    rows = {}
-    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+    rows, extra = {}, {}
+    for dtype_name, d, route in ATTN_WIDE_CASES:
+        dtype = getattr(torch, dtype_name)
         calls = []
         for b, seed in ((10, 97), (2, 98)):
-            q, k, v, dy = (torch.randn((b, 2048, 128), generator=g, device="cuda")
-                           for _ in range(4))
+            q, k, v, dy = (torch.randn((b, 2048, d), generator=g, device="cuda") for _ in range(4))
             calls.append((q.to(dtype), k.to(dtype), v.to(dtype), dy, seed))
-        tau = 128 ** 0.5
+        tau = d ** 0.5
+        want = {n: int(n.rsplit("_", 1)[0] == route) for n in counters}
         worst = {"y": 0.0, "grads": 0.0}
+        what = f"attention D={d} {dtype_name} ({route})"
         for q, k, v, dy, seed in calls:
             for rate in (0.1, 0.0):
-                def step():
-                    y, lse = attn_mod.attention_fwd(q, k, v, tau, rate, seed)
-                    return y, lse, attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
                 y, lse, grads = expect_launches(
-                    counters, step, {"wide_fwd": 1, "wide_bwd": 1, "tuned_fwd": 0,
-                                     "tuned_bwd": 0},
-                    f"attention D=128 {dtype} B={q.shape[0]} rate {rate}")
-                y2, lse2, grads2 = step()
+                    counters, lambda: attention_step(attn_mod, q, k, v, dy, tau, rate, seed),
+                    want, f"{what} B={q.shape[0]} rate {rate}")
+                y2, lse2, grads2 = attention_step(attn_mod, q, k, v, dy, tau, rate, seed)
                 same = (torch.equal(y, y2) and torch.equal(lse, lse2)
                         and all(torch.equal(a, c) for a, c in zip(grads, grads2)))
                 e = attention_gates(torch, attn_mod, q, k, v, dy, tau, rate, seed, y, lse, grads)
-                log(f"  attention D=128 {dtype} B={q.shape[0]} rate {rate}: errors as shares "
-                    f"of their bounds " + ", ".join(f"{n} {x:.3e}" for n, x in e.items()) +
+                log(f"  {what} B={q.shape[0]} rate {rate}: errors as shares of their bounds " +
+                    ", ".join(f"{n} {x:.3e}" for n, x in e.items()) +
                     f"; a second call of each bit-equal {same}")
                 if max(e.values()) > 1.0 or not same:
-                    raise AssertionError(f"attention D=128 {dtype}: {e}, repeat {same}")
+                    raise AssertionError(f"{what}: {e}, repeat {same}")
                 worst["y"] = max(worst["y"], e["y"])
                 worst["grads"] = max(worst["grads"], e["dq"], e["dk"], e["dv"])
-        saved = []
         rate = 0.1
-        for q, k, v, dy, seed in calls:
-            y, lse = attn_mod.attention_fwd(q, k, v, tau, rate, seed)
-            saved.append((q, k, v, dy, seed, y, lse))
+        saved = [(q, k, v, dy, seed, *attn_mod.attention_fwd(q, k, v, tau, rate, seed))
+                 for q, k, v, dy, seed in calls]
         err_y = max((y - attn_mod.attention_fwd_reference(q, k, v, tau, rate, seed,
                                                           kernel_scale=True)[0]).abs().max().item()
                     for q, k, v, dy, seed, y, lse in saved)
@@ -1451,63 +1511,42 @@ def check_attention_wide(torch, attn_mod):
                                     attn_mod.attention_bwd_reference(q, k, v, y, dy, lse, tau,
                                                                      rate, seed,
                                                                      kernel_scale=True)))
-
-        def fwd(f, which=saved):
-            return lambda: [f(q, k, v, tau, rate, seed) for q, k, v, dy, seed, *_ in which]
-
-        def bwd(f, which=saved):
-            return lambda: [f(q, k, v, y, dy, lse, tau, rate, seed)
-                            for q, k, v, dy, seed, y, lse in which]
-
-        lib = sdpa_flash if dtype == torch.bfloat16 else sdpa
-        graphs = []
-        for q, k, v, dy, *_ in saved:
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            graphs.append((lib(torch, *leaves, rate, tau), leaves, dy.to(dtype)))
-
-        def lib_bwd():
-            for out, leaves, dy in graphs:
-                torch.autograd.grad(out, leaves, dy, retain_graph=True)
-
-        t = dict(fwd=cuda_ms(fwd(attn_mod.attention_fwd), 5),
-                 fwd_plain=cuda_ms(fwd(attn_mod.attention_fwd_reference), 5),
-                 bwd=cuda_ms(bwd(attn_mod.attention_bwd), 5),
-                 bwd_plain=cuda_ms(bwd(attn_mod.attention_bwd_reference), 5),
-                 lib_fwd=cuda_ms(lambda: [lib(torch, q, k, v, rate, tau)
-                                          for q, k, v, *_ in saved], 5),
-                 lib_bwd=cuda_ms(lib_bwd, 5))
-        for i, b in enumerate(q.shape[0] for q, *_ in saved):
-            t[f"fwd_b{b}"] = cuda_ms(fwd(attn_mod.attention_fwd, saved[i:i + 1]), 5)
-            t[f"bwd_b{b}"] = cuda_ms(bwd(attn_mod.attention_bwd, saved[i:i + 1]), 5)
-        log(f"  attention D=128 {dtype} per step (ms): " +
+        lowp = dtype == torch.bfloat16
+        lib = sdpa_flash if lowp and d <= 256 else sdpa
+        t = attention_times(torch, attn_mod, saved, tau, rate, lib)
+        log(f"  {what} per step (ms): " +
             ", ".join(f"{n} {v:.4f}" for n, v in t.items()))
-        bn2d = sum(q.shape[0] for q, *_ in saved) * 2048 ** 2 * 128
+        if route == "wide_tc" and d != 128:    # beside the D = 128 row
+            extra.update({f"{n}_d{d}": t[f"{n}"] for n in ("fwd", "bwd", "lib_fwd", "lib_bwd")},
+                         **{f"share_of_gate_d{d}": max(worst.values())})
+            continue
+        bn2d = sum(q.shape[0] for q, *_ in saved) * 2048 ** 2 * d
         n = sum(q.numel() for q, *_ in saved)
         nrows = sum(q.shape[0] * q.shape[1] for q, *_ in saved)
-        el = 2.0 if dtype == torch.bfloat16 else 4.0
+        el = 2.0 if lowp else 4.0
         fwd_bytes = 3 * el * n + 4.0 * n + 4.0 * nrows
         bwd_bytes = 3 * el * n + 2 * 4.0 * n + 4.0 * nrows + 3 * 4.0 * n
-        passes, peak = (1, BF16_TC_FLOPS) if dtype == torch.bfloat16 else (3, TF32_TC_FLOPS)
-        rows[f"attention_wide_fwd{tag}"] = row(
+        passes, peak = (1, BF16_TC_FLOPS) if lowp else (3, TF32_TC_FLOPS)
+        name = "attention_wide" + ("_tc" if route == "wide_tc" else "")
+        tag = "_bf16" if lowp else ""
+        rows[f"{name}_fwd{tag}"] = row(
             err_y, t["fwd"], t["fwd_plain"], t["lib_fwd"], passes * 4.0 * bn2d, fwd_bytes,
-            peak, bound_ms_ffma=bound(4.0 * bn2d, fwd_bytes)[0],
+            peak, bound_ms_ffma=bound(4.0 * bn2d, fwd_bytes)[0], head_dim=d,
             ms_b10=t["fwd_b10"], ms_b2=t["fwd_b2"], share_of_gate=worst["y"])
-        rows[f"attention_wide_bwd{tag}"] = row(
+        rows[f"{name}_bwd{tag}"] = row(
             err_g, t["bwd"], t["bwd_plain"], t["lib_bwd"], passes * 10.0 * bn2d, bwd_bytes,
-            peak, bound_ms_ffma=bound(10.0 * bn2d, bwd_bytes)[0],
+            peak, bound_ms_ffma=bound(10.0 * bn2d, bwd_bytes)[0], head_dim=d,
             ms_b10=t["bwd_b10"], ms_b2=t["bwd_b2"], share_of_gate=worst["grads"],
-            ms_pair=t["fwd"] + t["bwd"], library_ms_pair=t["lib_fwd"] + t["lib_bwd"])
+            ms_pair=t["fwd"] + t["bwd"],
+            library_ms_pair=t["lib_fwd"] + t["lib_bwd"])
+    rows["attention_wide_tc_bwd_bf16"].update(extra)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, dy = (torch.randn((2, 2048, 12), generator=g, device="cuda") for _ in range(4))
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
         tau = 12 ** 0.5
-
-        def step():
-            y, lse = attn_mod.attention_fwd(q, k, v, tau, 0.1, 5)
-            return y, lse, attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, 5)
         y, lse, grads = expect_launches(
-            counters, step, {"wide_fwd": 0, "wide_bwd": 0, "tuned_fwd": 1, "tuned_bwd": 1},
-            f"attention D=12 {dtype}")
+            counters, lambda: attention_step(attn_mod, q, k, v, dy, tau, 0.1, 5),
+            {n: int(n.rsplit("_", 1)[0] == "tuned") for n in counters}, f"attention D=12 {dtype}")
         e = attention_gates(torch, attn_mod, q, k, v, dy, tau, 0.1, 5, y, lse, grads)
         log(f"  attention D=12 {dtype} ({'zero pad to 16, ' if dtype == torch.bfloat16 else ''}"
             f"tuned kernels): errors as shares of their bounds " +
@@ -1515,6 +1554,54 @@ def check_attention_wide(torch, attn_mod):
         if max(e.values()) > 1.0:
             raise AssertionError(f"attention D=12 {dtype}: {e}")
     return rows
+
+
+def attention_digest(torch, attn_mod, seed: int) -> dict:
+    """The attention kernels' output bits on inputs drawn from ``seed``, by
+    the wrapper API every tree since the wide kernels has, so that two
+    trees can be held bit for bit (run this file under each tree's root,
+    see the module docstring): a sha256 of (y, lse, dq, dk, dv) of a
+    training step at B = 10 and 2, N = 2048, rate 0.1, for the tuned f32
+    and bf16 kernels at D = 64 and D = 12 (bf16: the zero pad) and the f32
+    FFMA wide kernels at D = 128.  Then the bf16 pair at D = 128, on
+    whichever kernels the tree routes it to (the counters that moved are
+    printed), and SDPA flash beside it: their times per step (`attention_
+    times`, rate 0.1)."""
+    import hashlib
+    g = torch.Generator(device="cuda").manual_seed(seed + 31)
+    out = {}
+    for dtype_name, d in (("float32", 64), ("bfloat16", 64), ("float32", 12), ("bfloat16", 12),
+                          ("float32", 128), ("bfloat16", 128)):
+        dtype = getattr(torch, dtype_name)
+        calls = []
+        for b, s in ((10, seed + 1), (2, seed + 2)):
+            q, k, v, dy = (torch.randn((b, 2048, d), generator=g, device="cuda") for _ in range(4))
+            calls.append((q.to(dtype), k.to(dtype), v.to(dtype), dy, s))
+        tau = d ** 0.5
+        if (dtype_name, d) == ("bfloat16", 128):
+            names = [n for pair in ATTN_ROUTE_COUNTERS.values() for n in pair
+                     if hasattr(attn_mod, n)]
+            before = {n: getattr(attn_mod, n) for n in names}
+            saved = [(q, k, v, dy, s, *attn_mod.attention_fwd(q, k, v, tau, 0.1, s))
+                     for q, k, v, dy, s in calls]
+            for q, k, v, dy, s, y, lse in saved:
+                attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, s)
+            moved = {n: getattr(attn_mod, n) - c for n, c in before.items()
+                     if getattr(attn_mod, n) != c}
+            t = attention_times(torch, attn_mod, saved, tau, 0.1, sdpa_flash, reps=10)
+            out["bf16_d128"] = dict(t, counters=moved)
+            log(f"  attention bf16 D=128 (counters {moved}) per step (ms): " +
+                ", ".join(f"{n} {v:.4f}" for n, v in t.items()))
+            continue
+        h = hashlib.sha256()
+        for q, k, v, dy, s in calls:
+            y, lse, grads = attention_step(attn_mod, q, k, v, dy, tau, 0.1, s)
+            for x in (y, lse, *grads):
+                h.update(x.contiguous().cpu().numpy().tobytes())
+        key = f"{dtype_name}_d{d}"
+        out[key] = h.hexdigest()[:16]
+        log(f"  attention {dtype_name} D={d}: sha256 {out[key]}")
+    return out
 
 
 def check_kth_wide(torch, kth_mod):
@@ -2974,13 +3061,14 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth", "bf16", "f1", "f2",
-                                       "fused"],
+                                       "fused", "attn"],
                     help="build, then only the kNN and FPS (or the Chebyshev and scatter-add, "
                          "the k-th distance, the bf16 forms of kernels 1, 2, 5 and 6, the "
                          "F1 kernels: general kNN, packed kNN, wide attention, wide-row k-th "
                          "distance, general scatter-add; the F2 paths: general kernel 9, the "
-                         "narrow gather, kernels 10 and 11 past 8 columns; or kernel 9's f32 "
-                         "passes' output digests) kernel checks, and print their rows "
+                         "narrow gather, kernels 10 and 11 past 8 columns; kernel 9's f32 "
+                         "passes' output digests; or the attention kernels' output digests and "
+                         "the bf16 D = 128 pair's times) kernel checks, and print their rows "
                          "(to time them beside another tree's kernels)")
     args = ap.parse_args()
 
@@ -3008,6 +3096,21 @@ def main() -> int:
             log("  " + line.strip())
     for line in ptxas_report(build.build_log):
         log("  [ptxas] " + line)
+    if not hasattr(cuda_attention, "wide_tc_bf16_launches"):
+        log("  [ptxas] a tree without the wide bf16 attention kernels: spill check not run")
+    elif build.build_log:
+        wide_tc = ptxas_report(build.build_log, ("attn_wide_tc",))
+        missing = [f"{k} T={t}" for k in ("fwd", "dkdv", "dq") for t in (2, 4)
+                   if not any(x.startswith(f"attn_wide_tc_{k}_bf16_kernelILi{t}E")
+                              for x in wide_tc)]
+        spills = [x for x in wide_tc
+                  if "spill" in x and " 0 bytes spill stores, 0 bytes spill loads" not in x]
+        if missing or spills:
+            raise AssertionError(f"the wide bf16 attention kernels: no ptxas report for "
+                                 f"{missing}, spills {spills}")
+        log(f"  [ptxas] the wide bf16 attention kernels: {len(wide_tc) // 2} entries, no spill")
+    else:
+        log("  [ptxas] cached build: spill check not run")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -3043,6 +3146,11 @@ def main() -> int:
     f2_mods = {"fused_edge": cuda_fused_edge, "gather": cuda_gather,
                "proto_cheby": cuda_proto_cheby, "cheby": cuda_cheby}
     support = torch.from_numpy(episodes[0][0].reshape(-1, cfg.pc_npts, cfg.pc_in_dim)).cuda()
+    if args.only == "attn":
+        rows = {"attention": attention_digest(torch, cuda_attention, args.seed)}
+        log(smi)
+        log(json.dumps(rows))
+        return 0
     if args.only == "fused":
         rows = {"fused_edge": fused_digest(torch, cuda_fused_edge, args.seed)}
         log(smi)
@@ -3137,7 +3245,8 @@ def main() -> int:
 
     # ---- 2b. the F1 kernels: shapes past the tuned kernels, and the packed kNN
     f1_kernels = ("knn_general", "knn_packed", "attention_wide_fwd", "attention_wide_bwd",
-                  "attention_wide_fwd_bf16", "attention_wide_bwd_bf16", "kth_wide",
+                  "attention_wide_fwd_bf16", "attention_wide_bwd_bf16",
+                  "attention_wide_tc_fwd_bf16", "attention_wide_tc_bwd_bf16", "kth_wide",
                   "scatter_general")
     f1_counters = {"knn_general": (cuda_knn, "general_launches"),
                    "knn_packed": (cuda_knn, "packed_launches"),
@@ -3145,6 +3254,8 @@ def main() -> int:
                    "attention_wide_bwd": (cuda_attention, "wide_bwd_launches"),
                    "attention_wide_fwd_bf16": (cuda_attention, "wide_bf16_launches"),
                    "attention_wide_bwd_bf16": (cuda_attention, "wide_bwd_bf16_launches"),
+                   "attention_wide_tc_fwd_bf16": (cuda_attention, "wide_tc_bf16_launches"),
+                   "attention_wide_tc_bwd_bf16": (cuda_attention, "wide_tc_bwd_bf16_launches"),
                    "kth_wide": (cuda_kth, "wide_launches"),
                    "scatter_general": (cuda_scatter, "general_launches")}
     zero_counts(f1_counters)
@@ -3236,9 +3347,10 @@ def main() -> int:
             raise AssertionError(f"{phase}: a flagship path launched an F1 kernel: {launched}")
 
     # ---- 4c. configurations past the tuned kernels' shapes (F1): dgcnn_k 40
-    # (the general kNN), a 128-wide attention head (the wide kernels), an
-    # odd first EdgeConv width (the general scatter-add), float32 and bf16
-    # encoders; the tuned kNN, attention and scatter-add launch no time there
+    # (the general kNN), a 128-wide attention head (the wide kernels: FFMA
+    # in f32, the tensor-core pair on the bf16 encoder), an odd first
+    # EdgeConv width (the general scatter-add), float32 and bf16 encoders;
+    # the tuned kNN, attention and scatter-add launch no time there
     cfg_f1 = cfg.replace(dgcnn_k=40, output_dim=128, edgeconv_widths=((63, 64), (64, 64),
                                                                       (64, 64)))
     not_tuned = {"knn": 0, "attention_fwd": 0, "attention_bwd": 0}   # the 64-wide blocks
@@ -3250,10 +3362,11 @@ def main() -> int:
                          "scatter_general"), per_step={"fps": 3, **not_tuned}, steps=1)
     tr_f1_enc = train_phase(
         torch, cfg_f1.replace(compute_dtype="bfloat16"), episodes, kernels, args.seed,
-        ("knn_general", "attention_wide_fwd_bf16", "attention_wide_bwd_bf16", "fps", "kth",
+        ("knn_general", "attention_wide_tc_fwd_bf16", "attention_wide_tc_bwd_bf16", "fps", "kth",
          "scatter_general", "cheby"),
         per_step={"fps": 3, "cheby": 2, "attention_fwd_bf16": 0, "attention_bwd_bf16": 0,
-                  **not_tuned}, steps=1)
+                  "attention_wide_fwd_bf16": 0, "attention_wide_bwd_bf16": 0, **not_tuned},
+        steps=1)
 
     # ---- 4d. knn_impl "pallas": the packed-key kNN at full flagship width
     cfg_p = cfg.replace(knn_impl="pallas", fps_impl="pallas", attn_impl="pallas")
@@ -3335,6 +3448,10 @@ def main() -> int:
                                            "r3dfsseg_tpu/ops/pallas_attention.py:54"),
                "attention_wide_bwd_bf16": ("attention_wide.cu",
                                            "r3dfsseg_tpu/ops/pallas_attention.py:78"),
+               "attention_wide_tc_fwd_bf16": ("attention_wide_bf16.cu",
+                                              "r3dfsseg_tpu/ops/pallas_attention.py:54"),
+               "attention_wide_tc_bwd_bf16": ("attention_wide_bf16.cu",
+                                              "r3dfsseg_tpu/ops/pallas_attention.py:78"),
                "kth_wide": ("kth.cu", "r3dfsseg_tpu/ops/pallas_kth.py:33"),
                "scatter_general": ("scatter_general.cu", "r3dfsseg_tpu/ops/fast_gather.py:40")}
     # each entry's counters, and the phase whose count is its "launches":
@@ -3342,12 +3459,14 @@ def main() -> int:
     # alone launches it; the bf16 forms of kernels 2, 5 and 6 the bf16
     # encoder's training run, kernel 1's bf16 input its 'hybrid' serving
     # run (the default 'fastvar' feeds kNN f32); kernels 8 and 9 the fused
-    # route's; kernels 10 and 11 the probe phase's; the general kNN, wide
-    # attention and general scatter-add the F1 configuration's training run
-    # (the bf16 forms its bf16 encoder's), the packed kNN the 'pallas'
-    # training run, and the wide-row k-th distance, which no configuration
-    # of these sizes reaches (rows past 57.7k nodes), the F1 checks'
-    # (the counters zeroed before them); kernel 9's bf16 form the bf16
+    # route's; kernels 10 and 11 the probe phase's; the general kNN, the
+    # f32 wide attention and general scatter-add the F1 configuration's
+    # training run (the wide tensor-core bf16 attention its bf16
+    # encoder's), the packed kNN the 'pallas' training run, and the
+    # wide-row k-th distance and the FFMA bf16 attention (bf16 D > 256),
+    # which no configuration of these sizes reaches (rows past 57.7k nodes,
+    # a head past 256), the F1 checks' (the counters zeroed before them);
+    # kernel 9's bf16 form the bf16
     # encoder's fused route, and the general kernel 9 and the narrow gather
     # the F2 checks' (no configuration reaches them)
     members = {name: (name,) for name in sources}
@@ -3365,8 +3484,10 @@ def main() -> int:
                       **{f"fused_edge_general_{p}": "f2_checks" for p in cuda_fused_edge.PASSES},
                       knn_general="train_f1", attention_wide_fwd="train_f1",
                       attention_wide_bwd="train_f1", scatter_general="train_f1",
-                      attention_wide_fwd_bf16="train_f1_bf16enc",
-                      attention_wide_bwd_bf16="train_f1_bf16enc", knn_packed="train_pallas",
+                      attention_wide_tc_fwd_bf16="train_f1_bf16enc",
+                      attention_wide_tc_bwd_bf16="train_f1_bf16enc",
+                      attention_wide_fwd_bf16="f1_checks", attention_wide_bwd_bf16="f1_checks",
+                      knn_packed="train_pallas",
                       kth_wide="f1_checks")
     for p in cuda_fused_edge.PASSES:
         rows["fused_edge"]["passes"][p].update(

@@ -302,18 +302,24 @@ __device__ __forceinline__ float4 col_mask(const r3d::Dropout& drop, int b, int 
 //     the next product's k-step s as it stands, rounded to bf16 pairs
 //     (`acc_frag_bf16`): P (or dS) goes from registers to the tensor cores
 //     with no shuffle.
-// D % 8 == 0 (whole 16-byte chunks), D <= 64.
+// D % 8 == 0 (whole 16-byte chunks), D <= 64.  attention_wide_bf16.cu
+// widens the staged tile to T = 2 or 4 channel tiles (`stage_tile_bf16<T>`,
+// `product_along_rows_bf16<NT, T>`; T = 1 is the tuned kernels' tile).
 
-// Issue the copy of rows [row0, row0 + kChunk) of an (n, d) bf16 matrix
-// into a staged bf16 tile; rows past n and channels past d are zeros.
+// Issue the copy of rows [row0, row0 + kR) of an (n, d) bf16 matrix into
+// a staged bf16 tile of T channel tiles (64 T channels a row); rows past n
+// and channels past d are zeros.
+template <int T = 1, int kR = kChunk>
 __device__ __forceinline__ void stage_tile_bf16(const uint16_t* src, int row0, int n, int d,
                                                 uint16_t* dst) {
-  for (int e = threadIdx.x; e < kChunk * (kDP / 8); e += kThreads) {
-    const int r = e >> 3;
-    const int c = e & 7;
+  static_assert(T == 1 || T == 2 || T == 4, "16-byte chunks per row: a power of two");
+  constexpr int kShift = T == 1 ? 3 : (T == 2 ? 4 : 5);  // log2 of a row's 8 T chunks
+  for (int e = threadIdx.x; e < kR * (kDP / 8) * T; e += kThreads) {
+    const int r = e >> kShift;
+    const int c = e & ((1 << kShift) - 1);
     const bool ok = row0 + r < n && 8 * c < d;
     const uint16_t* from = ok ? src + static_cast<size_t>(row0 + r) * d + 8 * c : src;
-    r3d::cp_async16(dst + r * kDP + ((c ^ (r & 7)) << 3), from, ok);
+    r3d::cp_async16(dst + r * kDP * T + ((c ^ (r & 7)) << 3), from, ok);
   }
 }
 
@@ -379,10 +385,10 @@ __device__ __forceinline__ void acc_frag_bf16(const float (&p)[NT][4], int s,
 }
 
 // out[nn] += P T over the rows, for the NT / 2 k-steps of the accumulator
-// tiles p (columns r0 .. r0 + 8 NT of the staged `tile`, P rounded to
-// bf16), output channels 8nn .. < d.
-template <int NT>
-__device__ __forceinline__ void product_along_rows_bf16(float (&out)[8][4],
+// tiles p (columns r0 .. r0 + 8 NT of the staged `tile`, T channel tiles
+// wide, P rounded to bf16), output channels 8nn .. < d.
+template <int NT, int T = 1>
+__device__ __forceinline__ void product_along_rows_bf16(float (&out)[8 * T][4],
                                                         const float (&p)[NT][4],
                                                         const uint16_t* tile, int r0, int d) {
   const int lane = threadIdx.x & 31;
@@ -394,10 +400,10 @@ __device__ __forceinline__ void product_along_rows_bf16(float (&out)[8][4],
     acc_frag_bf16<NT>(p, s, a);
     const int row = r0 + 16 * s + 8 * (mi & 1) + rr;
 #pragma unroll
-    for (int nn = 0; nn < 8; nn += 2) {
+    for (int nn = 0; nn < 8 * T; nn += 2) {
       if (8 * nn >= d) break;
       uint32_t b[4];
-      r3d::ldsm_x4_trans(b, tile + row * kDP + (((nn + (mi >> 1)) ^ rr) << 3));
+      r3d::ldsm_x4_trans(b, tile + row * kDP * T + (((nn + (mi >> 1)) ^ rr) << 3));
       r3d::mma_bf16(out[nn], a, b[0], b[1]);
       r3d::mma_bf16(out[nn + 1], a, b[2], b[3]);
     }
@@ -427,6 +433,178 @@ inline int splits(int b, int n) {
 // warp to merge.
 __device__ __forceinline__ float* lane_slot(float* smem, int warp, int count) {
   return smem + (warp * 32 + (threadIdx.x & 31)) * count;
+}
+
+// ---- the bf16 forward's two passes (attention_fwd.cu, attention_wide_bf16.cu)
+
+// Scores of keys past n (a ragged last tile) to -inf.
+template <int NT>
+__device__ __forceinline__ void mask_ragged_keys(float (&s)[NT][4], int key0, int n, int t) {
+  if (key0 + 8 * NT <= n) return;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (key0 + 8 * j + 2 * t + (e & 1) >= n) s[j][e] = -INFINITY;
+}
+
+// Pass 1 over a key tile: the running row max m across the quad and the
+// lane's part of l, rescaled by exp(m - m_new) when the max grows.
+template <int NT>
+__device__ __forceinline__ void row_stats(const float (&s)[NT][4], float (&m)[2],
+                                          float (&l)[2]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+  float mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    mb[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // no key yet: l stays 0
+    l[r] *= exp2_fast((m[r] - mb[r]) * kLog2e);
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) l[e >> 1] += exp2_fast((s[j][e] - mb[e >> 1]) * kLog2e);
+}
+
+// The end of pass 1: l summed across the quad, then the S splits' (m, l)
+// of each row group merged in split order by every warp of the group, so
+// all of them hold the same bits.  `slots` is shared memory apart from the
+// ring.
+template <int S>
+__device__ __forceinline__ void merge_stats(float* slots, float (&m)[2], float (&l)[2],
+                                            int warp) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+  if constexpr (S > 1) {
+    float* mine = lane_slot(slots, warp, 4);
+    mine[0] = m[0];
+    mine[1] = m[1];
+    mine[2] = l[0];
+    mine[3] = l[1];
+    __syncthreads();
+    const int first = warp - warp % S;
+    float mm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int sp = 0; sp < S; ++sp) {
+      const float* other = lane_slot(slots, first + sp, 4);
+      mm[0] = fmaxf(mm[0], other[0]);
+      mm[1] = fmaxf(mm[1], other[1]);
+    }
+    float ll[2] = {0.f, 0.f};
+#pragma unroll
+    for (int sp = 0; sp < S; ++sp) {
+      const float* other = lane_slot(slots, first + sp, 4);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        ll[r] += other[r] == -INFINITY ? 0.f
+                                       : exp2_fast((other[r] - mm[r]) * kLog2e) * other[2 + r];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = mm[r];
+      l[r] = ll[r];
+    }
+  }
+}
+
+// The S splits' partial sums (NO n-tiles of 8 channels) of each row group
+// added in split order (S > 1) by the group's first warp, which writes rows
+// row0 + g, row0 + g + 8 of out (< n, channels < d) times mul and returns
+// true; the group's other warps return false.
+template <int S, int NO>
+__device__ __forceinline__ bool store_rows(float* smem, float (&acc)[NO][4],
+                                           float* __restrict__ out, size_t base, int row0, int n,
+                                           int d, float mul, int warp, int g, int t) {
+  if constexpr (S > 1) {
+    __syncthreads();  // every warp is done with the ring
+    float* mine = lane_slot(smem, warp, 4 * NO);
+#pragma unroll
+    for (int nn = 0; nn < NO; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[4 * nn + e] = acc[nn][e];
+    __syncthreads();
+    if (warp % S != 0) return false;
+#pragma unroll 1  // one split's partials live at a time (registers)
+    for (int sp = 1; sp < S; ++sp) {
+      const float* other = lane_slot(smem, warp + sp, 4 * NO);
+#pragma unroll
+      for (int nn = 0; nn < NO; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nn][e] += other[4 * nn + e];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= n) continue;
+    float* o = out + base + static_cast<size_t>(row) * d;
+#pragma unroll
+    for (int nn = 0; nn < NO; ++nn) {
+      const int ch = 8 * nn + 2 * t;
+      if (ch < d)
+        *reinterpret_cast<float2*>(o + ch) = make_float2(acc[nn][2 * r] * mul,
+                                                         acc[nn][2 * r + 1] * mul);
+    }
+  }
+  return true;
+}
+
+// The end of pass 2: y = o summed over the splits (`store_rows`), then
+// lse = m + log l.
+template <int S, int NO>
+__device__ __forceinline__ void finish_sums(float* smem, float (&o)[NO][4], const float (&m)[2],
+                                            const float (&l)[2], float* __restrict__ y,
+                                            float* __restrict__ lse, size_t base, int b, int n,
+                                            int d, int row0, int warp, int g, int t) {
+  if (!store_rows<S>(smem, o, y, base, row0, n, d, 1.f, warp, g, t) || lse == nullptr || t != 0)
+    return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row < n) lse[static_cast<size_t>(b) * n + row] = m[r] + logf(l[r]);
+  }
+}
+
+// The bf16 backward's pre-pass (attention_bwd.cu, attention_wide_bf16.cu),
+// one warp per row: Delta = rowsum(bf16(dY) * Y), bf16(dY) and the
+// forward's scaled q, bf16(q * qscale), any d (d even).  A template, so a
+// source that does not launch it compiles none.
+template <int = 0>
+__global__ void attn_bwd_prep_bf16_kernel(const uint16_t* __restrict__ q,
+                                          const float* __restrict__ dy,
+                                          const float* __restrict__ y, float* __restrict__ delta,
+                                          uint16_t* __restrict__ qs, uint16_t* __restrict__ dyb,
+                                          int rows, int d, float qscale) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const size_t off = static_cast<size_t>(row) * d;
+  float s = 0.f;
+  for (int ch = 2 * lane; ch < d; ch += 64) {
+    const float2 a = *reinterpret_cast<const float2*>(dy + off + ch);
+    const float2 c = *reinterpret_cast<const float2*>(y + off + ch);
+    const uint32_t w = r3d::pack_bf16(a.x, a.y);
+    *reinterpret_cast<uint32_t*>(dyb + off + ch) = w;
+    s = fmaf(r3d::bf16_lo(w), c.x, s);
+    s = fmaf(r3d::bf16_hi(w), c.y, s);
+    const uint32_t x = *reinterpret_cast<const uint32_t*>(q + off + ch);
+    *reinterpret_cast<uint32_t*>(qs + off + ch) =
+        r3d::pack_bf16(r3d::bf16_lo(x) * qscale, r3d::bf16_hi(x) * qscale);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) delta[row] = s;
 }
 
 }  // namespace r3d_attn

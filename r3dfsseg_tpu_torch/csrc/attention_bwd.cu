@@ -367,32 +367,6 @@ cudaError_t launch_bwd_s(bool dropout, const float* q, const float* k, const flo
 // two kernels as the f32 form, with no float atomics: a call repeats bit
 // for bit.
 
-__global__ void attn_bwd_prep_bf16_kernel(const uint16_t* __restrict__ q,
-                                          const float* __restrict__ dy,
-                                          const float* __restrict__ y, float* __restrict__ delta,
-                                          uint16_t* __restrict__ qs, uint16_t* __restrict__ dyb,
-                                          int rows, int d, float qscale) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const size_t off = static_cast<size_t>(row) * d;
-  float s = 0.f;
-  for (int ch = 2 * lane; ch < d; ch += 64) {
-    const float2 a = *reinterpret_cast<const float2*>(dy + off + ch);
-    const float2 c = *reinterpret_cast<const float2*>(y + off + ch);
-    const uint32_t w = r3d::pack_bf16(a.x, a.y);
-    *reinterpret_cast<uint32_t*>(dyb + off + ch) = w;
-    s = fmaf(r3d::bf16_lo(w), c.x, s);
-    s = fmaf(r3d::bf16_hi(w), c.y, s);
-    const uint32_t x = *reinterpret_cast<const uint32_t*>(q + off + ch);
-    *reinterpret_cast<uint32_t*>(qs + off + ch) =
-        r3d::pack_bf16(r3d::bf16_lo(x) * qscale, r3d::bf16_hi(x) * qscale);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (lane == 0) delta[row] = s;
-}
-
 // dK/dV: a stage holds the scaled Q tile, the Q tile and the dY tile (bf16),
 // then lse and Delta of 64 queries (f32); the stage's bytes
 constexpr size_t kStageKVH = 3 * sizeof(uint16_t) * kTileF + 2 * sizeof(float) * kChunk;
@@ -742,9 +716,9 @@ R3D_EXPORT int r3d_attn_bwd_bf16(const void* q, const void* k, const void* v, co
                   static_cast<uint16_t*>(dyb),      static_cast<float*>(dq),
                   static_cast<float*>(dk),          static_cast<float*>(dv)};
   const int rows = b * n;
-  attn_bwd_prep_bf16_kernel<<<(rows * 32 + 255) / 256, 256, 0, st>>>(a.q, a.dy, a.y, a.delta,
-                                                                     a.qs, a.dyb, rows, d,
-                                                                     qscale);
+  attn_bwd_prep_bf16_kernel<><<<(rows * 32 + 255) / 256, 256, 0, st>>>(a.q, a.dy, a.y, a.delta,
+                                                                       a.qs, a.dyb, rows, d,
+                                                                       qscale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};

@@ -44,17 +44,6 @@ namespace {
 
 using namespace r3d_attn;
 
-// Scores of keys past n (a ragged last tile) to -inf.
-template <int NT>
-__device__ __forceinline__ void mask_ragged_keys(float (&s)[NT][4], int key0, int n, int t) {
-  if (key0 + 8 * NT <= n) return;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (key0 + 8 * j + 2 * t + (e & 1) >= n) s[j][e] = -INFINITY;
-}
-
 // Step 2 of a key tile: the online softmax in f32 registers over the
 // warp's scores s (NT n-tiles from key0; rows g (e = 0, 1) and g + 8 (e =
 // 2, 3)): the row max across the quad, s <- exp(s - m_new) (0 on masked
@@ -264,116 +253,6 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // The cost over one pass is a second q k^T product and a second read of K.
 // y and lse are f32.
 constexpr size_t kSmemBF16 = sizeof(uint16_t) * 4 * kTileF + sizeof(float) * 4 * kThreads;
-
-// Pass 1 over a key tile: the running row max m across the quad and the
-// lane's part of l, rescaled by exp(m - m_new) when the max grows.
-template <int NT>
-__device__ __forceinline__ void row_stats(const float (&s)[NT][4], float (&m)[2],
-                                          float (&l)[2]) {
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-  }
-  float mb[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-    mb[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // no key yet: l stays 0
-    l[r] *= exp2_fast((m[r] - mb[r]) * kLog2e);
-    m[r] = mx[r];
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) l[e >> 1] += exp2_fast((s[j][e] - mb[e >> 1]) * kLog2e);
-}
-
-// The end of pass 1: l summed across the quad, then the S splits' (m, l)
-// of each row group merged in split order by every warp of the group, so
-// all of them hold the same bits.  `slots` is shared memory apart from the
-// ring.
-template <int S>
-__device__ __forceinline__ void merge_stats(float* slots, float (&m)[2], float (&l)[2],
-                                            int warp) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(kFull, l[r], 1);
-    l[r] += __shfl_xor_sync(kFull, l[r], 2);
-  }
-  if constexpr (S > 1) {
-    float* mine = lane_slot(slots, warp, 4);
-    mine[0] = m[0];
-    mine[1] = m[1];
-    mine[2] = l[0];
-    mine[3] = l[1];
-    __syncthreads();
-    const int first = warp - warp % S;
-    float mm[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int sp = 0; sp < S; ++sp) {
-      const float* other = lane_slot(slots, first + sp, 4);
-      mm[0] = fmaxf(mm[0], other[0]);
-      mm[1] = fmaxf(mm[1], other[1]);
-    }
-    float ll[2] = {0.f, 0.f};
-#pragma unroll
-    for (int sp = 0; sp < S; ++sp) {
-      const float* other = lane_slot(slots, first + sp, 4);
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        ll[r] += other[r] == -INFINITY ? 0.f
-                                       : exp2_fast((other[r] - mm[r]) * kLog2e) * other[2 + r];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m[r] = mm[r];
-      l[r] = ll[r];
-    }
-  }
-}
-
-// The end of pass 2: the S splits' partial outputs of each row group
-// added in split order (S > 1), then y = o and lse = m + log l.
-template <int S>
-__device__ __forceinline__ void finish_sums(float* smem, float (&o)[8][4], const float (&m)[2],
-                                            const float (&l)[2], float* __restrict__ y,
-                                            float* __restrict__ lse, size_t base, int b, int n,
-                                            int d, int row0, int warp, int g, int t) {
-  if constexpr (S > 1) {
-    __syncthreads();  // every warp is done with the ring
-    float* mine = lane_slot(smem, warp, 32);
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mine[4 * nn + e] = o[nn][e];
-    __syncthreads();
-    if (warp % S != 0) return;
-#pragma unroll
-    for (int sp = 1; sp < S; ++sp) {
-      const float* other = lane_slot(smem, warp + sp, 32);
-#pragma unroll
-      for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[nn][e] += other[4 * nn + e];
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= n) continue;
-    float* yr = y + base + static_cast<size_t>(row) * d;
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn) {
-      const int ch = 8 * nn + 2 * t;
-      if (ch < d)
-        *reinterpret_cast<float2*>(yr + ch) = make_float2(o[nn][2 * r], o[nn][2 * r + 1]);
-    }
-    if (lse != nullptr && t == 0) lse[static_cast<size_t>(b) * n + row] = m[r] + logf(l[r]);
-  }
-}
 
 template <int S, bool kDropout>
 __global__ void __launch_bounds__(kThreads, 2)

@@ -1,7 +1,8 @@
 // Single-head attention forward and backward at any head width D, for f32
-// and bf16 q, k, v: the shapes csrc/attention_fwd.cu and attention_bwd.cu
-// do not take (D > 64; the wrapper zero-pads an unaligned D <= 64 to those
-// kernels instead).
+// and bf16 q, k, v: the shapes no tensor-core kernel of the port takes (f32
+// at D > 64, bf16 at D > 256; the wrapper zero-pads an unaligned D <= 64 to
+// attention_fwd.cu and attention_bwd.cu, and bf16 at 64 < D <= 256 runs
+// attention_wide_bf16.cu).
 //
 // Replaces the TPU kernels r3dfsseg_tpu/ops/pallas_attention.py:
 // _attn_fwd_kernel and _attn_bwd_kernel there (the pretraining network's

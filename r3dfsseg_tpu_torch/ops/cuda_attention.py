@@ -1,6 +1,7 @@
 """Single-head attention with dropout, forward and backward: the Hopper
-kernels `csrc/attention_fwd.cu` and `csrc/attention_bwd.cu` and their
-plain versions.
+kernels `csrc/attention_fwd.cu` and `csrc/attention_bwd.cu` (D <= 64),
+`csrc/attention_wide_bf16.cu` (bf16, 64 < D <= 256) and
+`csrc/attention_wide.cu` (every other D), and their plain versions.
 
 Replaces the TPU kernels `r3dfsseg_tpu/ops/pallas_attention.py:_fwd_impl`
 (`_attn_fwd_kernel`) and `_bwd_impl` (`_attn_bwd_kernel`), with
@@ -52,16 +53,21 @@ same in PyTorch, the scores as the JAX package's XLA path does (q /
 bf16(tau) in bf16), or with ``kernel_scale`` as the kernels do (q *
 bf16(1/tau)); the two agree wherever 1/tau is a power of two.
 
-Head widths the TPU kernel takes and these kernels do not (`_layout`):
-- D <= 64 not a multiple of 4 (f32) or 8 (bf16): the wrapper zero-pads q,
-  k, v (and y, dy in the backward) to the next multiple and slices the
-  outputs back.  This is exact: zero columns add exact zeros to q k^T and
-  to rowsum(dY * Y), and the padded columns of y, dq, dk, dv are zero; tau
-  stays the caller's (sqrt of the unpadded D).  The tuned kernels run.
-- D > 64: `csrc/attention_wide.cu`, a simple FFMA forward and backward pair
-  for any D with the same mask, roundings and lse (`wide_launches`,
-  `wide_bwd_launches`; `wide_bf16_launches`, `wide_bwd_bf16_launches`
-  count the bf16 calls among them).
+Head widths the TPU kernel takes and these kernels do not (`_layout`,
+`_route`):
+- D not a multiple of 4 (f32) or 8 (bf16): the wrapper zero-pads q, k, v
+  (and y, dy in the backward) to the next multiple and slices the outputs
+  back.  This is exact: zero columns add exact zeros to q k^T and to
+  rowsum(dY * Y), and the padded columns of y, dq, dk, dv are zero; tau
+  stays the caller's (sqrt of the unpadded D).
+- bf16 q, k, v at 64 < D <= 256: `csrc/attention_wide_bf16.cu`, the bf16
+  forms' tensor-core tiles widened to 2 or 4 channel tiles of 64, any D
+  that is a multiple of 8 (`wide_tc_bf16_launches`,
+  `wide_tc_bwd_bf16_launches`).
+- f32 at D > 64, bf16 at D > 256: `csrc/attention_wide.cu`, a simple FFMA
+  forward and backward pair for any D with the same mask, roundings and
+  lse (`wide_launches`, `wide_bwd_launches`; `wide_bf16_launches`,
+  `wide_bwd_bf16_launches` count the bf16 calls among them).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches a
 kernel or raises.  `fused_attention(..., impl="xla")` takes the plain
@@ -78,6 +84,7 @@ import torch
 from r3dfsseg_tpu_torch.kernels import build
 
 MAX_D = 64        # head width: one 64-channel staged tile in csrc/attention.cuh
+MAX_D_WIDE_TC = 256  # bf16: four 64-channel tiles in csrc/attention_wide_bf16.cu
 
 launches = 0       # forward kernel launches
 bwd_launches = 0   # backward kernel launches (one per call: Delta, dK/dV, dQ)
@@ -87,6 +94,8 @@ wide_launches = 0          # csrc/attention_wide.cu forward (D > MAX_D)
 wide_bwd_launches = 0      # csrc/attention_wide.cu backward
 wide_bf16_launches = 0     # of the wide forward's, calls on bf16 q, k, v
 wide_bwd_bf16_launches = 0  # of the wide backward's, calls on bf16 q, k, v
+wide_tc_bf16_launches = 0      # csrc/attention_wide_bf16.cu forward (bf16, MAX_D < D <= 256)
+wide_tc_bwd_bf16_launches = 0  # csrc/attention_wide_bf16.cu backward
 IMPLS = ("auto", "pallas", "xla")
 
 _U32 = 0xFFFFFFFF
@@ -278,14 +287,26 @@ def _check(name: str, *ts: torch.Tensor) -> None:
 
 
 def _layout(q: torch.Tensor) -> int:
-    """How a CUDA call of head width D runs: -1, the wide kernels (D >
-    MAX_D); else the zero columns that take D to the tuned kernels'
-    alignment (a multiple of 4 in f32, of 8 in bf16), 0 when aligned."""
+    """The zero columns that take a CUDA call's head width D to its
+    kernels' alignment (a multiple of 4 in f32, of 8 in bf16), 0 when
+    aligned; -1 for the FFMA wide kernels (f32 D > MAX_D, bf16 D >
+    MAX_D_WIDE_TC), which take any D."""
     d = q.shape[-1]
-    if d > MAX_D:
+    lowp = q.dtype == torch.bfloat16
+    if d > (MAX_D_WIDE_TC if lowp else MAX_D):
         return -1
-    align = 8 if q.dtype == torch.bfloat16 else 4
-    return -d % align
+    return -d % (8 if lowp else 4)
+
+
+def _route(q: torch.Tensor) -> str:
+    """The kernels a CUDA call runs after `_layout`'s pad: 'tuned'
+    (`attention_fwd.cu`, `attention_bwd.cu`; D <= MAX_D), 'wide_tc' (bf16,
+    MAX_D < D <= MAX_D_WIDE_TC: `attention_wide_bf16.cu`) or 'wide'
+    (`attention_wide.cu`)."""
+    pad = _layout(q)
+    if pad < 0:
+        return "wide"
+    return "tuned" if q.shape[-1] + pad <= MAX_D else "wide_tc"
 
 
 def _pad(pad: int, *ts: torch.Tensor):
@@ -299,8 +320,13 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+_FWD_NAMES = {("tuned", False): "r3d_attn_fwd", ("tuned", True): "r3d_attn_fwd_bf16",
+              ("wide_tc", True): "r3d_attn_wide_tc_fwd_bf16",
+              ("wide", False): "r3d_attn_wide_fwd", ("wide", True): "r3d_attn_wide_fwd_bf16"}
+
+
 def _kernel_fwd(q, k, v, tau, rate, seed, want_lse):
-    global launches, bf16_launches, wide_launches, wide_bf16_launches
+    global launches, bf16_launches, wide_launches, wide_bf16_launches, wide_tc_bf16_launches
     pad = _layout(q)
     if pad > 0:
         y, lse = _kernel_fwd(*_pad(pad, q, k, v), tau, rate, seed, want_lse)
@@ -310,8 +336,8 @@ def _kernel_fwd(q, k, v, tau, rate, seed, want_lse):
     lowp = q.dtype == torch.bfloat16
     y = torch.empty((b, n, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device) if want_lse else None
-    wide = pad < 0
-    name = ("r3d_attn_wide_fwd" if wide else "r3d_attn_fwd") + ("_bf16" if lowp else "")
+    route = _route(q)
+    name = _FWD_NAMES[route, lowp]
     fn = build.function(name, [build.P] * 5 + [build.I] * 3 + [build.F, build.I]
                         + [build.U] * 3 + [build.F, build.P])
     lo, hi = _seed_words(seed)
@@ -322,9 +348,11 @@ def _kernel_fwd(q, k, v, tau, rate, seed, want_lse):
                  int(rate > 0.0), lo, hi, dropout_threshold(rate), keep_scale(rate),
                  build.stream_ptr(q.device))
     build.check(err, name)
-    if wide:
+    if route == "wide":
         wide_launches += 1
         wide_bf16_launches += lowp
+    elif route == "wide_tc":
+        wide_tc_bf16_launches += 1
     else:
         launches += 1
         bf16_launches += lowp
@@ -353,6 +381,7 @@ def attention_fwd(q, k, v, tau: float, rate: float = 0.0, seed: int = 0):
 def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int = 0):
     """(dq, dk, dv), f32, of the forward's f32 output cotangent dy."""
     global bwd_launches, bwd_bf16_launches, wide_bwd_launches, wide_bwd_bf16_launches
+    global wide_tc_bwd_bf16_launches
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, y, dy, lse, tau, rate, seed)
     _check("attention_bwd", q, k, v, y, dy)
@@ -364,6 +393,7 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
         grads = attention_bwd(*_pad(pad, q, k, v, y, dy), lse, tau, rate, seed)
         return tuple(g[..., :d].contiguous() for g in grads)
     lowp = q.dtype == torch.bfloat16
+    route = _route(q)
     q, k, v, y, dy, lse = (_staged(t) for t in (q, k, v, y, dy, lse))
     dq, dk, dv = (torch.empty((b, n, d), dtype=torch.float32, device=q.device)
                   for _ in range(3))
@@ -371,7 +401,7 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
     lo, hi = _seed_words(seed)
     tail = (int(rate > 0.0), lo, hi, dropout_threshold(rate), keep_scale(rate),
             build.stream_ptr(q.device))
-    if pad < 0:
+    if route == "wide":
         name = "r3d_attn_wide_bwd" + ("_bf16" if lowp else "")
         fn = build.function(name, [build.P] * 10 + [build.I] * 3 + [build.F, build.F, build.I]
                             + [build.U] * 3 + [build.F, build.P])
@@ -383,7 +413,8 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
         wide_bwd_bf16_launches += lowp
         return dq, dk, dv
     if lowp:
-        name = "r3d_attn_bwd_bf16"
+        # the tuned bf16 form and the wide tensor-core one take the same arguments
+        name = "r3d_attn_wide_tc_bwd_bf16" if route == "wide_tc" else "r3d_attn_bwd_bf16"
         qs, dyb = torch.empty_like(q), torch.empty_like(q)     # the kernel's scratch
         fn = build.function(name, [build.P] * 12 + [build.I] * 3 + [build.F, build.F, build.I]
                             + [build.U] * 3 + [build.F, build.P])
@@ -398,8 +429,11 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
     with torch.cuda.device(q.device):
         err = fn(*(t.data_ptr() for t in ptrs), b, n, d, *scales, *tail)
     build.check(err, name)
-    bwd_launches += 1
-    bwd_bf16_launches += lowp
+    if route == "wide_tc":
+        wide_tc_bwd_bf16_launches += 1
+    else:
+        bwd_launches += 1
+        bwd_bf16_launches += lowp
     return dq, dk, dv
 
 

@@ -101,8 +101,17 @@ CALLS = {
         *_qkv(dev, (1, 8, 65)), 2.0)),
     "attention_wide_bwd": (cuda_attention, "wide_bwd_launches",
                            lambda dev: cuda_attention.attention_bwd(
-                               *_qkv(dev, (1, 8, 72), torch.bfloat16), *_qkv(dev, (1, 8, 72))[:2],
+                               *_qkv(dev, (1, 8, 72)), *_qkv(dev, (1, 8, 72))[:2],
                                torch.zeros((1, 8), device=dev), 2.0, 0.1, 5)),
+    # bf16 past the tuned width: the wide tensor-core kernels
+    "attention_wide_tc": (cuda_attention, "wide_tc_bf16_launches",
+                          lambda dev: cuda_attention.attention(
+                              *_qkv(dev, (1, 8, 72), torch.bfloat16), 2.0)),
+    "attention_wide_tc_bwd": (cuda_attention, "wide_tc_bwd_bf16_launches",
+                              lambda dev: cuda_attention.attention_bwd(
+                                  *_qkv(dev, (1, 8, 100), torch.bfloat16),
+                                  *_qkv(dev, (1, 8, 100))[:2], torch.zeros((1, 8), device=dev),
+                                  2.0, 0.1, 5)),
     "kth_wide": (cuda_kth, "wide_launches", lambda dev: cuda_kth.kth_smallest_per_row(
         torch.zeros((1, 60000), device=dev), 2, 4)),
     "scatter_general": (cuda_scatter, "general_launches", lambda dev: cuda_scatter.scatter_add(
@@ -1037,36 +1046,45 @@ def test_knn_packed_kernel_on_card(b, n, c, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,d,dtype,rate", [(10, 128, torch.float32, 0.1),
-                                            (2, 128, torch.float32, 0.0),
-                                            (10, 128, torch.bfloat16, 0.1),
-                                            (2, 128, torch.bfloat16, 0.0),
-                                            (2, 300, torch.float32, 0.1),
-                                            (2, 12, torch.bfloat16, 0.1),
-                                            (2, 12, torch.float32, 0.0),
-                                            (2, 6, torch.float32, 0.1),
-                                            (2, 80, torch.bfloat16, 0.1)])
-def test_attention_f1_shapes_on_card(b, d, dtype, rate):
-    """D = 128 at the training batches (N = 2048), D = 300 (three output
-    passes), D = 80 in bf16 (one partial output pass), and D = 12 in bf16
-    (the pad) and f32 (aligned), D = 6 in f32 (the pad): forward and
-    backward within `chip_smoke.attention_gates`, a second call of each
-    bit-equal, and the counters of the kernels that should run."""
+@pytest.mark.parametrize("b,n,d,dtype,rate,route", [
+    (10, 2048, 128, torch.float32, 0.1, "wide"),
+    (2, 2048, 128, torch.float32, 0.0, "wide"),
+    (10, 2048, 128, torch.bfloat16, 0.1, "wide_tc"),
+    (2, 2048, 128, torch.bfloat16, 0.0, "wide_tc"),
+    (2, 200, 300, torch.float32, 0.1, "wide"),
+    (2, 200, 12, torch.bfloat16, 0.1, "tuned"),
+    (2, 200, 12, torch.float32, 0.0, "tuned"),
+    (2, 200, 6, torch.float32, 0.1, "tuned"),
+    (2, 200, 80, torch.bfloat16, 0.1, "wide_tc"),
+    (2, 2048, 100, torch.bfloat16, 0.1, "wide_tc"),
+    (2, 200, 100, torch.bfloat16, 0.0, "wide_tc"),
+    (10, 2048, 256, torch.bfloat16, 0.0, "wide_tc"),
+    (2, 130, 256, torch.bfloat16, 0.1, "wide_tc"),
+    (1, 70, 72, torch.bfloat16, 0.5, "wide_tc"),
+    (2, 2048, 320, torch.bfloat16, 0.1, "wide")])
+def test_attention_f1_shapes_on_card(b, n, d, dtype, rate, route):
+    """Attention past and inside the tuned width, each case on the kernels
+    ``route`` names (`chip_smoke.ATTN_ROUTE_COUNTERS`): f32 D = 128 at the
+    training batches and D = 300 (three output passes) on the FFMA kernels;
+    bf16 64 < D <= 256 on the wide tensor-core kernels
+    (`csrc/attention_wide_bf16.cu`: D = 80 short of the 128-channel tile,
+    D = 100 through the zero pad to 104, D = 72, ragged N), bf16 D = 320
+    on the FFMA kernels; D = 12 in bf16 (the pad) and f32 (aligned), D
+    = 6 in f32 (the pad) on the tuned kernels: forward and backward within
+    `chip_smoke.attention_gates`, a second call of each bit-equal, one
+    launch each on the route's counters and none on any other route's."""
     dev = cuda_or_skip()
-    n = 2048 if d == 128 else 200
     g = torch.Generator(device=dev).manual_seed(b * d)
     q, k, v, dy = (torch.randn((b, n, d), generator=g, device=dev) for _ in range(4))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     tau, seed = float(d) ** 0.5, 17
-    wide = d > cuda_attention.MAX_D
-    names = ("wide_launches", "wide_bwd_launches") if wide else ("launches", "bwd_launches")
-    counts = [getattr(cuda_attention, n) for n in names]
-    y, lse = cuda_attention.attention_fwd(q, k, v, tau, rate, seed)
-    y2, lse2 = cuda_attention.attention_fwd(q, k, v, tau, rate, seed)
-    got = cuda_attention.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
-    again = cuda_attention.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
+    names = [n for pair in chip_smoke.ATTN_ROUTE_COUNTERS.values() for n in pair]
+    before = {n: getattr(cuda_attention, n) for n in names}
+    y, lse, got = chip_smoke.attention_step(cuda_attention, q, k, v, dy, tau, rate, seed)
     torch.cuda.synchronize()
-    assert [getattr(cuda_attention, n) for n in names] == [c + 2 for c in counts]
+    moved = {n: getattr(cuda_attention, n) - c for n, c in before.items()}
+    assert moved == {n: int(n in chip_smoke.ATTN_ROUTE_COUNTERS[route]) for n in names}
+    y2, lse2, again = chip_smoke.attention_step(cuda_attention, q, k, v, dy, tau, rate, seed)
     assert torch.equal(y, y2) and torch.equal(lse, lse2)
     assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
     errs = chip_smoke.attention_gates(torch, cuda_attention, q, k, v, dy, tau, rate, seed, y,
