@@ -10,8 +10,8 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
 
   1. build every kernel of `r3dfsseg_tpu_torch/csrc/` with nvcc, and print
      the kNN, FPS, Chebyshev, scatter-add, k-th distance and attention
-     kernels' registers and spills (-Xptxas -v); the wide tensor-core
-     attention kernels must not spill;
+     kernels' registers and spills (-Xptxas -v); the wide and grouped
+     tensor-core attention kernels must not spill;
   2. call each kernel at the flagship shapes of its path and hold it
      against its plain PyTorch version on the same inputs (kNN: the
      neighbour sets, differences only at near-ties, two calls bit-equal,
@@ -115,8 +115,9 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      at C = 9 and 64, C = 320), the packed-key kNN (knn_impl "pallas") at
      a request's six calls, attention (B = 10 and 2, rate 0.1 and 0,
      forward and backward) at D = 128 in f32 and in bf16 at D = 128, 100
-     (the zero pad to 104) and 256 (the wide tensor-core kernels) and 320
-     (FFMA), and at D = 12 (f32, and bf16 through the zero pad: the tuned
+     (the zero pad to 104) and 256 (the wide tensor-core kernels) and 320,
+     300 (the zero pad to 304) and 512 (the grouped tensor-core kernels),
+     and at D = 12 (f32, and bf16 through the zero pad: the tuned
      kernels), the k-th distance on
      rows of 60000 f32 and 120000 bf16 entries, the scatter-add at C = 63
      and at N = 32768; each shape's own counter moves and the tuned
@@ -130,7 +131,11 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      the float32 encoder and a step on the bf16 encoder, against their
      plain paths, through the general kNN, the wide attention (FFMA in
      f32, the wide tensor-core pair on the bf16 encoder) and the general
-     scatter-add (the tuned kNN and attention launch no time);
+     scatter-add (the tuned kNN and attention launch no time); then a
+     step of the bf16 encoder at output_dim 320 (the grouped tensor-core
+     pair, two launches of each per step: the support and query batches),
+     against a plain path whose
+     attention scales q as the kernels do (`plain_attention_as_kernels`);
   4d. knn_impl "pallas" at full flagship width: two requests and a
      training step through the packed-key kNN, against the packed mode's
      plain path (labels >= 99%, step 1 within the f32 gates), the labels'
@@ -146,8 +151,8 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
 
 It prints the card's name and power limit, one JSON line describing the
 eleven kernels (kernels 1, 2, 5 and 6 with a second row each for their
-bf16 form, a row for each F1 kernel, the packed kNN and the wide
-tensor-core attention pair, a row for each
+bf16 form, a row for each F1 kernel, the packed kNN and the wide and
+grouped tensor-core attention pairs, a row for each
 pass of kernel 9's bf16 form and of its general kernel, and the narrow
 gather's), and as its
 last line {"ok": true, "device": {...}}.  Without a
@@ -160,8 +165,8 @@ phase 2b alone, `--only f2` phase 2c alone, `--only fused` a digest
 of kernel 9's f32 passes' output bits at the flagship shape on seeded
 inputs with their times (the same on two trees shows the f32 form
 unchanged), and `--only attn` the same for the attention kernels that the
-wide tensor-core pair leaves as they were (`attention_digest`), with the
-bf16 pair's times at D = 128 on whichever kernels the tree runs, so that
+grouped tensor-core pair leaves as they were (`attention_digest`), with the
+bf16 pair's times at D = 320 on whichever kernels the tree runs, so that
 another tree's kernels can be timed with the same code (put that tree's
 root first on sys.path and run this file with runpy; the tree's modules
 need the plain versions these checks call: `cheby_solve_split_reference`
@@ -171,6 +176,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -264,6 +270,7 @@ def ptxas_report(build_log: str, names=("knn_kernel", "fps_kernel", "cheby_kerne
                                         "scatter_add_kernel", "kth_kernel", "attn_fwd_bf16",
                                         "attn_bwd_dkdv_bf16", "attn_bwd_dq_bf16",
                                         "knn_general_kernel", "attn_wide_tc", "attn_wide",
+                                        "attn_group", "attn_scale",
                                         "kth_wide_kernel",
                                         "fill_kernel", "sum_kernel", "fused_edge_kernel",
                                         "edge_route_kernel", "edge_rows_kernel",
@@ -1400,14 +1407,23 @@ def check_knn_packed(torch, knn_mod, sx):
 
 # Attention past the tuned kernels' 64 channels: (dtype, D, the route's
 # counters).  bf16 at 64 < D <= 256 takes csrc/attention_wide_bf16.cu's
-# tensor-core tiles (D = 100 through the zero pad to 104), f32 at D > 64
-# and bf16 past 256 csrc/attention_wide.cu's FFMA kernels.
+# tensor-core tiles (D = 100 through the zero pad to 104), bf16 past 256
+# csrc/attention_group_bf16.cu's channel groups of those tiles (D = 300
+# through the zero pad to 304), f32 at D > 64 csrc/attention_wide.cu's
+# FFMA kernels.
 ATTN_WIDE_CASES = [("float32", 128, "wide"), ("bfloat16", 128, "wide_tc"),
                    ("bfloat16", 100, "wide_tc"), ("bfloat16", 256, "wide_tc"),
-                   ("bfloat16", 320, "wide")]
+                   ("bfloat16", 320, "wide_group"), ("bfloat16", 300, "wide_group"),
+                   ("bfloat16", 512, "wide_group")]
 ATTN_ROUTE_COUNTERS = {"tuned": ("launches", "bwd_launches"),
                        "wide": ("wide_launches", "wide_bwd_launches"),
-                       "wide_tc": ("wide_tc_bf16_launches", "wide_tc_bwd_bf16_launches")}
+                       "wide_tc": ("wide_tc_bf16_launches", "wide_tc_bwd_bf16_launches"),
+                       "wide_group": ("wide_group_bf16_launches", "wide_group_bwd_bf16_launches")}
+# each route's row in the kernels line, and the width its times are at
+# (the route's other widths join that row)
+ATTN_ROUTE_ROWS = {"wide": "attention_wide", "wide_tc": "attention_wide_tc",
+                   "wide_group": "attention_wide_group"}
+ATTN_ROW_D = {"wide": 128, "wide_tc": 128, "wide_group": 320}
 
 
 def attention_step(attn_mod, q, k, v, dy, tau, rate, seed):
@@ -1421,7 +1437,8 @@ def attention_times(torch, attn_mod, saved, tau, rate, lib, reps: int = 5) -> di
     """Per step (the saved calls of B = 10 and 2): the forward and the
     backward, kernels and plain versions, each batch alone, and ``lib``
     (SDPA pinned to a backend) forward alone and backward alone (one
-    forward keeps the graph; `torch.autograd.grad` is timed)."""
+    forward keeps the graph; `torch.autograd.grad` is timed), None where
+    the backend refuses the shape."""
     def fwd(f, which=saved):
         return lambda: [f(q, k, v, tau, rate, seed) for q, k, v, dy, seed, *_ in which]
 
@@ -1437,9 +1454,13 @@ def attention_times(torch, attn_mod, saved, tau, rate, lib, reps: int = 5) -> di
         t[f"fwd_b{b}"] = cuda_ms(fwd(attn_mod.attention_fwd, saved[i:i + 1]), reps)
         t[f"bwd_b{b}"] = cuda_ms(bwd(attn_mod.attention_bwd, saved[i:i + 1]), reps)
     graphs = []
-    for q, k, v, dy, *_ in saved:
-        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        graphs.append((lib(torch, *leaves, rate, tau), leaves, dy.to(q.dtype)))
+    try:
+        for q, k, v, dy, *_ in saved:
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            graphs.append((lib(torch, *leaves, rate, tau), leaves, dy.to(q.dtype)))
+    except RuntimeError as e:       # no kernel of that backend takes the shape
+        log(f"  {lib.__name__} refuses D={saved[0][0].shape[-1]}: {str(e).splitlines()[0]}")
+        return dict(t, lib_fwd=None, lib_bwd=None)
 
     def lib_bwd():
         for out, leaves, dy in graphs:
@@ -1454,26 +1475,27 @@ def attention_times(torch, attn_mod, saved, tau, rate, lib, reps: int = 5) -> di
 def check_attention_wide(torch, attn_mod):
     """Attention past the tuned kernels' width (`ATTN_WIDE_CASES`): f32 at
     D = 128 (the pretraining network's head), bf16 at D = 128, 100 (zero
-    pad to 104) and 256 on the wide tensor-core kernels, bf16 at D = 320 on
-    the FFMA kernels; each at B = 10 and 2, N = 2048, rate 0.1 and 0,
+    pad to 104) and 256 on the wide tensor-core kernels, bf16 at D = 320,
+    300 (zero pad to 304) and 512 on the grouped tensor-core kernels; each
+    at B = 10 and 2, N = 2048, rate 0.1 and 0,
     forward and backward: the route's counters move once each and no other
     route's, every error within `attention_gates`' bound, a second call of
     each bit-equal; then D = 12 in f32 (aligned: the tuned kernels as they
     are) and in bf16 (the zero pad to 16, then the tuned bf16 kernels).
     Times per step (both batches, rate 0.1) at each width: kernels, plain
-    versions, and SDPA (f32, and bf16 at D = 320, past flash's 256: the
+    versions, and SDPA (f32, and bf16 past flash's 256: the
     memory-efficient backend; bf16 up to 256: flash) forward alone and
     backward alone.  Bounds: 4 B N^2 D and 10 B N^2 D operations
     at the peak of the function's type, as the tuned rows count them: f32
     as three tf32 tensor-core passes (the FFMA bound, what those kernels
     run, beside it), bf16 on the bf16 tensor cores; bytes as the tuned rows
-    count them.  Returns the rows: the FFMA pair in f32 at D = 128 and in
-    bf16 at D = 320, the tensor-core pair at D = 128 (D = 100 and 256
-    beside)."""
+    count them.  Returns the rows: the FFMA pair in f32 at D = 128, the
+    tensor-core pair at D = 128 (D = 100 and 256 beside), the grouped pair
+    at D = 320 (D = 300 and 512 beside)."""
     counters = {f"{route}_{i}": (attn_mod, name) for route, names in ATTN_ROUTE_COUNTERS.items()
                 for i, name in zip(("fwd", "bwd"), names)}
     g = torch.Generator(device="cuda").manual_seed(24)
-    rows, extra = {}, {}
+    rows, extra = {}, {route: {} for route in ATTN_ROUTE_ROWS}
     for dtype_name, d, route in ATTN_WIDE_CASES:
         dtype = getattr(torch, dtype_name)
         calls = []
@@ -1515,10 +1537,11 @@ def check_attention_wide(torch, attn_mod):
         lib = sdpa_flash if lowp and d <= 256 else sdpa
         t = attention_times(torch, attn_mod, saved, tau, rate, lib)
         log(f"  {what} per step (ms): " +
-            ", ".join(f"{n} {v:.4f}" for n, v in t.items()))
-        if route == "wide_tc" and d != 128:    # beside the D = 128 row
-            extra.update({f"{n}_d{d}": t[f"{n}"] for n in ("fwd", "bwd", "lib_fwd", "lib_bwd")},
-                         **{f"share_of_gate_d{d}": max(worst.values())})
+            ", ".join(f"{n} {v}" if v is None else f"{n} {v:.4f}" for n, v in t.items()))
+        if d != ATTN_ROW_D[route]:    # beside the route's row
+            extra[route].update({f"{n}_d{d}": t[f"{n}"]
+                                 for n in ("fwd", "bwd", "lib_fwd", "lib_bwd")},
+                                **{f"share_of_gate_d{d}": max(worst.values())})
             continue
         bn2d = sum(q.shape[0] for q, *_ in saved) * 2048 ** 2 * d
         n = sum(q.numel() for q, *_ in saved)
@@ -1527,7 +1550,7 @@ def check_attention_wide(torch, attn_mod):
         fwd_bytes = 3 * el * n + 4.0 * n + 4.0 * nrows
         bwd_bytes = 3 * el * n + 2 * 4.0 * n + 4.0 * nrows + 3 * 4.0 * n
         passes, peak = (1, BF16_TC_FLOPS) if lowp else (3, TF32_TC_FLOPS)
-        name = "attention_wide" + ("_tc" if route == "wide_tc" else "")
+        name = ATTN_ROUTE_ROWS[route]
         tag = "_bf16" if lowp else ""
         rows[f"{name}_fwd{tag}"] = row(
             err_y, t["fwd"], t["fwd_plain"], t["lib_fwd"], passes * 4.0 * bn2d, fwd_bytes,
@@ -1538,8 +1561,9 @@ def check_attention_wide(torch, attn_mod):
             peak, bound_ms_ffma=bound(10.0 * bn2d, bwd_bytes)[0], head_dim=d,
             ms_b10=t["bwd_b10"], ms_b2=t["bwd_b2"], share_of_gate=worst["grads"],
             ms_pair=t["fwd"] + t["bwd"],
-            library_ms_pair=t["lib_fwd"] + t["lib_bwd"])
-    rows["attention_wide_tc_bwd_bf16"].update(extra)
+            library_ms_pair=None if t["lib_fwd"] is None else t["lib_fwd"] + t["lib_bwd"])
+    rows["attention_wide_tc_bwd_bf16"].update(extra["wide_tc"])
+    rows["attention_wide_group_bwd_bf16"].update(extra["wide_group"])
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, dy = (torch.randn((2, 2048, 12), generator=g, device="cuda") for _ in range(4))
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
@@ -1562,23 +1586,25 @@ def attention_digest(torch, attn_mod, seed: int) -> dict:
     trees can be held bit for bit (run this file under each tree's root,
     see the module docstring): a sha256 of (y, lse, dq, dk, dv) of a
     training step at B = 10 and 2, N = 2048, rate 0.1, for the tuned f32
-    and bf16 kernels at D = 64 and D = 12 (bf16: the zero pad) and the f32
-    FFMA wide kernels at D = 128.  Then the bf16 pair at D = 128, on
-    whichever kernels the tree routes it to (the counters that moved are
-    printed), and SDPA flash beside it: their times per step (`attention_
-    times`, rate 0.1)."""
+    and bf16 kernels at D = 64 and D = 12 (bf16: the zero pad), the f32
+    FFMA wide kernels at D = 128 and the bf16 wide tensor-core kernels at D
+    = 128, 100 (the zero pad to 104) and 256.  Then the bf16 pair at D =
+    320, on whichever kernels the tree routes it to (the counters that
+    moved are printed), and SDPA's memory-efficient backend beside it:
+    their times per step (`attention_times`, rate 0.1)."""
     import hashlib
     g = torch.Generator(device="cuda").manual_seed(seed + 31)
     out = {}
     for dtype_name, d in (("float32", 64), ("bfloat16", 64), ("float32", 12), ("bfloat16", 12),
-                          ("float32", 128), ("bfloat16", 128)):
+                          ("float32", 128), ("bfloat16", 128), ("bfloat16", 100),
+                          ("bfloat16", 256), ("bfloat16", 320)):
         dtype = getattr(torch, dtype_name)
         calls = []
         for b, s in ((10, seed + 1), (2, seed + 2)):
             q, k, v, dy = (torch.randn((b, 2048, d), generator=g, device="cuda") for _ in range(4))
             calls.append((q.to(dtype), k.to(dtype), v.to(dtype), dy, s))
         tau = d ** 0.5
-        if (dtype_name, d) == ("bfloat16", 128):
+        if (dtype_name, d) == ("bfloat16", 320):
             names = [n for pair in ATTN_ROUTE_COUNTERS.values() for n in pair
                      if hasattr(attn_mod, n)]
             before = {n: getattr(attn_mod, n) for n in names}
@@ -1588,10 +1614,10 @@ def attention_digest(torch, attn_mod, seed: int) -> dict:
                 attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, s)
             moved = {n: getattr(attn_mod, n) - c for n, c in before.items()
                      if getattr(attn_mod, n) != c}
-            t = attention_times(torch, attn_mod, saved, tau, 0.1, sdpa_flash, reps=10)
-            out["bf16_d128"] = dict(t, counters=moved)
-            log(f"  attention bf16 D=128 (counters {moved}) per step (ms): " +
-                ", ".join(f"{n} {v:.4f}" for n, v in t.items()))
+            t = attention_times(torch, attn_mod, saved, tau, 0.1, sdpa, reps=10)
+            out["bf16_d320"] = dict(t, counters=moved)
+            log(f"  attention bf16 D=320 (counters {moved}) per step (ms): " +
+                ", ".join(f"{n} {v}" if v is None else f"{n} {v:.4f}" for n, v in t.items()))
             continue
         h = hashlib.sha256()
         for q, k, v, dy, s in calls:
@@ -2767,9 +2793,32 @@ def exact_solve(cheby_mod):
     return solve
 
 
-def train(torch, cfg, episodes, kernels, seed, required, per_step=None, steps=TRAIN_STEPS):
+@contextlib.contextmanager
+def plain_attention_as_kernels(attn_mod):
+    """The plain attention versions with bf16 q scaled as the kernels scale
+    it, q * bf16(1 / tau), where the model's plain path divides by
+    bf16(tau) as the JAX package's XLA path does.  The two scalings agree
+    where 1 / tau is a power of two; at D = 320 they part by enough to move
+    a bf16-encoder step's gradients past BF16_ENC_CARD_GRAD_TOL, whichever
+    kernels compute the attention (`train` logs both distances; PERF.md,
+    section 6)."""
+    names = ("attention_reference", "attention_fwd_reference", "attention_bwd_reference")
+    saved = {n: getattr(attn_mod, n) for n in names}
+    try:
+        for n, f in saved.items():
+            setattr(attn_mod, n, functools.partial(f, kernel_scale=True))
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(attn_mod, n, f)
+
+
+def train(torch, cfg, episodes, kernels, seed, required, per_step=None, steps=TRAIN_STEPS,
+          plain_kernel_scale=False):
     """One kernel-path and one plain-path step from the same weights and
-    generator seed, on the same kNN graphs (`KnnReplay`), compared; then
+    generator seed, on the same kNN graphs (`KnnReplay`), compared (with
+    ``plain_kernel_scale`` the plain attention scales q as the kernels do:
+    `plain_attention_as_kernels`); then
     ``steps`` kernel-path steps, each of which must launch every kernel in
     ``required`` (and exactly ``per_step[name]`` times where given), timed
     by the host clock; then one step split into forward, backward and
@@ -2789,10 +2838,14 @@ def train(torch, cfg, episodes, kernels, seed, required, per_step=None, steps=TR
     each path's gradients are from it."""
     from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
     from r3dfsseg_tpu_torch.nn import dgcnn
-    from r3dfsseg_tpu_torch.ops import cuda_cheby, cuda_knn
+    from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_cheby, cuda_knn
 
     fast = MPTILearner(cfg, "cuda", torch.Generator().manual_seed(seed))
     plain_cfg = cfg.replace(knn_impl="xla", fps_impl="xla", attn_impl="xla")
+
+    def plain_scale():
+        return (plain_attention_as_kernels(cuda_attention) if plain_kernel_scale
+                else contextlib.nullcontext())
     plain = MPTILearner(plain_cfg, "cuda", torch.Generator().manual_seed(seed))
     for (n, a), b in zip(fast.model.state_dict().items(), plain.model.state_dict().values()):
         if not torch.equal(a, b):
@@ -2810,7 +2863,8 @@ def train(torch, cfg, episodes, kernels, seed, required, per_step=None, steps=TR
     first = counts(kernels)
     plain_knn = replay.replay()
     try:
-        m_plain = plain.train(episodes[0])
+        with plain_scale():
+            m_plain = plain.train(episodes[0])
     finally:
         dgcnn.knn_indices = plain_knn
     torch.cuda.synchronize()
@@ -2844,12 +2898,28 @@ def train(torch, cfg, episodes, kernels, seed, required, per_step=None, steps=TR
         f"{rel[worst]:.3e} ({worst}); median {med:.3e}; "
         f"{len(zero)} biases with an exact zero gradient at {noise / top:.3e} of the "
         f"largest entry")
+    if plain_kernel_scale:
+        # beside it, ungated: the model's own plain path, whose q / bf16(tau)
+        # parts from the kernels' q * bf16(1 / tau)
+        own = MPTILearner(plain_cfg, "cuda", torch.Generator().manual_seed(seed))
+        plain_knn = replay.replay()
+        try:
+            own.train(episodes[0])
+        finally:
+            dgcnn.knn_indices = plain_knn
+        d = _rel_distances(g_fast, _grads(own.model), zero)
+        tau = cfg.output_dim ** 0.5
+        apart = abs(1.0 - cuda_attention.bf16_value(1 / tau) * cuda_attention.bf16_value(tau))
+        log(f"  step 1 gradients, kernel path vs the plain path with q / bf16(tau) (scores "
+            f"{apart:.2e} apart; not gated): largest relative L2 distance "
+            f"{max(d.values()):.3e}, median {statistics.median(d.values()):.3e}")
     if cfg.graph_bf16:
         exact = MPTILearner(plain_cfg, "cuda", torch.Generator().manual_seed(seed))
         plain_knn, reference_solve = replay.replay(), cuda_cheby.cheby_solve_reference
         cuda_cheby.cheby_solve_reference = exact_solve(cuda_cheby)
         try:
-            exact.train(episodes[0])
+            with plain_scale():
+                exact.train(episodes[0])
         finally:
             dgcnn.knn_indices = plain_knn
             cuda_cheby.cheby_solve_reference = reference_solve
@@ -3042,12 +3112,12 @@ def serve_phase(torch, cfg, episodes, kernels, seed, required):
 
 
 def train_phase(torch, cfg, episodes, kernels, seed, required, per_step=None,
-                steps=TRAIN_STEPS):
+                steps=TRAIN_STEPS, plain_kernel_scale=False):
     """`train` with its log lines."""
     graph = describe(cfg)
     log(f"[train] {graph}: meta-training step, kernel path vs plain path, then "
         f"{steps} kernel-path steps")
-    tr = train(torch, cfg, episodes, kernels, seed, required, per_step, steps)
+    tr = train(torch, cfg, episodes, kernels, seed, required, per_step, steps, plain_kernel_scale)
     log(f"[train] {graph}: median step {tr['step_ms']:.2f} ms (host clock, "
         f"synchronised); device ms per step: " +
         ", ".join(f"{n} {t:.3f}" for n, t in tr["stages"].items()) +
@@ -3068,7 +3138,7 @@ def main() -> int:
                          "distance, general scatter-add; the F2 paths: general kernel 9, the "
                          "narrow gather, kernels 10 and 11 past 8 columns; kernel 9's f32 "
                          "passes' output digests; or the attention kernels' output digests and "
-                         "the bf16 D = 128 pair's times) kernel checks, and print their rows "
+                         "the bf16 D = 320 pair's times) kernel checks, and print their rows "
                          "(to time them beside another tree's kernels)")
     args = ap.parse_args()
 
@@ -3096,19 +3166,23 @@ def main() -> int:
             log("  " + line.strip())
     for line in ptxas_report(build.build_log):
         log("  [ptxas] " + line)
-    if not hasattr(cuda_attention, "wide_tc_bf16_launches"):
-        log("  [ptxas] a tree without the wide bf16 attention kernels: spill check not run")
+    if not hasattr(cuda_attention, "wide_group_bf16_launches"):
+        log("  [ptxas] a tree without the grouped bf16 attention kernels: spill check not run")
     elif build.build_log:
-        wide_tc = ptxas_report(build.build_log, ("attn_wide_tc",))
-        missing = [f"{k} T={t}" for k in ("fwd", "dkdv", "dq") for t in (2, 4)
-                   if not any(x.startswith(f"attn_wide_tc_{k}_bf16_kernelILi{t}E")
-                              for x in wide_tc)]
-        spills = [x for x in wide_tc
+        tc = ptxas_report(build.build_log, ("attn_wide_tc", "attn_group"))
+        missing = [f"wide_tc {k} T={t}" for k in ("fwd", "dkdv", "dq") for t in (2, 4)
+                   if not any(x.startswith(f"attn_wide_tc_{k}_bf16_kernelILi{t}E") for x in tc)]
+        missing += [f"group {k} S={s}" for k, c in (("fwd", 2), ("dkdv", 1), ("dq", 1))
+                    for s in (2, 4)
+                    if not any(x.startswith(f"attn_group_{k}_bf16_kernelILi{c}ELi{s}E")
+                               for x in tc)]
+        spills = [x for x in tc
                   if "spill" in x and " 0 bytes spill stores, 0 bytes spill loads" not in x]
         if missing or spills:
-            raise AssertionError(f"the wide bf16 attention kernels: no ptxas report for "
-                                 f"{missing}, spills {spills}")
-        log(f"  [ptxas] the wide bf16 attention kernels: {len(wide_tc) // 2} entries, no spill")
+            raise AssertionError(f"the wide and grouped bf16 attention kernels: no ptxas report "
+                                 f"for {missing}, spills {spills}")
+        log(f"  [ptxas] the wide and grouped bf16 attention kernels: {len(tc) // 2} entries, "
+            f"no spill")
     else:
         log("  [ptxas] cached build: spill check not run")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3245,17 +3319,18 @@ def main() -> int:
 
     # ---- 2b. the F1 kernels: shapes past the tuned kernels, and the packed kNN
     f1_kernels = ("knn_general", "knn_packed", "attention_wide_fwd", "attention_wide_bwd",
-                  "attention_wide_fwd_bf16", "attention_wide_bwd_bf16",
-                  "attention_wide_tc_fwd_bf16", "attention_wide_tc_bwd_bf16", "kth_wide",
+                  "attention_wide_tc_fwd_bf16", "attention_wide_tc_bwd_bf16",
+                  "attention_wide_group_fwd_bf16", "attention_wide_group_bwd_bf16", "kth_wide",
                   "scatter_general")
     f1_counters = {"knn_general": (cuda_knn, "general_launches"),
                    "knn_packed": (cuda_knn, "packed_launches"),
                    "attention_wide_fwd": (cuda_attention, "wide_launches"),
                    "attention_wide_bwd": (cuda_attention, "wide_bwd_launches"),
-                   "attention_wide_fwd_bf16": (cuda_attention, "wide_bf16_launches"),
-                   "attention_wide_bwd_bf16": (cuda_attention, "wide_bwd_bf16_launches"),
                    "attention_wide_tc_fwd_bf16": (cuda_attention, "wide_tc_bf16_launches"),
                    "attention_wide_tc_bwd_bf16": (cuda_attention, "wide_tc_bwd_bf16_launches"),
+                   "attention_wide_group_fwd_bf16": (cuda_attention, "wide_group_bf16_launches"),
+                   "attention_wide_group_bwd_bf16": (cuda_attention,
+                                                     "wide_group_bwd_bf16_launches"),
                    "kth_wide": (cuda_kth, "wide_launches"),
                    "scatter_general": (cuda_scatter, "general_launches")}
     zero_counts(f1_counters)
@@ -3350,7 +3425,10 @@ def main() -> int:
     # (the general kNN), a 128-wide attention head (the wide kernels: FFMA
     # in f32, the tensor-core pair on the bf16 encoder), an odd first
     # EdgeConv width (the general scatter-add), float32 and bf16 encoders;
-    # the tuned kNN, attention and scatter-add launch no time there
+    # the tuned kNN, attention and scatter-add launch no time there; then
+    # the bf16 encoder with a 320-wide head (the grouped tensor-core pair),
+    # against a plain path that scales q as the kernels do
+    # (`plain_attention_as_kernels`)
     cfg_f1 = cfg.replace(dgcnn_k=40, output_dim=128, edgeconv_widths=((63, 64), (64, 64),
                                                                       (64, 64)))
     not_tuned = {"knn": 0, "attention_fwd": 0, "attention_bwd": 0}   # the 64-wide blocks
@@ -3360,13 +3438,21 @@ def main() -> int:
     tr_f1 = train_phase(torch, cfg_f1, episodes, kernels, args.seed,
                         ("knn_general", "attention_wide_fwd", "attention_wide_bwd", "fps", "kth",
                          "scatter_general"), per_step={"fps": 3, **not_tuned}, steps=1)
+    not_bf16 = {"attention_fwd_bf16": 0, "attention_bwd_bf16": 0}
     tr_f1_enc = train_phase(
         torch, cfg_f1.replace(compute_dtype="bfloat16"), episodes, kernels, args.seed,
         ("knn_general", "attention_wide_tc_fwd_bf16", "attention_wide_tc_bwd_bf16", "fps", "kth",
          "scatter_general", "cheby"),
-        per_step={"fps": 3, "cheby": 2, "attention_fwd_bf16": 0, "attention_bwd_bf16": 0,
-                  "attention_wide_fwd_bf16": 0, "attention_wide_bwd_bf16": 0, **not_tuned},
-        steps=1)
+        per_step={"fps": 3, "cheby": 2, "attention_wide_group_fwd_bf16": 0,
+                  "attention_wide_group_bwd_bf16": 0, **not_bf16, **not_tuned}, steps=1)
+    tr_f1_320 = train_phase(
+        torch, cfg_f1.replace(compute_dtype="bfloat16", output_dim=320), episodes, kernels,
+        args.seed, ("knn_general", "attention_wide_group_fwd_bf16",
+                    "attention_wide_group_bwd_bf16", "fps", "kth", "scatter_general", "cheby"),
+        per_step={"fps": 3, "cheby": 2, "attention_wide_group_fwd_bf16": 2,
+                  "attention_wide_group_bwd_bf16": 2, "attention_wide_tc_fwd_bf16": 0,
+                  "attention_wide_tc_bwd_bf16": 0, **not_bf16, **not_tuned}, steps=1,
+        plain_kernel_scale=True)
 
     # ---- 4d. knn_impl "pallas": the packed-key kNN at full flagship width
     cfg_p = cfg.replace(knn_impl="pallas", fps_impl="pallas", attn_impl="pallas")
@@ -3380,7 +3466,8 @@ def main() -> int:
                        steps=1)
     phases.update(f1_checks={**{n: 0 for n in kernels}, **f1_checks},
                   serve_f1=serve_launches_f1, train_f1=tr_f1["launches"],
-                  train_f1_bf16enc=tr_f1_enc["launches"], serve_pallas=serve_launches_p,
+                  train_f1_bf16enc=tr_f1_enc["launches"],
+                  train_f1_320_bf16enc=tr_f1_320["launches"], serve_pallas=serve_launches_p,
                   train_pallas=tr_p["launches"])
     for phase, launched in phases.items():
         if any(launched[n] for n in fused_kernels + probe_kernels):
@@ -3444,14 +3531,14 @@ def main() -> int:
                                       "r3dfsseg_tpu/ops/pallas_attention.py:54"),
                "attention_wide_bwd": ("attention_wide.cu",
                                       "r3dfsseg_tpu/ops/pallas_attention.py:78"),
-               "attention_wide_fwd_bf16": ("attention_wide.cu",
-                                           "r3dfsseg_tpu/ops/pallas_attention.py:54"),
-               "attention_wide_bwd_bf16": ("attention_wide.cu",
-                                           "r3dfsseg_tpu/ops/pallas_attention.py:78"),
                "attention_wide_tc_fwd_bf16": ("attention_wide_bf16.cu",
                                               "r3dfsseg_tpu/ops/pallas_attention.py:54"),
                "attention_wide_tc_bwd_bf16": ("attention_wide_bf16.cu",
                                               "r3dfsseg_tpu/ops/pallas_attention.py:78"),
+               "attention_wide_group_fwd_bf16": ("attention_group_bf16.cu",
+                                                 "r3dfsseg_tpu/ops/pallas_attention.py:54"),
+               "attention_wide_group_bwd_bf16": ("attention_group_bf16.cu",
+                                                 "r3dfsseg_tpu/ops/pallas_attention.py:78"),
                "kth_wide": ("kth.cu", "r3dfsseg_tpu/ops/pallas_kth.py:33"),
                "scatter_general": ("scatter_general.cu", "r3dfsseg_tpu/ops/fast_gather.py:40")}
     # each entry's counters, and the phase whose count is its "launches":
@@ -3462,10 +3549,10 @@ def main() -> int:
     # route's; kernels 10 and 11 the probe phase's; the general kNN, the
     # f32 wide attention and general scatter-add the F1 configuration's
     # training run (the wide tensor-core bf16 attention its bf16
-    # encoder's), the packed kNN the 'pallas' training run, and the
-    # wide-row k-th distance and the FFMA bf16 attention (bf16 D > 256),
-    # which no configuration of these sizes reaches (rows past 57.7k nodes,
-    # a head past 256), the F1 checks' (the counters zeroed before them);
+    # encoder's, the grouped pair the bf16 encoder's at output_dim 320),
+    # the packed kNN the 'pallas' training run, and the wide-row k-th
+    # distance, which no configuration of these sizes reaches (rows past
+    # 57.7k nodes), the F1 checks' (the counters zeroed before them);
     # kernel 9's bf16 form the bf16
     # encoder's fused route, and the general kernel 9 and the narrow gather
     # the F2 checks' (no configuration reaches them)
@@ -3486,7 +3573,8 @@ def main() -> int:
                       attention_wide_bwd="train_f1", scatter_general="train_f1",
                       attention_wide_tc_fwd_bf16="train_f1_bf16enc",
                       attention_wide_tc_bwd_bf16="train_f1_bf16enc",
-                      attention_wide_fwd_bf16="f1_checks", attention_wide_bwd_bf16="f1_checks",
+                      attention_wide_group_fwd_bf16="train_f1_320_bf16enc",
+                      attention_wide_group_bwd_bf16="train_f1_320_bf16enc",
                       knn_packed="train_pallas",
                       kth_wide="f1_checks")
     for p in cuda_fused_edge.PASSES:

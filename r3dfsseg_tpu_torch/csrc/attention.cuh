@@ -304,23 +304,34 @@ __device__ __forceinline__ float4 col_mask(const r3d::Dropout& drop, int b, int 
 //     with no shuffle.
 // D % 8 == 0 (whole 16-byte chunks), D <= 64.  attention_wide_bf16.cu
 // widens the staged tile to T = 2 or 4 channel tiles (`stage_tile_bf16<T>`,
-// `product_along_rows_bf16<NT, T>`; T = 1 is the tuned kernels' tile).
+// `product_along_rows_bf16<NT, T>`; T = 1 is the tuned kernels' tile), and
+// attention_group_bf16.cu stages chunks of channels of a wider row
+// (`stage_cols_bf16`).
 
-// Issue the copy of rows [row0, row0 + kR) of an (n, d) bf16 matrix into
-// a staged bf16 tile of T channel tiles (64 T channels a row); rows past n
-// and channels past d are zeros.
+// Issue the copy of rows [row0, row0 + kR) of a bf16 matrix of n rows,
+// `ld` entries apart, into a staged bf16 tile of T channel tiles (64 T
+// channels a row): the row's first w entries from src, zeros past them
+// and past n.  src may start at any channel that is a multiple of 8 (the
+// channel groups of attention_group_bf16.cu).
 template <int T = 1, int kR = kChunk>
-__device__ __forceinline__ void stage_tile_bf16(const uint16_t* src, int row0, int n, int d,
-                                                uint16_t* dst) {
+__device__ __forceinline__ void stage_cols_bf16(const uint16_t* src, int row0, int n, int ld,
+                                                int w, uint16_t* dst) {
   static_assert(T == 1 || T == 2 || T == 4, "16-byte chunks per row: a power of two");
   constexpr int kShift = T == 1 ? 3 : (T == 2 ? 4 : 5);  // log2 of a row's 8 T chunks
   for (int e = threadIdx.x; e < kR * (kDP / 8) * T; e += kThreads) {
     const int r = e >> kShift;
     const int c = e & ((1 << kShift) - 1);
-    const bool ok = row0 + r < n && 8 * c < d;
-    const uint16_t* from = ok ? src + static_cast<size_t>(row0 + r) * d + 8 * c : src;
+    const bool ok = row0 + r < n && 8 * c < w;
+    const uint16_t* from = ok ? src + static_cast<size_t>(row0 + r) * ld + 8 * c : src;
     r3d::cp_async16(dst + r * kDP * T + ((c ^ (r & 7)) << 3), from, ok);
   }
+}
+
+// The same of an (n, d) bf16 matrix from its first channel.
+template <int T = 1, int kR = kChunk>
+__device__ __forceinline__ void stage_tile_bf16(const uint16_t* src, int row0, int n, int d,
+                                                uint16_t* dst) {
+  stage_cols_bf16<T, kR>(src, row0, n, d, d, dst);
 }
 
 // A warp's 16 rows [row0, row0 + 16) of an (n, d) bf16 matrix, each entry
@@ -371,6 +382,47 @@ __device__ __forceinline__ void product_along_channels_bf16(float (&acc)[NT][4],
       r3d::mma_bf16(acc[j + 1], a[kk], b[2], b[3]);
     }
   }
+}
+
+// acc[j] += X Y^T over the channels < d, for n-tiles j < NT (NT even): X
+// the 16 staged rows r0 .. r0 + 15 of `rows`, Y the staged rows c0 + 8j ..
+// of `tile` (both T channel tiles wide; r0 % 16 == 0, c0 % 8 == 0).  A and
+// B fragments both come by ldmatrix: A as four 8 x 8 tiles (rows 0-7 and
+// 8-15 of channels 16kk .. + 7, then of + 8 .. + 15), B as in the tuned
+// product_along_channels_bf16 (attention_wide_bf16.cu,
+// attention_group_bf16.cu).
+template <int T, int NT>
+__device__ __forceinline__ void product_along_channels_wide(float (&acc)[NT][4],
+                                                            const uint16_t* rows, int r0,
+                                                            const uint16_t* tile, int c0, int d) {
+  constexpr int kW = kDP * T;
+  const int lane = threadIdx.x & 31;
+  const int mi = lane >> 3;  // the ldmatrix tile this lane addresses
+  const int rr = lane & 7;
+  const uint16_t* arow = rows + (r0 + 8 * (mi & 1) + rr) * kW;
+#pragma unroll
+  for (int kk = 0; kk < 4 * T; ++kk) {
+    if (16 * kk >= d) break;
+    uint32_t a[4];
+    r3d::ldsm_x4(a, arow + (((2 * kk + (mi >> 1)) ^ rr) << 3));
+    const int chunk = 2 * kk + (mi & 1);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      const int row = c0 + 8 * (j + (mi >> 1)) + rr;
+      uint32_t b[4];
+      r3d::ldsm_x4(b, tile + row * kW + ((chunk ^ rr) << 3));
+      r3d::mma_bf16(acc[j], a, b[0], b[1]);
+      r3d::mma_bf16(acc[j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&a)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[j][e] = 0.f;
 }
 
 // k-step s of an accumulator tile pair (columns 16s .. 16s + 15) as a bf16
@@ -520,12 +572,12 @@ __device__ __forceinline__ void merge_stats(float* slots, float (&m)[2], float (
 
 // The S splits' partial sums (NO n-tiles of 8 channels) of each row group
 // added in split order (S > 1) by the group's first warp, which writes rows
-// row0 + g, row0 + g + 8 of out (< n, channels < d) times mul and returns
-// true; the group's other warps return false.
+// row0 + g, row0 + g + 8 of out (< n, channels < d; rows ld floats apart)
+// times mul and returns true; the group's other warps return false.
 template <int S, int NO>
 __device__ __forceinline__ bool store_rows(float* smem, float (&acc)[NO][4],
                                            float* __restrict__ out, size_t base, int row0, int n,
-                                           int d, float mul, int warp, int g, int t) {
+                                           int d, int ld, float mul, int warp, int g, int t) {
   if constexpr (S > 1) {
     __syncthreads();  // every warp is done with the ring
     float* mine = lane_slot(smem, warp, 4 * NO);
@@ -548,7 +600,7 @@ __device__ __forceinline__ bool store_rows(float* smem, float (&acc)[NO][4],
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     if (row >= n) continue;
-    float* o = out + base + static_cast<size_t>(row) * d;
+    float* o = out + base + static_cast<size_t>(row) * ld;
 #pragma unroll
     for (int nn = 0; nn < NO; ++nn) {
       const int ch = 8 * nn + 2 * t;
@@ -566,8 +618,9 @@ template <int S, int NO>
 __device__ __forceinline__ void finish_sums(float* smem, float (&o)[NO][4], const float (&m)[2],
                                             const float (&l)[2], float* __restrict__ y,
                                             float* __restrict__ lse, size_t base, int b, int n,
-                                            int d, int row0, int warp, int g, int t) {
-  if (!store_rows<S>(smem, o, y, base, row0, n, d, 1.f, warp, g, t) || lse == nullptr || t != 0)
+                                            int d, int ld, int row0, int warp, int g, int t) {
+  if (!store_rows<S>(smem, o, y, base, row0, n, d, ld, 1.f, warp, g, t) || lse == nullptr ||
+      t != 0)
     return;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {

@@ -345,7 +345,7 @@ attn_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
     product_along_rows_bf16<NT>(o, s, kt + kTileF, col0, d);
   }
 
-  finish_sums<S>(smem, o, m, l, y, lse, base, b, n, d, row0, warp, g, t);
+  finish_sums<S>(smem, o, m, l, y, lse, base, b, n, d, d, row0, warp, g, t);
 }
 
 // The mask's raw words, (B, N, N) uint32: word (b, i, j) as the kernels

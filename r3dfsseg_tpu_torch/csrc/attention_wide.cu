@@ -1,17 +1,15 @@
-// Single-head attention forward and backward at any head width D, for f32
-// and bf16 q, k, v: the shapes no tensor-core kernel of the port takes (f32
-// at D > 64, bf16 at D > 256; the wrapper zero-pads an unaligned D <= 64 to
-// attention_fwd.cu and attention_bwd.cu, and bf16 at 64 < D <= 256 runs
-// attention_wide_bf16.cu).
+// Single-head attention forward and backward on f32 q, k, v at any head
+// width D > 64: the shapes the tuned f32 kernels do not take (the wrapper
+// zero-pads an unaligned D <= 64 to attention_fwd.cu and attention_bwd.cu;
+// bf16 q, k, v past 64 run attention_wide_bf16.cu and
+// attention_group_bf16.cu).
 //
 // Replaces the TPU kernels r3dfsseg_tpu/ops/pallas_attention.py:
 // _attn_fwd_kernel and _attn_bwd_kernel there (the pretraining network's
-// SelfAttention is 128 wide, r3dfsseg_tpu/config.py:60).  The function and
-// its roundings are the tuned kernels' (ops/cuda_attention.py's plain
-// versions): the same Philox mask (philox.cuh), q multiplied by scale =
-// 1 / tau; in bf16, q * bf16(1 / tau) rounded to bf16, the normalised P
-// (after the mask) rounded to bf16 before P V, dY, Pd and dS rounded to
-// bf16 before their products, dK from the unscaled q, f32 sums throughout.
+// SelfAttention is 128 wide, r3dfsseg_tpu/config.py:60).  The function is
+// the tuned kernels' (ops/cuda_attention.py's plain versions): the same
+// Philox mask (philox.cuh), q multiplied by scale = 1 / tau, dK from the
+// unscaled q, f32 sums throughout.
 //
 // What bounds it on the H100: the products, 4 B N^2 D operations forward
 // and 10 backward, here FFMA in f32 against 67 TFLOP/s.  This kernel is
@@ -23,9 +21,9 @@
 // more passes, each recomputing the scores).
 //   forward: pass 1 over the keys takes each row's max m and sum l (online,
 //     the scores' own softmax normaliser) and writes lse = m + log l; each
-//     output pass recomputes the scores, P = exp(s - m) / l, the mask,
-//     the bf16 rounding, and sums P V;
-//   backward: a pre-pass writes Delta = rowsum(dY * Y) (bf16(dY) in bf16);
+//     output pass recomputes the scores, P = exp(s - m) / l and the mask,
+//     and sums P V;
+//   backward: a pre-pass writes Delta = rowsum(dY * Y);
 //     the dQ kernel (a block per 64 queries) and the dK/dV kernel (a block
 //     per 64 keys) each recompute S and dPd = dY V^T per tile, P = exp(s -
 //     lse), Pd = P * M, dS = P * (dPd * M - Delta), and sum dQ = dS K *
@@ -49,49 +47,28 @@ constexpr int kChunkF = kDC * kLd;
 constexpr int kPF = kRows * kPLd;
 constexpr int kOutF = kRows * kOutLd;
 
-__device__ __forceinline__ float value(float x) { return x; }
-__device__ __forceinline__ float value(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return r3d::bf16_lo(r3d::pack_bf16(x, 0.f));
-}
-
-// How a staged operand is taken: plain, q scaled by `mul` (bf16: rounded),
-// or dY rounded to bf16.
-enum Take { kPlain, kScaledQ, kRoundedDY };
-
-template <Take kTake, bool kLowp, typename T>
-__device__ __forceinline__ float take(T x, float mul) {
-  float v = value(x);
-  if (kTake == kScaledQ) v = kLowp ? round_bf16(v * mul) : v * mul;
-  if (kTake == kRoundedDY && kLowp) v = round_bf16(v);
-  return v;
-}
-
-// Rows [r0, r0 + 64), channels [c0, c0 + 32) of an (n, d) matrix into
-// dst[channel][row] (kLd floats a channel); zeros past n and d.
-template <Take kTake, bool kLowp, typename T>
-__device__ __forceinline__ void stage_chunk(const T* src, int r0, int n, int d, int c0, float mul,
-                                            float* dst) {
+// Rows [r0, r0 + 64), channels [c0, c0 + 32) of an (n, d) matrix, times
+// mul when kScaled (q), into dst[channel][row] (kLd floats a channel);
+// zeros past n and d.
+template <bool kScaled>
+__device__ __forceinline__ void stage_chunk(const float* src, int r0, int n, int d, int c0,
+                                            float mul, float* dst) {
   for (int e = threadIdx.x; e < kRows * kDC; e += kThreads) {
     const int r = e / kDC, cc = e % kDC;
     const bool ok = r0 + r < n && c0 + cc < d;
-    dst[cc * kLd + r] = ok ? take<kTake, kLowp>(src[static_cast<size_t>(r0 + r) * d + c0 + cc], mul)
-                           : 0.f;
+    const float* x = src + static_cast<size_t>(r0 + r) * d + c0 + cc;
+    dst[cc * kLd + r] = ok ? (kScaled ? *x * mul : *x) : 0.f;
   }
 }
 
 // Rows [r0, r0 + 64), channels [o0, o0 + 128) into dst[row][channel]
 // (kOutLd floats a row); zeros past n and d.
-template <Take kTake, bool kLowp, typename T>
-__device__ __forceinline__ void stage_out(const T* src, int r0, int n, int d, int o0, float* dst) {
+__device__ __forceinline__ void stage_out(const float* src, int r0, int n, int d, int o0,
+                                          float* dst) {
   for (int e = threadIdx.x; e < kRows * kOut; e += kThreads) {
     const int r = e / kOut, cc = e % kOut;
     const bool ok = r0 + r < n && o0 + cc < d;
-    dst[r * kOutLd + cc] =
-        ok ? take<kTake, kLowp>(src[static_cast<size_t>(r0 + r) * d + o0 + cc], 1.f) : 0.f;
+    dst[r * kOutLd + cc] = ok ? src[static_cast<size_t>(r0 + r) * d + o0 + cc] : 0.f;
   }
 }
 
@@ -170,26 +147,24 @@ __device__ __forceinline__ void factors(const r3d::Dropout& drop, int b, int i, 
 
 // Scores of the block's queries [i0, i0 + 64) against keys [j0, j0 + 64):
 // s[r][j] for query 4 ty + r, key 4 tx + j.
-template <bool kLowp, typename T>
-__device__ __forceinline__ void scores(float (&s)[4][4], const T* q, const T* k, int i0, int j0,
-                                       int n, int d, float qscale, float* qt, float* kt, int ty,
-                                       int tx) {
+__device__ __forceinline__ void scores(float (&s)[4][4], const float* q, const float* k, int i0,
+                                       int j0, int n, int d, float qscale, float* qt, float* kt,
+                                       int ty, int tx) {
   zero(s);
   for (int c0 = 0; c0 < d; c0 += kDC) {
     __syncthreads();
-    stage_chunk<kScaledQ, kLowp>(q, i0, n, d, c0, qscale, qt);
-    stage_chunk<kPlain, kLowp>(k, j0, n, d, c0, 1.f, kt);
+    stage_chunk<true>(q, i0, n, d, c0, qscale, qt);
+    stage_chunk<false>(k, j0, n, d, c0, 1.f, kt);
     __syncthreads();
     patch(s, qt, kt, min(kDC, d - c0), ty, tx);
   }
 }
 
-template <typename T, bool kDropout>
+template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
-attn_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     float* __restrict__ y, float* __restrict__ lse, int n, int d, float qscale,
-                     r3d::Dropout drop) {
-  constexpr bool kLowp = sizeof(T) == 2;
+attn_wide_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ y, float* __restrict__ lse,
+                     int n, int d, float qscale, r3d::Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;
   float* kt = qt + kChunkF;
@@ -210,7 +185,7 @@ attn_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int r = 0; r < 4; ++r) m[r] = -INFINITY, l[r] = 0.f;
   for (int j0 = 0; j0 < n; j0 += kRows) {
     float s[4][4];
-    scores<kLowp>(s, q, k, i0, j0, n, d, qscale, qt, kt, ty, tx);
+    scores(s, q, k, i0, j0, n, d, qscale, qt, kt, ty, tx);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       float mt = -INFINITY;
@@ -244,7 +219,7 @@ attn_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     zero(acc);
     for (int j0 = 0; j0 < n; j0 += kRows) {
       float s[4][4];
-      scores<kLowp>(s, q, k, i0, j0, n, d, qscale, qt, kt, ty, tx);
+      scores(s, q, k, i0, j0, n, d, qscale, qt, kt, ty, tx);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         float f[4] = {1.f, 1.f, 1.f, 1.f};
@@ -253,11 +228,10 @@ attn_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         for (int j = 0; j < 4; ++j) {
           float p = j0 + 4 * tx + j < n ? expf(s[r][j] - m[r]) / l[r] : 0.f;
           if (kDropout) p *= f[j];
-          if (kLowp) p = round_bf16(p);
           pt[(4 * tx + j) * kPLd + 4 * ty + r] = p;
         }
       }
-      stage_out<kPlain, kLowp>(v, j0, n, d, o0, vs);
+      stage_out(v, j0, n, d, o0, vs);
       __syncthreads();
       out_patch(acc, pt, vs, ty, tx);
       // the next scores() syncs before any thread stages again
@@ -266,8 +240,7 @@ attn_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-// Delta = rowsum(dY * Y), dY rounded to bf16 in the bf16 form: one warp per row.
-template <bool kLowp>
+// Delta = rowsum(dY * Y): one warp per row.
 __global__ void attn_wide_delta_kernel(const float* __restrict__ dy, const float* __restrict__ y,
                                        float* __restrict__ delta, int rows, int d) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
@@ -276,7 +249,7 @@ __global__ void attn_wide_delta_kernel(const float* __restrict__ dy, const float
   const float* a = dy + static_cast<size_t>(row) * d;
   const float* c = y + static_cast<size_t>(row) * d;
   float s = 0.f;
-  for (int ch = lane; ch < d; ch += 32) s = fmaf(kLowp ? round_bf16(a[ch]) : a[ch], c[ch], s);
+  for (int ch = lane; ch < d; ch += 32) s = fmaf(a[ch], c[ch], s);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   if (lane == 0) delta[row] = s;
@@ -286,11 +259,11 @@ __global__ void attn_wide_delta_kernel(const float* __restrict__ dy, const float
 // kKeyRows false: s[r][j] for query 4 ty + r and key 4 tx + j (the dQ
 // kernel); true: for key 4 ty + r and query 4 tx + j (dK/dV).  Channels in
 // the same order as the forward's scores.
-template <bool kKeyRows, bool kLowp, typename T>
-__device__ __forceinline__ void bwd_scores(float (&s)[4][4], float (&dp)[4][4], const T* q,
-                                           const T* k, const T* v, const float* dy, int i0,
-                                           int j0, int n, int d, float qscale, float* stage,
-                                           int ty, int tx) {
+template <bool kKeyRows>
+__device__ __forceinline__ void bwd_scores(float (&s)[4][4], float (&dp)[4][4], const float* q,
+                                           const float* k, const float* v, const float* dy,
+                                           int i0, int j0, int n, int d, float qscale,
+                                           float* stage, int ty, int tx) {
   float* qt = stage;
   float* kt = qt + kChunkF;
   float* dyt = kt + kChunkF;
@@ -299,10 +272,10 @@ __device__ __forceinline__ void bwd_scores(float (&s)[4][4], float (&dp)[4][4], 
   zero(dp);
   for (int c0 = 0; c0 < d; c0 += kDC) {
     __syncthreads();
-    stage_chunk<kScaledQ, kLowp>(q, i0, n, d, c0, qscale, qt);
-    stage_chunk<kPlain, kLowp>(k, j0, n, d, c0, 1.f, kt);
-    stage_chunk<kRoundedDY, kLowp>(dy, i0, n, d, c0, 1.f, dyt);
-    stage_chunk<kPlain, kLowp>(v, j0, n, d, c0, 1.f, vt);
+    stage_chunk<true>(q, i0, n, d, c0, qscale, qt);
+    stage_chunk<false>(k, j0, n, d, c0, 1.f, kt);
+    stage_chunk<false>(dy, i0, n, d, c0, 1.f, dyt);
+    stage_chunk<false>(v, j0, n, d, c0, 1.f, vt);
     __syncthreads();
     const int w = min(kDC, d - c0);
     if (kKeyRows) {
@@ -316,13 +289,13 @@ __device__ __forceinline__ void bwd_scores(float (&s)[4][4], float (&dp)[4][4], 
 }
 
 // dQ = dS K * scale for 64 queries a block.
-template <typename T, bool kDropout>
+template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
-attn_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const float* __restrict__ dy, const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq, int n, int d,
-                    float scale, float qscale, r3d::Dropout drop) {
-  constexpr bool kLowp = sizeof(T) == 2;
+attn_wide_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dy,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int n, int d, float scale, float qscale,
+                    r3d::Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* stage = smem;            // four chunks; dS transposed ([key][query]) after them
   float* ks = smem + 4 * kChunkF;  // K: [key][channel]
@@ -347,7 +320,7 @@ attn_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     zero(acc);
     for (int j0 = 0; j0 < n; j0 += kRows) {
       float s[4][4], dp[4][4];
-      bwd_scores<false, kLowp>(s, dp, q, k, v, dy, i0, j0, n, d, qscale, stage, ty, tx);
+      bwd_scores<false>(s, dp, q, k, v, dy, i0, j0, n, d, qscale, stage, ty, tx);
       __syncthreads();  // every thread is done with the chunks that dS overwrites
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -356,12 +329,11 @@ attn_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float p = j0 + 4 * tx + j < n ? expf(s[r][j] - lr[r]) : 0.f;
-          float ds = p * (dp[r][j] * f[j] - dr[r]);
-          if (kLowp) ds = round_bf16(ds);
+          const float ds = p * (dp[r][j] * f[j] - dr[r]);
           stage[(4 * tx + j) * kPLd + 4 * ty + r] = ds;
         }
       }
-      stage_out<kPlain, kLowp>(k, j0, n, d, o0, ks);
+      stage_out(k, j0, n, d, o0, ks);
       __syncthreads();
       out_patch(acc, stage, ks, ty, tx);
     }
@@ -370,14 +342,13 @@ attn_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 // dV = Pd^T dY and dK = dS^T q * scale for 64 keys a block.
-template <typename T, bool kDropout>
+template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
-attn_wide_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const float* __restrict__ dy, const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv, int n, int d, float scale, float qscale,
-                      r3d::Dropout drop) {
-  constexpr bool kLowp = sizeof(T) == 2;
+attn_wide_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dy,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int n, int d, float scale,
+                      float qscale, r3d::Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* stage = smem;              // four chunks; Pd and dS transposed ([query][key]) after them
   float* pdt = smem;
@@ -400,7 +371,7 @@ attn_wide_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     zero(acc_v);
     for (int i0 = 0; i0 < n; i0 += kRows) {
       float s[4][4], dp[4][4];
-      bwd_scores<true, kLowp>(s, dp, q, k, v, dy, i0, j0, n, d, qscale, stage, ty, tx);
+      bwd_scores<true>(s, dp, q, k, v, dy, i0, j0, n, d, qscale, stage, ty, tx);
       __syncthreads();  // every thread is done with the chunks that Pd and dS overwrite
 #pragma unroll
       for (int j = 0; j < 4; ++j) {  // query i0 + 4 tx + j
@@ -413,18 +384,14 @@ attn_wide_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const float p = live ? expf(s[r][j] - lq) : 0.f;
-          float pd = p * f[r];
-          float ds = p * (dp[r][j] * f[r] - dq_);
-          if (kLowp) {
-            pd = round_bf16(pd);
-            ds = round_bf16(ds);
-          }
+          const float pd = p * f[r];
+          const float ds = p * (dp[r][j] * f[r] - dq_);
           pdt[(4 * tx + j) * kPLd + 4 * ty + r] = pd;
           dst[(4 * tx + j) * kPLd + 4 * ty + r] = ds;
         }
       }
-      stage_out<kRoundedDY, kLowp>(dy, i0, n, d, o0, dys);
-      stage_out<kPlain, kLowp>(q, i0, n, d, o0, qs);
+      stage_out(dy, i0, n, d, o0, dys);
+      stage_out(q, i0, n, d, o0, qs);
       __syncthreads();
       out_patch(acc_v, pdt, dys, ty, tx);
       out_patch(acc_k, dst, qs, ty, tx);
@@ -439,35 +406,32 @@ constexpr size_t kDqSmem = sizeof(float) * (4 * kChunkF + kOutF);
 constexpr size_t kDkdvSmem = sizeof(float) * (4 * kChunkF + 2 * kOutF);
 static_assert(kPF <= 4 * kChunkF && 2 * kPF <= 4 * kChunkF, "dS and Pd fit where the chunks were");
 
-template <typename T>
 int fwd(const void* q, const void* k, const void* v, void* y, void* lse, int b, int n, int d,
         float qscale, int dropout, r3d::Dropout drop, cudaStream_t st) {
   if (b < 1 || b > 65535 || n < 1 || d < 1) return cudaErrorInvalidValue;
   const dim3 grid((n + kRows - 1) / kRows, b);
   auto args = [&](auto kernel) {
-    return r3d_launch(kernel, grid, dim3(kThreads), kFwdSmem, st, static_cast<const T*>(q),
-                      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<float*>(y),
-                      static_cast<float*>(lse), n, d, qscale, drop);
+    return r3d_launch(kernel, grid, dim3(kThreads), kFwdSmem, st, static_cast<const float*>(q),
+                      static_cast<const float*>(k), static_cast<const float*>(v),
+                      static_cast<float*>(y), static_cast<float*>(lse), n, d, qscale, drop);
   };
-  return dropout ? args(attn_wide_fwd_kernel<T, true>) : args(attn_wide_fwd_kernel<T, false>);
+  return dropout ? args(attn_wide_fwd_kernel<true>) : args(attn_wide_fwd_kernel<false>);
 }
 
-template <typename T>
 int bwd(const void* q, const void* k, const void* v, const void* y, const void* dy,
         const void* lse, void* delta, void* dq, void* dk, void* dv, int b, int n, int d,
         float scale, float qscale, int dropout, r3d::Dropout drop, cudaStream_t st) {
   if (b < 1 || b > 65535 || n < 1 || d < 1) return cudaErrorInvalidValue;
-  constexpr bool kLowp = sizeof(T) == 2;
   const int rows = b * n;
-  attn_wide_delta_kernel<kLowp><<<(rows * 32 + 255) / 256, 256, 0, st>>>(
+  attn_wide_delta_kernel<<<(rows * 32 + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(dy), static_cast<const float*>(y), static_cast<float*>(delta),
       rows, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kRows - 1) / kRows, b);
-  const auto qp = static_cast<const T*>(q);
-  const auto kp = static_cast<const T*>(k);
-  const auto vp = static_cast<const T*>(v);
+  const auto qp = static_cast<const float*>(q);
+  const auto kp = static_cast<const float*>(k);
+  const auto vp = static_cast<const float*>(v);
   const auto dyp = static_cast<const float*>(dy);
   const auto lp = static_cast<const float*>(lse);
   const auto dl = static_cast<const float*>(delta);
@@ -479,54 +443,33 @@ int bwd(const void* q, const void* k, const void* v, const void* y, const void* 
                       static_cast<float*>(dk), static_cast<float*>(dv), n, d, scale, qscale,
                       drop);
   };
-  return dropout ? launch(attn_wide_dq_kernel<T, true>, attn_wide_dkdv_kernel<T, true>)
-                 : launch(attn_wide_dq_kernel<T, false>, attn_wide_dkdv_kernel<T, false>);
+  return dropout ? launch(attn_wide_dq_kernel<true>, attn_wide_dkdv_kernel<true>)
+                 : launch(attn_wide_dq_kernel<false>, attn_wide_dkdv_kernel<false>);
 }
 
 }  // namespace
 
-// The forward: q, k, v (B, N, D) f32 (r3d_attn_wide_fwd) or bf16
-// (r3d_attn_wide_fwd_bf16) contiguous, any D -> y (B, N, D) f32 and, when
-// lse is not null, lse (B, N) f32.  qscale: 1 / tau (f32), bf16(1 / tau)
-// (bf16).  The dropout arguments as r3d_attn_fwd's.
+// The forward: q, k, v (B, N, D) f32 contiguous, any D -> y (B, N, D) f32
+// and, when lse is not null, lse (B, N) f32.  qscale = 1 / tau.  The
+// dropout arguments as r3d_attn_fwd's.
 R3D_EXPORT int r3d_attn_wide_fwd(const void* q, const void* k, const void* v, void* y, void* lse,
                                  int b, int n, int d, float qscale, int dropout,
                                  unsigned seed_lo, unsigned seed_hi, unsigned threshold,
                                  float keep_scale, void* stream) {
-  return fwd<float>(q, k, v, y, lse, b, n, d, qscale, dropout,
-                    r3d::Dropout{seed_lo, seed_hi, threshold, keep_scale},
-                    static_cast<cudaStream_t>(stream));
-}
-
-R3D_EXPORT int r3d_attn_wide_fwd_bf16(const void* q, const void* k, const void* v, void* y,
-                                      void* lse, int b, int n, int d, float qscale, int dropout,
-                                      unsigned seed_lo, unsigned seed_hi, unsigned threshold,
-                                      float keep_scale, void* stream) {
-  return fwd<uint16_t>(q, k, v, y, lse, b, n, d, qscale, dropout,
-                       r3d::Dropout{seed_lo, seed_hi, threshold, keep_scale},
-                       static_cast<cudaStream_t>(stream));
+  return fwd(q, k, v, y, lse, b, n, d, qscale, dropout,
+             r3d::Dropout{seed_lo, seed_hi, threshold, keep_scale},
+             static_cast<cudaStream_t>(stream));
 }
 
 // The backward: q, k, v as the forward's; y, dy (B, N, D) f32, lse (B, N)
 // f32; delta (B, N) f32 scratch -> dq, dk, dv (B, N, D) f32.  scale = 1 /
-// tau (f32), qscale the forward's.
+// tau, qscale the forward's.
 R3D_EXPORT int r3d_attn_wide_bwd(const void* q, const void* k, const void* v, const void* y,
                                  const void* dy, const void* lse, void* delta, void* dq,
                                  void* dk, void* dv, int b, int n, int d, float scale,
                                  float qscale, int dropout, unsigned seed_lo, unsigned seed_hi,
                                  unsigned threshold, float keep_scale, void* stream) {
-  return bwd<float>(q, k, v, y, dy, lse, delta, dq, dk, dv, b, n, d, scale, qscale, dropout,
-                    r3d::Dropout{seed_lo, seed_hi, threshold, keep_scale},
-                    static_cast<cudaStream_t>(stream));
-}
-
-R3D_EXPORT int r3d_attn_wide_bwd_bf16(const void* q, const void* k, const void* v,
-                                      const void* y, const void* dy, const void* lse,
-                                      void* delta, void* dq, void* dk, void* dv, int b, int n,
-                                      int d, float scale, float qscale, int dropout,
-                                      unsigned seed_lo, unsigned seed_hi, unsigned threshold,
-                                      float keep_scale, void* stream) {
-  return bwd<uint16_t>(q, k, v, y, dy, lse, delta, dq, dk, dv, b, n, d, scale, qscale, dropout,
-                       r3d::Dropout{seed_lo, seed_hi, threshold, keep_scale},
-                       static_cast<cudaStream_t>(stream));
+  return bwd(q, k, v, y, dy, lse, delta, dq, dk, dv, b, n, d, scale, qscale, dropout,
+             r3d::Dropout{seed_lo, seed_hi, threshold, keep_scale},
+             static_cast<cudaStream_t>(stream));
 }

@@ -2,8 +2,8 @@
 // 64 < D <= 256, D % 8 == 0 (r3d_attn_wide_tc_fwd_bf16,
 // r3d_attn_wide_tc_bwd_bf16): the bf16 encoder's attention past the tuned
 // kernels' 64 channels, on bf16 tensor-core tiles.  The wrapper zero-pads
-// an unaligned D to a multiple of 8 (exact); f32 q, k, v at D > 64 and bf16
-// at D > 256 stay on attention_wide.cu.
+// an unaligned D to a multiple of 8 (exact); f32 q, k, v at D > 64 run
+// attention_wide.cu, bf16 at D > 256 attention_group_bf16.cu.
 //
 // Replaces the TPU kernels r3dfsseg_tpu/ops/pallas_attention.py:
 // _attn_fwd_kernel (:54, via _fwd_impl :160) and _attn_bwd_kernel (:78, via
@@ -63,14 +63,6 @@ using namespace r3d_attn;
 
 constexpr int kPass = 32;  // columns of a warp's pass over a tile (register budget)
 
-template <int NT>
-__device__ __forceinline__ void zero(float (&a)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[j][e] = 0.f;
-}
-
 // x <- bf16(x * mul) for the `count` entries (a multiple of 8 kThreads) of
 // a staged bf16 tile: the forward's q * bf16(1 / tau), rounded as
 // load_rows_bf16 and the backward's pre-pass round it (zeros stay zeros).
@@ -83,38 +75,6 @@ __device__ __forceinline__ void scale_tile_bf16(uint16_t* tile, int count, float
     const uint4 w = *reinterpret_cast<const uint4*>(tile + e);
     *reinterpret_cast<uint4*>(tile + e) = make_uint4(scaled_pair(w.x, mul), scaled_pair(w.y, mul),
                                                      scaled_pair(w.z, mul), scaled_pair(w.w, mul));
-  }
-}
-
-// acc[j] += X Y^T over the channels < d, for n-tiles j < NT (NT even): X
-// the 16 staged rows r0 .. r0 + 15 of `rows`, Y the staged rows c0 + 8j ..
-// of `tile` (both T channel tiles wide; r0 % 16 == 0, c0 % 8 == 0).  A and
-// B fragments both come by ldmatrix: A as four 8 x 8 tiles (rows 0-7 and
-// 8-15 of channels 16kk .. + 7, then of + 8 .. + 15), B as in the tuned
-// product_along_channels_bf16.
-template <int T, int NT>
-__device__ __forceinline__ void product_along_channels_wide(float (&acc)[NT][4],
-                                                            const uint16_t* rows, int r0,
-                                                            const uint16_t* tile, int c0, int d) {
-  constexpr int kW = kDP * T;
-  const int lane = threadIdx.x & 31;
-  const int mi = lane >> 3;  // the ldmatrix tile this lane addresses
-  const int rr = lane & 7;
-  const uint16_t* arow = rows + (r0 + 8 * (mi & 1) + rr) * kW;
-#pragma unroll
-  for (int kk = 0; kk < 4 * T; ++kk) {
-    if (16 * kk >= d) break;
-    uint32_t a[4];
-    r3d::ldsm_x4(a, arow + (((2 * kk + (mi >> 1)) ^ rr) << 3));
-    const int chunk = 2 * kk + (mi & 1);
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      const int row = c0 + 8 * (j + (mi >> 1)) + rr;
-      uint32_t b[4];
-      r3d::ldsm_x4(b, tile + row * kW + ((chunk ^ rr) << 3));
-      r3d::mma_bf16(acc[j], a, b[0], b[1]);
-      r3d::mma_bf16(acc[j + 1], a, b[2], b[3]);
-    }
   }
 }
 
@@ -225,7 +185,7 @@ attn_wide_tc_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __r
     }
   }
 
-  finish_sums<S>(smem, o, m, l, y, lse, base, b, n, d, row0, warp, g, t);
+  finish_sums<S>(smem, o, m, l, y, lse, base, b, n, d, d, row0, warp, g, t);
 }
 
 // ---- backward -----------------------------------------------------------
@@ -333,7 +293,7 @@ attn_wide_tc_dkdv_bf16_kernel(const uint16_t* __restrict__ qs, const uint16_t* _
       product_along_rows_bf16<NT, T>(acc, s, dyt, cb, d);  // dV += Pd^T dY
     }
   }
-  store_rows<S>(smem, acc, dv, base, key0, n, d, 1.f, warp, g, t);
+  store_rows<S>(smem, acc, dv, base, key0, n, d, d, 1.f, warp, g, t);
 
   // 2. dK = dS^T q / tau
   __syncthreads();  // every warp is done with the ring and the merge's slots
@@ -376,7 +336,7 @@ attn_wide_tc_dkdv_bf16_kernel(const uint16_t* __restrict__ qs, const uint16_t* _
       product_along_rows_bf16<NT, T>(acc, dp, qt, cb, d);  // dK += dS^T q
     }
   }
-  store_rows<S>(smem, acc, dk, base, key0, n, d, scale, warp, g, t);
+  store_rows<S>(smem, acc, dk, base, key0, n, d, d, scale, warp, g, t);
 }
 
 // (b) dQ of a warp's 16 queries.  Score tiles are (query, key).
@@ -458,7 +418,7 @@ attn_wide_tc_dq_bf16_kernel(const uint16_t* __restrict__ qs, const uint16_t* __r
       product_along_rows_bf16<NT, T>(acc, s, kt, cb, d);  // dQ += dS K
     }
   }
-  store_rows<S>(smem, acc, dq, base, row0, n, d, scale, warp, g, t);
+  store_rows<S>(smem, acc, dq, base, row0, n, d, d, scale, warp, g, t);
 }
 
 // f(S, kDropout) with S (1, 2 or 4) and the dropout flag as compile-time

@@ -1,7 +1,8 @@
 """Single-head attention with dropout, forward and backward: the Hopper
 kernels `csrc/attention_fwd.cu` and `csrc/attention_bwd.cu` (D <= 64),
-`csrc/attention_wide_bf16.cu` (bf16, 64 < D <= 256) and
-`csrc/attention_wide.cu` (every other D), and their plain versions.
+`csrc/attention_wide_bf16.cu` (bf16, 64 < D <= 256),
+`csrc/attention_group_bf16.cu` (bf16, D > 256) and `csrc/attention_wide.cu`
+(f32, D > 64), and their plain versions.
 
 Replaces the TPU kernels `r3dfsseg_tpu/ops/pallas_attention.py:_fwd_impl`
 (`_attn_fwd_kernel`) and `_bwd_impl` (`_attn_bwd_kernel`), with
@@ -64,10 +65,14 @@ Head widths the TPU kernel takes and these kernels do not (`_layout`,
   forms' tensor-core tiles widened to 2 or 4 channel tiles of 64, any D
   that is a multiple of 8 (`wide_tc_bf16_launches`,
   `wide_tc_bwd_bf16_launches`).
-- f32 at D > 64, bf16 at D > 256: `csrc/attention_wide.cu`, a simple FFMA
-  forward and backward pair for any D with the same mask, roundings and
-  lse (`wide_launches`, `wide_bwd_launches`; `wide_bf16_launches`,
-  `wide_bwd_bf16_launches` count the bf16 calls among them).
+- bf16 q, k, v at D > 256: `csrc/attention_group_bf16.cu`, the same tiles
+  with the outputs' channels cut into groups of at most 4 tiles, one
+  group per block, and the contractions over D summed in chunks, any D
+  that is a multiple of 8 (`wide_group_bf16_launches`,
+  `wide_group_bwd_bf16_launches`).
+- f32 at D > 64: `csrc/attention_wide.cu`, a simple FFMA forward and
+  backward pair for any D with the same mask and lse (`wide_launches`,
+  `wide_bwd_launches`).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches a
 kernel or raises.  `fused_attention(..., impl="xla")` takes the plain
@@ -90,12 +95,12 @@ launches = 0       # forward kernel launches
 bwd_launches = 0   # backward kernel launches (one per call: Delta, dK/dV, dQ)
 bf16_launches = 0      # of the forward's, calls on bf16 q, k, v
 bwd_bf16_launches = 0  # of the backward's, calls on bf16 q, k, v
-wide_launches = 0          # csrc/attention_wide.cu forward (D > MAX_D)
+wide_launches = 0          # csrc/attention_wide.cu forward (f32, D > MAX_D)
 wide_bwd_launches = 0      # csrc/attention_wide.cu backward
-wide_bf16_launches = 0     # of the wide forward's, calls on bf16 q, k, v
-wide_bwd_bf16_launches = 0  # of the wide backward's, calls on bf16 q, k, v
 wide_tc_bf16_launches = 0      # csrc/attention_wide_bf16.cu forward (bf16, MAX_D < D <= 256)
 wide_tc_bwd_bf16_launches = 0  # csrc/attention_wide_bf16.cu backward
+wide_group_bf16_launches = 0      # csrc/attention_group_bf16.cu forward (bf16, D > 256)
+wide_group_bwd_bf16_launches = 0  # csrc/attention_group_bf16.cu backward
 IMPLS = ("auto", "pallas", "xla")
 
 _U32 = 0xFFFFFFFF
@@ -289,24 +294,25 @@ def _check(name: str, *ts: torch.Tensor) -> None:
 def _layout(q: torch.Tensor) -> int:
     """The zero columns that take a CUDA call's head width D to its
     kernels' alignment (a multiple of 4 in f32, of 8 in bf16), 0 when
-    aligned; -1 for the FFMA wide kernels (f32 D > MAX_D, bf16 D >
-    MAX_D_WIDE_TC), which take any D."""
+    aligned; -1 for the f32 FFMA wide kernels (D > MAX_D), which take any
+    D."""
     d = q.shape[-1]
-    lowp = q.dtype == torch.bfloat16
-    if d > (MAX_D_WIDE_TC if lowp else MAX_D):
-        return -1
-    return -d % (8 if lowp else 4)
+    if q.dtype == torch.bfloat16:
+        return -d % 8
+    return -1 if d > MAX_D else -d % 4
 
 
 def _route(q: torch.Tensor) -> str:
     """The kernels a CUDA call runs after `_layout`'s pad: 'tuned'
     (`attention_fwd.cu`, `attention_bwd.cu`; D <= MAX_D), 'wide_tc' (bf16,
-    MAX_D < D <= MAX_D_WIDE_TC: `attention_wide_bf16.cu`) or 'wide'
-    (`attention_wide.cu`)."""
+    MAX_D < D <= MAX_D_WIDE_TC: `attention_wide_bf16.cu`), 'wide_group'
+    (bf16, D > MAX_D_WIDE_TC: `attention_group_bf16.cu`) or 'wide' (f32, D
+    > MAX_D: `attention_wide.cu`)."""
     pad = _layout(q)
     if pad < 0:
         return "wide"
-    return "tuned" if q.shape[-1] + pad <= MAX_D else "wide_tc"
+    d = q.shape[-1] + pad
+    return "tuned" if d <= MAX_D else "wide_tc" if d <= MAX_D_WIDE_TC else "wide_group"
 
 
 def _pad(pad: int, *ts: torch.Tensor):
@@ -322,11 +328,12 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
 
 _FWD_NAMES = {("tuned", False): "r3d_attn_fwd", ("tuned", True): "r3d_attn_fwd_bf16",
               ("wide_tc", True): "r3d_attn_wide_tc_fwd_bf16",
-              ("wide", False): "r3d_attn_wide_fwd", ("wide", True): "r3d_attn_wide_fwd_bf16"}
+              ("wide_group", True): "r3d_attn_group_fwd_bf16", ("wide", False): "r3d_attn_wide_fwd"}
 
 
 def _kernel_fwd(q, k, v, tau, rate, seed, want_lse):
-    global launches, bf16_launches, wide_launches, wide_bf16_launches, wide_tc_bf16_launches
+    global launches, bf16_launches, wide_launches, wide_tc_bf16_launches
+    global wide_group_bf16_launches
     pad = _layout(q)
     if pad > 0:
         y, lse = _kernel_fwd(*_pad(pad, q, k, v), tau, rate, seed, want_lse)
@@ -338,21 +345,24 @@ def _kernel_fwd(q, k, v, tau, rate, seed, want_lse):
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device) if want_lse else None
     route = _route(q)
     name = _FWD_NAMES[route, lowp]
-    fn = build.function(name, [build.P] * 5 + [build.I] * 3 + [build.F, build.I]
+    # the grouped kernels' scratch: the scaled q
+    scratch = [torch.empty_like(q)] if route == "wide_group" else []
+    fn = build.function(name, [build.P] * (5 + len(scratch)) + [build.I] * 3 + [build.F, build.I]
                         + [build.U] * 3 + [build.F, build.P])
     lo, hi = _seed_words(seed)
     scale = bf16_value(1.0 / tau) if lowp else 1.0 / tau
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
-                 lse.data_ptr() if want_lse else None, b, n, d, scale,
-                 int(rate > 0.0), lo, hi, dropout_threshold(rate), keep_scale(rate),
-                 build.stream_ptr(q.device))
+                 lse.data_ptr() if want_lse else None, *(t.data_ptr() for t in scratch),
+                 b, n, d, scale, int(rate > 0.0), lo, hi, dropout_threshold(rate),
+                 keep_scale(rate), build.stream_ptr(q.device))
     build.check(err, name)
     if route == "wide":
         wide_launches += 1
-        wide_bf16_launches += lowp
     elif route == "wide_tc":
         wide_tc_bf16_launches += 1
+    elif route == "wide_group":
+        wide_group_bf16_launches += 1
     else:
         launches += 1
         bf16_launches += lowp
@@ -380,8 +390,8 @@ def attention_fwd(q, k, v, tau: float, rate: float = 0.0, seed: int = 0):
 
 def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int = 0):
     """(dq, dk, dv), f32, of the forward's f32 output cotangent dy."""
-    global bwd_launches, bwd_bf16_launches, wide_bwd_launches, wide_bwd_bf16_launches
-    global wide_tc_bwd_bf16_launches
+    global bwd_launches, bwd_bf16_launches, wide_bwd_launches, wide_tc_bwd_bf16_launches
+    global wide_group_bwd_bf16_launches
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, y, dy, lse, tau, rate, seed)
     _check("attention_bwd", q, k, v, y, dy)
@@ -402,19 +412,19 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
     tail = (int(rate > 0.0), lo, hi, dropout_threshold(rate), keep_scale(rate),
             build.stream_ptr(q.device))
     if route == "wide":
-        name = "r3d_attn_wide_bwd" + ("_bf16" if lowp else "")
+        name = "r3d_attn_wide_bwd"
         fn = build.function(name, [build.P] * 10 + [build.I] * 3 + [build.F, build.F, build.I]
                             + [build.U] * 3 + [build.F, build.P])
         with torch.cuda.device(q.device):
             err = fn(*(t.data_ptr() for t in (q, k, v, y, dy, lse, delta, dq, dk, dv)), b, n, d,
-                     1.0 / tau, bf16_value(1.0 / tau) if lowp else 1.0 / tau, *tail)
+                     1.0 / tau, 1.0 / tau, *tail)
         build.check(err, name)
         wide_bwd_launches += 1
-        wide_bwd_bf16_launches += lowp
         return dq, dk, dv
     if lowp:
-        # the tuned bf16 form and the wide tensor-core one take the same arguments
-        name = "r3d_attn_wide_tc_bwd_bf16" if route == "wide_tc" else "r3d_attn_bwd_bf16"
+        # the three bf16 routes' backward kernels take the same arguments
+        name = {"tuned": "r3d_attn_bwd_bf16", "wide_tc": "r3d_attn_wide_tc_bwd_bf16",
+                "wide_group": "r3d_attn_group_bwd_bf16"}[route]
         qs, dyb = torch.empty_like(q), torch.empty_like(q)     # the kernel's scratch
         fn = build.function(name, [build.P] * 12 + [build.I] * 3 + [build.F, build.F, build.I]
                             + [build.U] * 3 + [build.F, build.P])
@@ -431,6 +441,8 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
     build.check(err, name)
     if route == "wide_tc":
         wide_tc_bwd_bf16_launches += 1
+    elif route == "wide_group":
+        wide_group_bwd_bf16_launches += 1
     else:
         bwd_launches += 1
         bwd_bf16_launches += lowp

@@ -1,7 +1,8 @@
 """The wide bf16 attention kernels (`csrc/attention_wide_bf16.cu`: bf16 q, k,
-v at 64 < D <= 256 on bf16 tensor-core tiles) emulated on the CPU, and the
-emulation held against the port's plain versions and the JAX package's
-Pallas kernels in interpret mode.  Inputs are made from seeds with numpy.
+v at 64 < D <= 256 on bf16 tensor-core tiles; `csrc/attention_group_bf16.cu`:
+D > 256 in channel groups) emulated on the CPU, and the emulations held
+against the port's plain versions and the JAX package's Pallas kernels in
+interpret mode.  Inputs are made from seeds with numpy.
 
 The emulation repeats the kernels' arithmetic and order of sums:
 - a product of bf16 operands (exact in f32) is summed over k-steps of 16
@@ -17,7 +18,14 @@ The emulation repeats the kernels' arithmetic and order of sums:
 - the backward: bf16(dY), Delta = rowsum(bf16(dY) * Y), P = exp(s - lse),
   Pd and dS rounded to bf16 before their products, dV and dK in two
   sweeps over the queries (the dK/dV kernel at D > 128 takes at least two
-  splits: its shared memory), dK from the unscaled q.
+  splits), dK from the unscaled q;
+- past D = 256 (`emulate_group_fwd`, `emulate_group_bwd`): the outputs'
+  channels in groups of at most 4 tiles of 64 (`group_plan`, as the
+  launcher cuts them), each group summing S (and dPd) over all of D in
+  chunks of 128 channels (forward) or 64 (backward), k-steps of 16 in
+  channel order, with S >= 2 splits (a warp's columns of a tile are one
+  pass of at most 32); each group computes its own m, l and P and its
+  slice of the outputs.
 
 Tolerances: against the plain versions the card's gates
 (`chip_smoke.attention_gates`: y within ATTN_BF16_FWD_TOL of the largest
@@ -82,11 +90,10 @@ def _split_sums(a: torch.Tensor, b: torch.Tensor, splits: int) -> torch.Tensor:
     return out
 
 
-def emulate_fwd(q, k, v, tau, rate=0.0, seed=0, splits=2):
-    """(y, lse) of the wide forward: bf16 (B, N, D) q, k, v, D a multiple of 8."""
-    b, n, _ = q.shape
-    qs = _bf16(q.float() * ca.bf16_value(1.0 / tau))
-    s = _ksteps(qs, k.float().transpose(-1, -2))
+def _row_stats(s: torch.Tensor, splits: int):
+    """Each row's max m and sum l over the scores s (B, N, N): each split's
+    running max and sum over its passes, merged in split order."""
+    b, n, _ = s.shape
     ms, ls = [], []
     for idx in _split_columns(n, splits):           # 1. each split's running max and sum
         m = torch.full((b, n), -torch.inf)
@@ -102,6 +109,15 @@ def emulate_fwd(q, k, v, tau, rate=0.0, seed=0, splits=2):
     l = torch.zeros((b, n))
     for mi, li in zip(ms, ls):
         l = l + torch.exp(mi - m) * li
+    return m, l
+
+
+def emulate_fwd(q, k, v, tau, rate=0.0, seed=0, splits=2):
+    """(y, lse) of the wide forward: bf16 (B, N, D) q, k, v, D a multiple of 8."""
+    b, n, _ = q.shape
+    qs = _bf16(q.float() * ca.bf16_value(1.0 / tau))
+    s = _ksteps(qs, k.float().transpose(-1, -2))
+    m, l = _row_stats(s, splits)
     p = torch.exp(s - m[..., None]) * (1.0 / l)[..., None]   # 2. the normalised P
     if rate > 0.0:
         p = p * ca.dropout_mask_reference(b, n, rate, seed, "cpu")
@@ -214,3 +230,195 @@ def test_rounding_the_normalised_p_matters():
     err = (y - want).abs().max()
     assert err <= bound / 4
     assert (unnorm - want).abs().max() > 3 * err
+
+
+# ------------------------------------------- D > 256: channel groups --
+GROUP_TILES = 4   # channel tiles of an output group at most (attention_group_bf16.cu)
+FWD_CHUNK = 128   # channels of a forward chunk of the contraction
+BWD_CHUNK = 64    # of a backward chunk
+
+
+def launcher_splits(b: int, n: int, sms: int = 132) -> int:
+    """attention.cuh `splits`: the smallest of 1, 2, 4 that starts four
+    blocks an SM (an H100 has 132 SMs)."""
+    for s in (1, 2):
+        if b * -(-n // (TILE // s)) >= 4 * sms:
+            return s
+    return 4
+
+
+def group_plan(b: int, n: int, d: int):
+    """(groups, group width in channels, splits) as attention_group_bf16.cu's
+    `plan` picks them: ceil(tiles / 4) groups of ceil(tiles / groups) tiles,
+    the splits over the groups' blocks, at least 2."""
+    tiles = -(-d // TILE)
+    groups = -(-tiles // GROUP_TILES)
+    return groups, TILE * -(-tiles // groups), max(2, launcher_splits(min(b * groups, 1 << 24), n))
+
+
+def _chunked(a: torch.Tensor, b: torch.Tensor, chunk: int) -> torch.Tensor:
+    """a (.., M, D) times b (.., D, N) as the grouped kernels sum it: the
+    channels in chunks of `chunk` (the last cut at D), each chunk's k-steps
+    of 16 added in order into one f32 accumulator."""
+    d = a.shape[-1]
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for c0 in range(0, d, chunk):
+        for k0 in range(c0, min(c0 + chunk, d), KSTEP):
+            acc = acc + (a[..., k0:k0 + KSTEP].double() @ b[..., k0:k0 + KSTEP, :].double()).float()
+    return acc
+
+
+def _groups(d: int, gw: int):
+    return [slice(c0, min(c0 + gw, d)) for c0 in range(0, d, gw)]
+
+
+def emulate_group_fwd(q, k, v, tau, rate=0.0, seed=0, splits=None):
+    """(y, lse, per-group (m, l, P)) of the grouped forward: bf16 (B, N, D)
+    q, k, v, D > 256 a multiple of 8.  Each group sums the scores over all
+    of D in chunks, takes its own statistics and P, and writes its slice of
+    y; lse is group 0's."""
+    b, n, d = q.shape
+    _, gw, s_ = group_plan(b, n, d)
+    s_ = splits or s_
+    qs = _bf16(q.float() * ca.bf16_value(1.0 / tau))
+    mask = ca.dropout_mask_reference(b, n, rate, seed, "cpu") if rate > 0.0 else None
+    ys, per_group = [], []
+    for sl in _groups(d, gw):
+        s = _chunked(qs, k.float().transpose(-1, -2), FWD_CHUNK)
+        m, l = _row_stats(s, s_)
+        p = torch.exp(s - m[..., None]) * (1.0 / l)[..., None]
+        if mask is not None:
+            p = p * mask
+        ys.append(_split_sums(_bf16(p), v.float()[..., sl], s_))
+        per_group.append((m, l, p))
+    m, l, _ = per_group[0]
+    return torch.cat(ys, -1), m + torch.log(l), per_group
+
+
+def emulate_group_bwd(q, k, v, y, dy, lse, tau, rate=0.0, seed=0, splits=None):
+    """(dq, dk, dv) of the grouped backward, f32: each group recomputes S
+    and dPd over all of D in chunks and writes its slices of dQ, dK, dV
+    (dK/dV and dQ take the same splits)."""
+    b, n, d = q.shape
+    _, gw, s_ = group_plan(b, n, d)
+    s_ = splits or s_
+    qs = _bf16(q.float() * ca.bf16_value(1.0 / tau))
+    dyb = _bf16(dy)
+    delta = (dyb * y).sum(-1, keepdim=True)          # the pre-pass
+    mask = (ca.dropout_mask_reference(b, n, rate, seed, "cpu") if rate > 0.0
+            else torch.ones((b, n, n)))
+    outs = ([], [], [])
+    for sl in _groups(d, gw):
+        pe = torch.exp(_chunked(qs, k.float().transpose(-1, -2), BWD_CHUNK) - lse[..., None])
+        dpd = _chunked(dyb, v.float().transpose(-1, -2), BWD_CHUNK)
+        ds = _bf16(pe * (dpd * mask - delta))
+        outs[0].append(_split_sums(ds, k.float()[..., sl], s_) * (1.0 / tau))
+        outs[1].append(_split_sums(ds.transpose(-1, -2), q.float()[..., sl], s_) * (1.0 / tau))
+        outs[2].append(_split_sums(_bf16(pe * mask).transpose(-1, -2), dyb[..., sl], s_))
+    return tuple(torch.cat(o, -1) for o in outs)
+
+
+def _emulate_group_padded(q, k, v, dy, tau, rate, seed, splits=None):
+    """The wrapper's route past D = 256: D zero-padded to a multiple of 8,
+    the grouped kernels on the padded tensors, the outputs sliced back."""
+    d = q.shape[-1]
+    pad = ca._layout(q)
+    assert pad >= 0 and ca._route(q) == "wide_group"
+    qp, kp, vp, dyp = ca._pad(pad, q, k, v, dy)
+    y, lse, _ = emulate_group_fwd(qp, kp, vp, tau, rate, seed, splits)
+    grads = emulate_group_bwd(qp, kp, vp, y, dyp, lse, tau, rate, seed, splits)
+    for x in (y, *grads):
+        assert not bool(x[..., d:].any())
+    return y[..., :d], lse, tuple(x[..., :d] for x in grads)
+
+
+def test_group_plan_cuts_channels_in_groups_of_at_most_four_tiles():
+    """The launcher's groups: D = 320 is 3 + 2 tiles, 304 (300 padded) 3 + 2
+    with the last cut at 304, 384 3 + 3, 512 4 + 4, 576 3 + 3 + 3; the
+    splits at a training step's two calls (N = 2048) are 2 at B = 10 and 4
+    at B = 2, and 4 at the tests' N = 100."""
+    got = {d: group_plan(10, 2048, d)[:2] for d in (320, 304, 384, 512, 576, 1032)}
+    assert got == {320: (2, 192), 304: (2, 192), 384: (2, 192), 512: (2, 256), 576: (3, 192),
+                   1032: (5, 256)}
+    assert [_groups(d, gw) for d, gw in ((304, 192), (1032, 256))][0] == [slice(0, 192),
+                                                                           slice(192, 304)]
+    assert all(s.stop - s.start <= GROUP_TILES * TILE for s in _groups(1032, 256))
+    assert group_plan(10, 2048, 320)[2] == 2 and group_plan(2, 2048, 320)[2] == 4
+    assert group_plan(2, 100, 512)[2] == 4
+
+
+def test_chunked_contraction_sums_as_one_pass_over_d():
+    """Chunks change no bit of the scores: their k-steps run in channel
+    order into one accumulator, so S summed in chunks of 128 or 64 channels
+    (the last cut at D = 304) is S summed over all of D at once, the sum
+    the one-group kernels take."""
+    q, k, _, _ = _inputs(3, 2, 100, 304)
+    a, b = q.float(), k.float().transpose(-1, -2)
+    want = _ksteps(a, b)
+    assert torch.equal(_chunked(a, b, FWD_CHUNK), want)
+    assert torch.equal(_chunked(a, b, BWD_CHUNK), want)
+
+
+@pytest.mark.parametrize("d", [320, 304, 512])
+def test_groups_take_bit_identical_statistics(d):
+    """Every group sums the scores in the same chunk order with the same
+    code, so its m, l and P are every other group's bit for bit, and the
+    groups' slices of y are what one pass over all channels writes."""
+    q, k, v, _ = _inputs(d, 2, 100, d)
+    tau = float(d) ** 0.5
+    y, lse, per_group = emulate_group_fwd(q, k, v, tau, 0.1, 3)
+    assert len(per_group) == 2
+    for m, l, p in per_group[1:]:
+        assert torch.equal(m, per_group[0][0]) and torch.equal(l, per_group[0][1])
+        assert torch.equal(p, per_group[0][2])
+    p = per_group[0][2]
+    assert torch.equal(y, _split_sums(_bf16(p), v.float(), group_plan(2, 100, d)[2]))
+
+
+@pytest.mark.parametrize("d,splits", [(320, None), (300, None), (384, None), (512, None),
+                                      (320, 2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_group_emulation_matches_plain_versions(d, splits, rate):
+    """D = 320, 384, 512 and 300 through the zero pad (to 304), at B = 2 and
+    a ragged N = 100, with the splits the launcher picks there (4) and, at
+    D = 320, those it picks at a training step's B = 10 (2): the emulated
+    grouped kernels' y and lse against `attention_fwd_reference`, their
+    gradients against `attention_bwd_reference` from the emulated y and
+    lse, q scaled as the kernels scale it, within the card's gates scaled
+    to D."""
+    q, k, v, dy = _inputs(d + (splits or 0), 2, 100, d)
+    tau = float(d) ** 0.5
+    y, lse, grads = _emulate_group_padded(q, k, v, dy, tau, rate, 7, splits)
+    want_y, want_lse = ca.attention_fwd_reference(q, k, v, tau, rate, 7, kernel_scale=True)
+    want = ca.attention_bwd_reference(q, k, v, y, dy, lse, tau, rate, 7, kernel_scale=True)
+    scale = (d / 64) ** 0.5
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    assert (y - want_y).abs().max() <= ATTN_BF16_FWD_TOL * scale * want_y.abs().max()
+    for a, w in zip(grads, want):
+        assert (a - w).abs().max() <= ATTN_BF16_BWD_TOL * scale * w.abs().max()
+
+
+def test_group_emulation_matches_pallas_kernels(monkeypatch):
+    """The emulated grouped kernels at D = 320 against `_attn_fwd_kernel` and
+    `jax.grad` through `_attn_bwd_kernel` in interpret mode, bf16, rate 0,
+    B = 2, N = 256; tolerances as for the one-group kernels."""
+    monkeypatch.setattr(jax_pa, "_INTERPRET", True)
+    d, n = 320, 256
+    rng = np.random.default_rng(d)
+    xs = [rng.normal(size=(2, n, d)).astype(np.float32) for _ in range(3)]
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in xs)
+    q, k, v = (torch.from_numpy(np.array(j.astype(jnp.float32))).to(BF16) for j in (jq, jk, jv))
+    dy = rng.normal(size=(2, n, d)).astype(np.float32)
+    tau = float(d) ** 0.5
+    want_y = np.asarray(jax_pa._fwd_impl(jq, jk, jv, 0, tau, 0.0, False))
+
+    def loss(q, k, v):
+        return jnp.sum(jax_pa.fused_attention(q, k, v, 0, tau, 0.0, True) * dy)
+
+    want_g = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    y, _, grads = _emulate_group_padded(q, k, v, torch.from_numpy(dy), tau, 0.0, 0)
+    assert np.abs(y.numpy() - want_y).max() <= ATTN_BF16_FWD_TOL * np.abs(want_y).max()
+    for a, w in zip(grads, want_g):
+        ref = np.asarray(w.astype(jnp.float32))
+        got = a.to(BF16).float().numpy()     # cotangents in the primal dtype, as the JAX side
+        assert np.abs(got - ref).max() <= 2e-2 * np.abs(ref).max()

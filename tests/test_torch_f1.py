@@ -415,8 +415,9 @@ def test_zero_pad_is_exact(d, dtype, pad, rate):
 def test_attention_layout_rule():
     """Which kernels a CUDA call takes: aligned D <= 64 the tuned ones
     unpadded, unaligned D <= 64 them after the pad; bf16 at 64 < D <= 256
-    the wide tensor-core pair (an unaligned D after the pad to a multiple
-    of 8); f32 past 64 and bf16 past 256 the FFMA wide pair."""
+    the wide tensor-core pair and bf16 past 256 the grouped tensor-core
+    pair (an unaligned D after the pad to a multiple of 8: 300 to 304);
+    f32 past 64 the FFMA wide pair."""
     def lay(d, dtype=torch.float32):
         return cuda_attention._layout(torch.zeros((1, 1, d), dtype=dtype))
 
@@ -425,9 +426,11 @@ def test_attention_layout_rule():
     assert [lay(d) for d in (4, 12, 64, 6, 65, 128)] == [0, 0, 0, 2, -1, -1]
     assert [route(d) for d in (4, 6, 64, 65, 128, 256)] == ["tuned"] * 3 + ["wide"] * 3
     assert [lay(d, BF16) for d in (8, 64, 12, 1, 72, 128)] == [0, 0, 4, 7, 0, 0]
-    assert [lay(d, BF16) for d in (72, 128, 256, 320, 100, 65)] == [0, 0, 0, -1, 4, 7]
-    assert [route(d, BF16) for d in (8, 1, 64, 72, 128, 256, 320, 100, 65)] == \
-        ["tuned"] * 3 + ["wide_tc"] * 3 + ["wide", "wide_tc", "wide_tc"]
+    assert [lay(d, BF16) for d in (72, 128, 256, 320, 100, 65, 300, 512)] == \
+        [0, 0, 0, 0, 4, 7, 4, 0]
+    assert [route(d, BF16) for d in (8, 1, 64, 72, 128, 256, 320, 100, 65, 300, 252, 257)] == \
+        ["tuned"] * 3 + ["wide_tc"] * 3 + ["wide_group", "wide_tc", "wide_tc", "wide_group",
+                                           "wide_tc", "wide_group"]
 
 
 # ------------------------------------------ kernel 4 at any row width --

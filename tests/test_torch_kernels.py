@@ -112,6 +112,15 @@ CALLS = {
                                   *_qkv(dev, (1, 8, 100), torch.bfloat16),
                                   *_qkv(dev, (1, 8, 100))[:2], torch.zeros((1, 8), device=dev),
                                   2.0, 0.1, 5)),
+    # bf16 past four channel tiles: the grouped tensor-core kernels
+    "attention_wide_group": (cuda_attention, "wide_group_bf16_launches",
+                             lambda dev: cuda_attention.attention(
+                                 *_qkv(dev, (1, 8, 320), torch.bfloat16), 2.0)),
+    "attention_wide_group_bwd": (cuda_attention, "wide_group_bwd_bf16_launches",
+                                 lambda dev: cuda_attention.attention_bwd(
+                                     *_qkv(dev, (1, 8, 300), torch.bfloat16),
+                                     *_qkv(dev, (1, 8, 300))[:2],
+                                     torch.zeros((1, 8), device=dev), 2.0, 0.1, 5)),
     "kth_wide": (cuda_kth, "wide_launches", lambda dev: cuda_kth.kth_smallest_per_row(
         torch.zeros((1, 60000), device=dev), 2, 4)),
     "scatter_general": (cuda_scatter, "general_launches", lambda dev: cuda_scatter.scatter_add(
@@ -1061,15 +1070,21 @@ def test_knn_packed_kernel_on_card(b, n, c, k):
     (10, 2048, 256, torch.bfloat16, 0.0, "wide_tc"),
     (2, 130, 256, torch.bfloat16, 0.1, "wide_tc"),
     (1, 70, 72, torch.bfloat16, 0.5, "wide_tc"),
-    (2, 2048, 320, torch.bfloat16, 0.1, "wide")])
+    (2, 2048, 320, torch.bfloat16, 0.1, "wide_group"),
+    (10, 2048, 512, torch.bfloat16, 0.0, "wide_group"),
+    (2, 2048, 300, torch.bfloat16, 0.1, "wide_group"),
+    (1, 130, 264, torch.bfloat16, 0.5, "wide_group")])
 def test_attention_f1_shapes_on_card(b, n, d, dtype, rate, route):
     """Attention past and inside the tuned width, each case on the kernels
     ``route`` names (`chip_smoke.ATTN_ROUTE_COUNTERS`): f32 D = 128 at the
     training batches and D = 300 (three output passes) on the FFMA kernels;
     bf16 64 < D <= 256 on the wide tensor-core kernels
     (`csrc/attention_wide_bf16.cu`: D = 80 short of the 128-channel tile,
-    D = 100 through the zero pad to 104, D = 72, ragged N), bf16 D = 320
-    on the FFMA kernels; D = 12 in bf16 (the pad) and f32 (aligned), D
+    D = 100 through the zero pad to 104, D = 72, ragged N), bf16 past 256
+    on the grouped tensor-core kernels (`csrc/attention_group_bf16.cu`: D
+    = 320 and 512 in two groups, D = 300 through the zero pad to 304, D =
+    264 in groups of 192 and 72 channels at a ragged N); D = 12 in bf16 (the
+    pad) and f32 (aligned), D
     = 6 in f32 (the pad) on the tuned kernels: forward and backward within
     `chip_smoke.attention_gates`, a second call of each bit-equal, one
     launch each on the route's counters and none on any other route's."""
