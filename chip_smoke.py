@@ -114,7 +114,8 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      the tuned kernels do not take (`check_f1`): the general kNN (k = 40
      at C = 9 and 64, C = 320), the packed-key kNN (knn_impl "pallas") at
      a request's six calls, attention (B = 10 and 2, rate 0.1 and 0,
-     forward and backward) at D = 128 in f32 and in bf16 at D = 128, 100
+     forward and backward) in f32 at D = 128, 100, 256, 320 and 512 (the
+     3xTF32 kernels in channel groups of 128) and in bf16 at D = 128, 100
      (the zero pad to 104) and 256 (the wide tensor-core kernels) and 320,
      300 (the zero pad to 304) and 512 (the grouped tensor-core kernels),
      and at D = 12 (f32, and bf16 through the zero pad: the tuned
@@ -129,9 +130,10 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
   4c. a configuration past the tuned shapes (dgcnn_k 40, output_dim 128, a
      63-wide first EdgeConv layer), two requests and a training step on
      the float32 encoder and a step on the bf16 encoder, against their
-     plain paths, through the general kNN, the wide attention (FFMA in
-     f32, the wide tensor-core pair on the bf16 encoder) and the general
-     scatter-add (the tuned kNN and attention launch no time); then a
+     plain paths, through the general kNN, the wide attention (the 3xTF32
+     pair in f32, the wide bf16 tensor-core pair on the bf16 encoder) and
+     the general scatter-add (the tuned kNN and attention launch no time);
+     then a
      step of the bf16 encoder at output_dim 320 (the grouped tensor-core
      pair, two launches of each per step: the support and query batches),
      against a plain path whose
@@ -164,13 +166,13 @@ bf16` the checks of the bf16 forms of kernels 1, 2, 5 and 6, `--only f1`
 phase 2b alone, `--only f2` phase 2c alone, `--only fused` a digest
 of kernel 9's f32 passes' output bits at the flagship shape on seeded
 inputs with their times (the same on two trees shows the f32 form
-unchanged), and `--only attn` the same for the attention kernels that the
-grouped tensor-core pair leaves as they were (`attention_digest`), with the
-bf16 pair's times at D = 320 on whichever kernels the tree runs, so that
-another tree's kernels can be timed with the same code (put that tree's
-root first on sys.path and run this file with runpy; the tree's modules
-need the plain versions these checks call: `cheby_solve_split_reference`
-and `scatter_add_ordered_reference`).
+unchanged), and `--only attn` the same for the attention kernels
+(`attention_digest`), with the f32 pair's times at D = 128 and the bf16
+pair's at D = 320 on whichever kernels the tree runs (and each kernel's
+device time), so that another tree's kernels can be timed with the same
+code (put that tree's root first on sys.path and run this file with
+runpy; the tree's modules need the plain versions these checks call:
+`cheby_solve_split_reference` and `scatter_add_ordered_reference`).
 """
 from __future__ import annotations
 
@@ -1410,20 +1412,23 @@ def check_knn_packed(torch, knn_mod, sx):
 # tensor-core tiles (D = 100 through the zero pad to 104), bf16 past 256
 # csrc/attention_group_bf16.cu's channel groups of those tiles (D = 300
 # through the zero pad to 304), f32 at D > 64 csrc/attention_wide.cu's
-# FFMA kernels.
-ATTN_WIDE_CASES = [("float32", 128, "wide"), ("bfloat16", 128, "wide_tc"),
+# 3xTF32 tiles in groups of 128 channels (D = 100 one group short of 128,
+# 256 two groups, 320 three, the last 64 wide, 512 four).
+ATTN_WIDE_CASES = [("float32", 128, "wide_tf32"), ("float32", 100, "wide_tf32"),
+                   ("float32", 256, "wide_tf32"), ("float32", 320, "wide_tf32"),
+                   ("float32", 512, "wide_tf32"), ("bfloat16", 128, "wide_tc"),
                    ("bfloat16", 100, "wide_tc"), ("bfloat16", 256, "wide_tc"),
                    ("bfloat16", 320, "wide_group"), ("bfloat16", 300, "wide_group"),
                    ("bfloat16", 512, "wide_group")]
 ATTN_ROUTE_COUNTERS = {"tuned": ("launches", "bwd_launches"),
-                       "wide": ("wide_launches", "wide_bwd_launches"),
+                       "wide_tf32": ("wide_tf32_launches", "wide_tf32_bwd_launches"),
                        "wide_tc": ("wide_tc_bf16_launches", "wide_tc_bwd_bf16_launches"),
                        "wide_group": ("wide_group_bf16_launches", "wide_group_bwd_bf16_launches")}
 # each route's row in the kernels line, and the width its times are at
 # (the route's other widths join that row)
-ATTN_ROUTE_ROWS = {"wide": "attention_wide", "wide_tc": "attention_wide_tc",
+ATTN_ROUTE_ROWS = {"wide_tf32": "attention_wide_tf32", "wide_tc": "attention_wide_tc",
                    "wide_group": "attention_wide_group"}
-ATTN_ROW_D = {"wide": 128, "wide_tc": 128, "wide_group": 320}
+ATTN_ROW_D = {"wide_tf32": 128, "wide_tc": 128, "wide_group": 320}
 
 
 def attention_step(attn_mod, q, k, v, dy, tau, rate, seed):
@@ -1474,7 +1479,8 @@ def attention_times(torch, attn_mod, saved, tau, rate, lib, reps: int = 5) -> di
 
 def check_attention_wide(torch, attn_mod):
     """Attention past the tuned kernels' width (`ATTN_WIDE_CASES`): f32 at
-    D = 128 (the pretraining network's head), bf16 at D = 128, 100 (zero
+    D = 128 (the pretraining network's head), 100, 256, 320 and 512 on the
+    3xTF32 kernels in channel groups, bf16 at D = 128, 100 (zero
     pad to 104) and 256 on the wide tensor-core kernels, bf16 at D = 320,
     300 (zero pad to 304) and 512 on the grouped tensor-core kernels; each
     at B = 10 and 2, N = 2048, rate 0.1 and 0,
@@ -1487,11 +1493,11 @@ def check_attention_wide(torch, attn_mod):
     memory-efficient backend; bf16 up to 256: flash) forward alone and
     backward alone.  Bounds: 4 B N^2 D and 10 B N^2 D operations
     at the peak of the function's type, as the tuned rows count them: f32
-    as three tf32 tensor-core passes (the FFMA bound, what those kernels
-    run, beside it), bf16 on the bf16 tensor cores; bytes as the tuned rows
-    count them.  Returns the rows: the FFMA pair in f32 at D = 128, the
-    tensor-core pair at D = 128 (D = 100 and 256 beside), the grouped pair
-    at D = 320 (D = 300 and 512 beside)."""
+    as three tf32 tensor-core passes (the FFMA bound beside it), bf16 on
+    the bf16 tensor cores; bytes as the tuned rows count them.  Returns
+    the rows: the 3xTF32 pair in f32 at D = 128 (D = 100, 256, 320 and 512
+    beside), the bf16 tensor-core pair at D = 128 (D = 100 and 256 beside),
+    the grouped pair at D = 320 (D = 300 and 512 beside)."""
     counters = {f"{route}_{i}": (attn_mod, name) for route, names in ATTN_ROUTE_COUNTERS.items()
                 for i, name in zip(("fwd", "bwd"), names)}
     g = torch.Generator(device="cuda").manual_seed(24)
@@ -1562,6 +1568,7 @@ def check_attention_wide(torch, attn_mod):
             ms_b10=t["bwd_b10"], ms_b2=t["bwd_b2"], share_of_gate=worst["grads"],
             ms_pair=t["fwd"] + t["bwd"],
             library_ms_pair=None if t["lib_fwd"] is None else t["lib_fwd"] + t["lib_bwd"])
+    rows["attention_wide_tf32_bwd"].update(extra["wide_tf32"])
     rows["attention_wide_tc_bwd_bf16"].update(extra["wide_tc"])
     rows["attention_wide_group_bwd_bf16"].update(extra["wide_group"])
     for dtype in (torch.float32, torch.bfloat16):
@@ -1587,11 +1594,12 @@ def attention_digest(torch, attn_mod, seed: int) -> dict:
     see the module docstring): a sha256 of (y, lse, dq, dk, dv) of a
     training step at B = 10 and 2, N = 2048, rate 0.1, for the tuned f32
     and bf16 kernels at D = 64 and D = 12 (bf16: the zero pad), the f32
-    FFMA wide kernels at D = 128 and the bf16 wide tensor-core kernels at D
-    = 128, 100 (the zero pad to 104) and 256.  Then the bf16 pair at D =
-    320, on whichever kernels the tree routes it to (the counters that
-    moved are printed), and SDPA's memory-efficient backend beside it:
-    their times per step (`attention_times`, rate 0.1)."""
+    wide kernels at D = 128 and the bf16 wide tensor-core kernels at D =
+    128, 100 (the zero pad to 104) and 256.  Then the f32 pair at D = 128
+    and the bf16 pair at D = 320, on whichever kernels the tree routes them
+    to (the launch counters that moved are printed), and SDPA's
+    memory-efficient backend beside each: their times per step
+    (`attention_times`, rate 0.1)."""
     import hashlib
     g = torch.Generator(device="cuda").manual_seed(seed + 31)
     out = {}
@@ -1604,29 +1612,35 @@ def attention_digest(torch, attn_mod, seed: int) -> dict:
             q, k, v, dy = (torch.randn((b, 2048, d), generator=g, device="cuda") for _ in range(4))
             calls.append((q.to(dtype), k.to(dtype), v.to(dtype), dy, s))
         tau = d ** 0.5
-        if (dtype_name, d) == ("bfloat16", 320):
-            names = [n for pair in ATTN_ROUTE_COUNTERS.values() for n in pair
-                     if hasattr(attn_mod, n)]
-            before = {n: getattr(attn_mod, n) for n in names}
-            saved = [(q, k, v, dy, s, *attn_mod.attention_fwd(q, k, v, tau, 0.1, s))
-                     for q, k, v, dy, s in calls]
-            for q, k, v, dy, s, y, lse in saved:
-                attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, s)
-            moved = {n: getattr(attn_mod, n) - c for n, c in before.items()
-                     if getattr(attn_mod, n) != c}
-            t = attention_times(torch, attn_mod, saved, tau, 0.1, sdpa, reps=10)
-            out["bf16_d320"] = dict(t, counters=moved)
-            log(f"  attention bf16 D=320 (counters {moved}) per step (ms): " +
-                ", ".join(f"{n} {v}" if v is None else f"{n} {v:.4f}" for n, v in t.items()))
-            continue
-        h = hashlib.sha256()
-        for q, k, v, dy, s in calls:
-            y, lse, grads = attention_step(attn_mod, q, k, v, dy, tau, 0.1, s)
-            for x in (y, lse, *grads):
-                h.update(x.contiguous().cpu().numpy().tobytes())
         key = f"{dtype_name}_d{d}"
-        out[key] = h.hexdigest()[:16]
-        log(f"  attention {dtype_name} D={d}: sha256 {out[key]}")
+        if (dtype_name, d) != ("bfloat16", 320):
+            h = hashlib.sha256()
+            for q, k, v, dy, s in calls:
+                y, lse, grads = attention_step(attn_mod, q, k, v, dy, tau, 0.1, s)
+                for x in (y, lse, *grads):
+                    h.update(x.contiguous().cpu().numpy().tobytes())
+            out[key] = h.hexdigest()[:16]
+            log(f"  attention {dtype_name} D={d}: sha256 {out[key]}")
+        if (dtype_name, d) not in (("float32", 128), ("bfloat16", 320)):
+            continue
+        # every counter of the module, so that any tree's routes show
+        names = [n for n in dir(attn_mod) if n.endswith("launches")]
+        before = {n: getattr(attn_mod, n) for n in names}
+        saved = [(q, k, v, dy, s, *attn_mod.attention_fwd(q, k, v, tau, 0.1, s))
+                 for q, k, v, dy, s in calls]
+        for q, k, v, dy, s, y, lse in saved:
+            attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, s)
+        moved = {n: getattr(attn_mod, n) - c for n, c in before.items()
+                 if getattr(attn_mod, n) != c}
+        t = attention_times(torch, attn_mod, saved, tau, 0.1, sdpa, reps=10)
+        tag = "f32_d128" if dtype_name == "float32" else "bf16_d320"
+        # the device time of each kernel of the pair, per step
+        per_kernel = {name[:60]: ms for name, ms in device_kernels(torch, lambda: [
+            attention_step(attn_mod, q, k, v, dy, tau, 0.1, s) for q, k, v, dy, s in calls])}
+        out[tag] = dict(t, counters=moved, device_ms=per_kernel)
+        log(f"  attention {dtype_name} D={d} (counters {moved}) per step (ms): " +
+            ", ".join(f"{n} {v}" if v is None else f"{n} {v:.4f}" for n, v in t.items()) +
+            "; device ms per kernel: " + ", ".join(f"{n} {v:.4f}" for n, v in per_kernel.items()))
     return out
 
 
@@ -3138,7 +3152,8 @@ def main() -> int:
                          "distance, general scatter-add; the F2 paths: general kernel 9, the "
                          "narrow gather, kernels 10 and 11 past 8 columns; kernel 9's f32 "
                          "passes' output digests; or the attention kernels' output digests and "
-                         "the bf16 D = 320 pair's times) kernel checks, and print their rows "
+                         "the f32 D = 128 and bf16 D = 320 pairs' times) kernel checks, and "
+                         "print their rows "
                          "(to time them beside another tree's kernels)")
     args = ap.parse_args()
 
@@ -3166,23 +3181,26 @@ def main() -> int:
             log("  " + line.strip())
     for line in ptxas_report(build.build_log):
         log("  [ptxas] " + line)
-    if not hasattr(cuda_attention, "wide_group_bf16_launches"):
-        log("  [ptxas] a tree without the grouped bf16 attention kernels: spill check not run")
+    if not hasattr(cuda_attention, "wide_tf32_launches"):
+        log("  [ptxas] a tree without the 3xTF32 wide attention kernels: spill check not run")
     elif build.build_log:
-        tc = ptxas_report(build.build_log, ("attn_wide_tc", "attn_group"))
+        tc = ptxas_report(build.build_log, ("attn_wide_tc", "attn_group", "attn_wide_tf32"))
         missing = [f"wide_tc {k} T={t}" for k in ("fwd", "dkdv", "dq") for t in (2, 4)
                    if not any(x.startswith(f"attn_wide_tc_{k}_bf16_kernelILi{t}E") for x in tc)]
         missing += [f"group {k} S={s}" for k, c in (("fwd", 2), ("dkdv", 1), ("dq", 1))
                     for s in (2, 4)
                     if not any(x.startswith(f"attn_group_{k}_bf16_kernelILi{c}ELi{s}E")
                                for x in tc)]
+        missing += [f"wide_tf32 {k} S={s}" for k, ss in (("fwd", (2, 4)), ("bwd", (2,)))
+                    for s in ss
+                    if not any(x.startswith(f"attn_wide_tf32_{k}_kernelILi{s}E") for x in tc)]
         spills = [x for x in tc
                   if "spill" in x and " 0 bytes spill stores, 0 bytes spill loads" not in x]
         if missing or spills:
-            raise AssertionError(f"the wide and grouped bf16 attention kernels: no ptxas report "
-                                 f"for {missing}, spills {spills}")
-        log(f"  [ptxas] the wide and grouped bf16 attention kernels: {len(tc) // 2} entries, "
-            f"no spill")
+            raise AssertionError(f"the wide and grouped tensor-core attention kernels: no ptxas "
+                                 f"report for {missing}, spills {spills}")
+        log(f"  [ptxas] the wide and grouped tensor-core attention kernels (bf16 and 3xTF32): "
+            f"{len(tc) // 2} entries, no spill")
     else:
         log("  [ptxas] cached build: spill check not run")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3318,14 +3336,14 @@ def main() -> int:
         f"{rows['cheby']['bound_ms_hbm']:.4f} ms")
 
     # ---- 2b. the F1 kernels: shapes past the tuned kernels, and the packed kNN
-    f1_kernels = ("knn_general", "knn_packed", "attention_wide_fwd", "attention_wide_bwd",
-                  "attention_wide_tc_fwd_bf16", "attention_wide_tc_bwd_bf16",
-                  "attention_wide_group_fwd_bf16", "attention_wide_group_bwd_bf16", "kth_wide",
-                  "scatter_general")
+    f1_kernels = ("knn_general", "knn_packed", "attention_wide_tf32_fwd",
+                  "attention_wide_tf32_bwd", "attention_wide_tc_fwd_bf16",
+                  "attention_wide_tc_bwd_bf16", "attention_wide_group_fwd_bf16",
+                  "attention_wide_group_bwd_bf16", "kth_wide", "scatter_general")
     f1_counters = {"knn_general": (cuda_knn, "general_launches"),
                    "knn_packed": (cuda_knn, "packed_launches"),
-                   "attention_wide_fwd": (cuda_attention, "wide_launches"),
-                   "attention_wide_bwd": (cuda_attention, "wide_bwd_launches"),
+                   "attention_wide_tf32_fwd": (cuda_attention, "wide_tf32_launches"),
+                   "attention_wide_tf32_bwd": (cuda_attention, "wide_tf32_bwd_launches"),
                    "attention_wide_tc_fwd_bf16": (cuda_attention, "wide_tc_bf16_launches"),
                    "attention_wide_tc_bwd_bf16": (cuda_attention, "wide_tc_bwd_bf16_launches"),
                    "attention_wide_group_fwd_bf16": (cuda_attention, "wide_group_bf16_launches"),
@@ -3422,9 +3440,9 @@ def main() -> int:
             raise AssertionError(f"{phase}: a flagship path launched an F1 kernel: {launched}")
 
     # ---- 4c. configurations past the tuned kernels' shapes (F1): dgcnn_k 40
-    # (the general kNN), a 128-wide attention head (the wide kernels: FFMA
-    # in f32, the tensor-core pair on the bf16 encoder), an odd first
-    # EdgeConv width (the general scatter-add), float32 and bf16 encoders;
+    # (the general kNN), a 128-wide attention head (the wide kernels: the
+    # 3xTF32 pair in f32, the bf16 tensor-core pair on the bf16 encoder), an
+    # odd first EdgeConv width (the general scatter-add), float32 and bf16 encoders;
     # the tuned kNN, attention and scatter-add launch no time there; then
     # the bf16 encoder with a 320-wide head (the grouped tensor-core pair),
     # against a plain path that scales q as the kernels do
@@ -3434,10 +3452,12 @@ def main() -> int:
     not_tuned = {"knn": 0, "attention_fwd": 0, "attention_bwd": 0}   # the 64-wide blocks
     # 2 and 3 keep the tuned scatter-add
     _, serve_launches_f1, _ = serve_phase(torch, cfg_f1, episodes[:2], kernels, args.seed,
-                                          ("knn_general", "attention_wide_fwd", "fps", "kth"))
+                                          ("knn_general", "attention_wide_tf32_fwd", "fps",
+                                           "kth"))
     tr_f1 = train_phase(torch, cfg_f1, episodes, kernels, args.seed,
-                        ("knn_general", "attention_wide_fwd", "attention_wide_bwd", "fps", "kth",
-                         "scatter_general"), per_step={"fps": 3, **not_tuned}, steps=1)
+                        ("knn_general", "attention_wide_tf32_fwd", "attention_wide_tf32_bwd",
+                         "fps", "kth", "scatter_general"), per_step={"fps": 3, **not_tuned},
+                        steps=1)
     not_bf16 = {"attention_fwd_bf16": 0, "attention_bwd_bf16": 0}
     tr_f1_enc = train_phase(
         torch, cfg_f1.replace(compute_dtype="bfloat16"), episodes, kernels, args.seed,
@@ -3527,10 +3547,10 @@ def main() -> int:
                "matmul_only": ("proto_cheby.cu", "scripts/archive/proto_cheby2.py:36"),
                "knn_general": ("knn_general.cu", "r3dfsseg_tpu/ops/pallas_knn.py:27"),
                "knn_packed": ("knn_general.cu", "r3dfsseg_tpu/ops/pallas_knn.py:27"),
-               "attention_wide_fwd": ("attention_wide.cu",
-                                      "r3dfsseg_tpu/ops/pallas_attention.py:54"),
-               "attention_wide_bwd": ("attention_wide.cu",
-                                      "r3dfsseg_tpu/ops/pallas_attention.py:78"),
+               "attention_wide_tf32_fwd": ("attention_wide.cu",
+                                           "r3dfsseg_tpu/ops/pallas_attention.py:54"),
+               "attention_wide_tf32_bwd": ("attention_wide.cu",
+                                           "r3dfsseg_tpu/ops/pallas_attention.py:78"),
                "attention_wide_tc_fwd_bf16": ("attention_wide_bf16.cu",
                                               "r3dfsseg_tpu/ops/pallas_attention.py:54"),
                "attention_wide_tc_bwd_bf16": ("attention_wide_bf16.cu",
@@ -3547,7 +3567,7 @@ def main() -> int:
     # encoder's training run, kernel 1's bf16 input its 'hybrid' serving
     # run (the default 'fastvar' feeds kNN f32); kernels 8 and 9 the fused
     # route's; kernels 10 and 11 the probe phase's; the general kNN, the
-    # f32 wide attention and general scatter-add the F1 configuration's
+    # f32 wide (3xTF32) attention and general scatter-add the F1 configuration's
     # training run (the wide tensor-core bf16 attention its bf16
     # encoder's, the grouped pair the bf16 encoder's at output_dim 320),
     # the packed kNN the 'pallas' training run, and the wide-row k-th
@@ -3569,8 +3589,8 @@ def main() -> int:
                       **{f"fused_edge_bf16_{p}": "fused_train_bf16"
                          for p in cuda_fused_edge.PASSES},
                       **{f"fused_edge_general_{p}": "f2_checks" for p in cuda_fused_edge.PASSES},
-                      knn_general="train_f1", attention_wide_fwd="train_f1",
-                      attention_wide_bwd="train_f1", scatter_general="train_f1",
+                      knn_general="train_f1", attention_wide_tf32_fwd="train_f1",
+                      attention_wide_tf32_bwd="train_f1", scatter_general="train_f1",
                       attention_wide_tc_fwd_bf16="train_f1_bf16enc",
                       attention_wide_tc_bwd_bf16="train_f1_bf16enc",
                       attention_wide_group_fwd_bf16="train_f1_320_bf16enc",

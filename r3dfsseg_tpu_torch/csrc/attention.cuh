@@ -487,6 +487,134 @@ __device__ __forceinline__ float* lane_slot(float* smem, int warp, int count) {
   return smem + (warp * 32 + (threadIdx.x & 31)) * count;
 }
 
+// ---- the f32 forward's one pass (attention_fwd.cu, attention_wide.cu) ----
+
+// Step 2 of a key tile: the online softmax in f32 registers over the
+// warp's scores s (NT n-tiles from key0; rows g (e = 0, 1) and g + 8 (e =
+// 2, 3)): the row max across the quad, s <- exp(s - m_new) (0 on masked
+// keys) times the mask where kDropout, the row sums l (undropped) and the
+// output o (NO n-tiles of 8 channels) rescaled by exp(m - m_new).
+template <bool kDropout, int NT, int NO>
+__device__ __forceinline__ void online_softmax(float (&s)[NT][4], float (&m)[2], float (&l)[2],
+                                               float (&o)[NO][4], const r3d::Dropout& drop,
+                                               int b, int row_g, int key0, int t) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+  float mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    mb[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // no key yet: everything stays 0
+    const float f = exp2_fast((m[r] - mb[r]) * kLog2e);  // 0 while m = -inf
+    m[r] = mx[r];
+    l[r] *= f;
+#pragma unroll
+    for (int nn = 0; nn < NO; ++nn) {
+      o[nn][2 * r] *= f;
+      o[nn][2 * r + 1] *= f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = exp2_fast((s[j][e] - mb[e >> 1]) * kLog2e);  // 0 on masked keys
+      l[e >> 1] += s[j][e];
+    }
+    if constexpr (kDropout) {
+      // l above stays undropped; the accumulator takes the masked tile
+      const float4 f = row_mask(drop, b, row_g, key0 + 8 * j + 2 * t);
+      s[j][0] *= f.x;
+      s[j][1] *= f.y;
+      s[j][2] *= f.z;
+      s[j][3] *= f.w;
+    }
+  }
+}
+
+// The end of a block: the S splits of each row group merged in split order
+// (S > 1), then y = o / l over the warp's rows (channels < w, rows ld
+// floats apart) and, where lse is not null, lse = m + log l.
+template <int S, int NO>
+__device__ __forceinline__ void finish_rows(float* smem, float (&o)[NO][4], float (&m)[2],
+                                            float (&l)[2], float* __restrict__ y,
+                                            float* __restrict__ lse, size_t base, int b, int n,
+                                            int w, int ld, int row0, int warp, int g, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+  if constexpr (S > 1) {
+    // merge the S splits of each row group, in split order
+    constexpr int kSlot = 4 * NO + 4;  // o, m, l
+    __syncthreads();                   // every warp is done with the ring
+    float* mine = lane_slot(smem, warp, kSlot);
+#pragma unroll
+    for (int nn = 0; nn < NO; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[4 * nn + e] = o[nn][e];
+    mine[4 * NO] = m[0];
+    mine[4 * NO + 1] = m[1];
+    mine[4 * NO + 2] = l[0];
+    mine[4 * NO + 3] = l[1];
+    __syncthreads();
+    if (warp % S != 0) return;
+    float mm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int sp = 0; sp < S; ++sp) {
+      const float* other = lane_slot(smem, warp + sp, kSlot);
+      mm[0] = fmaxf(mm[0], other[4 * NO]);
+      mm[1] = fmaxf(mm[1], other[4 * NO + 1]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = 0.f;
+#pragma unroll
+      for (int nn = 0; nn < NO; ++nn) o[nn][2 * r] = o[nn][2 * r + 1] = 0.f;
+    }
+#pragma unroll
+    for (int sp = 0; sp < S; ++sp) {
+      const float* other = lane_slot(smem, warp + sp, kSlot);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float f = other[4 * NO + r] == -INFINITY
+                            ? 0.f
+                            : exp2_fast((other[4 * NO + r] - mm[r]) * kLog2e);
+        l[r] += f * other[4 * NO + 2 + r];
+#pragma unroll
+        for (int nn = 0; nn < NO; ++nn) {
+          o[nn][2 * r] += f * other[4 * nn + 2 * r];
+          o[nn][2 * r + 1] += f * other[4 * nn + 2 * r + 1];
+        }
+      }
+    }
+    m[0] = mm[0];
+    m[1] = mm[1];
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= n) continue;
+    const float inv = 1.f / l[r];
+    float* yr = y + base + static_cast<size_t>(row) * ld;
+#pragma unroll
+    for (int nn = 0; nn < NO; ++nn) {
+      const int ch = 8 * nn + 2 * t;
+      if (ch < w)
+        *reinterpret_cast<float2*>(yr + ch) =
+            make_float2(o[nn][2 * r] * inv, o[nn][2 * r + 1] * inv);
+    }
+    if (lse != nullptr && t == 0) lse[static_cast<size_t>(b) * n + row] = m[r] + logf(l[r]);
+  }
+}
+
 // ---- the bf16 forward's two passes (attention_fwd.cu, attention_wide_bf16.cu)
 
 // Scores of keys past n (a ragged last tile) to -inf.

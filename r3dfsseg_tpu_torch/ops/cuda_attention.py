@@ -2,7 +2,7 @@
 kernels `csrc/attention_fwd.cu` and `csrc/attention_bwd.cu` (D <= 64),
 `csrc/attention_wide_bf16.cu` (bf16, 64 < D <= 256),
 `csrc/attention_group_bf16.cu` (bf16, D > 256) and `csrc/attention_wide.cu`
-(f32, D > 64), and their plain versions.
+(f32, D > 64, 3xTF32 tiles in channel groups), and their plain versions.
 
 Replaces the TPU kernels `r3dfsseg_tpu/ops/pallas_attention.py:_fwd_impl`
 (`_attn_fwd_kernel`) and `_bwd_impl` (`_attn_bwd_kernel`), with
@@ -70,9 +70,11 @@ Head widths the TPU kernel takes and these kernels do not (`_layout`,
   group per block, and the contractions over D summed in chunks, any D
   that is a multiple of 8 (`wide_group_bf16_launches`,
   `wide_group_bwd_bf16_launches`).
-- f32 at D > 64: `csrc/attention_wide.cu`, a simple FFMA forward and
-  backward pair for any D with the same mask and lse (`wide_launches`,
-  `wide_bwd_launches`).
+- f32 at D > 64: `csrc/attention_wide.cu`, the tuned f32 kernels' 3xTF32
+  tiles with the contractions over D summed in chunks (64 channels in the
+  forward, 32 in the backward) and the outputs' channels cut into groups
+  of at most 128, one group per block, any D that is a multiple of 4
+  (`wide_tf32_launches`, `wide_tf32_bwd_launches`).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches a
 kernel or raises.  `fused_attention(..., impl="xla")` takes the plain
@@ -95,8 +97,8 @@ launches = 0       # forward kernel launches
 bwd_launches = 0   # backward kernel launches (one per call: Delta, dK/dV, dQ)
 bf16_launches = 0      # of the forward's, calls on bf16 q, k, v
 bwd_bf16_launches = 0  # of the backward's, calls on bf16 q, k, v
-wide_launches = 0          # csrc/attention_wide.cu forward (f32, D > MAX_D)
-wide_bwd_launches = 0      # csrc/attention_wide.cu backward
+wide_tf32_launches = 0          # csrc/attention_wide.cu forward (f32, D > MAX_D)
+wide_tf32_bwd_launches = 0      # csrc/attention_wide.cu backward
 wide_tc_bf16_launches = 0      # csrc/attention_wide_bf16.cu forward (bf16, MAX_D < D <= 256)
 wide_tc_bwd_bf16_launches = 0  # csrc/attention_wide_bf16.cu backward
 wide_group_bf16_launches = 0      # csrc/attention_group_bf16.cu forward (bf16, D > 256)
@@ -294,25 +296,22 @@ def _check(name: str, *ts: torch.Tensor) -> None:
 def _layout(q: torch.Tensor) -> int:
     """The zero columns that take a CUDA call's head width D to its
     kernels' alignment (a multiple of 4 in f32, of 8 in bf16), 0 when
-    aligned; -1 for the f32 FFMA wide kernels (D > MAX_D), which take any
-    D."""
-    d = q.shape[-1]
-    if q.dtype == torch.bfloat16:
-        return -d % 8
-    return -1 if d > MAX_D else -d % 4
+    aligned."""
+    return -q.shape[-1] % (8 if q.dtype == torch.bfloat16 else 4)
 
 
 def _route(q: torch.Tensor) -> str:
     """The kernels a CUDA call runs after `_layout`'s pad: 'tuned'
     (`attention_fwd.cu`, `attention_bwd.cu`; D <= MAX_D), 'wide_tc' (bf16,
     MAX_D < D <= MAX_D_WIDE_TC: `attention_wide_bf16.cu`), 'wide_group'
-    (bf16, D > MAX_D_WIDE_TC: `attention_group_bf16.cu`) or 'wide' (f32, D
-    > MAX_D: `attention_wide.cu`)."""
-    pad = _layout(q)
-    if pad < 0:
-        return "wide"
-    d = q.shape[-1] + pad
-    return "tuned" if d <= MAX_D else "wide_tc" if d <= MAX_D_WIDE_TC else "wide_group"
+    (bf16, D > MAX_D_WIDE_TC: `attention_group_bf16.cu`) or 'wide_tf32'
+    (f32, D > MAX_D: `attention_wide.cu`)."""
+    d = q.shape[-1] + _layout(q)
+    if d <= MAX_D:
+        return "tuned"
+    if q.dtype != torch.bfloat16:
+        return "wide_tf32"
+    return "wide_tc" if d <= MAX_D_WIDE_TC else "wide_group"
 
 
 def _pad(pad: int, *ts: torch.Tensor):
@@ -328,11 +327,12 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
 
 _FWD_NAMES = {("tuned", False): "r3d_attn_fwd", ("tuned", True): "r3d_attn_fwd_bf16",
               ("wide_tc", True): "r3d_attn_wide_tc_fwd_bf16",
-              ("wide_group", True): "r3d_attn_group_fwd_bf16", ("wide", False): "r3d_attn_wide_fwd"}
+              ("wide_group", True): "r3d_attn_group_fwd_bf16",
+              ("wide_tf32", False): "r3d_attn_wide_tf32_fwd"}
 
 
 def _kernel_fwd(q, k, v, tau, rate, seed, want_lse):
-    global launches, bf16_launches, wide_launches, wide_tc_bf16_launches
+    global launches, bf16_launches, wide_tf32_launches, wide_tc_bf16_launches
     global wide_group_bf16_launches
     pad = _layout(q)
     if pad > 0:
@@ -357,8 +357,8 @@ def _kernel_fwd(q, k, v, tau, rate, seed, want_lse):
                  b, n, d, scale, int(rate > 0.0), lo, hi, dropout_threshold(rate),
                  keep_scale(rate), build.stream_ptr(q.device))
     build.check(err, name)
-    if route == "wide":
-        wide_launches += 1
+    if route == "wide_tf32":
+        wide_tf32_launches += 1
     elif route == "wide_tc":
         wide_tc_bf16_launches += 1
     elif route == "wide_group":
@@ -390,7 +390,7 @@ def attention_fwd(q, k, v, tau: float, rate: float = 0.0, seed: int = 0):
 
 def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int = 0):
     """(dq, dk, dv), f32, of the forward's f32 output cotangent dy."""
-    global bwd_launches, bwd_bf16_launches, wide_bwd_launches, wide_tc_bwd_bf16_launches
+    global bwd_launches, bwd_bf16_launches, wide_tf32_bwd_launches, wide_tc_bwd_bf16_launches
     global wide_group_bwd_bf16_launches
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, y, dy, lse, tau, rate, seed)
@@ -411,16 +411,6 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
     lo, hi = _seed_words(seed)
     tail = (int(rate > 0.0), lo, hi, dropout_threshold(rate), keep_scale(rate),
             build.stream_ptr(q.device))
-    if route == "wide":
-        name = "r3d_attn_wide_bwd"
-        fn = build.function(name, [build.P] * 10 + [build.I] * 3 + [build.F, build.F, build.I]
-                            + [build.U] * 3 + [build.F, build.P])
-        with torch.cuda.device(q.device):
-            err = fn(*(t.data_ptr() for t in (q, k, v, y, dy, lse, delta, dq, dk, dv)), b, n, d,
-                     1.0 / tau, 1.0 / tau, *tail)
-        build.check(err, name)
-        wide_bwd_launches += 1
-        return dq, dk, dv
     if lowp:
         # the three bf16 routes' backward kernels take the same arguments
         name = {"tuned": "r3d_attn_bwd_bf16", "wide_tc": "r3d_attn_wide_tc_bwd_bf16",
@@ -431,7 +421,8 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
         ptrs = (q, k, v, y, dy, lse, delta, qs, dyb, dq, dk, dv)
         scales = (1.0 / tau, bf16_value(1.0 / tau))
     else:
-        name = "r3d_attn_bwd"
+        # the two f32 routes' backward kernels take the same arguments
+        name = "r3d_attn_wide_tf32_bwd" if route == "wide_tf32" else "r3d_attn_bwd"
         fn = build.function(name, [build.P] * 10 + [build.I] * 3 + [build.F, build.I]
                             + [build.U] * 3 + [build.F, build.P])
         ptrs = (q, k, v, y, dy, lse, delta, dq, dk, dv)
@@ -439,7 +430,9 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
     with torch.cuda.device(q.device):
         err = fn(*(t.data_ptr() for t in ptrs), b, n, d, *scales, *tail)
     build.check(err, name)
-    if route == "wide_tc":
+    if route == "wide_tf32":
+        wide_tf32_bwd_launches += 1
+    elif route == "wide_tc":
         wide_tc_bwd_bf16_launches += 1
     elif route == "wide_group":
         wide_group_bwd_bf16_launches += 1

@@ -1,8 +1,10 @@
-"""The wide bf16 attention kernels (`csrc/attention_wide_bf16.cu`: bf16 q, k,
-v at 64 < D <= 256 on bf16 tensor-core tiles; `csrc/attention_group_bf16.cu`:
-D > 256 in channel groups) emulated on the CPU, and the emulations held
+"""The wide attention kernels emulated on the CPU, and the emulations held
 against the port's plain versions and the JAX package's Pallas kernels in
-interpret mode.  Inputs are made from seeds with numpy.
+interpret mode: bf16 q, k, v at 64 < D <= 256 on bf16 tensor-core tiles
+(`csrc/attention_wide_bf16.cu`) and past 256 in channel groups
+(`csrc/attention_group_bf16.cu`); f32 q, k, v past 64 on 3xTF32 tiles in
+channel groups of 128 (`csrc/attention_wide.cu`, the last section below).
+Inputs are made from seeds with numpy.
 
 The emulation repeats the kernels' arithmetic and order of sums:
 - a product of bf16 operands (exact in f32) is summed over k-steps of 16
@@ -27,6 +29,16 @@ The emulation repeats the kernels' arithmetic and order of sums:
   pass of at most 32); each group computes its own m, l and P and its
   slice of the outputs.
 
+The f32 emulation (`emulate_f32_fwd`, `emulate_f32_bwd`) repeats the 3xTF32
+products (`tf32_ksteps`: per k-step of 8 the terms lo hi, hi lo, hi hi in
+that order, in the k-steps' channel order), S and dPd summed over all of D
+into one accumulator (the chunks, 64 channels forward and 32 backward,
+change no bit), the group plan
+(`f32_plan`), the S >= 2 splits of each column tile, the forward's online
+softmax per split merged in split order, and dK from the unscaled q; it is
+held to the card's f32 gates scaled to D and to the Pallas kernels at the
+tuned f32 forms' CPU tolerance (rtol 1e-5, atol 1e-6).
+
 Tolerances: against the plain versions the card's gates
 (`chip_smoke.attention_gates`: y within ATTN_BF16_FWD_TOL of the largest
 |y|, each gradient within ATTN_BF16_BWD_TOL of its largest entry, both
@@ -42,7 +54,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ATTN_BF16_BWD_TOL, ATTN_BF16_FWD_TOL
+from chip_smoke import (ATTN_BF16_BWD_TOL, ATTN_BF16_FWD_TOL, ATTN_F32_BWD_TOL,
+                        ATTN_F32_FWD_ATOL, ATTN_F32_FWD_RTOL)
 from r3dfsseg_tpu.ops import pallas_attention as jax_pa
 from r3dfsseg_tpu_torch.ops import cuda_attention as ca
 
@@ -422,3 +435,338 @@ def test_group_emulation_matches_pallas_kernels(monkeypatch):
         ref = np.asarray(w.astype(jnp.float32))
         got = a.to(BF16).float().numpy()     # cotangents in the primal dtype, as the JAX side
         assert np.abs(got - ref).max() <= 2e-2 * np.abs(ref).max()
+
+
+# ----------------------------------- f32 past D = 64: 3xTF32 in groups --
+# `csrc/attention_wide.cu`: every product a 3xTF32 mma.sync.m16n8k8 (each
+# operand split into tf32 hi and lo; per k-step of 8 the terms lo hi, hi
+# lo, hi hi added in that order), the contraction over D summed in chunks
+# (64 channels in the forward, 32 in the backward) into one accumulator,
+# the outputs' channels in groups of at most 128, S >= 2 splits of each
+# 64-row column tile.
+TF32_KSTEP = 8     # the k-step of a tf32 mma.sync tile
+F32_CHUNKS = (64, 32)   # channels of a contraction chunk (kFwdCh, kBwdCh)
+F32_GROUP = 128    # channels of an output group at most (kGroupW)
+F32_BWD_SPLITS = 2  # the backward's splits (kBwdSplits)
+F32_FWD_RTOL, F32_FWD_ATOL = ATTN_F32_FWD_RTOL, ATTN_F32_FWD_ATOL
+
+
+def _channel_order(d: int) -> torch.Tensor:
+    """The channels in the order the kernels' k-steps take them: within
+    each 16, k-step 2kk takes channels 4t and 4t + 1 of t = 0..3, k-step 2kk +
+    1 channels 4t + 2 and 4t + 3 (one float4 a lane feeds both;
+    attention.cuh's layout note)."""
+    base = [4 * t + 2 * h + e for h in (0, 1) for t in range(4) for e in (0, 1)]
+    return torch.tensor([c0 + c for c0 in range(0, d, 16) for c in base])
+
+
+def tf32_ksteps(a: torch.Tensor, b: torch.Tensor, acc=None, passes: int = 3) -> torch.Tensor:
+    """acc + a (.., M, K) b (.., K, N) as the kernels' mma.sync tiles add it,
+    K a multiple of 8: each operand split into tf32 hi and lo
+    (`cuda_attention.split_tf32`, a function of the value alone, so a tile
+    split once in shared memory and an entry split as it is loaded give the
+    same halves), each k-step of 8 adding its terms lo hi, hi lo, hi hi in
+    that order, each term's 8 products (exact in f32) summed exactly and
+    rounded to f32; ``passes`` 1: the hi hi term alone."""
+    ah, al = ca.split_tf32(a.contiguous())
+    bh, bl = ca.split_tf32(b.contiguous())
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:]) if acc is None else acc
+    terms = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
+    for k0 in range(0, a.shape[-1], TF32_KSTEP):
+        for x, y in terms:
+            out = out + (x[..., k0:k0 + TF32_KSTEP].double()
+                         @ y[..., k0:k0 + TF32_KSTEP, :].double()).float()
+    return out
+
+
+def f32_scores(q, k, scale, passes=3):
+    """S = (q * scale) k^T summed over D in the kernels' channel order
+    (zero channels to a multiple of 16 add nothing).  The kernels' chunks
+    change no bit (`test_f32_chunked_contraction_sums_as_one_pass`).  The
+    dK/dV kernel takes S^T = k (q * scale)^T with the
+    operands' roles swapped and the terms ordered to match (kBLoFirst), so
+    its scores are these, transposed."""
+    d = q.shape[-1]
+    pad = -d % 16
+    qs = torch.nn.functional.pad(q * scale, (0, pad))
+    kp = torch.nn.functional.pad(k, (0, pad))
+    order = _channel_order(d + pad)
+    return tf32_ksteps(qs[..., order], kp[..., order].transpose(-1, -2), passes=passes)
+
+
+def f32_plan(b: int, n: int, d: int):
+    """(groups, the forward's splits) as attention_wide.cu's `plan` picks
+    them: ceil(D / 128) groups, the splits over the groups' blocks, at
+    least 2.  The backward takes F32_BWD_SPLITS."""
+    groups = -(-d // F32_GROUP)
+    return groups, max(2, launcher_splits(min(b * groups, 1 << 24), n))
+
+
+def _split_tiles(n: int, splits: int):
+    """Each split's columns tile by tile: [(tile, columns)] in order."""
+    w = TILE // splits
+    return [[torch.arange(t0 + sp * w, min(t0 + (sp + 1) * w, n)) for t0 in range(0, n, TILE)
+             if t0 + sp * w < n] for sp in range(splits)]
+
+
+def _split_products(a, b, splits, passes=3):
+    """sum over columns c of a[..., c] b[c] as the kernels' accumulators
+    take it: each split's columns tile by tile in k-steps of 8 (a ragged
+    tile's columns past n are zeros), the splits' sums added in split
+    order."""
+    out = None
+    for cols in _split_tiles(a.shape[-1], splits):
+        part = torch.zeros(a.shape[:-1] + b.shape[-1:])
+        for c in cols:
+            pad = -len(c) % TF32_KSTEP
+            part = tf32_ksteps(torch.nn.functional.pad(a[..., c], (0, pad)),
+                               torch.nn.functional.pad(b[..., c, :], (0, 0, 0, pad)), part,
+                               passes)
+        out = part if out is None else out + part
+    return out
+
+
+def emulate_f32_fwd(q, k, v, tau, rate=0.0, seed=0, splits=None, passes=3, group=F32_GROUP):
+    """(y, lse, per-group (m, l, P)) of the f32 wide forward: (B, N, D) f32
+    q, k, v, D > 64 a multiple of 4, groups of ``group`` channels (the
+    launcher's 128).  Each group sums S over all of D, runs
+    the tuned forward's online softmax per split (a running max m, the sum
+    l of exp(s - m) and the output o rescaled by exp(m_old - m) at each
+    tile, o accumulating P * mask V tile by tile), the splits merged in
+    split order, and writes its slice of y = o / l; lse is group 0's."""
+    b, n, d = q.shape
+    _, s_ = f32_plan(b, n, d)
+    s_ = splits or s_
+    scale = float(np.float32(1.0 / tau))
+    mask = ca.dropout_mask_reference(b, n, rate, seed, "cpu") if rate > 0.0 else None
+    ys, per_group = [], []
+    for sl in _groups(d, group):
+        s = f32_scores(q, k, scale, passes)
+        parts = []
+        for cols in _split_tiles(n, s_):
+            m = torch.full((b, n), -torch.inf)
+            l = torch.zeros((b, n))
+            o = torch.zeros((b, n, sl.stop - sl.start))
+            for c in cols:
+                mx = torch.maximum(m, s[..., c].amax(-1))
+                f = torch.where(torch.isinf(m), torch.zeros(()), torch.exp(m - mx))
+                p = torch.exp(s[..., c] - mx[..., None])
+                l = l * f + p.sum(-1)
+                if mask is not None:
+                    p = p * mask[..., c]
+                pad = -len(c) % TF32_KSTEP
+                o = tf32_ksteps(torch.nn.functional.pad(p, (0, pad)),
+                                torch.nn.functional.pad(v[..., c, sl], (0, 0, 0, pad)),
+                                o * f[..., None], passes)
+                m = mx
+            parts.append((m, l, o))
+        mm = torch.stack([m for m, _, _ in parts]).amax(0)
+        l = torch.zeros((b, n))
+        o = torch.zeros_like(parts[0][2])
+        for m_i, l_i, o_i in parts:               # merged in split order
+            f = torch.exp(m_i - mm)
+            l = l + f * l_i
+            o = o + f[..., None] * o_i
+        ys.append(o / l[..., None])
+        per_group.append((mm, l, torch.exp(s - mm[..., None]) / l[..., None]))
+    m, l, _ = per_group[0]
+    return torch.cat(ys, -1), m + torch.log(l), per_group
+
+
+def emulate_f32_bwd(q, k, v, y, dy, lse, tau, rate=0.0, seed=0, splits=None, passes=3):
+    """(dq, dk, dv) of the f32 wide backward: Delta = rowsum(dY * Y), P =
+    exp(s - lse), dPd = dY V^T summed over D as S is, dS = P (dPd * M -
+    Delta); each group's slices of dV = Pd^T dY and dK = dS^T q * scale
+    (the unscaled q; the dK/dV blocks' splits over the queries) and of dQ
+    = dS K * scale (the dQ blocks' over the keys), F32_BWD_SPLITS splits
+    unless ``splits`` says otherwise."""
+    b, n, d = q.shape
+    s_ = splits or F32_BWD_SPLITS
+    scale = float(np.float32(1.0 / tau))
+    delta = (dy * y).sum(-1, keepdim=True)
+    mask = (ca.dropout_mask_reference(b, n, rate, seed, "cpu") if rate > 0.0
+            else torch.ones((b, n, n)))
+    ones = torch.ones(())
+    outs = ([], [], [])
+    for sl in _groups(d, F32_GROUP):
+        p = torch.exp(f32_scores(q, k, scale, passes) - lse[..., None])
+        dpd = f32_scores(dy, v, 1.0, passes)
+        ds = p * (dpd * mask - delta)
+        outs[0].append(_split_products(ds, k[..., sl], s_, passes) * scale)
+        outs[1].append(_split_products(ds.transpose(-1, -2), q[..., sl], s_, passes) * scale)
+        outs[2].append(_split_products((p * mask).transpose(-1, -2), dy[..., sl], s_, passes)
+                       * ones)
+    return tuple(torch.cat(o, -1) for o in outs)
+
+
+def _f32_inputs(seed, b, n, d):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, n, d)).astype(np.float32)) for _ in range(4)]
+
+
+def _emulate_f32_padded(q, k, v, dy, tau, rate, seed, passes=3):
+    """The wrapper's f32 route past D = 64: D zero-padded to a multiple of
+    4, the kernels on the padded tensors (with the launcher's splits), the
+    outputs sliced back."""
+    d = q.shape[-1]
+    pad = ca._layout(q)
+    assert pad == -d % 4 and ca._route(q) == "wide_tf32"
+    qp, kp, vp, dyp = ca._pad(pad, q, k, v, dy)
+    y, lse, _ = emulate_f32_fwd(qp, kp, vp, tau, rate, seed, passes=passes)
+    grads = emulate_f32_bwd(qp, kp, vp, y, dyp, lse, tau, rate, seed, passes=passes)
+    for x in (y, *grads):
+        assert not bool(x[..., d:].any())
+    return y[..., :d], lse, tuple(x[..., :d] for x in grads)
+
+
+def _f32_gate_shares(q, k, v, dy, tau, rate, seed, y, lse, grads):
+    """Each error as a share of the card's f32 gates scaled to D
+    (`chip_smoke.attention_gates`): y within ATTN_F32_FWD_RTOL |y| +
+    ATTN_F32_FWD_ATOL, each gradient within ATTN_F32_BWD_TOL of its largest
+    entry, both times sqrt(D / 64); lse within 1e-5.  The references are
+    the plain versions, the backward's from the emulated y and lse."""
+    scale = (q.shape[-1] / 64) ** 0.5
+    want_y, want_lse = ca.attention_fwd_reference(q, k, v, tau, rate, seed, kernel_scale=True)
+    want = ca.attention_bwd_reference(q, k, v, y, dy, lse, tau, rate, seed, kernel_scale=True)
+    out = {"lse": ((lse - want_lse).abs() / (1e-5 + 1e-5 * want_lse.abs())).max().item(),
+           "y": ((y - want_y).abs() / (scale * (F32_FWD_ATOL + F32_FWD_RTOL * want_y.abs())))
+           .max().item()}
+    for name, a, w in zip(("dq", "dk", "dv"), grads, want):
+        out[name] = ((a - w).abs().max() / (ATTN_F32_BWD_TOL * scale * w.abs().max())).item()
+    return out
+
+
+def test_f32_route_layout_and_plan():
+    """Every f32 D > 64 takes the 3xTF32 route, an unaligned one after the
+    zero pad to a multiple of 4 (65 to 68, 130 to 132), in ceil(D / 128)
+    groups; D <= 64 the tuned kernels.  The forward's splits at a training
+    step's two calls (N = 2048): 2 at B = 10 and 4 at B = 2; at B = 4, 4
+    for D = 128 and 2 for D = 512 (four groups' blocks)."""
+    for d in range(1, 1100):
+        x = torch.zeros((1, 1, d))
+        pad = ca._layout(x)
+        assert pad == -d % 4
+        assert ca._route(x) == ("tuned" if d <= 64 else "wide_tf32"), d
+    assert [f32_plan(10, 2048, d)[0] for d in (68, 128, 132, 256, 260, 320, 512)] == \
+        [1, 1, 2, 2, 3, 3, 4]
+    assert [f32_plan(b, 2048, 128)[1] for b in (10, 2)] == [2, 4]
+    assert [f32_plan(4, 2048, d)[1] for d in (128, 512)] == [4, 2]
+    assert f32_plan(2, 100, 320)[1] == 4
+    assert _groups(320, F32_GROUP) == [slice(0, 128), slice(128, 256), slice(256, 320)]
+
+
+def test_f32_channel_order_is_a_permutation_within_16():
+    """The k-steps' channel order permutes channels only within each 16
+    (so a chunk of 32 holds whole k-steps), and S summed in that order
+    differs from S summed in channel order only by rounding."""
+    order = _channel_order(64)
+    assert sorted(order.tolist()) == list(range(64))
+    assert all(set(order[i:i + 16].tolist()) == set(range(i, i + 16)) for i in range(0, 64, 16))
+    q, k, _, _ = _f32_inputs(1, 2, 40, 96)
+    s = f32_scores(q, k, 0.125)
+    torch.testing.assert_close(s, (q * 0.125) @ k.transpose(-1, -2), rtol=1e-5, atol=1e-5)
+
+
+def test_f32_chunked_contraction_sums_as_one_pass():
+    """Chunks change no bit of the scores: a chunk holds whole 16-channel
+    blocks of the k-steps' order, zeros past D, and its k-steps run in
+    channel order into the one accumulator, so S summed in chunks of 64
+    (forward) or 32 (backward) channels, the last cut at D = 132, is S
+    summed over all of D at once."""
+    d = 132
+    q, k, _, _ = _f32_inputs(4, 2, 40, d)
+    want = f32_scores(q, k, 0.125)
+    for chunk in F32_CHUNKS:
+        acc = None
+        for c0 in range(0, d, chunk):
+            w = min(chunk, d - c0)
+            pad = -w % 16
+            a = torch.nn.functional.pad(q[..., c0:c0 + w] * 0.125, (0, pad))
+            b = torch.nn.functional.pad(k[..., c0:c0 + w], (0, pad))
+            order = _channel_order(w + pad)
+            acc = tf32_ksteps(a[..., order], b[..., order].transpose(-1, -2), acc)
+        assert torch.equal(acc, want), chunk
+
+
+@pytest.mark.parametrize("d", [128, 100, 130, 192, 320])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_emulation_matches_plain_versions(d, rate):
+    """D = 128, 100 (one group short of 128), 130 (through the zero pad to
+    132: two groups, 128 + 4), 192 (128 + 64) and 320 (128 + 128 + 64), at
+    B = 2 and a ragged N = 100 (two column tiles, the second cut; the
+    forward's 4 splits, as the launcher picks there, and the backward's
+    2): the emulated kernels' y and lse against
+    `attention_fwd_reference`, their gradients against
+    `attention_bwd_reference` from the emulated y and lse, within the
+    card's f32 gates scaled to D (`_f32_gate_shares`)."""
+    q, k, v, dy = _f32_inputs(d, 2, 100, d)
+    tau = float(d) ** 0.5
+    y, lse, grads = _emulate_f32_padded(q, k, v, dy, tau, rate, 7)
+    shares = _f32_gate_shares(q, k, v, dy, tau, rate, 7, y, lse, grads)
+    assert max(shares.values()) <= 1.0, shares
+
+
+def test_f32_emulation_at_two_splits_matches_plain_versions():
+    """The forward's splits at a training step's B = 10 (2), at D = 128
+    with dropout, and the backward at 4: within the same gates."""
+    q, k, v, dy = _f32_inputs(2, 2, 100, 128)
+    tau = 128 ** 0.5
+    y, lse, _ = emulate_f32_fwd(q, k, v, tau, 0.1, 5, splits=2)
+    grads = emulate_f32_bwd(q, k, v, y, dy, lse, tau, 0.1, 5, splits=4)
+    shares = _f32_gate_shares(q, k, v, dy, tau, 0.1, 5, y, lse, grads)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("d", [128, 100])
+def test_f32_emulation_matches_pallas_kernels(monkeypatch, d):
+    """The emulated kernels against `_attn_fwd_kernel` and `jax.grad`
+    through `_attn_bwd_kernel` in interpret mode (f32 at Precision.HIGHEST),
+    rate 0 (the Pallas mask does not run in interpret mode), B = 2, N = 64,
+    as `tests/test_torch_f1.py` holds the plain versions: rtol 1e-5, atol
+    1e-6 (3xTF32 keeps about 22 bits of each operand)."""
+    monkeypatch.setattr(jax_pa, "_INTERPRET", True)
+    rng = np.random.default_rng(d + 1)
+    xs = [rng.normal(size=(2, 64, d)).astype(np.float32) for _ in range(4)]
+    tau = float(d) ** 0.5
+    jq, jk, jv = (jnp.asarray(x) for x in xs[:3])
+    want_y = np.asarray(jax_pa._fwd_impl(jq, jk, jv, 0, tau, 0.0, False))
+
+    def loss(q, k, v):
+        return jnp.sum(jax_pa.fused_attention(q, k, v, 0, tau, 0.0, True) * xs[3])
+
+    want_g = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    y, _, grads = _emulate_f32_padded(*map(torch.from_numpy, xs), tau, 0.0, 0)
+    np.testing.assert_allclose(y.numpy(), want_y, rtol=1e-5, atol=1e-6)
+    for a, w in zip(grads, want_g):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [192, 320, 512])
+def test_f32_groups_take_bit_identical_statistics(d):
+    """Every group sums the scores over all of D in the same chunk order
+    with the same code, so its m, l and P are every other group's bit for
+    bit, and the groups' slices of y are what one group over all channels
+    writes."""
+    q, k, v, _ = _f32_inputs(d, 2, 100, d)
+    tau = float(d) ** 0.5
+    y, lse, per_group = emulate_f32_fwd(q, k, v, tau, 0.1, 3)
+    assert len(per_group) == -(-d // F32_GROUP) >= 2
+    for m, l, p in per_group[1:]:
+        assert torch.equal(m, per_group[0][0]) and torch.equal(l, per_group[0][1])
+        assert torch.equal(p, per_group[0][2])
+    y1, lse1, _ = emulate_f32_fwd(q, k, v, tau, 0.1, 3, group=d)   # one group, every channel
+    assert torch.equal(y, y1) and torch.equal(lse, lse1)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_1xtf32_products_miss_the_gates_at_d128(rate):
+    """Why three passes at D = 128 too: the same kernels with one tf32 pass
+    a product (q, k, v, P and dS rounded to 11 bits) miss the card's f32
+    gates by far, where three passes meet them."""
+    q, k, v, dy = _f32_inputs(11, 2, 100, 128)
+    tau = 128 ** 0.5
+    one = _f32_gate_shares(q, k, v, dy, tau, rate, 7,
+                           *_emulate_f32_padded(q, k, v, dy, tau, rate, 7, passes=1))
+    three = _f32_gate_shares(q, k, v, dy, tau, rate, 7,
+                             *_emulate_f32_padded(q, k, v, dy, tau, rate, 7))
+    assert max(three.values()) <= 1.0 < 2.0 < max(one.values()), (one, three)

@@ -417,14 +417,15 @@ def test_attention_layout_rule():
     unpadded, unaligned D <= 64 them after the pad; bf16 at 64 < D <= 256
     the wide tensor-core pair and bf16 past 256 the grouped tensor-core
     pair (an unaligned D after the pad to a multiple of 8: 300 to 304);
-    f32 past 64 the FFMA wide pair."""
+    f32 past 64 the 3xTF32 pair in channel groups (an unaligned D after the
+    pad to a multiple of 4: 65 to 68, 130 to 132)."""
     def lay(d, dtype=torch.float32):
         return cuda_attention._layout(torch.zeros((1, 1, d), dtype=dtype))
 
     def route(d, dtype=torch.float32):
         return cuda_attention._route(torch.zeros((1, 1, d), dtype=dtype))
-    assert [lay(d) for d in (4, 12, 64, 6, 65, 128)] == [0, 0, 0, 2, -1, -1]
-    assert [route(d) for d in (4, 6, 64, 65, 128, 256)] == ["tuned"] * 3 + ["wide"] * 3
+    assert [lay(d) for d in (4, 12, 64, 6, 65, 128)] == [0, 0, 0, 2, 3, 0]
+    assert [route(d) for d in (4, 6, 64, 65, 128, 256)] == ["tuned"] * 3 + ["wide_tf32"] * 3
     assert [lay(d, BF16) for d in (8, 64, 12, 1, 72, 128)] == [0, 0, 4, 7, 0, 0]
     assert [lay(d, BF16) for d in (72, 128, 256, 320, 100, 65, 300, 512)] == \
         [0, 0, 0, 0, 4, 7, 4, 0]

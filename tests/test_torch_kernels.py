@@ -97,9 +97,10 @@ CALLS = {
         torch.zeros((1, 40, 3), device=dev), 33)),
     "knn_packed": (cuda_knn, "packed_launches", lambda dev: cuda_knn.knn(
         torch.zeros((1, 8, 3), device=dev), 4, packed=True)),
-    "attention_wide": (cuda_attention, "wide_launches", lambda dev: cuda_attention.attention(
+    # f32 past the tuned width: the 3xTF32 kernels in channel groups
+    "attention_wide": (cuda_attention, "wide_tf32_launches", lambda dev: cuda_attention.attention(
         *_qkv(dev, (1, 8, 65)), 2.0)),
-    "attention_wide_bwd": (cuda_attention, "wide_bwd_launches",
+    "attention_wide_bwd": (cuda_attention, "wide_tf32_bwd_launches",
                            lambda dev: cuda_attention.attention_bwd(
                                *_qkv(dev, (1, 8, 72)), *_qkv(dev, (1, 8, 72))[:2],
                                torch.zeros((1, 8), device=dev), 2.0, 0.1, 5)),
@@ -1056,11 +1057,16 @@ def test_knn_packed_kernel_on_card(b, n, c, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d,dtype,rate,route", [
-    (10, 2048, 128, torch.float32, 0.1, "wide"),
-    (2, 2048, 128, torch.float32, 0.0, "wide"),
+    (10, 2048, 128, torch.float32, 0.1, "wide_tf32"),
+    (2, 2048, 128, torch.float32, 0.0, "wide_tf32"),
     (10, 2048, 128, torch.bfloat16, 0.1, "wide_tc"),
     (2, 2048, 128, torch.bfloat16, 0.0, "wide_tc"),
-    (2, 200, 300, torch.float32, 0.1, "wide"),
+    (2, 200, 300, torch.float32, 0.1, "wide_tf32"),
+    (2, 2048, 100, torch.float32, 0.1, "wide_tf32"),
+    (10, 2048, 320, torch.float32, 0.0, "wide_tf32"),
+    (2, 2048, 320, torch.float32, 0.1, "wide_tf32"),
+    (2, 130, 130, torch.float32, 0.1, "wide_tf32"),
+    (1, 70, 66, torch.float32, 0.5, "wide_tf32"),
     (2, 200, 12, torch.bfloat16, 0.1, "tuned"),
     (2, 200, 12, torch.float32, 0.0, "tuned"),
     (2, 200, 6, torch.float32, 0.1, "tuned"),
@@ -1076,8 +1082,12 @@ def test_knn_packed_kernel_on_card(b, n, c, k):
     (1, 130, 264, torch.bfloat16, 0.5, "wide_group")])
 def test_attention_f1_shapes_on_card(b, n, d, dtype, rate, route):
     """Attention past and inside the tuned width, each case on the kernels
-    ``route`` names (`chip_smoke.ATTN_ROUTE_COUNTERS`): f32 D = 128 at the
-    training batches and D = 300 (three output passes) on the FFMA kernels;
+    ``route`` names (`chip_smoke.ATTN_ROUTE_COUNTERS`): f32 past 64 on the
+    3xTF32 kernels in channel groups (`csrc/attention_wide.cu`: D = 128 at
+    the training batches, D = 100 short of the 128-channel group, D = 320
+    in groups of 128, 128 and 64 at both batches, D = 300 cut at 44 in its
+    third group, D = 130 through the zero pad to 132 at a ragged N, D = 66
+    through the pad to 68);
     bf16 64 < D <= 256 on the wide tensor-core kernels
     (`csrc/attention_wide_bf16.cu`: D = 80 short of the 128-channel tile,
     D = 100 through the zero pad to 104, D = 72, ragged N), bf16 past 256
