@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py [--seed N] [--requests N]
                           [--only knn,fps | cheby,scatter | kth | bf16 | f1 | f2 | fused
-                                  | attn]
+                                  | attn | probe]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
 
   1. build every kernel of `r3dfsseg_tpu_torch/csrc/` with nvcc, and print
-     the kNN, FPS, Chebyshev, scatter-add, k-th distance and attention
-     kernels' registers and spills (-Xptxas -v); the wide and grouped
-     tensor-core attention kernels must not spill;
+     the kNN, FPS, Chebyshev, matvec probe, scatter-add, k-th distance and
+     attention kernels' registers and spills (-Xptxas -v); the wide and
+     grouped tensor-core attention kernels and kernel 11's six
+     instantiations must not spill;
   2. call each kernel at the flagship shapes of its path and hold it
      against its plain PyTorch version on the same inputs (kNN: the
      neighbour sets, differences only at near-ties, two calls bit-equal,
@@ -105,10 +106,11 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      `scripts/archive/proto_cheby_pallas.py`'s own problem (its "rel max
      err" against kernel 7's plain version; within 1e-3 of max of its own
      plain version; ms per solve over a chain of 10 beside kernel 7), and
-     kernel 11 on `scripts/archive/proto_cheby2.py`'s input at 8 and 128
-     columns (within 1e-4 of max at 3 steps; 5e-3 at 500 steps on that S
-     scaled by 1 / its row sums; us per matvec beside 500 single
-     `torch.mm` calls); each launched as counted, and by no other phase.
+     kernel 11 on `scripts/archive/proto_cheby2.py`'s input at
+     PROBE_COLS columns (within 1e-4 of max at 3 steps; 5e-3 at 500 steps
+     on that S scaled by 1 / its row sums; a second 500-step call at 128
+     columns bit-equal; us per matvec beside 500 single `torch.mm`
+     calls); each launched as counted, and by no other phase.
 
   2b. the F1 kernels, at shapes the JAX package's Pallas kernels run and
      the tuned kernels do not take (`check_f1`): the general kNN (k = 40
@@ -148,7 +150,7 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      pass in train and eval, within the tuned tolerances of its plain
      version and, at the flagship shape, of the tuned kernel; kernel 8 on
      rows that are not a multiple of 16 bytes; kernel 10 at 16 and 128
-     columns (groups of 8); kernel 11 at 12 columns (zero-padded); each
+     columns (groups of 8); kernel 11 at 12 columns (a 32-column block); each
      path's own counter moves and the tuned one's not, repeats bit-equal;
 
 It prints the card's name and power limit, one JSON line describing the
@@ -172,7 +174,11 @@ pair's at D = 320 on whichever kernels the tree runs (and each kernel's
 device time), so that another tree's kernels can be timed with the same
 code (put that tree's root first on sys.path and run this file with
 runpy; the tree's modules need the plain versions these checks call:
-`cheby_solve_split_reference` and `scatter_add_ordered_reference`).
+`cheby_solve_split_reference` and `scatter_add_ordered_reference`);
+`--only probe` the same for the Chebyshev probes (`probe_digest`):
+digests of kernels 7 and 10, kernel 11's us per matvec at
+PROBE_DIGEST_COLS columns beside `torch.mm` with each case's device time,
+and its us per step over a range of M (`probe_sweep`).
 """
 from __future__ import annotations
 
@@ -250,6 +256,8 @@ SPLIT_TOL = {1: 1e-5, 3: 1e-5, 50: 1e-4}
 # through later steps; a few steps stay at f32 rounding
 PROTO_TOL = {3: 1e-5, 50: 5e-3}
 PROBE_TOL = {3: 1e-4, 500: 5e-3}
+PROBE_COLS = (8, 12, 24, 120, 128)   # kernel 11's columns in the probe phase
+PROBE_DIGEST_COLS = (8, 12, 16, 24, 64, 120, 128)   # --only probe's timed columns
 TRAIN_STEPS = 4     # timed kernel-path training steps after step 1, per graph dtype
 
 
@@ -276,7 +284,7 @@ def ptxas_report(build_log: str, names=("knn_kernel", "fps_kernel", "cheby_kerne
                                         "kth_wide_kernel",
                                         "fill_kernel", "sum_kernel", "fused_edge_kernel",
                                         "edge_route_kernel", "edge_rows_kernel",
-                                        "gather_rows_kernel")) -> list[str]:
+                                        "gather_rows_kernel", "matmul_probe_kernel")) -> list[str]:
     """nvcc's -Xptxas -v lines of the entry functions whose mangled name
     holds one of ``names``: registers, barriers, stack and spill, each
     under the mangled name from that name on (its template arguments:
@@ -1753,7 +1761,7 @@ FUSED_F2_SHAPES = [(10, 2048, 20, 32), (10, 2048, 20, 128), (2, 2048, 20, 63),
 FUSED_F2_TIMED = (10, 2048, 20, 128)      # the general kernel's timed shape
 GATHER_F2 = [(63, "float32"), (60, "bfloat16"), (63, "bfloat16")]   # C: 4- and 2-byte pieces
 PROTO_F2_COLS = (16, 128)                 # kernel 10, groups of 8 columns
-PROBE_F2_COLS = 12                        # kernel 11, zero-padded to 16
+PROBE_F2_COLS = 12                        # kernel 11, a 32-column block
 
 
 def fused_tuned_takes(name: str, b: int, n: int, k: int, c: int) -> bool:
@@ -2578,10 +2586,11 @@ def probe_phase(torch, proto_mod, cheby_mod, kernels, alpha: float = 0.99, iters
     kernel 10 on `archive_cheby_problem` (one solve), kernel 11 on the
     archive's input at 3 steps and on that S scaled by 1 / its row sums at
     500 steps (the archive's own input overflows f32 after about 12 steps),
-    at 8 and 128 columns of ones; counted, then checked: kernel 10 within
+    at PROBE_COLS columns of ones; counted, then checked: kernel 10 within
     1e-3 of max of its plain version (its distance from kernel 7's plain
     version, the archive's `_chebyshev_xla`, printed as the archive prints
-    it), kernel 11 within PROBE_TOL of max of its plain version.  Then timed
+    it), kernel 11 within PROBE_TOL of max of its plain version, and a
+    second 500-step call at 128 columns bit for bit the first.  Then timed
     as the archives time them: kernel 10 and kernel 7 in ms per solve over a
     chain of 10, kernel 11 per 500-step call beside its plain version and
     500 single PyTorch matvecs, in us per matvec.  Returns the launch counts
@@ -2589,7 +2598,7 @@ def probe_phase(torch, proto_mod, cheby_mod, kernels, alpha: float = 0.99, iters
     s, b = archive_cheby_problem(torch)
     sp = archive_probe_input(torch)
     scaled = (sp.float() / sp.float().sum(1, keepdim=True)).to(torch.bfloat16)
-    ones = {n: torch.ones((sp.shape[0], n), device="cuda") for n in (8, 128)}
+    ones = {n: torch.ones((sp.shape[0], n), device="cuda") for n in PROBE_COLS}
     cases = [(n, steps, src) for n in ones for steps, src in ((3, sp), (probe_iters, scaled))]
 
     zero_counts(kernels)
@@ -2632,6 +2641,10 @@ def probe_phase(torch, proto_mod, cheby_mod, kernels, alpha: float = 0.99, iters
             raise AssertionError(f"matmul_only ncols={n}, {steps} steps: {e} > {tol} x {scale}")
         if steps == probe_iters:
             err = max(err, e)
+    again = proto_mod.matmul_only(scaled, ones[128], probe_iters)
+    if not torch.equal(again, got[(128, probe_iters)]):
+        raise AssertionError(f"matmul_only ncols=128, {probe_iters} steps: a second call differs")
+    log(f"  matmul_only ncols=128, {probe_iters} steps: a second call bit-equal")
     cols = {}
     for n, b1 in ones.items():
         lib, lib_name = library_mm(torch, sp, b1.to(torch.bfloat16))
@@ -2655,6 +2668,93 @@ def probe_phase(torch, proto_mod, cheby_mod, kernels, alpha: float = 0.99, iters
                     sum(2.0 * m * m + 8.0 * m * n for n in cols), peak=BF16_TC_FLOPS,
                     cols={str(n): c for n, c in cols.items()})
     return launches, proto_row, probe_row
+
+
+PROBE_SWEEP_M = (2048, 3072, 4480, 6144, 8192)
+
+
+def probe_sweep(torch, proto_mod, sizes=PROBE_SWEEP_M, cols=(8, 128), steps=(20, 220)):
+    """Kernel 11's us per step against M, at `cols` columns of ones, on S
+    uniform in [0, 2 / M) (row sums near 1, so acc stays finite): the
+    difference of a 220-step and a 20-step call over 200 steps (CUDA
+    events), which takes out the launch and the set-up, and S's bytes over
+    that time.  S (2 M^2 bytes) would fit the 50 MB L2 up to M = 5000: a
+    rate that holds across that size says S streams from device memory at
+    every step; a rate that falls past it says L2 served S below."""
+    g = torch.Generator(device="cuda").manual_seed(47)
+    out = {}
+    for m in sizes:
+        s = (torch.rand((m, m), generator=g, device="cuda") * (2.0 / m)).to(torch.bfloat16)
+        for n in cols:
+            b = torch.ones((m, n), device="cuda")
+            t0, t1 = (cuda_ms(lambda k=k: proto_mod.matmul_only(s, b, k), 5) for k in steps)
+            us = (t1 - t0) / (steps[1] - steps[0]) * 1e3
+            out[f"m{m}_c{n}"] = dict(us_per_step=us, s_tb_per_s=2.0 * m * m / us / 1e6)
+            log(f"  matmul_only M = {m} (S {2 * m * m / 1e6:.2f} MB), {n} columns: "
+                f"{us:.2f} us per step, S at {2.0 * m * m / us / 1e6:.3f} TB/s")
+        del s
+    return out
+
+
+def probe_digest(torch, proto_mod, cheby_mod, alpha: float = 0.99, iters: int = 50,
+                 probe_iters: int = 500) -> dict:
+    """The Chebyshev probes' output bits and kernel 11's times, by the
+    wrapper API every tree since kernel 11 took any column count has, so
+    that two trees can be held bit for bit and timed in one call (run this
+    file under each tree's root, see the module docstring): a sha256 of
+    kernel 7's 50-step solve (`cuda_cheby.cheby_solve`) on
+    `archive_cheby_problem`'s S at 3 columns (its b) and 8 (seeded normal),
+    and of kernel 10's (`proto_cheby_solve`) at 3, 16 and 128 columns; then
+    kernel 11's us per matvec at PROBE_DIGEST_COLS columns of ones on
+    `archive_probe_input` (a 500-step call, CUDA events, the launches it
+    took), its device time from the profiler and 500 `torch.mm` calls
+    beside it, and `probe_sweep`."""
+    import hashlib
+    s, b3 = archive_cheby_problem(torch)
+    m = s.shape[0]
+    rng = np.random.default_rng(43)
+
+    def normal(c):
+        return torch.from_numpy(rng.normal(size=(m, c)).astype(np.float32)).cuda()
+    out = {}
+    for name, fn, b in (("kernel7_c3", cheby_mod.cheby_solve, b3),
+                        ("kernel7_c8", cheby_mod.cheby_solve, normal(8)),
+                        ("kernel10_c3", proto_mod.proto_cheby_solve, b3),
+                        ("kernel10_c16", proto_mod.proto_cheby_solve, normal(16)),
+                        ("kernel10_c128", proto_mod.proto_cheby_solve, normal(128))):
+        x = fn(s, b, alpha, iters)
+        out[name] = hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+        log(f"  {name}: sha256 {out[name]}")
+    sp = archive_probe_input(torch)
+    mp = sp.shape[0]
+    cols = {}
+    for n in PROBE_DIGEST_COLS:
+        ones = torch.ones((mp, n), device="cuda")
+
+        def call():
+            return proto_mod.matmul_only(sp, ones, probe_iters)
+        before = proto_mod.matmul_only_launches
+        call()
+        torch.cuda.synchronize()
+        launched = proto_mod.matmul_only_launches - before
+        ms = cuda_ms(call, 5)
+        dev = sum(v for k, v in device_kernels(torch, call, reps=2) if "matmul" in k)
+        lib, lib_name = library_mm(torch, sp, ones.to(torch.bfloat16))
+        lib_ms = cuda_ms(lambda: [lib() for _ in range(probe_iters)], 3)
+        b_ms, by = bound(probe_iters * 2.0 * mp * mp * n, 2.0 * mp * mp + 8.0 * mp * n,
+                         BF16_TC_FLOPS)
+        cols[str(n)] = dict(launches_per_call=launched, ms=ms, device_ms=dev,
+                            us_per_matvec=ms / probe_iters * 1e3,
+                            device_us_per_matvec=dev / probe_iters * 1e3, library_ms=lib_ms,
+                            library_us_per_matvec=lib_ms / probe_iters * 1e3, library=lib_name,
+                            bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms)
+        log(f"  matmul_only ncols={n:3d} ({launched} launch per call): "
+            f"{ms / probe_iters * 1e3:7.2f} us/matvec (device {dev / probe_iters * 1e3:7.2f}; "
+            f"{ms:.3f} ms per {probe_iters}-step call); {lib_name} "
+            f"{lib_ms / probe_iters * 1e3:7.2f} us/matvec; bound {b_ms:.4f} ms ({by})")
+    out["matmul_only"] = cols
+    out["sweep"] = probe_sweep(torch, proto_mod)
+    return out
 
 
 # ------------------------------------------------------------ serving --
@@ -3145,14 +3245,15 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth", "bf16", "f1", "f2",
-                                       "fused", "attn"],
+                                       "fused", "attn", "probe"],
                     help="build, then only the kNN and FPS (or the Chebyshev and scatter-add, "
                          "the k-th distance, the bf16 forms of kernels 1, 2, 5 and 6, the "
                          "F1 kernels: general kNN, packed kNN, wide attention, wide-row k-th "
                          "distance, general scatter-add; the F2 paths: general kernel 9, the "
                          "narrow gather, kernels 10 and 11 past 8 columns; kernel 9's f32 "
                          "passes' output digests; or the attention kernels' output digests and "
-                         "the f32 D = 128 and bf16 D = 320 pairs' times) kernel checks, and "
+                         "the f32 D = 128 and bf16 D = 320 pairs' times; or kernels 7 and "
+                         "10's digests and kernel 11's times) kernel checks, and "
                          "print their rows "
                          "(to time them beside another tree's kernels)")
     args = ap.parse_args()
@@ -3203,6 +3304,18 @@ def main() -> int:
             f"{len(tc) // 2} entries, no spill")
     else:
         log("  [ptxas] cached build: spill check not run")
+    if not hasattr(cuda_proto_cheby, "probe_plan"):
+        log("  [ptxas] a tree without kernel 11's split of S: its spill check not run")
+    elif build.build_log:
+        mp = ptxas_report(build.build_log, ("matmul_probe_kernel",))
+        missing = [f"NT={nt} vec={v}" for nt in (1, 2, 4) for v in (0, 1)
+                   if not any(x.startswith(f"matmul_probe_kernelILi{nt}ELb{v}E") for x in mp)]
+        spills = [x for x in mp
+                  if "spill" in x and " 0 bytes spill stores, 0 bytes spill loads" not in x]
+        if missing or spills:
+            raise AssertionError(f"kernel 11 (matmul_probe_kernel): no ptxas report for "
+                                 f"{missing}, spills {spills}")
+        log(f"  [ptxas] kernel 11 (matmul_probe_kernel): {len(mp) // 2} entries, no spill")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -3240,6 +3353,11 @@ def main() -> int:
     support = torch.from_numpy(episodes[0][0].reshape(-1, cfg.pc_npts, cfg.pc_in_dim)).cuda()
     if args.only == "attn":
         rows = {"attention": attention_digest(torch, cuda_attention, args.seed)}
+        log(smi)
+        log(json.dumps(rows))
+        return 0
+    if args.only == "probe":
+        rows = {"probe": probe_digest(torch, cuda_proto_cheby, cuda_cheby)}
         log(smi)
         log(json.dumps(rows))
         return 0
@@ -3544,7 +3662,7 @@ def main() -> int:
                   for p in cuda_fused_edge.PASSES},
                "gather_onehot_narrow": ("gather.cu", "r3dfsseg_tpu/ops/fast_gather.py:89"),
                "proto_cheby": ("proto_cheby.cu", "scripts/archive/proto_cheby_pallas.py:22"),
-               "matmul_only": ("proto_cheby.cu", "scripts/archive/proto_cheby2.py:36"),
+               "matmul_only": ("matmul_probe.cu", "scripts/archive/proto_cheby2.py:36"),
                "knn_general": ("knn_general.cu", "r3dfsseg_tpu/ops/pallas_knn.py:27"),
                "knn_packed": ("knn_general.cu", "r3dfsseg_tpu/ops/pallas_knn.py:27"),
                "attention_wide_tf32_fwd": ("attention_wide.cu",

@@ -1,15 +1,14 @@
-// Three persistent bf16 tensor-core kernels over an on-chip S: the
-// Chebyshev solve of the bf16 episode graph (kernel 7, on the main paths),
-// the archived single-launch Chebyshev probe (kernel 10) and the S.d
-// matvec probe (kernel 11).
+// Two persistent bf16 tensor-core kernels over an on-chip S: the
+// Chebyshev solve of the bf16 episode graph (kernel 7, on the main paths)
+// and the archived single-launch Chebyshev probe (kernel 10).  The S.d
+// matvec probe (kernel 11) is in matmul_probe.cu.
 //
 // Replaces the TPU kernels r3dfsseg_tpu/ops/pallas_cheby.py:_cheby_kernel
-// (via cheby_solve_pallas; kernel 7),
+// (via cheby_solve_pallas; kernel 7) and
 // scripts/archive/proto_cheby_pallas.py:_cheby_kernel (via cheby_pallas;
-// kernel 10) and scripts/archive/proto_cheby2.py:make_matmul_only's
-// `kernel` (kernel 11).  All three keep S in the TPU's VMEM and loop over
-// the steps inside one kernel; each step feeds the iterate to one bf16 x
-// bf16 -> f32 dot with S.
+// kernel 10).  Both keep S in the TPU's VMEM and loop over the steps
+// inside one kernel; each step feeds the iterate to one bf16 x bf16 -> f32
+// dot with S.
 //   kernels 7 and 10: r = b, d = r / theta, x = d, then for each of iters -
 //     1 steps
 //       r <- r - (d - alpha * sd);  d <- c1 * d + c2 * r;  x <- x + d
@@ -21,15 +20,13 @@
 //     kernel's `body_packed`, which packs hi and lo as the two halves of one
 //     operand so that one dot gives both.  Kernel 10 takes one piece, sd = S
 //     bf16(d): the TPU's rejected first version.
-//   kernel 11: acc = b, then iters times acc <- (S bf16(acc)) * 0.99.
 //
 // What bounds them on the H100: each step reads all of S (4396^2 bf16 =
-// 38.65 MB at the flagship graph, 4480^2 = 40.14 MB for kernel 11's
-// probe).  Read once, S bounds kernels 7 and 10 by bytes (0.0115 ms) and
-// kernel 11 at 128 columns by the tensor cores' operations.  What the
-// design pays instead is reading S again at every step (from the 50 MB L2,
-// whose aggregate bandwidth limits that part, or from on chip), the
-// per-tile reduction across warps, and one grid-wide barrier per step.
+// 38.65 MB at the flagship graph).  Read once, S bounds kernels 7 and 10
+// by bytes (0.0115 ms).  What the design pays instead is reading S again
+// at every step (from the 50 MB L2, whose aggregate bandwidth limits that
+// part, or from on chip), the per-tile reduction across warps, and one
+// grid-wide barrier per step.
 //
 // Design: one cooperative launch per call (cudaLaunchCooperativeKernel),
 // one block of 16 warps per SM, all co-resident (checked with the
@@ -67,11 +64,6 @@
 //   barrier per step suffices.  r, d and x stay in shared memory across the
 //   steps.  The bf16 buffers are read through L2 (cp.async.cg): another
 //   block wrote them in the same launch, and L1 is not coherent.
-// - Kernel 11's bf16(acc) at 128 columns (1.15 MB) does not fit one
-//   block's shared memory, so the columns are split across blocks: a block
-//   stages only its current column group (NT = 2 where the columns come in
-//   16s: two mma tiles per A fragment, S read from L2 ncols / 16 times per
-//   step).
 //
 // Where M, the row stride or the base is not a multiple of 4 entries, lanes
 // load S with 2-byte loads instead.
@@ -100,8 +92,6 @@ constexpr int kSharedTiles = 2;      // kernel 10: tiles of shared-memory rows p
 constexpr int kRegTiles = 18;        // kernels 7, 10: a warp's k-tiles held in registers
                                      // (m <= 16 * 16 * 18 = 4608)
 constexpr int kMaxCols = 8;          // kernels 7, 10: live columns of b
-constexpr int kMaxProbeCols = 128;   // kernel 11
-constexpr float kProbeScale = 0.99f;
 using r3d::kSmemLimit;
 
 struct Geometry {
@@ -498,25 +488,6 @@ struct ChebyUpdate {
   }
 };
 
-// Kernel 11's update: acc <- (S bf16(acc)) * 0.99, kept as bf16 for the next
-// step or, at the last, written out in f32.
-struct ProbeUpdate {
-  unsigned short* d_out;
-  float* out;
-  int ncols;
-  int ldk;
-  bool last;
-
-  __device__ __forceinline__ void operator()(int, int row, int col, float sd) const {
-    const float v = __fmul_rn(sd, kProbeScale);
-    if (last) {
-      out[row * ncols + col] = v;
-    } else {
-      d_out[col * ldk + row] = bf16_bits(v);
-    }
-  }
-};
-
 // Shared memory: `cols` columns of the pieces of d, the warps' partial
 // tiles of `tt` tiles, then (kernels 7 and 10) the state of `tiles` tiles
 // and the resident rows of S.
@@ -638,40 +609,6 @@ cheby_kernel(Geometry g, const float* __restrict__ b, float* x, unsigned short* 
   }
 }
 
-template <int NT, bool kVec>
-__global__ void __launch_bounds__(kThreads, 1)
-matmul_only_kernel(Geometry g, const float* __restrict__ b, float* out, unsigned short* dbuf,
-                   int ncols, int iters) {
-  constexpr int kCols = 8 * NT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned short* b_s = reinterpret_cast<unsigned short*>(smem);
-  float* red = reinterpret_cast<float*>(smem + sizeof(unsigned short) * kCols * g.ldk);
-  cg::grid_group grid = cg::this_grid();
-  const size_t buf = static_cast<size_t>(ncols) * g.ldk;
-
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < g.m * ncols;
-       i += gridDim.x * kThreads) {
-    const int row = i / ncols;
-    const int col = i - row * ncols;
-    dbuf[col * g.ldk + row] = bf16_bits(b[i]);
-  }
-  grid.sync();
-
-  int lo, hi;
-  block_range(ncols / kCols * g.m, lo, hi);
-  ProbeUpdate epi{nullptr, out, ncols, g.ldk, false};
-  const unsigned int none[1][4] = {};
-  for (int t = 0; t < iters; ++t) {
-    epi.d_out = dbuf + ((t + 1) & 1) * buf;
-    epi.last = t + 1 == iters;
-    int tile = 0;
-    int staged = -1;
-    step_walk<NT, kVec, kFromL2, 1, 1>(g, walk(lo, hi, g.m), tile, staged, nullptr, 0, none, kCols,
-                                 dbuf + (t & 1) * buf, b_s, red, epi);
-    if (t + 1 < iters) grid.sync();
-  }
-}
-
 bool ldk_ok(int m, int ldk) { return ldk % 64 == 16 && ldk >= ceil_div(m, 16) * 16; }
 
 bool vec_ok(const void* s, int m, int lds) {
@@ -767,34 +704,4 @@ R3D_EXPORT int r3d_proto_cheby(const void* s, int lds, const void* b, void* x, v
                                int m, int c, int ldk, int iters, float alpha, float theta,
                                const void* coef, int max_resident, void* stream) {
   return solve<1>(s, lds, b, x, dbuf, m, c, ldk, iters, alpha, theta, coef, max_resident, stream);
-}
-
-// Kernel 11, one call: out (m, ncols) after `iters` steps.  dbuf: 2 * ncols
-// * ldk bf16, zero-filled.
-R3D_EXPORT int r3d_matmul_only(const void* s, int lds, const void* b, void* out, void* dbuf,
-                               int m, int ncols, int ldk, int iters, void* stream) {
-  if (ncols < 8 || ncols > kMaxProbeCols || ncols % 8 != 0 || m < 1 || iters < 1 || lds < m ||
-      !ldk_ok(m, ldk)) {
-    return cudaErrorInvalidValue;
-  }
-  const bool two = ncols % 16 == 0 && base_smem(16, 2, ldk) <= kSmemLimit;
-  const int groups = ncols / (two ? 16 : 8);
-  r3d::CoopLaunch p{};
-  cudaError_t err = r3d::coop_plan(groups * ceil_div(m, kTileRows), p);
-  if (err != cudaSuccess) return err;
-  Geometry g{static_cast<const unsigned short*>(s), lds, m, ldk, ceil_div(m, 16)};
-  const float* bp = static_cast<const float*>(b);
-  float* op = static_cast<float*>(out);
-  unsigned short* db = static_cast<unsigned short*>(dbuf);
-  void* args[] = {&g, &bp, &op, &db, &ncols, &iters};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = vec_ok(s, m, lds);
-  if (two) {
-    const size_t smem = base_smem(16, 2, ldk);
-    return vec ? r3d::coop_launch(matmul_only_kernel<2, true>, p, kThreads, smem, args, st)
-               : r3d::coop_launch(matmul_only_kernel<2, false>, p, kThreads, smem, args, st);
-  }
-  const size_t smem = base_smem(8, 1, ldk);
-  return vec ? r3d::coop_launch(matmul_only_kernel<1, true>, p, kThreads, smem, args, st)
-             : r3d::coop_launch(matmul_only_kernel<1, false>, p, kThreads, smem, args, st);
 }

@@ -1,8 +1,8 @@
 """The archived Chebyshev probes on a bf16 S: the single-launch Chebyshev
-solve (kernel 10) and the S.d matvec probe (kernel 11), as the persistent
-tensor-core kernels of `csrc/proto_cheby.cu`, each with its plain version.
-Kernel 10 runs the tile code of kernel 7 (`cuda_cheby`) with one bf16 piece
-of d where kernel 7 takes two.
+solve (kernel 10, `csrc/proto_cheby.cu`) and the S.d matvec probe (kernel
+11, `csrc/matmul_probe.cu`), as persistent tensor-core kernels, each with
+its plain version.  Kernel 10 runs the tile code of kernel 7 (`cuda_cheby`)
+with one bf16 piece of d where kernel 7 takes two.
 
 Replaces the TPU kernels `scripts/archive/proto_cheby_pallas.py:cheby_pallas`
 (`_cheby_kernel`) and `scripts/archive/proto_cheby2.py:make_matmul_only`
@@ -25,18 +25,22 @@ take a bf16 x bf16 -> f32 dot, which is the operand type of Hopper's
 - `matmul_only(s, b, iters)`: acc = b, then `iters` times acc = (S
   bf16(acc)) * 0.99.  The archive's `tile_rows` has no counterpart: it
   only cut the TPU's VMEM dot into row tiles and gives the same numbers.
-  `iters` is the archive's module constant `ITERS`.  The kernel takes a
-  multiple of 8 columns; any other count up to 128 (the archive takes any)
-  is zero-padded to the next multiple of 8 and sliced back, which is
-  exact: a zero column adds nothing to the others and stays zero.
+  `iters` is the archive's module constant `ITERS`.  The kernel takes any
+  1 to 128 columns (the archive takes any); a block computes 32, 64 or
+  128 of them (`probe_cols`) and zero-fills the rest of its tile.
 
 What bounds them on the H100: each step reads all of S (38.65 MB at m =
-4396, 40.14 MB at the probe's M = 4480): kernel 11 from the 50 MB L2,
-kernel 10 from the registers and shared memory where it keeps S across the
-steps (all of it at the flagship graph).  Each call is one cooperative
-launch of one block per SM with a grid-wide barrier between steps
-(`csrc/proto_cheby.cu` says how the steps are split).  `launches` counts
-kernel 10's solves and `matmul_only_launches` kernel 11's calls.
+4396, 40.14 MB at the probe's M = 4480), kernel 10 from the registers and
+shared memory where it keeps S across the steps (all of it at the flagship
+graph), kernel 11 once from device memory or L2 at any column count.  Each
+call is one cooperative launch of one block per SM with grid-wide barriers
+between steps: kernel 10 splits the rows of S across the blocks and the
+columns into groups of 8; kernel 11 splits S into units of 128 rows by
+128 k dealt to the blocks as equal contiguous ranges (`probe_plan`), takes
+their products on wgmma tiles, writes each block's sums per row group
+into a slot of a partials buffer and adds them in block order after a
+barrier (`probe_segments` mirrors that split; the sources say more).  `launches` counts kernel 10's solves and
+`matmul_only_launches` kernel 11's calls.
 
 On the CPU each bf16 x bf16 product is exact in f32, so the plain versions
 compute the TPU kernels' arithmetic up to the order of the sums.
@@ -46,16 +50,21 @@ kernel or raises.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from r3dfsseg_tpu_torch.kernels import build
 from r3dfsseg_tpu_torch.ops import cuda_cheby
 
-MAX_COLS = 8                   # csrc/proto_cheby.cu kMaxCols: columns per launch
-MAX_PROBE_COLS = 128           # kMaxProbeCols; also the archive's padded width
+MAX_COLS = 8                   # csrc/proto_cheby.cu kMaxCols: kernel 10's columns per launch
+MAX_PROBE_COLS = 128           # matmul_probe.cu kMaxCols; also the archive's padded width
 SCALE = 0.99                   # the archive's per-step scale
 WARPS = 16                     # kWarps
 SMEM_LIMIT = 232448
+PROBE_ROWS = 128               # matmul_probe.cu kRows: rows of S in a row group
+PROBE_CHUNK = 128              # kChunk: k entries of a unit
+MAX_PROBE_M = 13968            # the largest M with smem_bytes(1, M) <= SMEM_LIMIT
 
 launches = 0
 matmul_only_launches = 0
@@ -64,10 +73,96 @@ ldk = cuda_cheby.ldk
 
 
 def smem_bytes(nt: int, m: int) -> int:
-    """Shared memory of one block of kernel 11 at 8 * nt columns: the column
-    group of bf16(d), then the warps' partial tiles.  Both wrappers refuse
-    an M whose 8-column block would not fit; the kernels check the rest."""
+    """Shared memory of a block that stages 8 * nt columns of bf16(d) for
+    every row, as kernel 10 does, and the warps' partial tiles.  Both
+    wrappers take the M whose 8-column block fits (M <= MAX_PROBE_M);
+    kernel 10 checks the rest.  Kernel 11's block does not grow with M
+    (`probe_smem_bytes`), and its wrapper keeps the range it has always
+    taken."""
     return 2 * 8 * nt * ldk(m) + 4 * WARPS * 4 * nt * 32
+
+
+def probe_cols(ncols: int) -> int:
+    """Columns a block of kernel 11 computes for ncols live ones: 32, 64 or
+    128 (matmul_probe.cu `block_cols` of the NT that `r3d_matmul_only`
+    launches)."""
+    return 32 if ncols <= 32 else 64 if ncols <= 64 else 128
+
+
+def probe_stages(ncols: int) -> int:
+    """Stages of kernel 11's shared-memory ring (matmul_probe.cu
+    `ring_stages`)."""
+    return {32: 5, 64: 4, 128: 3}[probe_cols(ncols)]
+
+
+def probe_smem_bytes(ncols: int) -> int:
+    """Shared memory of one block of kernel 11: the ring of stages, each
+    128 rows of S and probe_cols(ncols) columns of bf16(acc) by 128 k, and
+    1 KB to align it."""
+    return 2 * probe_stages(ncols) * (PROBE_ROWS + probe_cols(ncols)) * PROBE_CHUNK + 1024
+
+
+def matmul_only_fits(m: int, ncols: int) -> bool:
+    """Whether the kernel 11 wrapper takes (m, ncols)."""
+    return (1 <= m <= MAX_PROBE_M and 1 <= ncols <= MAX_PROBE_COLS
+            and probe_smem_bytes(ncols) <= SMEM_LIMIT)
+
+
+class ProbePlan(NamedTuple):
+    """Kernel 11's work split at (m, ncols) on `grid` blocks: `groups` row
+    groups of 128 rows, `chunks` units of 128 k each, `units` = groups *
+    chunks dealt as equal contiguous ranges, `cols` columns per block,
+    `slots` slots of the partials buffer, `ldb` the bf16(acc) buffers'
+    leading dimension."""
+    groups: int
+    chunks: int
+    units: int
+    grid: int
+    cols: int
+    slots: int
+    ldb: int
+
+
+def probe_plan(m: int, ncols: int, sms: int) -> ProbePlan:
+    """The split matmul_probe.cu runs on a card with `sms` SMs: one block
+    per SM, at most one per unit."""
+    groups = -(-m // PROBE_ROWS)
+    chunks = -(-m // PROBE_CHUNK)
+    grid = min(sms, groups * chunks)
+    return ProbePlan(groups, chunks, groups * chunks, grid, probe_cols(ncols), grid + groups,
+                     -(-m // 8) * 8)
+
+
+def probe_range(plan: ProbePlan, block: int) -> tuple[int, int]:
+    """Units [lo, hi) of a block (matmul_probe.cu `block_range`)."""
+    return block * plan.units // plan.grid, (block + 1) * plan.units // plan.grid
+
+
+def probe_owner(plan: ProbePlan, u: int) -> int:
+    """The block whose range holds unit u (matmul_probe.cu `owner`)."""
+    return ((u + 1) * plan.grid - 1) // plan.units
+
+
+def probe_segments(plan: ProbePlan) -> list[tuple[int, int, int, int, int]]:
+    """Every segment of a step, in block order: (block, row group, first
+    chunk, end chunk, slot); a block writes one slot per row group its
+    range crosses, slot = block + row group."""
+    out = []
+    for blk in range(plan.grid):
+        lo, hi = probe_range(plan, blk)
+        for r in range(lo // plan.chunks, (hi - 1) // plan.chunks + 1):
+            c0 = max(lo, r * plan.chunks) - r * plan.chunks
+            c1 = min(hi, (r + 1) * plan.chunks) - r * plan.chunks
+            out.append((blk, r, c0, c1, blk + r))
+    return out
+
+
+def probe_reduce_order(plan: ProbePlan, r: int) -> list[int]:
+    """The slots whose partials make row group r's sums, in the order the
+    kernel adds them (`reduce_quad`: block order, that is k order)."""
+    b0 = probe_owner(plan, r * plan.chunks)
+    b1 = probe_owner(plan, (r + 1) * plan.chunks - 1)
+    return [blk + r for blk in range(b0, b1 + 1)]
 
 
 def _matvec_bf16(sf: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -148,26 +243,26 @@ def _proto_cheby_launch(s, b, alpha, iters, resident_rows):
 
 def matmul_only(s: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
     """s (M, M) bf16, b (M, ncols) f32 with 1 <= ncols <= 128, both
-    contiguous, iters >= 1 -> acc (M, ncols) f32: one cooperative launch
-    (ncols zero-padded to a multiple of 8 inside)."""
+    contiguous, iters >= 1, M <= MAX_PROBE_M -> acc (M, ncols) f32: one
+    cooperative launch."""
     global matmul_only_launches
     if s.device.type == "cpu":
         return matmul_only_reference(s, b, iters)
     _check("matmul_only", s, b)
-    m, live = b.shape
-    if not (m > 0 and 1 <= live <= MAX_PROBE_COLS and iters >= 1
-            and smem_bytes(1, m) <= SMEM_LIMIT):
-        raise ValueError(f"matmul_only: unsupported shape M={m} ncols={live} iters={iters}")
-    ncols = -(-live // 8) * 8
-    if ncols != live:
-        b = torch.nn.functional.pad(b, (0, ncols - live))
+    m, ncols = b.shape
+    if not (iters >= 1 and matmul_only_fits(m, ncols)):
+        raise ValueError(f"matmul_only: unsupported shape M={m} ncols={ncols} iters={iters}")
+    plan = probe_plan(m, ncols, torch.cuda.get_device_properties(s.device).multi_processor_count)
     out = torch.empty_like(b)
-    dbuf = torch.zeros(2 * ncols * ldk(m), dtype=torch.bfloat16, device=s.device)
-    fn = build.function("r3d_matmul_only", [build.P, build.I, build.P, build.P, build.P,
-                                            build.I, build.I, build.I, build.I, build.P])
+    dbuf = torch.empty(2 * ncols * plan.ldb, dtype=torch.bfloat16, device=s.device)
+    part = torch.empty(plan.slots * plan.cols * PROBE_ROWS, dtype=torch.float32, device=s.device)
+    fn = build.function("r3d_matmul_only", [build.P, build.I, build.P, build.P, build.P, build.I,
+                                            build.P, build.I, build.I, build.I, build.I, build.I,
+                                            build.P])
     with torch.cuda.device(s.device):
-        err = fn(s.data_ptr(), m, b.data_ptr(), out.data_ptr(), dbuf.data_ptr(), m, ncols,
-                 ldk(m), iters, build.stream_ptr(s.device))
+        err = fn(s.data_ptr(), m, b.data_ptr(), out.data_ptr(), dbuf.data_ptr(), plan.ldb,
+                 part.data_ptr(), plan.slots, m, ncols, iters, plan.grid,
+                 build.stream_ptr(s.device))
     build.check(err, "r3d_matmul_only")
     matmul_only_launches += 1
-    return out[:, :live].contiguous() if ncols != live else out
+    return out

@@ -578,22 +578,26 @@ def test_proto_cheby_resident_rows_change_no_bit_on_card(m, resident_rows):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [4480, 1000])
-@pytest.mark.parametrize("ncols", [8, 128])
+@pytest.mark.parametrize("m", [4480, 1000, 1001, cuda_proto_cheby.MAX_PROBE_M])
+@pytest.mark.parametrize("ncols", [8, 24, 120, 128])
 @pytest.mark.parametrize("iters", [3, 500])
 def test_matmul_only_kernel_matches_plain_on_card(m, ncols, iters):
     """Kernel 11 on S uniform in [0, 1) scaled by 1 / its row sums (the
     archive's unscaled S overflows f32 within ~12 steps) and a normal b:
-    within 1e-4 of max at 3 steps, 5e-3 at 500; one launch per call."""
+    within 1e-4 of max at 3 steps, 5e-3 at 500; one launch per call, a
+    second call bit-equal.  M = 1001 loads S in 2-byte pieces (not a
+    multiple of 8); MAX_PROBE_M is the largest M the wrapper takes."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(m + ncols)
     a = rng.random((m, m), dtype=np.float32)
     s = torch.from_numpy(a / a.sum(1, keepdims=True)).to(torch.bfloat16).to(dev)
+    del a
     b = torch.from_numpy(rng.normal(size=(m, ncols)).astype(np.float32)).to(dev)
     before = cuda_proto_cheby.matmul_only_launches
     got = cuda_proto_cheby.matmul_only(s, b, iters)
     torch.cuda.synchronize()
     assert cuda_proto_cheby.matmul_only_launches == before + 1
+    assert torch.equal(got, cuda_proto_cheby.matmul_only(s, b, iters))
     want = cuda_proto_cheby.matmul_only_reference(s, b, iters)
     tol = 5e-3 if iters == 500 else 1e-4
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())
@@ -601,10 +605,10 @@ def test_matmul_only_kernel_matches_plain_on_card(m, ncols, iters):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["cheby_c129", "probe_ncols129", "cheby_strided_s",
-                                  "probe_strided_s"])
+                                  "probe_strided_s", "probe_iters0", "probe_m_past_range"])
 def test_proto_cheby_wrappers_raise_on_card(case):
     """What the kernels do not take raises: 129 live columns (the archives
-    pad to 128), a non-contiguous S."""
+    pad to 128), a non-contiguous S, no step, an M past MAX_PROBE_M."""
     dev = cuda_or_skip()
     s = torch.zeros((64, 64), dtype=torch.bfloat16, device=dev)
     strided = torch.zeros((64, 128), dtype=torch.bfloat16, device=dev)[:, ::2]
@@ -616,7 +620,12 @@ def test_proto_cheby_wrappers_raise_on_card(case):
         "cheby_strided_s": lambda: cuda_proto_cheby.proto_cheby_solve(
             strided, torch.ones((64, 3), device=dev), 0.99, 3),
         "probe_strided_s": lambda: cuda_proto_cheby.matmul_only(
-            strided, torch.ones((64, 8), device=dev), 3)}
+            strided, torch.ones((64, 8), device=dev), 3),
+        "probe_iters0": lambda: cuda_proto_cheby.matmul_only(
+            s, torch.ones((64, 8), device=dev), 0),
+        "probe_m_past_range": lambda: cuda_proto_cheby.matmul_only(
+            torch.zeros((cuda_proto_cheby.MAX_PROBE_M + 1,) * 2, dtype=torch.bfloat16, device=dev),
+            torch.ones((cuda_proto_cheby.MAX_PROBE_M + 1, 8), device=dev), 3)}
     with pytest.raises(ValueError):
         calls[case]()
 
@@ -889,7 +898,8 @@ def test_proto_cheby_more_than_eight_columns_on_card(c):
 @pytest.mark.parametrize("ncols", [1, 12, 127])
 def test_matmul_only_any_ncols_on_card(ncols):
     """Kernel 11 at a column count that is not a multiple of 8: one launch,
-    the zero-padded call's columns bit for bit, within 1e-4 of max of the
+    the columns of a call zero-padded to a multiple of 8 bit for bit (each
+    column's sums do not depend on the others), within 1e-4 of max of the
     plain version at 3 steps."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(ncols)

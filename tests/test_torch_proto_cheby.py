@@ -139,3 +139,139 @@ def test_ldk_keeps_b_loads_off_bank_conflicts():
         k = cuda_proto_cheby.ldk(m)
         assert k >= -(-m // 16) * 16 and k % 64 == 16 and k - m < 80
     assert cuda_proto_cheby.smem_bytes(2, 4480) <= cuda_proto_cheby.SMEM_LIMIT
+
+
+# ---- kernel 11's design (csrc/matmul_probe.cu), emulated on the CPU --------
+PLAN_M = [1, 15, 16, 17, 1000, 4396, 4480, cuda_proto_cheby.MAX_PROBE_M]
+
+
+@pytest.mark.parametrize("m", PLAN_M)
+@pytest.mark.parametrize("sms", [114, 132])
+def test_probe_split_covers_every_entry_of_s_once(m, sms):
+    """Kernel 11's work split (`probe_plan`, `probe_segments`): the blocks'
+    ranges are non-empty, within one unit of each other, and cover every
+    (row group, chunk) unit exactly once, so every (row, k) of S is read
+    once per step (a unit's rows and k tile [0, M) exactly); every segment
+    has its own slot; each row group's partials are added in k order."""
+    plan = cuda_proto_cheby.probe_plan(m, 128, sms)
+    assert plan.grid == min(sms, plan.units) and plan.ldb % 8 == 0 and plan.ldb >= m
+    sizes = [hi - lo for lo, hi in (cuda_proto_cheby.probe_range(plan, b)
+                                    for b in range(plan.grid))]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1 and sum(sizes) == plan.units
+    rows = [min(m, (r + 1) * 128) - r * 128 for r in range(plan.groups)]
+    kc = cuda_proto_cheby.PROBE_CHUNK
+    ks = [min(m, (c + 1) * kc) - c * kc for c in range(plan.chunks)]
+    assert min(rows) > 0 and sum(rows) == m and min(ks) > 0 and sum(ks) == m
+    count = np.zeros((plan.groups, plan.chunks), np.int64)
+    segments = cuda_proto_cheby.probe_segments(plan)
+    for blk, r, c0, c1, slot in segments:
+        assert 0 <= c0 < c1 <= plan.chunks
+        count[r, c0:c1] += 1
+        for c in (c0, c1 - 1):
+            assert cuda_proto_cheby.probe_owner(plan, r * plan.chunks + c) == blk
+    assert (count == 1).all()
+    slots = [seg[4] for seg in segments]
+    assert len(set(slots)) == len(slots) and max(slots) < plan.slots
+    for r in range(plan.groups):
+        mine = sorted((c0, slot) for blk, rr, c0, c1, slot in segments if rr == r)
+        assert cuda_proto_cheby.probe_reduce_order(plan, r) == [slot for _, slot in mine]
+
+
+def test_probe_columns_and_quads_cover_every_output_once():
+    """At every column count 1-128 a block computes probe_cols(ncols) >=
+    ncols columns within the shared memory limit, and the reduction's quads
+    of 4 rows (one column each) cover every (row, column) of acc once."""
+    for ncols in range(1, 129):
+        assert ncols <= cuda_proto_cheby.probe_cols(ncols) <= 128
+        assert cuda_proto_cheby.probe_smem_bytes(ncols) <= cuda_proto_cheby.SMEM_LIMIT
+        assert cuda_proto_cheby.matmul_only_fits(4480, ncols)
+    for m in (1, 15, 17, 130):
+        for ncols in (1, 7, 33, 128):
+            quads = -(-m // 4)
+            seen = np.zeros((m, ncols), np.int64)
+            for q in range(ncols * quads):
+                col, row = q // quads, 4 * (q % quads)
+                seen[row:min(m, row + 4), col] += 1
+            assert (seen == 1).all()
+    assert not cuda_proto_cheby.matmul_only_fits(4480, 129)
+    assert not cuda_proto_cheby.matmul_only_fits(cuda_proto_cheby.MAX_PROBE_M + 1, 8)
+
+
+def test_probe_range_of_m_is_the_earlier_kernels():
+    """The wrapper takes every M it took while kernel 11 staged an
+    8-column block of bf16(acc): MAX_PROBE_M is the largest M whose block
+    `smem_bytes(1, M)` fits."""
+    top = cuda_proto_cheby.MAX_PROBE_M
+    assert cuda_proto_cheby.smem_bytes(1, top) <= cuda_proto_cheby.SMEM_LIMIT
+    assert cuda_proto_cheby.smem_bytes(1, top + 1) > cuda_proto_cheby.SMEM_LIMIT
+
+
+def emulate_matmul_only(s: torch.Tensor, b: torch.Tensor, iters: int, sms: int) -> torch.Tensor:
+    """Kernel 11's arithmetic in its order of sums: each unit's product of
+    128 rows by 128 k summed from zero, a segment's units added in f32 in k
+    order, the partials of a row group added in `probe_reduce_order`, times
+    0.99, rounded to bf16 between steps."""
+    m, ncols = b.shape
+    plan = cuda_proto_cheby.probe_plan(m, ncols, sms)
+    kc = cuda_proto_cheby.PROBE_CHUNK
+    sf = s.float()
+    acc = b
+    for _ in range(iters):
+        z = acc.to(torch.bfloat16).float()
+        part = {}
+        for _, r, c0, c1, slot in cuda_proto_cheby.probe_segments(plan):
+            rows = sf[r * 128:(r + 1) * 128]
+            tot = rows[:, c0 * kc:(c0 + 1) * kc] @ z[c0 * kc:(c0 + 1) * kc]
+            for c in range(c0 + 1, c1):
+                tot = tot + rows[:, c * kc:(c + 1) * kc] @ z[c * kc:(c + 1) * kc]
+            part[slot] = tot
+        sums = []
+        for r in range(plan.groups):
+            order = cuda_proto_cheby.probe_reduce_order(plan, r)
+            tot = part[order[0]]
+            for slot in order[1:]:
+                tot = tot + part[slot]
+            sums.append(tot)
+        acc = torch.cat(sums) * cuda_proto_cheby.SCALE
+    return acc
+
+
+@pytest.mark.parametrize("m", [300, 1001])
+@pytest.mark.parametrize("ncols", [24, 120])
+@pytest.mark.parametrize("sms", [7, 132])
+def test_emulated_order_of_sums_matches_plain(m, ncols, sms):
+    """The emulation on S uniform in [0, 1) scaled by 1 / its row sums: 1
+    step within 1e-6 of max of `matmul_only_reference` (the same products,
+    f32 sums in another order), 3 steps within 1e-4 (the card's gate: a
+    bf16 rounding of acc may flip).  sms = 7 puts several row groups in a
+    block; 132 one unit in most blocks."""
+    rng = np.random.default_rng(m + ncols + sms)
+    a = rng.random((m, m), dtype=np.float32)
+    s = torch.from_numpy(a / a.sum(1, keepdims=True)).to(torch.bfloat16)
+    b = torch.from_numpy(rng.normal(size=(m, ncols)).astype(np.float32))
+    for iters, tol in ((1, 1e-6), (3, 1e-4)):
+        got = emulate_matmul_only(s, b, iters, sms)
+        want = cuda_proto_cheby.matmul_only_reference(s, b, iters)
+        assert got.shape == want.shape == (m, ncols)
+        assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("ncols", [24, 120])
+def test_emulated_order_of_sums_matches_archive(probe_size, ncols):
+    """The emulation against `make_matmul_only` in interpret mode at M =
+    300 and ITERS = 3 on a grid of 4 blocks (three row groups of three
+    chunks, the second block across two): within 1e-4 of max."""
+    probe_size(300, 3)
+    rng = np.random.default_rng(ncols)
+    s = jnp.asarray(rng.random((300, 300), dtype=np.float32), jnp.bfloat16)
+    b = rng.normal(size=(300, ncols)).astype(np.float32)
+    want = np.asarray(probe.make_matmul_only(ncols, None)(s, jnp.asarray(b)))
+    plan = cuda_proto_cheby.probe_plan(300, ncols, 4)
+    assert (plan.groups, plan.chunks, plan.grid) == (3, 3, 4)
+    assert [seg[:2] for seg in cuda_proto_cheby.probe_segments(plan)] == [(0, 0), (1, 0), (1, 1),
+                                                                          (2, 1), (3, 2)]
+    got = emulate_matmul_only(
+        torch.from_numpy(np.array(s.astype(jnp.float32))).to(torch.bfloat16),
+        torch.from_numpy(b), 3, 4).numpy()
+    assert got.shape == want.shape == (300, ncols)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
