@@ -11,8 +11,8 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
   1. build every kernel of `r3dfsseg_tpu_torch/csrc/` with nvcc, and print
      the kNN, FPS, Chebyshev, matvec probe, scatter-add, k-th distance and
      attention kernels' registers and spills (-Xptxas -v); the wide and
-     grouped tensor-core attention kernels and kernel 11's six
-     instantiations must not spill;
+     grouped tensor-core attention kernels, the six instantiations of
+     kernel 2's wgmma bf16 form and kernel 11's six must not spill;
   2. call each kernel at the flagship shapes of its path and hold it
      against its plain PyTorch version on the same inputs (kNN: the
      neighbour sets, differences only at near-ties, two calls bit-equal,
@@ -169,9 +169,11 @@ phase 2b alone, `--only f2` phase 2c alone, `--only fused` a digest
 of kernel 9's f32 passes' output bits at the flagship shape on seeded
 inputs with their times (the same on two trees shows the f32 form
 unchanged), and `--only attn` the same for the attention kernels
-(`attention_digest`), with the f32 pair's times at D = 128 and the bf16
-pair's at D = 320 on whichever kernels the tree runs (and each kernel's
-device time), so that another tree's kernels can be timed with the same
+(`attention_digest`, with a digest of the bf16 backward alone at D = 64
+fed the plain forward's y and lse), with the f32 pair's times at D = 128
+and the bf16 pair's at D = 320 on whichever kernels the tree runs (and each
+kernel's device time) and the bf16 forward's at D = 64 per call beside
+flash, so that another tree's kernels can be timed with the same
 code (put that tree's root first on sys.path and run this file with
 runpy; the tree's modules need the plain versions these checks call:
 `cheby_solve_split_reference` and `scatter_add_ordered_reference`);
@@ -789,6 +791,39 @@ def sdpa_flash(torch, q, k, v, rate, tau):
                                               dropout_p=rate, scale=1 / tau).squeeze(1)
 
 
+def bf16_forward_times(torch, attn_mod, calls, tau, rate, reps: int = 10) -> dict:
+    """Per call of the bf16 forward at D <= 64 on each of ``calls`` ((q,
+    k, v, dy, seed), one per batch size) and of SDPA pinned to flash on the
+    same inputs: CUDA events around one call (the host's enqueue included,
+    as a step sees it), around 20 calls back to back (the host hidden), and
+    the device time of the kernels alone (`device_ms`: names holding
+    "attn_fwd_bf16", "flash"), also at rate 0 (what the dropout mask
+    costs)."""
+    out = {}
+    for q, k, v, _, seed in calls:
+        b = q.shape[0]
+
+        def kernel(q=q, k=k, v=v, seed=seed):
+            return attn_mod.attention_fwd(q, k, v, tau, rate, seed)
+
+        def flash(q=q, k=k, v=v):
+            return sdpa_flash(torch, q, k, v, rate, tau)
+
+        def kernel0(q=q, k=k, v=v, seed=seed):
+            return attn_mod.attention_fwd(q, k, v, tau, 0.0, seed)
+
+        def flash0(q=q, k=k, v=v):
+            return sdpa_flash(torch, q, k, v, 0.0, tau)
+
+        for tag, fn, fn0, key in (("", kernel, kernel0, "attn_fwd_bf16"),
+                                  ("lib_", flash, flash0, "flash")):
+            out[f"{tag}ms_b{b}"] = cuda_ms(fn, reps)
+            out[f"{tag}ms20_b{b}"] = cuda_ms(fn, reps, per=20)
+            out[f"{tag}device_ms_b{b}"] = device_ms(fn, key)
+            out[f"{tag}device_ms_b{b}_rate0"] = device_ms(fn0, key)
+    return out
+
+
 def check_attention_bf16(torch, attn_mod):
     """The bf16 forms of kernels 2 and 5 (the bf16 encoder's) at the
     training shapes, B = 10 and 2, N = 2048, D = 64, with dropout 0.1 and
@@ -800,7 +835,9 @@ def check_attention_bf16(torch, attn_mod):
     SDPA pinned to flash on the same bf16 inputs (`sdpa_flash`), forward
     alone and backward alone.  Bounds: 4 B N^2 D and 10 B N^2 D operations
     on the bf16 tensor cores; bytes: q, k, v bf16 read, y (and dy) f32,
-    lse, and dq, dk, dv f32 written."""
+    lse, and dq, dk, dv f32 written.  The forward also per call at each
+    batch size beside flash (`bf16_forward_times`: events around one call
+    and around 20, and device time)."""
     g = torch.Generator(device="cuda").manual_seed(14)
     tau, bf16 = 8.0, torch.bfloat16
     calls = []
@@ -862,13 +899,20 @@ def check_attention_bf16(torch, attn_mod):
         t[f"fwd_b{b}"] = cuda_ms(fwd(attn_mod.attention_fwd, saved[i:i + 1]), 10)
         t[f"bwd_b{b}"] = cuda_ms(bwd(attn_mod.attention_bwd, saved[i:i + 1]), 10)
     log("  attention bf16 per step (ms): " + ", ".join(f"{n} {v:.4f}" for n, v in t.items()))
+    per_call = bf16_forward_times(torch, attn_mod, [(q, k, v, dy, seed)
+                                                    for q, k, v, dy, seed, *_ in saved], tau, rate)
+    log("  attention bf16 forward per call (ms; lib_ is flash): " +
+        ", ".join(f"{n} {v:.4f}" for n, v in per_call.items()))
     bn2d = sum(q.shape[0] for q, *_ in saved) * 2048 ** 2 * 64
     n = sum(q.numel() for q, *_ in saved)
     rows = sum(q.shape[0] * q.shape[1] for q, *_ in saved)
     fwd_bytes = 3 * 2.0 * n + 4.0 * n + 4.0 * rows
     bwd_bytes = 3 * 2.0 * n + 2 * 4.0 * n + 4.0 * rows + 3 * 4.0 * n
+    extra = {n: v for n, v in per_call.items() if not n.startswith("ms_")}
+    extra["device_ms"] = extra["device_ms_b10"] + extra["device_ms_b2"]
+    extra["library_device_ms"] = extra["lib_device_ms_b10"] + extra["lib_device_ms_b2"]
     return (row(fwd_err, t["fwd"], t["fwd_plain"], t["lib_fwd"], 4.0 * bn2d, fwd_bytes,
-                BF16_TC_FLOPS, ms_b10=t["fwd_b10"], ms_b2=t["fwd_b2"]),
+                BF16_TC_FLOPS, ms_b10=t["fwd_b10"], ms_b2=t["fwd_b2"], **extra),
             row(bwd_err, t["bwd"], t["bwd_plain"], t["lib_bwd"], 10.0 * bn2d, bwd_bytes,
                 BF16_TC_FLOPS, ms_b10=t["bwd_b10"], ms_b2=t["bwd_b2"],
                 ms_pair=t["fwd"] + t["bwd"], library_ms_pair=t["lib_fwd"] + t["lib_bwd"]))
@@ -1603,11 +1647,16 @@ def attention_digest(torch, attn_mod, seed: int) -> dict:
     training step at B = 10 and 2, N = 2048, rate 0.1, for the tuned f32
     and bf16 kernels at D = 64 and D = 12 (bf16: the zero pad), the f32
     wide kernels at D = 128 and the bf16 wide tensor-core kernels at D =
-    128, 100 (the zero pad to 104) and 256.  Then the f32 pair at D = 128
-    and the bf16 pair at D = 320, on whichever kernels the tree routes them
-    to (the launch counters that moved are printed), and SDPA's
-    memory-efficient backend beside each: their times per step
-    (`attention_times`, rate 0.1)."""
+    128, 100 (the zero pad to 104) and 256; and of the bf16 backward alone
+    at D = 64 (`bfloat16_d64_bwd`: dq, dk, dv from the plain forward's y
+    and lse, so that kernel 5's bf16 bits are held across trees whose
+    forwards sum in another order).  Then the f32 pair at D = 128 and the
+    bf16 pair at D = 320, on whichever kernels the tree routes them to (the
+    launch counters that moved are printed), and SDPA's memory-efficient
+    backend beside each: their times per step (`attention_times`, rate
+    0.1); and the bf16 forward at D = 64 per call at B = 10 and 2 beside
+    flash (`bf16_forward_times`), and, on a tree whose kernel takes a
+    pinned cluster size, its device time at each size."""
     import hashlib
     g = torch.Generator(device="cuda").manual_seed(seed + 31)
     out = {}
@@ -1621,6 +1670,30 @@ def attention_digest(torch, attn_mod, seed: int) -> dict:
             calls.append((q.to(dtype), k.to(dtype), v.to(dtype), dy, s))
         tau = d ** 0.5
         key = f"{dtype_name}_d{d}"
+        if (dtype_name, d) == ("bfloat16", 64):
+            h = hashlib.sha256()
+            for q, k, v, dy, s in calls:
+                y, lse = attn_mod.attention_fwd_reference(q, k, v, tau, 0.1, s)
+                for x in attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, s):
+                    h.update(x.contiguous().cpu().numpy().tobytes())
+            out["bfloat16_d64_bwd"] = h.hexdigest()[:16]
+            log(f"  attention bfloat16 D=64 backward alone (plain y, lse): sha256 "
+                f"{out['bfloat16_d64_bwd']}")
+            out["bf16_d64_fwd"] = bf16_forward_times(torch, attn_mod, calls, tau, 0.1)
+            lib = build_lib()
+            if hasattr(lib, "r3d_attn_fwd_bf16_force_cluster"):
+                pin = lib.r3d_attn_fwd_bf16_force_cluster
+                for c in (1, 2, 4):
+                    pin(c)
+                    try:
+                        for q, k, v, _, s in calls:
+                            out["bf16_d64_fwd"][f"device_ms_b{q.shape[0]}_c{c}"] = device_ms(
+                                lambda: attn_mod.attention_fwd(q, k, v, tau, 0.1, s),
+                                "attn_fwd_bf16")
+                    finally:
+                        pin(0)
+            log("  attention bfloat16 D=64 forward per call (ms; lib_ is flash): " + ", ".join(
+                f"{n} {v:.4f}" for n, v in out["bf16_d64_fwd"].items()))
         if (dtype_name, d) != ("bfloat16", 320):
             h = hashlib.sha256()
             for q, k, v, dy, s in calls:
@@ -2322,6 +2395,13 @@ def fused_digest(torch, cfe, seed: int) -> dict:
                          ms=cuda_ms(lambda: getattr(cfe, name)(*a), 10))
         log(f"  fused_edge f32 {name}: sha256 {out[name]['sha256']}, {out[name]['ms']:.3f} ms")
     return out
+
+
+def build_lib():
+    """The tree's kernel library (ctypes), for its entry points that no
+    wrapper calls."""
+    from r3dfsseg_tpu_torch.kernels import build
+    return build.library()
 
 
 def device_kernels(torch, fn, reps: int = 3):
@@ -3252,7 +3332,8 @@ def main() -> int:
                          "distance, general scatter-add; the F2 paths: general kernel 9, the "
                          "narrow gather, kernels 10 and 11 past 8 columns; kernel 9's f32 "
                          "passes' output digests; or the attention kernels' output digests and "
-                         "the f32 D = 128 and bf16 D = 320 pairs' times; or kernels 7 and "
+                         "the f32 D = 128 and bf16 D = 320 pairs' times and the bf16 D = 64 "
+                         "forward's beside flash; or kernels 7 and "
                          "10's digests and kernel 11's times) kernel checks, and "
                          "print their rows "
                          "(to time them beside another tree's kernels)")
@@ -3278,7 +3359,8 @@ def main() -> int:
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        if ("registers" in line or "spill" in line or "error" in line.lower()) and \
+                "(C7519)" not in line:   # ptxas's notes on the wgmma register A operands
             log("  " + line.strip())
     for line in ptxas_report(build.build_log):
         log("  [ptxas] " + line)
@@ -3304,6 +3386,20 @@ def main() -> int:
             f"{len(tc) // 2} entries, no spill")
     else:
         log("  [ptxas] cached build: spill check not run")
+    if not hasattr(cuda_attention, "fwd_bf16_plan"):
+        log("  [ptxas] a tree without the wgmma bf16 forward: its spill check not run")
+    elif build.build_log:
+        fw = ptxas_report(build.build_log, ("attn_fwd_bf16_wgmma_kernel",))
+        missing = [f"C={c} dropout={dr}" for c in (1, 2, 4) for dr in (0, 1)
+                   if not any(x.startswith(f"attn_fwd_bf16_wgmma_kernelILi{c}ELb{dr}E")
+                              for x in fw)]
+        spills = [x for x in fw
+                  if "spill" in x and " 0 bytes spill stores, 0 bytes spill loads" not in x]
+        if missing or spills:
+            raise AssertionError(f"kernel 2's bf16 form (attn_fwd_bf16_wgmma_kernel): no ptxas "
+                                 f"report for {missing}, spills {spills}")
+        log(f"  [ptxas] kernel 2's bf16 form (attn_fwd_bf16_wgmma_kernel): {len(fw) // 2} "
+            f"entries, no spill")
     if not hasattr(cuda_proto_cheby, "probe_plan"):
         log("  [ptxas] a tree without kernel 11's split of S: its spill check not run")
     elif build.build_log:
@@ -3643,7 +3739,7 @@ def main() -> int:
     sources = {"knn": ("knn.cu", "r3dfsseg_tpu/ops/pallas_knn.py:27"),
                "attention_fwd": ("attention_fwd.cu", "r3dfsseg_tpu/ops/pallas_attention.py:54"),
                "attention_bwd": ("attention_bwd.cu", "r3dfsseg_tpu/ops/pallas_attention.py:78"),
-               "attention_fwd_bf16": ("attention_fwd.cu",
+               "attention_fwd_bf16": ("attention_fwd_bf16.cu",
                                       "r3dfsseg_tpu/ops/pallas_attention.py:54"),
                "attention_bwd_bf16": ("attention_bwd.cu",
                                       "r3dfsseg_tpu/ops/pallas_attention.py:78"),

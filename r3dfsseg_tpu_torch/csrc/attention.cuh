@@ -1,5 +1,6 @@
 // Tiles, fragments and mask bits shared by the attention kernels
-// (attention_fwd.cu, kernel 2; attention_bwd.cu, kernel 5).
+// (attention_fwd.cu and attention_fwd_bf16.cu, kernel 2; attention_bwd.cu,
+// kernel 5).
 //
 // Every product is a 3xTF32 mma.sync.m16n8k8 (common.cuh).  A block has
 // kWarps warps and streams kChunk-row tiles of the "column" operands (K and
@@ -615,7 +616,7 @@ __device__ __forceinline__ void finish_rows(float* smem, float (&o)[NO][4], floa
   }
 }
 
-// ---- the bf16 forward's two passes (attention_fwd.cu, attention_wide_bf16.cu)
+// ---- the bf16 forward's two passes (attention_fwd_bf16.cu, attention_wide_bf16.cu)
 
 // Scores of keys past n (a ragged last tile) to -inf.
 template <int NT>

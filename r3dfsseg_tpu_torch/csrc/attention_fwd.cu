@@ -1,6 +1,6 @@
 // Single-head attention forward, softmax(q k^T * scale) [dropout] v, for
-// f32 q, k, v (r3d_attn_fwd) and for bf16 ones (r3d_attn_fwd_bf16, the
-// bf16 encoder's; its kernel below says what differs).
+// f32 q, k, v (r3d_attn_fwd).  The bf16 form (r3d_attn_fwd_bf16, the bf16
+// encoder's) is attention_fwd_bf16.cu.
 //
 // Replaces the TPU kernel r3dfsseg_tpu/ops/pallas_attention.py:
 // _attn_fwd_kernel (via _fwd_impl), in eval mode and in training with
@@ -112,119 +112,6 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   finish_rows<S>(smem, o, m, l, y, lse, base, b, n, d, d, row0, warp, g, t);
 }
 
-// The bf16 form (q, k, v bf16; attention.cuh's bf16 tiles): the TPU
-// kernel's lowp arithmetic (pallas_attention.py:57-73).  q * scale with
-// scale = bf16(1 / tau), rounded to bf16, is the A operand in registers;
-// S = q k^T and O += P V are single bf16 mma.sync.m16n8k16 tiles with f32
-// sums.  The TPU kernel rounds the normalised p = exp(s - m) / l to bf16
-// before p v, so this form takes two passes over the keys:
-//   1. K alone streams through the ring (two stages of one 8 KB tile); each
-//      warp keeps its rows' max m and sum l of exp(s - m) as the f32 form's
-//      online softmax does (`row_stats`), and the S splits of a row group
-//      merge theirs in split order, so that every warp of the group holds
-//      the row's own m and l (`merge_stats`);
-//   2. K and V stream through the ring (two stages of two tiles); P = exp(s
-//      - m) * (1 / l) in f32, times the mask in f32, rounded to bf16 as the
-//      A operand of P V; O sums P V, and the splits' partial outputs are
-//      added in split order (`finish_sums`).
-// The cost over one pass is a second q k^T product and a second read of K.
-// y and lse are f32.
-constexpr size_t kSmemBF16 = sizeof(uint16_t) * 4 * kTileF + sizeof(float) * 4 * kThreads;
-
-template <int S, bool kDropout>
-__global__ void __launch_bounds__(kThreads, 2)
-attn_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                     const uint16_t* __restrict__ v, float* __restrict__ y,
-                     float* __restrict__ lse, int n, int d, float scale, r3d::Dropout drop) {
-  constexpr int kCols = kChunk / S;  // keys of a tile per warp
-  constexpr int NT = kCols / 8;
-  extern __shared__ __align__(16) float smem[];
-  uint16_t* ring = reinterpret_cast<uint16_t*>(smem);
-  float* slots = smem + 2 * kTileF;  // past the ring's 4 bf16 tiles
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * (16 * kWarps / S) + 16 * (warp / S);
-  const int col0 = (warp % S) * kCols;
-  const size_t base = static_cast<size_t>(b) * n * d;
-  const int tiles = (n + kChunk - 1) / kChunk;
-
-  stage_tile_bf16(k + base, 0, n, d, ring);
-  r3d::cp_async_commit();
-  uint32_t qa[4][4];
-  load_rows_bf16(q + base, row0, n, d, scale, qa);
-
-  // 1. the row statistics
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  for (int c = 0; c < tiles; ++c) {
-    const uint16_t* kt = ring + (c & 1) * kTileF;
-    r3d::cp_async_wait_all();
-    __syncthreads();  // tile c has arrived; every warp is done with tile c - 1
-    if (c + 1 < tiles)
-      stage_tile_bf16(k + base, (c + 1) * kChunk, n, d, ring + ((c + 1) & 1) * kTileF);
-    r3d::cp_async_commit();
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    product_along_channels_bf16<NT>(s, qa, kt, col0, d);
-    mask_ragged_keys<NT>(s, c * kChunk + col0, n, t);
-    row_stats<NT>(s, m, l);
-  }
-  merge_stats<S>(slots, m, l, warp);
-  const float inv[2] = {1.f / l[0], 1.f / l[1]};
-
-  // 2. O = P V with the normalised P
-  __syncthreads();  // every warp is done with pass 1's ring
-  stage_tile_bf16(k + base, 0, n, d, ring);
-  stage_tile_bf16(v + base, 0, n, d, ring + kTileF);
-  r3d::cp_async_commit();
-  float o[8][4];
-#pragma unroll
-  for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nn][e] = 0.f;
-  for (int c = 0; c < tiles; ++c) {
-    const uint16_t* kt = ring + (c & 1) * 2 * kTileF;
-    r3d::cp_async_wait_all();
-    __syncthreads();  // tile c has arrived; every warp is done with tile c - 1
-    if (c + 1 < tiles) {
-      uint16_t* next = ring + ((c + 1) & 1) * 2 * kTileF;
-      stage_tile_bf16(k + base, (c + 1) * kChunk, n, d, next);
-      stage_tile_bf16(v + base, (c + 1) * kChunk, n, d, next + kTileF);
-    }
-    r3d::cp_async_commit();
-
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    product_along_channels_bf16<NT>(s, qa, kt, col0, d);
-    const int key0 = c * kChunk + col0;
-    mask_ragged_keys<NT>(s, key0, n, t);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[j][e] = exp2_fast((s[j][e] - m[e >> 1]) * kLog2e) * inv[e >> 1];  // 0 on masked keys
-      if constexpr (kDropout) {
-        const float4 f = row_mask(drop, b, row0 + g, key0 + 8 * j + 2 * t);
-        s[j][0] *= f.x;
-        s[j][1] *= f.y;
-        s[j][2] *= f.z;
-        s[j][3] *= f.w;
-      }
-    }
-    product_along_rows_bf16<NT>(o, s, kt + kTileF, col0, d);
-  }
-
-  finish_sums<S>(smem, o, m, l, y, lse, base, b, n, d, d, row0, warp, g, t);
-}
-
 // The mask's raw words, (B, N, N) uint32: word (b, i, j) as the kernels
 // above and attention_bwd.cu draw it.  Only for checking the bits against
 // the plain version; nothing on the model's path calls it.
@@ -250,17 +137,6 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* y,
                               v, y, lse, n, d, scale, drop);
 }
 
-template <int S>
-cudaError_t launch_fwd_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v, float* y,
-                            float* lse, int b, int n, int d, float scale, bool dropout,
-                            r3d::Dropout drop, cudaStream_t st) {
-  const dim3 grid((n + 16 * kWarps / S - 1) / (16 * kWarps / S), b);
-  return dropout ? r3d_launch(attn_fwd_bf16_kernel<S, true>, grid, dim3(kThreads), kSmemBF16,
-                              st, q, k, v, y, lse, n, d, scale, drop)
-                 : r3d_launch(attn_fwd_bf16_kernel<S, false>, grid, dim3(kThreads), kSmemBF16,
-                              st, q, k, v, y, lse, n, d, scale, drop);
-}
-
 }  // namespace
 
 // lse may be null (eval); otherwise it receives the (B, N) row
@@ -283,30 +159,6 @@ R3D_EXPORT int r3d_attn_fwd(const void* q, const void* k, const void* v, void* y
       return launch_fwd<2>(qp, kp, vp, yp, lp, b, n, d, scale, dropout != 0, drop, st);
     default:
       return launch_fwd<4>(qp, kp, vp, yp, lp, b, n, d, scale, dropout != 0, drop, st);
-  }
-}
-
-// The bf16 form: q, k, v (B, N, D) bf16 with D % 8 == 0, D <= 64; y, lse
-// f32; scale = bf16(1 / tau).
-R3D_EXPORT int r3d_attn_fwd_bf16(const void* q, const void* k, const void* v, void* y,
-                                 void* lse, int b, int n, int d, float scale, int dropout,
-                                 unsigned seed_lo, unsigned seed_hi, unsigned threshold,
-                                 float keep_scale, void* stream) {
-  if (d < 8 || d > kDP || d % 8 != 0) return cudaErrorInvalidValue;
-  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
-  auto st = static_cast<cudaStream_t>(stream);
-  auto qp = static_cast<const uint16_t*>(q);
-  auto kp = static_cast<const uint16_t*>(k);
-  auto vp = static_cast<const uint16_t*>(v);
-  auto yp = static_cast<float*>(y);
-  auto lp = static_cast<float*>(lse);
-  switch (splits(b, n)) {
-    case 1:
-      return launch_fwd_bf16<1>(qp, kp, vp, yp, lp, b, n, d, scale, dropout != 0, drop, st);
-    case 2:
-      return launch_fwd_bf16<2>(qp, kp, vp, yp, lp, b, n, d, scale, dropout != 0, drop, st);
-    default:
-      return launch_fwd_bf16<4>(qp, kp, vp, yp, lp, b, n, d, scale, dropout != 0, drop, st);
   }
 }
 

@@ -10,9 +10,10 @@
 // _bwd_impl :190), their lowp branch at D > 64 (the pretraining network's
 // 128-wide head, r3dfsseg_tpu/config.py:60; `--output_dim` above 64 on the
 // bf16 encoder).  The function and its roundings are the tuned bf16 forms'
-// (attention_fwd.cu:r3d_attn_fwd_bf16, attention_bwd.cu:r3d_attn_bwd_bf16):
-// the same Philox mask, q * bf16(1 / tau) rounded to bf16, bf16
-// mma.sync.m16n8k16 products with f32 sums; forward in two passes (each
+// (attention_fwd_bf16.cu:r3d_attn_fwd_bf16,
+// attention_bwd.cu:r3d_attn_bwd_bf16): the same Philox mask, q * bf16(1 /
+// tau) rounded to bf16, bf16 products with f32 sums (mma.sync.m16n8k16
+// here, wgmma in the tuned forward); forward in two passes (each
 // row's max m and sum l over all keys, then P = exp(s - m) * (1 / l) times
 // the mask, rounded to bf16 before P V: the TPU kernel rounds the
 // normalised P), lse = m + log l and y in f32; backward with P = exp(s -

@@ -1,5 +1,6 @@
 """Single-head attention with dropout, forward and backward: the Hopper
-kernels `csrc/attention_fwd.cu` and `csrc/attention_bwd.cu` (D <= 64),
+kernels `csrc/attention_fwd.cu` (f32) and `csrc/attention_fwd_bf16.cu`
+(bf16) and `csrc/attention_bwd.cu` (D <= 64),
 `csrc/attention_wide_bf16.cu` (bf16, 64 < D <= 256),
 `csrc/attention_group_bf16.cu` (bf16, D > 256) and `csrc/attention_wide.cu`
 (f32, D > 64, 3xTF32 tiles in channel groups), and their plain versions.
@@ -45,7 +46,12 @@ arithmetic (`pallas_attention.py:54-125`): q * bf16(1/tau) rounded to bf16,
 `mma.sync.m16n8k16` bf16 products with f32 sums in place of the 3xTF32
 split, the softmax and the mask in f32, the normalised P rounded to bf16
 before P V (the forward takes a first pass over the keys for each row's
-max and sum), an f32 output; the backward rounds dY, Pd and dS to bf16
+max and sum), an f32 output.  That forward runs `wgmma` bf16 tiles, two
+warpgroups of 64 query rows a block, with the keys cut over the 1, 2 or 4
+blocks of a thread block cluster (`fwd_bf16_cluster`, `fwd_bf16_plan`
+mirror the launch) whose statistics and partial outputs are merged in
+rank order through distributed shared memory.  The backward rounds dY, Pd
+and dS to bf16
 before their products, takes dQ = dS K / tau and dK = dS^T q / tau with
 the unscaled q, and `fused_attention` casts the f32 cotangents to bf16.
 One difference from the TPU kernel: the backward takes rowsum(dP * P) as
@@ -302,7 +308,8 @@ def _layout(q: torch.Tensor) -> int:
 
 def _route(q: torch.Tensor) -> str:
     """The kernels a CUDA call runs after `_layout`'s pad: 'tuned'
-    (`attention_fwd.cu`, `attention_bwd.cu`; D <= MAX_D), 'wide_tc' (bf16,
+    (`attention_fwd.cu` or `attention_fwd_bf16.cu`, `attention_bwd.cu`; D
+    <= MAX_D), 'wide_tc' (bf16,
     MAX_D < D <= MAX_D_WIDE_TC: `attention_wide_bf16.cu`), 'wide_group'
     (bf16, D > MAX_D_WIDE_TC: `attention_group_bf16.cu`) or 'wide_tf32'
     (f32, D > MAX_D: `attention_wide.cu`)."""
@@ -323,6 +330,33 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
     16-byte copies and loads need (a view may start anywhere)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# csrc/attention_fwd_bf16.cu's launch, mirrored for the CPU tests
+FWD_BF16_BLOCK_ROWS = 64    # query rows of a block (one warpgroup)
+FWD_BF16_KEYS = 64          # keys of a staged tile
+
+
+def fwd_bf16_cluster(b: int, n: int, sms: int = 132) -> int:
+    """The cluster size C (1, 2 or 4) of the bf16 forward at D <= 64
+    (`attention_fwd_bf16.cu:cluster_size`): the smallest C whose B *
+    ceil(N / 64) * C blocks start at least four on each of ``sms`` SMs,
+    else 4."""
+    tiles = b * -(-n // FWD_BF16_BLOCK_ROWS)
+    return next((c for c in (1, 2) if tiles * c >= 4 * sms), 4)
+
+
+def fwd_bf16_plan(b: int, n: int, sms: int = 132):
+    """(C, blocks): the launch of the bf16 forward at D <= 64, one entry
+    (cloud, first row, first key tile, key tile past the last) per block,
+    in the grid's order: block x of cloud b is rank x % C of the cluster
+    of row tile x // C, and takes the key tiles [r T / C, (r + 1) T / C)
+    of the T = ceil(N / 64)."""
+    c = fwd_bf16_cluster(b, n, sms)
+    tiles = -(-n // FWD_BF16_KEYS)
+    rows = -(-n // FWD_BF16_BLOCK_ROWS)
+    return c, [(bb, (x // c) * FWD_BF16_BLOCK_ROWS, (x % c) * tiles // c,
+                (x % c + 1) * tiles // c) for bb in range(b) for x in range(rows * c)]
 
 
 _FWD_NAMES = {("tuned", False): "r3d_attn_fwd", ("tuned", True): "r3d_attn_fwd_bf16",

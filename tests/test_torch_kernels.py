@@ -1222,6 +1222,63 @@ def test_attention_bf16_kernels_match_plain_on_card(b, n, d, rate):
         (counts[0] + 2, counts[1] + 2)
 
 
+def _bf16_forward_meets_gates(q, k, v, tau, rate, seed):
+    """The bf16 forward at D <= 64 (`csrc/attention_fwd_bf16.cu`) against
+    its plain version with q scaled as the kernel scales it: lse rtol/atol
+    1e-5, y within ATTN_BF16_FWD_TOL of its largest entry; a second call
+    bit-equal; one launch each."""
+    before = cuda_attention.bf16_launches
+    y, lse = cuda_attention.attention_fwd(q, k, v, tau, rate, seed)
+    y2, lse2 = cuda_attention.attention_fwd(q, k, v, tau, rate, seed)
+    torch.cuda.synchronize()
+    assert cuda_attention.bf16_launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(lse, lse2)
+    want_y, want_lse = cuda_attention.attention_fwd_reference(q, k, v, tau, rate, seed,
+                                                              kernel_scale=True)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    assert float((y - want_y).abs().max()) <= \
+        chip_smoke.ATTN_BF16_FWD_TOL * float(want_y.abs().max())
+    return y, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,rate", [(1, 300, 8, 0.1), (2, 300, 16, 0.0), (10, 300, 24, 0.1),
+                                        (2, 300, 64, 0.0), (10, 300, 8, 0.0), (1, 300, 64, 0.1),
+                                        (2, 2049, 64, 0.1), (1, 2049, 24, 0.0),
+                                        (10, 2049, 16, 0.1), (10, 2049, 64, 0.0),
+                                        (2, 2049, 8, 0.0), (1, 2048, 64, 0.1)])
+def test_attention_bf16_forward_ragged_and_narrow_on_card(b, n, d, rate):
+    """The wgmma forward at ragged N (a cut last key tile and row tile),
+    at D = 8, 16, 24 (channels zero to the next 16) and 64, B = 1, 2, 10,
+    rate 0 and 0.1: the gates of `_bf16_forward_meets_gates`."""
+    dev = cuda_or_skip()
+    q, k, v, _ = _bf16_qkv(n + d + b, b, n, d, dev)
+    _bf16_forward_meets_gates(q, k, v, float(d) ** 0.5, rate, 31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,cluster", [(2, 1), (2, 2), (2, 4), (10, 1), (10, 4)])
+def test_attention_bf16_forward_cluster_routes_on_card(b, cluster):
+    """The training shapes (N = 2048, D = 64, rate 0.1) with the cluster
+    size pinned to 1, 2 and 4: each meets the gates and repeats bit for
+    bit.  Unpinned, the kernel takes the size that `fwd_bf16_cluster`
+    computes for this card's SMs (on 132 SMs 2 at B = 10 and 4 at B = 2:
+    the cluster route)."""
+    from r3dfsseg_tpu_torch.kernels import build
+    dev = cuda_or_skip()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    size = build.function("r3d_attn_fwd_bf16_cluster_size", [build.I, build.I])
+    assert size(b, 2048) == cuda_attention.fwd_bf16_cluster(b, 2048, sms)
+    q, k, v, _ = _bf16_qkv(b + 70, b, 2048, 64, dev)
+    pin = build.function("r3d_attn_fwd_bf16_force_cluster", [build.I])
+    build.check(pin(cluster), "r3d_attn_fwd_bf16_force_cluster")
+    try:
+        assert size(b, 2048) == cluster
+        _bf16_forward_meets_gates(q, k, v, 8.0, 0.1, 41)
+    finally:
+        build.check(pin(0), "r3d_attn_fwd_bf16_force_cluster")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [10, 2])
 def test_scatter_add_bf16_bit_equals_the_f32_form_on_card(b):
