@@ -24,9 +24,10 @@
 // and in training one Philox4x32-10 per 4 scores.  The bytes are far
 // below (q, k, v read, y and lse written: 2.6 MB a step).  Measured
 // (PERF.md), the CUDA cores pace it, not the tensor cores: scratch
-// variants without the products ran as fast, and the mask's Philox (20
-// 32 x 32 -> 64-bit multiplies a call, on the integer multiply pipe) takes
-// some 40% of a training call.
+// variants without the products ran as fast, and the mask's Philox takes
+// some 40% of a training call (hoisting the 4 of its 19 per-score
+// multiplies that depend on the row or the key group alone did not change
+// that).
 //
 // Design:
 // - Products: wgmma.m64n64k16 bf16 tiles (wgmma.cuh).  A block holds 64

@@ -43,15 +43,15 @@ another order (forward: rtol 1e-4, atol 1e-5).
 The bf16 form (q, k, v bf16, the bf16 encoder's; `bf16_launches` and
 `bwd_bf16_launches` count its calls apart) takes the TPU kernel's `lowp`
 arithmetic (`pallas_attention.py:54-125`): q * bf16(1/tau) rounded to bf16,
-`mma.sync.m16n8k16` bf16 products with f32 sums in place of the 3xTF32
-split, the softmax and the mask in f32, the normalised P rounded to bf16
-before P V (the forward takes a first pass over the keys for each row's
-max and sum), an f32 output.  That forward runs `wgmma` bf16 tiles, two
-warpgroups of 64 query rows a block, with the keys cut over the 1, 2 or 4
-blocks of a thread block cluster (`fwd_bf16_cluster`, `fwd_bf16_plan`
-mirror the launch) whose statistics and partial outputs are merged in
-rank order through distributed shared memory.  The backward rounds dY, Pd
-and dS to bf16
+bf16 products with f32 sums in place of the 3xTF32 split, the softmax and
+the mask in f32, the normalised P rounded to bf16 before P V (the forward
+takes a first pass over the keys for each row's max and sum), an f32
+output.  At D <= 64 the forward runs `wgmma` tiles, one warpgroup of 64
+query rows a block, with the keys cut over the 1, 2 or 4 blocks of a
+thread block cluster (`fwd_bf16_cluster`, `fwd_bf16_plan` mirror the
+launch) whose statistics and partial outputs are merged in rank order
+through distributed shared memory; the backward and the wider forms run
+`mma.sync.m16n8k16` tiles.  The backward rounds dY, Pd and dS to bf16
 before their products, takes dQ = dS K / tau and dK = dS^T q / tau with
 the unscaled q, and `fused_attention` casts the f32 cotangents to bf16.
 One difference from the TPU kernel: the backward takes rowsum(dP * P) as
