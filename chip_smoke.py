@@ -278,15 +278,14 @@ def describe(cfg) -> str:
     return ", ".join([enc, f"{'bf16' if cfg.graph_bf16 else 'float32'} graph"] + knobs)
 
 
-def ptxas_report(build_log: str, names=("knn_kernel", "fps_kernel", "cheby_kernel",
-                                        "scatter_add_kernel", "kth_kernel", "attn_fwd_bf16",
-                                        "attn_bwd_dkdv_bf16", "attn_bwd_dq_bf16",
-                                        "knn_general_kernel", "attn_wide_tc", "attn_wide",
-                                        "attn_group", "attn_scale",
-                                        "kth_wide_kernel",
-                                        "fill_kernel", "sum_kernel", "fused_edge_kernel",
-                                        "edge_route_kernel", "edge_rows_kernel",
-                                        "gather_rows_kernel", "matmul_probe_kernel")) -> list[str]:
+PTXAS_NAMES = ("knn_kernel", "fps_kernel", "cheby_kernel", "scatter_add_kernel", "kth_kernel",
+               "attn_fwd_bf16", "attn_bwd_dkdv_bf16", "attn_bwd_dq_bf16", "knn_general_kernel",
+               "attn_wide_tc", "attn_wide", "attn_group", "attn_scale", "kth_wide_kernel",
+               "fill_kernel", "sum_kernel", "fused_edge_kernel", "edge_route_kernel",
+               "edge_rows_kernel", "gather_rows_kernel", "matmul_probe_kernel")
+
+
+def ptxas_report(build_log: str, names=PTXAS_NAMES) -> list[str]:
     """nvcc's -Xptxas -v lines of the entry functions whose mangled name
     holds one of ``names``: registers, barriers, stack and spill, each
     under the mangled name from that name on (its template arguments:
@@ -299,6 +298,23 @@ def ptxas_report(build_log: str, names=("knn_kernel", "fps_kernel", "cheby_kerne
         elif entry and ("registers" in line or "spill" in line):
             out.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
     return out
+
+
+def ptxas_notes(build_log: str, code: str = "C7519") -> dict:
+    """The count of ptxas's ``code`` notes per function, under the mangled
+    name from the kernel's name on (as `ptxas_report`), and the text of the
+    first note (C7519: a `warpgroup.arrive` that ptxas injected so that a
+    wgmma may read registers)."""
+    counts, first = {}, None
+    for line in build_log.splitlines():
+        if f"({code})" not in line or "function '" not in line:
+            continue
+        mangled = line.split("function '")[1].split("'")[0]
+        name = next((mangled[mangled.index(n):][:48] for n in PTXAS_NAMES if n in mangled),
+                    mangled[:48])
+        counts[name] = counts.get(name, 0) + 1
+        first = first or line.split(f"({code})", 1)[1].split(" in function")[0].strip()
+    return {"counts": counts, "first": first}
 
 
 def cuda_ms(fn, reps: int, per: int = 1) -> float:
@@ -1655,8 +1671,7 @@ def attention_digest(torch, attn_mod, seed: int) -> dict:
     launch counters that moved are printed), and SDPA's memory-efficient
     backend beside each: their times per step (`attention_times`, rate
     0.1); and the bf16 forward at D = 64 per call at B = 10 and 2 beside
-    flash (`bf16_forward_times`), and, on a tree whose kernel takes a
-    pinned cluster size, its device time at each size."""
+    flash (`bf16_forward_times`)."""
     import hashlib
     g = torch.Generator(device="cuda").manual_seed(seed + 31)
     out = {}
@@ -1680,18 +1695,6 @@ def attention_digest(torch, attn_mod, seed: int) -> dict:
             log(f"  attention bfloat16 D=64 backward alone (plain y, lse): sha256 "
                 f"{out['bfloat16_d64_bwd']}")
             out["bf16_d64_fwd"] = bf16_forward_times(torch, attn_mod, calls, tau, 0.1)
-            lib = build_lib()
-            if hasattr(lib, "r3d_attn_fwd_bf16_force_cluster"):
-                pin = lib.r3d_attn_fwd_bf16_force_cluster
-                for c in (1, 2, 4):
-                    pin(c)
-                    try:
-                        for q, k, v, _, s in calls:
-                            out["bf16_d64_fwd"][f"device_ms_b{q.shape[0]}_c{c}"] = device_ms(
-                                lambda: attn_mod.attention_fwd(q, k, v, tau, 0.1, s),
-                                "attn_fwd_bf16")
-                    finally:
-                        pin(0)
             log("  attention bfloat16 D=64 forward per call (ms; lib_ is flash): " + ", ".join(
                 f"{n} {v:.4f}" for n, v in out["bf16_d64_fwd"].items()))
         if (dtype_name, d) != ("bfloat16", 320):
@@ -2395,13 +2398,6 @@ def fused_digest(torch, cfe, seed: int) -> dict:
                          ms=cuda_ms(lambda: getattr(cfe, name)(*a), 10))
         log(f"  fused_edge f32 {name}: sha256 {out[name]['sha256']}, {out[name]['ms']:.3f} ms")
     return out
-
-
-def build_lib():
-    """The tree's kernel library (ctypes), for its entry points that no
-    wrapper calls."""
-    from r3dfsseg_tpu_torch.kernels import build
-    return build.library()
 
 
 def device_kernels(torch, fn, reps: int = 3):
@@ -3360,8 +3356,12 @@ def main() -> int:
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
     for line in build.build_log.splitlines():
         if ("registers" in line or "spill" in line or "error" in line.lower()) and \
-                "(C7519)" not in line:   # ptxas's notes on the wgmma register A operands
+                "(C7519)" not in line:   # counted below, one line for all
             log("  " + line.strip())
+    notes = ptxas_notes(build.build_log)
+    if notes["counts"]:
+        log(f"  [ptxas] C7519 notes (\"{notes['first']} ...\"): " + ", ".join(
+            f"{name} {c}" for name, c in notes["counts"].items()))
     for line in ptxas_report(build.build_log):
         log("  [ptxas] " + line)
     if not hasattr(cuda_attention, "wide_tf32_launches"):

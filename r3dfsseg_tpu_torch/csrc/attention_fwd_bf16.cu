@@ -59,19 +59,19 @@
 //   one warpgroup) ran slower than either, and so did a deeper ring.
 // - Filling 132 SMs: the keys are cut in contiguous ranges of whole
 //   64-key tiles over the C = 1, 2 or 4 blocks of a thread block cluster
-//   that share a row tile (`cluster_size`: the smallest C that starts four
-//   blocks an SM, else 4; B = 10 at N = 2048 takes 2, 640 blocks, and B =
-//   2 takes 4, 256 blocks).  After pass 1 each block leaves its rows' (m,
-//   l) in shared memory; behind a cluster barrier
-//   every block reads all C through distributed shared memory and merges
-//   them in rank order (m the max, l = sum of exp(m_r - m) l_r), so all C
-//   hold the same bits.  Pass 2's partial outputs are already normalised
-//   and simply add: each block leaves its 64 x 64 partial in shared
-//   memory, and behind a second barrier block r sums rows r 64 / C ..
-//   of all C in rank order and writes them; a third barrier keeps every
-//   block's shared memory alive until the others have read it.  With C =
-//   1 the outputs go from registers.  No atomics and a fixed order of
-//   every sum: repeated calls are bit-equal.
+//   that share a row tile (the wrapper's `fwd_bf16_cluster` picks C and
+//   passes it: the smallest that starts four blocks an SM, else 4; B = 10
+//   at N = 2048 takes 2, 640 blocks, and B = 2 takes 4, 256 blocks).
+//   After pass 1 each block leaves its rows' (m, l) in shared memory;
+//   behind a cluster barrier every block reads all C through distributed
+//   shared memory and merges them in rank order (m the max, l = sum of
+//   exp(m_r - m) l_r), so all C hold the same bits.  Pass 2's partial
+//   outputs are already normalised and simply add: each block leaves its
+//   64 x 64 partial in shared memory, and behind a second barrier block r
+//   sums rows r 64 / C .. of all C in rank order and writes them; a third
+//   barrier keeps every block's shared memory alive until the others have
+//   read it.  With C = 1 the outputs go from registers.  No atomics and a
+//   fixed order of every sum: repeated calls are bit-equal.
 // The ragged last key tile is masked to -inf (`mask_ragged_keys`); rows
 // of the ragged last row tile are computed and not stored.
 #include <cmath>
@@ -436,23 +436,6 @@ attn_fwd_bf16_wgmma_kernel(const uint16_t* __restrict__ q, const uint16_t* __res
   }
 }
 
-// The cluster size C (1, 2 or 4) of a call: the smallest that starts at
-// least four blocks an SM, else 4 (the rule of attention.cuh's `splits`).
-// ops/cuda_attention.py:fwd_bf16_cluster mirrors it for the CPU tests.
-int g_force_cluster = 0;
-
-int cluster_size(int b, int n) {
-  if (g_force_cluster > 0) return g_force_cluster;
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long tiles = static_cast<long long>(b) * ((n + kBlockRows - 1) / kBlockRows);
-  for (int c = 1; c < 4; c *= 2) {
-    if (tiles * c >= 4LL * sms) return c;
-  }
-  return 4;
-}
-
 template <int C, bool kDropout>
 cudaError_t launch(const uint16_t* q, const uint16_t* k, const uint16_t* v, float* y, float* lse,
                    int b, int n, int d, float scale, r3d::Dropout drop, cudaStream_t st) {
@@ -488,13 +471,15 @@ cudaError_t launch_c(const uint16_t* q, const uint16_t* k, const uint16_t* v, fl
 }  // namespace
 
 // q, k, v (B, N, D) bf16 with D % 8 == 0, D <= 64; y (B, N, D) f32; lse
-// (B, N) f32 or null (eval); scale = bf16(1 / tau); dropout != 0 selects
-// the kernel with the mask.
+// (B, N) f32 or null (eval); cluster the cluster size C (1, 2 or 4; the
+// wrapper's `fwd_bf16_cluster` chooses it); scale = bf16(1 / tau);
+// dropout != 0 selects the kernel with the mask.
 R3D_EXPORT int r3d_attn_fwd_bf16(const void* q, const void* k, const void* v, void* y,
-                                 void* lse, int b, int n, int d, float scale, int dropout,
-                                 unsigned seed_lo, unsigned seed_hi, unsigned threshold,
-                                 float keep_scale, void* stream) {
+                                 void* lse, int b, int n, int d, int cluster, float scale,
+                                 int dropout, unsigned seed_lo, unsigned seed_hi,
+                                 unsigned threshold, float keep_scale, void* stream) {
   if (d < 8 || d > kDP || d % 8 != 0 || b < 1 || n < 1 || b > 65535) return cudaErrorInvalidValue;
+  if (cluster != 1 && cluster != 2 && cluster != 4) return cudaErrorInvalidValue;
   const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
   auto st = static_cast<cudaStream_t>(stream);
   auto qp = static_cast<const uint16_t*>(q);
@@ -502,7 +487,7 @@ R3D_EXPORT int r3d_attn_fwd_bf16(const void* q, const void* k, const void* v, vo
   auto vp = static_cast<const uint16_t*>(v);
   auto yp = static_cast<float*>(y);
   auto lp = static_cast<float*>(lse);
-  switch (cluster_size(b, n)) {
+  switch (cluster) {
     case 1:
       return launch_c<1>(qp, kp, vp, yp, lp, b, n, d, scale, dropout != 0, drop, st);
     case 2:
@@ -511,16 +496,3 @@ R3D_EXPORT int r3d_attn_fwd_bf16(const void* q, const void* k, const void* v, vo
       return launch_c<4>(qp, kp, vp, yp, lp, b, n, d, scale, dropout != 0, drop, st);
   }
 }
-
-// Pins the cluster size of later r3d_attn_fwd_bf16 calls to c (1, 2 or 4;
-// 0 restores the choice of `cluster_size`), so that chip_smoke.py can time
-// each choice on the same inputs.  Nothing on the model's path calls it.
-R3D_EXPORT int r3d_attn_fwd_bf16_force_cluster(int c) {
-  if (c != 0 && c != 1 && c != 2 && c != 4) return cudaErrorInvalidValue;
-  g_force_cluster = c;
-  return cudaSuccess;
-}
-
-// The cluster size a call of (b, n) takes on this device, for the tests
-// that hold `fwd_bf16_cluster` to it.
-R3D_EXPORT int r3d_attn_fwd_bf16_cluster_size(int b, int n) { return cluster_size(b, n); }

@@ -48,9 +48,10 @@ the mask in f32, the normalised P rounded to bf16 before P V (the forward
 takes a first pass over the keys for each row's max and sum), an f32
 output.  At D <= 64 the forward runs `wgmma` tiles, one warpgroup of 64
 query rows a block, with the keys cut over the 1, 2 or 4 blocks of a
-thread block cluster (`fwd_bf16_cluster`, `fwd_bf16_plan` mirror the
-launch) whose statistics and partial outputs are merged in rank order
-through distributed shared memory; the backward and the wider forms run
+thread block cluster (`fwd_bf16_cluster` chooses C from the card's SM
+count and the wrapper passes it; `fwd_bf16_plan` mirrors the launch),
+whose statistics and partial outputs are merged in rank order through
+distributed shared memory; the backward and the wider forms run
 `mma.sync.m16n8k16` tiles.  The backward rounds dY, Pd and dS to bf16
 before their products, takes dQ = dS K / tau and dK = dS^T q / tau with
 the unscaled q, and `fused_attention` casts the f32 cotangents to bf16.
@@ -332,15 +333,15 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-# csrc/attention_fwd_bf16.cu's launch, mirrored for the CPU tests
+# csrc/attention_fwd_bf16.cu's tiles
 FWD_BF16_BLOCK_ROWS = 64    # query rows of a block (one warpgroup)
 FWD_BF16_KEYS = 64          # keys of a staged tile
 
 
 def fwd_bf16_cluster(b: int, n: int, sms: int = 132) -> int:
-    """The cluster size C (1, 2 or 4) of the bf16 forward at D <= 64
-    (`attention_fwd_bf16.cu:cluster_size`): the smallest C whose B *
-    ceil(N / 64) * C blocks start at least four on each of ``sms`` SMs,
+    """The cluster size C (1, 2 or 4) that `_kernel_fwd` passes to the
+    bf16 forward at D <= 64 (`attention_fwd_bf16.cu`): the smallest C whose
+    B * ceil(N / 64) * C blocks start at least four on each of ``sms`` SMs,
     else 4."""
     tiles = b * -(-n // FWD_BF16_BLOCK_ROWS)
     return next((c for c in (1, 2) if tiles * c >= 4 * sms), 4)
@@ -381,14 +382,17 @@ def _kernel_fwd(q, k, v, tau, rate, seed, want_lse):
     name = _FWD_NAMES[route, lowp]
     # the grouped kernels' scratch: the scaled q
     scratch = [torch.empty_like(q)] if route == "wide_group" else []
-    fn = build.function(name, [build.P] * (5 + len(scratch)) + [build.I] * 3 + [build.F, build.I]
-                        + [build.U] * 3 + [build.F, build.P])
+    # the wgmma bf16 forward's cluster size
+    cluster = [fwd_bf16_cluster(b, n, torch.cuda.get_device_properties(q.device)
+                                .multi_processor_count)] if (route, lowp) == ("tuned", True) else []
+    fn = build.function(name, [build.P] * (5 + len(scratch)) + [build.I] * (3 + len(cluster))
+                        + [build.F, build.I] + [build.U] * 3 + [build.F, build.P])
     lo, hi = _seed_words(seed)
     scale = bf16_value(1.0 / tau) if lowp else 1.0 / tau
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
                  lse.data_ptr() if want_lse else None, *(t.data_ptr() for t in scratch),
-                 b, n, d, scale, int(rate > 0.0), lo, hi, dropout_threshold(rate),
+                 b, n, d, *cluster, scale, int(rate > 0.0), lo, hi, dropout_threshold(rate),
                  keep_scale(rate), build.stream_ptr(q.device))
     build.check(err, name)
     if route == "wide_tf32":

@@ -268,3 +268,12 @@ def test_training_shapes_take_the_cluster_route():
     or more) and C = 4 (256 blocks, fewer than four at any C)."""
     assert [ca.fwd_bf16_plan(b, 2048)[0] for b in (10, 2)] == [2, 4]
     assert [len(ca.fwd_bf16_plan(b, 2048)[1]) for b in (10, 2)] == [640, 256]
+
+
+@pytest.mark.parametrize("b,c", [(17, 1), (10, 2), (9, 2), (8, 4), (2, 4), (1, 4)])
+def test_cluster_size_by_batch(b, c):
+    """The C that the wrapper passes at N = 2048 on 132 SMs: B = 17 is the
+    smallest batch with four blocks an SM at C = 1 (544 row tiles), B = 9
+    at C = 2; below that C = 4.  The card test reaches each C by these
+    shapes."""
+    assert ca.fwd_bf16_cluster(b, 2048, 132) == c

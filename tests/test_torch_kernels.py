@@ -1257,26 +1257,19 @@ def test_attention_bf16_forward_ragged_and_narrow_on_card(b, n, d, rate):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,cluster", [(2, 1), (2, 2), (2, 4), (10, 1), (10, 4)])
-def test_attention_bf16_forward_cluster_routes_on_card(b, cluster):
-    """The training shapes (N = 2048, D = 64, rate 0.1) with the cluster
-    size pinned to 1, 2 and 4: each meets the gates and repeats bit for
-    bit.  Unpinned, the kernel takes the size that `fwd_bf16_cluster`
-    computes for this card's SMs (on 132 SMs 2 at B = 10 and 4 at B = 2:
-    the cluster route)."""
-    from r3dfsseg_tpu_torch.kernels import build
+@pytest.mark.parametrize("n", [2048, 2049])
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_attention_bf16_forward_cluster_routes_on_card(cluster, n):
+    """Each cluster size C through the wrapper, reached by the shape alone:
+    the smallest B that `fwd_bf16_cluster` sends to C on this card's SMs
+    (on 132 SMs at N = 2048: B = 17 takes 1, B = 9 takes 2, B = 1 takes 4;
+    the training shapes B = 10 and 2 take 2 and 4), D = 64, rate 0.1: the
+    gates of `_bf16_forward_meets_gates`, repeats bit for bit."""
     dev = cuda_or_skip()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    size = build.function("r3d_attn_fwd_bf16_cluster_size", [build.I, build.I])
-    assert size(b, 2048) == cuda_attention.fwd_bf16_cluster(b, 2048, sms)
-    q, k, v, _ = _bf16_qkv(b + 70, b, 2048, 64, dev)
-    pin = build.function("r3d_attn_fwd_bf16_force_cluster", [build.I])
-    build.check(pin(cluster), "r3d_attn_fwd_bf16_force_cluster")
-    try:
-        assert size(b, 2048) == cluster
-        _bf16_forward_meets_gates(q, k, v, 8.0, 0.1, 41)
-    finally:
-        build.check(pin(0), "r3d_attn_fwd_bf16_force_cluster")
+    b = next(b for b in range(1, 4 * sms) if cuda_attention.fwd_bf16_cluster(b, n, sms) == cluster)
+    q, k, v, _ = _bf16_qkv(b + 70, b, n, 64, dev)
+    _bf16_forward_meets_gates(q, k, v, 8.0, 0.1, 41)
 
 
 @pytest.mark.cuda
