@@ -12,7 +12,8 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      the kNN, FPS, Chebyshev, matvec probe, scatter-add, k-th distance and
      attention kernels' registers and spills (-Xptxas -v); the wide and
      grouped tensor-core attention kernels, the six instantiations of
-     kernel 2's wgmma bf16 form and kernel 11's six must not spill;
+     kernel 2's wgmma bf16 form, the five of kernel 5's and kernel 11's
+     six must not spill;
   2. call each kernel at the flagship shapes of its path and hold it
      against its plain PyTorch version on the same inputs (kNN: the
      neighbour sets, differences only at near-ties, two calls bit-equal,
@@ -172,8 +173,8 @@ unchanged), and `--only attn` the same for the attention kernels
 (`attention_digest`, with a digest of the bf16 backward alone at D = 64
 fed the plain forward's y and lse), with the f32 pair's times at D = 128
 and the bf16 pair's at D = 320 on whichever kernels the tree runs (and each
-kernel's device time) and the bf16 forward's at D = 64 per call beside
-flash, so that another tree's kernels can be timed with the same
+kernel's device time) and the bf16 forward's and backward's at D = 64
+per call beside flash's, so that another tree's kernels can be timed with the same
 code (put that tree's root first on sys.path and run this file with
 runpy; the tree's modules need the plain versions these checks call:
 `cheby_solve_split_reference` and `scatter_add_ordered_reference`);
@@ -188,6 +189,7 @@ import argparse
 import contextlib
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -338,10 +340,11 @@ def cuda_ms(fn, reps: int, per: int = 1) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, key: str, reps: int = 20) -> float:
+def device_ms(fn, key, reps: int = 20) -> float:
     """Device time (ms) per call of fn() of the kernels whose name holds
-    ``key``, from `torch.profiler`: the kernels alone, without the host's
-    gaps that CUDA events around a call include."""
+    ``key`` (a string, or a tuple of strings that the name holds all of),
+    from `torch.profiler`: the kernels alone, without the host's gaps that
+    CUDA events around a call include."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -350,8 +353,9 @@ def device_ms(fn, key: str, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    parts = (key,) if isinstance(key, str) else key
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if key in e.key) / reps / 1e3
+               if all(p in e.key for p in parts)) / reps / 1e3
 
 
 def bound(flops: float, nbytes: float, peak: float = F32_FLOPS) -> tuple[float, str]:
@@ -840,6 +844,64 @@ def bf16_forward_times(torch, attn_mod, calls, tau, rate, reps: int = 10) -> dic
     return out
 
 
+def bf16_backward_times(torch, attn_mod, calls, tau, reps: int = 10) -> dict:
+    """Per call of the bf16 backward at D <= 64 on each of ``calls`` ((q,
+    k, v, dy, seed), one per batch size), at rate 0.1 and at rate 0, from
+    the kernel forward's y and lse, and of SDPA pinned to flash on the same
+    inputs (`torch.autograd.grad` through one kept flash forward): CUDA
+    events around one call, and the device time of the kernels alone
+    (`device_ms`): the port's kernels whose name holds "attn_bwd" and "bf16"
+    (its prep pass included, on any tree), flash's those holding
+    "flash_bwd" (its dq accumulator's fill, an elementwise kernel, left
+    out)."""
+    out = {}
+    for q, k, v, dy, seed in calls:
+        b = q.shape[0]
+        for rate, tag in ((0.1, ""), (0.0, "_rate0")):
+            y, lse = attn_mod.attention_fwd(q, k, v, tau, rate, seed)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            graph = sdpa_flash(torch, *leaves, rate, tau)
+
+            def kernel(q=q, k=k, v=v, y=y, dy=dy, lse=lse, rate=rate, seed=seed):
+                return attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
+
+            def flash(graph=graph, leaves=leaves, dy=dy.to(q.dtype)):
+                return torch.autograd.grad(graph, leaves, dy, retain_graph=True)
+
+            for pre, fn, key in (("", kernel, ("attn_bwd", "bf16")),
+                                 ("lib_", flash, ("flash_bwd",))):
+                out[f"{pre}bwd_ms_b{b}{tag}"] = cuda_ms(fn, reps)
+                out[f"{pre}bwd_device_ms_b{b}{tag}"] = device_ms(fn, key)
+            if rate > 0.0:      # the port's kernels one by one
+                for name, ms in device_kernels(torch, kernel):
+                    if "attn_bwd" in name and "bf16" in name:
+                        short = re.search(r"attn_bwd\w*", name).group(0)
+                        out[f"bwd_device_ms_b{b}_{short}"] = ms
+    return out
+
+
+def bf16_backward_cluster_times(torch, attn_mod, calls, tau) -> dict:
+    """The bf16 backward's device time per call (rate 0.1) at each cluster
+    size C of its dK/dV kernel, on a tree whose wrapper picks C with
+    `bwd_bf16_cluster` (replaced for the measurement by each C in turn,
+    then restored); {} on another tree."""
+    rule = getattr(attn_mod, "bwd_bf16_cluster", None)
+    if rule is None:
+        return {}
+    out = {}
+    try:
+        for c in (1, 2):
+            attn_mod.bwd_bf16_cluster = lambda b, n, sms=132, c=c: c
+            for q, k, v, dy, seed in calls:
+                y, lse = attn_mod.attention_fwd(q, k, v, tau, 0.1, seed)
+                out[f"device_ms_b{q.shape[0]}_c{c}"] = device_ms(
+                    lambda: attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, seed),
+                    ("attn_bwd", "bf16"))
+    finally:
+        attn_mod.bwd_bf16_cluster = rule
+    return out
+
+
 def check_attention_bf16(torch, attn_mod):
     """The bf16 forms of kernels 2 and 5 (the bf16 encoder's) at the
     training shapes, B = 10 and 2, N = 2048, D = 64, with dropout 0.1 and
@@ -853,7 +915,9 @@ def check_attention_bf16(torch, attn_mod):
     on the bf16 tensor cores; bytes: q, k, v bf16 read, y (and dy) f32,
     lse, and dq, dk, dv f32 written.  The forward also per call at each
     batch size beside flash (`bf16_forward_times`: events around one call
-    and around 20, and device time)."""
+    and around 20, and device time), and the backward per call beside
+    flash's (`bf16_backward_times`: events around one call, device time, at
+    rate 0.1 and 0)."""
     g = torch.Generator(device="cuda").manual_seed(14)
     tau, bf16 = 8.0, torch.bfloat16
     calls = []
@@ -919,6 +983,10 @@ def check_attention_bf16(torch, attn_mod):
                                                     for q, k, v, dy, seed, *_ in saved], tau, rate)
     log("  attention bf16 forward per call (ms; lib_ is flash): " +
         ", ".join(f"{n} {v:.4f}" for n, v in per_call.items()))
+    bwd_call = bf16_backward_times(torch, attn_mod, [(q, k, v, dy, seed)
+                                                     for q, k, v, dy, seed, *_ in saved], tau)
+    log("  attention bf16 backward per call (ms; lib_ is flash): " +
+        ", ".join(f"{n} {v:.4f}" for n, v in bwd_call.items()))
     bn2d = sum(q.shape[0] for q, *_ in saved) * 2048 ** 2 * 64
     n = sum(q.numel() for q, *_ in saved)
     rows = sum(q.shape[0] * q.shape[1] for q, *_ in saved)
@@ -927,11 +995,16 @@ def check_attention_bf16(torch, attn_mod):
     extra = {n: v for n, v in per_call.items() if not n.startswith("ms_")}
     extra["device_ms"] = extra["device_ms_b10"] + extra["device_ms_b2"]
     extra["library_device_ms"] = extra["lib_device_ms_b10"] + extra["lib_device_ms_b2"]
+    bwd_extra = dict(bwd_call, device_ms=bwd_call["bwd_device_ms_b10"]
+                     + bwd_call["bwd_device_ms_b2"],
+                     library_device_ms=bwd_call["lib_bwd_device_ms_b10"]
+                     + bwd_call["lib_bwd_device_ms_b2"])
     return (row(fwd_err, t["fwd"], t["fwd_plain"], t["lib_fwd"], 4.0 * bn2d, fwd_bytes,
                 BF16_TC_FLOPS, ms_b10=t["fwd_b10"], ms_b2=t["fwd_b2"], **extra),
             row(bwd_err, t["bwd"], t["bwd_plain"], t["lib_bwd"], 10.0 * bn2d, bwd_bytes,
                 BF16_TC_FLOPS, ms_b10=t["bwd_b10"], ms_b2=t["bwd_b2"],
-                ms_pair=t["fwd"] + t["bwd"], library_ms_pair=t["lib_fwd"] + t["lib_bwd"]))
+                ms_pair=t["fwd"] + t["bwd"], library_ms_pair=t["lib_fwd"] + t["lib_bwd"],
+                **bwd_extra))
 
 
 def _fps_divergence_gap(torch, fps_mod, feat, valid, got, want):
@@ -1670,8 +1743,9 @@ def attention_digest(torch, attn_mod, seed: int) -> dict:
     bf16 pair at D = 320, on whichever kernels the tree routes them to (the
     launch counters that moved are printed), and SDPA's memory-efficient
     backend beside each: their times per step (`attention_times`, rate
-    0.1); and the bf16 forward at D = 64 per call at B = 10 and 2 beside
-    flash (`bf16_forward_times`)."""
+    0.1); and the bf16 forward and backward at D = 64 per call at B = 10
+    and 2 beside flash (`bf16_forward_times`, `bf16_backward_times`), the
+    backward also at each cluster size (`bf16_backward_cluster_times`)."""
     import hashlib
     g = torch.Generator(device="cuda").manual_seed(seed + 31)
     out = {}
@@ -1697,6 +1771,13 @@ def attention_digest(torch, attn_mod, seed: int) -> dict:
             out["bf16_d64_fwd"] = bf16_forward_times(torch, attn_mod, calls, tau, 0.1)
             log("  attention bfloat16 D=64 forward per call (ms; lib_ is flash): " + ", ".join(
                 f"{n} {v:.4f}" for n, v in out["bf16_d64_fwd"].items()))
+            out["bf16_d64_bwd"] = bf16_backward_times(torch, attn_mod, calls, tau)
+            log("  attention bfloat16 D=64 backward per call (ms; lib_ is flash): " + ", ".join(
+                f"{n} {v:.4f}" for n, v in out["bf16_d64_bwd"].items()))
+            out["bf16_d64_bwd_clusters"] = bf16_backward_cluster_times(torch, attn_mod, calls,
+                                                                       tau)
+            log("  attention bfloat16 D=64 backward device ms per call by cluster size: " +
+                ", ".join(f"{n} {v:.4f}" for n, v in out["bf16_d64_bwd_clusters"].items()))
         if (dtype_name, d) != ("bfloat16", 320):
             h = hashlib.sha256()
             for q, k, v, dy, s in calls:
@@ -3400,6 +3481,23 @@ def main() -> int:
                                  f"report for {missing}, spills {spills}")
         log(f"  [ptxas] kernel 2's bf16 form (attn_fwd_bf16_wgmma_kernel): {len(fw) // 2} "
             f"entries, no spill")
+    if not hasattr(cuda_attention, "bwd_bf16_plan"):
+        log("  [ptxas] a tree without the wgmma bf16 backward: its spill check not run")
+    elif build.build_log:
+        bw = ptxas_report(build.build_log, ("attn_bwd_dkdv_bf16_wgmma_kernel",
+                                            "attn_bwd_dq_bf16_wgmma_kernel"))
+        missing = [f"dK/dV C={c} dropout={dr}" for c in (1, 2) for dr in (0, 1)
+                   if not any(x.startswith(f"attn_bwd_dkdv_bf16_wgmma_kernelILi{c}ELb{dr}E")
+                              for x in bw)]
+        missing += [] if any(x.startswith("attn_bwd_dq_bf16_wgmma_kernel") for x in bw) \
+            else ["dQ"]
+        spills = [x for x in bw
+                  if "spill" in x and " 0 bytes spill stores, 0 bytes spill loads" not in x]
+        if missing or spills:
+            raise AssertionError(f"kernel 5's bf16 form (attn_bwd_*_bf16_wgmma_kernel): no "
+                                 f"ptxas report for {missing}, spills {spills}")
+        log(f"  [ptxas] kernel 5's bf16 form (attn_bwd_*_bf16_wgmma_kernel): {len(bw) // 2} "
+            f"entries, no spill")
     if not hasattr(cuda_proto_cheby, "probe_plan"):
         log("  [ptxas] a tree without kernel 11's split of S: its spill check not run")
     elif build.build_log:
@@ -3741,7 +3839,7 @@ def main() -> int:
                "attention_bwd": ("attention_bwd.cu", "r3dfsseg_tpu/ops/pallas_attention.py:78"),
                "attention_fwd_bf16": ("attention_fwd_bf16.cu",
                                       "r3dfsseg_tpu/ops/pallas_attention.py:54"),
-               "attention_bwd_bf16": ("attention_bwd.cu",
+               "attention_bwd_bf16": ("attention_bwd_bf16.cu",
                                       "r3dfsseg_tpu/ops/pallas_attention.py:78"),
                "knn_bf16": ("knn.cu", "r3dfsseg_tpu/ops/pallas_knn.py:27"),
                "scatter_add_bf16": ("scatter_add.cu", "r3dfsseg_tpu/ops/fast_gather.py:40"),

@@ -1,6 +1,6 @@
 // Tiles, fragments and mask bits shared by the attention kernels
-// (attention_fwd.cu and attention_fwd_bf16.cu, kernel 2; attention_bwd.cu,
-// kernel 5).
+// (attention_fwd.cu and attention_fwd_bf16.cu, kernel 2; attention_bwd.cu
+// and attention_bwd_bf16.cu, kernel 5; the wide and grouped forms).
 //
 // Every product is a 3xTF32 mma.sync.m16n8k8 (common.cuh).  A block has
 // kWarps warps and streams kChunk-row tiles of the "column" operands (K and
@@ -267,8 +267,10 @@ __device__ __forceinline__ float4 row_mask(const r3d::Dropout& drop, int b, int 
 // quad ORs its four nibbles into the 16-key mask of its query, and each
 // lane fetches the masks of queries 2t and 2t + 1: one Philox call per
 // lane per 8 x 16 tile, none twice.
-// Returns {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
-__device__ __forceinline__ float4 col_mask(const r3d::Dropout& drop, int b, int k0, int i0) {
+// Returns {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.  In two
+// steps: `col_mask_bits`, the 16-key masks of queries 2t and 2t + 1 (bit r:
+// key k0 + r kept), then `col_mask_factors`.
+__device__ __forceinline__ uint2 col_mask_bits(const r3d::Dropout& drop, int b, int k0, int i0) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -277,37 +279,42 @@ __device__ __forceinline__ float4 col_mask(const r3d::Dropout& drop, int b, int 
                 drop.kept(w.w) << 3) << (4 * t);
   m |= __shfl_xor_sync(kFull, m, 1);
   m |= __shfl_xor_sync(kFull, m, 2);
-  const uint32_t ma = __shfl_sync(kFull, m, 8 * t);
-  const uint32_t mb = __shfl_sync(kFull, m, 8 * t + 4);
-  const float s = drop.scale;
-  return make_float4((ma >> g & 1u) ? s : 0.f, (mb >> g & 1u) ? s : 0.f,
-                     (ma >> (g + 8) & 1u) ? s : 0.f, (mb >> (g + 8) & 1u) ? s : 0.f);
+  return make_uint2(__shfl_sync(kFull, m, 8 * t), __shfl_sync(kFull, m, 8 * t + 4));
+}
+
+__device__ __forceinline__ float4 col_mask_factors(uint2 m, float s) {
+  const int g = (threadIdx.x & 31) >> 2;
+  return make_float4((m.x >> g & 1u) ? s : 0.f, (m.y >> g & 1u) ? s : 0.f,
+                     (m.x >> (g + 8) & 1u) ? s : 0.f, (m.y >> (g + 8) & 1u) ? s : 0.f);
+}
+
+__device__ __forceinline__ float4 col_mask(const r3d::Dropout& drop, int b, int k0, int i0) {
+  return col_mask_factors(col_mask_bits(drop, b, k0, i0), drop.scale);
 }
 
 // ---- the bf16 forms (q, k, v bf16: the bf16 encoder) ------------------
-// Products are single bf16 mma.sync.m16n8k16 tiles (common.cuh) with f32
-// sums; tiles and fragments are the f32 forms' in shape (a warp owns 16
-// rows, kChunk-row tiles of the column operands stream through a
-// two-stage cp.async ring), in bf16:
-//   - a staged tile is kChunk rows x kDP bf16 channels (8 KB), row r's
-//     16-byte chunk c (channels 8c .. 8c + 7) stored at chunk c ^ (r % 8),
-//     so that the eight rows an ldmatrix tile reads lie in eight different
-//     bank groups;
+// Past D = 64 (attention_wide_bf16.cu, attention_group_bf16.cu) products
+// are single bf16 mma.sync.m16n8k16 tiles (common.cuh) with f32 sums;
+// tiles and fragments are the f32 forms' in shape (a warp owns 16 rows,
+// kChunk-row tiles of the column operands stream through a two-stage
+// cp.async ring), in bf16:
+//   - a staged tile is kChunk rows x kDP T bf16 channels (T = 2 or 4
+//     channel tiles of 64), row r's 16-byte chunk c (channels 8c .. 8c +
+//     7) stored at chunk c ^ (r % 8), so that the eight rows an ldmatrix
+//     tile reads lie in eight different bank groups;
 //   - B fragments come from it by ldmatrix: "along channels" (B of q k^T-
 //     like products, ldsm_x4: two n-tiles of 8 rows x one k-step of 16
 //     channels) and "along rows" (B of p v-like products, ldsm_x4_trans:
 //     one k-step of 16 rows x two n-tiles of 8 channels);
-//   - a warp's own rows are A operands in registers, read once from device
-//     memory as bf16 pairs;
 //   - an m16n8 accumulator pair (n-tiles 2s, 2s + 1) is the A operand of
 //     the next product's k-step s as it stands, rounded to bf16 pairs
 //     (`acc_frag_bf16`): P (or dS) goes from registers to the tensor cores
 //     with no shuffle.
-// D % 8 == 0 (whole 16-byte chunks), D <= 64.  attention_wide_bf16.cu
-// widens the staged tile to T = 2 or 4 channel tiles (`stage_tile_bf16<T>`,
-// `product_along_rows_bf16<NT, T>`; T = 1 is the tuned kernels' tile), and
-// attention_group_bf16.cu stages chunks of channels of a wider row
-// (`stage_cols_bf16`).
+// D % 8 == 0 (whole 16-byte chunks).  attention_group_bf16.cu stages
+// chunks of channels of a wider row (`stage_cols_bf16`).  At D <= 64 the
+// wgmma kernels (attention_fwd_bf16.cu, attention_bwd_bf16.cu) take
+// `load_rows_bf16` and `acc_frag_bf16` too: wgmma's register A operand is
+// mma.sync's A fragment in each warp.
 
 // Issue the copy of rows [row0, row0 + kR) of a bf16 matrix of n rows,
 // `ld` entries apart, into a staged bf16 tile of T channel tiles (64 T
@@ -356,31 +363,6 @@ __device__ __forceinline__ void load_rows_bf16(const uint16_t* src, int row0, in
         w = r3d::pack_bf16(r3d::bf16_lo(w) * mul, r3d::bf16_hi(w) * mul);
       }
       a[kk][i] = w;
-    }
-  }
-}
-
-// acc[j] += X Y^T over the channels for n-tiles j < NT (NT even): X the
-// warp's rows (registers, a), Y the staged rows r0 + 8j .. of `tile`.
-template <int NT>
-__device__ __forceinline__ void product_along_channels_bf16(float (&acc)[NT][4],
-                                                            const uint32_t (&a)[4][4],
-                                                            const uint16_t* tile, int r0,
-                                                            int d) {
-  const int lane = threadIdx.x & 31;
-  const int mi = lane >> 3;  // the ldmatrix tile this lane addresses
-  const int rr = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if (16 * kk >= d) break;
-    const int chunk = 2 * kk + (mi & 1);
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      const int row = r0 + 8 * (j + (mi >> 1)) + rr;
-      uint32_t b[4];
-      r3d::ldsm_x4(b, tile + row * kDP + ((chunk ^ rr) << 3));
-      r3d::mma_bf16(acc[j], a[kk], b[0], b[1]);
-      r3d::mma_bf16(acc[j + 1], a[kk], b[2], b[3]);
     }
   }
 }
@@ -758,10 +740,11 @@ __device__ __forceinline__ void finish_sums(float* smem, float (&o)[NO][4], cons
   }
 }
 
-// The bf16 backward's pre-pass (attention_bwd.cu, attention_wide_bf16.cu),
-// one warp per row: Delta = rowsum(bf16(dY) * Y), bf16(dY) and the
-// forward's scaled q, bf16(q * qscale), any d (d even).  A template, so a
-// source that does not launch it compiles none.
+// The bf16 backward's pre-pass (attention_bwd_bf16.cu,
+// attention_wide_bf16.cu, attention_group_bf16.cu), one warp per row:
+// Delta = rowsum(bf16(dY) * Y), bf16(dY) and the forward's scaled q, bf16(q
+// * qscale), any d (d even).  A template, so a source that does not launch
+// it compiles none.
 template <int = 0>
 __global__ void attn_bwd_prep_bf16_kernel(const uint16_t* __restrict__ q,
                                           const float* __restrict__ dy,

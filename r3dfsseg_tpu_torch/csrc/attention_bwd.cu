@@ -1,8 +1,7 @@
 // Single-head attention backward: dq, dk, dv of y = (P * M) v with
 // P = softmax(q k^T * scale) and the dropout mask M (philox.cuh; M = 1
-// without dropout), for f32 q, k, v (r3d_attn_bwd) and for bf16 ones
-// (r3d_attn_bwd_bf16, the bf16 encoder's; its section below says what
-// differs).
+// without dropout), for f32 q, k, v at D <= 64 (r3d_attn_bwd; bf16 ones
+// run attention_bwd_bf16.cu).
 //
 // Replaces the TPU kernel r3dfsseg_tpu/ops/pallas_attention.py:
 // _attn_bwd_kernel (via _bwd_impl).  Same algebra
@@ -356,314 +355,6 @@ cudaError_t launch_bwd_s(bool dropout, const float* q, const float* k, const flo
                                         st);
 }
 
-// ---- the bf16 form (q, k, v bf16: r3d_attn_bwd_bf16) -------------------
-// The TPU kernel's lowp arithmetic (pallas_attention.py:84-125): dY, Pd
-// and dS rounded to bf16 before their products, single bf16
-// mma.sync.m16n8k16 tiles with f32 sums (attention.cuh's bf16 tiles), dV =
-// Pd^T dY, dS = P * (dY V^T * M - Delta) in f32, dQ = dS K / tau and dK =
-// dS^T q / tau with the unscaled q and the f32 factor 1 / tau.  A pre-pass
-// (one warp per row) writes Delta = rowsum(bf16(dY) * Y), bf16(dY) and the
-// forward's scaled q, bf16(q * bf16(1 / tau)), to scratch; then the same
-// two kernels as the f32 form, with no float atomics: a call repeats bit
-// for bit.
-
-// dK/dV: a stage holds the scaled Q tile, the Q tile and the dY tile (bf16),
-// then lse and Delta of 64 queries (f32); the stage's bytes
-constexpr size_t kStageKVH = 3 * sizeof(uint16_t) * kTileF + 2 * sizeof(float) * kChunk;
-constexpr size_t kSmemKVH = 2 * kStageKVH;
-// dQ: K and V tiles, two stages
-constexpr size_t kSmemQH = 4 * sizeof(uint16_t) * kTileF;
-
-__device__ __forceinline__ void stage_queries_bf16(const uint16_t* qs, const uint16_t* q,
-                                                   const uint16_t* dyb, const float* lse,
-                                                   const float* delta, int i0, int n, int d,
-                                                   char* dst) {
-  uint16_t* tiles = reinterpret_cast<uint16_t*>(dst);
-  stage_tile_bf16(qs, i0, n, d, tiles);
-  stage_tile_bf16(q, i0, n, d, tiles + kTileF);
-  stage_tile_bf16(dyb, i0, n, d, tiles + 2 * kTileF);
-  static_assert(kThreads == 2 * kChunk, "one thread per lse and Delta entry");
-  float* stats = reinterpret_cast<float*>(tiles + 3 * kTileF);
-  const int e = threadIdx.x;
-  const float* src = e < kChunk ? lse : delta;
-  const int i = i0 + (e & (kChunk - 1));
-  r3d::cp_async4(stats + e, i < n ? src + i : src, i < n);
-}
-
-// (a) dK, dV of a warp's 16 keys.  Score tiles are (key, query).
-template <int S, bool kDropout>
-__global__ void __launch_bounds__(kThreads, 2)
-attn_bwd_dkdv_bf16_kernel(const uint16_t* __restrict__ qs, const uint16_t* __restrict__ q,
-                          const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
-                          const uint16_t* __restrict__ dyb, const float* __restrict__ lse,
-                          const float* __restrict__ delta, float* __restrict__ dk,
-                          float* __restrict__ dv, int n, int d, float scale,
-                          r3d::Dropout drop) {
-  constexpr int kCols = kChunk / S;               // queries of a tile per warp
-  constexpr int kW = kCols < kPass ? kCols : kPass;
-  constexpr int NT = kW / 8;
-  extern __shared__ __align__(16) float smem[];
-  char* ring = reinterpret_cast<char*>(smem);
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-  const int b = blockIdx.y;
-  const int key0 = blockIdx.x * (16 * kWarps / S) + 16 * (warp / S);
-  const int col0 = (warp % S) * kCols;
-  const size_t base = static_cast<size_t>(b) * n * d;
-  const float* lse_b = lse + static_cast<size_t>(b) * n;
-  const float* delta_b = delta + static_cast<size_t>(b) * n;
-  const int tiles = (n + kChunk - 1) / kChunk;
-
-  stage_queries_bf16(qs + base, q + base, dyb + base, lse_b, delta_b, 0, n, d, ring);
-  r3d::cp_async_commit();
-  uint32_t ka[4][4], va[4][4];
-  load_rows_bf16(k + base, key0, n, d, 1.f, ka);
-  load_rows_bf16(v + base, key0, n, d, 1.f, va);
-  float gk[8][4], gv[8][4];
-#pragma unroll
-  for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) gk[nn][e] = gv[nn][e] = 0.f;
-
-  for (int c = 0; c < tiles; ++c) {
-    const uint16_t* qst = reinterpret_cast<const uint16_t*>(ring + (c & 1) * kStageKVH);
-    const uint16_t* qt = qst + kTileF;
-    const uint16_t* dyt = qst + 2 * kTileF;
-    const float* lse_s = reinterpret_cast<const float*>(qst + 3 * kTileF);
-    const float* dl_s = lse_s + kChunk;
-    r3d::cp_async_wait_all();
-    __syncthreads();
-    if (c + 1 < tiles)
-      stage_queries_bf16(qs + base, q + base, dyb + base, lse_b, delta_b, (c + 1) * kChunk, n,
-                         d, ring + ((c + 1) & 1) * kStageKVH);
-    r3d::cp_async_commit();
-
-#pragma unroll 1
-    for (int p = 0; p < kCols / kW; ++p) {
-      const int cb = col0 + p * kW;  // tile-relative first query of the pass
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      product_along_channels_bf16<NT>(s, ka, qst, cb, d);   // S^T
-      product_along_channels_bf16<NT>(dp, va, dyt, cb, d);  // dPd^T
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float2 ls = *reinterpret_cast<const float2*>(lse_s + cb + 8 * j + 2 * t);
-        const float2 dl = *reinterpret_cast<const float2*>(dl_s + cb + 8 * j + 2 * t);
-        float4 f = make_float4(1.f, 1.f, 1.f, 1.f);
-        if constexpr (kDropout) f = col_mask(drop, b, key0, c * kChunk + cb + 8 * j);
-        const float fs[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float lq = (e & 1) ? ls.y : ls.x;
-          const float dlq = (e & 1) ? dl.y : dl.x;
-          const float pe = exp2_fast((s[j][e] - lq) * kLog2e);
-          s[j][e] = pe * fs[e];                       // Pd^T
-          dp[j][e] = pe * (dp[j][e] * fs[e] - dlq);   // dS^T
-        }
-      }
-      product_along_rows_bf16<NT>(gv, s, dyt, cb, d);   // dV += Pd^T dY
-      product_along_rows_bf16<NT>(gk, dp, qt, cb, d);   // dK += dS^T q
-    }
-  }
-
-  if constexpr (S > 1) {
-    constexpr int kSlot = 64;
-    __syncthreads();
-    float* mine = lane_slot(smem, warp, kSlot);
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        mine[4 * nn + e] = gk[nn][e];
-        mine[32 + 4 * nn + e] = gv[nn][e];
-      }
-    __syncthreads();
-    if (warp % S != 0) return;
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) gk[nn][e] = gv[nn][e] = 0.f;
-#pragma unroll 1  // one split's partials live at a time (registers)
-    for (int sp = 0; sp < S; ++sp) {
-      const float* other = lane_slot(smem, warp + sp, kSlot);
-#pragma unroll
-      for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          gk[nn][e] += other[4 * nn + e];
-          gv[nn][e] += other[32 + 4 * nn + e];
-        }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = key0 + g + 8 * r;
-    if (row >= n) continue;
-    const size_t off = base + static_cast<size_t>(row) * d;
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn) {
-      const int ch = 8 * nn + 2 * t;
-      if (ch >= d) continue;
-      *reinterpret_cast<float2*>(dk + off + ch) =
-          make_float2(gk[nn][2 * r] * scale, gk[nn][2 * r + 1] * scale);
-      *reinterpret_cast<float2*>(dv + off + ch) = make_float2(gv[nn][2 * r], gv[nn][2 * r + 1]);
-    }
-  }
-}
-
-// (b) dQ of a warp's 16 queries.  Score tiles are (query, key).
-template <int S, bool kDropout>
-__global__ void __launch_bounds__(kThreads, 2)
-attn_bwd_dq_bf16_kernel(const uint16_t* __restrict__ qs, const uint16_t* __restrict__ k,
-                        const uint16_t* __restrict__ v, const uint16_t* __restrict__ dyb,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, int n, int d, float scale, r3d::Dropout drop) {
-  constexpr int kCols = kChunk / S;  // keys of a tile per warp
-  constexpr int kW = kCols < kPass ? kCols : kPass;
-  constexpr int NT = kW / 8;
-  extern __shared__ __align__(16) float smem[];
-  uint16_t* ring = reinterpret_cast<uint16_t*>(smem);
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * (16 * kWarps / S) + 16 * (warp / S);
-  const int col0 = (warp % S) * kCols;
-  const size_t base = static_cast<size_t>(b) * n * d;
-  const int tiles = (n + kChunk - 1) / kChunk;
-
-  stage_tile_bf16(k + base, 0, n, d, ring);
-  stage_tile_bf16(v + base, 0, n, d, ring + kTileF);
-  r3d::cp_async_commit();
-  uint32_t qa[4][4], dya[4][4];
-  load_rows_bf16(qs + base, row0, n, d, 1.f, qa);
-  load_rows_bf16(dyb + base, row0, n, d, 1.f, dya);
-  float lq[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    lq[r] = row < n ? lse[static_cast<size_t>(b) * n + row] : 0.f;
-    dl[r] = row < n ? delta[static_cast<size_t>(b) * n + row] : 0.f;
-  }
-  float gq[8][4];
-#pragma unroll
-  for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) gq[nn][e] = 0.f;
-
-  for (int c = 0; c < tiles; ++c) {
-    const uint16_t* kt = ring + (c & 1) * 2 * kTileF;
-    const uint16_t* vt = kt + kTileF;
-    r3d::cp_async_wait_all();
-    __syncthreads();
-    if (c + 1 < tiles) {
-      uint16_t* next = ring + ((c + 1) & 1) * 2 * kTileF;
-      stage_tile_bf16(k + base, (c + 1) * kChunk, n, d, next);
-      stage_tile_bf16(v + base, (c + 1) * kChunk, n, d, next + kTileF);
-    }
-    r3d::cp_async_commit();
-
-#pragma unroll 1
-    for (int p = 0; p < kCols / kW; ++p) {
-      const int cb = col0 + p * kW;  // tile-relative first key of the pass
-      const int j0 = c * kChunk + cb;
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      product_along_channels_bf16<NT>(s, qa, kt, cb, d);    // S
-      product_along_channels_bf16<NT>(dp, dya, vt, cb, d);  // dPd
-      const bool ragged = j0 + kW > n;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        float4 f = make_float4(1.f, 1.f, 1.f, 1.f);
-        if constexpr (kDropout) f = row_mask(drop, b, row0 + g, j0 + 8 * j + 2 * t);
-        const float fs[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float pe = exp2_fast((s[j][e] - lq[e >> 1]) * kLog2e);
-          // a key past n has zero K and V, but exp(0 - lse) may overflow
-          if (ragged && j0 + 8 * j + 2 * t + (e & 1) >= n) pe = 0.f;
-          s[j][e] = pe * (dp[j][e] * fs[e] - dl[e >> 1]);  // dS
-        }
-      }
-      product_along_rows_bf16<NT>(gq, s, kt, cb, d);  // dQ += dS K
-    }
-  }
-
-  if constexpr (S > 1) {
-    constexpr int kSlot = 32;
-    __syncthreads();
-    float* mine = lane_slot(smem, warp, kSlot);
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mine[4 * nn + e] = gq[nn][e];
-    __syncthreads();
-    if (warp % S != 0) return;
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) gq[nn][e] = 0.f;
-#pragma unroll 1  // one split's partials live at a time (registers)
-    for (int sp = 0; sp < S; ++sp) {
-      const float* other = lane_slot(smem, warp + sp, kSlot);
-#pragma unroll
-      for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) gq[nn][e] += other[4 * nn + e];
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= n) continue;
-    float* out = dq + base + static_cast<size_t>(row) * d;
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn) {
-      const int ch = 8 * nn + 2 * t;
-      if (ch < d)
-        *reinterpret_cast<float2*>(out + ch) =
-            make_float2(gq[nn][2 * r] * scale, gq[nn][2 * r + 1] * scale);
-    }
-  }
-}
-
-struct BwdBF16 {
-  const uint16_t *q, *k, *v;
-  const float *y, *dy, *lse;
-  float* delta;
-  uint16_t *qs, *dyb;
-  float *dq, *dk, *dv;
-};
-
-template <int S, bool kDropout>
-cudaError_t launch_bwd_bf16(const BwdBF16& a, int b, int n, int d, float scale,
-                            r3d::Dropout drop, cudaStream_t st) {
-  const int rows = 16 * kWarps / S;
-  const dim3 grid((n + rows - 1) / rows, b);
-  const cudaError_t err =
-      r3d_launch(attn_bwd_dkdv_bf16_kernel<S, kDropout>, grid, dim3(kThreads), kSmemKVH, st,
-                 a.qs, a.q, a.k, a.v, a.dyb, a.lse, a.delta, a.dk, a.dv, n, d, scale, drop);
-  if (err != cudaSuccess) return err;
-  return r3d_launch(attn_bwd_dq_bf16_kernel<S, kDropout>, grid, dim3(kThreads), kSmemQH, st,
-                    a.qs, a.k, a.v, a.dyb, a.lse, a.delta, a.dq, n, d, scale, drop);
-}
-
-template <int S>
-cudaError_t launch_bwd_bf16_s(bool dropout, const BwdBF16& a, int b, int n, int d, float scale,
-                              r3d::Dropout drop, cudaStream_t st) {
-  return dropout ? launch_bwd_bf16<S, true>(a, b, n, d, scale, drop, st)
-                 : launch_bwd_bf16<S, false>(a, b, n, d, scale, drop, st);
-}
-
 }  // namespace
 
 // delta is (B, N) f32 scratch the wrapper allocates.
@@ -694,40 +385,5 @@ R3D_EXPORT int r3d_attn_bwd(const void* q, const void* k, const void* v, const v
       return args(launch_bwd_s<2>);
     default:
       return args(launch_bwd_s<4>);
-  }
-}
-
-// The bf16 form: q, k, v (B, N, D) bf16 with D % 8 == 0, D <= 64; y, dy f32
-// (the forward's output and its cotangent); lse f32 -> dq, dk, dv f32.
-// Scratch from the wrapper: delta (B, N) f32, qs and dyb (B, N, D) bf16.
-// scale = 1 / tau (f32), qscale = bf16(1 / tau), the forward's.
-R3D_EXPORT int r3d_attn_bwd_bf16(const void* q, const void* k, const void* v, const void* y,
-                                 const void* dy, const void* lse, void* delta, void* qs,
-                                 void* dyb, void* dq, void* dk, void* dv, int b, int n, int d,
-                                 float scale, float qscale, int dropout, unsigned seed_lo,
-                                 unsigned seed_hi, unsigned threshold, float keep_scale,
-                                 void* stream) {
-  if (d < 8 || d > kDP || d % 8 != 0) return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  const BwdBF16 a{static_cast<const uint16_t*>(q),  static_cast<const uint16_t*>(k),
-                  static_cast<const uint16_t*>(v),  static_cast<const float*>(y),
-                  static_cast<const float*>(dy),    static_cast<const float*>(lse),
-                  static_cast<float*>(delta),       static_cast<uint16_t*>(qs),
-                  static_cast<uint16_t*>(dyb),      static_cast<float*>(dq),
-                  static_cast<float*>(dk),          static_cast<float*>(dv)};
-  const int rows = b * n;
-  attn_bwd_prep_bf16_kernel<><<<(rows * 32 + 255) / 256, 256, 0, st>>>(a.q, a.dy, a.y, a.delta,
-                                                                       a.qs, a.dyb, rows, d,
-                                                                       qscale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
-  switch (splits(b, n)) {
-    case 1:
-      return launch_bwd_bf16_s<1>(dropout != 0, a, b, n, d, scale, drop, st);
-    case 2:
-      return launch_bwd_bf16_s<2>(dropout != 0, a, b, n, d, scale, drop, st);
-    default:
-      return launch_bwd_bf16_s<4>(dropout != 0, a, b, n, d, scale, drop, st);
   }
 }

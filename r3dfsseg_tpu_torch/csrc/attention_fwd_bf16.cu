@@ -99,107 +99,22 @@ constexpr size_t kStatsBytes = sizeof(float) * 2 * kBlockRows;
 constexpr size_t kSmem = 1024 + kRingBytes + kPartialBytes + kStatsBytes +
                          sizeof(uint64_t) * 2 * kStages;
 
-// ---- mbarriers, the async proxy, clusters ------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One arrival on the barrier once this thread's cp.async copies so far
-// have landed (the barrier's count includes it: .noinc).
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// Shared memory written through the generic proxy (cp.async), made
-// visible to wgmma's reads through the async proxy.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// The cluster barrier in two halves, so that the producer warp can arrive
-// and go on issuing copies.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  cluster_arrive();
-  cluster_wait();
-}
-
-// The address of p's counterpart in the shared memory of block `rank` of
-// the cluster.
-__device__ __forceinline__ uint32_t remote(const void* p, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ float ld_remote(uint32_t addr) {
-  float x;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(x) : "r"(addr) : "memory");
-  return x;
-}
-
-__device__ __forceinline__ float4 ld_remote4(uint32_t addr) {
-  float4 x;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
-               : "r"(addr)
-               : "memory");
-  return x;
-}
+using r3d::cluster_arrive;
+using r3d::cluster_rank;
+using r3d::cluster_sync;
+using r3d::cluster_wait;
+using r3d::cp_async_arrive;
+using r3d::fence_async_shared;
+using r3d::ld_remote;
+using r3d::ld_remote4;
+using r3d::load_tile;
+using r3d::mbar_arrive;
+using r3d::mbar_init;
+using r3d::mbar_wait;
+using r3d::remote;
+using r3d::smem_u32;
 
 // ---- tiles and products ------------------------------------------------
-// The producer warp's copies of keys [key0, key0 + 64) of an (n, d) bf16
-// matrix into a staged tile: 128-byte rows, piece c of row r at c ^ (r %
-// 8); zeros past n and past d.
-__device__ __forceinline__ void load_tile(const uint16_t* src, int key0, int n, int d,
-                                          uint16_t* dst, int lane) {
-#pragma unroll
-  for (int i = 0; i < kKeys * 8 / 32; ++i) {
-    const int e = lane + 32 * i;
-    const int r = e >> 3;
-    const int c = e & 7;
-    const bool ok = key0 + r < n && 8 * c < d;
-    r3d::cp_async16(dst + r * 64 + ((c ^ (r & 7)) << 3),
-                    ok ? src + static_cast<size_t>(key0 + r) * d + 8 * c : src, ok);
-  }
-}
-
 // s = (q * scale) K^T over a staged K tile: the warpgroup's 64 rows by the
 // tile's 64 keys, `ksteps` k-steps of 16 channels.
 __device__ __forceinline__ void scores(float (&s)[8][4], const uint32_t (&qa)[4][4],

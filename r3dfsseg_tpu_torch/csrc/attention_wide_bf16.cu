@@ -11,22 +11,21 @@
 // 128-wide head, r3dfsseg_tpu/config.py:60; `--output_dim` above 64 on the
 // bf16 encoder).  The function and its roundings are the tuned bf16 forms'
 // (attention_fwd_bf16.cu:r3d_attn_fwd_bf16,
-// attention_bwd.cu:r3d_attn_bwd_bf16): the same Philox mask, q * bf16(1 /
-// tau) rounded to bf16, bf16 products with f32 sums (mma.sync.m16n8k16
-// here, wgmma in the tuned forward); forward in two passes (each
-// row's max m and sum l over all keys, then P = exp(s - m) * (1 / l) times
-// the mask, rounded to bf16 before P V: the TPU kernel rounds the
+// attention_bwd_bf16.cu:r3d_attn_bwd_bf16): the same Philox mask, q *
+// bf16(1 / tau) rounded to bf16, bf16 products with f32 sums
+// (mma.sync.m16n8k16 here, wgmma in the tuned pair); forward in two passes
+// (each row's max m and sum l over all keys, then P = exp(s - m) * (1 / l)
+// times the mask, rounded to bf16 before P V: the TPU kernel rounds the
 // normalised P), lse = m + log l and y in f32; backward with P = exp(s -
 // lse) recomputed from the forward's lse, dY, Pd and dS rounded to bf16
 // before their products, Delta = rowsum(bf16(dY) * Y), dK from the
 // unscaled q, dQ and dK times the f32 1 / tau.
 //
-// The design is the tuned bf16 form's, widened: 4 warps a block, a warp
-// owns 16 rows (queries; keys in dK/dV), 64-row tiles of the column
-// operands stream through a two-stage cp.async ring, fragments by
-// ldmatrix from XOR-swizzled tiles, S splits of the columns by B x N
-// (attention.cuh `splits`), merged in split order.  What changes with the
-// width:
+// The design is the f32 tuned kernels' in bf16, widened: 4 warps a block,
+// a warp owns 16 rows (queries; keys in dK/dV), 64-row tiles of the column
+// operands stream through a two-stage cp.async ring, fragments by ldmatrix
+// from XOR-swizzled tiles, S splits of the columns by B x N (attention.cuh
+// `splits`), merged in split order.  What changes with the width:
 //   - a staged row is T channel tiles of 64 (T = 2 for D <= 128, T = 4 up
 //     to 256: one kernel per T, the runtime d stops the k-steps and output
 //     tiles at d, so any D that is a multiple of 8 runs unpadded past it);
@@ -512,7 +511,7 @@ R3D_EXPORT int r3d_attn_wide_tc_fwd_bf16(const void* q, const void* k, const voi
                       : fwd<4>(qp, kp, vp, yp, lp, b, n, d, scale, dropout != 0, drop, st);
 }
 
-// The backward, with r3d_attn_bwd_bf16's arguments: q, k, v as the
+// The backward: q, k, v as the
 // forward's; y, dy (B, N, D) f32, lse (B, N) f32 -> dq, dk, dv (B, N, D)
 // f32.  Scratch from the wrapper: delta (B, N) f32, qs and dyb (B, N, D)
 // bf16.  scale = 1 / tau (f32), qscale = bf16(1 / tau), the forward's.

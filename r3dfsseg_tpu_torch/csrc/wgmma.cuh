@@ -1,5 +1,7 @@
 // Hopper warpgroup products (wgmma, sm_90a only) shared by kernel 11
-// (matmul_probe.cu) and kernel 2's bf16 form (attention_fwd_bf16.cu).
+// (matmul_probe.cu) and the bf16 attention kernels at D <= 64
+// (attention_fwd_bf16.cu, attention_bwd_bf16.cu), and the mbarrier ring,
+// async-proxy fences and cluster barriers of the attention kernels.
 //
 // A warpgroup (four warps, 128 threads) issues wgmma.mma_async on a 64-row
 // tile: d (64 x N f32, in registers) += A (64 x 16 bf16) B (16 x N bf16).
@@ -24,10 +26,13 @@
 //   1024 bytes apart, k-step ks of a 64-wide row at +32 ks bytes.
 // - MN-major (the output's columns run along the rows, the contraction
 //   down them; the transpose bit set): 8 rows of the contraction a group,
-//   groups 1024 bytes apart, k-step s at +2048 s bytes.
+//   groups 1024 bytes apart, k-step s at +2048 s bytes.  An A operand in
+//   shared memory may be MN-major too (its M along the rows; bf16 only).
 #pragma once
 
 #include <cstdint>
+
+#include "common.cuh"
 
 namespace r3d {
 
@@ -195,11 +200,43 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1), "n"(kTransB));
 }
 
+// d (64 x 64 f32) += A B for one k16 step, A and B from shared memory by
+// their descriptors: each K-major (0) or MN-major (1).
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "n"(1), "n"(kTransA), "n"(kTransB));
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 
-__device__ __forceinline__ void wgmma_commit_and_wait() {
+__device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of products are still running.
+template <int N = 0>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  wgmma_commit();
+  wgmma_wait();
 }
 
 // Keeps the compiler from moving accumulator reads or writes across the
@@ -218,6 +255,116 @@ __device__ __forceinline__ void keep_operands(const uint32_t (&a)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" ::"r"(a[i][j]) : "memory");
+}
+
+// ---- mbarriers, the async proxy, clusters ------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One arrival on the barrier once this thread's cp.async copies so far
+// have landed (the barrier's count includes it: .noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait until at most N of this thread's cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared memory written through the generic proxy (cp.async), made
+// visible to wgmma's reads through the async proxy.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier in two halves, so that the producer warp can arrive
+// and go on issuing copies.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The address of p's counterpart in the shared memory of block `rank` of
+// the cluster.
+__device__ __forceinline__ uint32_t remote(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_remote(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(x) : "r"(addr) : "memory");
+  return x;
+}
+
+__device__ __forceinline__ float4 ld_remote4(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
+
+// The copies of rows [row0, row0 + 64) of an (n, d) bf16 matrix into a
+// staged tile by kThreads threads (a producer warp, or a warpgroup; thread
+// `tid` of them): 128-byte rows, piece c of row r at c ^ (r % 8); zeros
+// past n and past d.
+template <int kThreads = 32>
+__device__ __forceinline__ void load_tile(const uint16_t* src, int row0, int n, int d,
+                                          uint16_t* dst, int tid) {
+#pragma unroll
+  for (int i = 0; i < 64 * 8 / kThreads; ++i) {
+    const int e = tid + kThreads * i;
+    const int r = e >> 3;
+    const int c = e & 7;
+    const bool ok = row0 + r < n && 8 * c < d;
+    cp_async16(dst + r * 64 + ((c ^ (r & 7)) << 3),
+               ok ? src + static_cast<size_t>(row0 + r) * d + 8 * c : src, ok);
+  }
 }
 
 }  // namespace r3d

@@ -1,7 +1,7 @@
 """Single-head attention with dropout, forward and backward: the Hopper
-kernels `csrc/attention_fwd.cu` (f32) and `csrc/attention_fwd_bf16.cu`
-(bf16) and `csrc/attention_bwd.cu` (D <= 64),
-`csrc/attention_wide_bf16.cu` (bf16, 64 < D <= 256),
+kernels `csrc/attention_fwd.cu` and `csrc/attention_bwd.cu` (f32) and
+`csrc/attention_fwd_bf16.cu` and `csrc/attention_bwd_bf16.cu` (bf16) at D
+<= 64, `csrc/attention_wide_bf16.cu` (bf16, 64 < D <= 256),
 `csrc/attention_group_bf16.cu` (bf16, D > 256) and `csrc/attention_wide.cu`
 (f32, D > 64, 3xTF32 tiles in channel groups), and their plain versions.
 
@@ -18,7 +18,7 @@ instead, so its bits differ: the port's tests compare with JAX at rate 0
 and test the mask inside the port.  `dropout_words_reference` computes the
 same bits in plain PyTorch on any device.
 
-What bounds the kernels on the H100: the products, which run on the
+What bounds the f32 kernels on the H100: the products, which run on the
 tensor cores as 3xTF32 `mma.sync.m16n8k8` tiles (`csrc/common.cuh`,
 `csrc/attention.cuh`).  Each f32 operand x is split into hi = tf32(x) and
 lo = tf32(x - hi) (`split_tf32` below), and a b is taken as a_hi b_hi +
@@ -51,7 +51,11 @@ query rows a block, with the keys cut over the 1, 2 or 4 blocks of a
 thread block cluster (`fwd_bf16_cluster` chooses C from the card's SM
 count and the wrapper passes it; `fwd_bf16_plan` mirrors the launch),
 whose statistics and partial outputs are merged in rank order through
-distributed shared memory; the backward and the wider forms run
+distributed shared memory.  The backward at D <= 64 runs `wgmma` tiles
+too: a dK/dV kernel whose blocks own 64 keys (the query tiles cut over a
+cluster's blocks by `bwd_bf16_cluster`, partials merged in rank order)
+computes each score, mask and dS once and writes bf16(dS) to a scratch
+(`bwd_bf16_ds_offset`), which a dQ kernel reads; the wider forms run
 `mma.sync.m16n8k16` tiles.  The backward rounds dY, Pd and dS to bf16
 before their products, takes dQ = dS K / tau and dK = dS^T q / tau with
 the unscaled q, and `fused_attention` casts the f32 cotangents to bf16.
@@ -309,8 +313,8 @@ def _layout(q: torch.Tensor) -> int:
 
 def _route(q: torch.Tensor) -> str:
     """The kernels a CUDA call runs after `_layout`'s pad: 'tuned'
-    (`attention_fwd.cu` or `attention_fwd_bf16.cu`, `attention_bwd.cu`; D
-    <= MAX_D), 'wide_tc' (bf16,
+    (`attention_fwd.cu` and `attention_bwd.cu`, or `attention_fwd_bf16.cu`
+    and `attention_bwd_bf16.cu`; D <= MAX_D), 'wide_tc' (bf16,
     MAX_D < D <= MAX_D_WIDE_TC: `attention_wide_bf16.cu`), 'wide_group'
     (bf16, D > MAX_D_WIDE_TC: `attention_group_bf16.cu`) or 'wide_tf32'
     (f32, D > MAX_D: `attention_wide.cu`)."""
@@ -358,6 +362,52 @@ def fwd_bf16_plan(b: int, n: int, sms: int = 132):
     rows = -(-n // FWD_BF16_BLOCK_ROWS)
     return c, [(bb, (x // c) * FWD_BF16_BLOCK_ROWS, (x % c) * tiles // c,
                 (x % c + 1) * tiles // c) for bb in range(b) for x in range(rows * c)]
+
+
+# csrc/attention_bwd_bf16.cu's tiles: 64 keys a dK/dV block, 64 queries a
+# staged tile and a dQ block
+BWD_BF16_TILE = 64
+
+
+def bwd_bf16_cluster(b: int, n: int, sms: int = 132) -> int:
+    """The cluster size C (1 or 2) that `attention_bwd` passes to the bf16
+    backward at D <= 64 (`attention_bwd_bf16.cu`), whose dK/dV blocks of one
+    key tile cut the query tiles over a cluster of C: 1 where B * ceil(N /
+    64) blocks start at least four on each of ``sms`` SMs (two rounds of
+    the two an SM holds), else 2.  Measured on an H100, C = 2 beat C = 4 at
+    B = 2 as at B = 10, and C = 1 at both."""
+    return 1 if b * -(-n // BWD_BF16_TILE) >= 4 * sms else 2
+
+
+def bwd_bf16_plan(b: int, n: int, c: int):
+    """The dK/dV launch of the bf16 backward at D <= 64 with cluster size
+    ``c``, one entry (cloud, first key, first query tile, query tile past
+    the last) per block in the grid's order: block x of cloud b is rank x %
+    c of the cluster of key tile x // c, and takes the query tiles [r T /
+    c, (r + 1) T / c) of the T = ceil(N / 64)."""
+    tiles = -(-n // BWD_BF16_TILE)
+    return [(bb, (x // c) * BWD_BF16_TILE, (x % c) * tiles // c, (x % c + 1) * tiles // c)
+            for bb in range(b) for x in range(tiles * c)]
+
+
+def bwd_bf16_ds_elems(b: int, n: int) -> int:
+    """bf16 entries of the backward's dS scratch: B T^2 tiles of 64 x 64."""
+    tiles = -(-n // BWD_BF16_TILE)
+    return b * tiles * tiles * BWD_BF16_TILE * BWD_BF16_TILE
+
+
+def bwd_bf16_ds_offset(b, key, query, n: int):
+    """The scratch entry of dS (b, query, key) (ints or integer tensors):
+    tile (b, key // 64, query // 64) of T = ceil(N / 64), 4096 entries each
+    in the order ((b T + key tile) T + query tile); in the tile, key row r =
+    key % 64 of 64 queries, its 16-byte piece c (queries 8c .. 8c + 7) at
+    piece c ^ (r % 8): the 128-byte swizzle in which the dQ kernel's
+    products read dS^T."""
+    t = BWD_BF16_TILE
+    tiles = -(-n // t)
+    r, col = key % t, query % t
+    tile = (b * tiles + key // t) * tiles + query // t
+    return tile * t * t + r * t + (((col // 8) ^ (r % 8)) * 8) + col % 8
 
 
 _FWD_NAMES = {("tuned", False): "r3d_attn_fwd", ("tuned", True): "r3d_attn_fwd_bf16",
@@ -449,24 +499,30 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
     lo, hi = _seed_words(seed)
     tail = (int(rate > 0.0), lo, hi, dropout_threshold(rate), keep_scale(rate),
             build.stream_ptr(q.device))
+    ints = (b, n, d)
     if lowp:
-        # the three bf16 routes' backward kernels take the same arguments
+        # the bf16 routes' backward kernels: the prep pass's scratch, and at
+        # D <= 64 the dS scratch and the dK/dV kernel's cluster size
         name = {"tuned": "r3d_attn_bwd_bf16", "wide_tc": "r3d_attn_wide_tc_bwd_bf16",
                 "wide_group": "r3d_attn_group_bwd_bf16"}[route]
-        qs, dyb = torch.empty_like(q), torch.empty_like(q)     # the kernel's scratch
-        fn = build.function(name, [build.P] * 12 + [build.I] * 3 + [build.F, build.F, build.I]
-                            + [build.U] * 3 + [build.F, build.P])
-        ptrs = (q, k, v, y, dy, lse, delta, qs, dyb, dq, dk, dv)
+        qs, dyb = torch.empty_like(q), torch.empty_like(q)
+        ptrs = (q, k, v, y, dy, lse, delta, qs, dyb)
+        if route == "tuned":
+            ptrs += (torch.empty(bwd_bf16_ds_elems(b, n), dtype=torch.bfloat16, device=q.device),)
+            ints += (bwd_bf16_cluster(b, n, torch.cuda.get_device_properties(q.device)
+                                      .multi_processor_count),)
+        ptrs += (dq, dk, dv)
         scales = (1.0 / tau, bf16_value(1.0 / tau))
     else:
         # the two f32 routes' backward kernels take the same arguments
         name = "r3d_attn_wide_tf32_bwd" if route == "wide_tf32" else "r3d_attn_bwd"
-        fn = build.function(name, [build.P] * 10 + [build.I] * 3 + [build.F, build.I]
-                            + [build.U] * 3 + [build.F, build.P])
         ptrs = (q, k, v, y, dy, lse, delta, dq, dk, dv)
         scales = (1.0 / tau,)
+    fn = build.function(name, [build.P] * len(ptrs) + [build.I] * len(ints)
+                        + [build.F] * len(scales) + [build.I] + [build.U] * 3
+                        + [build.F, build.P])
     with torch.cuda.device(q.device):
-        err = fn(*(t.data_ptr() for t in ptrs), b, n, d, *scales, *tail)
+        err = fn(*(t.data_ptr() for t in ptrs), *ints, *scales, *tail)
     build.check(err, name)
     if route == "wide_tf32":
         wide_tf32_bwd_launches += 1

@@ -1272,6 +1272,57 @@ def test_attention_bf16_forward_cluster_routes_on_card(cluster, n):
     _bf16_forward_meets_gates(q, k, v, 8.0, 0.1, 41)
 
 
+def _bf16_backward_meets_gates(q, k, v, dy, tau, rate, seed):
+    """The bf16 backward at D <= 64 (`csrc/attention_bwd_bf16.cu`) from the
+    kernel forward's y and lse against its plain version with q scaled as
+    the kernels scale it: each gradient within ATTN_BF16_BWD_TOL of its
+    largest entry; a second call bit-equal; one launch each."""
+    y, lse = cuda_attention.attention_fwd(q, k, v, tau, rate, seed)
+    before = cuda_attention.bwd_bf16_launches
+    got = cuda_attention.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
+    again = cuda_attention.attention_bwd(q, k, v, y, dy, lse, tau, rate, seed)
+    torch.cuda.synchronize()
+    assert cuda_attention.bwd_bf16_launches == before + 2
+    want = cuda_attention.attention_bwd_reference(q, k, v, y, dy, lse, tau, rate, seed,
+                                                  kernel_scale=True)
+    for a, a2, w in zip(got, again, want):
+        assert a.dtype == torch.float32 and a.shape == q.shape and torch.equal(a, a2)
+        assert float((a - w).abs().max()) <= \
+            chip_smoke.ATTN_BF16_BWD_TOL * float(w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,rate", [(1, 300, 8, 0.1), (2, 300, 12, 0.0), (10, 300, 24, 0.1),
+                                        (2, 300, 40, 0.0), (1, 300, 64, 0.1), (2, 100, 64, 0.1),
+                                        (1, 64, 16, 0.0), (2, 2049, 64, 0.1), (1, 2049, 24, 0.0),
+                                        (10, 2049, 40, 0.1), (10, 2049, 64, 0.0),
+                                        (2, 2049, 12, 0.1), (10, 2048, 8, 0.1)])
+def test_attention_bf16_backward_ragged_and_narrow_on_card(b, n, d, rate):
+    """The wgmma backward at ragged N (a cut last key tile and query tile:
+    their P = 0 and dS zeros), at D = 8, 12 (through the zero pad to 16),
+    24, 40 (a k-step half zero) and 64, B = 1, 2, 10, rate 0 and 0.1: the
+    gates of `_bf16_backward_meets_gates`."""
+    dev = cuda_or_skip()
+    q, k, v, dy = _bf16_qkv(n + d + b + 5, b, n, d, dev)
+    _bf16_backward_meets_gates(q, k, v, dy, float(d) ** 0.5, rate, 33)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048, 2049])
+@pytest.mark.parametrize("cluster", [1, 2])
+def test_attention_bf16_backward_cluster_routes_on_card(cluster, n):
+    """Each cluster size C of the dK/dV kernel through the wrapper, reached
+    by the shape alone: the smallest B that `bwd_bf16_cluster` sends to C on
+    this card's SMs (on 132 SMs at N = 2048: B = 17 takes 1, B = 1 takes
+    2), D = 64, rate 0.1: the gates of `_bf16_backward_meets_gates`,
+    repeats bit for bit."""
+    dev = cuda_or_skip()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b = next(b for b in range(1, 4 * sms) if cuda_attention.bwd_bf16_cluster(b, n, sms) == cluster)
+    q, k, v, dy = _bf16_qkv(b + 90, b, n, 64, dev)
+    _bf16_backward_meets_gates(q, k, v, dy, 8.0, 0.1, 43)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [10, 2])
 def test_scatter_add_bf16_bit_equals_the_f32_form_on_card(b):
