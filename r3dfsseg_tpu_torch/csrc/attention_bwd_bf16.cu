@@ -29,39 +29,42 @@
 //      row): Delta, bf16(dY) and the scaled query qs = bf16(q * bf16(1 /
 //      tau)) into the wrapper's scratch.
 //   a. dK/dV (`attn_bwd_dkdv_bf16_wgmma_kernel`): a block owns 64 keys,
-//      one warpgroup.  It loads the block's K and V tiles once, and keeps
-//      a ring of kStagesKV stages filled, each the qs, q and bf16(dY) tiles
+//      one warpgroup, three blocks an SM (at most 168 registers a thread,
+//      74 KB of shared memory), so that one block's CUDA-core work
+//      overlaps another's products.  It loads the block's K and V tiles
+//      once and keeps two stages filled, each the qs, q and bf16(dY) tiles
 //      of 64 queries (64 x 64 bf16, the 128-byte swizzle; zeros past N and
-//      D) and their lse and Delta, by cp.async: tile t + 2's copies are
-//      issued while tile t is computed, and one barrier a tile hands a
-//      stage over.  (A producer warp, as attention_fwd_bf16.cu has, makes
-//      five warps a block: ptxas then caps two blocks an SM at 168
-//      registers, and this kernel spilled there.)  Per query tile the
-//      warpgroup takes S^T = K qs^T and dPd^T = V dY^T
-//      (wgmma.m64n64k16 with both operands in shared memory, k-steps past
-//      D not issued; while they run, the tile's mask bits by `col_mask`'s
-//      words, the accumulator being (key, query) tiles of m16n8 per warp),
-//      then on the CUDA cores P^T = exp2((S^T - lse) log2 e) (while dPd^T
+//      D) and their lse and Delta, by cp.async: tile t + 1's copies are
+//      issued while tile t is computed, and a barrier a tile hands a stage
+//      over.  (A producer warp, as attention_fwd_bf16.cu has, makes five
+//      warps a block, and ptxas caps two such blocks an SM at 168
+//      registers.)  It takes each tile in two halves of 32 queries (the
+//      registers): S^T = K qs^T and dPd^T = V dY^T (wgmma.m64n32k16 with
+//      both operands in shared memory, k-steps past D not issued; while
+//      they run, the half's mask bits by `col_mask`'s words, the
+//      accumulator being (key, query) tiles of m16n8 per warp), then on
+//      the CUDA cores P^T = exp2((S^T - lse) log2 e) (while dPd^T
 //      finishes), Pd^T = P^T M and dS^T = P^T (dPd^T M - Delta); Pd^T and
-//      dS^T go from the accumulators straight into
-//      bf16 register A operands (`acc_frag_bf16`) of dV += Pd^T dY and dK
-//      += dS^T q, with dY and q as MN-major B operands.  While those run,
-//      the warpgroup writes the same bf16 dS^T into a staging tile in the
-//      128-byte swizzle, and behind the next tile's barrier copies it to
-//      the scratch in 16-byte pieces (coalesced): each score, mask and exp
-//      is computed once, and the dQ product reads the bits that dK's read.
-//      Keys and queries past N get P = 0, so their dS entries are zeros.
+//      dS^T go from the accumulators straight into bf16 register A
+//      operands (`acc_frag_bf16`) of dV += Pd^T dY and dK += dS^T q, with
+//      dY and q as MN-major B operands.  While those run, the warpgroup
+//      writes the same bf16 dS^T into a staging tile in the 128-byte
+//      swizzle, which behind a second barrier it copies to the scratch in
+//      16-byte pieces (coalesced): each score, mask and exp is computed
+//      once, and the dQ product reads the bits that dK's read.  Keys and
+//      queries past N get P = 0, so their dS entries are zeros.
 //   b. dQ (`attn_bwd_dq_bf16_wgmma_kernel`): a block owns 64 queries, a
 //      warpgroup and a producer warp that fills a ring of dS^T and K tiles
 //      on mbarriers (as attention_fwd_bf16.cu), and sums dQ = bf16(dS) K
 //      over the key tiles in order: dS as the MN-major A operand straight
 //      from the scratch's swizzled tile (a contiguous 8 KB copy), K the
 //      MN-major B.  Bound by the bytes of dS.
-// Filling 132 SMs: B = 10 has 320 key tiles, 1.2 rounds of the two dK/dV
-// blocks an SM holds, and B = 2 only 64, so the dK/dV kernel cuts its
-// query tiles in contiguous ranges over the C = 2 blocks of a thread block
-// cluster that share a key tile (the wrapper's `bwd_bf16_cluster` picks C
-// = 1 or 2 and passes it; measured, C = 4 ran slower at both); each block
+// Filling 132 SMs: B = 10 has 320 key tiles, less than one round of the
+// three dK/dV blocks an SM holds, and B = 2 only 64, so the dK/dV kernel
+// cuts its query tiles in contiguous ranges over the C = 2 blocks of a
+// thread block cluster that share a key tile (the wrapper's
+// `bwd_bf16_cluster` picks C = 1 or 2 and passes it; measured, C = 2 beat
+// C = 1 and C = 4 at both); each block
 // leaves its partial dK and dV in shared memory, and behind a cluster
 // barrier block r sums rows r 64 / C .. of all C in rank order through
 // distributed shared memory (`merge_partials`).  (The dQ kernel cut the
@@ -99,11 +102,12 @@ constexpr int kGroupWarps = kGroupThreads / 32;
 constexpr int kPStride = 72;                   // floats per row of a partial dK or dV
 constexpr size_t kTileBytes = sizeof(uint16_t) * kTileElems;
 
-// dK/dV: the ring (qs, q, dY tiles a stage), the block's K and V tiles,
-// two dS^T staging tiles, lse and Delta of each stage's queries
-constexpr int kStagesKV = 3;
+// dK/dV: two stages (qs, q, dY tiles), the block's K and V tiles, the
+// dS^T staging tile, lse and Delta of each stage's queries: 74 KB, three
+// blocks an SM
+constexpr int kStagesKV = 2;
 constexpr size_t kRingKV = 3 * kTileBytes * kStagesKV;
-constexpr size_t kSmemKV = 1024 + kRingKV + 4 * kTileBytes + sizeof(float) * 2 * 64 * kStagesKV;
+constexpr size_t kSmemKV = 1024 + kRingKV + 3 * kTileBytes + sizeof(float) * 2 * 64 * kStagesKV;
 static_assert(2 * sizeof(float) * kRows * kPStride <= kRingKV, "the partials fit in the ring");
 // dQ: a dS^T tile and a K tile a stage, barriers; a warpgroup and a
 // producer warp
@@ -208,10 +212,11 @@ __device__ __forceinline__ void merge_partials(const float* part, float* dk, flo
 
 // (a) dK, dV of the block's 64 keys over its cluster rank's query tiles,
 // and bf16(dS^T) of those tiles into the scratch.  One warpgroup, which
-// also issues its own copies: a ring of kStagesKV stages, tile t + 2's
-// copies issued while tile t is computed.
+// also issues its own copies (tile t + 1's while tile t is computed), and
+// takes each tile in two halves of 32 queries, so that three blocks fit
+// an SM (at most 168 registers a thread).
 template <int C, bool kDropout>
-__global__ void __launch_bounds__(kGroupThreads, 2)
+__global__ void __launch_bounds__(kGroupThreads, 3)
 attn_bwd_dkdv_bf16_wgmma_kernel(const uint16_t* __restrict__ qs, const uint16_t* __restrict__ q,
                                 const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
                                 const uint16_t* __restrict__ dyb, const float* __restrict__ lse,
@@ -222,8 +227,8 @@ attn_bwd_dkdv_bf16_wgmma_kernel(const uint16_t* __restrict__ qs, const uint16_t*
   unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
   uint16_t* ring = reinterpret_cast<uint16_t*>(smem);
   uint16_t* kvt = ring + 3 * kTileElems * kStagesKV;  // K tile, then V tile
-  uint16_t* staged = kvt + 2 * kTileElems;            // two dS^T tiles
-  float* stats = reinterpret_cast<float*>(staged + 2 * kTileElems);
+  uint16_t* staged = kvt + 2 * kTileElems;            // the dS^T tile
+  float* stats = reinterpret_cast<float*>(staged + kTileElems);
 
   const int b = blockIdx.y;
   const int rank = C > 1 ? static_cast<int>(cluster_rank()) : 0;
@@ -236,18 +241,11 @@ attn_bwd_dkdv_bf16_wgmma_kernel(const uint16_t* __restrict__ qs, const uint16_t*
   const float* lse_b = lse + static_cast<size_t>(b) * n;
   const float* delta_b = delta + static_cast<size_t>(b) * n;
 
-  // K and V once, with the first stage; one cp.async group a stage
-#pragma unroll
-  for (int i = 0; i < kStagesKV - 1; ++i) {
-    if (i == 0) {
-      load_tile<kGroupThreads>(k + base, key0, n, d, kvt, threadIdx.x);
-      load_tile<kGroupThreads>(v + base, key0, n, d, kvt + kTileElems, threadIdx.x);
-    }
-    if (lo + i < hi)
-      load_stage(qs + base, q + base, dyb + base, lse_b, delta_b, lo + i, n, d,
-                 ring + 3 * i * kTileElems, stats + 2 * 64 * i);
-    r3d::cp_async_commit();
-  }
+  // K and V once, with the first stage
+  load_tile<kGroupThreads>(k + base, key0, n, d, kvt, threadIdx.x);
+  load_tile<kGroupThreads>(v + base, key0, n, d, kvt + kTileElems, threadIdx.x);
+  if (lo < hi) load_stage(qs + base, q + base, dyb + base, lse_b, delta_b, lo, n, d, ring, stats);
+  r3d::cp_async_commit();
 
   // keys key0 + krow and + 8 of warp w's 16
   const int lane = threadIdx.x & 31;
@@ -267,126 +265,126 @@ attn_bwd_dkdv_bf16_wgmma_kernel(const uint16_t* __restrict__ qs, const uint16_t*
   int it = 0;
 #pragma unroll 1
   for (int t = lo; t < hi; ++t, ++it) {
-    // tile t's copies landed (one group, the next tile's, may be in
-    // flight) and made visible to wgmma; behind the barrier every thread
-    // is done with tile t - 1: its stage and the staging tile it wrote
-    r3d::cp_async_wait_group<kStagesKV - 2>();
+    // tile t's copies landed and made visible to wgmma; behind the barrier
+    // every thread is done with tile t - 1, whose stage takes tile t + 1
+    r3d::cp_async_wait_all();
     fence_async_shared();
     __syncthreads();
-    const int s = it % kStagesKV;
+    const int s = it & 1;
+    if (t + 1 < hi)
+      load_stage(qs + base, q + base, dyb + base, lse_b, delta_b, t + 1, n, d,
+                 ring + 3 * (s ^ 1) * kTileElems, stats + 2 * 64 * (s ^ 1));
+    r3d::cp_async_commit();
     const uint16_t* qst = ring + 3 * s * kTileElems;
     const uint16_t* qt = qst + kTileElems;
     const uint16_t* dyt = qt + kTileElems;
     const float* ss = stats + 2 * 64 * s;
-
-    // S^T = K qs^T and dPd^T = V dY^T over the channels (+32 bytes a
-    // k-step), two groups of products; while they run, tile t + 2's copies
-    // are issued, tile t - 1's dS^T goes to the scratch and the mask bits
-    // are drawn
-    float sc[32], dp[32];
-    const uint64_t dqs = r3d::desc(qst);
-    const uint64_t ddy = r3d::desc(dyt);
-    r3d::wgmma_fence();
-    r3d::wgmma_n64_first(sc, dka, dqs);
-#pragma unroll
-    for (int ks = 1; ks < 4; ++ks)
-      if (ks < ksteps) r3d::wgmma_n64(sc, dka + 2 * ks, dqs + 2 * ks);
-    r3d::wgmma_commit();
-    r3d::wgmma_n64_first(dp, dva, ddy);
-#pragma unroll
-    for (int ks = 1; ks < 4; ++ks)
-      if (ks < ksteps) r3d::wgmma_n64(dp, dva + 2 * ks, ddy + 2 * ks);
-    r3d::wgmma_commit();
-    {
-      const int ahead = it + kStagesKV - 1;
-      const int sn = ahead % kStagesKV;
-      if (lo + ahead < hi)
-        load_stage(qs + base, q + base, dyb + base, lse_b, delta_b, lo + ahead, n, d,
-                   ring + 3 * sn * kTileElems, stats + 2 * 64 * sn);
-      r3d::cp_async_commit();
-    }
-    if (it > 0) copy_staged(staged + ((it - 1) & 1) * kTileElems, ds_kt, t - 1);
-    // the tile's mask bits (Philox, the most of the CUDA cores' work), from
-    // the indices alone
     const int q0 = t * 64;
-    uint2 mbits[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      mbits[j] = kDropout ? col_mask_bits(drop, b, key0 + 16 * warp, q0 + 8 * j)
-                          : make_uint2(0u, 0u);
-    r3d::wgmma_wait<1>();
-    r3d::fence_operands(sc);
-    // P^T = exp2((S^T - lse) log2 e) while dPd^T finishes: accumulator
-    // register 4 j + 2 h + c is key krow + 8 h, query q0 + 8 j + 2 tq + c
     const bool ragged = ragged_keys || q0 + 64 > n;
+    uint32_t pa[2][2][4], sa[2][2][4];  // [half][k-step]: Pd^T and dS^T as A operands
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 ls = *reinterpret_cast<const float2*>(ss + 8 * j + 2 * tq);
+    for (int half = 0; half < 2; ++half) {
+      const int qh = 32 * half;  // the half's first query in the tile
+      // S^T = K qs^T and dPd^T = V dY^T over the channels (+32 bytes a
+      // k-step), two groups of products; meanwhile the half's mask bits
+      float sc[16], dp[16];
+      const uint64_t dqs = r3d::desc(qst + 64 * qh);
+      const uint64_t ddy = r3d::desc(dyt + 64 * qh);
+      r3d::wgmma_fence();
+      r3d::wgmma_n32_first(sc, dka, dqs);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 4 * j + e;
-        float pe = exp2_fast((sc[r] - ((e & 1) ? ls.y : ls.x)) * kLog2e);
-        // keys and queries past n: P = 0 (their dS entries in the scratch are zeros)
-        if (ragged && (key0 + krow + 8 * (e >> 1) >= n || q0 + 8 * j + 2 * tq + (e & 1) >= n))
-          pe = 0.f;
-        sc[r] = pe;
+      for (int ks = 1; ks < 4; ++ks)
+        if (ks < ksteps) r3d::wgmma_n32(sc, dka + 2 * ks, dqs + 2 * ks);
+      r3d::wgmma_commit();
+      r3d::wgmma_n32_first(dp, dva, ddy);
+#pragma unroll
+      for (int ks = 1; ks < 4; ++ks)
+        if (ks < ksteps) r3d::wgmma_n32(dp, dva + 2 * ks, ddy + 2 * ks);
+      r3d::wgmma_commit();
+      uint2 mbits[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mbits[j] = kDropout ? col_mask_bits(drop, b, key0 + 16 * warp, q0 + qh + 8 * j)
+                            : make_uint2(0u, 0u);
+      // S^T done (and in the second half the first half's dV, dK products)
+      r3d::wgmma_wait<1>();
+      r3d::fence_operands(sc);
+      if (half == 1) {
+        r3d::keep_operands(pa[0]);
+        r3d::keep_operands(sa[0]);
       }
+      // P^T = exp2((S^T - lse) log2 e): accumulator register 4 j + 2 h + c
+      // is key krow + 8 h, query q0 + qh + 8 j + 2 tq + c
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 ls = *reinterpret_cast<const float2*>(ss + qh + 8 * j + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 4 * j + e;
+          float pe = exp2_fast((sc[r] - ((e & 1) ? ls.y : ls.x)) * kLog2e);
+          // keys and queries past n: P = 0 (their dS entries are zeros)
+          if (ragged &&
+              (key0 + krow + 8 * (e >> 1) >= n || q0 + qh + 8 * j + 2 * tq + (e & 1) >= n))
+            pe = 0.f;
+          sc[r] = pe;
+        }
+      }
+      r3d::wgmma_wait<0>();
+      r3d::fence_operands(dp);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(ss + 64 + qh + 8 * j + 2 * tq);
+        const float4 f = kDropout ? col_mask_factors(mbits[j], drop.scale)
+                                  : make_float4(1.f, 1.f, 1.f, 1.f);
+        const float fs[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 4 * j + e;
+          const float pe = sc[r];
+          sc[r] = pe * fs[e];                                       // Pd^T
+          dp[r] = pe * (dp[r] * fs[e] - ((e & 1) ? dl.y : dl.x));   // dS^T
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        acc_frag_bf16<4>(reinterpret_cast<const float(&)[4][4]>(sc), ks, pa[half][ks]);
+        acc_frag_bf16<4>(reinterpret_cast<const float(&)[4][4]>(dp), ks, sa[half][ks]);
+      }
+      // dV += Pd^T dY and dK += dS^T q over the half's queries (k-step ks:
+      // queries qh + 16 ks ..)
+      r3d::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+        r3d::wgmma_rs_n64<1>(gv, pa[half][ks], r3d::desc_mn(dyt + 64 * (qh + 16 * ks)));
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+        r3d::wgmma_rs_n64<1>(gk, sa[half][ks], r3d::desc_mn(qt + 64 * (qh + 16 * ks)));
+      r3d::wgmma_commit();
+      // meanwhile bf16(dS^T) into the staging tile: register i of k-step
+      // ks is key krow + 8 (i % 2), queries qh + 16 ks + 8 (i / 2) + 2 tq,
+      // + 1
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = krow + 8 * (i & 1);
+          const int piece = qh / 8 + 2 * ks + (i >> 1);
+          *reinterpret_cast<uint32_t*>(staged + row * 64 + ((piece ^ (row & 7)) << 3) + 2 * tq) =
+              sa[half][ks][i];
+        }
     }
     r3d::wgmma_wait<0>();
-    r3d::fence_operands(dp);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 dl = *reinterpret_cast<const float2*>(ss + 64 + 8 * j + 2 * tq);
-      const float4 f = kDropout ? col_mask_factors(mbits[j], drop.scale)
-                                : make_float4(1.f, 1.f, 1.f, 1.f);
-      const float fs[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 4 * j + e;
-        const float pe = sc[r];
-        sc[r] = pe * fs[e];                                       // Pd^T
-        dp[r] = pe * (dp[r] * fs[e] - ((e & 1) ? dl.y : dl.x));   // dS^T
-      }
-    }
-    uint32_t pa[4][4], sa[4][4];
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      acc_frag_bf16<8>(reinterpret_cast<const float(&)[8][4]>(sc), ks, pa[ks]);
-      acc_frag_bf16<8>(reinterpret_cast<const float(&)[8][4]>(dp), ks, sa[ks]);
-    }
-
-    // dV += Pd^T dY and dK += dS^T q over the tile's queries (k-step s:
-    // queries 16 s ..)
-    r3d::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      r3d::wgmma_rs_n64<1>(gv, pa[ks], r3d::desc_mn(dyt + 16 * 64 * ks));
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      r3d::wgmma_rs_n64<1>(gk, sa[ks], r3d::desc_mn(qt + 16 * 64 * ks));
-    r3d::wgmma_commit();
-    // meanwhile bf16(dS^T) into staging tile it % 2 (copied to the scratch
-    // behind the next barrier): register i of k-step ks is key krow + 8 (i
-    // % 2), queries 16 ks + 8 (i / 2) + 2 tq, + 1
-    uint16_t* sd = staged + (it & 1) * kTileElems;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = krow + 8 * (i & 1);
-        const int piece = 2 * ks + (i >> 1);
-        *reinterpret_cast<uint32_t*>(sd + row * 64 + ((piece ^ (row & 7)) << 3) + 2 * tq) =
-            sa[ks][i];
-      }
-    r3d::wgmma_wait();
     r3d::fence_operands(gv);
     r3d::fence_operands(gk);
-    r3d::keep_operands(pa);
-    r3d::keep_operands(sa);
+    r3d::keep_operands(pa[1]);
+    r3d::keep_operands(sa[1]);
+    // the staged tile complete: to the scratch (the next tile's stores into
+    // it follow the next barrier)
+    __syncthreads();
+    copy_staged(staged, ds_kt, t);
   }
-  r3d::cp_async_wait_all();  // the empty groups past the last tile
-  __syncthreads();                // the last staged tile, and every read of the ring
-  if (it > 0) copy_staged(staged + ((it - 1) & 1) * kTileElems, ds_kt, hi - 1);
+  r3d::cp_async_wait_all();  // the empty group past the last tile
+  __syncthreads();           // every read of the ring done
 
   // dK (times 1 / tau) and dV; with C > 1 the partials in the ring (every
   // stage consumed), merged over the cluster

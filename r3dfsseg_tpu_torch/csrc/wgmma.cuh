@@ -291,12 +291,6 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// Wait until at most N of this thread's cp.async groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Shared memory written through the generic proxy (cp.async), made
 // visible to wgmma's reads through the async proxy.
 __device__ __forceinline__ void fence_async_shared() {

@@ -373,9 +373,8 @@ def bwd_bf16_cluster(b: int, n: int, sms: int = 132) -> int:
     """The cluster size C (1 or 2) that `attention_bwd` passes to the bf16
     backward at D <= 64 (`attention_bwd_bf16.cu`), whose dK/dV blocks of one
     key tile cut the query tiles over a cluster of C: 1 where B * ceil(N /
-    64) blocks start at least four on each of ``sms`` SMs (two rounds of
-    the two an SM holds), else 2.  Measured on an H100, C = 2 beat C = 4 at
-    B = 2 as at B = 10, and C = 1 at both."""
+    64) blocks start at least four on each of ``sms`` SMs, else 2.
+    Measured on an H100, C = 2 beat C = 1 and C = 4 at B = 10 and 2."""
     return 1 if b * -(-n // BWD_BF16_TILE) >= 4 * sms else 2
 
 
