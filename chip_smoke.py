@@ -880,28 +880,6 @@ def bf16_backward_times(torch, attn_mod, calls, tau, reps: int = 10) -> dict:
     return out
 
 
-def bf16_backward_cluster_times(torch, attn_mod, calls, tau) -> dict:
-    """The bf16 backward's device time per call (rate 0.1) at each cluster
-    size C of its dK/dV kernel, on a tree whose wrapper picks C with
-    `bwd_bf16_cluster` (replaced for the measurement by each C in turn,
-    then restored); {} on another tree."""
-    rule = getattr(attn_mod, "bwd_bf16_cluster", None)
-    if rule is None:
-        return {}
-    out = {}
-    try:
-        for c in (1, 2):
-            attn_mod.bwd_bf16_cluster = lambda b, n, sms=132, c=c: c
-            for q, k, v, dy, seed in calls:
-                y, lse = attn_mod.attention_fwd(q, k, v, tau, 0.1, seed)
-                out[f"device_ms_b{q.shape[0]}_c{c}"] = device_ms(
-                    lambda: attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, seed),
-                    ("attn_bwd", "bf16"))
-    finally:
-        attn_mod.bwd_bf16_cluster = rule
-    return out
-
-
 def check_attention_bf16(torch, attn_mod):
     """The bf16 forms of kernels 2 and 5 (the bf16 encoder's) at the
     training shapes, B = 10 and 2, N = 2048, D = 64, with dropout 0.1 and
@@ -1744,8 +1722,7 @@ def attention_digest(torch, attn_mod, seed: int) -> dict:
     launch counters that moved are printed), and SDPA's memory-efficient
     backend beside each: their times per step (`attention_times`, rate
     0.1); and the bf16 forward and backward at D = 64 per call at B = 10
-    and 2 beside flash (`bf16_forward_times`, `bf16_backward_times`), the
-    backward also at each cluster size (`bf16_backward_cluster_times`)."""
+    and 2 beside flash (`bf16_forward_times`, `bf16_backward_times`)."""
     import hashlib
     g = torch.Generator(device="cuda").manual_seed(seed + 31)
     out = {}
@@ -1774,10 +1751,6 @@ def attention_digest(torch, attn_mod, seed: int) -> dict:
             out["bf16_d64_bwd"] = bf16_backward_times(torch, attn_mod, calls, tau)
             log("  attention bfloat16 D=64 backward per call (ms; lib_ is flash): " + ", ".join(
                 f"{n} {v:.4f}" for n, v in out["bf16_d64_bwd"].items()))
-            out["bf16_d64_bwd_clusters"] = bf16_backward_cluster_times(torch, attn_mod, calls,
-                                                                       tau)
-            log("  attention bfloat16 D=64 backward device ms per call by cluster size: " +
-                ", ".join(f"{n} {v:.4f}" for n, v in out["bf16_d64_bwd_clusters"].items()))
         if (dtype_name, d) != ("bfloat16", 320):
             h = hashlib.sha256()
             for q, k, v, dy, s in calls:
@@ -3486,8 +3459,8 @@ def main() -> int:
     elif build.build_log:
         bw = ptxas_report(build.build_log, ("attn_bwd_dkdv_bf16_wgmma_kernel",
                                             "attn_bwd_dq_bf16_wgmma_kernel"))
-        missing = [f"dK/dV C={c} dropout={dr}" for c in (1, 2) for dr in (0, 1)
-                   if not any(x.startswith(f"attn_bwd_dkdv_bf16_wgmma_kernelILi{c}ELb{dr}E")
+        missing = [f"dK/dV dropout={dr}" for dr in (0, 1)
+                   if not any(x.startswith(f"attn_bwd_dkdv_bf16_wgmma_kernelILb{dr}E")
                               for x in bw)]
         missing += [] if any(x.startswith("attn_bwd_dq_bf16_wgmma_kernel") for x in bw) \
             else ["dQ"]
@@ -3496,8 +3469,11 @@ def main() -> int:
         if missing or spills:
             raise AssertionError(f"kernel 5's bf16 form (attn_bwd_*_bf16_wgmma_kernel): no "
                                  f"ptxas report for {missing}, spills {spills}")
+        used = [re.match(r"attn_bwd_(\w+?)_bf16_wgmma_kernel(?:ILb(\d)E)?\S*: Used (\d+) "
+                         r"registers", x) for x in bw]
+        regs = ", ".join(f"{m[1]}{f'<{m[2]}>' if m[2] else ''} {m[3]}" for m in used if m)
         log(f"  [ptxas] kernel 5's bf16 form (attn_bwd_*_bf16_wgmma_kernel): {len(bw) // 2} "
-            f"entries, no spill")
+            f"entries, no spill; registers (<dropout>) {regs}")
     if not hasattr(cuda_proto_cheby, "probe_plan"):
         log("  [ptxas] a tree without kernel 11's split of S: its spill check not run")
     elif build.build_log:

@@ -312,9 +312,9 @@ __device__ __forceinline__ float4 col_mask(const r3d::Dropout& drop, int b, int 
 //     with no shuffle.
 // D % 8 == 0 (whole 16-byte chunks).  attention_group_bf16.cu stages
 // chunks of channels of a wider row (`stage_cols_bf16`).  At D <= 64 the
-// wgmma kernels (attention_fwd_bf16.cu, attention_bwd_bf16.cu) take
-// `load_rows_bf16` and `acc_frag_bf16` too: wgmma's register A operand is
-// mma.sync's A fragment in each warp.
+// wgmma kernels take `acc_frag_bf16` too (attention_fwd_bf16.cu and
+// attention_bwd_bf16.cu), and the forward `load_rows_bf16` for its scaled
+// q: wgmma's register A operand is mma.sync's A fragment in each warp.
 
 // Issue the copy of rows [row0, row0 + kR) of a bf16 matrix of n rows,
 // `ld` entries apart, into a staged bf16 tile of T channel tiles (64 T
@@ -371,9 +371,11 @@ __device__ __forceinline__ void load_rows_bf16(const uint16_t* src, int row0, in
 // the 16 staged rows r0 .. r0 + 15 of `rows`, Y the staged rows c0 + 8j ..
 // of `tile` (both T channel tiles wide; r0 % 16 == 0, c0 % 8 == 0).  A and
 // B fragments both come by ldmatrix: A as four 8 x 8 tiles (rows 0-7 and
-// 8-15 of channels 16kk .. + 7, then of + 8 .. + 15), B as in the tuned
-// product_along_channels_bf16 (attention_wide_bf16.cu,
-// attention_group_bf16.cu).
+// 8-15 of channels 16kk .. + 7, then of + 8 .. + 15), B by one ldsm_x4 for
+// each n-tile pair j, j + 1: lane l addresses row c0 + 8 (j + l / 16) + l %
+// 8 at channel chunk 2 kk + (l / 8) % 2 (stored at that chunk ^ (row %
+// 8)), so that b[0], b[1] are n-tile j's two k-halves and b[2], b[3] n-tile
+// j + 1's (attention_wide_bf16.cu, attention_group_bf16.cu).
 template <int T, int NT>
 __device__ __forceinline__ void product_along_channels_wide(float (&acc)[NT][4],
                                                             const uint16_t* rows, int r0,

@@ -61,20 +61,31 @@
 //      MN-major B.  Bound by the bytes of dS.
 // Filling 132 SMs: B = 10 has 320 key tiles, less than one round of the
 // three dK/dV blocks an SM holds, and B = 2 only 64, so the dK/dV kernel
-// cuts its query tiles in contiguous ranges over the C = 2 blocks of a
-// thread block cluster that share a key tile (the wrapper's
-// `bwd_bf16_cluster` picks C = 1 or 2 and passes it; measured, C = 2 beat
-// C = 1 and C = 4 at both); each block
+// cuts its query tiles in contiguous ranges over the kCluster = 2 blocks
+// of a thread block cluster that share a key tile (measured on the H100,
+// 2 beat 1 and 4 at both; at N <= 64 rank 0 takes no tile); each block
 // leaves its partial dK and dV in shared memory, and behind a cluster
-// barrier block r sums rows r 64 / C .. of all C in rank order through
+// barrier block r sums rows r 32 .. of both in rank order through
 // distributed shared memory (`merge_partials`).  (The dQ kernel cut the
 // same way was faster at B = 2 and slower at B = 10, measured.)
+//
+// K and V stay in shared memory, read by each S^T and dPd^T product, and
+// not in registers as A operands: at D = 64 those take 4 k-steps x 4
+// registers each, 32 a thread, and the kernel already holds 146-162 of
+// the 168 that three blocks an SM leave a thread (65536 / 384, rounded
+// down to 8; ptxas, chip_smoke.py's build line).  Three blocks an SM
+// beat two by 8% a call (the halves' finding, PERF.md §6 PR 20), and the
+// shared-memory reads of K and V, 16 KB a 32-query half, are work for
+// the tensor cores' operand path, not for the CUDA cores that pace the
+// kernel.
 //
 // The scratch dS: tile (b, key tile kt, query tile qt) of T = ceil(N / 64)
 // is 64 keys x 64 queries of bf16 at element ((b T + kt) T + qt) 4096, key
 // r's 16-byte piece c (queries 8c .. 8c + 7) at piece c ^ (r % 8) of its
 // 128-byte row: the layout wgmma reads (`bwd_bf16_ds_offset` in
-// ops/cuda_attention.py mirrors it).
+// ops/cuda_attention.py mirrors it).  It takes 8 KB per (key tile, query
+// tile), so it grows as B N^2: 2 B T^2 4096 bytes, 83.9 MB at B = 10 and
+// N = 2048, 1.34 GB per cloud at N = 16384.
 #include <cmath>
 
 #include "attention.cuh"
@@ -87,6 +98,7 @@ using r3d::cluster_rank;
 using r3d::cluster_sync;
 using r3d::cp_async_arrive;
 using r3d::fence_async_shared;
+using r3d::launch_clusters;
 using r3d::ld_remote4;
 using r3d::load_tile;
 using r3d::mbar_arrive;
@@ -100,6 +112,7 @@ constexpr int kTileElems = 64 * 64;            // bf16 entries of a staged tile 
 constexpr int kGroupThreads = 128;             // a warpgroup
 constexpr int kGroupWarps = kGroupThreads / 32;
 constexpr int kPStride = 72;                   // floats per row of a partial dK or dV
+constexpr int kCluster = 2;                    // dK/dV blocks sharing a key tile
 constexpr size_t kTileBytes = sizeof(uint16_t) * kTileElems;
 
 // dK/dV: two stages (qs, q, dY tiles), the block's K and V tiles, the
@@ -176,16 +189,16 @@ __device__ __forceinline__ void park_acc(const float (&acc)[32], float* part) {
 }
 
 // The partial dK and dV (64 x kPStride floats each, dK's first, at part)
-// that each block of the cluster parked, summed over the C blocks: behind
-// a cluster barrier, block `rank` adds keys rank 64 / C .. of all C in
-// rank order through distributed shared memory and writes them to rows
-// key0 .. of dk (times scale) and dv (< n, channels < d); a second barrier
-// keeps every block's partials until all have read them.
-template <int C>
+// that each block of the cluster parked, summed over its kCluster blocks:
+// behind a cluster barrier, block `rank` adds keys rank 64 / kCluster ..
+// of all of them in rank order through distributed shared memory and
+// writes them to rows key0 .. of dk (times scale) and dv (< n, channels <
+// d); a second barrier keeps every block's partials until all have read
+// them.
 __device__ __forceinline__ void merge_partials(const float* part, float* dk, float* dv,
                                                float scale, int key0, int n, int d, int rank) {
   cluster_sync();
-  constexpr int kSlice = kRows / C;
+  constexpr int kSlice = kRows / kCluster;
 #pragma unroll 1
   for (int i = threadIdx.x; i < 2 * kSlice * 16; i += kGroupThreads) {
     const int m = i / (kSlice * 16);  // 0: dK, 1: dV
@@ -194,7 +207,7 @@ __device__ __forceinline__ void merge_partials(const float* part, float* dk, flo
     const float* at = part + (m * kRows + row) * kPStride + ch;
     float4 sum = ld_remote4(remote(at, 0));
 #pragma unroll
-    for (int r = 1; r < C; ++r) {
+    for (int r = 1; r < kCluster; ++r) {
       const float4 x = ld_remote4(remote(at, r));
       sum.x += x.x;
       sum.y += x.y;
@@ -215,7 +228,7 @@ __device__ __forceinline__ void merge_partials(const float* part, float* dk, flo
 // also issues its own copies (tile t + 1's while tile t is computed), and
 // takes each tile in two halves of 32 queries, so that three blocks fit
 // an SM (at most 168 registers a thread).
-template <int C, bool kDropout>
+template <bool kDropout>
 __global__ void __launch_bounds__(kGroupThreads, 3)
 attn_bwd_dkdv_bf16_wgmma_kernel(const uint16_t* __restrict__ qs, const uint16_t* __restrict__ q,
                                 const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
@@ -231,12 +244,12 @@ attn_bwd_dkdv_bf16_wgmma_kernel(const uint16_t* __restrict__ qs, const uint16_t*
   float* stats = reinterpret_cast<float*>(staged + kTileElems);
 
   const int b = blockIdx.y;
-  const int rank = C > 1 ? static_cast<int>(cluster_rank()) : 0;
-  const int kt = blockIdx.x / C;
+  const int rank = static_cast<int>(cluster_rank());
+  const int kt = blockIdx.x / kCluster;
   const int key0 = kt * kRows;
   const int tiles = (n + 63) / 64;
-  const int lo = rank * tiles / C;  // this block's query tiles [lo, hi)
-  const int hi = (rank + 1) * tiles / C;
+  const int lo = rank * tiles / kCluster;  // this block's query tiles [lo, hi)
+  const int hi = (rank + 1) * tiles / kCluster;
   const size_t base = static_cast<size_t>(b) * n * d;
   const float* lse_b = lse + static_cast<size_t>(b) * n;
   const float* delta_b = delta + static_cast<size_t>(b) * n;
@@ -386,17 +399,12 @@ attn_bwd_dkdv_bf16_wgmma_kernel(const uint16_t* __restrict__ qs, const uint16_t*
   r3d::cp_async_wait_all();  // the empty group past the last tile
   __syncthreads();           // every read of the ring done
 
-  // dK (times 1 / tau) and dV; with C > 1 the partials in the ring (every
-  // stage consumed), merged over the cluster
-  if constexpr (C == 1) {
-    write_acc(gk, dk + base, scale, key0, n, d);
-    write_acc(gv, dv + base, 1.f, key0, n, d);
-  } else {
-    float* part = reinterpret_cast<float*>(smem);
-    park_acc(gk, part);
-    park_acc(gv, part + kRows * kPStride);
-    merge_partials<C>(part, dk + base, dv + base, scale, key0, n, d, rank);
-  }
+  // dK (times 1 / tau) and dV: the partials in the ring (every stage
+  // consumed), merged over the cluster
+  float* part = reinterpret_cast<float*>(smem);
+  park_acc(gk, part);
+  park_acc(gv, part + kRows * kPStride);
+  merge_partials(part, dk + base, dv + base, scale, key0, n, d, rank);
 }
 
 // (b) dQ of the block's 64 queries: bf16(dS) K / tau over the key tiles
@@ -476,44 +484,19 @@ struct Bwd {
   float *dq, *dk, *dv;
 };
 
-// A launch in clusters of c blocks along x.
-template <typename... Params, typename... Args>
-cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int threads, size_t smem, int c,
-                            cudaStream_t st, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = c;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// The dK/dV launch with cluster size C, then the dQ launch.
-template <int C>
-cudaError_t launch_c(const Bwd& a, int b, int n, int d, float scale, bool dropout,
-                     r3d::Dropout drop, cudaStream_t st) {
+// The dK/dV launch in clusters of kCluster, then the dQ launch.
+cudaError_t launch(const Bwd& a, int b, int n, int d, float scale, bool dropout,
+                   r3d::Dropout drop, cudaStream_t st) {
   const int tiles = (n + kRows - 1) / kRows;
-  const dim3 grid(tiles * C, b);
+  const dim3 grid(tiles * kCluster, b);
   const float* delta = a.delta;
   cudaError_t err =
-      dropout ? launch_clusters(attn_bwd_dkdv_bf16_wgmma_kernel<C, true>, grid, kGroupThreads,
-                                kSmemKV, C, st, a.qs, a.q, a.k, a.v, a.dyb, a.lse, delta, a.ds,
-                                a.dk, a.dv, n, d, scale, drop)
-              : launch_clusters(attn_bwd_dkdv_bf16_wgmma_kernel<C, false>, grid, kGroupThreads,
-                                kSmemKV, C, st, a.qs, a.q, a.k, a.v, a.dyb, a.lse, delta, a.ds,
-                                a.dk, a.dv, n, d, scale, drop);
+      dropout ? launch_clusters(attn_bwd_dkdv_bf16_wgmma_kernel<true>, grid, kGroupThreads,
+                                kSmemKV, kCluster, st, a.qs, a.q, a.k, a.v, a.dyb, a.lse, delta,
+                                a.ds, a.dk, a.dv, n, d, scale, drop)
+              : launch_clusters(attn_bwd_dkdv_bf16_wgmma_kernel<false>, grid, kGroupThreads,
+                                kSmemKV, kCluster, st, a.qs, a.q, a.k, a.v, a.dyb, a.lse, delta,
+                                a.ds, a.dk, a.dv, n, d, scale, drop);
   if (err != cudaSuccess) return err;
   return launch_clusters(attn_bwd_dq_bf16_wgmma_kernel, dim3(tiles, b), kBlockThreadsQ, kSmemQ, 1,
                          st, static_cast<const uint16_t*>(a.ds), a.k, a.dq, n, d, scale);
@@ -524,17 +507,15 @@ cudaError_t launch_c(const Bwd& a, int b, int n, int d, float scale, bool dropou
 // q, k, v (B, N, D) bf16 with D % 8 == 0, D <= 64; y, dy f32 (the
 // forward's output and its cotangent); lse (B, N) f32 -> dq, dk, dv f32.
 // Scratch from the wrapper: delta (B, N) f32, qs and dyb (B, N, D) bf16, ds
-// B T^2 64 x 64 bf16 (T = ceil(N / 64)).  cluster: the dK/dV kernel's
-// cluster size C (1 or 2; the wrapper's `bwd_bf16_cluster` chooses it).
-// scale = 1 / tau (f32), qscale = bf16(1 / tau), the forward's.
+// B T^2 64 x 64 bf16 (T = ceil(N / 64)).  scale = 1 / tau (f32), qscale =
+// bf16(1 / tau), the forward's.
 R3D_EXPORT int r3d_attn_bwd_bf16(const void* q, const void* k, const void* v, const void* y,
                                  const void* dy, const void* lse, void* delta, void* qs,
                                  void* dyb, void* ds, void* dq, void* dk, void* dv, int b, int n,
-                                 int d, int cluster, float scale, float qscale, int dropout,
-                                 unsigned seed_lo, unsigned seed_hi, unsigned threshold,
-                                 float keep_scale, void* stream) {
+                                 int d, float scale, float qscale, int dropout, unsigned seed_lo,
+                                 unsigned seed_hi, unsigned threshold, float keep_scale,
+                                 void* stream) {
   if (d < 8 || d > kDP || d % 8 != 0 || b < 1 || n < 1 || b > 65535) return cudaErrorInvalidValue;
-  if (cluster != 1 && cluster != 2) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const Bwd a{static_cast<const uint16_t*>(q),  static_cast<const uint16_t*>(k),
               static_cast<const uint16_t*>(v),  static_cast<const float*>(y),
@@ -550,6 +531,5 @@ R3D_EXPORT int r3d_attn_bwd_bf16(const void* q, const void* k, const void* v, co
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
-  return cluster == 1 ? launch_c<1>(a, b, n, d, scale, dropout != 0, drop, st)
-                      : launch_c<2>(a, b, n, d, scale, dropout != 0, drop, st);
+  return launch(a, b, n, d, scale, dropout != 0, drop, st);
 }

@@ -354,25 +354,9 @@ attn_fwd_bf16_wgmma_kernel(const uint16_t* __restrict__ q, const uint16_t* __res
 template <int C, bool kDropout>
 cudaError_t launch(const uint16_t* q, const uint16_t* k, const uint16_t* v, float* y, float* lse,
                    int b, int n, int d, float scale, r3d::Dropout drop, cudaStream_t st) {
-  auto kernel = attn_fwd_bf16_wgmma_kernel<C, kDropout>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmem));
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((n + kBlockRows - 1) / kBlockRows) * C, b);
-  cfg.blockDim = dim3(kBlockThreads);
-  cfg.dynamicSmemBytes = kSmem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, q, k, v, y, lse, n, d, scale, drop);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return r3d::launch_clusters(attn_fwd_bf16_wgmma_kernel<C, kDropout>,
+                              dim3(((n + kBlockRows - 1) / kBlockRows) * C, b), kBlockThreads,
+                              kSmem, C, st, q, k, v, y, lse, n, d, scale, drop);
 }
 
 template <int C>

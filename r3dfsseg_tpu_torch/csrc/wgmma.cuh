@@ -1,7 +1,8 @@
 // Hopper warpgroup products (wgmma, sm_90a only) shared by kernel 11
 // (matmul_probe.cu) and the bf16 attention kernels at D <= 64
 // (attention_fwd_bf16.cu, attention_bwd_bf16.cu), and the mbarrier ring,
-// async-proxy fences and cluster barriers of the attention kernels.
+// async-proxy fences, cluster barriers and cluster launch of the
+// attention kernels.
 //
 // A warpgroup (four warps, 128 threads) issues wgmma.mma_async on a 64-row
 // tile: d (64 x N f32, in registers) += A (64 x 16 bf16) B (16 x N bf16).
@@ -341,6 +342,31 @@ __device__ __forceinline__ float4 ld_remote4(uint32_t addr) {
                : "r"(addr)
                : "memory");
   return x;
+}
+
+// A launch of kernel on grid in clusters of c blocks along x, with smem
+// bytes of dynamic shared memory (the bf16 attention kernels at D <= 64).
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int threads, size_t smem, int c,
+                            cudaStream_t st, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // The copies of rows [row0, row0 + 64) of an (n, d) bf16 matrix into a

@@ -52,10 +52,11 @@ thread block cluster (`fwd_bf16_cluster` chooses C from the card's SM
 count and the wrapper passes it; `fwd_bf16_plan` mirrors the launch),
 whose statistics and partial outputs are merged in rank order through
 distributed shared memory.  The backward at D <= 64 runs `wgmma` tiles
-too: a dK/dV kernel whose blocks own 64 keys (the query tiles cut over a
-cluster's blocks by `bwd_bf16_cluster`, partials merged in rank order)
-computes each score, mask and dS once and writes bf16(dS) to a scratch
-(`bwd_bf16_ds_offset`), which a dQ kernel reads; the wider forms run
+too: a dK/dV kernel whose blocks own 64 keys (the query tiles cut over
+the two blocks of a cluster, `bwd_bf16_plan`, partials merged in rank
+order) computes each score, mask and dS once and writes bf16(dS) to a
+scratch of B N^2 entries (`bwd_bf16_ds_offset`), which a dQ kernel
+reads; the wider forms run
 `mma.sync.m16n8k16` tiles.  The backward rounds dY, Pd and dS to bf16
 before their products, takes dQ = dS K / tau and dK = dS^T q / tau with
 the unscaled q, and `fused_attention` casts the f32 cotangents to bf16.
@@ -365,32 +366,30 @@ def fwd_bf16_plan(b: int, n: int, sms: int = 132):
 
 
 # csrc/attention_bwd_bf16.cu's tiles: 64 keys a dK/dV block, 64 queries a
-# staged tile and a dQ block
+# staged tile and a dQ block; the dK/dV blocks of a key tile, one cluster
+# (its kCluster)
 BWD_BF16_TILE = 64
+BWD_BF16_CLUSTER = 2
 
 
-def bwd_bf16_cluster(b: int, n: int, sms: int = 132) -> int:
-    """The cluster size C (1 or 2) that `attention_bwd` passes to the bf16
-    backward at D <= 64 (`attention_bwd_bf16.cu`), whose dK/dV blocks of one
-    key tile cut the query tiles over a cluster of C: 1 where B * ceil(N /
-    64) blocks start at least four on each of ``sms`` SMs, else 2.
-    Measured on an H100, C = 2 beat C = 1 and C = 4 at B = 10 and 2."""
-    return 1 if b * -(-n // BWD_BF16_TILE) >= 4 * sms else 2
-
-
-def bwd_bf16_plan(b: int, n: int, c: int):
-    """The dK/dV launch of the bf16 backward at D <= 64 with cluster size
-    ``c``, one entry (cloud, first key, first query tile, query tile past
-    the last) per block in the grid's order: block x of cloud b is rank x %
-    c of the cluster of key tile x // c, and takes the query tiles [r T /
-    c, (r + 1) T / c) of the T = ceil(N / 64)."""
+def bwd_bf16_plan(b: int, n: int):
+    """The dK/dV launch of the bf16 backward at D <= 64, one entry (cloud,
+    first key, first query tile, query tile past the last) per block in
+    the grid's order: block x of cloud b is rank r = x % C of the cluster
+    of key tile x // C (C = `BWD_BF16_CLUSTER`), and takes the query tiles
+    [r T / C, (r + 1) T / C) of the T = ceil(N / 64)."""
+    c = BWD_BF16_CLUSTER
     tiles = -(-n // BWD_BF16_TILE)
     return [(bb, (x // c) * BWD_BF16_TILE, (x % c) * tiles // c, (x % c + 1) * tiles // c)
             for bb in range(b) for x in range(tiles * c)]
 
 
 def bwd_bf16_ds_elems(b: int, n: int) -> int:
-    """bf16 entries of the backward's dS scratch: B T^2 tiles of 64 x 64."""
+    """bf16 entries of the backward's dS scratch: B T^2 tiles of 64 x 64,
+    T = ceil(N / 64).  The scratch grows as B N^2: 2 B T^2 4096 bytes,
+    83.9 MB at B = 10, N = 2048 (the training step's support call, the
+    largest N that a configuration or a card check sends to this route),
+    and 1.34 GB per cloud at N = 16384."""
     tiles = -(-n // BWD_BF16_TILE)
     return b * tiles * tiles * BWD_BF16_TILE * BWD_BF16_TILE
 
@@ -476,7 +475,10 @@ def attention_fwd(q, k, v, tau: float, rate: float = 0.0, seed: int = 0):
 
 
 def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int = 0):
-    """(dq, dk, dv), f32, of the forward's f32 output cotangent dy."""
+    """(dq, dk, dv), f32, of the forward's f32 output cotangent dy.  On
+    bf16 q, k, v at D <= 64 the call takes a scratch of B ceil(N / 64)^2
+    4096 bf16 entries for dS (`bwd_bf16_ds_elems`: memory that grows as B
+    N^2, 83.9 MB at B = 10, N = 2048), freed when it returns."""
     global bwd_launches, bwd_bf16_launches, wide_tf32_bwd_launches, wide_tc_bwd_bf16_launches
     global wide_group_bwd_bf16_launches
     if q.device.type == "cpu":
@@ -498,18 +500,15 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
     lo, hi = _seed_words(seed)
     tail = (int(rate > 0.0), lo, hi, dropout_threshold(rate), keep_scale(rate),
             build.stream_ptr(q.device))
-    ints = (b, n, d)
     if lowp:
         # the bf16 routes' backward kernels: the prep pass's scratch, and at
-        # D <= 64 the dS scratch and the dK/dV kernel's cluster size
+        # D <= 64 the dS scratch
         name = {"tuned": "r3d_attn_bwd_bf16", "wide_tc": "r3d_attn_wide_tc_bwd_bf16",
                 "wide_group": "r3d_attn_group_bwd_bf16"}[route]
         qs, dyb = torch.empty_like(q), torch.empty_like(q)
         ptrs = (q, k, v, y, dy, lse, delta, qs, dyb)
         if route == "tuned":
             ptrs += (torch.empty(bwd_bf16_ds_elems(b, n), dtype=torch.bfloat16, device=q.device),)
-            ints += (bwd_bf16_cluster(b, n, torch.cuda.get_device_properties(q.device)
-                                      .multi_processor_count),)
         ptrs += (dq, dk, dv)
         scales = (1.0 / tau, bf16_value(1.0 / tau))
     else:
@@ -517,11 +516,11 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
         name = "r3d_attn_wide_tf32_bwd" if route == "wide_tf32" else "r3d_attn_bwd"
         ptrs = (q, k, v, y, dy, lse, delta, dq, dk, dv)
         scales = (1.0 / tau,)
-    fn = build.function(name, [build.P] * len(ptrs) + [build.I] * len(ints)
+    fn = build.function(name, [build.P] * len(ptrs) + [build.I] * 3
                         + [build.F] * len(scales) + [build.I] + [build.U] * 3
                         + [build.F, build.P])
     with torch.cuda.device(q.device):
-        err = fn(*(t.data_ptr() for t in ptrs), *ints, *scales, *tail)
+        err = fn(*(t.data_ptr() for t in ptrs), b, n, d, *scales, *tail)
     build.check(err, name)
     if route == "wide_tf32":
         wide_tf32_bwd_launches += 1

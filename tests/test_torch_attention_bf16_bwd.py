@@ -10,7 +10,7 @@ The emulation repeats the kernels' arithmetic and their order of sums:
   multiple of 16 (wgmma's k-depth), rows zero past N up to whole tiles of
   64;
 - the dK/dV launch of `bwd_bf16_plan`: a key tile of 64 per cluster, its
-  query tiles of 64 dealt to the C blocks as contiguous ranges; per query
+  query tiles of 64 dealt to the C = 2 blocks as contiguous ranges; per query
   tile S^T = K qs^T and dPd^T = V dY^T in f32, P^T = exp2((S^T - lse) log2
   e), 0 past N, Pd^T = P^T M, dS^T = P^T (dPd^T M - Delta), dV += bf16(Pd^T)
   bf16(dY) and dK += bf16(dS^T) q in each block's partials, which are then
@@ -22,9 +22,12 @@ exp2 is torch's and the products' f32 sums run in torch's order (the
 card's ex2.approx and wgmma sum otherwise), so the emulation is held to the
 card's gate: each gradient within ATTN_BF16_BWD_TOL of its largest entry.
 The index tests check the plan (every (cloud, key tile, query tile) one
-block's, once, for each C), the scratch layout (a bijection, and the
+block's, once; C the kernel's), the scratch layout (a bijection, and the
 kernel's staging stores land on it without bank conflicts), and that
 `col_mask`'s words land on their entries of the S^T accumulator."""
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -66,11 +69,12 @@ def _tile_offsets(b: int, kt: int, qt: int, n: int) -> torch.Tensor:
 
 
 def emulate_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int = 0,
-                c: int | None = None, sms: int = 132):
+                c: int = ca.BWD_BF16_CLUSTER):
     """(dq, dk, dv, ds) of the kernels on bf16 q, k, v (B, N, D), D <= 64:
-    f32 gradients and the flat dS scratch (bf16 values held as f32)."""
+    f32 gradients and the flat dS scratch (bf16 values held as f32); the
+    query tiles of a key tile cut over ``c`` blocks (the kernels' C by
+    default, 1 for no cut)."""
     b, n, d = q.shape
-    c = ca.bwd_bf16_cluster(b, n, sms) if c is None else c
     tiles = -(-n // T)
     npad, pad = tiles * T, -d % 16
 
@@ -126,35 +130,36 @@ def _assert_within_gate(got, want):
         assert err <= ATTN_BF16_BWD_TOL * float(w.abs().max()), (name, err)
 
 
-@pytest.mark.parametrize("n", [256, 300])
-@pytest.mark.parametrize("b,c", [(1, 2), (2, 2), (10, 1), (10, 2)])
+@pytest.mark.parametrize("n", [64, 256, 300])
+@pytest.mark.parametrize("b", [1, 2, 10])
 @pytest.mark.parametrize("d", [8, 24, 64])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_emulation_matches_plain_version(d, b, c, n, rate):
-    """The emulated kernels with cluster size C against
-    `attention_bwd_reference` with q scaled as the kernels scale it, from
-    the plain forward's y and lse: each gradient within ATTN_BF16_BWD_TOL
-    of its largest entry (the same bf16 roundings at the same points; f32
-    sums in another order can round a dS or Pd entry the other way).  N =
-    300 cuts the last key tile and query tile (and at C = 2 leaves rank 1
-    three tiles to rank 0's two); D = 8 and 24 end in a k-step half
-    zero."""
+def test_emulation_matches_plain_version(d, b, n, rate):
+    """The emulated kernels against `attention_bwd_reference` with q scaled
+    as the kernels scale it, from the plain forward's y and lse: each
+    gradient within ATTN_BF16_BWD_TOL of its largest entry (the same bf16
+    roundings at the same points; f32 sums in another order can round a dS
+    or Pd entry the other way).  N = 300 cuts the last key tile and query
+    tile (and leaves rank 1 of a cluster three tiles to rank 0's two); at
+    N = 64 rank 0 takes none; D = 8 and 24 end in a k-step half zero."""
     q, k, v, dy = _inputs(1000 * d + 10 * b + n, b, n, d)
     tau = float(d) ** 0.5
     y, lse = ca.attention_fwd_reference(q, k, v, tau, rate, 17, kernel_scale=True)
-    got = emulate_bwd(q, k, v, y, dy, lse, tau, rate, 17, c=c)[:3]
+    got = emulate_bwd(q, k, v, y, dy, lse, tau, rate, 17)[:3]
     want = ca.attention_bwd_reference(q, k, v, y, dy, lse, tau, rate, 17, kernel_scale=True)
     _assert_within_gate(got, want)
 
 
 @pytest.mark.parametrize("n", [300, 512])
 def test_cluster_sizes_agree(n):
-    """C = 1 and 2 on the same inputs: the dS scratch and dQ bit for bit
-    (neither depends on C), dK and dV within f32 rounding (the partials'
-    sums split at other tiles)."""
+    """The kernels' cut of the query tiles over a cluster of C against no
+    cut (one block over all of them) on the same inputs: the dS scratch and
+    dQ bit for bit (neither depends on the cut), dK and dV within f32
+    rounding (the partials' sums split at another tile)."""
     q, k, v, dy = _inputs(n, 2, n, 64)
     y, lse = ca.attention_fwd_reference(q, k, v, 8.0, 0.1, 5, kernel_scale=True)
-    runs = [emulate_bwd(q, k, v, y, dy, lse, 8.0, 0.1, 5, c=c) for c in (1, 2)]
+    runs = [emulate_bwd(q, k, v, y, dy, lse, 8.0, 0.1, 5, c=c)
+            for c in (1, ca.BWD_BF16_CLUSTER)]
     for dq, dk, dv, ds in runs[1:]:
         assert torch.equal(ds, runs[0][3]) and torch.equal(dq, runs[0][0])
         torch.testing.assert_close(dk, runs[0][1], rtol=1e-5, atol=1e-6)
@@ -204,15 +209,16 @@ def test_emulation_matches_pallas_kernel(monkeypatch, d):
 
 
 # --------------------------------------------------------------- plan --
-@pytest.mark.parametrize("c", [1, 2])
-@pytest.mark.parametrize("b", [1, 2, 10])
+@pytest.mark.parametrize("b", [1, 2, 10, 17, 40])
 @pytest.mark.parametrize("n", [64, 100, 300, 2048])
-def test_plan_covers_every_tile_once(c, b, n):
+def test_plan_covers_every_tile_once(b, n):
     """`bwd_bf16_plan`: the blocks of a cluster share a cloud and a key
     tile and take contiguous query-tile ranges in rank order; every
     (cloud, key tile, query tile) is one block's, once (at N = 64 rank 0
-    of C = 2 takes none)."""
-    blocks = ca.bwd_bf16_plan(b, n, c)
+    takes none), at the training shapes' B = 10 and 2 and at batches of
+    four and more blocks an SM (B = 17, 40)."""
+    c = ca.BWD_BF16_CLUSTER
+    blocks = ca.bwd_bf16_plan(b, n)
     tiles = -(-n // T)
     assert len(blocks) == b * tiles * c
     covered = []
@@ -226,13 +232,12 @@ def test_plan_covers_every_tile_once(c, b, n):
     assert sorted(covered) == sorted(want) and len(covered) == len(set(covered))
 
 
-@pytest.mark.parametrize("b,c", [(17, 1), (40, 1), (16, 2), (10, 2), (2, 2), (1, 2)])
-def test_cluster_size_by_batch(b, c):
-    """The C that the wrapper passes at N = 2048 on 132 SMs: B = 17 is the
-    smallest batch with four blocks an SM at C = 1; below it C = 2 (the
-    training shapes B = 10 and 2 take 2).  The card test reaches each C by
-    these shapes."""
-    assert ca.bwd_bf16_cluster(b, 2048, 132) == c
+def test_plan_takes_the_kernels_cluster_size():
+    """The plan's C is the dK/dV kernel's `kCluster` in
+    `csrc/attention_bwd_bf16.cu` (the kernel launches its clusters with it;
+    the wrapper passes none)."""
+    src = (pathlib.Path(ca.__file__).parents[1] / "csrc" / "attention_bwd_bf16.cu").read_text()
+    assert re.search(r"constexpr int kCluster = (\d+);", src).group(1) == str(ca.BWD_BF16_CLUSTER)
 
 
 # ------------------------------------------------------------ scratch --

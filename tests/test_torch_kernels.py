@@ -1309,16 +1309,13 @@ def test_attention_bf16_backward_ragged_and_narrow_on_card(b, n, d, rate):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2048, 2049])
-@pytest.mark.parametrize("cluster", [1, 2])
-def test_attention_bf16_backward_cluster_routes_on_card(cluster, n):
-    """Each cluster size C of the dK/dV kernel through the wrapper, reached
-    by the shape alone: the smallest B that `bwd_bf16_cluster` sends to C on
-    this card's SMs (on 132 SMs at N = 2048: B = 17 takes 1, B = 1 takes
-    2), D = 64, rate 0.1: the gates of `_bf16_backward_meets_gates`,
-    repeats bit for bit."""
+@pytest.mark.parametrize("b", [1, 17, 40])
+def test_attention_bf16_backward_cluster_routes_on_card(b, n):
+    """The dK/dV kernel's clusters of two through the wrapper at a batch of
+    one (32 or 33 key tiles, a cluster each: most SMs idle), and at B = 17
+    and 40 (more than four blocks an SM on 132 SMs), D = 64, rate 0.1: the
+    gates of `_bf16_backward_meets_gates`, repeats bit for bit."""
     dev = cuda_or_skip()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    b = next(b for b in range(1, 4 * sms) if cuda_attention.bwd_bf16_cluster(b, n, sms) == cluster)
     q, k, v, dy = _bf16_qkv(b + 90, b, n, 64, dev)
     _bf16_backward_meets_gates(q, k, v, dy, 8.0, 0.1, 43)
 
