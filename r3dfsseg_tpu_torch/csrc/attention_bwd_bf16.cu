@@ -229,7 +229,7 @@ __device__ __forceinline__ void merge_partials(const float* part, float* dk, flo
 // takes each tile in two halves of 32 queries, so that three blocks fit
 // an SM (at most 168 registers a thread).
 template <bool kDropout>
-__global__ void __launch_bounds__(kGroupThreads, 3)
+__global__ void __launch_bounds__(kGroupThreads, 2)
 attn_bwd_dkdv_bf16_wgmma_kernel(const uint16_t* __restrict__ qs, const uint16_t* __restrict__ q,
                                 const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
                                 const uint16_t* __restrict__ dyb, const float* __restrict__ lse,
