@@ -229,7 +229,7 @@ __device__ __forceinline__ void merge_partials(const float* part, float* dk, flo
 // takes each tile in two halves of 32 queries, so that three blocks fit
 // an SM (at most 168 registers a thread).
 template <bool kDropout>
-__global__ void __launch_bounds__(kGroupThreads, 2)
+__global__ void __launch_bounds__(kGroupThreads, 3)
 attn_bwd_dkdv_bf16_wgmma_kernel(const uint16_t* __restrict__ qs, const uint16_t* __restrict__ q,
                                 const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
                                 const uint16_t* __restrict__ dyb, const float* __restrict__ lse,
@@ -254,7 +254,9 @@ attn_bwd_dkdv_bf16_wgmma_kernel(const uint16_t* __restrict__ qs, const uint16_t*
   const float* lse_b = lse + static_cast<size_t>(b) * n;
   const float* delta_b = delta + static_cast<size_t>(b) * n;
 
-  // the first stage
+  // K and V once, with the first stage
+  load_tile<kGroupThreads>(k + base, key0, n, d, kvt, threadIdx.x);
+  load_tile<kGroupThreads>(v + base, key0, n, d, kvt + kTileElems, threadIdx.x);
   if (lo < hi) load_stage(qs + base, q + base, dyb + base, lse_b, delta_b, lo, n, d, ring, stats);
   r3d::cp_async_commit();
 
@@ -269,11 +271,8 @@ attn_bwd_dkdv_bf16_wgmma_kernel(const uint16_t* __restrict__ qs, const uint16_t*
   float gk[32], gv[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) gk[i] = gv[i] = 0.f;
-  // K and V once, the warp's 16 keys as register A operands (zeros past n
-  // and d)
-  uint32_t ka[4][4], va[4][4];
-  load_rows_bf16(k + base, key0 + 16 * warp, n, d, 1.f, ka);
-  load_rows_bf16(v + base, key0 + 16 * warp, n, d, 1.f, va);
+  const uint64_t dka = r3d::desc(kvt);
+  const uint64_t dva = r3d::desc(kvt + kTileElems);
   uint16_t* ds_kt = ds + (static_cast<size_t>(b) * tiles + kt) * tiles * kTileElems;
 
   int it = 0;
@@ -305,15 +304,15 @@ attn_bwd_dkdv_bf16_wgmma_kernel(const uint16_t* __restrict__ qs, const uint16_t*
       const uint64_t dqs = r3d::desc(qst + 64 * qh);
       const uint64_t ddy = r3d::desc(dyt + 64 * qh);
       r3d::wgmma_fence();
-      r3d::wgmma_rs_n32_first<0>(sc, ka[0], dqs);
+      r3d::wgmma_n32_first(sc, dka, dqs);
 #pragma unroll
       for (int ks = 1; ks < 4; ++ks)
-        if (ks < ksteps) r3d::wgmma_rs_n32<0>(sc, ka[ks], dqs + 2 * ks);
+        if (ks < ksteps) r3d::wgmma_n32(sc, dka + 2 * ks, dqs + 2 * ks);
       r3d::wgmma_commit();
-      r3d::wgmma_rs_n32_first<0>(dp, va[0], ddy);
+      r3d::wgmma_n32_first(dp, dva, ddy);
 #pragma unroll
       for (int ks = 1; ks < 4; ++ks)
-        if (ks < ksteps) r3d::wgmma_rs_n32<0>(dp, va[ks], ddy + 2 * ks);
+        if (ks < ksteps) r3d::wgmma_n32(dp, dva + 2 * ks, ddy + 2 * ks);
       r3d::wgmma_commit();
       uint2 mbits[4];
 #pragma unroll
@@ -392,8 +391,6 @@ attn_bwd_dkdv_bf16_wgmma_kernel(const uint16_t* __restrict__ qs, const uint16_t*
     r3d::fence_operands(gk);
     r3d::keep_operands(pa[1]);
     r3d::keep_operands(sa[1]);
-    r3d::keep_operands(ka);
-    r3d::keep_operands(va);
     // the staged tile complete: to the scratch (the next tile's stores into
     // it follow the next barrier)
     __syncthreads();
