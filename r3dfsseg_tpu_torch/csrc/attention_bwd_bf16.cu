@@ -69,15 +69,13 @@
 // distributed shared memory (`merge_partials`).  (The dQ kernel cut the
 // same way was faster at B = 2 and slower at B = 10, measured.)
 //
-// K and V stay in shared memory, read by each S^T and dPd^T product, and
-// not in registers as A operands: at D = 64 those take 4 k-steps x 4
-// registers each, 32 a thread, and the kernel already holds 146-162 of
-// the 168 that three blocks an SM leave a thread (65536 / 384, rounded
-// down to 8; ptxas, chip_smoke.py's build line).  Three blocks an SM
-// beat two by 8% a call (the halves' finding, PERF.md §6 PR 20), and the
-// shared-memory reads of K and V, 16 KB a 32-query half, are work for
-// the tensor cores' operand path, not for the CUDA cores that pace the
-// kernel.
+// K and V stay in shared memory, read by each S^T and dPd^T product, not
+// in registers as A operands loaded once (4 k-steps x 4 registers each at
+// D = 64, 32 a thread): measured on the H100 (`chip_smoke.py --only attn`,
+// one call), that form took 0.1703 ms a call at B = 10 at three blocks an
+// SM (158-168 registers, the cap of 65536 / 384 rounded down to 8, no
+// spill) and 0.1756 at two (174-208), against 0.1570-0.1579 for this one
+// (156-158 registers); PERF.md §6, PR 20.
 //
 // The scratch dS: tile (b, key tile kt, query tile qt) of T = ceil(N / 64)
 // is 64 keys x 64 queries of bf16 at element ((b T + kt) T + qt) 4096, key
@@ -85,7 +83,7 @@
 // 128-byte row: the layout wgmma reads (`bwd_bf16_ds_offset` in
 // ops/cuda_attention.py mirrors it).  It takes 8 KB per (key tile, query
 // tile), so it grows as B N^2: 2 B T^2 4096 bytes, 83.9 MB at B = 10 and
-// N = 2048, 1.34 GB per cloud at N = 16384.
+// N = 2048, 537 MB per cloud at N = 16384.
 #include <cmath>
 
 #include "attention.cuh"

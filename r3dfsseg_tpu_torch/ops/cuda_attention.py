@@ -387,9 +387,9 @@ def bwd_bf16_plan(b: int, n: int):
 def bwd_bf16_ds_elems(b: int, n: int) -> int:
     """bf16 entries of the backward's dS scratch: B T^2 tiles of 64 x 64,
     T = ceil(N / 64).  The scratch grows as B N^2: 2 B T^2 4096 bytes,
-    83.9 MB at B = 10, N = 2048 (the training step's support call, the
-    largest N that a configuration or a card check sends to this route),
-    and 1.34 GB per cloud at N = 16384."""
+    83.9 MB at B = 10, N = 2048 (the training step's support call; no
+    configuration and no check of `chip_smoke.py` sends a larger N to this
+    route, the card tests 2049), 537 MB per cloud at N = 16384."""
     tiles = -(-n // BWD_BF16_TILE)
     return b * tiles * tiles * BWD_BF16_TILE * BWD_BF16_TILE
 
