@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--requests N]
                           [--only knn,fps | cheby,scatter | kth | bf16 | f1 | f2 | fused
-                                  | attn | probe]
+                                  | attn | probe | parity]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
@@ -145,6 +145,22 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      training step through the packed-key kNN, against the packed mode's
      plain path (labels >= 99%, step 1 within the f32 gates), the labels'
      agreement with the exact kNN path printed;
+  4e. the reference-faithful modes (`parity_phase`): the golden fixtures
+     (`tests/fixtures/reference_parity*.npz`, the original PyTorch model's
+     weights through the port's key map) replayed with every kernel on
+     under the CPU test's gates (features, MDNS flags, logits, losses and
+     gradients, with the dense solve and Chebyshev-150; a kNN row that
+     differs from the plain version only at a near-tie); then the seeded
+     flagship model written by `save_reference_checkpoint` and served (2
+     requests) and trained (one step, held against the plain path on the
+     same kNN graphs, then one more, timed) through
+     `FewShotPredictor.from_checkpoint` with the exact top-k affinity and
+     the dense solve, CG, and Chebyshev on the bf16 graph (labels >= 99%,
+     losses rtol 1e-4, gradients GRAD_TOL, BF16_GRAD_TOL on the bf16
+     graph): kernels 1, 2, 3, 5 and 6 launched, kernel 4 not, kernel 7 on
+     the bf16 graph only; request and step times, peak memory, and the
+     device times of the top-k select, the dense solve and CG on a served
+     graph;
   2c. the F2 paths, at shapes the archived TPU kernels 8-11 take and the
      tuned kernels do not (`check_f2`): the general kernel 9
      (`csrc/fused_edge_general.cu`) at FUSED_F2_SHAPES, f32 and bf16, every
@@ -181,7 +197,8 @@ runpy; the tree's modules need the plain versions these checks call:
 `--only probe` the same for the Chebyshev probes (`probe_digest`):
 digests of kernels 7 and 10, kernel 11's us per matvec at
 PROBE_DIGEST_COLS columns beside `torch.mm` with each case's device time,
-and its us per step over a range of M (`probe_sweep`).
+and its us per step over a range of M (`probe_sweep`); `--only parity`
+phase 4e alone.
 """
 from __future__ import annotations
 
@@ -189,6 +206,7 @@ import argparse
 import contextlib
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -3370,12 +3388,334 @@ def train_phase(torch, cfg, episodes, kernels, seed, required, per_step=None,
     return tr
 
 
+# ------------------------------------------------------------- parity --
+FIXTURES = tuple(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", f)
+                 for f in ("reference_parity.npz", "reference_parity_cfg2.npz"))
+# the golden fixtures' gates, as tests/test_torch_reference_parity.py holds
+# the plain path on the CPU (the JAX package's own tolerances)
+FIXTURE_GATES = {"features": (2e-4, 1e-3), "logits": (2e-3, 2e-3), "lp_loss": (1e-4, 1e-4),
+                 "contrast_loss": (5e-4, 5e-4)}
+FIXTURE_SOLVERS = {"solve": {}, "cheby150": dict(lp_solver="cheby", lp_cg_iters=150,
+                                                  lp_adjoint_iters=0)}
+# (phase key, label, the modes, the gradient gate) of the flagship checkpoint runs
+PARITY_RUNS = (("topk_solve", "topk + solve, float32 graph",
+                dict(affinity_impl="topk", lp_solver="solve"), GRAD_TOL),
+               ("topk_cg", "topk + cg, float32 graph",
+                dict(affinity_impl="topk", lp_solver="cg"), GRAD_TOL),
+               ("topk_cheby_bf16", "topk + cheby, bf16 graph (kernel 7 on bf16(S))",
+                dict(affinity_impl="topk", lp_solver="cheby", graph_dtype="bfloat16"),
+                BF16_GRAD_TOL))
+PARITY_KERNELS = ("knn", "attention_fwd", "fps", "attention_bwd", "scatter_add")
+
+
+def expect_parity_launches(launched: dict, bf16_graph: bool, what: str) -> None:
+    """Kernels 1, 2, 3, 5 and 6 launched, kernel 4 not (the top-k select
+    takes no radius), kernel 7 on the bf16 graph only."""
+    missing = [n for n in PARITY_KERNELS if launched[n] <= 0]
+    if missing or launched["kth"] or bool(launched["cheby"]) != bf16_graph:
+        raise AssertionError(f"{what}: launches {launched}")
+
+
+def fixture_config(meta):
+    """A golden fixture's model, as tests/test_reference_parity.py:48-61
+    builds it, with every kernel on (the `*_impl` defaults)."""
+    from r3dfsseg_tpu_torch.config import R3DConfig
+    return R3DConfig(
+        n_way=meta["n_way"], k_shot=meta["k_shot"], n_queries=1, pc_npts=meta["pc_npts"],
+        dgcnn_k=meta["dgcnn_k"], edgeconv_widths=tuple(tuple(w) for w in meta["edgeconv_widths"]),
+        dgcnn_mlp_widths=tuple(meta["dgcnn_mlp_widths"]), base_widths=tuple(meta["base_widths"]),
+        output_dim=meta["output_dim"], n_subprototypes=meta["n_subprototypes"],
+        k_connect=meta["k_connect"], sigma=meta["sigma"], proj_dim=128, attn_dropout=0.0,
+        use_attention=meta.get("use_attention", True), lp_solver="solve",
+        affinity_impl="topk", compute_dtype="float32", contrast_fps_k=4)
+
+
+@contextlib.contextmanager
+def knn_near_ties(torch, knn_mod, swapped: list):
+    """Hold each kNN kernel call against the plain version on the same x:
+    a row whose neighbour set differs must be a rounding-level tie (gap <=
+    NEAR_TIE of xx_i + xx_j); the count of such rows per call goes to
+    ``swapped``.  The kernel's lists are kept."""
+    from r3dfsseg_tpu_torch.ops.knn import knn_indices
+    kernel = knn_mod.knn
+
+    def knn(x, k, **kw):
+        got = kernel(x, k, **kw)
+        want = knn_indices(x.float(), k).long()
+        rows = (got.long().sort(-1).values != want.sort(-1).values).any(-1)
+        swapped.append(int(rows.sum()))
+        if swapped[-1]:
+            gap = knn_agreement(torch, x.float(), got.long(), want)["gap"]
+            if gap > NEAR_TIE:
+                raise AssertionError(f"fixture replay: kNN kernel and plain differ beyond a "
+                                     f"tie: {gap}")
+        return got
+    knn_mod.knn = knn
+    try:
+        yield
+    finally:
+        knn_mod.knn = kernel
+
+
+def _gate(what: str, got: np.ndarray, want: np.ndarray, atol: float, rtol: float) -> float:
+    """The largest share of the allclose bound atol + rtol |want| that
+    |got - want| takes; raises past 1."""
+    share = float((np.abs(got - want) / (atol + rtol * np.abs(want))).max())
+    if not share <= 1.0:
+        raise AssertionError(f"{what}: {share:.3f} of the tolerance (atol {atol}, rtol {rtol})")
+    return share
+
+
+def fixture_replay(torch, kernels) -> dict:
+    """Replay the golden fixtures' four episodes (f0, f1; g0, g1 without
+    attention) on the card with the kernels on, the original model's
+    weights loaded by the port's key map, under the CPU test's gates:
+    eval features, the MDNS flags (exact), the logits in eval without and
+    with MDNS and in training, lp_loss, the contrast loss and every
+    parameter's gradient of lp_loss + 0.1 contrast_loss (rtol 5e-3, atol
+    max(5e-3 x the leaf's scale, 1e-5 x the largest gradient)), each with
+    the dense solve and with Chebyshev-150.  Returns the largest share of
+    each gate, the launches and the kNN rows kept at a near-tie."""
+    from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
+    from r3dfsseg_tpu_torch.models.episode import Episode
+    from r3dfsseg_tpu_torch.models.mpti import mdns_keep_mask
+    from r3dfsseg_tpu_torch.ops import cuda_knn
+    from r3dfsseg_tpu_torch.utils.torch_convert import key_map
+
+    shares = {k: 0.0 for k in ("features", "logits", "lp_loss", "contrast_loss", "gradients")}
+    swapped: list = []
+    zero_counts(kernels)
+    for path in FIXTURES:
+        data = np.load(path)
+        meta = json.loads(bytes(data["meta"]).decode())
+        sd = {k[len("sd/"):]: data[k] for k in data.files if k.startswith("sd/")}
+        for name in meta["fixtures"]:
+            g = lambda f: data[f"{name}/ep/{f}"]  # noqa: E731
+            ep = Episode(*(torch.from_numpy(np.ascontiguousarray(a)).cuda()[None] for a in (
+                g("support_x").transpose(0, 1, 3, 2), g("support_y").astype(np.int64),
+                g("query_x").transpose(0, 2, 1), g("query_y").astype(np.int64),
+                g("gt_support_y").astype(np.int64), g("gt_query_y").astype(np.int64),
+                g("support_flag").astype(np.int64))))
+            for solver, kw in FIXTURE_SOLVERS.items():
+                learner = MPTILearner(fixture_config(meta).replace(**kw), "cuda")
+                learner.load_torch_state(sd)
+                model = learner.model
+                with knn_near_ties(torch, cuda_knn, swapped), torch.no_grad():
+                    sf, _ = model.extract_features(ep)
+                    _, flags = mdns_keep_mask(sf[0], ep.support_y[0] > 0,
+                                              ep.support_x[0, ..., :3], model.cfg.mdns_scales)
+                    outs = {mode: model(ep, train=mode == "train", eval_mdns=mode == "eval_mdns")
+                            for mode in ("eval_plain", "eval_mdns", "train")}
+                what = f"fixture {name} ({solver})"
+                shares["features"] = max(shares["features"], _gate(
+                    f"{what} features", sf[0].cpu().numpy(),
+                    data[f"{name}/support_feat_eval"].transpose(0, 1, 3, 2),
+                    *FIXTURE_GATES["features"]))
+                if not np.array_equal(flags.cpu().numpy(), data[f"{name}/eval_mdns/clean_flag"]):
+                    raise AssertionError(f"{what}: MDNS flags {flags.cpu().numpy()}")
+                for mode, out in outs.items():
+                    checks = [("logits", out.query_logits[0].cpu().numpy(),
+                               data[f"{name}/{mode}/logits"].transpose(0, 2, 1)),
+                              ("lp_loss", out.lp_loss.item(), data[f"{name}/{mode}/lp_loss"])]
+                    if mode == "train":
+                        checks.append(("contrast_loss", out.contrast_loss.item(),
+                                       data[f"{name}/train/contrast_loss"]))
+                    for key, got, want in checks:
+                        shares[key] = max(shares[key], _gate(
+                            f"{what} {mode} {key}", np.asarray(got), np.asarray(want),
+                            *FIXTURE_GATES[key]))
+                # the training loss's gradients, each leaf at its own scale
+                with knn_near_ties(torch, cuda_knn, swapped):
+                    out = model(ep, train=True)
+                    (out.lp_loss + 0.1 * out.contrast_loss).backward()
+                prefix = f"{name}/train_grads/"
+                to_torch = {port: key for key, (port, _) in key_map(model).items()}
+                params = dict(model.named_parameters())
+                want = {n: np.asarray(data[prefix + to_torch[n]]).reshape(tuple(p.shape))
+                        if prefix + to_torch[n] in data.files else np.zeros(tuple(p.shape))
+                        for n, p in params.items()}
+                gmax = max(float(np.abs(w).max()) for w in want.values())
+                for n, p in params.items():
+                    got = np.zeros(tuple(p.shape)) if p.grad is None else p.grad.cpu().numpy()
+                    scale = max(float(np.abs(want[n]).max()), 1e-12)
+                    shares["gradients"] = max(shares["gradients"], _gate(
+                        f"{what} gradient of {n}", got, want[n],
+                        max(5e-3 * scale, 1e-5 * gmax), 5e-3))
+    launched = counts(kernels)
+    expect_parity_launches(launched, False, "fixture replay")
+    log(f"[parity] golden fixtures f0, f1, g0, g1 on the card, kernels on, solve and "
+        f"Chebyshev-150: every gate held; largest share of each: " +
+        ", ".join(f"{k} {v:.3f}" for k, v in shares.items()) +
+        f"; MDNS flags equal; kNN rows kept at a near-tie {sum(swapped)} in {len(swapped)} "
+        f"calls; launches {launched}")
+    return dict(shares=shares, launches=launched, knn_near_tie_rows=sum(swapped))
+
+
+def parity_graph_times(torch, model, cfg, episode) -> dict:
+    """Device ms (CUDA events, median of 5) of the top-k select, the dense
+    solve and CG-50 with their f32 products, and kernel 7 on bf16(S), on a
+    served flagship episode's graph, with the graph's shape."""
+    from r3dfsseg_tpu_torch.models import mpti
+    from r3dfsseg_tpu_torch.models.episode import Episode
+    from r3dfsseg_tpu_torch.ops import lp
+
+    sx, sy, qx = (torch.as_tensor(a).cuda() for a in episode[:3])
+    with torch.inference_mode():
+        sf, qf = model.extract_features(Episode(sx[None], sy[None], qx[None], None))
+        sf, qf = sf[0], qf[0].reshape(-1, sf.shape[-1])
+        fg = sy > 0
+        keep, _ = mpti.mdns_keep_mask(sf, fg, sx[..., :3], cfg.mdns_scales)
+        protos, pvalid, labels, _ = mpti.episode_graph_nodes(sf, fg & (keep[..., None] > 0.5),
+                                                             fg, cfg)
+        node = torch.cat([protos, qf])
+        valid = torch.cat([pvalid, torch.ones(len(qf), dtype=torch.bool, device=qf.device)])
+        b = torch.cat([labels, torch.zeros((len(qf), cfg.n_classes), device=qf.device)])
+        _, sel = lp.graph_distances(node, valid)
+        a = lp.local_constrained_affinity(node, cfg.k_connect, cfg.sigma, valid=valid,
+                                          impl="topk")
+        times = {"topk_select": cuda_ms(lambda: lp.exact_topk_select(sel, cfg.k_connect), 5),
+                 "dense_solve": cuda_ms(lambda: lp.label_propagate(
+                     a, b, cfg.lp_alpha, solver="solve"), 5),
+                 "cg": cuda_ms(lambda: lp.label_propagate(
+                     a, b, cfg.lp_alpha, solver="cg", cg_iters=cfg.lp_cg_iters), 5),
+                 "cheby_bf16": cuda_ms(lambda: lp.label_propagate(
+                     a, b, cfg.lp_alpha, solver="cheby", cg_iters=cfg.lp_cg_iters,
+                     matvec_dtype=torch.bfloat16), 5)}
+        z = {s: lp.label_propagate(a, b, cfg.lp_alpha, solver=s, cg_iters=cfg.lp_cg_iters)
+             for s in ("solve", "cg")}
+    rel = ((z["cg"] - z["solve"]).abs().max() / z["solve"].abs().max()).item()
+    return dict(times, nodes=len(node), valid=int(valid.sum()), cg_vs_solve=rel)
+
+
+def parity_runs(torch, episodes, kernels, seed) -> dict:
+    """The seeded flagship model written as a `checkpoint.tar` by
+    `save_reference_checkpoint`, served by `FewShotPredictor.from_checkpoint`
+    (2 requests) and trained one step in each of PARITY_RUNS, on the kernel
+    path and on the plain path (`*_impl="xla"`) from the same file, on the
+    same kNN graphs in training (`KnnReplay`): labels >= 99% per request,
+    step-1 losses rtol 1e-4, each gradient within the mode's relative L2
+    gate; then a second kernel-path step, timed.  The kernel path's
+    requests and steps must launch kernels 1, 2, 3, 5 and 6, not kernel 4,
+    and kernel 7 only on the bf16 graph (`expect_parity_launches`)."""
+    import tempfile
+
+    from r3dfsseg_tpu_torch.config import R3DConfig
+    from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
+    from r3dfsseg_tpu_torch.nn import dgcnn
+    from r3dfsseg_tpu_torch.ops import cuda_knn
+    from r3dfsseg_tpu_torch.serve import FewShotPredictor
+    from r3dfsseg_tpu_torch.utils.torch_convert import save_reference_checkpoint
+
+    cfg0 = R3DConfig()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "checkpoint.tar")
+        save_reference_checkpoint(path, MPTILearner(cfg0, "cuda",
+                                                    torch.Generator().manual_seed(seed)).model)
+        log(f"[parity] the seeded flagship model as {os.path.basename(path)}: "
+            f"{os.path.getsize(path) / 2**20:.2f} MiB")
+        for key, label, kw, grad_tol in PARITY_RUNS:
+            cfg = cfg0.replace(**kw)
+            plain_cfg = cfg.replace(knn_impl="xla", fps_impl="xla", attn_impl="xla")
+            fast = FewShotPredictor.from_checkpoint(tmp, cfg, device="cuda")
+            plain = FewShotPredictor.from_checkpoint(path, plain_cfg, device="cuda")
+            fast.predict(*episodes[0][:3])                 # warm-up: first allocations
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(kernels)
+            lat, agree = [], []
+            for ep in episodes[:2]:
+                t0 = time.perf_counter()
+                pred = fast(*ep[:3])
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+                launched = counts(kernels)
+                agree.append(float((pred == plain(*ep[:3])).mean()))
+                if counts(kernels) != launched:
+                    raise AssertionError(f"{label}: the plain path launched a kernel")
+            serve_peak = torch.cuda.max_memory_allocated()
+            if min(agree) < 0.99:
+                raise AssertionError(f"{label}: kernel and plain paths agree on {agree}")
+
+            torch.cuda.reset_peak_memory_stats()
+            replay = KnnReplay(torch, cuda_knn, dgcnn)
+            kernel_knn = replay.record()
+            try:
+                t0 = time.perf_counter()
+                m_fast = fast._learner.train(episodes[0])
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                cuda_knn.knn = kernel_knn
+            step_peak = torch.cuda.max_memory_allocated()
+            launched = counts(kernels)
+            plain_knn = replay.replay()
+            try:
+                m_plain = plain._learner.train(episodes[0])
+            finally:
+                dgcnn.knn_indices = plain_knn
+            torch.cuda.synchronize()
+            if counts(kernels) != launched:
+                raise AssertionError(f"{label}: the plain training path launched a kernel")
+            losses = {}
+            for name in ("loss", "lp_loss", "contrast_loss"):
+                a, b = m_fast[name].item(), m_plain[name].item()
+                losses[name] = abs(a - b) / max(abs(b), 1e-30)
+                if not (np.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)):
+                    raise AssertionError(f"{label}: step 1 {name}: kernel path {a} vs plain {b}")
+            g_fast, g_plain = _grads(fast._learner.model), _grads(plain._learner.model)
+            if set(g_fast) != set(g_plain):
+                raise AssertionError(f"{label}: the paths have gradients for other parameters")
+            zero = {n for n in g_plain if n.endswith(".conv.bias")}   # feed train-mode BNs
+            top = max(g.abs().max().item() for g in g_plain.values())
+            noise = max(max(g_fast[n].abs().max().item(), g_plain[n].abs().max().item())
+                        for n in zero)
+            rel = _rel_distances(g_fast, g_plain, zero)
+            worst = max(rel, key=rel.get)
+            if rel[worst] > grad_tol or noise > 1e-5 * top:
+                raise AssertionError(f"{label}: step 1 gradient of {worst}: {rel[worst]} > "
+                                     f"{grad_tol}, zero-gradient biases at {noise / top}")
+            t0 = time.perf_counter()                       # a second, steady step
+            m2 = fast._learner.train(episodes[1])
+            torch.cuda.synchronize()
+            step2_ms = (time.perf_counter() - t0) * 1e3
+            if not all(np.isfinite(v.item()) for v in m2.values()):
+                raise AssertionError(f"{label}: step 2 metrics {m2}")
+            launched = counts(kernels)
+            expect_parity_launches(launched, cfg.graph_bf16, label)
+            out[key] = dict(
+                request_ms=lat, step_ms=step_ms, step2_ms=step2_ms, agreement=agree, serve_peak=serve_peak,
+                step_peak=step_peak, launches=launched, loss_rel=losses, grad_worst=rel[worst],
+                grad_median=statistics.median(rel.values()), knn_swapped=replay.swapped)
+            log(f"[parity] {label}, from checkpoint.tar: requests {', '.join(f'{t:.2f}' for t in lat)} "
+                f"ms, labels agree with the plain path on {', '.join(f'{x:.4f}' for x in agree)}; "
+                f"step 1 {step_ms:.2f} ms, step 2 {step2_ms:.2f} ms, losses within {max(losses.values()):.2e} (rtol), "
+                f"gradients: largest relative L2 {rel[worst]:.3e} ({worst}), median "
+                f"{out[key]['grad_median']:.3e} (gate {grad_tol}); peak memory request "
+                f"{serve_peak / 2**20:.1f} MiB, step {step_peak / 2**20:.1f} MiB; kNN rows "
+                f"at a near-tie {replay.swapped}; launches {launched}")
+        times = parity_graph_times(torch, fast._learner.model, cfg0, episodes[0])
+    log(f"[parity] device ms on a served flagship graph ({times['nodes']} nodes, "
+        f"{times['valid']} valid, k_connect {cfg0.k_connect}): top-k select "
+        f"{times['topk_select']:.3f}, dense solve {times['dense_solve']:.3f}, CG-"
+        f"{cfg0.lp_cg_iters} {times['cg']:.3f}, Chebyshev-{cfg0.lp_cg_iters} on bf16(S) "
+        f"(kernel 7) {times['cheby_bf16']:.3f}; CG vs the dense solve {times['cg_vs_solve']:.2e} "
+        f"of max |z|")
+    return dict(runs=out, graph_ms=times)
+
+
+def parity_phase(torch, episodes, kernels, seed) -> dict:
+    """Phase 7: `fixture_replay`, then `parity_runs`."""
+    return dict(fixtures=fixture_replay(torch, kernels),
+                **parity_runs(torch, episodes, kernels, seed))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth", "bf16", "f1", "f2",
-                                       "fused", "attn", "probe"],
+                                       "fused", "attn", "probe", "parity"],
                     help="build, then only the kNN and FPS (or the Chebyshev and scatter-add, "
                          "the k-th distance, the bf16 forms of kernels 1, 2, 5 and 6, the "
                          "F1 kernels: general kNN, packed kNN, wide attention, wide-row k-th "
@@ -3386,7 +3726,9 @@ def main() -> int:
                          "forward's beside flash; or kernels 7 and "
                          "10's digests and kernel 11's times) kernel checks, and "
                          "print their rows "
-                         "(to time them beside another tree's kernels)")
+                         "(to time them beside another tree's kernels); parity: phase 4e "
+                         "alone (the golden fixtures and the flagship checkpoint in the "
+                         "exact top-k modes)")
     args = ap.parse_args()
 
     import torch
@@ -3553,6 +3895,15 @@ def main() -> int:
         rows["scatter_add_bf16"] = check_scatter_bf16(torch, cuda_knn, cuda_scatter,
                                                       episodes[0][0], episodes[0][2])
         rows["knn_bf16"] = check_knn_bf16(torch, cuda_knn)
+        log(smi)
+        log(json.dumps(rows))
+        return 0
+    if args.only == "parity":
+        counters = {"knn": (cuda_knn, "launches"), "attention_fwd": (cuda_attention, "launches"),
+                    "attention_bwd": (cuda_attention, "bwd_launches"),
+                    "fps": (cuda_fps, "launches"), "kth": (cuda_kth, "launches"),
+                    "scatter_add": (cuda_scatter, "launches"), "cheby": (cuda_cheby, "launches")}
+        rows = {"parity": parity_phase(torch, episodes, counters, args.seed)}
         log(smi)
         log(json.dumps(rows))
         return 0
@@ -3772,6 +4123,12 @@ def main() -> int:
     tr_p = train_phase(torch, cfg_p, episodes, kernels, args.seed,
                        ("knn_packed",) + f32_kernels[1:], per_step={"fps": 3, "knn": 0},
                        steps=1)
+    # ---- 4e. the reference-faithful modes: the golden fixtures with the
+    # kernels on, then the seeded flagship model served and trained from a
+    # checkpoint.tar in the exact top-k modes
+    parity = parity_phase(torch, episodes, kernels, args.seed)
+    phases.update(parity_fixtures=parity["fixtures"]["launches"],
+                  **{f"parity_{key}": r["launches"] for key, r in parity["runs"].items()})
     phases.update(f1_checks={**{n: 0 for n in kernels}, **f1_checks},
                   serve_f1=serve_launches_f1, train_f1=tr_f1["launches"],
                   train_f1_bf16enc=tr_f1_enc["launches"],

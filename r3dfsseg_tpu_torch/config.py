@@ -95,7 +95,7 @@ class R3DConfig:
 
     # ------------------------------------------- implementation knobs
     episode_batch: int = 1
-    lp_solver: str = "cheby"               # the port runs cheby only
+    lp_solver: str = "cheby"               # cheby | cg | solve
     lp_cg_iters: int = 50
     lp_adjoint_iters: int = 0
     wire_format: str = "int8"
@@ -103,7 +103,7 @@ class R3DConfig:
     knn_impl: str = "auto"                 # auto | pallas_exact | pallas | xla
     fps_impl: str = "auto"                 # auto | pallas | xla
     attn_impl: str = "auto"                # auto | pallas | xla
-    affinity_impl: str = "threshold"       # the port runs threshold only
+    affinity_impl: str = "threshold"       # threshold | topk
     compute_dtype: str = "float32"         # float32 | bfloat16 (the encoder)
     graph_dtype: str = "auto"              # auto | float32 | bfloat16 (the episode graph)
     attn_f32: bool = False                 # bf16 encoder: f32 attention operands

@@ -20,6 +20,7 @@ from r3dfsseg_tpu_torch.learners.base import make_optimizer
 from r3dfsseg_tpu_torch.models.episode import Episode
 from r3dfsseg_tpu_torch.models.mpti import MPTINet
 from r3dfsseg_tpu_torch.utils.convert import state_dict_from_jax
+from r3dfsseg_tpu_torch.utils.torch_convert import state_dict_from_torch
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -68,6 +69,26 @@ class MPTILearner:
             self.model.features.load_state_dict(sd, strict=False)
         else:
             self.model.load_state_dict(state_dict_from_jax(params, batch_stats), strict=True)
+        self.optimizer, self.scheduler = make_optimizer(self.model, self.cfg)
+
+    def load_torch_state(self, torch_state: Mapping, *, encoder_only: bool = False) -> None:
+        """Install the original PyTorch model's tensors, keyed as its
+        `state_dict` (`utils/torch_convert.py`), and reset the optimizer
+        state.  The whole model loads strictly: a torch key without a port
+        counterpart raises, and so does a port tensor left unfilled.  With
+        ``encoder_only`` (a pretraining checkpoint) the tensors given must
+        all belong to the feature extractor and replace only those; the
+        rest keeps its values."""
+        sd = state_dict_from_torch(torch_state, self.model)
+        if encoder_only:
+            unknown = sorted(k for k in sd if not k.startswith("features."))
+            if unknown:
+                raise KeyError(f"no feature-extractor counterpart for {unknown}")
+        else:
+            missing = sorted(set(self.model.state_dict()) - set(sd))
+            if missing:
+                raise KeyError(f"the checkpoint leaves {missing} unfilled")
+        self.model.load_state_dict(sd, strict=not encoder_only)
         self.optimizer, self.scheduler = make_optimizer(self.model, self.cfg)
 
     def _tensor(self, a):

@@ -21,7 +21,8 @@ from r3dfsseg_tpu_torch.models.episode import Episode
 from r3dfsseg_tpu_torch.nn.dgcnn import BN_MODES, FeatureExtractor
 from r3dfsseg_tpu_torch.ops.fps import multi_prototypes
 from r3dfsseg_tpu_torch.ops.grid import grid_seed_pool
-from r3dfsseg_tpu_torch.ops.lp import label_propagate, local_constrained_affinity
+from r3dfsseg_tpu_torch.ops.lp import (AFFINITY_IMPLS, SOLVERS, label_propagate,
+                                       local_constrained_affinity)
 
 
 # ======================================================================
@@ -176,15 +177,16 @@ def _mpti_core(support_feat: torch.Tensor, query_feat: torch.Tensor, ep: Episode
     node_valid = torch.cat([pvalid, torch.ones(nq, dtype=torch.bool, device=dev)], 0)
     y0 = torch.cat([proto_labels, torch.zeros((nq, c.n_classes), device=dev)], 0)
 
-    # the bf16 graph: bf16 neighbour selection, affinity and S (kernel 7's
-    # solve)
+    # the bf16 graph: the centred bf16 Gram's distances, and under the
+    # threshold selection a bf16 compare copy and affinity; the Chebyshev
+    # and CG steps read a bf16 S (kernel 7's solve under 'cheby')
     lowp = torch.bfloat16 if c.graph_bf16 else None
     impl = c.follower_impl
     a = local_constrained_affinity(node_feat, c.k_connect, c.sigma, valid=node_valid,
-                                   compare_dtype=lowp, kth_impl=impl)
-    z = label_propagate(a, y0, c.lp_alpha, cg_iters=c.lp_cg_iters,
+                                   compare_dtype=lowp, impl=c.affinity_impl, kth_impl=impl)
+    z = label_propagate(a, y0, c.lp_alpha, solver=c.lp_solver, cg_iters=c.lp_cg_iters,
                         adjoint_iters=(c.lp_adjoint_iters or None) if train else None,
-                        impl=impl)
+                        matvec_dtype=lowp, impl=impl)
     n_protos = protos.shape[0]
     query_logits = z[n_protos:].reshape(c.n_queries * n_way, n, c.n_classes)
 
@@ -227,9 +229,10 @@ class MPTIOutput(NamedTuple):
 def check_servable(cfg: R3DConfig) -> None:
     """Raise on settings outside the port's slice: the float32 or bf16
     encoder (`compute_dtype`, with every `bn_mode` and `attn_f32`) on a
-    float32 or bf16 episode graph (`graph_dtype`), threshold affinity and
-    Chebyshev solve (any `lp_adjoint_iters`; 0 means `lp_cg_iters`), and
-    the unfused EdgeConv (`fuse_edge='on'` raises, as in the JAX package)."""
+    float32 or bf16 episode graph (`graph_dtype`), threshold or exact top-k
+    affinity (`affinity_impl`), the Chebyshev, CG or dense solve
+    (`lp_solver`; any `lp_adjoint_iters`, 0 meaning `lp_cg_iters`), and the
+    unfused EdgeConv (`fuse_edge='on'` raises, as in the JAX package)."""
     if cfg.fuse_edge == "on":
         raise NotImplementedError(
             "fuse_edge='on': the JAX package's EdgeConv refuses it too (the fused tail is an "
@@ -242,10 +245,10 @@ def check_servable(cfg: R3DConfig) -> None:
         raise TypeError(f"attn_f32 must be a bool, got {cfg.attn_f32!r}")
     if cfg.graph_dtype not in ("auto", "float32", "bfloat16"):
         raise NotImplementedError(f"graph_dtype {cfg.graph_dtype!r}")
-    if cfg.affinity_impl != "threshold" or cfg.lp_solver != "cheby":
-        raise NotImplementedError(
-            "the port has affinity_impl='threshold' with lp_solver='cheby'; the "
-            "parity modes come later (ROADMAP.md)")
+    if cfg.affinity_impl not in AFFINITY_IMPLS:
+        raise NotImplementedError(f"affinity_impl {cfg.affinity_impl!r}: one of {AFFINITY_IMPLS}")
+    if cfg.lp_solver not in SOLVERS:
+        raise NotImplementedError(f"lp_solver {cfg.lp_solver!r}: one of {SOLVERS}")
 
 
 class MPTINet(nn.Module):

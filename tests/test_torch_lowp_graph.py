@@ -31,11 +31,11 @@ from r3dfsseg_tpu.models.episode import Episode as JaxEpisode
 from r3dfsseg_tpu.ops.pallas_kth import kth_smallest_per_row_pallas
 from r3dfsseg_tpu_torch.config import tiny_config
 from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
-from r3dfsseg_tpu_torch.models import mpti
 from r3dfsseg_tpu_torch.models.episode import Episode
 from r3dfsseg_tpu_torch.ops import cuda_kth, lp
 from r3dfsseg_tpu_torch.utils.convert import state_dict_from_jax
-from torch_port_helpers import episode_arrays, jax_graph_nodes, random_flax_weights, train_episode
+from torch_port_helpers import (episode_arrays, jax_graph_nodes, port_graph_nodes,
+                                random_flax_weights, train_episode)
 
 BF16 = torch.bfloat16
 
@@ -252,27 +252,12 @@ def jax_bf16_side():
     mp.undo()
 
 
-def _port_graph_nodes(model, cfg, sx, sy, qx, eval_mdns, train):
-    """The port model's episode-graph node features (V, d) and validity."""
-    with torch.no_grad():
-        ep = Episode(*(torch.from_numpy(a)[None] for a in (sx, sy, qx)), None)
-        sf, qf = model.extract_features(ep, train=train)
-        sf, qf = sf[0], qf[0]
-        fg = ep.support_y[0] > 0
-        used = fg
-        if eval_mdns:
-            keep, _ = mpti.mdns_keep_mask(sf, fg, ep.support_x[0, ..., :3], cfg.mdns_scales)
-            used = fg & (keep[..., None] > 0.5)
-        protos, pvalid, _, _ = mpti.episode_graph_nodes(sf, used, fg, cfg)
-    return torch.cat([protos, qf.reshape(-1, qf.shape[-1])]).numpy()
-
-
 def _check_graph_precondition(jax_side, variables, model, cfg, arrays, eval_mdns, train):
     jcfg, *_, features = jax_side
     sx, sy, qx = arrays[:3]
     enc = lambda x: np.asarray(features[train](variables, jnp.asarray(x)))  # noqa: E731
     node_j, valid = jax_graph_nodes(enc, jcfg, sx, sy, qx, eval_mdns)
-    node_t = _port_graph_nodes(copy.deepcopy(model), cfg, sx, sy, qx, eval_mdns, train)
+    node_t = port_graph_nodes(copy.deepcopy(model), cfg, sx, sy, qx, eval_mdns, train)
     _assert_same_selection(node_j, node_t, valid, cfg.k_connect)
 
 

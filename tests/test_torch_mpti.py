@@ -159,14 +159,19 @@ def test_predictor_shape_guard_and_unported_modes():
     with pytest.raises(ValueError, match="episode shape mismatch"):
         p.predict(np.zeros((3, 5, cfg.pc_npts, 9)), np.zeros((3, 5, cfg.pc_npts)),
                   np.zeros((2, cfg.pc_npts, 9)))
-    for bad in ({"lp_solver": "solve"}, {"affinity_impl": "topk"},
+    for bad in ({"lp_solver": "bogus"}, {"affinity_impl": "bogus"},
                 {"bn_mode": "bogus"}, {"compute_dtype": "float16"}):
         with pytest.raises(NotImplementedError):
             mpti.MPTINet(cfg.replace(**bad))
-    # the bf16 encoder is served now; the parity modes still raise under it
-    mpti.MPTINet(cfg.replace(compute_dtype="bfloat16"))
+    # every affinity, solver and graph dtype is served, on either encoder
+    for enc in ("float32", "bfloat16"):
+        for aff in ("threshold", "topk"):
+            for solver in ("cheby", "cg", "solve"):
+                for graph in ("float32", "bfloat16"):
+                    mpti.MPTINet(cfg.replace(compute_dtype=enc, affinity_impl=aff,
+                                             lp_solver=solver, graph_dtype=graph))
     with pytest.raises(NotImplementedError):
-        mpti.MPTINet(cfg.replace(compute_dtype="bfloat16", lp_solver="solve"))
+        mpti.MPTINet(cfg.replace(compute_dtype="bfloat16", lp_solver="dense"))
     with pytest.raises(NotImplementedError):
         FewShotPredictor(cfg.replace(phase="protoeval"))
 

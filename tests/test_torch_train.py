@@ -16,16 +16,19 @@ import numpy as np
 import pytest
 import torch
 
+import r3dfsseg_tpu.ops.lp as jax_lp
 from r3dfsseg_tpu.config import tiny_config as jax_tiny_config
 from r3dfsseg_tpu.models import mpti as jax_mpti
 from r3dfsseg_tpu.models.episode import Episode as JaxEpisode
+from r3dfsseg_tpu.ops.pallas_kth import kth_smallest_per_row_pallas
 from r3dfsseg_tpu_torch.config import tiny_config
 from r3dfsseg_tpu_torch.learners import mpti_learner
 from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
 from r3dfsseg_tpu_torch.models.episode import Episode
 from r3dfsseg_tpu_torch.serve import FewShotPredictor
 from r3dfsseg_tpu_torch.utils.convert import state_dict_from_jax
-from torch_port_helpers import jax_graph_margin, random_flax_weights, train_episode
+from torch_port_helpers import (PARITY_MODES, assert_same_neighbours, jax_graph_margin,
+                                jax_mode_model, random_flax_weights, train_episode)
 
 
 @pytest.fixture(scope="module")
@@ -97,6 +100,59 @@ def test_train_step_matches_jax(jax_side, seed):
     for name, w in want_s.items():
         np.testing.assert_allclose(got_s[name].numpy(), w.numpy(), rtol=1e-4, atol=1e-5,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("mode", PARITY_MODES, ids=["-".join(m) for m in PARITY_MODES])
+def test_mode_train_step_matches_jax(monkeypatch, mode):
+    """One training step in each reference-faithful mode new to the port
+    (affinity_impl x lp_solver x graph_dtype, test_torch_lp_modes.py) vs
+    the JAX loss_fn with the same weights: losses rtol 1e-4; every
+    gradient rtol 1e-3 (atol 1e-4 of its largest entry) on the float32
+    graph and within a relative L2 distance of 1e-3 on the bf16 graph, as
+    test_torch_lowp_graph.py holds it.  The JAX side takes the threshold
+    radius from the Pallas kernel in interpret mode, and the episode first
+    shows that both frameworks keep the same graph neighbours."""
+    monkeypatch.setattr(jax_lp, "_kth_smallest_per_row", lambda d, k, iters=32:
+                        kth_smallest_per_row_pallas(d, k, iters=iters, tile_n=8,
+                                                    interpret=True))
+    jcfg, cfg, model, shapes = jax_mode_model(mode)
+    rng = np.random.default_rng(40 + PARITY_MODES.index(mode))
+    params, stats = random_flax_weights(shapes, rng)
+    variables = {"params": params, "batch_stats": stats}
+    arrays = train_episode(cfg, rng)
+    learner = MPTILearner(cfg, "cpu")
+    learner.load_params(params, stats)
+    features = jax.jit(lambda x: model.apply(
+        variables, x, method=lambda m, x: m.features(x, train=True), mutable=["batch_stats"])[0])
+    assert_same_neighbours(lambda x: np.asarray(features(jnp.asarray(x))), jcfg, cfg,
+                           learner.model, *arrays[:3], eval_mdns=False, train=True)
+
+    @jax.jit
+    def loss_and_grads(ep):
+        def loss_fn(p):
+            out, _ = model.apply({"params": p, "batch_stats": stats}, ep, train=True,
+                                 mutable=["batch_stats"], rngs={"dropout": jax.random.PRNGKey(2)})
+            return out.lp_loss + jcfg.contrast_weight * out.contrast_loss, out
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+    (loss, out), grads = loss_and_grads(JaxEpisode(*map(jnp.asarray, arrays)))
+    metrics = learner.train(arrays)
+    for key, want in (("loss", loss), ("lp_loss", out.lp_loss),
+                      ("contrast_loss", out.contrast_loss)):
+        np.testing.assert_allclose(metrics[key].item(), float(want), rtol=1e-4, err_msg=key)
+    want_g = state_dict_from_jax(jax.tree.map(np.asarray, grads))
+    top = max(float(np.abs(g.numpy()).max()) for g in want_g.values())
+    for name, p in learner.model.named_parameters():
+        want = want_g[name].numpy()
+        if name.startswith("features.base_learner.") and name.endswith(".conv.bias"):
+            # feeds a train-mode BatchNorm: an exact gradient of 0, noise on both sides
+            assert max(np.abs(want).max(), p.grad.abs().max().item()) < 1e-5 * top, name
+        elif cfg.graph_bf16:
+            rel = np.linalg.norm(p.grad.numpy() - want) / max(np.linalg.norm(want), 1e-30)
+            assert rel <= 1e-3, (name, rel)
+        else:
+            np.testing.assert_allclose(p.grad.numpy(), want, rtol=1e-3,
+                                       atol=1e-4 * float(np.abs(want).max()), err_msg=name)
 
 
 def test_episode_batch_of_two_matches_one_by_one():

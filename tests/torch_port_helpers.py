@@ -144,6 +144,112 @@ def jax_graph_nodes(enc, jax_cfg, support_x, support_y, query_x, eval_mdns: bool
             np.concatenate([np.asarray(pvalid), np.ones(len(qf), bool)]))
 
 
+def port_graph_nodes(model, cfg, support_x, support_y, query_x, eval_mdns: bool,
+                     train: bool) -> np.ndarray:
+    """The port model's episode-graph node features (V, d) as a numpy
+    array (train=True updates the model's running statistics)."""
+    from r3dfsseg_tpu_torch.models import mpti
+    from r3dfsseg_tpu_torch.models.episode import Episode
+
+    with torch.no_grad():
+        ep = Episode(*(torch.from_numpy(a)[None] for a in (support_x, support_y, query_x)), None)
+        sf, qf = model.extract_features(ep, train=train)
+        sf, qf = sf[0], qf[0]
+        fg = ep.support_y[0] > 0
+        used = fg
+        if eval_mdns:
+            keep, _ = mpti.mdns_keep_mask(sf, fg, ep.support_x[0, ..., :3], cfg.mdns_scales)
+            used = fg & (keep[..., None] > 0.5)
+        protos, _, _, _ = mpti.episode_graph_nodes(sf, used, fg, cfg)
+    return torch.cat([protos, qf.reshape(-1, qf.shape[-1])]).numpy()
+
+
+# the reference-faithful modes new to the port since the shipped threshold
+# + Chebyshev: (affinity_impl, lp_solver, graph_dtype)
+PARITY_MODES = [(aff, solver, graph) for aff in ("threshold", "topk")
+                for solver in ("cheby", "cg", "solve") for graph in ("float32", "bfloat16")
+                if (aff, solver) != ("threshold", "cheby")]
+
+
+def jax_mode_model(mode):
+    """(JAX tiny config, port tiny config, JAX MPTINet, its variable
+    shapes) in ``mode`` (a PARITY_MODES entry), attention dropout 0."""
+    import jax
+    import jax.numpy as jnp
+    from r3dfsseg_tpu.config import tiny_config as jax_tiny_config
+    from r3dfsseg_tpu.models import mpti as jax_mpti
+    from r3dfsseg_tpu.models.episode import Episode as JaxEpisode
+    from r3dfsseg_tpu_torch.config import tiny_config
+
+    aff, solver, graph = mode
+    kw = dict(affinity_impl=aff, lp_solver=solver, graph_dtype=graph, attn_dropout=0.0)
+    jcfg, cfg = jax_tiny_config(**kw), tiny_config(**kw)
+    model = jax_mpti.MPTINet(jcfg)
+    w, k, n, c = jcfg.n_way, jcfg.k_shot, jcfg.pc_npts, jcfg.pc_in_dim
+    ep = JaxEpisode(jnp.zeros((w, k, n, c)), jnp.zeros((w, k, n), jnp.int32),
+                    jnp.zeros((w, n, c)), jnp.zeros((w, n), jnp.int32))
+    shapes = jax.eval_shape(lambda: model.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, ep))
+    return jcfg, cfg, model, shapes
+
+
+def _jax_selection(node: np.ndarray, valid: np.ndarray, k: int, impl: str, bf16: bool):
+    """The JAX package's neighbour selection (N, N) bool on its own nodes:
+    the rows' masks before the symmetrisation, the threshold radius from
+    the Pallas kernel in interpret mode."""
+    import jax.numpy as jnp
+    import r3dfsseg_tpu.ops.lp as jax_lp
+    from r3dfsseg_tpu.ops.knn import pairwise_sqdist
+    from r3dfsseg_tpu.ops.pallas_kth import kth_smallest_per_row_pallas
+
+    f = jnp.asarray(node)
+    if bf16:
+        xc = f - jnp.mean(f, axis=0, keepdims=True)
+        sqd = jax_lp._centered_sqdist(xc.astype(jnp.bfloat16),
+                                      jnp.sum(xc * xc, axis=-1, keepdims=True))
+    else:
+        sqd = pairwise_sqdist(f)
+    drop = jnp.asarray(np.eye(len(node), dtype=bool) | ~valid[None, :])
+
+    def masked(d):
+        return jnp.where(drop, jnp.asarray(1e30, d.dtype), d)
+    if impl == "topk":
+        return np.asarray(jax_lp._exact_topk_select(masked(sqd), k)[0])
+    sel = masked(sqd.astype(jnp.bfloat16) if bf16 else sqd)
+    radius = kth_smallest_per_row_pallas(sel, k, iters=16 if bf16 else 32, tile_n=8,
+                                         interpret=True)
+    return np.asarray(sel.astype(jnp.float32) <= radius)
+
+
+def _port_selection(node: np.ndarray, valid: np.ndarray, k: int, impl: str, bf16: bool):
+    """The port's neighbour selection, as `_jax_selection`."""
+    from r3dfsseg_tpu_torch.ops import cuda_kth, lp
+
+    x, ok = torch.from_numpy(node), torch.from_numpy(valid)
+    cdt = torch.bfloat16 if bf16 else None
+    if impl == "topk":
+        return lp.exact_topk_select(lp._masked(lp._sqdist(x, cdt), ok), k)[0].numpy()
+    _, sel = lp.graph_distances(x, ok, cdt)
+    radius = cuda_kth.kth_smallest_per_row_reference(sel, k, 16 if bf16 else 32)
+    return (sel.float() <= radius).numpy()
+
+
+def assert_same_neighbours(enc, jax_cfg, cfg, model, support_x, support_y, query_x,
+                           eval_mdns: bool, train: bool) -> None:
+    """Each framework's neighbour selection (the config's `affinity_impl`
+    and graph dtype) on its own episode-graph nodes keeps the same (i, j)
+    pairs; ``enc`` maps clouds to JAX embeddings, ``model`` is the port's
+    (copied, so train=True leaves it as it was)."""
+    import copy
+
+    node_j, valid = jax_graph_nodes(enc, jax_cfg, support_x, support_y, query_x, eval_mdns)
+    node_t = port_graph_nodes(copy.deepcopy(model), cfg, support_x, support_y, query_x,
+                              eval_mdns, train)
+    args = (valid, cfg.k_connect, cfg.affinity_impl, cfg.graph_bf16)
+    keep_j, keep_t = _jax_selection(node_j, *args), _port_selection(node_t, *args)
+    assert (keep_j == keep_t).all(), f"the selections differ on {(keep_j != keep_t).sum()} pairs"
+
+
 def jax_graph_margin(enc, jax_cfg, support_x, support_y, query_x, eval_mdns: bool) -> float:
     """Smallest gap, over the rows of the JAX model's episode graph, between
     the k-th and the (k+1)-th neighbour distance, relative to the squared
