@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--requests N]
                           [--only knn,fps | cheby,scatter | kth | bf16 | f1 | f2 | fused
-                                  | attn | probe | parity]
+                                  | attn | probe | parity | cli]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
@@ -161,6 +161,19 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      the bf16 graph only; request and step times, peak memory, and the
      device times of the top-k select, the dense solve and CG on a served
      graph;
+  4f. the CLIs (`cli_phase`): a synthetic S3DIS-format dataset of 40 scans
+     of 4096 points in a temporary directory, then the port's meta-training
+     CLI (`mpti_train_noise.train`) at full flagship width for CLI_ITERS
+     episodes on CLI_WORKERS loader threads, validating every
+     CLI_EVAL_INTERVAL on CLI_EPISODE_TEST episodes a class pair, and the
+     meta-test CLI (`eval_noise.evaluate`) on its best `checkpoint.tar`
+     with ood noise at 0.4 and MDNS on; the checkpoint loads, every logged
+     loss is finite, the mean IoU lies in [0, 1], the first training
+     episodes' sha256 equals the samplers' for the seed, training launches
+     kernels 1-6 and evaluation kernels 1-4 and not 5 or 6; it prints
+     episodes/s, the median step, the loader's wait per step, peak memory,
+     the same loop's on one loader thread, the loader's own rate with no
+     step running, and an episode's pin and copy on an idle and a busy card;
   2c. the F2 paths, at shapes the archived TPU kernels 8-11 take and the
      tuned kernels do not (`check_f2`): the general kernel 9
      (`csrc/fused_edge_general.cu`) at FUSED_F2_SHAPES, f32 and bf16, every
@@ -198,7 +211,7 @@ runpy; the tree's modules need the plain versions these checks call:
 digests of kernels 7 and 10, kernel 11's us per matvec at
 PROBE_DIGEST_COLS columns beside `torch.mm` with each case's device time,
 and its us per step over a range of M (`probe_sweep`); `--only parity`
-phase 4e alone.
+phase 4e alone, `--only cli` phase 4f alone.
 """
 from __future__ import annotations
 
@@ -3710,12 +3723,196 @@ def parity_phase(torch, episodes, kernels, seed) -> dict:
                 **parity_runs(torch, episodes, kernels, seed))
 
 
+# ---------------------------------------------------------------- CLIs --
+CLI_ITERS = 24          # training episodes of the CLI phase
+CLI_EVAL_INTERVAL = 12  # its validation interval
+CLI_EPISODE_TEST = 2    # cached episodes per class pair (15 pairs of fold 0's test classes)
+CLI_WORKERS = 4         # loader threads
+CLI_LOADER_EPISODES = 16  # episodes of the loader-alone rate
+CLI_TRAIN_KERNELS = ("knn", "attention_fwd", "fps", "kth", "attention_bwd", "scatter_add")
+CLI_EVAL_KERNELS = ("knn", "attention_fwd", "fps", "kth")
+
+
+def pin_and_copy_ms(torch, episodes, busy: bool) -> dict:
+    """Host ms per episode of `loader.to_device`'s two parts, its fields
+    copied into pinned memory and the non-blocking copies submitted, on an
+    idle card or with about 60 ms of matmuls queued before each episode
+    (as a training step keeps the card busy when the loop fetches the next
+    batch)."""
+    a = torch.rand(8192, 8192, device="cuda")
+    c = torch.empty_like(a)
+    pin, submit = [], []
+    for ep in episodes:
+        torch.cuda.synchronize()
+        if busy:
+            for _ in range(4):
+                torch.mm(a, a, out=c)
+        t = time.perf_counter()
+        pinned = [torch.as_tensor(x).pin_memory() for x in ep if x is not None]
+        t1 = time.perf_counter()
+        for x in pinned:
+            x.to("cuda", non_blocking=True)
+        submit.append(time.perf_counter() - t1)
+        pin.append(t1 - t)
+    torch.cuda.synchronize()
+    return {"pin_ms": 1e3 * statistics.median(pin), "submit_ms": 1e3 * statistics.median(submit)}
+
+
+def cli_phase(torch, kernels, seed) -> dict:
+    """Phase 4f: the port's two CLIs end to end at full flagship width on a
+    synthetic dataset (see the module docstring); returns their launch
+    counts and figures."""
+    import tempfile
+
+    from r3dfsseg_tpu_torch import eval_noise, mpti_train_noise, native
+    from r3dfsseg_tpu_torch.config import R3DConfig
+    from r3dfsseg_tpu_torch.data.episodes import NoisyEpisodeSampler
+    from r3dfsseg_tpu_torch.data.loader import EpisodeLoader, to_device
+    from r3dfsseg_tpu_torch.data.synthetic import make_synthetic_dataset
+    from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
+    from r3dfsseg_tpu_torch.utils.torch_convert import load_checkpoint_blob, torch_state_of
+
+    with tempfile.TemporaryDirectory(prefix="r3d_cli_") as tmp:
+        t0 = time.perf_counter()
+        ds = make_synthetic_dataset(os.path.join(tmp, "blocks"), n_scans=40, pts_per_scan=4096,
+                                    seed=seed)
+        if native.assemble_scan() is None:
+            raise AssertionError("the native episode assembly did not build")
+        cfg = R3DConfig(clean_data_path=ds, n_iters=CLI_ITERS, eval_interval=CLI_EVAL_INTERVAL,
+                        n_episode_test=CLI_EPISODE_TEST, n_workers=CLI_WORKERS,
+                        save_path=tmp, log_dir=os.path.join(tmp, "run"))
+        log(f"[cli] {describe(cfg)}: {cfg.n_way}-way {cfg.k_shot}-shot, {cfg.pc_npts} points, "
+            f"{CLI_ITERS} training episodes, validation every {CLI_EVAL_INTERVAL} on "
+            f"{CLI_EPISODE_TEST} episodes a class pair, {CLI_WORKERS} loader threads")
+        zero_counts(kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        st = mpti_train_noise.train(cfg, device="cuda")
+        train_s = time.perf_counter() - t
+        train_launches = counts(kernels)
+        train_peak = torch.cuda.max_memory_allocated()
+
+        ckpt = os.path.join(cfg.log_dir, "checkpoint.tar")
+        if not os.path.exists(ckpt):
+            raise AssertionError(f"training wrote no {ckpt} (best validation IoU "
+                                 f"{st['best_iou']})")
+        blob = load_checkpoint_blob(ckpt)
+        sd, encoder_only = torch_state_of(blob)
+        if encoder_only or not blob["optimizer_state_dict"]:
+            raise AssertionError(f"{ckpt}: not a full checkpoint with its Adam state")
+        MPTILearner(cfg, "cuda").load_torch_state(sd)
+        losses = np.asarray(st["losses"])
+        if len(losses) != CLI_ITERS or not np.isfinite(losses).all():
+            raise AssertionError(f"training losses: {losses}")
+
+        # the first training episodes, drawn from the samplers for the seed:
+        # worker 0 after the learner-init draw, then workers seeded
+        # seed + 1000 + w, taken in turn
+        kw = dict(mode="train", num_point=cfg.pc_npts, k_shot=cfg.k_shot,
+                  noise_ratio=list(cfg.train_noise_ratio), noise_type="train")
+        workers = [NoisyEpisodeSampler(ds, cfg.dataset, seed=cfg.seed, **kw)]
+        workers[0].sample()
+        workers += [NoisyEpisodeSampler(ds, cfg.dataset, seed=cfg.seed + 1000 + w, **kw)
+                    for w in range(CLI_WORKERS - 1)]
+        first = [workers[i % CLI_WORKERS].sample() for i in range(mpti_train_noise.DIGEST_EPISODES)]
+        want = mpti_train_noise.episodes_sha256(first)
+        if st["episodes_sha256"] != want:
+            raise AssertionError(f"the first training episodes' sha256 {st['episodes_sha256']} "
+                                 f"!= the samplers' {want}")
+
+        ecfg = cfg.replace(phase="mptinoise_eval", noise_ratio=0.4, noise_type="ood",
+                           model_checkpoint_path=cfg.log_dir)
+        zero_counts(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        miou = eval_noise.evaluate(ecfg, device="cuda")
+        eval_s = time.perf_counter() - t
+        eval_launches = counts(kernels)
+        eval_peak = torch.cuda.max_memory_allocated()
+        if not 0.0 <= miou <= 1.0:
+            raise AssertionError(f"mean IoU {miou}")
+        text = open(os.path.join(cfg.log_dir, "log_mptinoise_eval.txt")).read()
+        found = re.findall(r"eval throughput: ([0-9.]+) episodes/s", text)
+        if not found or "mdns_precision" not in text:
+            raise AssertionError("the eval log has no throughput or MDNS line")
+        eval_eps = float(found[-1])
+
+        # the same loop on one loader thread (half the episodes, no
+        # validation), to hold its wait per step against the threads' above
+        one = mpti_train_noise.train(
+            cfg.replace(n_workers=1, n_iters=CLI_ITERS // 2, eval_interval=CLI_ITERS,
+                        log_dir=os.path.join(tmp, "one_thread")), device="cuda")
+
+        # the loader alone, with no step to share the host with: episodes/s
+        # of CLI_WORKERS threads and of one, and the pinned copy to the card
+        samplers = mpti_train_noise.train_samplers(cfg)
+        rates = {}
+        for n_workers in (CLI_WORKERS, 1):
+            t = time.perf_counter()
+            eps = list(EpisodeLoader(None, num_batches=CLI_LOADER_EPISODES,
+                                     worker_fns=[w.sample for w in samplers[:n_workers]]))
+            rates[n_workers] = len(eps) / (time.perf_counter() - t)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for ep in eps:
+            to_device(ep, "cuda")
+        torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t) / len(eps) * 1e3
+        pin_copy = {"idle": pin_and_copy_ms(torch, eps, busy=False),
+                    "busy": pin_and_copy_ms(torch, eps, busy=True)}
+        phase_s = time.perf_counter() - t0
+
+    for what, launched, required, absent in (
+            ("train", train_launches, CLI_TRAIN_KERNELS, ()),
+            ("evaluate", eval_launches, CLI_EVAL_KERNELS, ("attention_bwd", "scatter_add"))):
+        if min(launched[n] for n in required) <= 0 or any(launched[n] for n in absent) or any(
+                launched[n] for n in launched if n not in required):
+            raise AssertionError(f"cli {what}: launches {launched}")
+    figures = dict(train_episodes_per_s=st["episodes_per_s"], step_ms_median=st["step_ms_median"],
+                   loader_wait_ms_median=st["loader_wait_ms_median"],
+                   loader_wait_ms_mean=st["loader_wait_ms_mean"],
+                   loader_queue_ms_median=st["loader_queue_ms_median"], train_s=train_s,
+                   validation_s=st["eval_s"], train_peak_mib=train_peak / 2**20,
+                   eval_episodes_per_s=eval_eps, eval_s=eval_s, eval_peak_mib=eval_peak / 2**20,
+                   best_valid_iou=st["best_iou"], test_miou=miou, phase_s=phase_s,
+                   episodes_sha256=st["episodes_sha256"],
+                   loader_alone_episodes_per_s={str(k): v for k, v in rates.items()},
+                   pinned_copy_ms=copy_ms, pin_copy_ms=pin_copy,
+                   one_thread={k: one[k] for k in ("episodes_per_s", "step_ms_median",
+                                                   "loader_wait_ms_median",
+                                                   "loader_queue_ms_median")})
+    log(f"[cli] train: {CLI_ITERS} episodes in {train_s:.2f} s (validation {st['eval_s']:.2f} s): "
+        f"{st['episodes_per_s']:.2f} episodes/s without validation; median step "
+        f"{st['step_ms_median']:.2f} ms (host clock); loader wait per step median "
+        f"{st['loader_wait_ms_median']:.3f} ms, mean {st['loader_wait_ms_mean']:.3f} ms (on the "
+        f"loader's queue: median {st['loader_queue_ms_median']:.3f} ms); peak "
+        f"memory {train_peak / 2**20:.1f} MiB; losses {losses.min():.4f}-{losses.max():.4f}; "
+        f"best validation IoU {st['best_iou']:.4f}; launches {train_launches}")
+    log(f"[cli] first {mpti_train_noise.DIGEST_EPISODES} training episodes' sha256 "
+        f"{st['episodes_sha256']} (equal to the samplers')")
+    log(f"[cli] evaluate (ood 0.4, MDNS): mean IoU {miou:.4f}; {eval_eps:.2f} episodes/s (the "
+        f"CLI's line); {eval_s:.2f} s with the test set's build; peak memory "
+        f"{eval_peak / 2**20:.1f} MiB; launches {eval_launches}")
+    log(f"[cli] train on one loader thread ({CLI_ITERS // 2} episodes, no validation): "
+        f"{one['episodes_per_s']:.2f} episodes/s; median step {one['step_ms_median']:.2f} ms; "
+        f"wait per step median {one['loader_wait_ms_median']:.3f} ms (on the loader's queue "
+        f"{one['loader_queue_ms_median']:.3f} ms)")
+    log(f"[cli] the loader alone (no step running): {rates[CLI_WORKERS]:.1f} episodes/s on "
+        f"{CLI_WORKERS} threads, {rates[1]:.1f} on one; an episode's pinned copy to the card "
+        f"{copy_ms:.3f} ms with a synchronise; median host ms of its two parts, copying into "
+        f"pinned memory and submitting the copies: idle card {pin_copy['idle']['pin_ms']:.3f} + "
+        f"{pin_copy['idle']['submit_ms']:.3f}, busy card {pin_copy['busy']['pin_ms']:.3f} + "
+        f"{pin_copy['busy']['submit_ms']:.3f}; phase {phase_s:.1f} s")
+    return dict(train=train_launches, eval=eval_launches, figures=figures)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth", "bf16", "f1", "f2",
-                                       "fused", "attn", "probe", "parity"],
+                                       "fused", "attn", "probe", "parity", "cli"],
                     help="build, then only the kNN and FPS (or the Chebyshev and scatter-add, "
                          "the k-th distance, the bf16 forms of kernels 1, 2, 5 and 6, the "
                          "F1 kernels: general kNN, packed kNN, wide attention, wide-row k-th "
@@ -3728,7 +3925,8 @@ def main() -> int:
                          "print their rows "
                          "(to time them beside another tree's kernels); parity: phase 4e "
                          "alone (the golden fixtures and the flagship checkpoint in the "
-                         "exact top-k modes)")
+                         "exact top-k modes); cli: phase 4f alone (the training and "
+                         "evaluation CLIs on a synthetic dataset)")
     args = ap.parse_args()
 
     import torch
@@ -3895,6 +4093,15 @@ def main() -> int:
         rows["scatter_add_bf16"] = check_scatter_bf16(torch, cuda_knn, cuda_scatter,
                                                       episodes[0][0], episodes[0][2])
         rows["knn_bf16"] = check_knn_bf16(torch, cuda_knn)
+        log(smi)
+        log(json.dumps(rows))
+        return 0
+    if args.only == "cli":
+        counters = {"knn": (cuda_knn, "launches"), "attention_fwd": (cuda_attention, "launches"),
+                    "attention_bwd": (cuda_attention, "bwd_launches"),
+                    "fps": (cuda_fps, "launches"), "kth": (cuda_kth, "launches"),
+                    "scatter_add": (cuda_scatter, "launches"), "cheby": (cuda_cheby, "launches")}
+        rows = {"cli": cli_phase(torch, counters, args.seed)}
         log(smi)
         log(json.dumps(rows))
         return 0
@@ -4129,6 +4336,9 @@ def main() -> int:
     parity = parity_phase(torch, episodes, kernels, args.seed)
     phases.update(parity_fixtures=parity["fixtures"]["launches"],
                   **{f"parity_{key}": r["launches"] for key, r in parity["runs"].items()})
+    # ---- 4f. the training and evaluation CLIs on a synthetic dataset
+    cli = cli_phase(torch, kernels, args.seed)
+    phases.update(cli_train=cli["train"], cli_eval=cli["eval"])
     phases.update(f1_checks={**{n: 0 for n in kernels}, **f1_checks},
                   serve_f1=serve_launches_f1, train_f1=tr_f1["launches"],
                   train_f1_bf16enc=tr_f1_enc["launches"],

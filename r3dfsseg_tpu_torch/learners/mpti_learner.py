@@ -24,13 +24,12 @@ from r3dfsseg_tpu_torch.utils.torch_convert import state_dict_from_torch
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
-    """``device``, or "cuda" when None; raises when CUDA is asked for by
-    default and there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
-        device = "cuda"
-    return torch.device(device)
+    """``device``, or "cuda" when None; raises when CUDA is asked for and
+    there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
+    return device
 
 
 class MPTILearner:
@@ -117,11 +116,17 @@ class MPTILearner:
                        contrast_loss=out.contrast_loss.detach())
         return metrics
 
-    def test(self, ep: Episode, *, eval_mdns: bool = False):
+    def test(self, ep: Episode, *, eval_mdns: bool = False, return_aux: bool = False):
         """(predictions (E, Q, N) int32, lp_loss, accuracy) under running BN
-        statistics."""
+        statistics, on the device without a host sync.  With
+        ``return_aux`` also the aux dict: accuracy and, with ``eval_mdns``
+        on an episode with gt masks, the MDNS diagnostics (mdns_shot_clean_ratio,
+        mdns_point_clean_ratio, mdns_size_ratio, mdns_precision,
+        mdns_recall)."""
         ep = Episode(*(self._tensor(a) for a in ep))
         with torch.inference_mode():
             out = self.model(ep, train=False, eval_mdns=eval_mdns)
         pred = out.query_logits.argmax(-1).to(torch.int32)
+        if return_aux:
+            return pred, out.lp_loss, out.aux["accuracy"], out.aux
         return pred, out.lp_loss, out.aux["accuracy"]

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
+
 
 class Episode(NamedTuple):
     support_x: Any               # (n_way, k_shot, n_points, C_in) float
@@ -27,3 +29,13 @@ class Episode(NamedTuple):
         if self.batched:
             return self
         return Episode(*(None if a is None else a[None] for a in self))
+
+
+def stack_episodes(episodes) -> Episode:
+    """Stack host-side episodes into one batched Episode (numpy); a field
+    that any episode lacks is None."""
+    fields = {}
+    for name in Episode._fields:
+        vals = [getattr(e, name) for e in episodes]
+        fields[name] = None if any(v is None for v in vals) else np.stack(vals, 0)
+    return Episode(**fields)

@@ -23,6 +23,8 @@ from r3dfsseg_tpu_torch.ops.fps import multi_prototypes
 from r3dfsseg_tpu_torch.ops.grid import grid_seed_pool
 from r3dfsseg_tpu_torch.ops.lp import (AFFINITY_IMPLS, SOLVERS, label_propagate,
                                        local_constrained_affinity)
+from r3dfsseg_tpu_torch.utils.diagnostics import (clean_detection_precision_recall,
+                                                  support_mask_accuracy)
 
 
 # ======================================================================
@@ -158,14 +160,26 @@ def episode_graph_nodes(support_feat: torch.Tensor, fg_used: torch.Tensor,
 
 def _mpti_core(support_feat: torch.Tensor, query_feat: torch.Tensor, ep: Episode,
                cfg: R3DConfig, *, train: bool = False, eval_mdns: bool = False):
-    """One episode: [eval: MDNS] -> prototypes -> affinity -> LP -> CE,
-    and in training the diagnostics of the JAX package's train step."""
+    """One episode: [eval: MDNS] -> prototypes -> affinity -> LP -> CE, with
+    the JAX package's diagnostics: MDNS's against the clean masks in eval
+    (where the episode has them), the train step's in training."""
     c = cfg
     n_way, k_shot, n, d = support_feat.shape
     fg = ep.support_y > 0
+    aux: Dict[str, torch.Tensor] = {}
     if eval_mdns and not train:
-        keep, _ = mdns_keep_mask(support_feat, fg, ep.support_x[..., :3], c.mdns_scales)
+        keep, clean_flag = mdns_keep_mask(support_feat, fg, ep.support_x[..., :3], c.mdns_scales)
         fg_used = fg & (keep[..., None] > 0.5)
+        if ep.gt_support_y is not None:
+            # MDNS against the clean masks, shot and point level
+            gt_flag = (ep.gt_support_y.sum(-1) > 0).float()
+            aux["mdns_shot_clean_ratio"] = ((clean_flag * gt_flag).sum()
+                                            / clean_flag.sum().clamp_min(1.0))
+            sm = support_mask_accuracy(fg_used, fg, ep.gt_support_y > 0)
+            aux["mdns_point_clean_ratio"] = sm["clean_ratio"]
+            aux["mdns_size_ratio"] = sm["size_ratio"]
+            aux["mdns_precision"], aux["mdns_recall"] = clean_detection_precision_recall(
+                gt_flag, clean_flag)
     else:
         fg_used = fg
     protos, pvalid, proto_labels, fg_assign = episode_graph_nodes(support_feat, fg_used, fg, c)
@@ -194,7 +208,7 @@ def _mpti_core(support_feat: torch.Tensor, query_feat: torch.Tensor, ep: Episode
     logp = F.log_softmax(query_logits, dim=-1)
     lp_loss = -logp.gather(-1, query_y[..., None]).mean()
     pred = query_logits.argmax(-1)
-    aux = {"accuracy": (pred == query_y).float().mean()}
+    aux["accuracy"] = (pred == query_y).float().mean()
     if train and ep.gt_query_y is not None:
         gt_q = ep.gt_query_y.long()
         aux["query_acc_LP"] = (pred == gt_q).float().mean()

@@ -17,7 +17,6 @@ ported yet.
 """
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import numpy as np
@@ -26,7 +25,7 @@ import torch
 from r3dfsseg_tpu_torch.config import R3DConfig
 from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
 from r3dfsseg_tpu_torch.models.episode import Episode
-from r3dfsseg_tpu_torch.utils.torch_convert import load_torch_checkpoint
+from r3dfsseg_tpu_torch.utils.torch_convert import checkpoint_file, load_torch_checkpoint
 
 
 class FewShotPredictor:
@@ -51,19 +50,7 @@ class FewShotPredictor:
         directory holding one.  A directory is searched for
         `checkpoint.msgpack` first, then `checkpoint.tar`, as in the JAX
         package; a `.msgpack` raises NotImplementedError."""
-        if os.path.isdir(path):
-            for name in ("checkpoint.msgpack", "checkpoint.tar"):
-                f = os.path.join(path, name)
-                if os.path.exists(f):
-                    path = f
-                    break
-        if path.endswith(".msgpack"):
-            raise NotImplementedError(
-                f"{path}: the JAX package's Flax checkpoints are not read by the port yet "
-                f"(ROADMAP.md); pass a checkpoint.tar")
-        if not path.endswith(".tar"):
-            raise ValueError(f"no checkpoint found at {path!r}")
-        sd, encoder_only = load_torch_checkpoint(path)
+        sd, encoder_only = load_torch_checkpoint(checkpoint_file(path))
         self = cls(cfg or R3DConfig(), device=device, eval_mdns=eval_mdns)
         self._learner.load_torch_state(sd, encoder_only=encoder_only)
         return self

@@ -18,12 +18,15 @@ Checkpoint schemas read by `load_torch_checkpoint`: the full model's
 ``{'model_state_dict': ...}`` (with iteration, optimizer state, loss and
 IoU beside it), the pretraining run's ``{'params': ...}`` (the encoder's
 tensors without their 'encoder.' prefix, which is put back), and a bare
-state dict.  `save_reference_checkpoint` writes the first, without an
-optimizer state.
+state dict.  `save_reference_checkpoint` writes the first, with the Adam
+state in the original optimizer's layout where it is given one
+(`export_adam_state`), and `resume_from_reference_checkpoint` restores
+weights, Adam moments and the StepLR position from such a file.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import os
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -136,13 +139,38 @@ def _numpy_scalar_globals() -> list:
             *(type(np.dtype(t)) for t in ("float64", "float32", "int64", "int32"))]
 
 
+def checkpoint_file(path: str) -> str:
+    """The `.tar` that ``path`` names: the file itself, or a log directory's
+    `checkpoint.tar`.  A directory is searched for `checkpoint.msgpack`
+    first, as the JAX package searches it; a `.msgpack` raises
+    NotImplementedError (the port does not read Flax checkpoints yet,
+    ROADMAP.md section 1, item 3c)."""
+    if os.path.isdir(path):
+        for name in ("checkpoint.msgpack", "checkpoint.tar"):
+            f = os.path.join(path, name)
+            if os.path.exists(f):
+                path = f
+                break
+    if path.endswith(".msgpack"):
+        raise NotImplementedError(
+            f"{path}: the JAX package's Flax checkpoints are not read by the port yet "
+            f"(ROADMAP.md section 1, item 3c); pass a checkpoint.tar")
+    if not path.endswith(".tar") or not os.path.isfile(path):
+        raise ValueError(f"no checkpoint found at {path!r}")
+    return path
+
+
 def load_torch_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], bool]:
     """A `checkpoint.tar` -> (its flat state dict on the CPU, whether it
     holds the encoder alone).  The file is read with
     ``torch.load(weights_only=True)``, which admits tensors, containers and
     numpy scalars and nothing that runs code."""
-    with torch.serialization.safe_globals(_numpy_scalar_globals()):
-        blob = torch.load(path, map_location="cpu", weights_only=True)
+    return torch_state_of(load_checkpoint_blob(path))
+
+
+def torch_state_of(blob: Mapping) -> Tuple[Dict[str, torch.Tensor], bool]:
+    """A loaded checkpoint -> (its flat state dict, whether it holds the
+    encoder alone); `load_torch_checkpoint` without the read."""
     if "model_state_dict" in blob:
         sd = blob["model_state_dict"]
     elif "params" in blob:
@@ -153,10 +181,128 @@ def load_torch_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], bool]:
     return sd, all(k.startswith("encoder.") for k in sd)
 
 
+# ======================================================================
+# The Adam state.  The original code builds four parameter groups, encoder
+# | base_learner | att_learner | proj (its `models/mpti_learner.py:27-32`),
+# and torch numbers the state by position in the concatenation of their
+# parameters (registration order: per conv block Conv.weight[, Conv.bias],
+# BN.weight, BN.bias; the EdgeConv blocks before the MLP).  The port has
+# two groups (`learners/base.py`), so its moments are matched by name.
+# ======================================================================
+_REFERENCE_GROUPS = (("encoder.",), ("base_learner.",), ("att_learner.", "linear_mapper."),
+                     ("proj.",))
+
+
+def reference_adam_param_order(model: nn.Module
+                               ) -> Tuple[List[Tuple[str, str, int]], List[List[int]]]:
+    """The original model's parameters in its Adam's index order, as
+    [(torch key, port key, trailing 1x1 axes)], and the four groups' index
+    lists (the JAX package's `reference_adam_param_order`; the mapper of a
+    model without attention sits in the attention's group)."""
+    order = [(k, port, nd) for k, (port, nd) in key_map(model).items()
+             if not k.endswith((".running_mean", ".running_var"))]
+    groups = [[i for i, (k, _, _) in enumerate(order) if k.startswith(prefixes)]
+              for prefixes in _REFERENCE_GROUPS]
+    if sum(map(len, groups)) != len(order):
+        raise KeyError("a parameter of the original model falls in none of its Adam groups")
+    return order, groups
+
+
+def export_adam_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                      iteration: int) -> dict:
+    """The port's Adam state -> an ``optimizer_state_dict`` that the
+    original model's Adam loads: moments by the original index order, conv
+    moments in the conv weights' (out, in, 1[, 1]) shape, ``step`` =
+    ``iteration`` (episodes, as the JAX package writes it), and four groups
+    at the port's current rates (the encoder's, then the rest's)."""
+    order, groups = reference_adam_param_order(model)
+    params = dict(model.named_parameters())
+    state = {}
+    for i, (_, port, nd) in enumerate(order):
+        p = params[port]
+        st = optimizer.state.get(p, {})
+        moments = [st.get(m, torch.zeros_like(p)).detach().to("cpu", torch.float32)
+                   for m in ("exp_avg", "exp_avg_sq")]
+        state[i] = {"step": torch.tensor(float(iteration)),
+                    **{m: t.reshape(*t.shape, *(1,) * nd).contiguous()
+                       for m, t in zip(("exp_avg", "exp_avg_sq"), moments)}}
+    port_groups = [{k: v for k, v in g.items() if k != "params"}
+                   for g in optimizer.param_groups]
+    param_groups = [dict(port_groups[min(gi, 1)], params=idx) for gi, idx in enumerate(groups)]
+    return {"state": state, "param_groups": param_groups}
+
+
+def load_adam_state(opt_sd: Mapping, model: nn.Module, optimizer: torch.optim.Optimizer,
+                    scheduler, episode_batch: int = 1) -> int:
+    """Install an original-layout ``optimizer_state_dict`` (the port's own
+    or the original code's) into the port's Adam, and move the StepLR to
+    the same step: the moments by name, ``step`` // ``episode_batch``
+    optimizer steps (the JAX package's `convert_adam_state`).  Returns the
+    file's step (episodes)."""
+    order, _ = reference_adam_param_order(model)
+    idx_seq = [i for g in opt_sd.get("param_groups", []) for i in g.get("params", [])]
+    idx_seq = idx_seq or list(range(len(order)))
+    if len(idx_seq) != len(order):
+        raise ValueError(f"the checkpoint's optimizer has {len(idx_seq)} parameters, "
+                         f"this model {len(order)}")
+    params = dict(model.named_parameters())
+    state = opt_sd.get("state", {})
+    step, moments = 0, {}
+    for (key, port, _), idx in zip(order, idx_seq):
+        st = state.get(idx, state.get(str(idx)))
+        if st is None:
+            continue
+        step = max(step, int(torch.as_tensor(st["step"]).item()))
+        p = params[port]
+        m, v = (torch.as_tensor(st[k]).to(p.device, p.dtype) for k in ("exp_avg", "exp_avg_sq"))
+        if m.numel() != p.numel() or v.numel() != p.numel():
+            raise ValueError(f"{key}: moments of {tuple(m.shape)} for a parameter of "
+                             f"{tuple(p.shape)}")
+        moments[p] = (m.reshape(p.shape).clone(), v.reshape(p.shape).clone())
+    n = step // max(episode_batch, 1)
+    optimizer.state.clear()
+    for p, (m, v) in moments.items():
+        optimizer.state[p] = {"step": torch.tensor(float(n)), "exp_avg": m, "exp_avg_sq": v}
+    scheduler.last_epoch = n
+    for g in optimizer.param_groups:
+        g["lr"] = g["initial_lr"] * scheduler.gamma ** (n // scheduler.step_size)
+    scheduler._last_lr = [g["lr"] for g in optimizer.param_groups]
+    return step
+
+
 def save_reference_checkpoint(path: str, model: nn.Module, *, iteration: int = 0,
-                              loss: float = 0.0, iou: float = 0.0) -> None:
+                              loss: float = 0.0, iou: float = 0.0,
+                              optimizer: torch.optim.Optimizer | None = None) -> None:
     """Write the port's `MPTINet` as a `checkpoint.tar` that the original
-    code loads: ``{'iteration', 'model_state_dict', 'optimizer_state_dict':
-    None, 'loss', 'IoU'}``."""
-    torch.save({"iteration": iteration, "model_state_dict": export_mpti_state(model),
-                "optimizer_state_dict": None, "loss": loss, "IoU": iou}, path)
+    code loads: ``{'iteration', 'model_state_dict', 'optimizer_state_dict',
+    'loss', 'IoU'}``, the optimizer state None unless ``optimizer`` is
+    given (`export_adam_state`).  Written under a temporary name and
+    renamed, so a reader never finds half a file."""
+    opt_sd = None if optimizer is None else export_adam_state(model, optimizer, iteration)
+    tmp = path + ".tmp"
+    torch.save({"iteration": int(iteration), "model_state_dict": export_mpti_state(model),
+                "optimizer_state_dict": opt_sd, "loss": float(loss), "IoU": float(iou)}, tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint_blob(path: str) -> dict:
+    """A `checkpoint.tar` as saved (weights_only, as `load_torch_checkpoint`)."""
+    with torch.serialization.safe_globals(_numpy_scalar_globals()):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def resume_from_reference_checkpoint(path: str, learner) -> dict:
+    """Resume meta-training from a full-model `checkpoint.tar` (the port's
+    or the original code's): weights and BN statistics, the Adam moments
+    and the StepLR position where the file holds an optimizer state.
+    Returns its bookkeeping fields {iteration, IoU, loss}."""
+    blob = load_checkpoint_blob(path)
+    if "model_state_dict" not in blob:
+        raise ValueError(f"{path}: not a full-model checkpoint (no model_state_dict)")
+    learner.load_torch_state({k: v.detach() for k, v in blob["model_state_dict"].items()})
+    if blob.get("optimizer_state_dict"):
+        load_adam_state(blob["optimizer_state_dict"], learner.model, learner.optimizer,
+                        learner.scheduler, learner.cfg.episode_batch)
+    return {"iteration": int(blob.get("iteration", 0)),
+            "IoU": float(blob.get("IoU", 0.0) or 0.0),
+            "loss": float(blob.get("loss", 0.0) or 0.0)}

@@ -61,12 +61,17 @@ def test_fuse_edge_on_is_refused_by_both_packages(mode):
 
 
 def test_port_imports_no_jax():
-    """Importing the port, its serving path and its training step pulls in
-    neither jax nor the JAX package (a fresh interpreter, so this process's
-    jax does not count)."""
+    """Importing the port, its serving path, its training step, its data
+    pipeline and its CLIs pulls in neither jax nor the JAX package, nor
+    h5py or msgpack (a fresh interpreter, so this process's jax does not
+    count)."""
     code = (
         "import sys\n"
         "import r3dfsseg_tpu_torch, chip_smoke\n"
+        "import r3dfsseg_tpu_torch.data, r3dfsseg_tpu_torch.native, r3dfsseg_tpu_torch.cli\n"
+        "from r3dfsseg_tpu_torch import mpti_train_noise, eval_noise\n"
+        "from r3dfsseg_tpu_torch.data import cache, catalogs, episodes, loader, sampler, synthetic\n"
+        "from r3dfsseg_tpu_torch.utils import metrics, logger, diagnostics\n"
         "from r3dfsseg_tpu_torch.serve import FewShotPredictor\n"
         "from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner\n"
         "from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_cheby, cuda_fps, cuda_knn, "
@@ -87,7 +92,8 @@ def test_port_imports_no_jax():
         "assert lowp.predict(rng.normal(size=(2, 2, 64, 9)), sy,\n"
         "                    rng.normal(size=(2, 64, 9))).shape == (2, 64)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'r3dfsseg_tpu.'))\n"
-        "             or m == 'r3dfsseg_tpu' or m == 'flax')\n"
+        "             or m in ('r3dfsseg_tpu', 'flax', 'h5py', 'msgpack')\n"
+        "             or m.startswith(('flax.', 'h5py.', 'msgpack.')))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
