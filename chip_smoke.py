@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--requests N]
                           [--only knn,fps | cheby,scatter | kth | bf16 | f1 | f2 | fused
-                                  | attn | probe | parity | cli]
+                                  | attn | probe | parity | cli | pretrain]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
@@ -174,6 +174,29 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      episodes/s, the median step, the loader's wait per step, peak memory,
      the same loop's on one loader thread, the loader's own rate with no
      step running, and an episode's pin and copy on an idle and a busy card;
+  4g. encoder pretraining (`pretrain_phase`): on a synthetic dataset like
+     phase 4f's, `pretrain.pretrain` at full width (batch 16, 2048 points,
+     widths 64/512/256, the f32 attention at dg_atten_dim 128, dropout 0.3
+     and attention dropout 0.1) for PRETRAIN_STEPS steps, which must
+     launch kNN and the scatter-add 3 times a step and the f32 wide
+     attention forward and backward once (PRETRAIN_PER_STEP) and no other
+     kernel, every logged loss finite and the checkpoint in the original
+     `{'params': ...}` schema; one step on the kernel path against the
+     plain path (knn_impl and attn_impl "xla") from the same weights, batch
+     and generator on the same kNN graphs (losses rtol 1e-4, gradients
+     GRAD_TOL, times sqrt(D / 64) for the attention's maps); timed steps,
+     a profiled step (device busy, the wide pair's device time), the wide
+     pair alone at B = 16 beside SDPA, peak memory; finetune 2 steps from
+     the `.tar`, meta-training 4 episodes at flagship width from it (the
+     trunk of the learner the run trained equal to the artifact's as it
+     was installed, and moved after the run); then the seeded flagship
+     learner after 2 steps written by `utils/checkpoint.save_checkpoint`
+     (`.msgpack`) and `save_reference_checkpoint` (`.tar`): 2 requests
+     from each with equal labels, the two resumed states bit-equal, one
+     resumed step from each, and from the `.tar` again, with bit-equal
+     losses under `torch.use_deterministic_algorithms` (the card's step
+     is not bit-reproducible in the default mode: the same step from each
+     file and RESUME_REPEATS times more from the `.tar` is recorded);
   2c. the F2 paths, at shapes the archived TPU kernels 8-11 take and the
      tuned kernels do not (`check_f2`): the general kernel 9
      (`csrc/fused_edge_general.cu`) at FUSED_F2_SHAPES, f32 and bf16, every
@@ -211,7 +234,9 @@ runpy; the tree's modules need the plain versions these checks call:
 digests of kernels 7 and 10, kernel 11's us per matvec at
 PROBE_DIGEST_COLS columns beside `torch.mm` with each case's device time,
 and its us per step over a range of M (`probe_sweep`); `--only parity`
-phase 4e alone, `--only cli` phase 4f alone.
+phase 4e alone, `--only cli` phase 4f alone, `--only pretrain` phase 4g
+alone.  The `launches_pretrain` entry of every kernel row counts phase 4g's
+pretraining run, the f32 wide attention pair's main path.
 """
 from __future__ import annotations
 
@@ -225,6 +250,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -3907,12 +3933,384 @@ def cli_phase(torch, kernels, seed) -> dict:
     return dict(train=train_launches, eval=eval_launches, figures=figures)
 
 
+# --------------------------------------------------------- pretraining --
+PRETRAIN_STEPS = 20     # steps of the pretraining run (phase 4g)
+PRETRAIN_BATCH = 16     # clouds a step, the JAX pretraining's default
+PRETRAIN_TIMED = 5      # timed steps after it, host clock
+# each pretraining step's launches: kNN and the scatter-add once per
+# EdgeConv block, the f32 wide attention pair once (dg_atten_dim 128)
+PRETRAIN_PER_STEP = {"knn": 3, "attention_wide_tf32_fwd": 1, "attention_wide_tf32_bwd": 1,
+                     "scatter_add": 3}
+RESUME_LOSSES = ("loss", "lp_loss", "contrast_loss")
+RESUME_REPEATS = 4      # default-mode steps from the .tar again, for the spread
+
+
+def watch_encoder_install(mpti_train_noise, torch_convert) -> dict:
+    """Wrap the meta-training CLI's `make_learner` so that the learner it
+    builds is kept (``learner``) and its feature extractor is exported the
+    moment a pretrained trunk is installed into it (``init``); calling
+    ``restore`` undoes the wrap."""
+    seen = {}
+    real = mpti_train_noise.make_learner
+
+    def make_learner(cfg, device=None):
+        learner = real(cfg, device)
+        install = learner.load_encoder_state
+
+        def load_encoder_state(state):
+            install(state)
+            # a copy: on the CPU the export's tensors are the live parameters
+            seen["init"] = {k: v.clone() for k, v in
+                            torch_convert.export_feature_extractor(learner.model.features).items()}
+        learner.load_encoder_state = load_encoder_state
+        seen["learner"] = learner
+        return learner
+
+    mpti_train_noise.make_learner = make_learner
+    seen["restore"] = lambda: setattr(mpti_train_noise, "make_learner", real)
+    return seen
+
+
+def pretrain_step_check(torch, cfg, model, batch, kernels, seed) -> dict:
+    """One pretraining step on the kernel path and one on the plain path
+    (knn_impl and attn_impl "xla") from ``model``'s weights on the same
+    batch and generator seed, on the same kNN graphs (`KnnReplay`): losses
+    rtol 1e-4; each gradient within a relative L2 distance of GRAD_TOL,
+    times sqrt(D / 64) for the attention's maps as phase 4c gates the wide
+    pair; the segmenter's second conv bias, whose exact gradient is 0
+    (it feeds a train-mode BatchNorm), below 1e-5 of the largest gradient
+    entry; the kernel step launches PRETRAIN_PER_STEP and nothing else, the
+    plain step nothing.  ``model`` takes the kernel path's step."""
+    from r3dfsseg_tpu_torch import pretrain as pre
+    from r3dfsseg_tpu_torch.nn import dgcnn
+    from r3dfsseg_tpu_torch.ops import cuda_knn
+
+    plain = pre.seg_model(cfg.replace(knn_impl="xla", attn_impl="xla"),
+                          model.seg_out.out_features).cuda()
+    plain.load_state_dict(model.state_dict())
+    opts = [torch.optim.Adam(m.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+            for m in (model, plain)]
+    x, y = batch
+    replay = KnnReplay(torch, cuda_knn, dgcnn)
+    zero_counts(kernels)
+    kernel_knn = replay.record()
+    try:
+        loss_k, acc_k = pre.pretrain_step(model, opts[0], x, y, torch.Generator().manual_seed(seed))
+    finally:
+        cuda_knn.knn = kernel_knn
+    torch.cuda.synchronize()
+    launched = counts(kernels)
+    plain_knn = replay.replay()
+    try:
+        loss_p, acc_p = pre.pretrain_step(plain, opts[1], x, y, torch.Generator().manual_seed(seed))
+    finally:
+        dgcnn.knn_indices = plain_knn
+    torch.cuda.synchronize()
+    if counts(kernels) != launched:
+        raise AssertionError(f"the plain pretraining step launched a kernel: {counts(kernels)}")
+    want = {n: PRETRAIN_PER_STEP.get(n, 0) for n in kernels}
+    if launched != want:
+        raise AssertionError(f"pretraining step 1: launches {launched}, want {want}")
+    a, b = loss_k.item(), loss_p.item()
+    rel_loss = abs(a - b) / abs(b)
+    if not (np.isfinite(a) and rel_loss <= 1e-4):
+        raise AssertionError(f"pretraining step 1 loss: kernel path {a} vs plain path {b}")
+    g_k, g_p = _grads(model), _grads(plain)
+    zero = {"seg1.conv.bias"}
+    top = max(g.abs().max().item() for g in g_p.values())
+    noise = max(max(g_k[n].abs().max().item(), g_p[n].abs().max().item()) for n in zero)
+    rel = _rel_distances(g_k, g_p, zero)
+    d = model.att_learner.q_map.out_features
+    tol = {n: GRAD_TOL * max((d / 64) ** 0.5, 1.0) if n.startswith("att_learner.") else GRAD_TOL
+           for n in rel}
+    worst = max(rel, key=lambda n: rel[n] / tol[n])
+    log(f"  step 1 kNN rows where the plain path took the kernel path's near-tie choice, per "
+        f"call: {replay.swapped}")
+    log(f"  step 1 loss: kernels {a:.7f}, plain {b:.7f}, rel diff {rel_loss:.3e}; accuracy "
+        f"{acc_k.item():.4f} / {acc_p.item():.4f}")
+    log(f"  step 1 gradients: {len(rel)} parameters, largest relative L2 distance "
+        f"{rel[worst]:.3e} ({worst}, limit {tol[worst]:.2e}); median "
+        f"{statistics.median(rel.values()):.3e}; the zero-gradient bias at "
+        f"{noise / top:.3e} of the largest entry")
+    if rel[worst] > tol[worst] or noise > 1e-5 * top:
+        raise AssertionError(f"pretraining step 1 gradients: {worst} {rel[worst]} > "
+                             f"{tol[worst]}, or the zero-gradient bias at {noise / top}")
+    return dict(loss_rel_diff=rel_loss, grad_rel_max=rel[worst], grad_rel_max_param=worst,
+                grad_rel_median=statistics.median(rel.values()), knn_swapped=replay.swapped,
+                optimizer=opts[0])
+
+
+def pretrain_attention_times(torch, attn_mod, seed) -> dict:
+    """The f32 wide pair at a pretraining step's shape, (16, 2048, 128),
+    rate 0.1: CUDA events around the forward and the backward (kernels and
+    plain versions) and SDPA's memory-efficient backend.  (Its device time
+    is the profiled step's.)"""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, dy = (torch.randn(PRETRAIN_BATCH, 2048, 128, device="cuda", generator=g)
+                   for _ in range(4))
+    tau, rate = 128 ** 0.5, 0.1
+    y, lse = attn_mod.attention_fwd(q, k, v, tau, rate, seed)
+    return attention_times(torch, attn_mod, [(q, k, v, dy, seed, y, lse)], tau, rate, sdpa,
+                           reps=5)
+
+
+def pretrain_phase(torch, kernels, episodes, seed) -> dict:
+    """Phase 4g: encoder pretraining at full width (see the module
+    docstring); returns the pretraining run's launch counts and figures."""
+    import tempfile
+
+    from r3dfsseg_tpu_torch import mpti_train_noise, pretrain as pre
+    from r3dfsseg_tpu_torch.config import R3DConfig
+    from r3dfsseg_tpu_torch.data.synthetic import make_synthetic_dataset
+    from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
+    from r3dfsseg_tpu_torch.nn.dgcnn import init_linear_weights
+    from r3dfsseg_tpu_torch.ops import cuda_attention
+    from r3dfsseg_tpu_torch.serve import FewShotPredictor
+    from r3dfsseg_tpu_torch.utils import checkpoint, torch_convert
+
+    with tempfile.TemporaryDirectory(prefix="r3d_pretrain_") as tmp:
+        t0 = time.perf_counter()
+        ds = make_synthetic_dataset(os.path.join(tmp, "blocks"), n_scans=40, pts_per_scan=4096,
+                                    seed=seed)
+        cfg = R3DConfig(clean_data_path=ds, n_iters=PRETRAIN_STEPS, save_path=tmp,
+                        log_dir=os.path.join(tmp, "pretrain"), seed=seed)
+        log(f"[pretrain] {describe(cfg)}: {PRETRAIN_BATCH} clouds of {cfg.pc_npts} points a "
+            f"step, attention {cfg.dg_atten_dim} wide (f32), dropout 0.3 and 0.1, "
+            f"{PRETRAIN_STEPS} steps")
+        # ---- the pretraining run: the main path of this phase
+        zero_counts(kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = pre.pretrain(cfg, batch_size=PRETRAIN_BATCH, device="cuda")
+        run_s = time.perf_counter() - t
+        launches = counts(kernels)
+        run_peak = torch.cuda.max_memory_allocated()
+        want = {n: PRETRAIN_PER_STEP.get(n, 0) * PRETRAIN_STEPS for n in kernels}
+        if launches != want:
+            raise AssertionError(f"pretraining run: launches {launches}, want {want}")
+        text = open(os.path.join(cfg.log_dir, "log_pretrain.txt")).read()
+        losses = [float(v) for v in re.findall(r"\[Pretrain\] Iter \d+ \| loss ([-0-9.naif]+)",
+                                               text)]
+        accs = [float(v) for v in re.findall(r"\| acc ([-0-9.naif]+)", text)]
+        found = re.findall(r"== throughput: ([0-9.]+) clouds/s", text)
+        if len(losses) != PRETRAIN_STEPS // 10 or not np.isfinite(losses).all() or not found:
+            raise AssertionError(f"pretraining log: losses {losses}, throughput {found}")
+        run_clouds_s = float(found[-1])
+        blob = torch.load(out, map_location="cpu", weights_only=True)
+        if set(blob) != {"params"} or "att_learner.q_map.weight" not in blob["params"]:
+            raise AssertionError(f"{out}: not the original pretraining schema")
+
+        # ---- one step against the plain path, then timed steps and a profile
+        classes, scans = pre.pretrain_scans(cfg)
+        stream = pre.batch_stream(cfg, PRETRAIN_BATCH, classes, scans)
+        next(stream)
+        batch = tuple(torch.from_numpy(a).cuda() for a in next(stream))
+        model = pre.seg_model(cfg, len(classes) + 1)
+        init_linear_weights(model, torch.Generator().manual_seed(seed))
+        model.cuda()
+        check = pretrain_step_check(torch, cfg, model, batch, kernels, seed)
+        opt = check.pop("optimizer")
+        gen = torch.Generator().manual_seed(seed + 1)
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(PRETRAIN_TIMED):
+            before = counts(kernels)
+            t = time.perf_counter()
+            loss, _ = pre.pretrain_step(model, opt, *batch, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            grew = {n: c - before[n] for n, c in counts(kernels).items()}
+            if grew != {n: PRETRAIN_PER_STEP.get(n, 0) for n in kernels} or \
+                    not np.isfinite(loss.item()):
+                raise AssertionError(f"timed pretraining step: launches {grew}, loss {loss}")
+        step_peak = torch.cuda.max_memory_allocated()
+        from torch.profiler import ProfilerActivity, profile
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                pre.pretrain_step(model, opt, *batch, gen)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / 2
+        rows = sorted(((e.key, e.self_device_time_total / 1e3 / 2, e.count // 2)
+                       for e in prof.key_averages() if str(e.device_type).endswith("CUDA")),
+                      key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        wide = {part: sum(r[1] for r in rows if f"attn_wide_tf32_{part}" in r[0])
+                for part in ("fwd", "bwd", "delta")}
+        by_kernel = {key: sum(r[1] for r in rows if key in r[0])
+                     for key in ("knn_kernel", "scatter_add")}
+        log(f"[pretrain] profiled step: {wall:.2f} ms (wall, profiled); device busy {busy:.2f} "
+            f"ms ({busy / wall:.1%}); the wide pair {sum(wide.values()):.3f} ms (forward "
+            f"{wide['fwd']:.3f}, backward {wide['bwd']:.3f} + Delta {wide['delta']:.3f}); kNN "
+            f"{by_kernel['knn_kernel']:.3f}, scatter-add {by_kernel['scatter_add']:.3f}; "
+            f"largest device times per step:")
+        for name, ms, n in rows[:10]:
+            log(f"  {ms:8.3f} ms  x{n:<4d} {name[:90]}")
+        attn = pretrain_attention_times(torch, cuda_attention, seed)
+
+        # ---- finetune from the .tar, then meta-train from it
+        ft = cfg.replace(phase="finetune", pretrain_checkpoint_path=out, n_iters=2,
+                         log_dir=os.path.join(tmp, "finetune"))
+        pre.pretrain(ft, batch_size=PRETRAIN_BATCH, device="cuda")
+        if "finetune: loaded encoder" not in open(os.path.join(ft.log_dir,
+                                                               "log_finetune.txt")).read():
+            raise AssertionError("finetune did not load the encoder")
+        mt = R3DConfig(clean_data_path=ds, n_iters=4, eval_interval=4, n_episode_test=1,
+                       n_workers=2, pretrain_checkpoint_path=out, save_path=tmp,
+                       log_dir=os.path.join(tmp, "metatrain"), seed=seed)
+        seen = watch_encoder_install(mpti_train_noise, torch_convert)
+        try:
+            st = mpti_train_noise.train(mt, device="cuda")
+        finally:
+            seen.pop("restore")()
+        text = open(os.path.join(mt.log_dir, "log_mptitrain.txt")).read()
+        if "Load encoder module" not in text or not np.isfinite(st["losses"]).all():
+            raise AssertionError(f"meta-training from the pretrained encoder: {st['losses']}")
+        # the trunk of the learner that the run trained: the artifact's as it
+        # was installed, and moved by the run's 4 steps
+        if "init" not in seen:
+            raise AssertionError("meta-training installed no pretrained trunk")
+        end = torch_convert.export_feature_extractor(seen["learner"].model.features)
+        trunk = {k: v for k, v in blob["params"].items()
+                 if not k.startswith("att_learner.") and not k.endswith("num_batches_tracked")}
+        if not trunk or any(not torch.equal(seen["init"]["encoder." + k], v)
+                            for k, v in trunk.items()):
+            raise AssertionError("the meta-training encoder is not the artifact's at init")
+        if all(torch.equal(end["encoder." + k], v) for k, v in trunk.items()):
+            raise AssertionError("meta-training did not move the pretrained trunk")
+
+        # ---- the .msgpack path: the seeded flagship learner after 2 steps
+        fcfg = R3DConfig()
+        learner = MPTILearner(fcfg, "cuda", torch.Generator().manual_seed(seed))
+        for ep in episodes[:2]:
+            learner.train(ep)
+        paths = {"msgpack": os.path.join(tmp, "msgpack", "checkpoint.msgpack"),
+                 "tar": os.path.join(tmp, "tar", "checkpoint.tar")}
+        checkpoint.save_checkpoint(paths["msgpack"], learner, iteration=2)
+        os.makedirs(os.path.dirname(paths["tar"]))
+        torch_convert.save_reference_checkpoint(paths["tar"], learner.model, iteration=2,
+                                                optimizer=learner.optimizer)
+        sizes = {k: os.path.getsize(p) for k, p in paths.items()}
+        served, resumers = {}, {}
+        for key, path in paths.items():
+            p = FewShotPredictor.from_checkpoint(os.path.dirname(path), fcfg, device="cuda")
+            served[key] = [p.predict(*ep[:3]) for ep in episodes[:2]]
+            resumers[key] = MPTILearner(fcfg, "cuda", torch.Generator().manual_seed(seed + 2))
+            checkpoint.restore(path, resumers[key])
+        if any(not np.array_equal(a, b) for a, b in zip(served["msgpack"], served["tar"])):
+            raise AssertionError("the .msgpack and the .tar serve different labels")
+        # the two resumed states bit for bit: weights, statistics, Adam, StepLR
+        a, b = resumers["msgpack"], resumers["tar"]
+        sa, sb = a.model.state_dict(), b.model.state_dict()
+        pb = dict(b.model.named_parameters())
+        same = all(torch.equal(sa[k], sb[k]) for k in sb) and all(
+            all(torch.equal(a.optimizer.state[p][m], b.optimizer.state[pb[n]][m])
+                for m in ("step", "exp_avg", "exp_avg_sq"))
+            for n, p in a.model.named_parameters()) and \
+            a.scheduler.get_last_lr() == b.scheduler.get_last_lr()
+        if not same:
+            raise AssertionError("the states resumed from the .msgpack and the .tar differ")
+        # one step from each state.  The card's step is not bit-reproducible
+        # (PERF.md section 7): the steps whose losses are held bit-equal run
+        # under torch.use_deterministic_algorithms; the default mode's steps,
+        # from each file and RESUME_REPEATS more from the .tar, are recorded
+        def resumed_step(path):
+            r = MPTILearner(fcfg, "cuda", torch.Generator().manual_seed(seed + 2))
+            checkpoint.restore(path, r)
+            return {k: v.item() for k, v in r.train(episodes[2]).items() if k in RESUME_LOSSES}
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                det = [resumed_step(paths[k]) for k in ("msgpack", "tar", "tar")]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        det_warned = sorted({str(w.message).split("\n")[0][:160] for w in caught})
+        if det[0] != det[1] or det[2] != det[1]:
+            raise AssertionError(f"deterministic steps resumed from the .msgpack {det[0]}, the "
+                                 f".tar {det[1]} and the .tar again {det[2]} differ")
+        default = [resumed_step(paths[k]) for k in ("msgpack", "tar")] + \
+            [resumed_step(paths["tar"]) for _ in range(RESUME_REPEATS)]
+
+        def rel(x, y):
+            return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30) for k in RESUME_LOSSES)
+        loss_diff = rel(default[0], default[1])
+        repeat_diffs = [rel(r, default[1]) for r in default[2:]]
+        phase_s = time.perf_counter() - t0
+
+    step_ms = statistics.median(times)
+    figures = dict(run_s=run_s, run_clouds_per_s=run_clouds_s, losses=losses, accuracies=accs,
+                   run_peak_mib=run_peak / 2**20, step_ms_median=step_ms, step_ms=times,
+                   clouds_per_s_steady=PRETRAIN_BATCH / step_ms * 1e3,
+                   step_peak_mib=step_peak / 2**20, profiled_step_ms=wall, device_busy_ms=busy,
+                   device_busy_share=busy / wall, wide_pair_device_ms=wide,
+                   knn_device_ms=by_kernel["knn_kernel"],
+                   scatter_add_device_ms=by_kernel["scatter_add"], attention_b16=attn,
+                   metatrain_losses=st["losses"], checkpoint_bytes=sizes,
+                   resume_deterministic_losses=det[1], resume_deterministic_warned=det_warned,
+                   resume_loss_rel_diff=loss_diff, resume_repeat_rel_diffs=repeat_diffs,
+                   phase_s=phase_s, **check)
+    log(f"[pretrain] run: {PRETRAIN_STEPS} steps in {run_s:.2f} s with the first; "
+        f"{run_clouds_s:.1f} clouds/s from the end of the first step (the CLI's line); "
+        f"losses {losses}, accuracies {accs}; peak memory {run_peak / 2**20:.1f} MiB; "
+        f"launches {launches}")
+    log(f"[pretrain] timed steps (host clock, synchronised): median {step_ms:.2f} ms "
+        f"({PRETRAIN_BATCH / step_ms * 1e3:.1f} clouds/s), {['%.2f' % t for t in times]}; "
+        f"peak memory of a step {step_peak / 2**20:.1f} MiB")
+    log(f"[pretrain] the f32 wide pair at (16, 2048, 128), rate 0.1, CUDA events: forward "
+        f"{attn['fwd']:.3f} ms (plain {attn['fwd_plain']:.3f}, SDPA {attn['lib_fwd']:.3f}); "
+        f"backward {attn['bwd']:.3f} ms (plain {attn['bwd_plain']:.3f}, SDPA "
+        f"{attn['lib_bwd']:.3f})")
+    log(f"[pretrain] finetune 2 steps and meta-training 4 episodes from the .tar: losses "
+        f"{['%.4f' % v for v in st['losses']]}; the .msgpack ({sizes['msgpack']} bytes) and the "
+        f".tar ({sizes['tar']}) serve equal labels on 2 requests and resume to bit-equal states "
+        f"whose next steps give bit-equal losses under deterministic algorithms ({det[1]}; "
+        f"warned: {det_warned or 'nothing'}); in the default mode the .msgpack's step is "
+        f"{loss_diff:.2e} off the .tar's, {RESUME_REPEATS} repeats from the .tar "
+        f"{['%.2e' % d for d in repeat_diffs]}; phase {phase_s:.1f} s")
+    return dict(launches=launches, figures=figures)
+
+
+def all_counters() -> dict:
+    """Every kernel counter, by the name of its row: (module, attribute).
+    The bf16 forms' counters count their calls apart, within their
+    kernel's."""
+    from r3dfsseg_tpu_torch.ops import (cuda_attention, cuda_cheby, cuda_fps, cuda_fused_edge,
+                                        cuda_gather, cuda_knn, cuda_kth, cuda_proto_cheby,
+                                        cuda_scatter)
+    return {"knn_general": (cuda_knn, "general_launches"),
+            "knn_packed": (cuda_knn, "packed_launches"),
+            "attention_wide_tf32_fwd": (cuda_attention, "wide_tf32_launches"),
+            "attention_wide_tf32_bwd": (cuda_attention, "wide_tf32_bwd_launches"),
+            "attention_wide_tc_fwd_bf16": (cuda_attention, "wide_tc_bf16_launches"),
+            "attention_wide_tc_bwd_bf16": (cuda_attention, "wide_tc_bwd_bf16_launches"),
+            "attention_wide_group_fwd_bf16": (cuda_attention, "wide_group_bf16_launches"),
+            "attention_wide_group_bwd_bf16": (cuda_attention, "wide_group_bwd_bf16_launches"),
+            "kth_wide": (cuda_kth, "wide_launches"),
+            "scatter_general": (cuda_scatter, "general_launches"),
+            "knn": (cuda_knn, "launches"), "attention_fwd": (cuda_attention, "launches"),
+            "attention_bwd": (cuda_attention, "bwd_launches"), "fps": (cuda_fps, "launches"),
+            "knn_bf16": (cuda_knn, "bf16_launches"),
+            "attention_fwd_bf16": (cuda_attention, "bf16_launches"),
+            "attention_bwd_bf16": (cuda_attention, "bwd_bf16_launches"),
+            "scatter_add_bf16": (cuda_scatter, "bf16_launches"),
+            "kth": (cuda_kth, "launches"), "scatter_add": (cuda_scatter, "launches"),
+            "cheby": (cuda_cheby, "launches"), "gather_onehot": (cuda_gather, "launches"),
+            **{f"fused_{pre}{p}": (cuda_fused_edge, f"{pre}{p}_launches")
+               for pre in ("", "bf16_", "general_") for p in cuda_fused_edge.PASSES},
+            "gather_onehot_narrow": (cuda_gather, "narrow_launches"),
+            "proto_cheby": (cuda_proto_cheby, "launches"),
+            "matmul_only": (cuda_proto_cheby, "matmul_only_launches")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth", "bf16", "f1", "f2",
-                                       "fused", "attn", "probe", "parity", "cli"],
+                                       "fused", "attn", "probe", "parity", "cli", "pretrain"],
                     help="build, then only the kNN and FPS (or the Chebyshev and scatter-add, "
                          "the k-th distance, the bf16 forms of kernels 1, 2, 5 and 6, the "
                          "F1 kernels: general kNN, packed kNN, wide attention, wide-row k-th "
@@ -3926,7 +4324,9 @@ def main() -> int:
                          "(to time them beside another tree's kernels); parity: phase 4e "
                          "alone (the golden fixtures and the flagship checkpoint in the "
                          "exact top-k modes); cli: phase 4f alone (the training and "
-                         "evaluation CLIs on a synthetic dataset)")
+                         "evaluation CLIs on a synthetic dataset); pretrain: phase 4g alone "
+                         "(encoder pretraining at full width, finetune and meta-training "
+                         "from it, the .msgpack checkpoints)")
     args = ap.parse_args()
 
     import torch
@@ -4105,6 +4505,11 @@ def main() -> int:
         log(smi)
         log(json.dumps(rows))
         return 0
+    if args.only == "pretrain":
+        rows = {"pretrain": pretrain_phase(torch, all_counters(), episodes, args.seed)}
+        log(smi)
+        log(json.dumps(rows))
+        return 0
     if args.only == "parity":
         counters = {"knn": (cuda_knn, "launches"), "attention_fwd": (cuda_attention, "launches"),
                     "attention_bwd": (cuda_attention, "bwd_launches"),
@@ -4186,17 +4591,7 @@ def main() -> int:
                   "attention_wide_tf32_bwd", "attention_wide_tc_fwd_bf16",
                   "attention_wide_tc_bwd_bf16", "attention_wide_group_fwd_bf16",
                   "attention_wide_group_bwd_bf16", "kth_wide", "scatter_general")
-    f1_counters = {"knn_general": (cuda_knn, "general_launches"),
-                   "knn_packed": (cuda_knn, "packed_launches"),
-                   "attention_wide_tf32_fwd": (cuda_attention, "wide_tf32_launches"),
-                   "attention_wide_tf32_bwd": (cuda_attention, "wide_tf32_bwd_launches"),
-                   "attention_wide_tc_fwd_bf16": (cuda_attention, "wide_tc_bf16_launches"),
-                   "attention_wide_tc_bwd_bf16": (cuda_attention, "wide_tc_bwd_bf16_launches"),
-                   "attention_wide_group_fwd_bf16": (cuda_attention, "wide_group_bf16_launches"),
-                   "attention_wide_group_bwd_bf16": (cuda_attention,
-                                                     "wide_group_bwd_bf16_launches"),
-                   "kth_wide": (cuda_kth, "wide_launches"),
-                   "scatter_general": (cuda_scatter, "general_launches")}
+    f1_counters = {n: c for n, c in all_counters().items() if n in f1_kernels}
     zero_counts(f1_counters)
     rows.update(check_f1(torch, f1_mods, episodes[0][0], episodes[0][2]))
     f1_checks = counts(f1_counters)
@@ -4211,21 +4606,7 @@ def main() -> int:
     rows["proto_cheby"]["f2"] = rows.pop("proto_cheby_f2")
     matmul_f2 = rows.pop("matmul_only_f2")      # joins phase 6's row
 
-    # the bf16 forms' counters count their calls apart, within their kernel's
-    kernels = {**f1_counters,
-               "knn": (cuda_knn, "launches"), "attention_fwd": (cuda_attention, "launches"),
-               "attention_bwd": (cuda_attention, "bwd_launches"), "fps": (cuda_fps, "launches"),
-               "knn_bf16": (cuda_knn, "bf16_launches"),
-               "attention_fwd_bf16": (cuda_attention, "bf16_launches"),
-               "attention_bwd_bf16": (cuda_attention, "bwd_bf16_launches"),
-               "scatter_add_bf16": (cuda_scatter, "bf16_launches"),
-               "kth": (cuda_kth, "launches"), "scatter_add": (cuda_scatter, "launches"),
-               "cheby": (cuda_cheby, "launches"), "gather_onehot": (cuda_gather, "launches"),
-               **{f"fused_{pre}{p}": (cuda_fused_edge, f"{pre}{p}_launches")
-                  for pre in ("", "bf16_", "general_") for p in cuda_fused_edge.PASSES},
-               "gather_onehot_narrow": (cuda_gather, "narrow_launches"),
-               "proto_cheby": (cuda_proto_cheby, "launches"),
-               "matmul_only": (cuda_proto_cheby, "matmul_only_launches")}
+    kernels = all_counters()
     f32_kernels = ("knn", "attention_fwd", "attention_bwd", "fps", "kth", "scatter_add")
     bf16_forms = ("knn_bf16", "attention_fwd_bf16", "attention_bwd_bf16", "scatter_add_bf16")
     # the bf16 encoder's step: kernels 1, 2 (bf16), 3, 4 (bf16), 5 (bf16), 6 (bf16), 7
@@ -4339,6 +4720,18 @@ def main() -> int:
     # ---- 4f. the training and evaluation CLIs on a synthetic dataset
     cli = cli_phase(torch, kernels, args.seed)
     phases.update(cli_train=cli["train"], cli_eval=cli["eval"])
+    # ---- 4g. encoder pretraining at full width, finetune and meta-training
+    # from its checkpoint, and the .msgpack checkpoints
+    pre = pretrain_phase(torch, kernels, episodes, args.seed)
+    phases["pretrain"] = pre["launches"]
+    log("[pretrain] figures " + json.dumps(pre["figures"]))
+    attn16, dev16 = pre["figures"]["attention_b16"], pre["figures"]["wide_pair_device_ms"]
+    rows["attention_wide_tf32_fwd"]["pretrain_b16"] = dict(
+        ms=attn16["fwd"], step_device_ms=dev16["fwd"], plain_ms=attn16["fwd_plain"],
+        library_ms=attn16["lib_fwd"])
+    rows["attention_wide_tf32_bwd"]["pretrain_b16"] = dict(
+        ms=attn16["bwd"], step_device_ms=dev16["bwd"] + dev16["delta"],
+        plain_ms=attn16["bwd_plain"], library_ms=attn16["lib_bwd"])
     phases.update(f1_checks={**{n: 0 for n in kernels}, **f1_checks},
                   serve_f1=serve_launches_f1, train_f1=tr_f1["launches"],
                   train_f1_bf16enc=tr_f1_enc["launches"],
@@ -4444,8 +4837,8 @@ def main() -> int:
                       **{f"fused_edge_bf16_{p}": "fused_train_bf16"
                          for p in cuda_fused_edge.PASSES},
                       **{f"fused_edge_general_{p}": "f2_checks" for p in cuda_fused_edge.PASSES},
-                      knn_general="train_f1", attention_wide_tf32_fwd="train_f1",
-                      attention_wide_tf32_bwd="train_f1", scatter_general="train_f1",
+                      knn_general="train_f1", attention_wide_tf32_fwd="pretrain",
+                      attention_wide_tf32_bwd="pretrain", scatter_general="train_f1",
                       attention_wide_tc_fwd_bf16="train_f1_bf16enc",
                       attention_wide_tc_bwd_bf16="train_f1_bf16enc",
                       attention_wide_group_fwd_bf16="train_f1_320_bf16enc",

@@ -222,18 +222,16 @@ def args_to_config(args: argparse.Namespace, eval_mode: bool = False) -> R3DConf
 def check_supported(cfg: R3DConfig) -> None:
     """Raise NotImplementedError on a setting the JAX CLI runs and the port
     does not yet, naming its ROADMAP.md item."""
-    if cfg.phase in ("pretrain", "finetune"):
-        raise NotImplementedError(f"--phase {cfg.phase}: pretraining is not ported yet "
-                                  f"(ROADMAP.md section 1, item 4)")
-    if cfg.phase not in ("mptitrain", "mptieval", "mptinoise_eval"):
+    if cfg.phase not in ("pretrain", "finetune", "mptitrain", "mptieval", "mptinoise_eval"):
         raise NotImplementedError(f"--phase {cfg.phase}: the ProtoNet and transformer baselines "
                                   f"are not ported yet (ROADMAP.md section 1, item 5)")
     if cfg.knn_impl == "approx":
         raise NotImplementedError("--knn_impl approx: the TPU's approximate top-k has no port "
                                   "(ROADMAP.md, 'Not queued')")
     if cfg.mesh_shape is not None and cfg.mesh_shape[0] > 1:
-        raise NotImplementedError(f"--mesh {cfg.mesh_shape[0]}: episode data parallelism is not "
-                                  f"ported yet (ROADMAP.md section 1, item 7a)")
+        raise NotImplementedError(f"--mesh {cfg.mesh_shape[0]}: data parallelism (episodes, or "
+                                  f"pretraining's scene batches) is not ported yet "
+                                  f"(ROADMAP.md section 1, item 7a)")
     if cfg.wire_format == "f16":
         raise NotImplementedError("--wire_format f16 sends f16 point attributes, which changes "
                                   "the numbers; the port sends f32 (ROADMAP.md, 'Not queued')")

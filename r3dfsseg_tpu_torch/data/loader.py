@@ -29,10 +29,12 @@ class _WorkerError:
         self.exc = exc
 
 
-def to_device(ep: Episode, device) -> Episode:
-    """An episode's numpy fields as tensors on ``device``.  On a CUDA device
-    each field goes through pinned host memory and is copied without
-    blocking the host, so the copy overlaps the step before it."""
+def to_device(ep, device):
+    """An episode's numpy fields (or a plain tuple's: pretraining's (x, y)
+    batches) as tensors on ``device``, in a container of the same type.
+    On a CUDA device each field goes through pinned host memory and is
+    copied without blocking the host, so the copy overlaps the step before
+    it."""
     import torch
 
     device = torch.device(device)
@@ -46,11 +48,12 @@ def to_device(ep: Episode, device) -> Episode:
             t = t.pin_memory()
         return t.to(device, non_blocking=pin)
 
-    return Episode(*(put(a) for a in ep))
+    fields = [put(a) for a in ep]
+    return type(ep)(*fields) if isinstance(ep, Episode) else tuple(fields)
 
 
 def device_prefetch(it, device, n: int = 2):
-    """Yield ``it``'s episodes on ``device``, with ``n`` copies submitted ahead
+    """Yield ``it``'s episodes (or tuples) on ``device``, with ``n`` copies submitted ahead
     of the one yielded (the counterpart of the JAX package's
     `device_put_prefetch`)."""
     buf = deque()

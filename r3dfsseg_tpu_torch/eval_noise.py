@@ -7,7 +7,8 @@
 Builds (or reads) the cached clean or noisy test episodes, runs the learner
 over each with MDNS on, and reports per-class IoU and the foreground mean
 IoU.  The checkpoint is a `checkpoint.tar` (the port's training writes
-one, in the original code's schema).
+one, in the original code's schema) or the JAX package's
+`checkpoint.msgpack`, which a log directory holding both gives first.
 """
 from __future__ import annotations
 
@@ -109,14 +110,14 @@ def evaluate(cfg: R3DConfig, device=None) -> float:
     """Meta-test the checkpoint in ``cfg.model_checkpoint_path`` on the
     noisy (or clean) cached test set, MDNS on; returns the mean IoU."""
     from r3dfsseg_tpu_torch.data.cache import StaticTestDataset
-    from r3dfsseg_tpu_torch.utils.torch_convert import (checkpoint_file, load_checkpoint_blob,
-                                                        torch_state_of)
+    from r3dfsseg_tpu_torch.utils.checkpoint import restore
+    from r3dfsseg_tpu_torch.utils.torch_convert import checkpoint_file
 
     if not cfg.model_checkpoint_path:
         raise ValueError("Model checkpoint file must be given (--model_checkpoint_path).")
-    tar = checkpoint_file(cfg.model_checkpoint_path)
+    ckpt = checkpoint_file(cfg.model_checkpoint_path)
     # the log and the record go beside the checkpoint
-    cfg = cfg.replace(log_dir=os.path.dirname(tar))
+    cfg = cfg.replace(log_dir=os.path.dirname(ckpt))
     logger = init_logger(cfg.log_dir, cfg)
     try:
         logger.cprint(
@@ -132,11 +133,9 @@ def evaluate(cfg: R3DConfig, device=None) -> float:
             noise_ratio=cfg.noise_ratio, noise_type=cfg.noise_type,
             noise_pair=cfg.noise_pair_dict, seed=cfg.seed)
 
-        blob = load_checkpoint_blob(tar)
-        sd, encoder_only = torch_state_of(blob)
-        learner.load_torch_state(sd, encoder_only=encoder_only)
+        info = restore(ckpt, learner, log=logger.cprint)
         logger.cprint("Load model checkpoint %s at Iteration %d (IoU %f)..." % (
-            tar, int(blob.get("iteration", 0)), float(blob.get("IoU", 0.0) or 0.0)))
+            ckpt, info["iteration"], info["IoU"]))
 
         record_path = None
         if cfg.save_test_record:

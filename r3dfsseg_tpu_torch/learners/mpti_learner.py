@@ -70,24 +70,25 @@ class MPTILearner:
             self.model.load_state_dict(state_dict_from_jax(params, batch_stats), strict=True)
         self.optimizer, self.scheduler = make_optimizer(self.model, self.cfg)
 
-    def load_torch_state(self, torch_state: Mapping, *, encoder_only: bool = False) -> None:
+    def load_torch_state(self, torch_state: Mapping) -> None:
         """Install the original PyTorch model's tensors, keyed as its
         `state_dict` (`utils/torch_convert.py`), and reset the optimizer
         state.  The whole model loads strictly: a torch key without a port
-        counterpart raises, and so does a port tensor left unfilled.  With
-        ``encoder_only`` (a pretraining checkpoint) the tensors given must
-        all belong to the feature extractor and replace only those; the
-        rest keeps its values."""
+        counterpart raises, and so does a port tensor left unfilled.  A
+        pretraining checkpoint's trunk goes through `load_encoder_state`."""
         sd = state_dict_from_torch(torch_state, self.model)
-        if encoder_only:
-            unknown = sorted(k for k in sd if not k.startswith("features."))
-            if unknown:
-                raise KeyError(f"no feature-extractor counterpart for {unknown}")
-        else:
-            missing = sorted(set(self.model.state_dict()) - set(sd))
-            if missing:
-                raise KeyError(f"the checkpoint leaves {missing} unfilled")
-        self.model.load_state_dict(sd, strict=not encoder_only)
+        missing = sorted(set(self.model.state_dict()) - set(sd))
+        if missing:
+            raise KeyError(f"the checkpoint leaves {missing} unfilled")
+        self.model.load_state_dict(sd, strict=True)
+        self.optimizer, self.scheduler = make_optimizer(self.model, self.cfg)
+
+    def load_encoder_state(self, state: Mapping) -> None:
+        """Install a pretrained DGCNN trunk, keyed as the trunk's own
+        `state_dict` (`utils/checkpoint.py:load_pretrain_checkpoint`), with
+        a strict load into ``features.encoder``, and reset the optimizer
+        state; the rest keeps its values."""
+        self.model.features.encoder.load_state_dict(state, strict=True)
         self.optimizer, self.scheduler = make_optimizer(self.model, self.cfg)
 
     def _tensor(self, a):

@@ -18,7 +18,7 @@ from torch import nn
 
 from r3dfsseg_tpu_torch.config import R3DConfig
 from r3dfsseg_tpu_torch.models.episode import Episode
-from r3dfsseg_tpu_torch.nn.dgcnn import BN_MODES, FeatureExtractor
+from r3dfsseg_tpu_torch.nn.dgcnn import BN_MODES, FeatureExtractor, init_linear_weights
 from r3dfsseg_tpu_torch.ops.fps import multi_prototypes
 from r3dfsseg_tpu_torch.ops.grid import grid_seed_pool
 from r3dfsseg_tpu_torch.ops.lp import (AFFINITY_IMPLS, SOLVERS, label_propagate,
@@ -283,17 +283,11 @@ class MPTINet(nn.Module):
             bn_mode=c.bn_mode, attn_f32=c.attn_f32, gather_impl=c.follower_impl)
         self.proj = nn.Linear(c.feat_dim, c.proj_dim)   # WayContrast head (training)
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Linear weights and biases ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in))
         (PyTorch's default bound), drawn from ``generator``; BatchNorm at
-        identity."""
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                bound = m.in_features ** -0.5
-                for p in (m.weight, m.bias):
-                    if p is not None:
-                        p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+        identity (`nn/dgcnn.py:init_linear_weights`)."""
+        init_linear_weights(self, generator)
 
     def extract_features(self, ep: Episode, train: bool = False,
                          generator: Optional[torch.Generator] = None):

@@ -8,9 +8,12 @@ Per-episode noisy meta-training with WayContrast on episodes from a pool
 of worker threads, validation on the clean cached set every
 ``eval_interval`` episodes, and the best (`checkpoint.tar`) and periodic
 (`checkpoint_<it>.tar`) checkpoints in the original code's schema, the Adam
-state included.  ``--model_checkpoint_path`` resumes from such a file: the
-weights, the Adam moments, the StepLR position and the episode stream
-continue where it was written, up to ``n_iters`` episodes in all.
+state included.  ``--model_checkpoint_path`` resumes from such a file, or
+from the JAX package's `checkpoint.msgpack`: the weights, the Adam
+moments, the StepLR position and the episode stream continue where it was
+written, up to ``n_iters`` episodes in all.  ``--pretrain_checkpoint_path``
+starts the encoder trunk from a pretraining checkpoint (`.tar` or
+`.msgpack`).  ``--phase pretrain`` and ``finetune`` run `pretrain.py`.
 """
 from __future__ import annotations
 
@@ -73,9 +76,8 @@ def train(cfg: R3DConfig, device=None) -> dict:
     the digest of the first training episodes."""
     from r3dfsseg_tpu_torch.data.cache import StaticTestDataset
     from r3dfsseg_tpu_torch.data.loader import EpisodeLoader, device_prefetch
-    from r3dfsseg_tpu_torch.utils.torch_convert import (checkpoint_file, load_torch_checkpoint,
-                                                        resume_from_reference_checkpoint,
-                                                        save_reference_checkpoint)
+    from r3dfsseg_tpu_torch.utils.checkpoint import load_pretrain_checkpoint, restore
+    from r3dfsseg_tpu_torch.utils.torch_convert import save_reference_checkpoint
 
     logger = init_logger(cfg.log_dir, cfg)
     writer = ScalarWriter(cfg.log_dir)
@@ -94,14 +96,13 @@ def train(cfg: R3DConfig, device=None) -> dict:
 
         best_iou, start = 0.0, 0
         if cfg.model_checkpoint_path:
-            tar = checkpoint_file(cfg.model_checkpoint_path)
-            info = resume_from_reference_checkpoint(tar, learner)
+            info = restore(cfg.model_checkpoint_path, learner, log=logger.cprint)
             best_iou, start = info["IoU"], info["iteration"] // eb
             logger.cprint("Resume from checkpoint %s at Iteration %d (IoU %f)..."
-                          % (tar, info["iteration"], info["IoU"]))
+                          % (info["path"], info["iteration"], info["IoU"]))
         elif cfg.pretrain_checkpoint_path:
-            sd, _ = load_torch_checkpoint(checkpoint_file(cfg.pretrain_checkpoint_path))
-            learner.load_torch_state(sd, encoder_only=True)
+            learner.load_encoder_state(load_pretrain_checkpoint(
+                cfg.pretrain_checkpoint_path, learner.model.features.encoder, log=logger.cprint))
             logger.cprint("Load encoder module from pretrained checkpoint...")
 
         n_steps = max(cfg.n_iters // eb, 1)
@@ -237,7 +238,13 @@ def main(argv=None):
     args = build_parser(eval_mode=False).parse_args(argv)
     cfg = args_to_config(args, eval_mode=False)
     np.random.seed(cfg.seed)
-    train(cfg, device=args.device)
+    if cfg.phase in ("pretrain", "finetune"):
+        # encoder (re-)pretraining; finetune starts from
+        # --pretrain_checkpoint_path (the JAX CLI's dispatch)
+        from r3dfsseg_tpu_torch.pretrain import pretrain
+        pretrain(cfg, device=args.device)
+    else:
+        train(cfg, device=args.device)
 
 
 if __name__ == "__main__":

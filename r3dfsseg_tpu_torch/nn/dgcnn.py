@@ -1,5 +1,6 @@
-"""DGCNN backbone, BaseLearner, SelfAttention and the 192-d feature
-extractor (counterpart of `r3dfsseg_tpu/nn/dgcnn.py`).
+"""DGCNN backbone, BaseLearner, SelfAttention, the 192-d feature
+extractor and the pretraining segmentation model `DGCNNSegAttention`
+(counterpart of `r3dfsseg_tpu/nn/dgcnn.py`).
 
 Channels-last (B, N, C) throughout; every 1x1 conv is an `nn.Linear`;
 activations are LeakyReLU(0.2).  `train=True` normalises with batch
@@ -229,6 +230,7 @@ class EdgeConv(nn.Module):
 
 class DGCNN(nn.Module):
     """Stacked EdgeConv blocks + pointwise MLP.  Returns (level-1 features,
+    final features), or with ``return_edgeconvs`` (every block's output,
     final features).  ``bn_modes`` maps each layer's path under the
     feature extractor to its BN mode (`resolve_bn_modes`; default 'exact')."""
 
@@ -236,8 +238,10 @@ class DGCNN(nn.Module):
                  edgeconv_widths: Sequence[Sequence[int]] = ((64, 64), (64, 64), (64, 64)),
                  mlp_widths: Sequence[int] = (512, 256), k: int = 20,
                  knn_impl: str = "auto", dtype: Optional[torch.dtype] = None,
-                 bn_modes: Optional[Dict[str, str]] = None, gather_impl: str = "auto"):
+                 bn_modes: Optional[Dict[str, str]] = None, gather_impl: str = "auto",
+                 return_edgeconvs: bool = False):
         super().__init__()
+        self.return_edgeconvs = return_edgeconvs
         modes = bn_modes or {}
         c = in_features
         for i, widths in enumerate(edgeconv_widths):
@@ -255,8 +259,7 @@ class DGCNN(nn.Module):
         self.n_edgeconv = len(edgeconv_widths)
         self.n_mlp = len(mlp_widths)
 
-    def forward(self, x: torch.Tensor, train: bool = False,
-                groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False, groups: int = 1):
         outs = []
         h = x
         for i in range(self.n_edgeconv):
@@ -265,7 +268,7 @@ class DGCNN(nn.Module):
         h = torch.cat(outs, dim=-1)
         for i in range(self.n_mlp):
             h = getattr(self, f"mlp{i}")(h, train, groups)
-        return outs[0], h
+        return (outs if self.return_edgeconvs else outs[0]), h
 
 
 class BaseLearner(nn.Module):
@@ -380,3 +383,83 @@ class FeatureExtractor(nn.Module):
         else:
             mid = self.linear_mapper(feat2.float())     # a Dense without dtype: f32
         return torch.cat([feat1, mid, feat3], dim=-1).float()
+
+
+@torch.no_grad()
+def init_linear_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Every Linear's weight and bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+    (PyTorch's default bound), drawn from ``generator`` in module order;
+    BatchNorm stays at identity."""
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            bound = m.in_features ** -0.5
+            for p in (m.weight, m.bias):
+                if p is not None:
+                    p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+
+
+def seeded_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Flax's `Dropout` in training: each entry kept with probability
+    1 - ``rate`` and scaled by 1 / (1 - rate), else 0.  The mask comes from
+    a generator on ``x``'s device seeded from ``generator`` (a CPU one, so
+    no device sync), as the attention draws its mask seed."""
+    if rate <= 0.0:
+        return x
+    g = torch.Generator(device=x.device)
+    g.manual_seed(int(torch.randint(0, 2**62, (), generator=generator)))
+    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DGCNNSegAttention(nn.Module):
+    """The pretraining segmentation model (counterpart of the JAX
+    package's `DGCNNSegAttention`, the original `DGCNNSeg_attention`):
+    the DGCNN trunk (`encoder`), a `SelfAttention` over its final
+    features (`att_learner`, ``mlp_widths[-1]`` -> ``atten_dim``), and a
+    segmenter of two ConvBN layers (`seg0` 256, `seg1` 128 with a bias),
+    dropout and a Linear to the classes (`seg_out`).  The segmenter reads
+    every block's output and the attention features' max over the points
+    broadcast to each point (v1), or with ``v2`` the first block's output
+    and the attention features.  (B, N, C_in) -> (B, N, num_classes)
+    logits; with ``return_feat`` also the few-shot features
+    concat(first block, attention).  In training the attention's and the
+    segmenter's dropout masks come from ``generator``.  knn_impl,
+    attn_impl and gather_impl as `FeatureExtractor`'s."""
+
+    def __init__(self, in_features: int, num_classes: int,
+                 edgeconv_widths: Sequence[Sequence[int]] = ((64, 64), (64, 64), (64, 64)),
+                 dgcnn_mlp_widths: Sequence[int] = (512, 256), dgcnn_k: int = 20,
+                 atten_dim: int = 128, dropout: float = 0.3, attn_dropout: float = 0.1,
+                 v2: bool = False, knn_impl: str = "auto", attn_impl: str = "auto",
+                 gather_impl: str = "auto"):
+        super().__init__()
+        self.encoder = DGCNN(in_features, edgeconv_widths, dgcnn_mlp_widths, k=dgcnn_k,
+                             knn_impl=knn_impl, gather_impl=gather_impl, return_edgeconvs=True)
+        self.att_learner = SelfAttention(dgcnn_mlp_widths[-1], atten_dim, attn_impl,
+                                         attn_dropout)
+        seg_in = (edgeconv_widths[0][-1] if v2 else sum(w[-1] for w in edgeconv_widths)) \
+            + atten_dim
+        self.seg0 = ConvBN(seg_in, 256)
+        self.seg1 = ConvBN(256, 128, use_bias=True)
+        self.seg_out = nn.Linear(128, num_classes)
+        self.dropout = dropout
+        self.v2 = v2
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None, return_feat: bool = False):
+        outs, h = self.encoder(x, train)
+        h = self.att_learner(h, train, generator)
+        if self.v2:
+            pc_feat = torch.cat([outs[0], h], dim=-1)
+        else:
+            g = h.amax(dim=1, keepdim=True).expand_as(h)        # the global feature
+            pc_feat = torch.cat([*outs, g], dim=-1)
+        z = self.seg1(self.seg0(pc_feat, train), train)
+        if train and self.dropout > 0.0:
+            if generator is None:
+                raise ValueError("DGCNNSegAttention: training with dropout needs a generator")
+            z = seeded_dropout(z, self.dropout, generator)
+        logits = self.seg_out(z)
+        if return_feat:
+            return logits, torch.cat([outs[0], h], dim=-1)
+        return logits

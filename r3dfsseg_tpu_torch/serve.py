@@ -10,9 +10,9 @@
 (n_way, k_shot, n_points) binary fg masks, `query_x` (Q, n_points, 9);
 labels are 0 = background, 1..n_way = way.  MDNS clean-shot suppression is
 on by default.  The predictor runs on ``device``, "cuda" unless the caller
-asks for "cpu".  Checkpoints: the original PyTorch model's `checkpoint.tar`
-(`utils/torch_convert.py`); the JAX package's `checkpoint.msgpack` is not
-read yet (ROADMAP.md).  Whole-scene serving (`predict_scene`) is not
+asks for "cpu".  Checkpoints: the JAX package's `checkpoint.msgpack`
+(`utils/checkpoint.py`) and the original PyTorch model's `checkpoint.tar`
+(`utils/torch_convert.py`).  Whole-scene serving (`predict_scene`) is not
 ported yet.
 """
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 from r3dfsseg_tpu_torch.config import R3DConfig
 from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
 from r3dfsseg_tpu_torch.models.episode import Episode
-from r3dfsseg_tpu_torch.utils.torch_convert import checkpoint_file, load_torch_checkpoint
+from r3dfsseg_tpu_torch.utils.checkpoint import restore
 
 
 class FewShotPredictor:
@@ -43,16 +43,15 @@ class FewShotPredictor:
     def from_checkpoint(cls, path: str, cfg: Optional[R3DConfig] = None, *,
                         device: str | torch.device | None = None,
                         eval_mdns: bool = True) -> "FewShotPredictor":
-        """A predictor whose weights come from ``path``: a `checkpoint.tar`
-        of the original PyTorch model (any schema of
-        `utils/torch_convert.py:load_torch_checkpoint`; a pretraining
-        checkpoint replaces the feature extractor's encoder only), or a log
-        directory holding one.  A directory is searched for
+        """A predictor whose weights come from ``path``: the JAX package's
+        `checkpoint.msgpack`, a `checkpoint.tar` of the original PyTorch
+        model (any schema of `utils/torch_convert.py:load_torch_checkpoint`;
+        a pretraining checkpoint replaces the feature extractor's encoder
+        only), or a log directory holding one, searched for
         `checkpoint.msgpack` first, then `checkpoint.tar`, as in the JAX
-        package; a `.msgpack` raises NotImplementedError."""
-        sd, encoder_only = load_torch_checkpoint(checkpoint_file(path))
+        package (`utils/checkpoint.py:restore`)."""
         self = cls(cfg or R3DConfig(), device=device, eval_mdns=eval_mdns)
-        self._learner.load_torch_state(sd, encoder_only=encoder_only)
+        restore(path, self._learner)
         return self
 
     def predict(self, support_x: np.ndarray, support_y: np.ndarray,

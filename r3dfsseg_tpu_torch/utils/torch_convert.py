@@ -1,5 +1,6 @@
 """The original PyTorch model's checkpoints in the port, both directions
-(counterpart of `r3dfsseg_tpu/utils/torch_convert.py`, MPTI phases).
+(counterpart of `r3dfsseg_tpu/utils/torch_convert.py`: the MPTI phases
+and the pretraining model).
 
 The original `MPTI_SelfAtten` names its tensors by its module layout:
 EdgeConv blocks `encoder.edge_convs.{i}.layer.{3j}` (Conv2d 1x1) and
@@ -7,7 +8,9 @@ EdgeConv blocks `encoder.edge_convs.{i}.layer.{3j}` (Conv2d 1x1) and
 `.{3j+1}`, the BaseLearner `base_learner.convs.{i}.0` (Conv1d with bias)
 and `.1`, the attention maps `att_learner.{q,k,v}_map` (Conv1d) or
 `linear_mapper` without attention, and the WayContrast head `proj`
-(Linear).  The port names its modules after the JAX package's Flax tree
+(Linear).  The pretraining model `DGCNNSeg_attention` holds the trunk and
+the attention under `encoder` and a `segmenter` Sequential (`seg_key_map`).
+The port names its modules after the JAX package's Flax tree
 and its 1x1 convs are `nn.Linear`, so the map renames keys and drops or
 adds the trailing 1x1 axes of the conv weights.  BatchNorm's
 `num_batches_tracked` has no counterpart: it is dropped on load and
@@ -21,7 +24,9 @@ tensors without their 'encoder.' prefix, which is put back), and a bare
 state dict.  `save_reference_checkpoint` writes the first, with the Adam
 state in the original optimizer's layout where it is given one
 (`export_adam_state`), and `resume_from_reference_checkpoint` restores
-weights, Adam moments and the StepLR position from such a file.
+weights, Adam moments and the StepLR position from such a file.  The
+pretraining run writes the second (`export_seg_encoder`), which
+`utils/checkpoint.py:load_pretrain_checkpoint` reads.
 """
 from __future__ import annotations
 
@@ -35,37 +40,67 @@ from torch import nn
 _BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
 
 
+def _convbn_keys(out: Dict[str, Tuple[str, int]], conv: str, bn: str, port: str,
+                 conv_nd: int, bias: bool = False) -> None:
+    out[f"{conv}.weight"] = (f"{port}.conv.weight", conv_nd)
+    if bias:
+        out[f"{conv}.bias"] = (f"{port}.conv.bias", 0)
+    for leaf in _BN_LEAVES:
+        out[f"{bn}.{leaf}"] = (f"{port}.bn.{leaf}", 0)
+
+
+def encoder_key_map(enc: nn.Module) -> Dict[str, Tuple[str, int]]:
+    """torch key -> (port key, the conv's trailing 1x1 axes) for the DGCNN
+    trunk, walked over the port's `DGCNN` ``enc``: the original model's
+    `encoder.edge_convs.{i}.layer.{3j}` (Conv2d) and `.{3j+1}` (BatchNorm)
+    and `encoder.conv.layer.{3j}` (Conv1d) and `.{3j+1}`, to
+    `encoder.edgeconv{i}.layer{j}` and `encoder.mlp{j}` (the trunk's name
+    in both the feature extractor and the segmentation model)."""
+    out: Dict[str, Tuple[str, int]] = {}
+    for i in range(enc.n_edgeconv):
+        for j in range(getattr(enc, f"edgeconv{i}").n_layers):
+            _convbn_keys(out, f"encoder.edge_convs.{i}.layer.{3 * j}",
+                         f"encoder.edge_convs.{i}.layer.{3 * j + 1}",
+                         f"encoder.edgeconv{i}.layer{j}", 2)
+    for j in range(enc.n_mlp):
+        _convbn_keys(out, f"encoder.conv.layer.{3 * j}", f"encoder.conv.layer.{3 * j + 1}",
+                     f"encoder.mlp{j}", 1)
+    return out
+
+
 def feature_key_map(features: nn.Module) -> Dict[str, Tuple[str, int]]:
     """torch key -> (key under the port's `FeatureExtractor`, the conv's
     trailing 1x1 axes) for every tensor of the original model's feature
     extractor but `num_batches_tracked`, walked over ``features``' layers
     (the JAX package's `convert_feature_extractor` walk)."""
-    out: Dict[str, Tuple[str, int]] = {}
-
-    def convbn(conv: str, bn: str, port: str, conv_nd: int, bias: bool = False):
-        out[f"{conv}.weight"] = (f"{port}.conv.weight", conv_nd)
-        if bias:
-            out[f"{conv}.bias"] = (f"{port}.conv.bias", 0)
-        for leaf in _BN_LEAVES:
-            out[f"{bn}.{leaf}"] = (f"{port}.bn.{leaf}", 0)
-
-    enc = features.encoder
-    for i in range(enc.n_edgeconv):
-        for j in range(getattr(enc, f"edgeconv{i}").n_layers):
-            convbn(f"encoder.edge_convs.{i}.layer.{3 * j}",
-                   f"encoder.edge_convs.{i}.layer.{3 * j + 1}",
-                   f"encoder.edgeconv{i}.layer{j}", 2)
-    for j in range(enc.n_mlp):
-        convbn(f"encoder.conv.layer.{3 * j}", f"encoder.conv.layer.{3 * j + 1}",
-               f"encoder.mlp{j}", 1)
+    out = encoder_key_map(features.encoder)
     for i in range(features.base_learner.n_layers):
-        convbn(f"base_learner.convs.{i}.0", f"base_learner.convs.{i}.1",
-               f"base_learner.conv{i}", 1, bias=True)
+        _convbn_keys(out, f"base_learner.convs.{i}.0", f"base_learner.convs.{i}.1",
+                     f"base_learner.conv{i}", 1, bias=True)
     if features.use_attention:
         for m in ("q_map", "k_map", "v_map"):
             out[f"att_learner.{m}.weight"] = (f"att_learner.{m}.weight", 1)
     else:
         out["linear_mapper.weight"] = ("linear_mapper.weight", 1)
+    return out
+
+
+def seg_key_map(model: nn.Module) -> Dict[str, Tuple[str, int]]:
+    """torch key -> (port key, trailing 1x1 axes) for every tensor of the
+    original pretraining model `DGCNNSeg_attention` (or `_v2`) but
+    `num_batches_tracked`; ``model`` is the port's `DGCNNSegAttention`
+    (the JAX package's `convert_seg_model`).  Its encoder is the trunk
+    with the attention inside it, `encoder.att_learner.{q,k,v}_map`
+    (Conv1d); the segmenter is a Sequential whose 0/1 and 3/4 are
+    Conv1d/BatchNorm pairs (the second conv with a bias) and 7 the Conv1d
+    to the classes."""
+    out = encoder_key_map(model.encoder)
+    for m in ("q_map", "k_map", "v_map"):
+        out[f"encoder.att_learner.{m}.weight"] = (f"att_learner.{m}.weight", 1)
+    _convbn_keys(out, "segmenter.0", "segmenter.1", "seg0", 1)
+    _convbn_keys(out, "segmenter.3", "segmenter.4", "seg1", 1, bias=True)
+    out["segmenter.7.weight"] = ("seg_out.weight", 1)
+    out["segmenter.7.bias"] = ("seg_out.bias", 0)
     return out
 
 
@@ -79,14 +114,17 @@ def key_map(model: nn.Module) -> Dict[str, Tuple[str, int]]:
     return out
 
 
-def state_dict_from_torch(torch_state: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+def state_dict_from_torch(torch_state: Mapping, model: nn.Module,
+                          kmap: Mapping[str, Tuple[str, int]] | None = None
+                          ) -> Dict[str, torch.Tensor]:
     """The original model's tensors (torch tensors or numpy arrays) -> the
-    port's ``state_dict`` entries they fill: the JAX package's
-    `convert_mpti_model`.  A conv weight (out, in, 1[, 1]) becomes the
-    Linear weight (out, in).  `num_batches_tracked` is dropped; any other
-    key without a counterpart raises KeyError.  Whether every port key is
-    filled is the caller's strict load to check."""
-    kmap = key_map(model)
+    port's ``state_dict`` entries they fill, by ``kmap`` (default the MPTI
+    model's `key_map`: the JAX package's `convert_mpti_model`).  A conv
+    weight (out, in, 1[, 1]) becomes the Linear weight (out, in).
+    `num_batches_tracked` is dropped; any other key without a counterpart
+    raises KeyError.  Whether every port key is filled is the caller's
+    strict load to check."""
+    kmap = key_map(model) if kmap is None else kmap
     out: Dict[str, torch.Tensor] = {}
     for key, value in torch_state.items():
         if key.endswith(".num_batches_tracked"):
@@ -132,6 +170,15 @@ def export_mpti_state(model: nn.Module) -> Dict[str, torch.Tensor]:
     return _export(model.state_dict(), key_map(model), "")
 
 
+def export_seg_encoder(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The port's `DGCNNSegAttention` -> its encoder's tensors as the
+    original pretraining run saves them, ``DGCNNSeg_attention.encoder.
+    state_dict()``: the trunk and the attention maps, without the
+    'encoder.' prefix (the `{'params': ...}` schema)."""
+    sd = _export(model.state_dict(), seg_key_map(model), "")
+    return {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
+
+
 def _numpy_scalar_globals() -> list:
     """The numpy types a checkpoint's scalar fields (IoU, loss) unpickle to."""
     core = getattr(np, "_core", None) or np.core
@@ -140,22 +187,17 @@ def _numpy_scalar_globals() -> list:
 
 
 def checkpoint_file(path: str) -> str:
-    """The `.tar` that ``path`` names: the file itself, or a log directory's
-    `checkpoint.tar`.  A directory is searched for `checkpoint.msgpack`
-    first, as the JAX package searches it; a `.msgpack` raises
-    NotImplementedError (the port does not read Flax checkpoints yet,
-    ROADMAP.md section 1, item 3c)."""
+    """The checkpoint file that ``path`` names: the file itself (a `.tar`
+    or the JAX package's `.msgpack`), or a log directory's
+    `checkpoint.msgpack`, else its `checkpoint.tar`, in the JAX package's
+    order.  Callers dispatch on the suffix (`utils/checkpoint.py`)."""
     if os.path.isdir(path):
         for name in ("checkpoint.msgpack", "checkpoint.tar"):
             f = os.path.join(path, name)
             if os.path.exists(f):
                 path = f
                 break
-    if path.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{path}: the JAX package's Flax checkpoints are not read by the port yet "
-            f"(ROADMAP.md section 1, item 3c); pass a checkpoint.tar")
-    if not path.endswith(".tar") or not os.path.isfile(path):
+    if not path.endswith((".tar", ".msgpack")) or not os.path.isfile(path):
         raise ValueError(f"no checkpoint found at {path!r}")
     return path
 
@@ -259,15 +301,25 @@ def load_adam_state(opt_sd: Mapping, model: nn.Module, optimizer: torch.optim.Op
             raise ValueError(f"{key}: moments of {tuple(m.shape)} for a parameter of "
                              f"{tuple(p.shape)}")
         moments[p] = (m.reshape(p.shape).clone(), v.reshape(p.shape).clone())
-    n = step // max(episode_batch, 1)
+    install_adam_state(optimizer, scheduler, moments, step // max(episode_batch, 1))
+    return step
+
+
+def install_adam_state(optimizer: torch.optim.Optimizer, scheduler, moments: Mapping,
+                       n: int, steps: Mapping | None = None) -> None:
+    """Replace the Adam state by ``moments`` (parameter -> (exp_avg,
+    exp_avg_sq)) at ``n`` optimizer steps (or each parameter's ``steps``
+    entry), and move the StepLR to ``n``: ``last_epoch`` n and each group's
+    rate its initial one times gamma ** (n // step_size)."""
     optimizer.state.clear()
     for p, (m, v) in moments.items():
-        optimizer.state[p] = {"step": torch.tensor(float(n)), "exp_avg": m, "exp_avg_sq": v}
+        step = n if steps is None else steps[p]
+        optimizer.state[p] = {"step": torch.tensor(float(step)), "exp_avg": m,
+                              "exp_avg_sq": v}
     scheduler.last_epoch = n
     for g in optimizer.param_groups:
         g["lr"] = g["initial_lr"] * scheduler.gamma ** (n // scheduler.step_size)
     scheduler._last_lr = [g["lr"] for g in optimizer.param_groups]
-    return step
 
 
 def save_reference_checkpoint(path: str, model: nn.Module, *, iteration: int = 0,

@@ -20,7 +20,7 @@ from r3dfsseg_tpu.utils import torch_convert as jax_convert
 from r3dfsseg_tpu_torch.config import tiny_config
 from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
 from r3dfsseg_tpu_torch.serve import FewShotPredictor
-from r3dfsseg_tpu_torch.utils import torch_convert
+from r3dfsseg_tpu_torch.utils import checkpoint, torch_convert
 from torch_port_helpers import episode_arrays, jax_graph_margin, random_flax_weights
 
 # the reference-faithful modes: no k-th-radius bracket to differ between
@@ -122,14 +122,14 @@ def test_checkpoint_schemas_load(jax_shapes, tmp_path, schema):
 
     fresh = MPTILearner(tiny_config(**MODES), "cpu", torch.Generator().manual_seed(9))
     before = _state(fresh)
-    fresh.load_torch_state(got, encoder_only=encoder_only)
+    checkpoint.restore(path, fresh)
     after, want = _state(fresh), _state(learner)
     for k in want:
         assert torch.equal(after[k], want[k] if not encoder_only
                            or k.startswith("features.encoder.") else before[k]), k
 
 
-def test_encoder_only_leaves_base_learner_and_proj(jax_shapes):
+def test_encoder_only_leaves_base_learner_and_proj(jax_shapes, tmp_path):
     _, _, learner = _learner(jax_shapes, True, 3)
     sd = torch_convert.export_mpti_state(learner.model)
     target = MPTILearner(tiny_config(**MODES), "cpu", torch.Generator().manual_seed(9))
@@ -137,8 +137,10 @@ def test_encoder_only_leaves_base_learner_and_proj(jax_shapes):
                  + (None, None, np.ones((2, target.cfg.k_shot), np.int32)))
     assert target.optimizer.state
     before = _state(target)
-    target.load_torch_state({k: v for k, v in sd.items() if k.startswith("encoder.")},
-                            encoder_only=True)
+    path = str(tmp_path / "pretrain_checkpoint.tar")
+    torch.save({"params": {k[len("encoder."):]: v for k, v in sd.items()
+                           if k.startswith("encoder.")}}, path)
+    checkpoint.restore(path, target)
     after, source = _state(target), _state(learner)
     assert not target.optimizer.state and target.scheduler.last_epoch == 0
     for k, v in after.items():
@@ -147,8 +149,9 @@ def test_encoder_only_leaves_base_learner_and_proj(jax_shapes):
         else:
             assert torch.equal(v, before[k]), k
     assert any(k.startswith("features.base_learner.") for k in after)
-    with pytest.raises(KeyError, match="no feature-extractor counterpart"):
-        target.load_torch_state({"proj.weight": sd["proj.weight"]}, encoder_only=True)
+    torch.save({"params": {"proj.weight": sd["proj.weight"]}}, path)
+    with pytest.raises(KeyError, match="no port counterpart"):
+        checkpoint.restore(path, target)
 
 
 def test_bad_checkpoints_raise(jax_shapes):
@@ -171,13 +174,15 @@ def test_bad_checkpoints_raise(jax_shapes):
 
 def test_msgpack_checkpoint_raises(tmp_path):
     """A directory is searched for checkpoint.msgpack first: one that holds
-    it raises, even beside a checkpoint.tar; an empty one is no checkpoint."""
+    it takes the `.msgpack`, even beside a checkpoint.tar, so a `.msgpack`
+    that is no model checkpoint raises there as it does alone; an empty
+    directory is no checkpoint."""
     with pytest.raises(ValueError, match="no checkpoint"):
         FewShotPredictor.from_checkpoint(str(tmp_path), tiny_config(), device="cpu")
     (tmp_path / "checkpoint.msgpack").write_bytes(b"\x80")
     torch.save({"model_state_dict": {}}, str(tmp_path / "checkpoint.tar"))
     for path in (tmp_path, tmp_path / "checkpoint.msgpack"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="not a model checkpoint"):
             FewShotPredictor.from_checkpoint(str(path), tiny_config(), device="cpu")
 
 

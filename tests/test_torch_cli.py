@@ -37,6 +37,8 @@ from r3dfsseg_tpu_torch.config import R3DConfig  # noqa: E402
 from r3dfsseg_tpu_torch.data.episodes import NoisyEpisodeSampler  # noqa: E402
 from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner  # noqa: E402
 from r3dfsseg_tpu_torch.utils import diagnostics, torch_convert  # noqa: E402
+from r3dfsseg_tpu_torch.utils.convert import jax_tree_from_state_dict  # noqa: E402
+from r3dfsseg_tpu_torch.utils.flax_msgpack import msgpack_serialize  # noqa: E402
 from torch_port_helpers import random_flax_weights  # noqa: E402
 
 TINY = dict(dataset="s3dis", cvfold=0, pc_npts=64, dgcnn_k=4,
@@ -105,7 +107,8 @@ def test_args_to_config_equals_jax(argv, eval_mode):
 
 
 REFUSED = [(["--knn_impl", "approx"], "Not queued"), (["--mesh", "2"], "item 7a"),
-           (["--phase", "pretrain"], "item 4"), (["--phase", "finetune"], "item 4"),
+           (["--phase", "pretrain", "--mesh", "2"], "item 7a"),
+           (["--phase", "finetune", "--mesh", "4"], "item 7a"),
            (["--phase", "prototrain"], "item 5"), (["--phase", "protoeval"], "item 5"),
            (["--phase", "transformertrain"], "item 5"),
            (["--phase", "transformereval"], "item 5"), (["--wire_format", "f16"], "Not queued")]
@@ -308,8 +311,9 @@ def test_resume_continues_the_run(ds, tmp_path):
 def test_pretrain_checkpoint_replaces_the_encoder(ds, tmp_path):
     """`--pretrain_checkpoint_path` takes an encoder-only `.tar` of the
     original pretraining schema ({'params': the DGCNN's tensors without
-    their 'encoder.' prefix}) and starts from its encoder; a `.msgpack`
-    raises, naming the ROADMAP.md item."""
+    their 'encoder.' prefix}) and starts from its encoder; so does a
+    `.msgpack` in the JAX pretraining artifact's layout (the trunk under
+    features/encoder), and a `.msgpack` that is not one raises."""
     donor = MPTILearner(R3DConfig(**TINY, seed=5), "cpu")
     enc = {k[len("encoder."):]: v for k, v in
            torch_convert.export_feature_extractor(donor.model.features).items()
@@ -328,10 +332,21 @@ def test_pretrain_checkpoint_replaces_the_encoder(ds, tmp_path):
     assert params
     for k in params:
         torch.testing.assert_close(saved["encoder." + k], enc[k], rtol=0, atol=0)
-    (tmp_path / "pretrain.msgpack").write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError, match="item 3c"):
+    tree_p, tree_s = jax_tree_from_state_dict(donor.model.features.encoder)
+    (tmp_path / "pretrain.msgpack").write_bytes(msgpack_serialize(
+        {"params": {"features": {"encoder": tree_p}},
+         "batch_stats": {"features": {"encoder": tree_s}}}))
+    mcfg = cfg.replace(pretrain_checkpoint_path=str(tmp_path / "pretrain.msgpack"),
+                       log_dir=str(tmp_path / "from_msgpack"))
+    mpti_train_noise.train(mcfg, device="cpu")
+    saved = torch.load(os.path.join(mcfg.log_dir, "checkpoint_1.tar"),
+                       weights_only=False)["model_state_dict"]
+    for k in params:
+        torch.testing.assert_close(saved["encoder." + k], enc[k], rtol=0, atol=0)
+    (tmp_path / "bad.msgpack").write_bytes(b"\x80")
+    with pytest.raises(KeyError):
         mpti_train_noise.train(cfg.replace(pretrain_checkpoint_path=str(
-            tmp_path / "pretrain.msgpack")), device="cpu")
+            tmp_path / "bad.msgpack")), device="cpu")
 
 
 def test_cli_runs_without_h5py_or_msgpack(tmp_path):

@@ -62,14 +62,16 @@ def test_fuse_edge_on_is_refused_by_both_packages(mode):
 
 def test_port_imports_no_jax():
     """Importing the port, its serving path, its training step, its data
-    pipeline and its CLIs pulls in neither jax nor the JAX package, nor
-    h5py or msgpack (a fresh interpreter, so this process's jax does not
-    count)."""
+    pipeline, its CLIs, its pretraining and its Flax checkpoints pulls in
+    neither jax nor the JAX package, nor flax, h5py or msgpack (a fresh
+    interpreter, so this process's jax does not count)."""
     code = (
         "import sys\n"
         "import r3dfsseg_tpu_torch, chip_smoke\n"
         "import r3dfsseg_tpu_torch.data, r3dfsseg_tpu_torch.native, r3dfsseg_tpu_torch.cli\n"
-        "from r3dfsseg_tpu_torch import mpti_train_noise, eval_noise\n"
+        "from r3dfsseg_tpu_torch import mpti_train_noise, eval_noise, pretrain\n"
+        "from r3dfsseg_tpu_torch.utils import checkpoint, flax_msgpack\n"
+        "from r3dfsseg_tpu_torch.nn import nonlocal_block\n"
         "from r3dfsseg_tpu_torch.data import cache, catalogs, episodes, loader, sampler, synthetic\n"
         "from r3dfsseg_tpu_torch.utils import metrics, logger, diagnostics\n"
         "from r3dfsseg_tpu_torch.serve import FewShotPredictor\n"
