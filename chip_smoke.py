@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--requests N]
                           [--only knn,fps | cheby,scatter | kth | bf16 | f1 | f2 | fused
-                                  | attn | probe | parity | cli | pretrain]
+                                  | attn | probe | parity | cli | pretrain | baselines]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
@@ -197,6 +197,24 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      losses under `torch.use_deterministic_algorithms` (the card's step
      is not bit-reproducible in the default mode: the same step from each
      file and RESUME_REPEATS times more from the `.tar` is recorded);
+  4h. the baselines (`baselines_phase`), ProtoNet_Contrast (phases
+     protoeval / prototrain, MDNS on in serving) and the transformer
+     (transformereval / transformertrain; d_model 128, 8 heads, 3 layers,
+     d_feed 128) at flagship width on seeded weights: the golden fixtures
+     `proto/*` (`reference_parity.npz`), `pc/*` and `pt/*`
+     (`reference_parity_extra.npz`) with every kernel on, at the JAX
+     package's tolerances (BASELINE_GATES); for each baseline the requests
+     served by `FewShotPredictor` on the kernel path against the plain path
+     (labels >= 99%), step 1 on both paths on the same kNN graphs (losses
+     rtol 1e-4, gradients GRAD_TOL with their norms floored at GRAD_FLOOR of
+     the largest entry) and TRAIN_STEPS kernel-path steps: each request
+     launches kNN and the attention forward only, each step kNN, the
+     attention pair and the scatter-add, FPS once on ProtoNet_Contrast and
+     never on the transformer, kernels 4 and 7-11 never; the learner after
+     its steps written as `.msgpack` and `.tar`, both served with equal
+     labels; the training CLI for BASELINE_CLI_ITERS episodes and the
+     evaluation CLI from its `.tar`; request latency, step time, a profiled
+     step's device time and peak memory printed;
   2c. the F2 paths, at shapes the archived TPU kernels 8-11 take and the
      tuned kernels do not (`check_f2`): the general kernel 9
      (`csrc/fused_edge_general.cu`) at FUSED_F2_SHAPES, f32 and bf16, every
@@ -235,8 +253,11 @@ digests of kernels 7 and 10, kernel 11's us per matvec at
 PROBE_DIGEST_COLS columns beside `torch.mm` with each case's device time,
 and its us per step over a range of M (`probe_sweep`); `--only parity`
 phase 4e alone, `--only cli` phase 4f alone, `--only pretrain` phase 4g
-alone.  The `launches_pretrain` entry of every kernel row counts phase 4g's
-pretraining run, the f32 wide attention pair's main path.
+alone, `--only baselines` phase 4h alone.  The `launches_pretrain` entry of
+every kernel row counts phase 4g's pretraining run, the f32 wide attention
+pair's main path; `launches_baselines_proto` and
+`launches_baselines_transformer` count phase 4h's served requests and
+kernel-path training steps of each baseline.
 """
 from __future__ import annotations
 
@@ -2511,6 +2532,18 @@ def fused_digest(torch, cfe, seed: int) -> dict:
     return out
 
 
+def device_rows(prof, per: int) -> list:
+    """[(kernel name, device ms, launches)] per ``per`` calls of a
+    `torch.profiler` window, largest first: the device events without the
+    annotations (`record_function` spans such as the optimizer's
+    "Optimizer.step#Adam.step", which the profiler reports on the device
+    too and whose span covers kernels counted on their own)."""
+    rows = [(e.key, e.self_device_time_total / 1e3 / per, e.count // per)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and not getattr(e, "is_user_annotation", False)]
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def device_kernels(torch, fn, reps: int = 3):
     """`torch.profiler` over ``reps`` calls of fn(): [(kernel name, device
     ms per call)], largest first (the device's busy time, no host gaps)."""
@@ -2521,9 +2554,7 @@ def device_kernels(torch, fn, reps: int = 3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3 / reps) for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")]
-    return sorted(rows, key=lambda r: -r[1])
+    return [(name, ms) for name, ms, _ in device_rows(prof, reps)]
 
 
 def _close(a, b, rtol: float) -> float:
@@ -3286,9 +3317,7 @@ def profile_train(torch, learner, episodes, steps: int = 3, top: int = 12) -> No
             learner.train(episodes[i % len(episodes)])
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
-                   for e in kernels), key=lambda r: -r[1])
+    rows = device_rows(prof, steps)
     kernel_ms = sum(r[1] for r in rows)
     log(f"[profile] {steps} training steps: {wall / steps:.2f} ms per step (wall, profiled); "
         f"device busy {kernel_ms:.2f} ms per step ({kernel_ms / (wall / steps):.1%}); "
@@ -4132,9 +4161,7 @@ def pretrain_phase(torch, kernels, episodes, seed) -> dict:
                 pre.pretrain_step(model, opt, *batch, gen)
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / 2
-        rows = sorted(((e.key, e.self_device_time_total / 1e3 / 2, e.count // 2)
-                       for e in prof.key_averages() if str(e.device_type).endswith("CUDA")),
-                      key=lambda r: -r[1])
+        rows = device_rows(prof, 2)
         busy = sum(r[1] for r in rows)
         wide = {part: sum(r[1] for r in rows if f"attn_wide_tf32_{part}" in r[0])
                 for part in ("fwd", "bwd", "delta")}
@@ -4273,6 +4300,365 @@ def pretrain_phase(torch, kernels, episodes, seed) -> dict:
     return dict(launches=launches, figures=figures)
 
 
+# ----------------------------------------------------------- baselines --
+# phase 4h: (name, eval phase, train phase) of ProtoNet_Contrast and the transformer
+BASELINES = (("proto", "protoeval", "prototrain"),
+             ("transformer", "transformereval", "transformertrain"))
+BASELINE_SERVE_KERNELS = ("knn", "attention_fwd")
+BASELINE_TRAIN_KERNELS = ("knn", "attention_fwd", "attention_bwd", "scatter_add")
+BASELINE_CLI_ITERS = 8  # training episodes of each baseline's CLI run (the CLI's 40000, cut)
+BASELINE_GATES = {"logits": 2e-3, "loss": 1e-4, "contrast_loss": 5e-4, "binary_loss": 5e-4,
+                  "clean_proto_loss": 5e-3}   # the JAX package's golden-fixture tolerances
+GRAD_FLOOR = 1e-5   # a gradient's norm floor in the relative gate, of the largest entry
+
+
+def baseline_learner(torch, cfg, seed, plain: bool = False):
+    """The learner of ``cfg.phase`` (ProtoNet_Contrast or the transformer)
+    on the card, weights and dropout from a generator seeded ``seed``; with
+    ``plain`` on the plain kNN, attention and FPS."""
+    from r3dfsseg_tpu_torch.learners import ProtoLearner, TransformerLearner
+    if plain:
+        cfg = cfg.replace(knn_impl="xla", fps_impl="xla", attn_impl="xla")
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.phase in ("protoeval", "prototrain"):
+        return ProtoLearner(cfg, "cuda", gen, with_contrast=True)
+    return TransformerLearner(cfg, "cuda", gen)
+
+
+def expect_baseline_launches(what: str, grew: dict, required, fps: int = 0) -> None:
+    """Every kernel in ``required`` launched, FPS exactly ``fps`` times, and
+    no other counter moved (kernel 4, kernel 7, kernels 8-11, every bf16,
+    wide and general form)."""
+    moved = {n: c for n, c in grew.items() if c}
+    if (any(grew[n] <= 0 for n in required) or grew["fps"] != fps
+            or set(moved) - set(required) - ({"fps"} if fps else set())):
+        raise AssertionError(f"{what}: launches {moved}")
+
+
+def _diff(after: dict, before: dict) -> dict:
+    return {n: c - before[n] for n, c in after.items()}
+
+
+def _total(moves: list) -> dict:
+    return {n: sum(m[n] for m in moves) for n in moves[0]}
+
+
+def baseline_serve(torch, cfg, episodes, kernels, seed) -> dict:
+    """``episodes`` served (MDNS on) by `FewShotPredictor` on the kernel
+    path and on the plain path with equal weights: each request launches
+    kNN and the attention forward and nothing else, labels agree on >= 99%
+    of each request's points; host-clock latency and peak memory."""
+    from r3dfsseg_tpu_torch.serve import FewShotPredictor
+    fast = FewShotPredictor(cfg, baseline_learner(torch, cfg, seed))
+    plain_learner = baseline_learner(torch, cfg, seed, plain=True)
+    plain_learner.model.load_state_dict(fast._learner.model.state_dict())
+    plain = FewShotPredictor(plain_learner.cfg, plain_learner)
+    fast.predict(*episodes[0][:3])               # warm-up: first allocations
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat, preds, moves = [], [], []
+    for i, ep in enumerate(episodes):
+        before = counts(kernels)
+        t0 = time.perf_counter()
+        preds.append(fast.predict(*ep[:3]))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        moves.append(_diff(counts(kernels), before))
+        expect_baseline_launches(f"{cfg.phase} request {i}", moves[-1], BASELINE_SERVE_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    before = counts(kernels)
+    plain.predict(*episodes[0][:3])
+    plain_lat, agree = [], []
+    q, n = cfg.n_way * cfg.n_queries, cfg.pc_npts
+    for i, (ep, a) in enumerate(zip(episodes, preds)):
+        t0 = time.perf_counter()
+        b = plain.predict(*ep[:3])
+        torch.cuda.synchronize()
+        plain_lat.append((time.perf_counter() - t0) * 1e3)
+        if a.shape != (q, n) or a.dtype != np.int32 or a.min() < 0 or a.max() > cfg.n_way:
+            raise AssertionError(f"{cfg.phase} request {i}: labels {a.shape} {a.dtype}")
+        agree.append(float((a == b).mean()))
+        if agree[-1] < 0.99:
+            raise AssertionError(f"{cfg.phase} request {i}: kernel and plain paths agree on "
+                                 f"{agree[-1]}")
+    if counts(kernels) != before:
+        raise AssertionError(f"{cfg.phase}: the plain path launched a kernel")
+    return dict(lat=lat, plain_lat=plain_lat, agree=agree, moves=moves, peak=peak)
+
+
+def baseline_train(torch, cfg, episodes, kernels, seed) -> dict:
+    """Step 1 on the kernel and the plain path from the same weights and
+    generator on the same kNN graphs (`KnnReplay`): each loss within rtol
+    1e-4, each gradient within a relative L2 distance of GRAD_TOL (its
+    norm floored at GRAD_FLOOR of the largest entry; the biases with an
+    exact zero gradient, the BaseLearner's conv biases before a train-mode
+    BatchNorm and the transformer's key biases, below GRAD_FLOOR of it; the
+    stopped class tokens have none); then TRAIN_STEPS kernel-path steps,
+    each launching kNN, the attention pair and the scatter-add, FPS once on
+    ProtoNet_Contrast (WayContrast's prototypes) and never on the
+    transformer, and nothing else; a profiled step's device time."""
+    from r3dfsseg_tpu_torch.nn import dgcnn
+    from r3dfsseg_tpu_torch.ops import cuda_knn
+    fast = baseline_learner(torch, cfg, seed)
+    plain = baseline_learner(torch, cfg, seed, plain=True)
+    for (n, a), b in zip(fast.model.state_dict().items(), plain.model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"the two learners start from different weights at {n}")
+    fps = 1 if cfg.phase == "prototrain" else 0
+    replay = KnnReplay(torch, cuda_knn, dgcnn)
+    before = counts(kernels)
+    kernel_knn = replay.record()
+    try:
+        m_fast = fast.train(episodes[0])
+    finally:
+        cuda_knn.knn = kernel_knn
+    torch.cuda.synchronize()
+    first = counts(kernels)
+    expect_baseline_launches(f"{cfg.phase} step 1", _diff(first, before),
+                             BASELINE_TRAIN_KERNELS, fps)
+    plain_knn = replay.replay()
+    try:
+        m_plain = plain.train(episodes[0])
+    finally:
+        dgcnn.knn_indices = plain_knn
+    torch.cuda.synchronize()
+    if counts(kernels) != first:
+        raise AssertionError(f"{cfg.phase}: the plain training path launched a kernel")
+    for key in sorted(m_fast):
+        if key == "accuracy":
+            continue
+        a, b = m_fast[key].item(), m_plain[key].item()
+        log(f"  step 1 {key}: kernels {a:.7f}, plain {b:.7f}, rel diff "
+            f"{abs(a - b) / max(abs(b), 1e-30):.3e}")
+        if not (np.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)):
+            raise AssertionError(f"{cfg.phase} step 1 {key}: kernel path {a} vs plain path {b}")
+    g_fast, g_plain = _grads(fast.model), _grads(plain.model)
+    if set(g_fast) != set(g_plain):
+        raise AssertionError("the two paths produced gradients for different parameters")
+    top = max(g.abs().max().item() for g in g_plain.values())
+    zero = {n for n in g_plain if n.endswith("self_attn.key.bias")
+            or (n.startswith("features.base_learner.") and n.endswith(".conv.bias"))}
+    noise = max(max(g_fast[n].abs().max().item(), g_plain[n].abs().max().item())
+                for n in zero)
+    rel = {n: ((g_fast[n] - g_plain[n]).norm().item()
+               / max(g_plain[n].norm().item(), GRAD_FLOOR * top))
+           for n in g_plain if n not in zero}
+    worst = max(rel, key=rel.get)
+    log(f"  step 1 gradients: {len(rel)} parameters, largest relative L2 distance "
+        f"{rel[worst]:.3e} ({worst}), median {statistics.median(rel.values()):.3e}; "
+        f"{len(zero)} exact-zero biases at {noise / top:.3e} of the largest entry; kNN rows "
+        f"kept at a near-tie per call {replay.swapped}")
+    if rel[worst] > GRAD_TOL or noise > GRAD_FLOOR * top:
+        raise AssertionError(f"{cfg.phase} step 1 gradients: {worst} {rel[worst]}, "
+                             f"zero-gradient noise {noise / top}")
+
+    torch.cuda.reset_peak_memory_stats()
+    times, moves = [], []
+    for i in range(TRAIN_STEPS):
+        before = counts(kernels)
+        t0 = time.perf_counter()
+        m = fast.train(episodes[(i + 1) % len(episodes)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        moves.append(_diff(counts(kernels), before))
+        expect_baseline_launches(f"{cfg.phase} step {i + 2}", moves[-1],
+                                 BASELINE_TRAIN_KERNELS, fps)
+        vals = {k: v.item() for k, v in m.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"{cfg.phase} step {i + 2}: metrics {vals}")
+    peak = torch.cuda.max_memory_allocated()
+    busy = device_kernels(torch, lambda: fast.train(episodes[0]), reps=1)
+    return dict(times=times, moves=moves, peak=peak, busy_ms=sum(ms for _, ms in busy),
+                top=busy[:6], learner=fast, metrics=vals)
+
+
+def _fixture_episode(torch, data, prefix):
+    """A golden fixture's episode on the card, channels last, batched."""
+    from r3dfsseg_tpu_torch.models.episode import Episode
+    g = lambda f: data[f"{prefix}/{f}"]  # noqa: E731
+    return Episode(*(torch.from_numpy(np.ascontiguousarray(a)).cuda()[None] for a in (
+        g("support_x").transpose(0, 1, 3, 2), g("support_y").astype(np.int64),
+        g("query_x").transpose(0, 2, 1), g("query_y").astype(np.int64),
+        g("gt_support_y").astype(np.int64), g("gt_query_y").astype(np.int64),
+        g("support_flag").astype(np.int64))))
+
+
+def baseline_golden(torch, kernels) -> dict:
+    """The baselines' golden fixtures with every kernel on, the original
+    models' weights through the port's key map: plain ProtoNet's
+    `proto/{cosine,euclidean}/{eval,train}` (`reference_parity.npz`, f0),
+    ProtoNet_Contrast's `pc/{eval,train,train_clean}` and the transformer's
+    `pt/{eval,train}` (`reference_parity_extra.npz`) at BASELINE_GATES; a
+    kNN row that differs from the plain version only at a near-tie."""
+    from r3dfsseg_tpu_torch.learners import ProtoLearner, TransformerLearner
+    from r3dfsseg_tpu_torch.ops import cuda_knn
+
+    shares = dict.fromkeys(BASELINE_GATES, 0.0)
+    diffs = dict.fromkeys(BASELINE_GATES, 0.0)      # largest |got - want|
+    swapped: list = []
+    before = counts(kernels)
+
+    def check(out, data, key, fields):
+        pairs = [("logits", out.query_logits[0].cpu().numpy(),
+                  data[f"{key}/logits"].transpose(0, 2, 1))]
+        pairs += [(f, np.asarray(getattr(out, f).item()), np.asarray(data[f"{key}/{f}"]))
+                  for f in fields]
+        for f, got, want in pairs:
+            tol = BASELINE_GATES[f]
+            shares[f] = max(shares[f], _gate(f"{key} {f}", got, want, tol, tol))
+            diffs[f] = max(diffs[f], float(np.abs(got - want).max()))
+
+    data = np.load(FIXTURES[0])
+    cfg = fixture_config(json.loads(bytes(data["meta"]).decode()))
+    sd = {k[3:]: data[k] for k in data.files if k.startswith("sd/") and "proj." not in k}
+    ep = _fixture_episode(torch, data, "f0/ep")
+    for dist in ("cosine", "euclidean"):
+        learner = ProtoLearner(cfg.replace(dist_method=dist), "cuda")
+        learner.load_torch_state(sd)
+        for mode in ("eval", "train"):
+            with knn_near_ties(torch, cuda_knn, swapped), torch.no_grad():
+                out = learner.model(ep, train=mode == "train")
+            check(out, data, f"proto/{dist}/{mode}", ("loss",))
+    data = np.load(os.path.join(os.path.dirname(FIXTURES[0]), "reference_parity_extra.npz"))
+    cfg = fixture_config(json.loads(bytes(data["meta"]).decode()))
+    eps = {name: _fixture_episode(torch, data, name) for name in ("ep", "ep_clean")}
+    learner = ProtoLearner(cfg, "cuda", with_contrast=True)
+    learner.load_torch_state({k[6:]: data[k] for k in data.files if k.startswith("pc_sd/")})
+    for name, key in (("ep", "eval"), ("ep", "train"), ("ep_clean", "train_clean")):
+        with knn_near_ties(torch, cuda_knn, swapped), torch.no_grad():
+            out = learner.model(eps[name], train=key != "eval", eval_mdns=key == "eval")
+        check(out, data, f"pc/{key}", ("loss",) if key == "eval" else ("loss", "contrast_loss"))
+    learner = TransformerLearner(cfg, "cuda", d_model=128, n_head=8, n_layers=3, d_feed=128,
+                                 dropout=0.0)
+    learner.load_torch_state({k[6:]: data[k] for k in data.files if k.startswith("pt_sd/")})
+    for mode in ("eval", "train"):
+        with knn_near_ties(torch, cuda_knn, swapped), torch.no_grad():
+            out = learner.model(eps["ep"], train=mode == "train")
+        check(out, data, f"pt/{mode}", ("loss",) if mode == "eval"
+              else ("loss", "binary_loss", "clean_proto_loss"))
+    launched = _diff(counts(kernels), before)
+    # FPS once in each of ProtoNet_Contrast's two training replays
+    expect_baseline_launches("golden fixtures", launched, BASELINE_SERVE_KERNELS, fps=2)
+    log(f"[baselines] golden fixtures proto/*, pc/*, pt/* with the kernels on: every gate "
+        f"held; largest share of each (largest |difference|): " +
+        ", ".join(f"{k} {v:.2e} ({diffs[k]:.2e})" for k, v in shares.items()) +
+        f"; kNN rows kept at a near-tie {sum(swapped)} in {len(swapped)} calls; launches " +
+        str({n: c for n, c in launched.items() if c}))
+    return dict(shares=shares, max_abs_diff=diffs, knn_near_tie_rows=sum(swapped))
+
+
+def baseline_checkpoints(torch, learner, episodes, tmp) -> None:
+    """``learner`` written as a `.msgpack` (`save_checkpoint`) and a `.tar`
+    (`save_reference_checkpoint`): `FewShotPredictor.from_checkpoint` on
+    each serves equal labels, from equal weights."""
+    from r3dfsseg_tpu_torch.serve import FewShotPredictor
+    from r3dfsseg_tpu_torch.utils.checkpoint import save_checkpoint
+    from r3dfsseg_tpu_torch.utils.torch_convert import save_reference_checkpoint
+    cfg = learner.cfg
+    paths = [os.path.join(tmp, f"{cfg.phase}.msgpack"), os.path.join(tmp, f"{cfg.phase}.tar")]
+    save_checkpoint(paths[0], learner, iteration=TRAIN_STEPS + 1)
+    save_reference_checkpoint(paths[1], learner.model, iteration=TRAIN_STEPS + 1)
+    a, b = (FewShotPredictor.from_checkpoint(p, cfg, device="cuda") for p in paths)
+    for (k, x), y in zip(a._learner.model.state_dict().items(),
+                         b._learner.model.state_dict().values()):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{cfg.phase}: .msgpack and .tar load different {k}")
+    for i, ep in enumerate(episodes[:2]):
+        if not np.array_equal(a.predict(*ep[:3]), b.predict(*ep[:3])):
+            raise AssertionError(f"{cfg.phase} request {i}: .msgpack and .tar labels differ")
+
+
+def baseline_cli(torch, kernels, ds, tmp, train_phase, eval_phase) -> dict:
+    """The meta-training CLI with ``train_phase`` for BASELINE_CLI_ITERS
+    episodes (one validation), then the meta-test CLI with ``eval_phase``
+    (ood noise 0.4, MDNS on) from the `.tar` it wrote; launches gated as
+    the learners' steps and requests, episodes/s from their logs."""
+    from r3dfsseg_tpu_torch import eval_noise, mpti_train_noise
+    from r3dfsseg_tpu_torch.config import R3DConfig
+    cfg = R3DConfig(phase=train_phase, clean_data_path=ds, n_iters=BASELINE_CLI_ITERS,
+                    eval_interval=BASELINE_CLI_ITERS, n_episode_test=1, n_workers=CLI_WORKERS,
+                    save_path=tmp, log_dir=os.path.join(tmp, train_phase))
+    before = counts(kernels)
+    t = time.perf_counter()
+    st = mpti_train_noise.train(cfg, device="cuda")
+    train_s = time.perf_counter() - t
+    expect_baseline_launches(f"cli {train_phase}", _diff(counts(kernels), before),
+                             BASELINE_TRAIN_KERNELS, fps=BASELINE_CLI_ITERS
+                             if train_phase == "prototrain" else 0)
+    losses = np.asarray(st["losses"])
+    if len(losses) != BASELINE_CLI_ITERS or not np.isfinite(losses).all():
+        raise AssertionError(f"cli {train_phase}: losses {losses}")
+    ecfg = cfg.replace(phase=eval_phase, noise_ratio=0.4, noise_type="ood",
+                       model_checkpoint_path=os.path.join(
+                           cfg.log_dir, f"checkpoint_{BASELINE_CLI_ITERS}.tar"))
+    before = counts(kernels)
+    miou = eval_noise.evaluate(ecfg, device="cuda")
+    expect_baseline_launches(f"cli {eval_phase}", _diff(counts(kernels), before),
+                             BASELINE_SERVE_KERNELS)
+    text = open(os.path.join(cfg.log_dir, f"log_{eval_phase}.txt")).read()
+    found = re.findall(r"eval throughput: ([0-9.]+) episodes/s", text)
+    if not 0.0 <= miou <= 1.0 or not found:
+        raise AssertionError(f"cli {eval_phase}: mean IoU {miou}, throughput line {found}")
+    return dict(train_episodes_per_s=st["episodes_per_s"], train_step_ms=st["step_ms_median"],
+                train_s=train_s, eval_episodes_per_s=float(found[-1]), test_miou=miou,
+                losses=[float(x) for x in losses])
+
+
+def baselines_phase(torch, kernels, episodes, seed) -> dict:
+    """Phase 4h: ProtoNet_Contrast and the transformer at flagship width
+    (module docstring).  Returns each baseline's main-path launches (its
+    served requests and kernel-path training steps) and its figures."""
+    import tempfile
+
+    from r3dfsseg_tpu_torch.config import R3DConfig
+    from r3dfsseg_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    t0 = time.perf_counter()
+    launches, figures = {}, {}
+    golden = baseline_golden(torch, kernels)
+    with tempfile.TemporaryDirectory(prefix="r3d_baselines_") as tmp:
+        ds = make_synthetic_dataset(os.path.join(tmp, "blocks"), n_scans=40,
+                                    pts_per_scan=4096, seed=seed)
+        for name, eval_phase, train_phase in BASELINES:
+            cfg = R3DConfig(phase=eval_phase)
+            log(f"[baselines] {name} ({eval_phase} / {train_phase}): {describe(cfg)}, "
+                f"{cfg.n_way}-way {cfg.k_shot}-shot, {cfg.pc_npts} points" +
+                (f", d_model {cfg.d_model}, {cfg.n_head} heads, {cfg.n_layers} layers, d_feed "
+                 f"{cfg.d_feed}" if name == "transformer" else ", MDNS on"))
+            sv = baseline_serve(torch, cfg, episodes, kernels, seed)
+            tr = baseline_train(torch, cfg.replace(phase=train_phase), episodes, kernels, seed)
+            baseline_checkpoints(torch, tr["learner"], episodes, tmp)
+            cli = baseline_cli(torch, kernels, ds, tmp, train_phase, eval_phase)
+            launches[name] = _total(sv["moves"] + tr["moves"])
+            per_req = {n: c for n, c in sv["moves"][0].items() if c}
+            per_step = {n: c for n, c in tr["moves"][0].items() if c}
+            figures[name] = dict(
+                request_ms_median=statistics.median(sv["lat"]),
+                plain_request_ms_median=statistics.median(sv["plain_lat"]),
+                agreement=sv["agree"], serve_peak_mib=sv["peak"] / 2**20,
+                step_ms_median=statistics.median(tr["times"]), step_ms=tr["times"],
+                step_device_busy_ms=tr["busy_ms"], train_peak_mib=tr["peak"] / 2**20,
+                per_request=per_req, per_step=per_step, cli=cli)
+            log(f"[baselines] {name}: {len(sv['lat'])} requests, median latency "
+                f"{statistics.median(sv['lat']):.2f} ms (kernels) vs "
+                f"{statistics.median(sv['plain_lat']):.2f} ms (plain), agreement "
+                f"{min(sv['agree']):.4f} at least; launches per request {per_req}; peak "
+                f"{sv['peak'] / 2**20:.1f} MiB")
+            log(f"[baselines] {name}: {TRAIN_STEPS} steps, median {figures[name]['step_ms_median']:.2f} "
+                f"ms (host clock), device busy {tr['busy_ms']:.2f} ms in a profiled step; "
+                f"launches per step {per_step}; peak {tr['peak'] / 2**20:.1f} MiB; largest "
+                f"device times " + ", ".join(f"{ms:.3f} {k[:40]}" for k, ms in tr["top"]))
+            log(f"[baselines] {name}: .msgpack and .tar served equal labels; CLI "
+                f"{train_phase} {cli['train_episodes_per_s']:.2f} episodes/s (median step "
+                f"{cli['train_step_ms']:.2f} ms), {eval_phase} {cli['eval_episodes_per_s']:.2f} "
+                f"episodes/s, mean IoU {cli['test_miou']:.4f}")
+            del tr["learner"]
+    figures["golden"] = golden
+    figures["phase_s"] = time.perf_counter() - t0
+    log(f"[baselines] phase {figures['phase_s']:.1f} s")
+    return dict(launches=launches, figures=figures)
+
+
 def all_counters() -> dict:
     """Every kernel counter, by the name of its row: (module, attribute).
     The bf16 forms' counters count their calls apart, within their
@@ -4310,7 +4696,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth", "bf16", "f1", "f2",
-                                       "fused", "attn", "probe", "parity", "cli", "pretrain"],
+                                       "fused", "attn", "probe", "parity", "cli", "pretrain",
+                                       "baselines"],
                     help="build, then only the kNN and FPS (or the Chebyshev and scatter-add, "
                          "the k-th distance, the bf16 forms of kernels 1, 2, 5 and 6, the "
                          "F1 kernels: general kNN, packed kNN, wide attention, wide-row k-th "
@@ -4326,7 +4713,8 @@ def main() -> int:
                          "exact top-k modes); cli: phase 4f alone (the training and "
                          "evaluation CLIs on a synthetic dataset); pretrain: phase 4g alone "
                          "(encoder pretraining at full width, finetune and meta-training "
-                         "from it, the .msgpack checkpoints)")
+                         "from it, the .msgpack checkpoints); baselines: phase 4h alone "
+                         "(ProtoNet_Contrast and the transformer)")
     args = ap.parse_args()
 
     import torch
@@ -4507,6 +4895,11 @@ def main() -> int:
         return 0
     if args.only == "pretrain":
         rows = {"pretrain": pretrain_phase(torch, all_counters(), episodes, args.seed)}
+        log(smi)
+        log(json.dumps(rows))
+        return 0
+    if args.only == "baselines":
+        rows = {"baselines": baselines_phase(torch, all_counters(), episodes, args.seed)}
         log(smi)
         log(json.dumps(rows))
         return 0
@@ -4725,6 +5118,13 @@ def main() -> int:
     pre = pretrain_phase(torch, kernels, episodes, args.seed)
     phases["pretrain"] = pre["launches"]
     log("[pretrain] figures " + json.dumps(pre["figures"]))
+    # ---- 4h. the baselines: ProtoNet_Contrast and the transformer served,
+    # trained, replayed on their golden fixtures, checkpointed, and run
+    # through both CLIs
+    base = baselines_phase(torch, kernels, episodes, args.seed)
+    phases.update(baselines_proto=base["launches"]["proto"],
+                  baselines_transformer=base["launches"]["transformer"])
+    log("[baselines] figures " + json.dumps(base["figures"]))
     attn16, dev16 = pre["figures"]["attention_b16"], pre["figures"]["wide_pair_device_ms"]
     rows["attention_wide_tf32_fwd"]["pretrain_b16"] = dict(
         ms=attn16["fwd"], step_device_ms=dev16["fwd"], plain_ms=attn16["fwd_plain"],

@@ -222,9 +222,6 @@ def args_to_config(args: argparse.Namespace, eval_mode: bool = False) -> R3DConf
 def check_supported(cfg: R3DConfig) -> None:
     """Raise NotImplementedError on a setting the JAX CLI runs and the port
     does not yet, naming its ROADMAP.md item."""
-    if cfg.phase not in ("pretrain", "finetune", "mptitrain", "mptieval", "mptinoise_eval"):
-        raise NotImplementedError(f"--phase {cfg.phase}: the ProtoNet and transformer baselines "
-                                  f"are not ported yet (ROADMAP.md section 1, item 5)")
     if cfg.knn_impl == "approx":
         raise NotImplementedError("--knn_impl approx: the TPU's approximate top-k has no port "
                                   "(ROADMAP.md, 'Not queued')")

@@ -5,8 +5,9 @@
         --model_checkpoint_path <log dir> --noise_ratio 0.4 --noise_type ood [--device cpu]
 
 Builds (or reads) the cached clean or noisy test episodes, runs the learner
-over each with MDNS on, and reports per-class IoU and the foreground mean
-IoU.  The checkpoint is a `checkpoint.tar` (the port's training writes
+of ``--phase`` (`learners/__init__.py:make_learner`: the MPTI model,
+``protoeval`` ProtoNet_Contrast, ``transformereval`` the transformer) over
+each with MDNS on, and reports per-class IoU and the foreground mean IoU.  The checkpoint is a `checkpoint.tar` (the port's training writes
 one, in the original code's schema) or the JAX package's
 `checkpoint.msgpack`, which a log directory holding both gives first.
 """
@@ -21,17 +22,9 @@ import torch
 
 from r3dfsseg_tpu_torch.cli import args_to_config, build_parser, resolve_episode_batch
 from r3dfsseg_tpu_torch.config import R3DConfig
+from r3dfsseg_tpu_torch.learners import make_learner
 from r3dfsseg_tpu_torch.utils.logger import init_logger
 from r3dfsseg_tpu_torch.utils.metrics import IoUAccumulator
-
-
-def make_learner(cfg: R3DConfig, device=None):
-    """The learner of ``cfg.phase`` on ``device`` ("cuda" when None); the
-    MPTI phases are ported, the rest raise (`cli.check_supported`)."""
-    from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
-    if cfg.phase in ("mptinoise_eval", "mptieval", "mptitrain"):
-        return MPTILearner(cfg, device)
-    raise NotImplementedError(f"phase {cfg.phase} is not ported yet (ROADMAP.md section 1)")
 
 
 def test_few_shot(dataset, learner, logger, test_classes, *, eval_mdns=False,

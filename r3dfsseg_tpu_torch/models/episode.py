@@ -1,4 +1,5 @@
-"""Episode container (counterpart of `r3dfsseg_tpu/models/episode.py`).
+"""Episode container (counterpart of `r3dfsseg_tpu/models/episode.py`)
+and the encoding of an episode that every model shares.
 
 Channels-last arrays, numpy or torch tensors.  Shapes are for one episode;
 every field may carry a leading episode-batch axis ``E``.
@@ -39,3 +40,22 @@ def stack_episodes(episodes) -> Episode:
         vals = [getattr(e, name) for e in episodes]
         fields[name] = None if any(v is None for v in vals) else np.stack(vals, 0)
     return Episode(**fields)
+
+
+def encode_episode(features, cfg, ep: Episode, train: bool = False, generator=None):
+    """Encode a batched episode's support and query clouds with the feature
+    extractor ``features``, as two separate batches, so that training's
+    BatchNorm statistics span each batch (per episode: groups = E) and its
+    running statistics take two updates, as in every model of the JAX
+    package.  Returns support (E, n_way, k_shot, N, d) and query (E,
+    n_q * n_way, N, d) features; ``generator`` seeds the attention
+    dropout."""
+    c = cfg
+    e = ep.support_x.shape[0]
+    sx = ep.support_x.reshape(e * c.n_way * c.k_shot, c.pc_npts, -1)
+    qx = ep.query_x.reshape(e * c.n_queries * c.n_way, c.pc_npts, -1)
+    sf = features(sx, train, e, generator)
+    qf = features(qx, train, e, generator)
+    d = sf.shape[-1]
+    return (sf.reshape(e, c.n_way, c.k_shot, c.pc_npts, d),
+            qf.reshape(e, c.n_queries * c.n_way, c.pc_npts, d))

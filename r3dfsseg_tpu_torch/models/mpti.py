@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from r3dfsseg_tpu_torch.config import R3DConfig
-from r3dfsseg_tpu_torch.models.episode import Episode
+from r3dfsseg_tpu_torch.models.episode import Episode, encode_episode
 from r3dfsseg_tpu_torch.nn.dgcnn import BN_MODES, FeatureExtractor, init_linear_weights
 from r3dfsseg_tpu_torch.ops.fps import multi_prototypes
 from r3dfsseg_tpu_torch.ops.grid import grid_seed_pool
@@ -240,12 +240,9 @@ class MPTIOutput(NamedTuple):
     aux: Dict[str, torch.Tensor]
 
 
-def check_servable(cfg: R3DConfig) -> None:
-    """Raise on settings outside the port's slice: the float32 or bf16
-    encoder (`compute_dtype`, with every `bn_mode` and `attn_f32`) on a
-    float32 or bf16 episode graph (`graph_dtype`), threshold or exact top-k
-    affinity (`affinity_impl`), the Chebyshev, CG or dense solve
-    (`lp_solver`; any `lp_adjoint_iters`, 0 meaning `lp_cg_iters`), and the
+def check_encoder(cfg: R3DConfig) -> None:
+    """Raise on encoder settings outside the port: the float32 or bf16
+    encoder (`compute_dtype`, with every `bn_mode` and `attn_f32`) and the
     unfused EdgeConv (`fuse_edge='on'` raises, as in the JAX package)."""
     if cfg.fuse_edge == "on":
         raise NotImplementedError(
@@ -257,6 +254,15 @@ def check_servable(cfg: R3DConfig) -> None:
         raise NotImplementedError(f"bn_mode {cfg.bn_mode!r}: one of {BN_MODES}")
     if not isinstance(cfg.attn_f32, bool):
         raise TypeError(f"attn_f32 must be a bool, got {cfg.attn_f32!r}")
+
+
+def check_servable(cfg: R3DConfig) -> None:
+    """Raise on settings outside the port's slice: the encoder's
+    (`check_encoder`) on a float32 or bf16 episode graph (`graph_dtype`),
+    threshold or exact top-k affinity (`affinity_impl`), the Chebyshev, CG
+    or dense solve (`lp_solver`; any `lp_adjoint_iters`, 0 meaning
+    `lp_cg_iters`)."""
+    check_encoder(cfg)
     if cfg.graph_dtype not in ("auto", "float32", "bfloat16"):
         raise NotImplementedError(f"graph_dtype {cfg.graph_dtype!r}")
     if cfg.affinity_impl not in AFFINITY_IMPLS:
@@ -275,12 +281,7 @@ class MPTINet(nn.Module):
         check_servable(cfg)
         c = cfg
         self.cfg = cfg
-        self.features = FeatureExtractor(
-            c.pc_in_dim, c.edgeconv_widths, c.dgcnn_mlp_widths, c.base_widths,
-            c.output_dim, dgcnn_k=c.dgcnn_k, use_attention=c.use_attention,
-            knn_impl=c.knn_impl, attn_impl=c.attn_impl, attn_dropout=c.attn_dropout,
-            dtype=torch.bfloat16 if c.compute_dtype == "bfloat16" else None,
-            bn_mode=c.bn_mode, attn_f32=c.attn_f32, gather_impl=c.follower_impl)
+        self.features = FeatureExtractor.from_config(c)
         self.proj = nn.Linear(c.feat_dim, c.proj_dim)   # WayContrast head (training)
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -291,18 +292,9 @@ class MPTINet(nn.Module):
 
     def extract_features(self, ep: Episode, train: bool = False,
                          generator: Optional[torch.Generator] = None):
-        """Encode support and query clouds as two separate batches, so
-        training's BatchNorm statistics span each batch (per episode:
-        groups = E) and its running statistics take two updates."""
-        c = self.cfg
-        e = ep.support_x.shape[0]
-        sx = ep.support_x.reshape(e * c.n_way * c.k_shot, c.pc_npts, -1)
-        qx = ep.query_x.reshape(e * c.n_queries * c.n_way, c.pc_npts, -1)
-        sf = self.features(sx, train, e, generator)
-        qf = self.features(qx, train, e, generator)
-        d = sf.shape[-1]
-        return (sf.reshape(e, c.n_way, c.k_shot, c.pc_npts, d),
-                qf.reshape(e, c.n_queries * c.n_way, c.pc_npts, d))
+        """Support and query features of a batched episode
+        (`models/episode.py:encode_episode`)."""
+        return encode_episode(self.features, self.cfg, ep, train, generator)
 
     def forward(self, ep: Episode, train: bool = False, eval_mdns: bool = False,
                 generator: Optional[torch.Generator] = None) -> MPTIOutput:

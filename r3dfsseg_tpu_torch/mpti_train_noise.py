@@ -4,14 +4,17 @@
     python -m r3dfsseg_tpu_torch.mpti_train_noise --clean_data_path <dataset> \\
         --n_iters 40000 --eval_interval 2000 --use_attention [--device cpu]
 
-Per-episode noisy meta-training with WayContrast on episodes from a pool
-of worker threads, validation on the clean cached set every
-``eval_interval`` episodes, and the best (`checkpoint.tar`) and periodic
-(`checkpoint_<it>.tar`) checkpoints in the original code's schema, the Adam
-state included.  ``--model_checkpoint_path`` resumes from such a file, or
+Per-episode noisy meta-training of the learner of ``--phase`` (MPTI with
+WayContrast; ``prototrain`` ProtoNet_Contrast, ``transformertrain`` the
+transformer baseline) on episodes from a pool of worker threads,
+validation on the clean cached set every ``eval_interval`` episodes, and
+the best (`checkpoint.tar`) and periodic (`checkpoint_<it>.tar`)
+checkpoints in the original code's schema, with the Adam state for the
+MPTI model.  ``--model_checkpoint_path`` resumes from such a file, or
 from the JAX package's `checkpoint.msgpack`: the weights, the Adam
-moments, the StepLR position and the episode stream continue where it was
-written, up to ``n_iters`` episodes in all.  ``--pretrain_checkpoint_path``
+moments (a baseline's from a `.msgpack` only, as in the JAX package), the
+StepLR position and the episode stream continue where it was written, up
+to ``n_iters`` episodes in all.  ``--pretrain_checkpoint_path``
 starts the encoder trunk from a pretraining checkpoint (`.tar` or
 `.msgpack`).  ``--phase pretrain`` and ``finetune`` run `pretrain.py`.
 """
@@ -105,6 +108,9 @@ def train(cfg: R3DConfig, device=None) -> dict:
                 cfg.pretrain_checkpoint_path, learner.model.features.encoder, log=logger.cprint))
             logger.cprint("Load encoder module from pretrained checkpoint...")
 
+        # the `.tar`s carry the Adam state in the original MPTI model's layout;
+        # a baseline's are written without one (`Learner.reference_adam`)
+        adam = learner.optimizer if learner.reference_adam else None
         n_steps = max(cfg.n_iters // eb, 1)
         loader = EpisodeLoader(samplers[0].sample, num_batches=n_steps, episode_batch=eb,
                                prefetch=4, worker_fns=[s.sample for s in samplers], start=start)
@@ -204,10 +210,10 @@ def train(cfg: R3DConfig, device=None) -> dict:
                     logger.cprint("*******************Model Saved*******************")
                     save_reference_checkpoint(
                         os.path.join(cfg.log_dir, "checkpoint.tar"), learner.model,
-                        iteration=it, loss=valid_loss, iou=best_iou, optimizer=learner.optimizer)
+                        iteration=it, loss=valid_loss, iou=best_iou, optimizer=adam)
                 save_reference_checkpoint(
                     os.path.join(cfg.log_dir, f"checkpoint_{it}.tar"), learner.model,
-                    iteration=it, loss=valid_loss, iou=best_iou, optimizer=learner.optimizer)
+                    iteration=it, loss=valid_loss, iou=best_iou, optimizer=adam)
                 t_prev = time.perf_counter()
                 eval_s += t_prev - t_now
         flush()

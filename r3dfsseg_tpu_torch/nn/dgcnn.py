@@ -372,6 +372,16 @@ class FeatureExtractor(nn.Module):
             self.linear_mapper = nn.Linear(c, output_dim, bias=False)
         self.use_attention = use_attention
 
+    @classmethod
+    def from_config(cls, c) -> "FeatureExtractor":
+        """The feature extractor of an `R3DConfig` ``c``, as every model of
+        the JAX package builds it."""
+        return cls(c.pc_in_dim, c.edgeconv_widths, c.dgcnn_mlp_widths, c.base_widths,
+                   c.output_dim, dgcnn_k=c.dgcnn_k, use_attention=c.use_attention,
+                   knn_impl=c.knn_impl, attn_impl=c.attn_impl, attn_dropout=c.attn_dropout,
+                   dtype=torch.bfloat16 if c.compute_dtype == "bfloat16" else None,
+                   bn_mode=c.bn_mode, attn_f32=c.attn_f32, gather_impl=c.follower_impl)
+
     def forward(self, x: torch.Tensor, train: bool = False, groups: int = 1,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``groups`` > 1 (episode batching) keeps BatchNorm's statistics
@@ -398,16 +408,20 @@ def init_linear_weights(model: nn.Module, generator: torch.Generator) -> None:
                     p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
 
 
-def seeded_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def seeded_dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+                   shape: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Flax's `Dropout` in training: each entry kept with probability
     1 - ``rate`` and scaled by 1 / (1 - rate), else 0.  The mask comes from
     a generator on ``x``'s device seeded from ``generator`` (a CPU one, so
-    no device sync), as the attention draws its mask seed."""
+    no device sync), as the attention draws its mask seed; it has
+    ``shape`` (default x's) and broadcasts against x, as Flax's
+    `broadcast_dropout` mask does."""
     if rate <= 0.0:
         return x
     g = torch.Generator(device=x.device)
     g.manual_seed(int(torch.randint(0, 2**62, (), generator=generator)))
-    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    keep = torch.rand(x.shape if shape is None else tuple(shape), generator=g,
+                      device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from r3dfsseg_tpu_torch import pin_f32_matmul
 from r3dfsseg_tpu_torch.cli import args_to_config, build_parser
 from r3dfsseg_tpu_torch.config import R3DConfig
-from r3dfsseg_tpu_torch.learners.mpti_learner import resolve_device
+from r3dfsseg_tpu_torch.learners.base import resolve_device
 from r3dfsseg_tpu_torch.nn.dgcnn import DGCNNSegAttention, init_linear_weights
 from r3dfsseg_tpu_torch.utils.logger import ScalarWriter, init_logger
 

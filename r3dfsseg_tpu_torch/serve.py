@@ -9,8 +9,12 @@
 `support_x` is (n_way, k_shot, n_points, 9) xyzrgbXYZ, `support_y`
 (n_way, k_shot, n_points) binary fg masks, `query_x` (Q, n_points, 9);
 labels are 0 = background, 1..n_way = way.  MDNS clean-shot suppression is
-on by default.  The predictor runs on ``device``, "cuda" unless the caller
-asks for "cpu".  Checkpoints: the JAX package's `checkpoint.msgpack`
+on by default.  The learner follows ``cfg.phase``, as in the JAX package:
+the MPTI phases serve the MPTI model, ``protoeval``/``prototrain``
+ProtoNet_Contrast and ``transformereval``/``transformertrain`` the
+transformer baseline (`learners/__init__.py:make_learner`); any other phase
+raises.  The predictor runs on ``device``, "cuda" unless the caller asks
+for "cpu".  Checkpoints: the JAX package's `checkpoint.msgpack`
 (`utils/checkpoint.py`) and the original PyTorch model's `checkpoint.tar`
 (`utils/torch_convert.py`).  Whole-scene serving (`predict_scene`) is not
 ported yet.
@@ -23,21 +27,20 @@ import numpy as np
 import torch
 
 from r3dfsseg_tpu_torch.config import R3DConfig
-from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
+from r3dfsseg_tpu_torch.learners import make_learner
+from r3dfsseg_tpu_torch.learners.base import Learner
 from r3dfsseg_tpu_torch.models.episode import Episode
 from r3dfsseg_tpu_torch.utils.checkpoint import restore
 
 
 class FewShotPredictor:
-    """An MPTI learner on ``device`` that segments query clouds."""
+    """The learner of ``cfg.phase`` on ``device`` that segments query clouds."""
 
-    def __init__(self, cfg: R3DConfig, learner: Optional[MPTILearner] = None, *,
+    def __init__(self, cfg: R3DConfig, learner: Optional[Learner] = None, *,
                  device: str | torch.device | None = None, eval_mdns: bool = True):
-        if cfg.phase not in ("mptinoise_eval", "mptieval", "mptitrain"):
-            raise NotImplementedError(f"phase {cfg.phase!r} is not servable by the port yet")
         self.cfg = cfg
         self.eval_mdns = eval_mdns
-        self._learner = learner if learner is not None else MPTILearner(cfg, device)
+        self._learner = learner if learner is not None else make_learner(cfg, device)
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: Optional[R3DConfig] = None, *,

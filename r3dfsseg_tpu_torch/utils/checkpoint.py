@@ -37,7 +37,7 @@ from torch import nn
 
 from r3dfsseg_tpu_torch.learners.base import ENCODER_PREFIX
 from r3dfsseg_tpu_torch.utils.convert import (flax_paths, jax_tree_from_state_dict,
-                                              state_dict_from_jax)
+                                              state_dict_from_jax, to_flax, to_port)
 from r3dfsseg_tpu_torch.utils.flax_msgpack import msgpack_restore, msgpack_serialize
 from r3dfsseg_tpu_torch.utils.torch_convert import (checkpoint_file, encoder_key_map,
                                                     export_seg_encoder, install_adam_state,
@@ -82,26 +82,26 @@ def _group(name: str) -> str:
 
 def adam_tree(learner) -> dict:
     """The learner's Adam state as the JAX learner's `opt_state` state
-    dict (module docstring); moments of a parameter with no state yet are
-    zeros."""
+    dict (module docstring); moments of a parameter with no state yet (or
+    none ever: the transformer's class tokens, whose gradient is stopped)
+    are zeros."""
     count = np.asarray(learner.scheduler.last_epoch, np.int32)
     params = dict(learner.model.named_parameters())
     paths = flax_paths(learner.model)
     out = {}
     for g in GROUPS:
         mu, nu = {}, {}
-        for name, (coll, path, transposed) in paths.items():
-            if coll != "params":
+        for name, leaf in paths.items():
+            if leaf.collection != "params":
                 continue
             p = params[name]
             if _group(name) != g:
-                _put(mu, path, {})
-                _put(nu, path, {})
+                _put(mu, leaf.path, {})
+                _put(nu, leaf.path, {})
                 continue
             st = learner.optimizer.state.get(p, {})
             for tree, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
-                t = st.get(key, torch.zeros_like(p)).detach().to("cpu", torch.float32).numpy()
-                _put(tree, path, np.ascontiguousarray(t.T if transposed else t))
+                _put(tree, leaf.path, to_flax(st.get(key, torch.zeros_like(p)), leaf))
         out[g] = {"inner_state": {"0": {"count": count, "mu": mu, "nu": nu},
                                   "1": {"count": count}}}
     return {"inner_states": out}
@@ -135,20 +135,18 @@ def load_checkpoint(path: str, learner=None, *, episode_batch: int = 1) -> dict:
     learner.load_params(blob["params"], blob["batch_stats"])
     params = dict(learner.model.named_parameters())
     moments, steps = {}, {}
-    for name, (coll, path_, transposed) in flax_paths(learner.model).items():
-        if coll != "params":
+    for name, leaf in flax_paths(learner.model).items():
+        if leaf.collection != "params":
             continue
         g = blob["opt_state"]["inner_states"][_group(name)]["inner_state"]["0"]
         p = params[name]
         mv = []
         for key in ("mu", "nu"):
-            a = _get(g[key], path_)
+            a = _get(g[key], leaf.path)
             if isinstance(a, dict):
-                raise ValueError(f"{path}: {key} of {'/'.join(path_)} is masked in its group "
-                                 f"{_group(name)!r}")
-            a = np.asarray(a, np.float32)
-            mv.append(torch.from_numpy(np.ascontiguousarray(a.T if transposed else a))
-                      .to(p.device).reshape(p.shape))
+                raise ValueError(f"{path}: {key} of {'/'.join(leaf.path)} is masked in its "
+                                 f"group {_group(name)!r}")
+            mv.append(torch.from_numpy(to_port(a, leaf, p.shape)).to(p.device))
         moments[p] = tuple(mv)
         steps[p] = int(g["count"])
     install_adam_state(learner.optimizer, learner.scheduler, moments,
@@ -160,7 +158,8 @@ def restore(path: str, learner, log: Optional[Callable[[str], None]] = None) -> 
     """Install the model checkpoint that ``path`` names (a file or a log
     directory, `checkpoint_file`) into ``learner``: a `.msgpack` by
     `load_checkpoint`; a full-model `.tar` with its Adam state where it has
-    one (`resume_from_reference_checkpoint`); a pretraining `.tar` into the
+    one and the learner takes it (`resume_from_reference_checkpoint`); a
+    pretraining `.tar` into the
     trunk only (`load_pretrain_checkpoint`, which says through ``log``
     what it drops).  Returns {path, iteration, IoU, loss}."""
     f = checkpoint_file(path)
@@ -171,6 +170,9 @@ def restore(path: str, learner, log: Optional[Callable[[str], None]] = None) -> 
         blob = load_checkpoint_blob(f)
         if "model_state_dict" in blob:
             info = resume_from_reference_checkpoint(f, learner)
+            if info["adam_dropped"] and log is not None:
+                log("checkpoint %s: its optimizer state is not restored for this model (as in "
+                    "the JAX package, only the MPTI phases resume Adam from a .tar)" % f)
         else:
             sd, encoder_only = torch_state_of(blob)
             if encoder_only:

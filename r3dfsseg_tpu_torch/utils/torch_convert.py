@@ -1,6 +1,7 @@
 """The original PyTorch model's checkpoints in the port, both directions
-(counterpart of `r3dfsseg_tpu/utils/torch_convert.py`: the MPTI phases
-and the pretraining model).
+(counterpart of `r3dfsseg_tpu/utils/torch_convert.py`: the MPTI model,
+the baselines ProtoNet(_Contrast) and ProtoNet_transformer, and the
+pretraining model).
 
 The original `MPTI_SelfAtten` names its tensors by its module layout:
 EdgeConv blocks `encoder.edge_convs.{i}.layer.{3j}` (Conv2d 1x1) and
@@ -8,7 +9,13 @@ EdgeConv blocks `encoder.edge_convs.{i}.layer.{3j}` (Conv2d 1x1) and
 `.{3j+1}`, the BaseLearner `base_learner.convs.{i}.0` (Conv1d with bias)
 and `.1`, the attention maps `att_learner.{q,k,v}_map` (Conv1d) or
 `linear_mapper` without attention, and the WayContrast head `proj`
-(Linear).  The pretraining model `DGCNNSeg_attention` holds the trunk and
+(Linear); ProtoNet_Contrast has the same keys, plain ProtoNet no `proj`.
+ProtoNet_transformer adds `proj_trans_in`/`proj_trans_out`, its
+`transformer` (the class and position embeddings and a torch
+`TransformerEncoder`: `encoder.layers.{i}.self_attn.in_proj_weight`/`bias`
+packing query, key and value, which the map splits into the port's three
+Linear layers on load and joins on export) and
+`binary_outlier_detector.fc`.  The pretraining model `DGCNNSeg_attention` holds the trunk and
 the attention under `encoder` and a `segmenter` Sequential (`seg_key_map`).
 The port names its modules after the JAX package's Flax tree
 and its 1x1 convs are `nn.Linear`, so the map renames keys and drops or
@@ -104,23 +111,53 @@ def seg_key_map(model: nn.Module) -> Dict[str, Tuple[str, int]]:
     return out
 
 
-def key_map(model: nn.Module) -> Dict[str, Tuple[str, int]]:
+def transformer_key_map(model: nn.Module) -> Dict[str, Tuple[object, int]]:
+    """torch key -> port key for the original `ProtoNet_transformer`'s
+    head (the JAX package's `convert_transformer_model`); the packed
+    ``in_proj`` tensors map to the tuple of the port's query, key and value
+    tensors they split into."""
+    out: Dict[str, Tuple[object, int]] = {
+        "proj_trans_in": ("proj_trans_in", 0), "proj_trans_out": ("proj_trans_out", 0)}
+    tr = model.transformer
+    for name in ("cls_embeddings", "pos_embeddings"):
+        if hasattr(tr, name):
+            out[f"transformer.{name}.weight"] = (f"transformer.{name}.weight", 0)
+    for i in range(tr.n_layers):
+        g, p = f"transformer.encoder.layers.{i}.", f"transformer.layer{i}."
+        for leaf in ("weight", "bias"):
+            out[f"{g}self_attn.in_proj_{leaf}"] = (
+                tuple(f"{p}self_attn.{n}.{leaf}" for n in ("query", "key", "value")), 0)
+            out[f"{g}self_attn.out_proj.{leaf}"] = (f"{p}self_attn.out.{leaf}", 0)
+            for m in ("linear1", "linear2", "norm1", "norm2"):
+                out[f"{g}{m}.{leaf}"] = (f"{p}{m}.{leaf}", 0)
+    for leaf in ("weight", "bias"):
+        out[f"binary_outlier_detector.fc.{leaf}"] = (f"binary_outlier_detector.{leaf}", 0)
+    return out
+
+
+def key_map(model: nn.Module) -> Dict[str, Tuple[object, int]]:
     """torch key -> (port key, trailing 1x1 axes) for every tensor of the
-    original `MPTI_SelfAtten` but `num_batches_tracked`; ``model`` is the
-    port's `MPTINet`."""
+    original model but `num_batches_tracked`: `MPTI_SelfAtten` for the
+    port's `MPTINet`, `ProtoNet(_Contrast)` for its `ProtoNet`,
+    `ProtoNet_transformer` for its `ProtoNetTransformer` (the head's map in
+    `transformer_key_map`)."""
     out = {k: (f"features.{p}", nd) for k, (p, nd) in feature_key_map(model.features).items()}
-    out["proj.weight"] = ("proj.weight", 0)
-    out["proj.bias"] = ("proj.bias", 0)
+    if hasattr(model, "proj"):
+        out["proj.weight"] = ("proj.weight", 0)
+        out["proj.bias"] = ("proj.bias", 0)
+    if hasattr(model, "transformer"):
+        out.update(transformer_key_map(model))
     return out
 
 
 def state_dict_from_torch(torch_state: Mapping, model: nn.Module,
-                          kmap: Mapping[str, Tuple[str, int]] | None = None
+                          kmap: Mapping[str, Tuple[object, int]] | None = None
                           ) -> Dict[str, torch.Tensor]:
     """The original model's tensors (torch tensors or numpy arrays) -> the
-    port's ``state_dict`` entries they fill, by ``kmap`` (default the MPTI
-    model's `key_map`: the JAX package's `convert_mpti_model`).  A conv
-    weight (out, in, 1[, 1]) becomes the Linear weight (out, in).
+    port's ``state_dict`` entries they fill, by ``kmap`` (default
+    `key_map`: the JAX package's `convert_for_phase`).  A conv weight
+    (out, in, 1[, 1]) becomes the Linear weight (out, in); a tensor mapped
+    to several port keys splits into equal parts along its first axis.
     `num_batches_tracked` is dropped; any other key without a counterpart
     raises KeyError.  Whether every port key is filled is the caller's
     strict load to check."""
@@ -138,7 +175,13 @@ def state_dict_from_torch(torch_state: Mapping, model: nn.Module,
                 raise ValueError(f"{key}: want a 1x1 conv weight of {2 + conv_nd} axes, "
                                  f"got {tuple(t.shape)}")
             t = t.reshape(t.shape[:2])
-        out[port] = t.detach().to("cpu", torch.float32).contiguous()
+        t = t.detach().to("cpu", torch.float32)
+        if isinstance(port, tuple):
+            if t.shape[0] % len(port):
+                raise ValueError(f"{key}: {tuple(t.shape)} does not split into {len(port)}")
+            out.update(zip(port, (part.contiguous() for part in t.chunk(len(port)))))
+        else:
+            out[port] = t.contiguous()
     return out
 
 
@@ -146,7 +189,8 @@ def _export(sd: Mapping[str, torch.Tensor], kmap: Mapping[str, Tuple[str, int]],
             prefix: str) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for key, (port, conv_nd) in kmap.items():
-        t = sd[port].detach().to("cpu", torch.float32).contiguous()
+        t = (torch.cat([sd[p] for p in port]) if isinstance(port, tuple) else sd[port])
+        t = t.detach().to("cpu", torch.float32).contiguous()
         out[prefix + key] = t.reshape(*t.shape, *(1,) * conv_nd)
         if key.endswith(".running_var"):
             # torch BatchNorm carries this buffer; strict load_state_dict needs it
@@ -164,9 +208,10 @@ def export_feature_extractor(features: nn.Module, *, prefix: str = ""
     return _export(features.state_dict(), feature_key_map(features), prefix)
 
 
-def export_mpti_state(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The port's `MPTINet` -> the original `MPTI_SelfAtten` state dict
-    (CPU tensors), which it loads with strict=True."""
+def export_model_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The port's `MPTINet`, `ProtoNet` or `ProtoNetTransformer` -> the
+    original model's state dict (CPU tensors), which it loads with
+    strict=True (`key_map`)."""
     return _export(model.state_dict(), key_map(model), "")
 
 
@@ -325,14 +370,16 @@ def install_adam_state(optimizer: torch.optim.Optimizer, scheduler, moments: Map
 def save_reference_checkpoint(path: str, model: nn.Module, *, iteration: int = 0,
                               loss: float = 0.0, iou: float = 0.0,
                               optimizer: torch.optim.Optimizer | None = None) -> None:
-    """Write the port's `MPTINet` as a `checkpoint.tar` that the original
-    code loads: ``{'iteration', 'model_state_dict', 'optimizer_state_dict',
-    'loss', 'IoU'}``, the optimizer state None unless ``optimizer`` is
-    given (`export_adam_state`).  Written under a temporary name and
-    renamed, so a reader never finds half a file."""
+    """Write the port's model as a `checkpoint.tar` that the original code
+    loads: ``{'iteration', 'model_state_dict', 'optimizer_state_dict',
+    'loss', 'IoU'}`` (`export_model_state`), the optimizer state None
+    unless ``optimizer`` is given (`export_adam_state`: the MPTI model's
+    layout; the learners give it where `Learner.reference_adam` says so).
+    Written under a temporary name and renamed, so a reader never finds
+    half a file."""
     opt_sd = None if optimizer is None else export_adam_state(model, optimizer, iteration)
     tmp = path + ".tmp"
-    torch.save({"iteration": int(iteration), "model_state_dict": export_mpti_state(model),
+    torch.save({"iteration": int(iteration), "model_state_dict": export_model_state(model),
                 "optimizer_state_dict": opt_sd, "loss": float(loss), "IoU": float(iou)}, tmp)
     os.replace(tmp, path)
 
@@ -345,16 +392,21 @@ def load_checkpoint_blob(path: str) -> dict:
 
 def resume_from_reference_checkpoint(path: str, learner) -> dict:
     """Resume meta-training from a full-model `checkpoint.tar` (the port's
-    or the original code's): weights and BN statistics, the Adam moments
-    and the StepLR position where the file holds an optimizer state.
-    Returns its bookkeeping fields {iteration, IoU, loss}."""
+    or the original code's): weights and BN statistics, and the Adam
+    moments and the StepLR position where the file holds an optimizer
+    state and the learner takes one (`Learner.reference_adam`: the MPTI
+    model; a baseline starts a fresh Adam, as in the JAX package).
+    Returns its bookkeeping fields {iteration, IoU, loss} and whether an
+    optimizer state in the file was left out (``adam_dropped``)."""
     blob = load_checkpoint_blob(path)
     if "model_state_dict" not in blob:
         raise ValueError(f"{path}: not a full-model checkpoint (no model_state_dict)")
     learner.load_torch_state({k: v.detach() for k, v in blob["model_state_dict"].items()})
-    if blob.get("optimizer_state_dict"):
-        load_adam_state(blob["optimizer_state_dict"], learner.model, learner.optimizer,
-                        learner.scheduler, learner.cfg.episode_batch)
+    opt_sd = blob.get("optimizer_state_dict")
+    if opt_sd and learner.reference_adam:
+        load_adam_state(opt_sd, learner.model, learner.optimizer, learner.scheduler,
+                        learner.cfg.episode_batch)
     return {"iteration": int(blob.get("iteration", 0)),
             "IoU": float(blob.get("IoU", 0.0) or 0.0),
-            "loss": float(blob.get("loss", 0.0) or 0.0)}
+            "loss": float(blob.get("loss", 0.0) or 0.0),
+            "adam_dropped": bool(opt_sd) and not learner.reference_adam}

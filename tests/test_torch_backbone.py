@@ -61,7 +61,7 @@ def test_state_dict_names_follow_the_flax_tree():
         sd["encoder.mlp1.bn.running_var"].numpy(),
         np.asarray(variables["batch_stats"]["encoder"]["mlp1"]["bn"]["var"]))
     with pytest.raises(KeyError, match="no port counterpart"):
-        state_dict_from_jax({"m": {"embedding": np.zeros(3)}})
+        state_dict_from_jax({"m": {"gamma": np.zeros(3)}})
 
 
 def test_training_mode_raises():

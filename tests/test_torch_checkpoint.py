@@ -21,7 +21,7 @@ from r3dfsseg_tpu_torch.config import tiny_config
 from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
 from r3dfsseg_tpu_torch.serve import FewShotPredictor
 from r3dfsseg_tpu_torch.utils import checkpoint, torch_convert
-from torch_port_helpers import episode_arrays, jax_graph_margin, random_flax_weights
+from torch_port_helpers import episode_arrays, jax_graph_margin, random_flax_weights, train_episode
 
 # the reference-faithful modes: no k-th-radius bracket to differ between
 # the JAX package's CPU loop and the port
@@ -68,7 +68,7 @@ def test_export_matches_jax(jax_shapes, att):
     `export_feature_extractor` under a prefix."""
     params, stats, learner = _learner(jax_shapes, att, 0)
     want = jax_convert.export_mpti_state(params, stats)
-    got = torch_convert.export_mpti_state(learner.model)
+    got = torch_convert.export_model_state(learner.model)
     assert list(got) == list(want)
     for k, w in want.items():
         g = got[k].numpy()
@@ -94,7 +94,7 @@ def test_key_map_round_trips(jax_shapes, att):
     assert len(set(ports)) == len(ports) == len(learner.model.state_dict())
     other = MPTILearner(tiny_config(use_attention=att, **MODES), "cpu",
                         torch.Generator().manual_seed(9))
-    other.load_torch_state(torch_convert.export_mpti_state(learner.model))
+    other.load_torch_state(torch_convert.export_model_state(learner.model))
     _assert_state_equal(_state(other), _state(learner))
 
 
@@ -104,7 +104,7 @@ def test_checkpoint_schemas_load(jax_shapes, tmp_path, schema):
     the pretraining schema ('params', the encoder without its prefix)
     fills the encoder only."""
     _, _, learner = _learner(jax_shapes, True, 2)
-    sd = torch_convert.export_mpti_state(learner.model)
+    sd = torch_convert.export_model_state(learner.model)
     if schema == "model_state_dict":
         blob = {"iteration": 7, "model_state_dict": sd, "optimizer_state_dict": None,
                 "loss": np.float32(0.5), "IoU": np.float64(0.25)}
@@ -131,7 +131,7 @@ def test_checkpoint_schemas_load(jax_shapes, tmp_path, schema):
 
 def test_encoder_only_leaves_base_learner_and_proj(jax_shapes, tmp_path):
     _, _, learner = _learner(jax_shapes, True, 3)
-    sd = torch_convert.export_mpti_state(learner.model)
+    sd = torch_convert.export_model_state(learner.model)
     target = MPTILearner(tiny_config(**MODES), "cpu", torch.Generator().manual_seed(9))
     target.train(episode_arrays(target.cfg, np.random.default_rng(0))
                  + (None, None, np.ones((2, target.cfg.k_shot), np.int32)))
@@ -158,7 +158,7 @@ def test_bad_checkpoints_raise(jax_shapes):
     """An unknown torch key, a port tensor left unfilled and a conv weight
     that is not 1x1 raise; `num_batches_tracked` alone is dropped."""
     _, _, learner = _learner(jax_shapes, True, 4)
-    sd = torch_convert.export_mpti_state(learner.model)
+    sd = torch_convert.export_model_state(learner.model)
     target = MPTILearner(tiny_config(**MODES), "cpu")
     with pytest.raises(KeyError, match="no port counterpart"):
         target.load_torch_state({**sd, "encoder.att_learner.q_map.weight": sd["proj.weight"]})
@@ -218,3 +218,139 @@ def test_from_checkpoint_predicts_as_jax(jax_shapes, tmp_path):
     assert set(again) == set(want)
     for k, v in want.items():
         np.testing.assert_array_equal(again[k].numpy(), v, err_msg=k)
+
+
+# ------------------------------------------------------------- baselines --
+# the baselines' `.tar` schemas: ProtoNet_Contrast's keys are the MPTI
+# model's; ProtoNet_transformer's hold the packed `in_proj` tensors
+GOLDEN = {"protoeval": "pc_sd/", "transformereval": "pt_sd/"}
+TRANSFORMER = dict(d_model=128, n_head=8, n_layers=3, d_feed=128)
+
+
+def _golden_learner(phase):
+    """(the golden fixture's original state dict, a port learner of
+    ``phase`` at the fixture's widths holding it)."""
+    import json
+    import os
+
+    from r3dfsseg_tpu_torch.learners import make_learner
+    data = np.load(os.path.join(os.path.dirname(__file__), "fixtures",
+                                "reference_parity_extra.npz"))
+    meta = json.loads(bytes(data["meta"]).decode())
+    cfg = tiny_config(phase=phase, k_shot=meta["k_shot"], dgcnn_k=meta["dgcnn_k"],
+                      edgeconv_widths=tuple(tuple(w) for w in meta["edgeconv_widths"]),
+                      dgcnn_mlp_widths=tuple(meta["dgcnn_mlp_widths"]),
+                      base_widths=tuple(meta["base_widths"]), output_dim=meta["output_dim"],
+                      dg_atten_dim=meta["dg_atten_dim"], proj_dim=128, **TRANSFORMER)
+    prefix = GOLDEN[phase]
+    sd = {k[len(prefix):]: data[k] for k in data.files if k.startswith(prefix)}
+    learner = make_learner(cfg, "cpu")
+    learner.load_torch_state(sd)
+    return sd, learner
+
+
+@pytest.mark.parametrize("phase", list(GOLDEN))
+def test_baseline_tar_round_trips(phase):
+    """The original state dict loads strictly, exports back to the same
+    keys and values (the transformer's in_proj split and joined again;
+    num_batches_tracked written as 0), and the JAX package's converter
+    reads the port's export into the port's own Flax tree."""
+    from r3dfsseg_tpu_torch.utils.convert import jax_tree_from_state_dict
+    sd, learner = _golden_learner(phase)
+    out = torch_convert.export_model_state(learner.model)
+    assert set(out) == set(sd)
+    for k, v in sd.items():
+        want = np.zeros_like(v) if k.endswith("num_batches_tracked") else v
+        np.testing.assert_array_equal(out[k].numpy(), want, err_msg=k)
+    if phase == "transformereval":
+        w = learner.model.transformer.layer1.self_attn
+        packed = sd["transformer.encoder.layers.1.self_attn.in_proj_weight"]
+        for i, m in enumerate((w.query, w.key, w.value)):
+            np.testing.assert_array_equal(m.weight.detach().numpy(), packed[i * 128:(i + 1) * 128])
+    c = learner.cfg
+    fe = dict(edgeconv_widths=c.edgeconv_widths, dgcnn_mlp_widths=c.dgcnn_mlp_widths,
+              base_widths=c.base_widths, use_attention=True)
+    numpy_sd = {k: v.numpy() for k, v in out.items()}
+    jp, js = (jax_convert.convert_transformer_model(numpy_sd, d_model=128, n_head=8, n_layers=3,
+                                                    **fe)
+              if phase == "transformereval" else jax_convert.convert_mpti_model(numpy_sd, **fe))
+    got_p, got_s = jax_tree_from_state_dict(learner.model)
+    for got, want in ((got_p, jp), (got_s, js)):
+        assert jax.tree.structure(got) == jax.tree.structure(jax.tree.map(np.asarray, want))
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            np.testing.assert_array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("phase", list(GOLDEN))
+def test_baseline_bad_keys_raise(phase):
+    sd, learner = _golden_learner(phase)
+    with pytest.raises(KeyError, match="no port counterpart"):
+        learner.load_torch_state({**sd, "transformer.encoder.layers.9.linear1.weight":
+                                  np.zeros((128, 128), np.float32)})
+    with pytest.raises(KeyError, match="unfilled"):
+        learner.load_torch_state({k: v for k, v in sd.items() if "norm" not in k
+                                  and not k.startswith("proj.")})
+
+
+def test_baseline_tar_resume_leaves_adam_fresh(tmp_path):
+    """A ProtoNet_Contrast `.tar` that carries an optimizer state: the
+    weights resume, the Adam state does not, in the port as in the JAX
+    package (its `resume_from_reference_checkpoint` restores Adam for the
+    MPTI phases only).  The transformer has no such layout in the
+    original MPTI model's Adam order: exporting one raises."""
+    from r3dfsseg_tpu.learners import ProtoLearner as JaxProto
+    from r3dfsseg_tpu.learners.base import TrainState
+    sd, learner = _golden_learner("protoeval")
+    learner.train(train_episode(learner.cfg, np.random.default_rng(3)))
+    path = str(tmp_path / "checkpoint.tar")
+    torch.save({"iteration": 6, "model_state_dict": torch_convert.export_model_state(
+                    learner.model),
+                "optimizer_state_dict": torch_convert.export_adam_state(
+                    learner.model, learner.optimizer, 6),
+                "loss": 0.5, "IoU": 0.25}, path)
+    assert learner.optimizer.state
+    fresh = type(learner)(learner.cfg, "cpu", with_contrast=True)
+    said = []
+    info = checkpoint.restore(path, fresh, log=said.append)
+    assert info["iteration"] == 6 and not fresh.optimizer.state
+    assert fresh.scheduler.last_epoch == 0 and "not restored" in said[0]
+    _assert_state_equal(_state(fresh), _state(learner))
+
+    jcfg = jax_tiny_config(**{k: getattr(learner.cfg, k) for k in (
+        "phase", "k_shot", "dgcnn_k", "edgeconv_widths", "dgcnn_mlp_widths", "base_widths",
+        "output_dim", "dg_atten_dim", "proj_dim")})
+    jl = JaxProto(jcfg, with_contrast=True)
+    p, s = (jax.tree.map(np.zeros_like, t) for t in jax_convert.convert_mpti_model(
+        {k: np.asarray(v) for k, v in sd.items()}, edgeconv_widths=jcfg.edgeconv_widths,
+        dgcnn_mlp_widths=jcfg.dgcnn_mlp_widths, base_widths=jcfg.base_widths))
+    jl.state = TrainState(jnp.zeros((), jnp.int32), p, s, jl.tx.init(p))
+    jax_convert.resume_from_reference_checkpoint(path, jl)
+    inner = jl.state.opt_state.inner_states
+    assert all(not np.asarray(x).any() for g in ("encoder", "rest")
+               for x in jax.tree.leaves(inner[g].inner_state[0]))
+
+    _, tl = _golden_learner("transformereval")
+    with pytest.raises(KeyError, match="Adam groups"):
+        torch_convert.export_adam_state(tl.model, tl.optimizer, 1)
+
+
+@pytest.mark.parametrize("phase", list(GOLDEN))
+def test_baseline_served_from_msgpack_and_tar(phase, tmp_path):
+    """`FewShotPredictor.from_checkpoint` of a baseline phase on the port's
+    `.msgpack` and on its `.tar` serves bit-equal logits and equal labels;
+    a phase without a learner raises."""
+    _, learner = _golden_learner(phase)
+    learner.train(train_episode(learner.cfg, np.random.default_rng(1)))  # moments to carry
+    checkpoint.save_checkpoint(str(tmp_path / "checkpoint.msgpack"), learner, iteration=1)
+    torch_convert.save_reference_checkpoint(str(tmp_path / "checkpoint.tar"), learner.model,
+                                            iteration=1)
+    preds = [FewShotPredictor.from_checkpoint(str(tmp_path / f), learner.cfg, device="cpu")
+             for f in ("checkpoint.msgpack", "checkpoint.tar")]
+    assert type(preds[0]._learner) is type(learner)
+    ep = train_episode(learner.cfg, np.random.default_rng(2))
+    a, b = (p.predict(*ep[:3]) for p in preds)
+    assert a.shape == (learner.cfg.n_way, learner.cfg.pc_npts) and a.dtype == np.int32
+    np.testing.assert_array_equal(a, b)
+    _assert_state_equal(_state(preds[0]._learner), _state(preds[1]._learner))
+    with pytest.raises(NotImplementedError, match="no learner"):
+        FewShotPredictor(learner.cfg.replace(phase="pretrain"), device="cpu")

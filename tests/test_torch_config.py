@@ -62,7 +62,8 @@ def test_fuse_edge_on_is_refused_by_both_packages(mode):
 
 def test_port_imports_no_jax():
     """Importing the port, its serving path, its training step, its data
-    pipeline, its CLIs, its pretraining and its Flax checkpoints pulls in
+    pipeline, its CLIs, its pretraining, its Flax checkpoints and the
+    baselines (models, learners, ccns; both served) pulls in
     neither jax nor the JAX package, nor flax, h5py or msgpack (a fresh
     interpreter, so this process's jax does not count)."""
     code = (
@@ -76,6 +77,10 @@ def test_port_imports_no_jax():
         "from r3dfsseg_tpu_torch.utils import metrics, logger, diagnostics\n"
         "from r3dfsseg_tpu_torch.serve import FewShotPredictor\n"
         "from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner\n"
+        "from r3dfsseg_tpu_torch.learners import ProtoLearner, TransformerLearner, make_learner\n"
+        "from r3dfsseg_tpu_torch.learners import base, proto_learner, transformer_learner\n"
+        "from r3dfsseg_tpu_torch.models import protonet, transformer\n"
+        "from r3dfsseg_tpu_torch.ops import ccns, segment\n"
         "from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_cheby, cuda_fps, cuda_knn, "
         "cuda_kth, cuda_scatter, cuda_gather, cuda_fused_edge, fused_edge\n"
         "from r3dfsseg_tpu_torch.utils.convert import state_dict_from_jax\n"
@@ -90,6 +95,10 @@ def test_port_imports_no_jax():
         "m = p._learner.train((rng.normal(size=(2, 2, 64, 9)), sy, rng.normal(size=(2, 64, 9)),\n"
         "                      qy, None, None, np.array([[1, 1], [2, 2]])))\n"
         "assert np.isfinite(float(m['loss']))\n"
+        "for phase in ('protoeval', 'transformereval'):\n"
+        "    b = FewShotPredictor(tiny_config(phase=phase, d_model=16, n_head=2), device='cpu')\n"
+        "    assert b.predict(rng.normal(size=(2, 2, 64, 9)), sy,\n"
+        "                     rng.normal(size=(2, 64, 9))).shape == (2, 64)\n"
         "lowp = FewShotPredictor(tiny_config(graph_dtype='bfloat16'), device='cpu')\n"
         "assert lowp.predict(rng.normal(size=(2, 2, 64, 9)), sy,\n"
         "                    rng.normal(size=(2, 64, 9))).shape == (2, 64)\n"

@@ -17,8 +17,16 @@ ways, against the JAX package's own `save_checkpoint` / `load_checkpoint`
     `DGCNNSegAttention`'s encoder, no training) starts the port's
     meta-training CLI and its finetune with a bit-equal trunk;
   * a log directory holding both files gives the `.msgpack`;
-  * `jax_tree_from_state_dict(state_dict_from_jax(t)) == t` for the MPTI
-    and the segmentation trees."""
+  * `jax_tree_from_state_dict(state_dict_from_jax(t)) == t` for the MPTI,
+    the segmentation and the two baselines' trees (the transformer's
+    `DenseGeneral` kernels, embeddings, LayerNorms and bare projections);
+  * the baselines (ProtoNet_Contrast, the transformer): a JAX TrainState
+    with random weights and Adam moments written by the JAX
+    `save_checkpoint`, loaded by the port, written again by the port and
+    read by the JAX `load_checkpoint` comes back bit-equal; the port's
+    transformer trains a step from it with its stopped class tokens and
+    their moments bit-equal, and the JAX learner resumes from the port's
+    file at the same Adam count and keeps its class tokens too."""
 import sys
 
 import jax
@@ -36,6 +44,7 @@ from r3dfsseg_tpu.utils import torch_convert as jax_convert
 from r3dfsseg_tpu_torch import mpti_train_noise, pretrain as port_pretrain
 from r3dfsseg_tpu_torch.config import tiny_config
 from r3dfsseg_tpu_torch.data.synthetic import make_synthetic_dataset
+from r3dfsseg_tpu_torch.learners import make_learner
 from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
 from r3dfsseg_tpu_torch.models.episode import Episode
 from r3dfsseg_tpu_torch.nn.dgcnn import DGCNNSegAttention
@@ -121,7 +130,7 @@ def test_resume_from_msgpack_equals_tar(jax_run):
         sa, sb = a.optimizer.state[p], b.optimizer.state[params_b[name]]
         group = "encoder" if name.startswith("features.encoder.") else "rest"
         adam = inner[group].inner_state[0]
-        coll, path, transposed = flax_paths(a.model)[name]
+        coll, path, transposed, _ = flax_paths(a.model)[name]
         for key, jkey in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
             assert torch.equal(sa[key], sb[key]), (name, key)
             want = np.asarray(_moments(getattr(adam, jkey), path))
@@ -154,7 +163,7 @@ def test_jax_restores_the_port_checkpoint(jax_run, tmp_path):
         for kp, leaf in flat:
             np.testing.assert_array_equal(np.asarray(leaf), _moments(want, [e.key for e in kp]))
     params = dict(learner.model.named_parameters())
-    for name, (coll, path_, transposed) in flax_paths(learner.model).items():
+    for name, (coll, path_, transposed, _) in flax_paths(learner.model).items():
         if coll != "params":
             continue
         group = "encoder" if name.startswith("features.encoder.") else "rest"
@@ -233,11 +242,15 @@ def test_log_dir_gives_the_msgpack_first(jax_run, tmp_path):
     assert torch.equal(_logits(from_dir, ep), _logits(from_file, ep))
 
 
-@pytest.mark.parametrize("which", ["mpti", "seg"])
+@pytest.mark.parametrize("which", ["mpti", "seg", "protoeval", "transformereval"])
 def test_tree_round_trip_is_the_identity(jax_run, which):
     if which == "mpti":
         params, stats = jax_run["state"].params, jax_run["state"].batch_stats
         model = MPTILearner(tiny_config(**KW), "cpu").model
+    elif which in BASELINES:
+        state, _, cfg = _jax_baseline(which, 8)
+        params, stats = state.params, state.batch_stats
+        model = make_learner(cfg, "cpu").model
     else:
         jm = JaxSeg(num_classes=6, edgeconv_widths=((8, 8), (8, 8)), dgcnn_mlp_widths=(16, 12),
                     dgcnn_k=4, atten_dim=8, v2=True)
@@ -253,3 +266,83 @@ def test_tree_round_trip_is_the_identity(jax_run, which):
         for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
             assert g.dtype == np.float32
             np.testing.assert_array_equal(g, np.asarray(w))
+
+
+# ------------------------------------------------------------- baselines --
+BASELINES = {"protoeval": {}, "transformereval": dict(d_model=16, n_head=4, n_layers=2,
+                                                      d_feed=12)}
+CLS = ("transformer", "cls_embeddings", "embedding")
+
+
+def _jax_baseline(phase, seed):
+    """(a JAX TrainState of the ``phase``'s learner at tiny_config: random
+    Flax weights, random Adam moments and counts 3; the JAX learner; the
+    port's config)."""
+    from r3dfsseg_tpu.learners import ProtoLearner as JaxProto
+    from r3dfsseg_tpu.learners import TransformerLearner as JaxTransformer
+    from r3dfsseg_tpu.learners.base import TrainState
+
+    kw = dict(phase=phase, **KW, **BASELINES[phase])
+    jcfg = jax_tiny_config(**kw)
+    jl = JaxProto(jcfg, with_contrast=True) if phase == "protoeval" else JaxTransformer(jcfg)
+    w, k, n, c = jcfg.n_way, jcfg.k_shot, jcfg.pc_npts, jcfg.pc_in_dim
+    ep = JaxEpisode(jnp.zeros((w, k, n, c)), jnp.zeros((w, k, n), jnp.int32),
+                    jnp.zeros((w, n, c)), jnp.zeros((w, n), jnp.int32))
+    shapes = jax.eval_shape(lambda: jl.model.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, ep))
+    rng = np.random.default_rng(seed)
+    params, stats = random_flax_weights(shapes, rng)
+
+    def moment(path, leaf):
+        names = [getattr(e, "name", getattr(e, "key", None)) for e in path]
+        if names[-1] == "count":
+            return np.asarray(3, np.int32)
+        return (rng.uniform(0.0, 1e-3, size=np.shape(leaf))
+                * (0.0 if tuple(names[-3:]) == CLS else 1.0)).astype(np.float32)
+    opt = jax.tree_util.tree_map_with_path(moment, jl.tx.init(params))
+    return TrainState(np.asarray(3, np.int32), params, stats, opt), jl, tiny_config(**kw)
+
+
+def _assert_trees_equal(got, want):
+    flat_g, tree_g = jax.tree_util.tree_flatten(got)
+    flat_w, tree_w = jax.tree_util.tree_flatten(want)
+    assert tree_g == tree_w and len(flat_g) == len(flat_w)
+    for g, w in zip(flat_g, flat_w):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("phase", list(BASELINES))
+def test_baseline_msgpack_round_trip(phase, tmp_path):
+    state, jl, cfg = _jax_baseline(phase, 5)
+    jax_checkpoint.save_checkpoint(str(tmp_path / "jax.msgpack"), state, loss=0.5, iou=0.25,
+                                   iteration=3)
+    learner = make_learner(cfg, "cpu")
+    checkpoint.load_checkpoint(str(tmp_path / "jax.msgpack"), learner)
+    assert learner.scheduler.last_epoch == 3
+    checkpoint.save_checkpoint(str(tmp_path / "port.msgpack"), learner, loss=0.5, iou=0.25,
+                               iteration=3)
+    blob, restored = jax_checkpoint.load_checkpoint(str(tmp_path / "port.msgpack"), state)
+    assert blob["iteration"] == 3 and int(restored.step) == 3
+    _assert_trees_equal(restored, state)
+    if phase != "transformereval":
+        return
+
+    # a step in the port: the stopped class tokens and their moments stay
+    ep = train_episode(cfg, np.random.default_rng(6))
+    before = learner.model.transformer.cls_embeddings.weight.detach().clone()
+    learner.train(ep)
+    assert torch.equal(learner.model.transformer.cls_embeddings.weight, before)
+    checkpoint.save_checkpoint(str(tmp_path / "step.msgpack"), learner, iteration=4)
+    _, restored = jax_checkpoint.load_checkpoint(str(tmp_path / "step.msgpack"), state)
+    adam = restored.opt_state.inner_states["rest"].inner_state[0]
+    assert int(adam.count) == 4 and int(restored.step) == 4
+    np.testing.assert_array_equal(np.asarray(_moments(restored.params, CLS)), before.numpy())
+    for m in (adam.mu, adam.nu):
+        assert not np.asarray(_moments(m, CLS)).any()
+    # ... and a JAX step from the port's file: its count moves on, its class
+    # tokens stay
+    jl.state = restored
+    jl.train(JaxEpisode(*map(jnp.asarray, ep)))
+    adam = jl.state.opt_state.inner_states["rest"].inner_state[0]
+    assert int(adam.count) == 5
+    np.testing.assert_array_equal(np.asarray(_moments(jl.state.params, CLS)), before.numpy())

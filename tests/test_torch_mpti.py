@@ -173,7 +173,7 @@ def test_predictor_shape_guard_and_unported_modes():
     with pytest.raises(NotImplementedError):
         mpti.MPTINet(cfg.replace(compute_dtype="bfloat16", lp_solver="dense"))
     with pytest.raises(NotImplementedError):
-        FewShotPredictor(cfg.replace(phase="protoeval"))
+        FewShotPredictor(cfg.replace(phase="pretrain"), device="cpu")
 
 
 @pytest.mark.parametrize("graph_dtype", ["bfloat16", "float32", "auto"])

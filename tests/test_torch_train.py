@@ -22,7 +22,7 @@ from r3dfsseg_tpu.models import mpti as jax_mpti
 from r3dfsseg_tpu.models.episode import Episode as JaxEpisode
 from r3dfsseg_tpu.ops.pallas_kth import kth_smallest_per_row_pallas
 from r3dfsseg_tpu_torch.config import tiny_config
-from r3dfsseg_tpu_torch.learners import mpti_learner
+from r3dfsseg_tpu_torch.learners import base, mpti_learner
 from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
 from r3dfsseg_tpu_torch.models.episode import Episode
 from r3dfsseg_tpu_torch.serve import FewShotPredictor
@@ -222,5 +222,5 @@ def test_entry_points_default_to_cuda(monkeypatch):
         MPTILearner(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FewShotPredictor(cfg)
-    assert mpti_learner.resolve_device("cpu") == torch.device("cpu")
+    assert base.resolve_device("cpu") == torch.device("cpu")
     assert MPTILearner(cfg, "cpu").device == torch.device("cpu")
