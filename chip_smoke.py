@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--requests N]
                           [--only knn,fps | cheby,scatter | kth | bf16 | f1 | f2 | fused
-                                  | attn | probe | parity | cli | pretrain | baselines]
+                                  | attn | probe | parity | cli | pretrain | baselines
+                                  | scene]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
@@ -215,6 +216,29 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      labels; the training CLI for BASELINE_CLI_ITERS episodes and the
      evaluation CLI from its `.tar`; request latency, step time, a profiled
      step's device time and peak memory printed;
+  4i. whole-scene serving (`scene_phase`): `FewShotPredictor.predict_scene`
+     at flagship width on seeded weights, with the flagship support set,
+     on synthetic scenes (points uniform over 8 x 8 x 3 m, colours in [0,
+     1]): 16,384 points on the dense graph (8 blocks, 16,684 nodes), f32
+     and bf16 (kernel 7 at M = 16,684), 32,768 points on the blocked graph
+     stored in f32 and 65,536 on the blocked graph split-stored in bf16;
+     each scene launches kernels 1, 2 and 3, the dense graph kernel 4 and
+     the dense bf16 graph kernel 7, and no other; each scene is called
+     SCENE_CALLS times: the first call's kernel calls on the scene's own
+     shapes (kNN and the attention forward on the 8, 16 or 32 blocks,
+     kernel 4 on the (16,684, 16,684) f32 and bf16 compare copies, kernel
+     7 on the bf16 S) are kept and held against their plain versions
+     (`check_scene_kernels`: kernel 4 bit-equal, kernel 7 within
+     SPLIT_TOL and CHEBY_TOL, kNN and attention at check_knn's and
+     check_attention's gates), the later calls' labels against the first's
+     (>= SCENE_REPEAT_GATE); the dense scene's labels against
+     R3D_SCENE_LP=blocked (>= SCENE_BLOCKED_GATE), and each dense scene's
+     against the plain path at its graph dtype (>= SCENE_PLAIN_GATE); on
+     an 8,192-point scene's nodes, the stored and rematerialised blocked
+     graphs' Z within SCENE_STREAM_TOL, and the split-stored against the
+     stored f32 graph within SCENE_SPLIT_GATE and SCENE_SPLIT_ATOL; each
+     scene's path, launches, host ms, device ms of encode, graph build and
+     solve (CUDA events) of the later calls and peak memory printed;
   2c. the F2 paths, at shapes the archived TPU kernels 8-11 take and the
      tuned kernels do not (`check_f2`): the general kernel 9
      (`csrc/fused_edge_general.cu`) at FUSED_F2_SHAPES, f32 and bf16, every
@@ -253,11 +277,13 @@ digests of kernels 7 and 10, kernel 11's us per matvec at
 PROBE_DIGEST_COLS columns beside `torch.mm` with each case's device time,
 and its us per step over a range of M (`probe_sweep`); `--only parity`
 phase 4e alone, `--only cli` phase 4f alone, `--only pretrain` phase 4g
-alone, `--only baselines` phase 4h alone.  The `launches_pretrain` entry of
+alone, `--only baselines` phase 4h alone, `--only scene` phase 4i alone.
+The `launches_pretrain` entry of
 every kernel row counts phase 4g's pretraining run, the f32 wide attention
 pair's main path; `launches_baselines_proto` and
 `launches_baselines_transformer` count phase 4h's served requests and
-kernel-path training steps of each baseline.
+kernel-path training steps of each baseline, `launches_scene_<name>` each
+scene of phase 4i.
 """
 from __future__ import annotations
 
@@ -4659,6 +4685,383 @@ def baselines_phase(torch, kernels, episodes, seed) -> dict:
     return dict(launches=launches, figures=figures)
 
 
+# phase 4i: whole-scene serving (`FewShotPredictor.predict_scene`)
+SCENE_EXTENT = (8.0, 8.0, 3.0)   # metres of the synthetic scene's box
+# (name, points, graph dtype, the path `serve.scene_lp_path` must name at R3D_SCENE_LP=auto)
+SCENES = (("dense", 16384, "float32", "dense"),
+          ("dense_bf16", 16384, "bfloat16", "dense"),
+          ("blocked", 32768, "float32", "blocked-stored"),
+          ("split", 65536, "float32", "blocked-split"))
+SCENE_KERNELS = ("knn", "attention_fwd", "fps", "kth", "cheby")   # kernels 1, 2, 3, 4, 7
+SCENE_BLOCKED_GATE = 0.99   # dense vs blocked labels, the JAX package's (tests/test_serve.py:154)
+SCENE_PLAIN_GATE = 0.99     # dense scene, kernel path vs plain path (the serving phases' gate)
+SCENE_STREAM_TOL = (1e-5, 1e-6)   # stored vs rematerialised Z: rtol, atol (test_lp_blocked.py:79)
+# split store vs f32 stored (tests/test_lp_blocked.py:126-129): argmax equal on
+# valid rows, and entries within SCENE_SPLIT_ATOL of max |Z|, each share above
+SCENE_SPLIT_GATE, SCENE_SPLIT_ATOL = 0.995, 2e-2
+SCENE_STREAM_POINTS = 8192
+SCENE_CALLS = 3             # calls a checked scene: the first's kernel inputs kept, the later timed
+SCENE_REPEAT_GATE = 0.999   # a later call's labels against the first's
+
+
+def synthetic_scene(rng: np.random.Generator, p: int):
+    """(xyz, rgb) of p points uniform over SCENE_EXTENT metres, colours in [0, 1]."""
+    xyz = (rng.uniform(size=(p, 3)) * np.asarray(SCENE_EXTENT)).astype(np.float32)
+    return xyz, rng.uniform(size=(p, 3)).astype(np.float32)
+
+
+@contextlib.contextmanager
+def scene_stages(torch, predictor):
+    """CUDA events around the scene program's stages: the encoder's calls
+    (forward hooks), the dense affinity (`lp.local_constrained_affinity`)
+    and solve (`lp.label_propagate`), the blocked or sparse graph's whole
+    call and its Chebyshev solve (`cuda_cheby.chebyshev`).  Yields a dict
+    of stage -> [(start, end)]."""
+    from r3dfsseg_tpu_torch.ops import cuda_cheby, lp, lp_blocked
+
+    spans = {name: [] for name in ("encode", "affinity", "label_propagate", "scene_lp",
+                                   "chebyshev")}
+    patched = [(lp, "local_constrained_affinity", "affinity"),
+               (lp, "label_propagate", "label_propagate"),
+               (lp_blocked, "blocked_label_propagate", "scene_lp"),
+               (lp_blocked, "sparse_label_propagate", "scene_lp"),
+               (cuda_cheby, "chebyshev", "chebyshev")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+
+    def timed(fn, stage):
+        def run(*a, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            spans[stage].append((start, end))
+            return out
+        return run
+
+    def pre(_module, _args):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        spans["encode"].append([ev, None])
+
+    def post(_module, _args, _out):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        spans["encode"][-1][1] = ev
+
+    features = predictor._learner.model.features
+    hooks = [features.register_forward_pre_hook(pre), features.register_forward_hook(post)]
+    for mod, name, stage in patched:
+        setattr(mod, name, timed(getattr(mod, name), stage))
+    try:
+        yield spans
+    finally:
+        for h in hooks:
+            h.remove()
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def stage_ms(spans) -> dict:
+    """Device ms of each stage from `scene_stages`' events (synchronised):
+    encode, graph build and solve.  On the dense graph the build is the
+    affinity and the solve `label_propagate` (S and the Chebyshev steps); on
+    the blocked graph the solve is the Chebyshev steps and the build the
+    rest of its call."""
+    ms = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in spans.items()}
+    if spans["scene_lp"]:
+        return dict(encode_ms=ms["encode"], build_ms=ms["scene_lp"] - ms["chebyshev"],
+                    solve_ms=ms["chebyshev"])
+    return dict(encode_ms=ms["encode"], build_ms=ms["affinity"], solve_ms=ms["label_propagate"])
+
+
+@contextlib.contextmanager
+def capture_calls(torch, targets):
+    """Keeps the calls of module functions made while the block runs:
+    targets maps a label to (module, attribute, keep), keep(args) choosing
+    the calls kept.  Yields label -> [(args, kwargs, out)], tensors
+    cloned; the function runs as before, so its launch count is
+    unchanged."""
+    calls = {label: [] for label in targets}
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets.values()]
+
+    def grab(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def kept(fn, label, keep):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            if keep(a):
+                calls[label].append((tuple(grab(x) for x in a), kw, grab(out)))
+            return out
+        return run
+
+    for label, (mod, name, keep) in targets.items():
+        setattr(mod, name, kept(getattr(mod, name), label, keep))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def scene_kernel_targets(n_blocks: int) -> dict:
+    """`capture_calls` targets of a scene's kernels on the scene's own
+    shapes: kNN and the attention forward on the batch of n_blocks blocks
+    (not the support's), and every k-th distance and Chebyshev solve (the
+    scene graph's)."""
+    from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_cheby, cuda_kth, cuda_knn
+
+    def blocks(a):
+        return a[0].shape[0] == n_blocks
+
+    return {"knn": (cuda_knn, "knn", blocks), "attention_fwd": (cuda_attention, "attention", blocks),
+            "kth": (cuda_kth, "kth_smallest_per_row", lambda a: True),
+            "cheby": (cuda_cheby, "cheby_solve", lambda a: True)}
+
+
+def check_scene_kernels(torch, what: str, calls: dict) -> dict:
+    """Each kernel call that a scene's main path made (`capture_calls`)
+    against its plain version on the same inputs: kNN's lists by
+    `knn_agreement` (mismatch <= 1e-3 of rows, every differing neighbour a
+    tie within NEAR_TIE), the attention forward within rtol 1e-4 / atol
+    1e-5, kernel 4 bit-equal, kernel 7 within SPLIT_TOL of
+    `cheby_solve_split_reference` and within CHEBY_TOL of the f32-product
+    `cheby_solve_reference`, both of max |x| (check_cheby's gates).
+    Returns each kernel's worst error."""
+    from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_cheby, cuda_kth, cuda_knn
+
+    out = {}
+    with torch.inference_mode():
+        for (x, k, *rest), kw, got in calls["knn"]:
+            a = knn_agreement(torch, x.float(), got.long(), cuda_knn.knn_reference(x, k).long())
+            log(f"  [scene] {what}: knn {tuple(x.shape)} k={k}: row mismatch {a['mismatch']:.3e}, "
+                f"worst differing neighbour {a['gap']:.3e} of xx_i + xx_j (gate {NEAR_TIE})")
+            if a["mismatch"] > 1e-3 or a["gap"] > NEAR_TIE:
+                raise AssertionError(f"[scene] {what}: knn {tuple(x.shape)}: {a}")
+            out["knn_mismatch"] = max(out.get("knn_mismatch", 0.0), a["mismatch"])
+        for (q, k, v, *rest), kw, got in calls["attention_fwd"]:
+            want = cuda_attention.attention_reference(q, k, v, *rest, **kw)
+            err = (got - want).abs().max().item()
+            log(f"  [scene] {what}: attention {tuple(q.shape)}: max abs err {err:.3e}")
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+            out["attention_err"] = max(out.get("attention_err", 0.0), err)
+        for (d, k, iters), kw, got in calls["kth"]:
+            want = cuda_kth.kth_smallest_per_row_reference(d, k, iters)
+            log(f"  [scene] {what}: kth {d.dtype} {tuple(d.shape)} k={k} iters={iters}: "
+                f"bit-equal to plain {torch.equal(got, want)}")
+            if not torch.equal(got, want):
+                raise AssertionError(f"[scene] {what}: kth differs from plain by up to "
+                                     f"{(got - want).abs().max().item()}")
+            out["kth_err"] = 0.0
+        for (s, b, alpha, iters), kw, got in calls["cheby"]:
+            # the tolerance of the shortest solve in SPLIT_TOL that is no shorter
+            split_tol = SPLIT_TOL[min([s for s in SPLIT_TOL if s >= iters] or [max(SPLIT_TOL)])]
+            for name, ref, tol in (("split", cuda_cheby.cheby_solve_split_reference, split_tol),
+                                   ("f32", cuda_cheby.cheby_solve_reference, CHEBY_TOL)):
+                want = ref(s, b, alpha, iters)
+                e, scale = (got - want).abs().max().item(), want.abs().max().item()
+                log(f"  [scene] {what}: cheby bf16 S {tuple(s.shape)}, b {tuple(b.shape)}, "
+                    f"{iters} steps: kernel vs {name} plain {e:.3e}, {e / scale:.3e} of max |x| "
+                    f"(tolerance {tol})")
+                if not (np.isfinite(e) and e <= tol * scale):
+                    raise AssertionError(f"[scene] {what}: cheby vs {name} plain {e} > "
+                                         f"{tol} x {scale}")
+                out[f"cheby_{name}_rel_err"] = e / scale
+    return out
+
+
+def scene_request(torch, predictor, support, scene, kernels, impl: str, what: str,
+                  check: bool = False) -> dict:
+    """SCENE_CALLS `predict_scene` calls (one if not ``check``) under
+    R3D_SCENE_LP=impl, each with its launches counted from zero, host ms,
+    stage device ms and peak memory.  The first call's launches are the
+    ones returned; with ``check`` its kernels' inputs are kept and each
+    call held against its plain version (`check_scene_kernels`), and the
+    later calls' labels must equal the first's."""
+    from r3dfsseg_tpu_torch.serve import scene_lp_path
+
+    c = predictor.cfg
+    p = len(scene[0])
+    nodes = c.n_classes * c.n_subprototypes + p
+    targets = scene_kernel_targets(-(-p // c.pc_npts)) if check else {}
+    timed = []
+    os.environ["R3D_SCENE_LP"] = impl
+    try:
+        path = scene_lp_path(nodes, c)
+        for i in range(SCENE_CALLS if check else 1):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with scene_stages(torch, predictor) as spans, \
+                    capture_calls(torch, targets if i == 0 else {}) as calls:
+                zero_counts(kernels)
+                t0 = time.perf_counter()
+                labels = predictor.predict_scene(*support, *scene)
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) * 1e3
+                launched = counts(kernels)
+            timed.append(dict(host_ms=host_ms, peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                              launched=launched, labels=labels, **stage_ms(spans)))
+            if i == 0 and check:
+                checked = check_scene_kernels(torch, what, calls)
+                del calls
+    finally:
+        del os.environ["R3D_SCENE_LP"]
+    labels, launched = timed[0]["labels"], timed[0]["launched"]
+    if labels.shape != (p,) or labels.dtype != np.int32 or \
+            labels.min() < 0 or labels.max() > c.n_way:
+        raise AssertionError(f"[scene] {what}: labels {labels.shape} {labels.dtype} in "
+                             f"[{labels.min()}, {labels.max()}]")
+    repeat = min((float((t["labels"] == labels).mean()) for t in timed[1:]), default=1.0)
+    if any(t["launched"] != launched for t in timed[1:]) or repeat < SCENE_REPEAT_GATE:
+        raise AssertionError(f"[scene] {what}: later calls launched "
+                             f"{[t['launched'] for t in timed[1:]]} against {launched}, their "
+                             f"labels equal the first's on {repeat} of points")
+    # figures from the calls after the first (its kernels' inputs were
+    # copied on the card), or from the only call
+    later = timed[1:] or timed
+    out = dict(points=p, nodes=nodes, path=path, labels=labels, launched=launched,
+               classes=np.bincount(labels, minlength=c.n_classes).tolist(),
+               calls=len(later), checked=checked if check else None, repeat_agreement=repeat,
+               **{key: [t[key] for t in later]
+                  for key in ("host_ms", "encode_ms", "build_ms", "solve_ms", "peak_mib")})
+
+    def span(key, fmt):
+        lo, hi = min(out[key]), max(out[key])
+        return f"{lo:{fmt}}" if len(out[key]) == 1 else f"{lo:{fmt}}-{hi:{fmt}}"
+
+    log(f"[scene] {what}: {p} points, {nodes} nodes, path {path}; launches "
+        + ", ".join(f"{n} {launched[n]}" for n in SCENE_KERNELS)
+        + f"; {out['calls']} timed call(s): host {span('host_ms', '.1f')} ms, device encode "
+        f"{span('encode_ms', '.2f')} ms, graph build {span('build_ms', '.2f')}, solve "
+        f"{span('solve_ms', '.2f')}; peak {span('peak_mib', '.1f')} MiB; labels per class "
+        f"{out['classes']}")
+    return out
+
+
+def expect_scene_launches(what: str, path: str, launched: dict, bf16_graph: bool) -> None:
+    """Kernels 1-3 on every path, kernel 4 on the dense graph only and
+    kernel 7 on the dense bf16 graph only; nothing else of the kernels'
+    families but their tuned forms."""
+    want = {"knn": True, "attention_fwd": True, "fps": True, "kth": path == "dense",
+            "cheby": path == "dense" and bf16_graph}
+    bad = {n: launched[n] for n, on in want.items() if (launched[n] > 0) != on}
+    others = {n: c for n, c in launched.items() if c and n not in want}
+    if bad or others:
+        raise AssertionError(f"[scene] {what} ({path}): launches {bad} against {want}; other "
+                             f"kernels launched: {others}")
+
+
+def scene_phase(torch, kernels, episodes, seed) -> dict:
+    """Phase 4i: whole-scene serving at flagship width on seeded weights
+    (module docstring).  Returns each scene's main-path launches
+    (`scene_<name>`) and the figures."""
+    from r3dfsseg_tpu_torch.config import R3DConfig
+    from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
+    from r3dfsseg_tpu_torch.ops import lp_blocked
+    from r3dfsseg_tpu_torch.serve import FewShotPredictor, scene_blocks
+
+    t0 = time.perf_counter()
+    cfg = R3DConfig()
+    rng = np.random.default_rng(seed + 404)
+    support = tuple(episodes[0][:2])
+    preds = {gd: FewShotPredictor(cfg.replace(graph_dtype=gd),
+                                  MPTILearner(cfg.replace(graph_dtype=gd), "cuda",
+                                              torch.Generator().manual_seed(seed)))
+             for gd in ("float32", "bfloat16")}
+    log(f"[scene] {describe(cfg)}, {cfg.n_way}-way {cfg.k_shot}-shot support, blocks of "
+        f"{cfg.pc_npts} points, scenes uniform over {SCENE_EXTENT} m, MDNS on")
+
+    # the blocked graph's modes on one scene's nodes (the call is also the
+    # warm-up): stored against rematerialised, split-stored against stored
+    small = synthetic_scene(rng, SCENE_STREAM_POINTS)
+    scene_request(torch, preds["float32"], support, small, kernels, "auto", "warm-up")
+    blocks, pad_mask, _ = scene_blocks(*small, cfg.pc_npts)
+    node_feat, node_valid, y0, _ = preds["float32"].scene_nodes(blocks, pad_mask, *support)
+    kw = dict(k=cfg.k_connect, sigma=cfg.sigma, alpha=cfg.lp_alpha, valid=node_valid,
+              iters=cfg.lp_cg_iters)
+    with torch.inference_mode():
+        z_store = lp_blocked.blocked_label_propagate(node_feat, y0, store_graph=True, **kw)
+        z_stream = lp_blocked.blocked_label_propagate(node_feat, y0, store_graph=False, **kw)
+        z_split = lp_blocked.blocked_label_propagate(node_feat, y0, split_store=True, **kw)
+    rtol, atol = SCENE_STREAM_TOL
+    diff = (z_store - z_stream).abs()
+    excess = float((diff - rtol * z_stream.abs()).max())
+    stream = dict(nodes=int(node_feat.shape[0]), max_abs_diff=float(diff.max()),
+                  max_rel_diff=float((diff / z_stream.abs().clamp_min(1e-30)).max()),
+                  max_excess_over_tol=excess)
+    log(f"[scene] stored vs rematerialised blocked graph, {stream['nodes']} nodes: Z max abs "
+        f"diff {stream['max_abs_diff']:.3e}, max rel {stream['max_rel_diff']:.3e} (tolerance "
+        f"rtol {rtol}, atol {atol})")
+    if not excess <= atol:
+        raise AssertionError(f"[scene] stored vs rematerialised Z: {stream}")
+    gap, scale = (z_split - z_store).abs(), z_store.abs().max()
+    split = dict(nodes=stream["nodes"], max_abs_diff=float(gap.max()),
+                 max_abs_diff_of_max_z=float(gap.max() / scale),
+                 close=float((gap <= SCENE_SPLIT_ATOL * scale).float().mean()),
+                 agreement=float((z_split.argmax(-1) == z_store.argmax(-1))[node_valid]
+                                 .float().mean()))
+    log(f"[scene] split-stored vs stored f32 blocked graph, {split['nodes']} nodes: Z max abs "
+        f"diff {split['max_abs_diff']:.3e} ({split['max_abs_diff_of_max_z']:.3e} of max |Z|), "
+        f"{split['close']:.5f} of entries within {SCENE_SPLIT_ATOL} of max |Z|; argmax equal on "
+        f"{split['agreement']:.5f} of valid nodes (gates {SCENE_SPLIT_GATE})")
+    if not min(split["agreement"], split["close"]) > SCENE_SPLIT_GATE:
+        raise AssertionError(f"[scene] split-stored vs stored Z: {split}")
+    del node_feat, node_valid, y0, z_store, z_stream, z_split, diff, gap
+
+    points, runs = {}, {}
+    for name, p, gd, path in SCENES:
+        if p not in points:
+            points[p] = synthetic_scene(rng, p)
+        r = scene_request(torch, preds[gd], support, points[p], kernels, "auto", name,
+                          check=True)
+        if r["path"] != path:
+            raise AssertionError(f"[scene] {name}: path {r['path']}, want {path}")
+        expect_scene_launches(name, path, r["launched"], gd == "bfloat16")
+        runs[name] = r
+
+    # the dense scene again, blocked, and on the plain path at both graph
+    # dtypes (the f32 graph against the bf16 one is printed, not gated:
+    # the bf16 graph's selection and S round, so it is another graph)
+    dense, dense_points = runs["dense"], points[SCENES[0][1]]
+    blk = scene_request(torch, preds["float32"], support, dense_points, kernels, "blocked",
+                        "dense scene, R3D_SCENE_LP=blocked")
+    expect_scene_launches("dense scene, blocked", blk["path"], blk["launched"], False)
+    plain = {}
+    for gd, name in (("float32", "dense"), ("bfloat16", "dense_bf16")):
+        plain_cfg = cfg.replace(knn_impl="xla", fps_impl="xla", attn_impl="xla", graph_dtype=gd)
+        pred = FewShotPredictor(plain_cfg, MPTILearner(plain_cfg, "cuda"))
+        pred._learner.model.load_state_dict(preds[gd]._learner.model.state_dict())
+        pl = scene_request(torch, pred, support, dense_points, kernels, "auto",
+                           f"{name} scene, plain path")
+        if any(pl["launched"].values()):
+            raise AssertionError(f"[scene] the plain path launched a kernel: {pl['launched']}")
+        plain[name] = pl
+    agree = dict(blocked=float((blk["labels"] == dense["labels"]).mean()),
+                 plain=float((plain["dense"]["labels"] == dense["labels"]).mean()),
+                 plain_bf16=float((plain["dense_bf16"]["labels"]
+                                   == runs["dense_bf16"]["labels"]).mean()),
+                 bf16_graph=float((runs["dense_bf16"]["labels"] == dense["labels"]).mean()))
+    log(f"[scene] dense scene: the blocked graph agrees on {agree['blocked']:.5f} of points "
+        f"(gate {SCENE_BLOCKED_GATE}), the plain path on {agree['plain']:.5f} (gate "
+        f"{SCENE_PLAIN_GATE}); on the bf16 graph the plain path on {agree['plain_bf16']:.5f} "
+        f"(gate {SCENE_PLAIN_GATE}); the bf16 graph against the f32 one on "
+        f"{agree['bf16_graph']:.5f}")
+    if agree["blocked"] < SCENE_BLOCKED_GATE or \
+            min(agree["plain"], agree["plain_bf16"]) < SCENE_PLAIN_GATE:
+        raise AssertionError(f"[scene] agreement {agree}")
+
+    keep = ("points", "nodes", "path", "calls", "host_ms", "encode_ms", "build_ms", "solve_ms",
+            "peak_mib", "classes", "checked", "repeat_agreement")
+    figures = {name: {k: runs[name][k] for k in keep} for name, *_ in SCENES}
+    figures.update(dense_blocked={k: blk[k] for k in keep},
+                   **{f"{name}_plain": {k: pl[k] for k in keep} for name, pl in plain.items()},
+                   agreement=agree, stored_vs_stream=stream, split_vs_stored=split,
+                   phase_s=time.perf_counter() - t0)
+    log(f"[scene] phase {figures['phase_s']:.1f} s")
+    return dict(launches={f"scene_{name}": runs[name]["launched"] for name, *_ in SCENES},
+                figures=figures)
+
+
 def all_counters() -> dict:
     """Every kernel counter, by the name of its row: (module, attribute).
     The bf16 forms' counters count their calls apart, within their
@@ -4697,7 +5100,7 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth", "bf16", "f1", "f2",
                                        "fused", "attn", "probe", "parity", "cli", "pretrain",
-                                       "baselines"],
+                                       "baselines", "scene"],
                     help="build, then only the kNN and FPS (or the Chebyshev and scatter-add, "
                          "the k-th distance, the bf16 forms of kernels 1, 2, 5 and 6, the "
                          "F1 kernels: general kNN, packed kNN, wide attention, wide-row k-th "
@@ -4714,7 +5117,8 @@ def main() -> int:
                          "evaluation CLIs on a synthetic dataset); pretrain: phase 4g alone "
                          "(encoder pretraining at full width, finetune and meta-training "
                          "from it, the .msgpack checkpoints); baselines: phase 4h alone "
-                         "(ProtoNet_Contrast and the transformer)")
+                         "(ProtoNet_Contrast and the transformer); scene: phase 4i alone "
+                         "(whole-scene serving on the dense and blocked graphs)")
     args = ap.parse_args()
 
     import torch
@@ -4900,6 +5304,11 @@ def main() -> int:
         return 0
     if args.only == "baselines":
         rows = {"baselines": baselines_phase(torch, all_counters(), episodes, args.seed)}
+        log(smi)
+        log(json.dumps(rows))
+        return 0
+    if args.only == "scene":
+        rows = {"scene": scene_phase(torch, all_counters(), episodes, args.seed)}
         log(smi)
         log(json.dumps(rows))
         return 0
@@ -5125,6 +5534,11 @@ def main() -> int:
     phases.update(baselines_proto=base["launches"]["proto"],
                   baselines_transformer=base["launches"]["transformer"])
     log("[baselines] figures " + json.dumps(base["figures"]))
+    # ---- 4i. whole-scene serving: the dense graph (f32 and bf16), the
+    # blocked graph stored in f32 and split-stored in bf16
+    scene = scene_phase(torch, kernels, episodes, args.seed)
+    phases.update(scene["launches"])
+    log("[scene] figures " + json.dumps(scene["figures"]))
     attn16, dev16 = pre["figures"]["attention_b16"], pre["figures"]["wide_pair_device_ms"]
     rows["attention_wide_tf32_fwd"]["pretrain_b16"] = dict(
         ms=attn16["fwd"], step_device_ms=dev16["fwd"], plain_ms=attn16["fwd_plain"],

@@ -42,12 +42,19 @@ launches = 0
 wide_launches = 0      # the wide-row variant
 
 
-def kth_smallest_per_row_reference(d: torch.Tensor, k: int, iters: int) -> torch.Tensor:
+def kth_smallest_per_row_reference(d: torch.Tensor, k: int, iters: int,
+                                   hi: torch.Tensor | None = None) -> torch.Tensor:
     """d (R, M) f32 or bf16 -> (R, 1) f32 upward-biased k-th smallest per
-    row, the plain version."""
+    row, the plain version.  ``hi`` (a 0-d f32 tensor) fixes every row's
+    bracket to [0, hi] instead, as the JAX package's
+    `_kth_smallest_per_row(..., hi=)` on the scene graph's row tiles
+    (`ops/lp_blocked.py`), where the kernel does not run."""
     d = d.float()
-    finite = d < 0.5 * SENTINEL
-    hi = torch.where(finite, d, 0.0).amax(1, keepdim=True).clamp_min(1e-6)
+    if hi is None:
+        finite = d < 0.5 * SENTINEL
+        hi = torch.where(finite, d, 0.0).amax(1, keepdim=True).clamp_min(1e-6)
+    else:
+        hi = torch.ones((d.shape[0], 1), dtype=torch.float32, device=d.device) * hi
     lo = torch.zeros_like(hi)
     for _ in range(iters):
         mid = 0.5 * (lo + hi)

@@ -16,11 +16,23 @@ transformer baseline (`learners/__init__.py:make_learner`); any other phase
 raises.  The predictor runs on ``device``, "cuda" unless the caller asks
 for "cpu".  Checkpoints: the JAX package's `checkpoint.msgpack`
 (`utils/checkpoint.py`) and the original PyTorch model's `checkpoint.tar`
-(`utils/torch_convert.py`).  Whole-scene serving (`predict_scene`) is not
-ported yet.
+(`utils/torch_convert.py`).
+
+Whole-scene serving, `predict_scene`: the scene's P points, cut into
+blocks of ``pc_npts`` on the host (`scene_blocks`), join one
+label-propagation graph with the support prototypes, M = (n_way + 1) *
+n_subprototypes + P nodes, whatever ``cfg.phase`` is (the learner model's
+encoder and MPTI's graph nodes, as in the JAX package).  The graph is
+dense (`ops/lp.py`: kernel 4, and kernel 7 on a bf16 graph where it fits)
+up to 18,000 nodes and blocked past them (`ops/lp_blocked.py`: stored in
+float32 up to 47,616 nodes, then split-stored in bf16).  The environment
+variable ``R3D_SCENE_LP``, read at each call, selects the path: ``auto``
+(the default) by size, ``blocked`` or ``sparse`` that graph, any other
+value the dense graph.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -29,8 +41,82 @@ import torch
 from r3dfsseg_tpu_torch.config import R3DConfig
 from r3dfsseg_tpu_torch.learners import make_learner
 from r3dfsseg_tpu_torch.learners.base import Learner
+from r3dfsseg_tpu_torch.models import mpti
 from r3dfsseg_tpu_torch.models.episode import Episode
+from r3dfsseg_tpu_torch.ops import lp, lp_blocked
 from r3dfsseg_tpu_torch.utils.checkpoint import restore
+
+# past this many nodes the dense graph's several M^2 float32 build buffers
+# crowd one device, and the blocked graph takes over (the JAX package's
+# number, sized for a 16 GB TPU)
+DENSE_MAX_NODES = 18000
+
+
+def scene_blocks(scene_xyz: np.ndarray, scene_rgb: Optional[np.ndarray], n: int, *,
+                 cell: float = 1.0):
+    """The host's block assembly of `predict_scene`: points sorted by
+    ``cell``-metre (x, y) cells and then z, cut into blocks of n points
+    (the last one padded by cycling the sorted points), each block's xyz
+    shifted to its minimum, rgb, and xyz normalised by the scene's extent.
+
+    Returns (blocks (ceil(P / n), n, 9) float32 xyzrgbXYZ, pad_mask
+    (blocks * n,) bool, True on the first P nodes, order (P,): the point at
+    each sorted position)."""
+    xyz = np.asarray(scene_xyz, np.float32)
+    p = xyz.shape[0]
+    rgb = (np.zeros((p, 3), np.float32) if scene_rgb is None
+           else np.asarray(scene_rgb, np.float32))
+    mn = xyz.min(0)
+    cid = np.floor((xyz[:, :2] - mn[:2]) / max(cell, 1e-6)).astype(np.int64)
+    order = np.lexsort((xyz[:, 2], cid[:, 1], cid[:, 0]))
+    n_blocks = -(-p // n)
+    idx = np.resize(order, n_blocks * n)     # cycle the sorted points into the pad
+    blocks_xyz = xyz[idx].reshape(n_blocks, n, 3)
+    blocks_rgb = rgb[idx].reshape(n_blocks, n, 3)
+    # per-block min shift and scene-extent normalisation, the sampler's
+    # attribute conventions
+    local = blocks_xyz - blocks_xyz.min(axis=1, keepdims=True)
+    scale = np.maximum((xyz - mn).max(0), 1e-6)
+    glob = (blocks_xyz - mn) / scale
+    blocks = np.concatenate([local, blocks_rgb, glob], axis=-1)
+    pad_mask = np.zeros(n_blocks * n, bool)
+    pad_mask[:p] = True
+    return blocks, pad_mask, order
+
+
+def scene_lp_path(m: int, cfg: R3DConfig) -> str:
+    """The scene graph a graph of m nodes takes under ``R3D_SCENE_LP``
+    (default "auto"): "dense", "sparse", or "blocked-" and
+    `lp_blocked.scene_lp_mode`'s "stored", "split" or "stream"."""
+    impl = os.environ.get("R3D_SCENE_LP", "auto")
+    if impl == "sparse":
+        return "sparse"
+    if impl == "blocked" or (impl == "auto" and m > DENSE_MAX_NODES):
+        lowp = torch.bfloat16 if cfg.graph_bf16 else None
+        return "blocked-" + lp_blocked.scene_lp_mode(m, compute_dtype=lowp)
+    return "dense"
+
+
+def scene_label_propagate(node_feat: torch.Tensor, y0: torch.Tensor, node_valid: torch.Tensor,
+                          cfg: R3DConfig) -> torch.Tensor:
+    """Z (M, n_classes) of the scene graph, on the path `scene_lp_path`
+    names: the dense threshold affinity and Chebyshev solve at the graph
+    dtype (`graph_dtype`, "auto" following `compute_dtype`), or
+    `lp_blocked`'s blocked or sparse graph.  Kernels 4 and 7 follow
+    ``cfg.follower_impl``, as on the episode graph."""
+    c = cfg
+    lowp = torch.bfloat16 if c.graph_bf16 else None
+    path = scene_lp_path(node_feat.shape[0], c)
+    if path != "dense":
+        fn = (lp_blocked.sparse_label_propagate if path == "sparse"
+              else lp_blocked.blocked_label_propagate)
+        return fn(node_feat, y0, k=c.k_connect, sigma=c.sigma, alpha=c.lp_alpha,
+                  valid=node_valid, iters=c.lp_cg_iters, compute_dtype=lowp)
+    a = lp.local_constrained_affinity(node_feat, c.k_connect, c.sigma, valid=node_valid,
+                                      compare_dtype=lowp, impl="threshold",
+                                      kth_impl=c.follower_impl)
+    return lp.label_propagate(a, y0, c.lp_alpha, solver="cheby", cg_iters=c.lp_cg_iters,
+                              matvec_dtype=lowp, impl=c.follower_impl)
 
 
 class FewShotPredictor:
@@ -78,3 +164,66 @@ class FewShotPredictor:
         return pred[0].cpu().numpy()
 
     __call__ = predict
+
+    def predict_scene(self, support_x: np.ndarray, support_y: np.ndarray,
+                      scene_xyz: np.ndarray, scene_rgb: Optional[np.ndarray] = None, *,
+                      mesh=None, cell: float = 1.0) -> np.ndarray:
+        """Segment a whole scene in one transductive graph: (P,) int32
+        labels (0 = bg, 1..n_way) in the input point order.
+
+        support_x / support_y as `predict`; scene_xyz (P, 3) raw
+        coordinates, scene_rgb (P, 3) colours in [0, 1] (zeros if
+        omitted); ``cell`` the metres of the sort's (x, y) cells that group
+        the points into blocks (`scene_blocks`).  ``mesh`` (the JAX
+        package's node-sharded graph) is not ported yet and raises."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "predict_scene(mesh=...): the node-sharded scene graph is ROADMAP.md §1 "
+                "item 7b, not ported yet")
+        c = self.cfg
+        if c.pc_in_dim != 9:
+            raise NotImplementedError("predict_scene assembles xyzrgbXYZ attributes (9-d)")
+        blocks, pad_mask, order = scene_blocks(scene_xyz, scene_rgb, c.pc_npts, cell=cell)
+        pred = self.scene_labels(blocks, pad_mask, support_x, support_y)
+        out = np.empty(order.shape[0], np.int32)
+        out[order] = pred[:order.shape[0]]
+        return out
+
+    def scene_nodes(self, blocks, pad_mask, support_x, support_y):
+        """The scene graph's nodes on the device: the learner model's
+        encoder on the blocks and on the support, MDNS (``eval_mdns``) and
+        MPTI's prototypes.  Returns (node_feat (M, d) float32, node_valid
+        (M,), y0 (M, n_classes), the number of prototype nodes)."""
+        c = self.cfg
+        dev = self._learner.device
+        features = self._learner.model.features
+        with torch.inference_mode():
+            blocks = torch.as_tensor(np.asarray(blocks, np.float32), device=dev)
+            nbk, n = blocks.shape[:2]
+            scene_feat = features(blocks, False)
+            d = scene_feat.shape[-1]
+            sup_x = torch.as_tensor(np.asarray(support_x, np.float32), device=dev)
+            sup_y = torch.as_tensor(np.asarray(support_y, np.int32), device=dev)
+            sf = features(sup_x.reshape(c.n_way * c.k_shot, n, -1), False).reshape(
+                c.n_way, c.k_shot, n, d)
+            fg = sup_y > 0
+            fg_used = fg
+            if self.eval_mdns:
+                keep, _ = mpti.mdns_keep_mask(sf, fg, sup_x[..., :3], c.mdns_scales)
+                fg_used = fg & (keep[..., None] > 0.5)
+            protos, pvalid, proto_labels, _ = mpti.episode_graph_nodes(sf, fg_used, fg, c)
+            node_feat = torch.cat([protos.float(), scene_feat.reshape(nbk * n, d).float()])
+            node_valid = torch.cat([pvalid, torch.as_tensor(pad_mask, device=dev)])
+            y0 = torch.cat([proto_labels,
+                            torch.zeros((nbk * n, c.n_classes), dtype=torch.float32, device=dev)])
+        return node_feat, node_valid, y0, protos.shape[0]
+
+    def scene_labels(self, blocks, pad_mask, support_x, support_y) -> np.ndarray:
+        """The scene program on assembled blocks: (nb * n,) int32 labels of
+        the blocks' nodes, in block order."""
+        node_feat, node_valid, y0, n_protos = self.scene_nodes(blocks, pad_mask, support_x,
+                                                               support_y)
+        with torch.inference_mode():
+            z = scene_label_propagate(node_feat, y0, node_valid, self.cfg)
+            return z[n_protos:].argmax(-1).to(torch.int32).cpu().numpy()
+

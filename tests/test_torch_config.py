@@ -62,12 +62,13 @@ def test_fuse_edge_on_is_refused_by_both_packages(mode):
 
 def test_port_imports_no_jax():
     """Importing the port, its serving path, its training step, its data
-    pipeline, its CLIs, its pretraining, its Flax checkpoints and the
-    baselines (models, learners, ccns; both served) pulls in
+    pipeline, its CLIs, its pretraining, its Flax checkpoints, the
+    baselines (models, learners, ccns; both served) and whole-scene
+    serving (`predict_scene` on the dense, blocked and sparse graphs) pulls in
     neither jax nor the JAX package, nor flax, h5py or msgpack (a fresh
     interpreter, so this process's jax does not count)."""
     code = (
-        "import sys\n"
+        "import os, sys\n"
         "import r3dfsseg_tpu_torch, chip_smoke\n"
         "import r3dfsseg_tpu_torch.data, r3dfsseg_tpu_torch.native, r3dfsseg_tpu_torch.cli\n"
         "from r3dfsseg_tpu_torch import mpti_train_noise, eval_noise, pretrain\n"
@@ -80,7 +81,7 @@ def test_port_imports_no_jax():
         "from r3dfsseg_tpu_torch.learners import ProtoLearner, TransformerLearner, make_learner\n"
         "from r3dfsseg_tpu_torch.learners import base, proto_learner, transformer_learner\n"
         "from r3dfsseg_tpu_torch.models import protonet, transformer\n"
-        "from r3dfsseg_tpu_torch.ops import ccns, segment\n"
+        "from r3dfsseg_tpu_torch.ops import ccns, segment, lp_blocked\n"
         "from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_cheby, cuda_fps, cuda_knn, "
         "cuda_kth, cuda_scatter, cuda_gather, cuda_fused_edge, fused_edge\n"
         "from r3dfsseg_tpu_torch.utils.convert import state_dict_from_jax\n"
@@ -102,6 +103,10 @@ def test_port_imports_no_jax():
         "lowp = FewShotPredictor(tiny_config(graph_dtype='bfloat16'), device='cpu')\n"
         "assert lowp.predict(rng.normal(size=(2, 2, 64, 9)), sy,\n"
         "                    rng.normal(size=(2, 64, 9))).shape == (2, 64)\n"
+        "xyz = rng.uniform(0, 4, size=(3 * 64 + 5, 3))\n"
+        "for impl in ('auto', 'blocked', 'sparse'):\n"
+        "    os.environ['R3D_SCENE_LP'] = impl\n"
+        "    assert p.predict_scene(rng.normal(size=(2, 2, 64, 9)), sy, xyz).shape == (197,)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'r3dfsseg_tpu.'))\n"
         "             or m in ('r3dfsseg_tpu', 'flax', 'h5py', 'msgpack')\n"
         "             or m.startswith(('flax.', 'h5py.', 'msgpack.')))\n"
