@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N] [--requests N]
                           [--only knn,fps | cheby,scatter | kth | bf16 | f1 | f2 | fused
                                   | attn | probe | parity | cli | pretrain | baselines
-                                  | scene]
+                                  | scene | parallel]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
@@ -239,6 +239,31 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      stored f32 graph within SCENE_SPLIT_GATE and SCENE_SPLIT_ATOL; each
      scene's path, launches, host ms, device ms of encode, graph build and
      solve (CUDA events) of the later calls and peak memory printed;
+  4j. data parallelism (`parallel_phase`, `r3dfsseg_tpu_torch/parallel/`):
+     (1) in a NCCL process group of world size 1, the flagship DP training
+     step at E = DP_E (attention dropout 0.1) bit-equal to the unwrapped
+     learner's (metrics, every parameter, BN buffers, Adam state), a DP
+     pretraining step at batch 16 bit-equal to the plain one, and the
+     training CLI at --mesh 1 bit-equal to no --mesh (losses, episode
+     digest), under deterministic algorithms; the W = 1 DP step is the
+     phase's main path and launches DP_STEP; (2) each attention family
+     (DP_ATTN: tuned f32 and wgmma bf16 at D = 64, the wide f32, wide bf16
+     and grouped bf16 pairs), forward and backward at rate 0.1, on rows
+     [b0, b0 + 2) of 4 clouds with batch offset b0: bit-equal to those rows
+     of the whole batch's call, and the mask's words at b0 to the plain
+     version's; (3) world size 2 on the one card (`parallel.launch`: two
+     processes on cuda:0 over gloo, all-gathers through host copies): the
+     DP step against the unsharded E = DP_E step and a DP pretraining step
+     in two shards of 8 against W = 1, on the unsharded steps' kNN graphs
+     (`knn_rows`), at DP_GATES (loss, each gradient's relative L2, BN
+     running statistics); the W = 2 step, run under deterministic
+     algorithms, against its witness (`dp_witness`: each rank's rows run
+     alone in this process at their offsets, with no collective, and
+     averaged by hand) at DP_WITNESS_GATES, the CPU tests' gates with
+     each BN statistic against its own entry; host-clock and profiled
+     device times of each
+     step at W = 1 and of rank 0's at W = 2 (two processes sharing one
+     card: not a scaling figure);
   2c. the F2 paths, at shapes the archived TPU kernels 8-11 take and the
      tuned kernels do not (`check_f2`): the general kernel 9
      (`csrc/fused_edge_general.cu`) at FUSED_F2_SHAPES, f32 and bf16, every
@@ -277,13 +302,18 @@ digests of kernels 7 and 10, kernel 11's us per matvec at
 PROBE_DIGEST_COLS columns beside `torch.mm` with each case's device time,
 and its us per step over a range of M (`probe_sweep`); `--only parity`
 phase 4e alone, `--only cli` phase 4f alone, `--only pretrain` phase 4g
-alone, `--only baselines` phase 4h alone, `--only scene` phase 4i alone.
+alone, `--only baselines` phase 4h alone, `--only scene` phase 4i alone,
+`--only parallel` phase 4j alone.
 The `launches_pretrain` entry of
 every kernel row counts phase 4g's pretraining run, the f32 wide attention
 pair's main path; `launches_baselines_proto` and
 `launches_baselines_transformer` count phase 4h's served requests and
 kernel-path training steps of each baseline, `launches_scene_<name>` each
-scene of phase 4i.
+scene of phase 4i, `launches_parallel_w1` and
+`launches_parallel_pretrain_w1` phase 4j's W = 1 DP training and
+pretraining steps, `launches_parallel_w2` and
+`launches_parallel_pretrain_w2` rank 0's at W = 2; the attention rows'
+`batch_offsets` are phase 4j's offset checks.
 """
 from __future__ import annotations
 
@@ -5062,6 +5092,544 @@ def scene_phase(torch, kernels, episodes, seed) -> dict:
                 figures=figures)
 
 
+# ------------------------------------------------- data parallelism --
+# phase 4j: the episode and scene-batch data parallelism of `parallel/`
+DP_E = 2               # episodes of the flagship DP step
+DP_CLI_ITERS = 8       # training episodes of the CLI at --mesh 1 and without
+DP_TIMED = 5           # timed steps after the first, host clock
+# W = 2 against the unsharded step: the loss and the BN running statistics
+# at tests/test_torch_parallel.py (d)'s 1e-5 (each statistic against its
+# buffer's largest entry).  The gradients at flagship width: the CPU tests'
+# 1e-5 per parameter holds at their tiny widths, not here.  A shard's other
+# summation orders (batch-sized GEMMs and key splits, partial BN sums, the
+# gradient's all-reduce) move the early layers' gradients as far as one
+# ulp on the first layer's weights does (`one_ulp`; PERF.md section 6: up to
+# 4e-4 and 1.4e-3 against 9e-4 and 1.8e-3, 2e-4 to 6e-4 over all
+# parameters), while the losses agree within 5e-7.  So the relative L2
+# over all parameters is held to GRAD_TOL, the card's gate for
+# rounding-level differences of the flagship step, and each parameter's
+# to 10 GRAD_TOL: a missing or unscaled reduction moves a gradient by O(1).
+# Each BN statistic against its own entry (the CPU tests' measure) read
+# 1.64e-3 here, on entries whose (1 - momentum) batch means cancel to near
+# 0: printed, not gated.  The witness holds the rest (`dp_witness`): the
+# W = 2 step against its ranks' rows run alone and averaged by hand, at
+# the CPU tests' (d) gates, each statistic against its own entry
+DP_GATES = dict(loss=1e-5, grad_all=GRAD_TOL, grad=10 * GRAD_TOL, buffers=1e-5)
+DP_WITNESS_GATES = dict(loss=1e-5, grad_all=1e-5, grad=1e-5, buffers=1e-5, buffers_elem=1e-5)
+DP_PRETRAIN_CLASSES = 7
+DP_STEP = {"knn": 6, "attention_fwd": 2, "attention_bwd": 2, "fps": 3 * DP_E, "kth": DP_E,
+           "scatter_add": 6}   # launches of the flagship DP step (E = 2), f32 graph
+DP_ATTN = (("float32", 64), ("bfloat16", 64), ("float32", 128), ("bfloat16", 128),
+           ("bfloat16", 320))  # one family each: tuned f32, wgmma bf16, wide tf32, wide tc, group
+DP_ATTN_B, DP_ATTN_ROWS = 4, 2  # the whole batch and a shard's rows, N = 2048
+
+
+def stacked(episodes, e: int):
+    """The first ``e`` flagship episodes as one batch (numpy `Episode`)."""
+    from r3dfsseg_tpu_torch.models.episode import Episode
+    return Episode(*(np.stack(f) for f in zip(*episodes[:e])))
+
+
+def dp_state(torch, learner) -> dict:
+    """A learner's parameters, buffers and Adam state (CPU copies)."""
+    opt = learner.optimizer
+    return dict(params={n: p.detach().cpu().clone() for n, p in learner.model.named_parameters()},
+                buffers={n: b.cpu().clone() for n, b in learner.model.named_buffers()},
+                adam={n: {k: v.cpu().clone() for k, v in opt.state[p].items()}
+                      for n, p in learner.model.named_parameters() if p in opt.state})
+
+
+def same_state(a: dict, b: dict) -> bool:
+    import torch
+    return all(a[part].keys() == b[part].keys() for part in a) and \
+        all(torch.equal(x, b["params"][n]) for n, x in a["params"].items()) and \
+        all(torch.equal(x, b["buffers"][n]) for n, x in a["buffers"].items()) and \
+        all(all(torch.equal(v, b["adam"][n][k]) for k, v in st.items())
+            for n, st in a["adam"].items())
+
+
+def check_attention_offsets(torch, attn_mod, seed) -> dict:
+    """Phase 4j (2): each attention family (DP_ATTN), forward and backward
+    at rate 0.1 on B = DP_ATTN_B clouds of N = 2048: the kernels on rows
+    [b0, b0 + DP_ATTN_ROWS) with offset b0 (a data-parallel rank's call)
+    bit-equal to those rows of the whole batch's call (y, lse, dq, dk, dv),
+    for b0 = 0 and DP_ATTN_ROWS, and the mask's words from
+    `r3d_dropout_mask` at b0 bit-equal to the plain version's and to the
+    whole batch's rows.  A launch's key splits grow as B shrinks, up to 4
+    (`csrc/attention.cuh:splits`); at these batches every family is at 4
+    for the whole batch and for a shard, so both run one tiling (the
+    grouped bf16 pair takes 2 at B = 8, 4 at B = 4)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 53)
+    n, s = 2048, seed + 5
+    words = attn_mod.dropout_words(DP_ATTN_B, n, s, "cuda")
+    out = {}
+    for b0 in range(0, DP_ATTN_B, DP_ATTN_ROWS):
+        part = attn_mod.dropout_words(DP_ATTN_ROWS, n, s, "cuda", b0)
+        plain = attn_mod.dropout_words_reference(DP_ATTN_ROWS, n, s, "cuda", b0)
+        if not (torch.equal(part, words[b0:b0 + DP_ATTN_ROWS])
+                and torch.equal(part.to(torch.int64) & 0xFFFFFFFF, plain)):
+            raise AssertionError(f"dropout words at offset {b0}: not the whole batch's rows")
+    del words, part, plain
+    for dtype_name, d in DP_ATTN:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, dy = (torch.randn((DP_ATTN_B, n, d), generator=g, device="cuda")
+                       for _ in range(4))
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        tau = d ** 0.5
+        y, lse = attn_mod.attention_fwd(q, k, v, tau, 0.1, s)
+        whole = (y, lse, *attn_mod.attention_bwd(q, k, v, y, dy, lse, tau, 0.1, s))
+        for b0 in range(0, DP_ATTN_B, DP_ATTN_ROWS):
+            sl = slice(b0, b0 + DP_ATTN_ROWS)
+            yr, lr = attn_mod.attention_fwd(q[sl], k[sl], v[sl], tau, 0.1, s, b0)
+            rows = (yr, lr, *attn_mod.attention_bwd(q[sl], k[sl], v[sl], yr, dy[sl], lr, tau,
+                                                    0.1, s, b0))
+            bad = [name for name, a, w in zip(("y", "lse", "dq", "dk", "dv"), rows, whole)
+                   if not torch.equal(a, w[sl])]
+            if bad:
+                raise AssertionError(f"attention {dtype_name} D={d}: rows [{b0}, "
+                                     f"{b0 + DP_ATTN_ROWS}) at offset {b0} differ from the "
+                                     f"whole batch's rows in {bad}")
+        out[f"{dtype_name}_d{d}"] = "bit-equal"
+    log(f"  [4j] attention at an offset: {', '.join(out)} forward and backward (rate 0.1, B "
+        f"{DP_ATTN_B}, rows of {DP_ATTN_ROWS} at b0 = 0 and {DP_ATTN_ROWS}) bit-equal to the "
+        f"whole batch's rows; the mask's words at each offset equal the plain version's")
+    return out
+
+
+@contextlib.contextmanager
+def knn_rows(torch, knn_mod, recorded, mesh):
+    """A data-parallel rank on the unsharded step's kNN graphs (why:
+    `KnnReplay`): each call launches the kNN kernel on the rank's clouds;
+    where a row's neighbours differ from the same row of the whole batch's
+    recorded call, the difference must be a rounding-level tie (gap <=
+    NEAR_TIE), and the recorded row is taken.  Yields the rows taken, per
+    call."""
+    kernel, queue, swapped = knn_mod.knn, list(recorded), []
+
+    def knn(x, k, **kw):
+        got = kernel(x, k, **kw)
+        whole = queue.pop(0)
+        per = whole.shape[0] // mesh.size
+        want = whole[mesh.rank * per:(mesh.rank + 1) * per].to(got.device)
+        rows = (got.long().sort(-1).values != want.long().sort(-1).values).any(-1)
+        swapped.append(int(rows.sum()))
+        if bool(rows.any()):
+            gap = knn_agreement(torch, x.float(), got.long(), want.long())["gap"]
+            if gap > NEAR_TIE:
+                raise AssertionError(f"rank {mesh.rank}: kNN rows differ from the whole "
+                                     f"batch's beyond a tie: {gap}")
+        return want.to(got.dtype)
+    knn_mod.knn = knn
+    try:
+        yield swapped
+    finally:
+        knn_mod.knn = kernel
+
+
+def dp_timed(torch, step, reps: int = DP_TIMED) -> dict:
+    """Host-clock ms of ``reps`` calls of step() (a synchronise each), and
+    the device's busy ms per call over 3 profiled calls (kernel time)."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    busy = sum(ms for _, ms in device_kernels(torch, step))
+    return dict(host_ms=times, host_ms_median=statistics.median(times), device_busy_ms=busy)
+
+
+def pretrain_batch(episodes, rng):
+    """A pretraining batch of 16 flagship clouds (the support clouds of the
+    first episodes) with labels in [0, DP_PRETRAIN_CLASSES)."""
+    x = np.concatenate([e[0].reshape(-1, *e[0].shape[-2:]) for e in episodes])[:16]
+    y = rng.integers(0, DP_PRETRAIN_CLASSES, size=x.shape[:2]).astype(np.int64)
+    return x, y
+
+
+def parallel_rank(payload: dict, device=None) -> dict:
+    """Phase 4j (3)'s rank body, which `parallel.launch` runs in each of
+    two processes sharing the card over gloo: the flagship DP step (E =
+    DP_E) and a DP pretraining step (batch 16, 8 a rank) from the seeded
+    weights, on the unsharded steps' kNN graphs (`knn_rows`), then timed
+    steps of each.  Returns rank 0's metrics, gradients, BN buffers,
+    launches and times."""
+    import torch
+
+    from r3dfsseg_tpu_torch import pin_f32_matmul, pretrain as pre
+    from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
+    from r3dfsseg_tpu_torch.nn.dgcnn import init_linear_weights
+    from r3dfsseg_tpu_torch.ops import cuda_knn
+    from r3dfsseg_tpu_torch.parallel import make_mesh, replicate
+    from r3dfsseg_tpu_torch.parallel.mesh import shard_rows
+
+    pin_f32_matmul()
+    mesh = make_mesh(device=device)
+    kernels, seed = all_counters(), payload["seed"]
+    learner = MPTILearner(payload["cfg"], mesh.device, torch.Generator().manual_seed(seed))
+    learner.attach_mesh(mesh)
+    batch = payload["batch"]
+    zero_counts(kernels)
+    # deterministic, as the witness (`dp_witness`) runs the ranks' rows
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with knn_rows(torch, cuda_knn, payload["knn"], mesh) as swapped:
+            m = learner.train(batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out = dict(launches=counts(kernels), metrics={k: v.item() for k, v in m.items()},
+               grads={n: p.grad.cpu() for n, p in learner.model.named_parameters()
+                      if p.grad is not None},
+               buffers={n: b.cpu() for n, b in learner.model.named_buffers()},
+               swapped=swapped, staged_all_gather=mesh.staged_all_gather,
+               backend=torch.distributed.get_backend(mesh.group))
+    out["timed"] = dp_timed(torch, lambda: learner.train(batch))
+    del learner
+
+    model = pre.seg_model(payload["cfg"], DP_PRETRAIN_CLASSES)
+    init_linear_weights(model, torch.Generator().manual_seed(seed))
+    model.to(mesh.device)
+    gen = torch.Generator().manual_seed(seed)
+    replicate([*model.parameters(), *model.buffers()], mesh)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+    x, y = (shard_rows(torch.from_numpy(a), mesh).to(mesh.device)
+            for a in payload["pretrain_batch"])
+    offset = mesh.rank * x.shape[0]
+    zero_counts(kernels)
+    with knn_rows(torch, cuda_knn, payload["pretrain_knn"], mesh) as swapped:
+        loss, acc = pre.pretrain_step(model, opt, x, y, gen, mesh, offset)
+    torch.cuda.synchronize()
+    out["pretrain"] = dict(
+        launches=counts(kernels), loss=loss.item(), acc=acc.item(), swapped=swapped,
+        grads={n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None},
+        buffers={n: b.cpu() for n, b in model.named_buffers()},
+        timed=dp_timed(torch, lambda: pre.pretrain_step(model, opt, x, y, gen, mesh, offset)))
+    return out
+
+
+def dp_witness(torch, cfg, batch, seed, recorded_knn, w: int) -> dict:
+    """The W-rank DP step without a collective, in this process: each
+    rank's rows run alone on a fresh seeded learner, at their `Shard`
+    offset and on the whole batch's kNN rows (`knn_rows`), under
+    deterministic algorithms; the ranks' losses, gradients (None as zero,
+    as `all_reduce_grads_` counts it) and BN running statistics are then
+    averaged by hand as the DP step's all-reduces average them.  The W = 2
+    step must equal this: its only differences from the unsharded step
+    are then those of the shapes a rank computes at."""
+    from r3dfsseg_tpu_torch.data.loader import to_device
+    from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
+    from r3dfsseg_tpu_torch.models.episode import Episode
+    from r3dfsseg_tpu_torch.ops import cuda_knn
+    from r3dfsseg_tpu_torch.parallel import Mesh, Shard, shard_episode
+
+    ranks = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for r in range(w):
+            mesh = Mesh(None, r, w, torch.device("cuda"))
+            learner = MPTILearner(cfg, "cuda", torch.Generator().manual_seed(seed))
+            rows, offset = shard_episode(Episode(*batch), mesh)
+            with knn_rows(torch, cuda_knn, recorded_knn, mesh):
+                out = learner.model(to_device(rows, "cuda"), train=True,
+                                    generator=learner.generator,
+                                    shard=Shard(offset, batch.support_x.shape[0]))
+            loss, _ = learner.objective(out)
+            loss.backward()
+            torch.cuda.synchronize()
+            ranks.append(dict(loss=loss.detach(),
+                              grads=dict(learner.model.named_parameters()),
+                              buffers=dict(learner.model.named_buffers())))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    grads = {}
+    for n in ranks[0]["grads"]:
+        got = [k["grads"][n].grad for k in ranks]
+        if any(g is not None for g in got):
+            grads[n] = (sum(torch.zeros_like(k["grads"][n]) if g is None else g
+                            for k, g in zip(ranks, got)) / w).cpu()
+    return dict(loss=(sum(k["loss"] for k in ranks) / w).item(), grads=grads,
+                buffers={n: (sum(k["buffers"][n] for k in ranks) / w).cpu()
+                         for n in ranks[0]["buffers"]})
+
+
+def one_ulp(torch, w) -> None:
+    """Every entry of ``w`` moved up by one ulp: a rounding-level change
+    of the step, to show how far such a change moves its gradients."""
+    with torch.no_grad():
+        w.copy_(torch.nextafter(w, torch.full_like(w, float("inf"))))
+
+
+def dp_compare(what: str, got: dict, want: dict, gates: dict = DP_GATES) -> dict:
+    """Loss, each gradient (relative L2; the biases that feed a train-mode
+    BatchNorm, whose exact gradient is 0, below 1e-5 of the largest entry;
+    the relative L2 over all parameters printed beside) and the BN running
+    statistics (each buffer's largest difference over its largest entry,
+    and each entry's difference over itself: gated where ``gates`` has
+    "buffers_elem") of ``got`` against ``want``; ``gates`` None only
+    prints them."""
+    import torch
+    got, want = ({k: {n: x.cpu() for n, x in v.items()} if k in ("grads", "buffers") else v
+                  for k, v in d.items()} for d in (got, want))
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    zero = {n for n in want["grads"] if n.endswith(".conv.bias")}
+    top = max(g.abs().max().item() for g in want["grads"].values())
+    noise = max((max(got["grads"][n].abs().max().item(), want["grads"][n].abs().max().item())
+                 for n in zero), default=0.0)
+    rel = _rel_distances(got["grads"], want["grads"], zero)
+    worst = max(rel, key=rel.get)
+    names = sorted(rel)
+    flat = [torch.cat([g[n].flatten() for n in names]) for g in (got["grads"], want["grads"])]
+    stats = [n for n in want["buffers"] if n.endswith(("running_mean", "running_var"))]
+    buf = max(((got["buffers"][n] - want["buffers"][n]).abs().max()
+               / want["buffers"][n].abs().max().clamp_min(1e-30)).item() for n in stats)
+    elem = {}
+    for n in stats:
+        d = (got["buffers"][n] - want["buffers"][n]).abs()
+        elem[n] = torch.where(d == 0, 0.0, d / want["buffers"][n].abs()).max().item()
+    elem_worst = max(elem, key=elem.get)
+    r = dict(loss_rel_diff=loss_rel, grad_rel_max=rel[worst], grad_rel_max_param=worst,
+             grad_rel_median=statistics.median(rel.values()),
+             grad_rel_all=((flat[0] - flat[1]).norm() / flat[1].norm()).item(),
+             zero_grad_noise=noise / top, buffer_rel_max=buf,
+             buffer_rel_elem=elem[elem_worst], buffer_rel_elem_name=elem_worst)
+    log(f"  [4j] {what}: loss rel diff {loss_rel:.3e}; gradients: largest relative L2 "
+        f"{rel[worst]:.3e} ({worst}), median {r['grad_rel_median']:.3e}, over all parameters "
+        f"{r['grad_rel_all']:.3e}, the zero-gradient biases at {noise / top:.3e} of the "
+        f"largest entry; BN running statistics: largest difference {buf:.3e} of its buffer's "
+        f"largest entry, {elem[elem_worst]:.3e} of its own entry ({elem_worst})"
+        + (f" (gates {gates})" if gates else ""))
+    if gates is None:
+        return r
+    if not (loss_rel <= gates["loss"] and rel[worst] <= gates["grad"]
+            and r["grad_rel_all"] <= gates["grad_all"] and noise <= 1e-5 * top
+            and buf <= gates["buffers"]
+            and elem[elem_worst] <= gates.get("buffers_elem", float("inf"))
+            and set(got["grads"]) == set(want["grads"])):
+        raise AssertionError(f"[4j] {what}: {r}")
+    return r
+
+
+def parallel_phase(torch, kernels, episodes, seed) -> dict:
+    """Phase 4j: data parallelism (`parallel/`) at flagship width (module
+    docstring).  Returns the main-path launches (`parallel_w1`: the W = 1
+    DP step; `parallel_pretrain_w1`; `parallel_w2` and
+    `parallel_pretrain_w2`: rank 0 of the two ranks) and the figures."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from r3dfsseg_tpu_torch import mpti_train_noise, pretrain as pre
+    from r3dfsseg_tpu_torch.config import R3DConfig
+    from r3dfsseg_tpu_torch.data.synthetic import make_synthetic_dataset
+    from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
+    from r3dfsseg_tpu_torch.nn import dgcnn
+    from r3dfsseg_tpu_torch.nn.dgcnn import init_linear_weights
+    from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_knn
+    from r3dfsseg_tpu_torch.parallel import launch, make_mesh, replicate
+
+    t0 = time.perf_counter()
+    cfg = R3DConfig(episode_batch=DP_E, seed=seed)
+    batch = stacked(episodes, DP_E)
+    rng = np.random.default_rng(seed + 77)
+    pbatch = pretrain_batch(episodes, rng)
+    px, py = (torch.from_numpy(a).cuda() for a in pbatch)
+    log(f"[4j] {describe(cfg)}: the DP training step at E = {DP_E} (attention dropout "
+        f"{cfg.attn_dropout}), a DP pretraining step at batch 16")
+    figures, launched = {}, {}
+
+    def seg(seed_):
+        m = pre.seg_model(cfg, DP_PRETRAIN_CLASSES)
+        init_linear_weights(m, torch.Generator().manual_seed(seed_))
+        m.cuda()
+        return m, torch.optim.Adam(m.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+
+    # ---- (1) world size 1 under NCCL: bit-equal to the unwrapped learner
+    with tempfile.TemporaryDirectory(prefix="r3d_dp_") as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "store"),
+                                world_size=1, rank=0, timeout=timedelta(seconds=120))
+        try:
+            mesh = make_mesh(1, "cuda")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    plain = MPTILearner(cfg, "cuda", torch.Generator().manual_seed(seed))
+                    m_plain = plain.train(batch)
+                    dp = MPTILearner(cfg, "cuda", torch.Generator().manual_seed(seed))
+                    dp.attach_mesh(mesh)
+                    # the main path of this phase: the W = 1 DP step
+                    zero_counts(kernels)
+                    m_dp = dp.train(batch)
+                    torch.cuda.synchronize()
+                    launched["parallel_w1"] = counts(kernels)
+                    same = {k: m_dp[k].item() == m_plain[k].item() for k in m_plain}
+                    if not (all(same.values()) and same_state(dp_state(torch, dp),
+                                                              dp_state(torch, plain))):
+                        raise AssertionError(f"[4j] W = 1: the DP step is not bit-equal to the "
+                                             f"unwrapped learner's: metrics {same}")
+                    del plain
+                    # pretraining at batch 16, W = 1
+                    pm, popt = seg(seed)
+                    qm, qopt = seg(seed)
+                    replicate([*qm.parameters(), *qm.buffers()], mesh)
+                    a = pre.pretrain_step(pm, popt, px, py, torch.Generator().manual_seed(seed))
+                    zero_counts(kernels)
+                    b = pre.pretrain_step(qm, qopt, px, py, torch.Generator().manual_seed(seed),
+                                          mesh, 0)
+                    torch.cuda.synchronize()
+                    launched["parallel_pretrain_w1"] = counts(kernels)
+                    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and all(
+                            torch.equal(u, w) for u, w in zip(pm.state_dict().values(),
+                                                             qm.state_dict().values()))):
+                        raise AssertionError("[4j] W = 1: the DP pretraining step is not "
+                                             "bit-equal to the plain one")
+                    # synchronised BatchNorm on the one rank (its sums all-reduced,
+                    # then divided) gives the step's gradients bit for bit
+                    sm, _ = seg(seed)
+                    logits = sm(px, train=True, generator=torch.Generator().manual_seed(seed),
+                                sync=mesh.group)
+                    (-torch.log_softmax(logits, -1).gather(-1, py.long()[..., None])
+                     .mean()).backward()
+                    gp = _grads(pm)
+                    if not all(torch.equal(g, gp[n]) for n, g in _grads(sm).items()):
+                        raise AssertionError("[4j] W = 1: synchronised BatchNorm moves the "
+                                             "pretraining step's gradients")
+                    del pm, qm, popt, qopt, sm, gp
+                    # the training CLI at --mesh 1 against no --mesh
+                    ds = make_synthetic_dataset(os.path.join(tmp, "blocks"), n_scans=40,
+                                                pts_per_scan=4096, seed=seed)
+                    runs = {}
+                    for tag, shape in (("mesh1", (1,)), ("none", None)):
+                        runs[tag] = mpti_train_noise.train(cfg.replace(
+                            clean_data_path=ds, n_iters=DP_CLI_ITERS, n_episode_test=1,
+                            eval_interval=10 * DP_CLI_ITERS, n_workers=2, mesh_shape=shape,
+                            save_path=tmp, log_dir=os.path.join(tmp, tag)), device="cuda")
+                    if runs["mesh1"]["losses"] != runs["none"]["losses"] or \
+                            runs["mesh1"]["episodes_sha256"] != runs["none"]["episodes_sha256"]:
+                        raise AssertionError(f"[4j] the training CLI at --mesh 1 and without: "
+                                             f"{runs['mesh1']['losses']} vs "
+                                             f"{runs['none']['losses']}")
+            finally:
+                torch.use_deterministic_algorithms(False)
+            figures["w1_warned"] = sorted({str(w.message).split("\n")[0][:160] for w in caught})
+            figures["w1_dp"] = dp_timed(torch, lambda: dp.train(batch))
+            del dp
+        finally:
+            dist.destroy_process_group()
+    if launched["parallel_w1"] != {n: DP_STEP.get(n, 0) for n in kernels}:
+        raise AssertionError(f"[4j] the W = 1 DP step: launches {launched['parallel_w1']}, "
+                             f"want {DP_STEP}")
+    if launched["parallel_pretrain_w1"] != {n: PRETRAIN_PER_STEP.get(n, 0) for n in kernels}:
+        raise AssertionError(f"[4j] the W = 1 DP pretraining step: launches "
+                             f"{launched['parallel_pretrain_w1']}")
+    log(f"  [4j] W = 1 under NCCL: the DP step (E = {DP_E}) bit-equal to the unwrapped "
+        f"learner's (metrics, parameters, BN buffers, Adam state), the DP pretraining step at "
+        f"batch 16 bit-equal to the plain one (and with synchronised BatchNorm on the one "
+        f"rank), the training CLI at --mesh 1 bit-equal to no "
+        f"--mesh ({len(runs['none']['losses'])} losses and the episode digest), under "
+        f"deterministic algorithms (warned: {figures['w1_warned'] or 'nothing'}); launches "
+        f"{launched['parallel_w1']}")
+
+    # ---- (2) each attention family at a batch offset
+    figures["attention_offsets"] = check_attention_offsets(torch, cuda_attention, seed)
+
+    # ---- (3) world size 2 on the one card: two processes on cuda:0 over gloo
+    replay = KnnReplay(torch, cuda_knn, dgcnn)
+    unsharded = MPTILearner(cfg, "cuda", torch.Generator().manual_seed(seed))
+    kernel_knn = replay.record()
+    try:
+        m = unsharded.train(batch)
+    finally:
+        cuda_knn.knn = kernel_knn
+    torch.cuda.synchronize()
+    want = dict(loss=m["loss"].item(),
+                grads={n: g.cpu() for n, g in _grads(unsharded.model).items()},
+                buffers={n: b.cpu() for n, b in unsharded.model.named_buffers()})
+    step_knn = [r.cpu() for r in replay.recorded]
+    witness = dp_witness(torch, cfg, batch, seed, step_knn, 2)
+    # beside it, ungated, on the same graphs: the same step again, and the
+    # step with the first EdgeConv layer's weights moved by one ulp
+    for tag, moved in (("twice", False), ("ulp", True)):
+        again = MPTILearner(cfg, "cuda", torch.Generator().manual_seed(seed))
+        if moved:
+            one_ulp(torch, again.model.features.encoder.edgeconv0.layer0.conv.weight)
+        with knn_rows(torch, cuda_knn, step_knn, make_mesh(device="cuda")):
+            m = again.train(batch)
+        figures[f"step_{tag}"] = dp_compare(
+            f"the unsharded step {'again' if tag == 'twice' else 'with one ulp moved'} "
+            f"(not gated)", dict(loss=m["loss"].item(), grads=_grads(again.model),
+                                 buffers=dict(again.model.named_buffers())), want, None)
+        del again
+    figures["w1_unwrapped"] = dp_timed(torch, lambda: unsharded.train(batch))
+    del unsharded
+    pm, popt = seg(seed)
+    replay = KnnReplay(torch, cuda_knn, dgcnn)
+    kernel_knn = replay.record()
+    try:
+        loss, _ = pre.pretrain_step(pm, popt, px, py, torch.Generator().manual_seed(seed))
+    finally:
+        cuda_knn.knn = kernel_knn
+    torch.cuda.synchronize()
+    pwant = dict(loss=loss.item(), grads={n: g.cpu() for n, g in _grads(pm).items()},
+                 buffers={n: b.cpu() for n, b in pm.named_buffers()})
+    pknn = [r.cpu() for r in replay.recorded]
+    qm, qopt = seg(seed)
+    one_ulp(torch, qm.encoder.edgeconv0.layer0.conv.weight)
+    with knn_rows(torch, cuda_knn, pknn, make_mesh(device="cuda")):
+        loss, _ = pre.pretrain_step(qm, qopt, px, py, torch.Generator().manual_seed(seed))
+    figures["pretrain_ulp"] = dp_compare(
+        "the W = 1 pretraining step with one ulp moved (not gated)",
+        dict(loss=loss.item(), grads=_grads(qm), buffers=dict(qm.named_buffers())), pwant, None)
+    del qm, qopt
+    figures["pretrain_w1"] = dp_timed(torch, lambda: pre.pretrain_step(
+        pm, popt, px, py, torch.Generator().manual_seed(seed)))
+    del pm, popt
+    payload = dict(cfg=cfg, seed=seed, batch=tuple(batch), knn=step_knn,
+                   pretrain_batch=pbatch, pretrain_knn=pknn)
+    t = time.perf_counter()
+    two = launch(parallel_rank, 2, payload, device="cuda:0", timeout_s=600)
+    figures["w2_launch_s"] = time.perf_counter() - t
+    launched["parallel_w2"], launched["parallel_pretrain_w2"] = (two["launches"],
+                                                                 two["pretrain"]["launches"])
+    log(f"  [4j] W = 2, two processes on cuda:0 over {two['backend']} (all-gathers staged "
+        f"through host copies: {two['staged_all_gather']}); kNN rows of the rank that took the "
+        f"whole batch's tie choice, per call: step {two['swapped']}, pretraining "
+        f"{two['pretrain']['swapped']}")
+    figures["w2_step"] = dp_compare("the W = 2 DP step against the unsharded step",
+                                    dict(two, loss=two["metrics"]["loss"]), want)
+    figures["w2_witness"] = dp_compare(
+        "the W = 2 DP step against its ranks' rows run alone in this process and averaged "
+        "by hand", dict(two, loss=two["metrics"]["loss"]), witness, DP_WITNESS_GATES)
+    figures["witness_step"] = dp_compare(
+        "the ranks' rows run alone and averaged against the unsharded step (not gated)",
+        witness, want, None)
+    figures["w2_pretrain"] = dp_compare("the W = 2 DP pretraining step against W = 1",
+                                        two["pretrain"], pwant)
+    # rank 0 runs one episode: every kNN, attention and scatter-add call on
+    # its clouds, one episode's FPS and k-th distance
+    rank_step = dict(DP_STEP, fps=3, kth=1)
+    if two["launches"] != {n: rank_step.get(n, 0) for n in kernels} or \
+            two["pretrain"]["launches"] != {n: PRETRAIN_PER_STEP.get(n, 0) for n in kernels}:
+        raise AssertionError(f"[4j] rank 0: launches {two['launches']} (want {rank_step}), "
+                             f"pretraining {two['pretrain']['launches']}")
+    figures["w2"], figures["pretrain_w2"] = two["timed"], two["pretrain"]["timed"]
+    figures["phase_s"] = time.perf_counter() - t0
+    log(f"  [4j] step times, host clock median (device busy a step): W = 1 unwrapped "
+        f"{figures['w1_unwrapped']['host_ms_median']:.2f} ms "
+        f"({figures['w1_unwrapped']['device_busy_ms']:.2f}), W = 1 DP "
+        f"{figures['w1_dp']['host_ms_median']:.2f} ({figures['w1_dp']['device_busy_ms']:.2f}), "
+        f"W = 2 rank 0 {figures['w2']['host_ms_median']:.2f} "
+        f"({figures['w2']['device_busy_ms']:.2f}; two processes sharing the card, not a "
+        f"scaling figure); pretraining W = 1 {figures['pretrain_w1']['host_ms_median']:.2f} "
+        f"({figures['pretrain_w1']['device_busy_ms']:.2f}), W = 2 rank 0 "
+        f"{figures['pretrain_w2']['host_ms_median']:.2f} "
+        f"({figures['pretrain_w2']['device_busy_ms']:.2f}); the two ranks' launch "
+        f"{figures['w2_launch_s']:.1f} s; phase {figures['phase_s']:.1f} s")
+    return dict(launches=launched, figures=figures)
+
+
 def all_counters() -> dict:
     """Every kernel counter, by the name of its row: (module, attribute).
     The bf16 forms' counters count their calls apart, within their
@@ -5100,7 +5668,7 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth", "bf16", "f1", "f2",
                                        "fused", "attn", "probe", "parity", "cli", "pretrain",
-                                       "baselines", "scene"],
+                                       "baselines", "scene", "parallel"],
                     help="build, then only the kNN and FPS (or the Chebyshev and scatter-add, "
                          "the k-th distance, the bf16 forms of kernels 1, 2, 5 and 6, the "
                          "F1 kernels: general kNN, packed kNN, wide attention, wide-row k-th "
@@ -5118,7 +5686,8 @@ def main() -> int:
                          "(encoder pretraining at full width, finetune and meta-training "
                          "from it, the .msgpack checkpoints); baselines: phase 4h alone "
                          "(ProtoNet_Contrast and the transformer); scene: phase 4i alone "
-                         "(whole-scene serving on the dense and blocked graphs)")
+                         "(whole-scene serving on the dense and blocked graphs); parallel: "
+                         "phase 4j alone (data parallelism)")
     args = ap.parse_args()
 
     import torch
@@ -5309,6 +5878,11 @@ def main() -> int:
         return 0
     if args.only == "scene":
         rows = {"scene": scene_phase(torch, all_counters(), episodes, args.seed)}
+        log(smi)
+        log(json.dumps(rows))
+        return 0
+    if args.only == "parallel":
+        rows = {"parallel": parallel_phase(torch, all_counters(), episodes, args.seed)}
         log(smi)
         log(json.dumps(rows))
         return 0
@@ -5539,6 +6113,13 @@ def main() -> int:
     scene = scene_phase(torch, kernels, episodes, args.seed)
     phases.update(scene["launches"])
     log("[scene] figures " + json.dumps(scene["figures"]))
+    # ---- 4j. data parallelism: W = 1 under NCCL bit-equal to the unwrapped
+    # learner, each attention family at a batch offset, W = 2 on the card
+    par = parallel_phase(torch, kernels, episodes, args.seed)
+    phases.update(par["launches"])
+    log("[4j] figures " + json.dumps(par["figures"]))
+    for name in ("attention_fwd", "attention_bwd"):
+        rows[name]["batch_offsets"] = par["figures"]["attention_offsets"]
     attn16, dev16 = pre["figures"]["attention_b16"], pre["figures"]["wide_pair_device_ms"]
     rows["attention_wide_tf32_fwd"]["pretrain_b16"] = dict(
         ms=attn16["fwd"], step_device_ms=dev16["fwd"], plain_ms=attn16["fwd_plain"],

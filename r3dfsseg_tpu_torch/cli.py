@@ -8,6 +8,9 @@ are parsed with ast.literal_eval as there.  The port adds ``--device``
 raises NotImplementedError naming its ROADMAP.md item (`check_supported`);
 ``--transfer_batch`` and ``--wire_format`` int8/none, which shape the TPU
 build's host-to-device transfers, are accepted and change no number.
+``--mesh N`` (N > 1) runs the entry point on N data-parallel ranks
+(`parallel/launch.py`: spawned here, or the ranks of `torchrun`); with
+``--device cpu`` they are gloo ranks on the CPU.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import ast
 import os
 
 from r3dfsseg_tpu_torch.config import R3DConfig
+from r3dfsseg_tpu_torch.parallel.mesh import resolve_episode_batch  # noqa: F401
 
 
 def build_parser(eval_mode: bool = False) -> argparse.ArgumentParser:
@@ -101,10 +105,11 @@ def build_parser(eval_mode: bool = False) -> argparse.ArgumentParser:
     # ---- implementation knobs ----
     p.add_argument("--episode_batch", type=int, default=0,
                    help="episodes per optimizer step (0 = auto: one per "
-                        "device, 1 on one card)")
+                        "device)")
     p.add_argument("--mesh", type=int, default=0,
-                   help="episode data parallelism over N devices: 0 or 1 "
-                        "(more raises: not ported yet)")
+                   help="data parallelism over N ranks, one device each "
+                        "(0 = auto: every visible GPU); more GPUs than the "
+                        "host has raises")
     p.add_argument("--lp_solver", default="cheby",
                    choices=["cg", "cheby", "solve"])
     p.add_argument("--lp_cg_iters", type=int, default=50)
@@ -225,19 +230,7 @@ def check_supported(cfg: R3DConfig) -> None:
     if cfg.knn_impl == "approx":
         raise NotImplementedError("--knn_impl approx: the TPU's approximate top-k has no port "
                                   "(ROADMAP.md, 'Not queued')")
-    if cfg.mesh_shape is not None and cfg.mesh_shape[0] > 1:
-        raise NotImplementedError(f"--mesh {cfg.mesh_shape[0]}: data parallelism (episodes, or "
-                                  f"pretraining's scene batches) is not ported yet "
-                                  f"(ROADMAP.md section 1, item 7a)")
     if cfg.wire_format == "f16":
         raise NotImplementedError("--wire_format f16 sends f16 point attributes, which changes "
                                   "the numbers; the port sends f32 (ROADMAP.md, 'Not queued')")
 
-
-def resolve_episode_batch(cfg: R3DConfig, log=None) -> R3DConfig:
-    """The episode-batch auto value (episode_batch == 0, the CLI default)
-    -> one episode per device, which is 1 on the port's one card (the JAX
-    package's `parallel.resolve_episode_batch`).  Explicit values pass."""
-    if cfg.episode_batch > 0:
-        return cfg
-    return cfg.replace(episode_batch=1)

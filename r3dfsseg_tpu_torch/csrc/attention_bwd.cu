@@ -362,7 +362,7 @@ R3D_EXPORT int r3d_attn_bwd(const void* q, const void* k, const void* v, const v
                             const void* dy, const void* lse, void* delta, void* dq, void* dk,
                             void* dv, int b, int n, int d, float scale, int dropout,
                             unsigned seed_lo, unsigned seed_hi, unsigned threshold,
-                            float keep_scale, void* stream) {
+                            float keep_scale, unsigned b0, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const int rows = b * n;
   attn_bwd_delta_kernel<<<(rows * 32 + 255) / 256, 256, 0, st>>>(
@@ -370,7 +370,7 @@ R3D_EXPORT int r3d_attn_bwd(const void* q, const void* k, const void* v, const v
       rows, d);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
+  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale, b0};
   auto args = [&](auto launch) {
     return launch(dropout != 0, static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<const float*>(dy),

@@ -512,7 +512,7 @@ R3D_EXPORT int r3d_attn_bwd_bf16(const void* q, const void* k, const void* v, co
                                  void* dyb, void* ds, void* dq, void* dk, void* dv, int b, int n,
                                  int d, float scale, float qscale, int dropout, unsigned seed_lo,
                                  unsigned seed_hi, unsigned threshold, float keep_scale,
-                                 void* stream) {
+                                 unsigned b0, void* stream) {
   if (d < 8 || d > kDP || d % 8 != 0 || b < 1 || n < 1 || b > 65535) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const Bwd a{static_cast<const uint16_t*>(q),  static_cast<const uint16_t*>(k),
@@ -528,6 +528,6 @@ R3D_EXPORT int r3d_attn_bwd_bf16(const void* q, const void* k, const void* v, co
                                                                        qscale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
+  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale, b0};
   return launch(a, b, n, d, scale, dropout != 0, drop, st);
 }

@@ -144,8 +144,8 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* y,
 R3D_EXPORT int r3d_attn_fwd(const void* q, const void* k, const void* v, void* y, void* lse,
                             int b, int n, int d, float scale, int dropout,
                             unsigned seed_lo, unsigned seed_hi, unsigned threshold,
-                            float keep_scale, void* stream) {
-  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
+                            float keep_scale, unsigned b0, void* stream) {
+  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale, b0};
   auto st = static_cast<cudaStream_t>(stream);
   auto qp = static_cast<const float*>(q);
   auto kp = static_cast<const float*>(k);
@@ -163,8 +163,8 @@ R3D_EXPORT int r3d_attn_fwd(const void* q, const void* k, const void* v, void* y
 }
 
 R3D_EXPORT int r3d_dropout_mask(void* out, int b, int n, unsigned seed_lo, unsigned seed_hi,
-                                void* stream) {
-  const r3d::Dropout drop{seed_lo, seed_hi, 0u, 1.f};
+                                unsigned b0, void* stream) {
+  const r3d::Dropout drop{seed_lo, seed_hi, 0u, 1.f, b0};
   dim3 grid(((n + 3) / 4 + 127) / 128, n, b);
   dropout_words_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(out), n, drop);

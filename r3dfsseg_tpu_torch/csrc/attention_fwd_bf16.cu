@@ -376,10 +376,10 @@ cudaError_t launch_c(const uint16_t* q, const uint16_t* k, const uint16_t* v, fl
 R3D_EXPORT int r3d_attn_fwd_bf16(const void* q, const void* k, const void* v, void* y,
                                  void* lse, int b, int n, int d, int cluster, float scale,
                                  int dropout, unsigned seed_lo, unsigned seed_hi,
-                                 unsigned threshold, float keep_scale, void* stream) {
+                                 unsigned threshold, float keep_scale, unsigned b0, void* stream) {
   if (d < 8 || d > kDP || d % 8 != 0 || b < 1 || n < 1 || b > 65535) return cudaErrorInvalidValue;
   if (cluster != 1 && cluster != 2 && cluster != 4) return cudaErrorInvalidValue;
-  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
+  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale, b0};
   auto st = static_cast<cudaStream_t>(stream);
   auto qp = static_cast<const uint16_t*>(q);
   auto kp = static_cast<const uint16_t*>(k);

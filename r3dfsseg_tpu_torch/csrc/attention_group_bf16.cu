@@ -501,9 +501,10 @@ bool takes(int b, int n, int d) {
 R3D_EXPORT int r3d_attn_group_fwd_bf16(const void* q, const void* k, const void* v, void* y,
                                        void* lse, void* qs, int b, int n, int d, float scale,
                                        int dropout, unsigned seed_lo, unsigned seed_hi,
-                                       unsigned threshold, float keep_scale, void* stream) {
+                                       unsigned threshold, float keep_scale,
+                                       unsigned b0, void* stream) {
   if (!takes(b, n, d)) return cudaErrorInvalidValue;
-  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
+  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale, b0};
   auto st = static_cast<cudaStream_t>(stream);
   auto qsp = static_cast<uint16_t*>(qs);
   cudaError_t err = scale_q(static_cast<const uint16_t*>(q), qsp,
@@ -529,7 +530,8 @@ R3D_EXPORT int r3d_attn_group_bwd_bf16(const void* q, const void* k, const void*
                                        void* delta, void* qs, void* dyb, void* dq, void* dk,
                                        void* dv, int b, int n, int d, float scale, float qscale,
                                        int dropout, unsigned seed_lo, unsigned seed_hi,
-                                       unsigned threshold, float keep_scale, void* stream) {
+                                       unsigned threshold, float keep_scale,
+                                       unsigned b0, void* stream) {
   if (!takes(b, n, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto qp = static_cast<const uint16_t*>(q);
@@ -545,7 +547,7 @@ R3D_EXPORT int r3d_attn_group_bwd_bf16(const void* q, const void* k, const void*
       qscale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
+  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale, b0};
   const Plan p = plan(b, n, d);
   err = dispatch(p.s, dropout != 0, [&](auto sc, auto dc) {
     constexpr int S = decltype(sc)::value;

@@ -687,9 +687,9 @@ bool takes(int b, int n, int d) {
 R3D_EXPORT int r3d_attn_wide_tf32_fwd(const void* q, const void* k, const void* v, void* y,
                                       void* lse, int b, int n, int d, float scale, int dropout,
                                       unsigned seed_lo, unsigned seed_hi, unsigned threshold,
-                                      float keep_scale, void* stream) {
+                                      float keep_scale, unsigned b0, void* stream) {
   if (!takes(b, n, d)) return cudaErrorInvalidValue;
-  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
+  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale, b0};
   const Plan p = plan(b, n, d);
   return dispatch(p.s, dropout != 0, [&](auto sc, auto dc) {
     constexpr int S = decltype(sc)::value;
@@ -709,7 +709,7 @@ R3D_EXPORT int r3d_attn_wide_tf32_bwd(const void* q, const void* k, const void* 
                                       void* delta, void* dq, void* dk, void* dv, int b, int n,
                                       int d, float scale, int dropout, unsigned seed_lo,
                                       unsigned seed_hi, unsigned threshold, float keep_scale,
-                                      void* stream) {
+                                      unsigned b0, void* stream) {
   if (!takes(b, n, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const auto qp = static_cast<const float*>(q);
@@ -723,7 +723,7 @@ R3D_EXPORT int r3d_attn_wide_tf32_bwd(const void* q, const void* k, const void* 
       dyp, static_cast<const float*>(y), dl, rows, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
+  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale, b0};
   dim3 grid = grid_of(b, n, kBwdSplits, plan(b, n, d).groups);
   grid.x *= 2;  // dK/dV blocks, then dQ blocks
   auto launch = [&](auto kernel) {

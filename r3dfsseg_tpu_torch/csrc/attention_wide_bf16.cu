@@ -498,9 +498,10 @@ bool takes(int b, int n, int d) {
 R3D_EXPORT int r3d_attn_wide_tc_fwd_bf16(const void* q, const void* k, const void* v, void* y,
                                          void* lse, int b, int n, int d, float scale,
                                          int dropout, unsigned seed_lo, unsigned seed_hi,
-                                         unsigned threshold, float keep_scale, void* stream) {
+                                         unsigned threshold, float keep_scale,
+                                         unsigned b0, void* stream) {
   if (!takes(b, n, d)) return cudaErrorInvalidValue;
-  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
+  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale, b0};
   auto st = static_cast<cudaStream_t>(stream);
   auto qp = static_cast<const uint16_t*>(q);
   auto kp = static_cast<const uint16_t*>(k);
@@ -521,7 +522,7 @@ R3D_EXPORT int r3d_attn_wide_tc_bwd_bf16(const void* q, const void* k, const voi
                                          void* dv, int b, int n, int d, float scale,
                                          float qscale, int dropout, unsigned seed_lo,
                                          unsigned seed_hi, unsigned threshold, float keep_scale,
-                                         void* stream) {
+                                         unsigned b0, void* stream) {
   if (!takes(b, n, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const Bwd a{static_cast<const uint16_t*>(q),  static_cast<const uint16_t*>(k),
@@ -536,7 +537,7 @@ R3D_EXPORT int r3d_attn_wide_tc_bwd_bf16(const void* q, const void* k, const voi
                                                                        qscale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale};
+  const r3d::Dropout drop{seed_lo, seed_hi, threshold, keep_scale, b0};
   return d <= 2 * kDP ? bwd<2>(a, b, n, d, scale, dropout != 0, drop, st)
                       : bwd<4>(a, b, n, d, scale, dropout != 0, drop, st);
 }

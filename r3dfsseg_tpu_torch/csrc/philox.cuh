@@ -7,6 +7,9 @@
 // tiling.  Here the mask is a pure function of (seed, b, i, j): the word
 // for query row i and key column j of cloud b is element j % 4 of
 // Philox4x32-10 at counter (j / 4, i, b, 0) with key (seed_lo, seed_hi).
+// b is the cloud's index in the whole batch: a call on a shard of it (a
+// data-parallel rank's rows) passes the shard's first cloud as b0 and its
+// cloud b hashes b0 + b, so the shards draw the whole batch's mask.
 // The entry is kept iff (word >> 8) >= threshold, threshold =
 // ceil(rate * 2^24) -- the integer form of the TPU kernel's
 // u = (bits >> 8) * 2^-24 >= rate -- and a kept entry is scaled by
@@ -34,16 +37,18 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint32_t k0, uint32_t 
   return ctr;
 }
 
-// What the mask needs: the key, the keep threshold and the scale of a
-// kept entry.
+// What the mask needs: the key, the keep threshold, the scale of a kept
+// entry and the batch offset b0 of the call's first cloud.
 struct Dropout {
   uint32_t seed_lo, seed_hi, threshold;
   float scale;
+  uint32_t b0;
 
-  // The four words of keys 4 * j4 .. 4 * j4 + 3 on query row i of cloud b.
+  // The four words of keys 4 * j4 .. 4 * j4 + 3 on query row i of the
+  // call's cloud b (cloud b0 + b of the whole batch).
   __device__ __forceinline__ uint4 words(int b, int i, int j4) const {
     return philox4x32_10(make_uint4(static_cast<uint32_t>(j4), static_cast<uint32_t>(i),
-                                    static_cast<uint32_t>(b), 0u),
+                                    static_cast<uint32_t>(b) + b0, 0u),
                          seed_lo, seed_hi);
   }
 

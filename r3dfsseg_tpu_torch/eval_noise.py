@@ -10,6 +10,10 @@ of ``--phase`` (`learners/__init__.py:make_learner`: the MPTI model,
 each with MDNS on, and reports per-class IoU and the foreground mean IoU.  The checkpoint is a `checkpoint.tar` (the port's training writes
 one, in the original code's schema) or the JAX package's
 `checkpoint.msgpack`, which a log directory holding both gives first.
+``--mesh N`` evaluates on N data-parallel ranks (`parallel/launch.py`):
+each batch of ``--episode_batch`` episodes is split over them and the
+predictions gathered in episode order; rank 0 alone writes the log and the
+record.
 """
 from __future__ import annotations
 
@@ -19,11 +23,14 @@ from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from r3dfsseg_tpu_torch.cli import args_to_config, build_parser, resolve_episode_batch
+from r3dfsseg_tpu_torch.cli import args_to_config, build_parser
 from r3dfsseg_tpu_torch.config import R3DConfig
 from r3dfsseg_tpu_torch.learners import make_learner
-from r3dfsseg_tpu_torch.utils.logger import init_logger
+from r3dfsseg_tpu_torch.parallel import launch, make_mesh, resolve_episode_batch
+from r3dfsseg_tpu_torch.parallel.mesh import mesh_size
+from r3dfsseg_tpu_torch.utils.logger import Silent, init_logger
 from r3dfsseg_tpu_torch.utils.metrics import IoUAccumulator
 
 
@@ -35,7 +42,9 @@ def test_few_shot(dataset, learner, logger, test_classes, *, eval_mdns=False,
     is copied to the device before the previous one's results are fetched,
     and a step's loss and MDNS scalars come back in one transfer.  The IoU
     counts accumulate on the host.  With ``save_record``, per-episode
-    predictions, labels and classes go to ``<save_record>.npz``."""
+    predictions, labels and classes go to ``<save_record>.npz``.  On a
+    learner with a mesh, only this rank's rows of a batch go to its
+    device."""
     from r3dfsseg_tpu_torch.data.loader import prefetch_iter, to_device
     from r3dfsseg_tpu_torch.models.episode import stack_episodes
 
@@ -53,8 +62,9 @@ def test_few_shot(dataset, learner, logger, test_classes, *, eval_mdns=False,
             eps = [dataset[i] for i in range(start, min(start + ebatch, n))]
             yield eps, stack_episodes(eps) if len(eps) > 1 else eps[0]
 
-    def dispatch(batch):
-        pred, loss, _, aux = learner.test(batch, eval_mdns=eval_mdns, return_aux=True)
+    def dispatch(batch, offset):
+        pred, loss, _, aux = learner.test(batch, eval_mdns=eval_mdns, return_aux=True,
+                                          offset=offset)
         keys = sorted(k for k in aux if k.startswith("mdns"))
         return pred, torch.stack([loss.float()] + [aux[k].float() for k in keys]), keys
 
@@ -78,7 +88,8 @@ def test_few_shot(dataset, learner, logger, test_classes, *, eval_mdns=False,
 
     pending = None
     for eps, host_batch in prefetch_iter(batches(), prefetch=4):
-        refs = dispatch(to_device(host_batch, learner.device))
+        rows, offset = learner.shard(host_batch)
+        refs = dispatch(to_device(rows, learner.device), offset)
         if pending is not None:
             consume(*pending)
         pending = (eps, *refs)
@@ -101,23 +112,29 @@ def test_few_shot(dataset, learner, logger, test_classes, *, eval_mdns=False,
 
 def evaluate(cfg: R3DConfig, device=None) -> float:
     """Meta-test the checkpoint in ``cfg.model_checkpoint_path`` on the
-    noisy (or clean) cached test set, MDNS on; returns the mean IoU."""
+    noisy (or clean) cached test set, MDNS on, on `mesh_size`
+    data-parallel ranks (started here unless this is a rank already);
+    returns the mean IoU."""
     from r3dfsseg_tpu_torch.data.cache import StaticTestDataset
     from r3dfsseg_tpu_torch.utils.checkpoint import restore
     from r3dfsseg_tpu_torch.utils.torch_convert import checkpoint_file
 
     if not cfg.model_checkpoint_path:
         raise ValueError("Model checkpoint file must be given (--model_checkpoint_path).")
+    n_dev = mesh_size(cfg, device)
+    if n_dev > 1 and not dist.is_initialized():
+        return launch(evaluate, n_dev, cfg, device=device)
+    mesh = make_mesh(n_dev, device)
     ckpt = checkpoint_file(cfg.model_checkpoint_path)
     # the log and the record go beside the checkpoint
     cfg = cfg.replace(log_dir=os.path.dirname(ckpt))
-    logger = init_logger(cfg.log_dir, cfg)
+    logger = init_logger(cfg.log_dir, cfg) if mesh.rank == 0 else Silent()
     try:
         logger.cprint(
             "\n------------------- noise ratio= {}, noise type={} "
             "--------------------\n".format(cfg.noise_ratio, cfg.noise_type))
-        cfg = resolve_episode_batch(cfg, log=logger.cprint)
-        learner = make_learner(cfg, device)
+        cfg = resolve_episode_batch(cfg, log=logger.cprint, device=device)
+        learner = make_learner(cfg, mesh.device)
         dataset = StaticTestDataset(
             cfg.clean_data_path or cfg.data_path, cfg.dataset, cvfold=cfg.cvfold,
             num_episode_per_comb=cfg.n_episode_test, n_way=cfg.n_way,
@@ -129,9 +146,14 @@ def evaluate(cfg: R3DConfig, device=None) -> float:
         info = restore(ckpt, learner, log=logger.cprint)
         logger.cprint("Load model checkpoint %s at Iteration %d (IoU %f)..." % (
             ckpt, info["iteration"], info["IoU"]))
+        if mesh.size > 1:
+            logger.cprint("episode-DP eval over %d devices" % mesh.size
+                          if learner.attach_mesh(mesh) else
+                          "WARNING: episode-DP disabled — episode_batch %d does not divide "
+                          "the %d visible devices" % (cfg.episode_batch, mesh.size))
 
         record_path = None
-        if cfg.save_test_record:
+        if cfg.save_test_record and mesh.rank == 0:
             # the original code's layout: '{noise_type}_{ratio:.3f}_test_record'
             # under model_checkpoint_path
             record_path = os.path.join(cfg.log_dir, "%s_%.3f_test_record" % (

@@ -9,6 +9,18 @@ Adam with two parameter groups: the pretrained DGCNN trunk
 rates by ``gamma`` every ``max(step_size // episode_batch, 1)`` optimizer
 steps, so the decay points stay where they are in episodes; it is stepped
 once per optimizer step, as optax's staircase `exponential_decay` counts.
+
+Episode data parallelism (the JAX package's `MeshedLearner`):
+`attach_mesh` makes rank 0's parameters, buffers, Adam state and generator
+every rank's.  A batch of E episodes that the W ranks divide then runs
+rows [r E / W, (r + 1) E / W) on rank r (`parallel/mesh.py`): BatchNorm per
+episode as on one device, the running statistics mean-reduced after the
+forward (the mean of the per-episode updates, as on one device), the
+gradient mean-reduced after the backward (the gradient of the mean over
+all E episodes), the metrics mean-reduced, and `test`'s predictions
+gathered in episode order.  Adam and StepLR then step alike on every rank.
+A batch that W does not divide, or an unbatched episode, runs whole on
+every rank with no collective.
 """
 from __future__ import annotations
 
@@ -20,6 +32,10 @@ from torch import nn
 from r3dfsseg_tpu_torch import pin_f32_matmul
 from r3dfsseg_tpu_torch.config import R3DConfig
 from r3dfsseg_tpu_torch.models.episode import Episode
+from r3dfsseg_tpu_torch.nn.dgcnn import BatchNorm
+from r3dfsseg_tpu_torch.parallel.mesh import (Shard, all_gather_rows, all_reduce_grads_,
+                                              all_reduce_mean, divides, replicate,
+                                              shard_episode)
 from r3dfsseg_tpu_torch.utils.convert import state_dict_from_jax
 from r3dfsseg_tpu_torch.utils.torch_convert import state_dict_from_torch
 
@@ -59,6 +75,7 @@ class Learner:
     ``test_loss`` (the output field that `test` returns)."""
 
     test_loss = "loss"
+    mesh = None          # `attach_mesh`
     # whether a `.tar`'s optimizer state is restored on resume: the JAX
     # package restores it for the MPTI phases only
     # (`r3dfsseg_tpu/utils/torch_convert.py:resume_from_reference_checkpoint`)
@@ -126,6 +143,41 @@ class Learner:
         self.model.features.encoder.load_state_dict(state, strict=True)
         self.optimizer, self.scheduler = make_optimizer(self.model, self.cfg)
 
+    def attach_mesh(self, mesh) -> bool:
+        """Run episode batches data-parallel over ``mesh``
+        (`parallel/mesh.py:make_mesh`, on this rank's device) where it
+        divides ``cfg.episode_batch``: rank 0's parameters, buffers, Adam
+        state and generator state go to every rank.  Otherwise every rank
+        runs whole batches with no mesh (the JAX CLIs' choice).  Returns
+        whether it attached.  Attach after loading weights (a load resets
+        Adam)."""
+        if self.cfg.episode_batch % mesh.size:
+            return False
+        self.mesh = mesh
+        adam = [v for g in self.optimizer.param_groups for p in g["params"]
+                for _, v in sorted(self.optimizer.state.get(p, {}).items())
+                if torch.is_tensor(v)]
+        gen = self.generator.get_state()
+        replicate([*self.model.parameters(), *self.model.buffers(), *adam, gen], mesh)
+        self.generator.set_state(gen)
+        return True
+
+    def shard(self, ep: Episode):
+        """(this rank's rows of a batched host episode, their global
+        offset) where the mesh divides the batch, else (ep, None): the
+        episode runs whole (the JAX package's `_maybe_shard`)."""
+        if not (ep[0].ndim == 5 and divides(self.mesh, ep[0].shape[0])):
+            return ep, None
+        return shard_episode(Episode(*ep), self.mesh)
+
+    def _bn_buffers(self):
+        return [b for m in self.model.modules() if isinstance(m, BatchNorm)
+                for b in (m.running_mean, m.running_var)]
+
+    def _mean(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        keys = sorted(metrics)
+        return dict(zip(keys, all_reduce_mean([metrics[k].float() for k in keys], self.mesh)))
+
     def _tensor(self, a):
         if a is None:
             return None
@@ -134,29 +186,56 @@ class Learner:
             t = t.float()
         return t.to(self.device)
 
-    def train(self, ep: Episode) -> Dict[str, torch.Tensor]:
+    def train(self, ep: Episode, offset: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """One optimizer step on an episode (batch): the model's training
         forward, `objective`, backward, Adam and StepLR.  Returns the
-        metrics as 0-d tensors on the device, without a host sync."""
+        metrics as 0-d tensors on the device, without a host sync.  With a
+        mesh the step is data-parallel where the mesh divides the batch
+        (module docstring) and the metrics are the whole batch's; ep is
+        then the whole host batch, or this rank's rows (`shard`) at
+        ``offset``."""
+        if offset is None:
+            ep, offset = self.shard(ep)
         ep = Episode(*(self._tensor(a) for a in ep))
+        shard = None if offset is None else Shard(offset,
+                                                  ep.support_x.shape[0] * self.mesh.size)
         self.optimizer.zero_grad(set_to_none=True)
-        out = self.model(ep, train=True, generator=self.generator)
+        out = self.model(ep, train=True, generator=self.generator, shard=shard)
+        if shard is not None:
+            bufs = self._bn_buffers()
+            with torch.no_grad():
+                for b, m in zip(bufs, all_reduce_mean(bufs, self.mesh)):
+                    b.copy_(m)
         loss, metrics = self.objective(out)
         loss.backward()
+        if shard is not None:
+            all_reduce_grads_(list(self.model.parameters()), self.mesh)
         self.optimizer.step()
         self.scheduler.step()
-        return {**{k: v.detach() for k, v in out.aux.items()},
-                **{k: v.detach() for k, v in metrics.items()}}
+        metrics = {**{k: v.detach() for k, v in out.aux.items()},
+                   **{k: v.detach() for k, v in metrics.items()}}
+        return metrics if shard is None else self._mean(metrics)
 
-    def test(self, ep: Episode, *, eval_mdns: bool = False, return_aux: bool = False):
+    def test(self, ep: Episode, *, eval_mdns: bool = False, return_aux: bool = False,
+             offset: Optional[int] = None):
         """(predictions (E, Q, N) int32, the ``test_loss``, accuracy) under
         running BN statistics, on the device without a host sync; with
-        ``return_aux`` also the model's aux dict."""
+        ``return_aux`` also the model's aux dict.  With a mesh that divides
+        the batch (ep the whole batch, or this rank's rows at ``offset``,
+        as `train`'s) each rank runs its rows, and every rank returns the
+        whole batch's predictions in episode order and its mean loss,
+        accuracy and aux."""
+        if offset is None:
+            ep, offset = self.shard(ep)
         ep = Episode(*(self._tensor(a) for a in ep))
         with torch.inference_mode():
             out = self.model(ep, train=False, eval_mdns=eval_mdns)
-        pred = out.query_logits.argmax(-1).to(torch.int32)
-        loss = getattr(out, self.test_loss)
+            pred = out.query_logits.argmax(-1).to(torch.int32)
+            aux = dict(out.aux, **{self.test_loss: getattr(out, self.test_loss)})
+            if offset is not None:
+                pred = all_gather_rows(pred, self.mesh)
+                aux = self._mean(aux)
+        loss = aux.pop(self.test_loss)
         if return_aux:
-            return pred, loss, out.aux["accuracy"], out.aux
-        return pred, loss, out.aux["accuracy"]
+            return pred, loss, aux["accuracy"], aux
+        return pred, loss, aux["accuracy"]

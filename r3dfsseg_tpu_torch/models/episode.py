@@ -42,20 +42,27 @@ def stack_episodes(episodes) -> Episode:
     return Episode(**fields)
 
 
-def encode_episode(features, cfg, ep: Episode, train: bool = False, generator=None):
+def encode_episode(features, cfg, ep: Episode, train: bool = False, generator=None,
+                   shard=None):
     """Encode a batched episode's support and query clouds with the feature
     extractor ``features``, as two separate batches, so that training's
     BatchNorm statistics span each batch (per episode: groups = E) and its
     running statistics take two updates, as in every model of the JAX
     package.  Returns support (E, n_way, k_shot, N, d) and query (E,
     n_q * n_way, N, d) features; ``generator`` seeds the attention
-    dropout."""
+    dropout.  ``shard`` (`parallel/mesh.py:Shard`, in episodes) places a
+    data-parallel rank's episodes in the whole batch: each of the two
+    batches passes its clouds' place, support clouds from offset
+    n_way k_shot and query clouds from offset n_q n_way times the first
+    episode."""
     c = cfg
     e = ep.support_x.shape[0]
     sx = ep.support_x.reshape(e * c.n_way * c.k_shot, c.pc_npts, -1)
     qx = ep.query_x.reshape(e * c.n_queries * c.n_way, c.pc_npts, -1)
-    sf = features(sx, train, e, generator)
-    qf = features(qx, train, e, generator)
+    s_shard = None if shard is None else shard.scaled(c.n_way * c.k_shot)
+    q_shard = None if shard is None else shard.scaled(c.n_queries * c.n_way)
+    sf = features(sx, train, e, generator, s_shard)
+    qf = features(qx, train, e, generator, q_shard)
     d = sf.shape[-1]
     return (sf.reshape(e, c.n_way, c.k_shot, c.pc_npts, d),
             qf.reshape(e, c.n_queries * c.n_way, c.pc_npts, d))

@@ -291,18 +291,19 @@ class MPTINet(nn.Module):
         init_linear_weights(self, generator)
 
     def extract_features(self, ep: Episode, train: bool = False,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None, shard=None):
         """Support and query features of a batched episode
         (`models/episode.py:encode_episode`)."""
-        return encode_episode(self.features, self.cfg, ep, train, generator)
+        return encode_episode(self.features, self.cfg, ep, train, generator, shard)
 
     def forward(self, ep: Episode, train: bool = False, eval_mdns: bool = False,
-                generator: Optional[torch.Generator] = None) -> MPTIOutput:
+                generator: Optional[torch.Generator] = None, shard=None) -> MPTIOutput:
         """Training needs ``ep.support_flag`` and, with attention dropout,
-        a ``generator`` for the mask seeds."""
+        a ``generator`` for the mask seeds; ``shard`` places ep's episodes
+        in a data-parallel batch (`models/episode.py:encode_episode`)."""
         c = self.cfg
         ep = ep.with_batch_dim()
-        sf, qf = self.extract_features(ep, train, generator)
+        sf, qf = self.extract_features(ep, train, generator, shard)
         eps = [Episode(*(None if a is None else a[i] for a in ep)) for i in range(sf.shape[0])]
         if train:
             losses = []

@@ -103,12 +103,13 @@ class ProtoNet(nn.Module):
         init_linear_weights(self, generator)
 
     def forward(self, ep: Episode, train: bool = False, eval_mdns: bool = False,
-                generator: Optional[torch.Generator] = None) -> ProtoOutput:
+                generator: Optional[torch.Generator] = None, shard=None) -> ProtoOutput:
         """The contrast loss needs ``ep.support_flag``; MDNS runs with
-        ``eval_mdns`` in eval on the contrast variant only."""
+        ``eval_mdns`` in eval on the contrast variant only; ``shard`` as
+        `models/episode.py:encode_episode`'s."""
         c = self.cfg
         ep = ep.with_batch_dim()
-        sf, qf = encode_episode(self.features, c, ep, train, generator)
+        sf, qf = encode_episode(self.features, c, ep, train, generator, shard)
         eps = [Episode(*(None if a is None else a[i] for a in ep)) for i in range(sf.shape[0])]
         contrast = torch.zeros((), device=sf.device)
         if train and self.with_contrast and ep.support_flag is not None:

@@ -118,15 +118,18 @@ class EncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.dropout = dropout
 
-    def _drop(self, x, train, generator):
-        return seeded_dropout(x, self.dropout, generator) if train else x
+    def _drop(self, x, train, generator, shard):
+        return seeded_dropout(x, self.dropout, generator, shard=shard) if train else x
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        attn = self._drop(self.self_attn(x, train, generator), train, generator)
+                generator: Optional[torch.Generator] = None, shard=None) -> torch.Tensor:
+        """``shard`` places x's episodes in a data-parallel batch: the
+        masks of x's shape are the whole batch's rows (the attention
+        weights' mask broadcasts over episodes)."""
+        attn = self._drop(self.self_attn(x, train, generator), train, generator, shard)
         x = self.norm1(x + attn)
-        h = self._drop(F.relu(self.linear1(x)), train, generator)
-        h = self._drop(self.linear2(h), train, generator)
+        h = self._drop(F.relu(self.linear1(x)), train, generator, shard)
+        h = self._drop(self.linear2(h), train, generator, shard)
         return self.norm2(x + h)
 
 
@@ -159,7 +162,7 @@ class ShotTransformer(nn.Module):
         self.register_buffer("pos_idx", pos_idx, persistent=False)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, shard=None) -> torch.Tensor:
         e = x.shape[0]
         if self.cls_type == "proto":
             cls = torch.stack([gen_prototypes(xe, self.ways, self.shots, self.agg_method)
@@ -174,7 +177,7 @@ class ShotTransformer(nn.Module):
             pos = pos.detach()
         h = torch.cat([cls, x], 1) + pos
         for i in range(self.n_layers):
-            h = getattr(self, f"layer{i}")(h, train, generator)
+            h = getattr(self, f"layer{i}")(h, train, generator, shard)
         return h
 
 
@@ -227,18 +230,19 @@ class ProtoNetTransformer(nn.Module):
         self.proj_trans_out.copy_(q.float())
 
     def forward(self, ep: Episode, train: bool = False, eval_mdns: bool = False,
-                generator: Optional[torch.Generator] = None) -> TransformerOutput:
-        """``eval_mdns`` is accepted and ignored, as by the JAX model."""
+                generator: Optional[torch.Generator] = None, shard=None) -> TransformerOutput:
+        """``eval_mdns`` is accepted and ignored, as by the JAX model;
+        ``shard`` places ep's episodes in a data-parallel batch."""
         c = self.cfg
         ep = ep.with_batch_dim()
-        sf, qf = encode_episode(self.features, c, ep, train, generator)
+        sf, qf = encode_episode(self.features, c, ep, train, generator, shard)
         e, d = sf.shape[0], sf.shape[-1]
         fg = ep.support_y > 0
         fg_feat = masked_mean(sf, fg[..., None], dim=3)               # (E, w, k, d)
         bg_feat = masked_mean(sf, ~fg[..., None], dim=3)
 
         z = fg_feat.reshape(e, c.n_way * c.k_shot, d) @ self.proj_trans_in
-        trans_out = self.transformer(z, train, generator) @ self.proj_trans_out.T
+        trans_out = self.transformer(z, train, generator, shard) @ self.proj_trans_out.T
         fg_protos = trans_out[:, :c.n_way]                             # (E, w, d)
         shot_out = trans_out[:, c.n_way:]                              # (E, w*k, d)
         bg_proto = bg_feat.reshape(e, -1, d).mean(1)

@@ -17,6 +17,12 @@ StepLR position and the episode stream continue where it was written, up
 to ``n_iters`` episodes in all.  ``--pretrain_checkpoint_path``
 starts the encoder trunk from a pretraining checkpoint (`.tar` or
 `.msgpack`).  ``--phase pretrain`` and ``finetune`` run `pretrain.py`.
+
+``--mesh N`` (default: every visible GPU on "cuda", else 1) trains on N
+data-parallel ranks (`parallel/launch.py`), each batch of
+``--episode_batch`` episodes split over them (`learners/base.py`).  Every
+rank runs the same seeded loader and takes its rows; rank 0 alone writes
+the log, the scalars and the checkpoints.
 """
 from __future__ import annotations
 
@@ -27,11 +33,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from r3dfsseg_tpu_torch.cli import args_to_config, build_parser, resolve_episode_batch
+from r3dfsseg_tpu_torch.cli import args_to_config, build_parser
 from r3dfsseg_tpu_torch.config import R3DConfig
 from r3dfsseg_tpu_torch.eval_noise import make_learner, test_few_shot
-from r3dfsseg_tpu_torch.utils.logger import ScalarWriter, init_logger
+from r3dfsseg_tpu_torch.parallel import launch, make_mesh, resolve_episode_batch
+from r3dfsseg_tpu_torch.parallel.mesh import divides, mesh_size, shard_episode
+from r3dfsseg_tpu_torch.utils.logger import ScalarWriter, Silent, init_logger
 
 LOG_WINDOW = 8          # steps whose metrics come to the host in one transfer
 DIGEST_EPISODES = 4     # training episodes in `episodes_sha256`'s digest
@@ -71,23 +80,30 @@ def train_samplers(cfg: R3DConfig):
 
 
 def train(cfg: R3DConfig, device=None) -> dict:
-    """Meta-train ``cfg.n_iters`` episodes on ``device`` ("cuda" when None).
-    Returns the run's figures: train episodes/s with validation left out,
-    the median host-clock step (ms), the median and mean wait per step for
-    the next batch on the device (ms) and the median of its part blocked
-    on the loader's queue, the losses logged, the best validation IoU, and
-    the digest of the first training episodes."""
+    """Meta-train ``cfg.n_iters`` episodes on ``device`` ("cuda" when None),
+    on `mesh_size` data-parallel ranks (started here unless this is a rank
+    already).
+    Returns the run's figures (rank 0's): train episodes/s with validation
+    left out, the median host-clock step (ms), the median and mean wait
+    per step for the next batch on the device (ms) and the median of its
+    part blocked on the loader's queue, the losses logged, the best
+    validation IoU, and the digest of the first training episodes."""
     from r3dfsseg_tpu_torch.data.cache import StaticTestDataset
     from r3dfsseg_tpu_torch.data.loader import EpisodeLoader, device_prefetch
     from r3dfsseg_tpu_torch.utils.checkpoint import load_pretrain_checkpoint, restore
     from r3dfsseg_tpu_torch.utils.torch_convert import save_reference_checkpoint
 
-    logger = init_logger(cfg.log_dir, cfg)
-    writer = ScalarWriter(cfg.log_dir)
+    n_dev = mesh_size(cfg, device)
+    if n_dev > 1 and not dist.is_initialized():
+        return launch(train, n_dev, cfg, device=device)
+    mesh = make_mesh(n_dev, device)
+    lead = mesh.rank == 0
+    logger = init_logger(cfg.log_dir, cfg) if lead else Silent()
+    writer = ScalarWriter(cfg.log_dir) if lead else Silent()
     try:
-        cfg = resolve_episode_batch(cfg, log=logger.cprint)
+        cfg = resolve_episode_batch(cfg, log=logger.cprint, device=device)
         eb = cfg.episode_batch
-        learner = make_learner(cfg, device)
+        learner = make_learner(cfg, mesh.device)
         samplers = train_samplers(cfg)
         valid_set = StaticTestDataset(
             cfg.clean_data_path, cfg.dataset, cvfold=cfg.cvfold,
@@ -108,6 +124,15 @@ def train(cfg: R3DConfig, device=None) -> dict:
                 cfg.pretrain_checkpoint_path, learner.model.features.encoder, log=logger.cprint))
             logger.cprint("Load encoder module from pretrained checkpoint...")
 
+        if mesh.size > 1:
+            logger.cprint("episode-DP: %d-episode batches sharded over %d devices"
+                          % (eb, mesh.size) if learner.attach_mesh(mesh) else
+                          "WARNING: episode-DP disabled — episode_batch %d does not divide "
+                          "the %d visible devices (pass --episode_batch 0 for auto, or a "
+                          "multiple of %d)" % (eb, mesh.size, mesh.size))
+        # every batch is eb episodes: a rank's rows start at one offset
+        sharded = divides(learner.mesh, eb)
+        offset = mesh.rank * (eb // mesh.size) if sharded else None
         # the `.tar`s carry the Adam state in the original MPTI model's layout;
         # a baseline's are written without one (`Learner.reference_adam`)
         adam = learner.optimizer if learner.reference_adam else None
@@ -168,7 +193,7 @@ def train(cfg: R3DConfig, device=None) -> dict:
                 logger.cprint("== throughput: %.2f episodes/s ==" % eps_s)
 
         profiler = None
-        if cfg.profile_dir:
+        if cfg.profile_dir and lead:
             # a trace of the first three steps
             acts = [torch.profiler.ProfilerActivity.CPU]
             if learner.device.type == "cuda":
@@ -177,7 +202,10 @@ def train(cfg: R3DConfig, device=None) -> dict:
             profiler = torch.profiler.profile(activities=acts)
             profiler.start()
 
-        batches = iter(device_prefetch(recorded(loader), learner.device, n=2))
+        host = recorded(loader)
+        if sharded:                 # only this rank's rows go to the device
+            host = (shard_episode(b, mesh)[0] for b in host)
+        batches = iter(device_prefetch(host, learner.device, n=2))
         t_prev = t_first = time.perf_counter()
         for step in range(start, n_steps):
             t0 = time.perf_counter()
@@ -187,7 +215,7 @@ def train(cfg: R3DConfig, device=None) -> dict:
                 profiler.stop()
                 profiler.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
                 profiler = None
-            pending.append((step, learner.train(batch)))
+            pending.append((step, learner.train(batch, offset)))
             if len(pending) >= LOG_WINDOW:
                 flush()
             t_now = time.perf_counter()
@@ -205,15 +233,19 @@ def train(cfg: R3DConfig, device=None) -> dict:
                               % (valid_loss, mean_iou))
                 writer.add_scalar("Valid/loss", valid_loss, it)
                 writer.add_scalar("Valid/meanIoU", mean_iou, it)
+                # every rank holds the same IoU (the predictions are gathered),
+                # so every rank takes the same decision; rank 0 writes
                 if mean_iou > best_iou:
                     best_iou = mean_iou
                     logger.cprint("*******************Model Saved*******************")
+                    if lead:
+                        save_reference_checkpoint(
+                            os.path.join(cfg.log_dir, "checkpoint.tar"), learner.model,
+                            iteration=it, loss=valid_loss, iou=best_iou, optimizer=adam)
+                if lead:
                     save_reference_checkpoint(
-                        os.path.join(cfg.log_dir, "checkpoint.tar"), learner.model,
+                        os.path.join(cfg.log_dir, f"checkpoint_{it}.tar"), learner.model,
                         iteration=it, loss=valid_loss, iou=best_iou, optimizer=adam)
-                save_reference_checkpoint(
-                    os.path.join(cfg.log_dir, f"checkpoint_{it}.tar"), learner.model,
-                    iteration=it, loss=valid_loss, iou=best_iou, optimizer=adam)
                 t_prev = time.perf_counter()
                 eval_s += t_prev - t_now
         flush()

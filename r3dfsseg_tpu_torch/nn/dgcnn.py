@@ -4,8 +4,12 @@ extractor and the pretraining segmentation model `DGCNNSegAttention`
 
 Channels-last (B, N, C) throughout; every 1x1 conv is an `nn.Linear`;
 activations are LeakyReLU(0.2).  `train=True` normalises with batch
-statistics (per episode group, as the JAX package's `GroupedBatchNorm`)
-and updates the running statistics; `train=False` uses the running ones.
+statistics (per episode group, as the JAX package's `GroupedBatchNorm`, or
+over the whole data-parallel batch with ``sync``) and updates the running
+statistics; `train=False` uses the running ones.  Under data parallelism a
+module takes its rows' place in the whole batch as an argument
+(``shard``, `parallel/mesh.py:Shard`), so its dropout masks are the whole
+batch's rows.
 Submodule names follow the JAX package's Flax tree, so
 `utils/convert.py:state_dict_from_jax` maps weights one to one.
 
@@ -29,6 +33,7 @@ from torch import nn
 from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_knn
 from r3dfsseg_tpu_torch.ops.fast_gather import gather_neighbors_fast
 from r3dfsseg_tpu_torch.ops.knn import knn_indices
+from r3dfsseg_tpu_torch.parallel.mesh import Shard
 
 
 BN_MODES = ("exact", "fastvar", "stats", "relaxed", "hybrid")
@@ -82,7 +87,14 @@ class BatchNorm(nn.Module):
     the batch statistic), as Flax does (momentum 0.9, biased variance).
     The variance is two-pass, or with ``fast`` E[x^2] - E[x]^2, clipped at
     0 for one group as Flax's `BatchNorm` clips it (`GroupedBatchNorm`
-    does not)."""
+    does not).
+
+    ``sync`` (a process group; one group of rows) takes the statistics over
+    every rank's rows, as GSPMD takes them over a sharded batch: the sums
+    go through `torch.distributed.nn.functional.all_reduce`, whose backward
+    all-reduces the cotangent, so the gradient flows across ranks.  The
+    two-pass variance sums first x, then the squared deviations from the
+    global mean; ``fast`` sums x and x^2 in one all-reduce."""
 
     MOMENTUM = 0.9
 
@@ -97,10 +109,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor, train: bool = False, groups: int = 1) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, groups: int = 1,
+                sync=None) -> torch.Tensor:
         if not train:
             mul = torch.rsqrt(self.running_var + self.eps) * self.weight
             return ((x - self.running_mean) * mul + self.bias).to(self.out_dtype)
+        if sync is not None:
+            return self._synced(x, sync)
         b, c = x.shape[0], x.shape[-1]
         if b % groups:
             raise ValueError(f"BatchNorm: {b} rows do not split into {groups} groups")
@@ -118,6 +133,26 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(m).add_(var.mean(0)[0], alpha=1.0 - m)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((xg - mean) * mul + self.bias).reshape(x.shape).to(self.out_dtype)
+
+    def _synced(self, x: torch.Tensor, group) -> torch.Tensor:
+        import torch.distributed as dist
+        from torch.distributed.nn.functional import all_reduce
+
+        xf = x.float().reshape(-1, x.shape[-1])
+        count = xf.shape[0] * dist.get_world_size(group)         # equal rows on every rank
+        if self.fast:
+            sums = all_reduce(torch.stack([xf.sum(0), xf.square().sum(0)]), group=group)
+            mean = sums[0] / count
+            var = (sums[1] / count - mean.square()).clamp_min(0.0)
+        else:
+            mean = all_reduce(xf.sum(0), group=group) / count
+            var = all_reduce((xf - mean).square().sum(0), group=group) / count
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).reshape(x.shape).to(self.out_dtype)
 
 
 def _batch_norm(features: int, dtype: Optional[torch.dtype], bn_mode: str) -> BatchNorm:
@@ -144,8 +179,9 @@ class ConvBN(nn.Module):
         self.dtype = dtype
         self.bn_mode = bn_mode
 
-    def forward(self, x: torch.Tensor, train: bool = False, groups: int = 1) -> torch.Tensor:
-        x = self.bn(dense(x, self.conv, self.dtype), train, groups)
+    def forward(self, x: torch.Tensor, train: bool = False, groups: int = 1,
+                sync=None) -> torch.Tensor:
+        x = self.bn(dense(x, self.conv, self.dtype), train, groups, sync)
         return F.leaky_relu(x, 0.2) if self.relu else x
 
 
@@ -182,10 +218,10 @@ class _EdgeFirstLayer(nn.Module):
                 dense(torch.cat([-xd, xd], -1), self.conv, self.dtype))
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor, train: bool = False,
-                groups: int = 1) -> torch.Tensor:
+                groups: int = 1, sync=None) -> torch.Tensor:
         a, b = self.operands(x)
         e = gather_neighbors_fast(a, idx, impl=self.impl) + b[:, :, None, :]
-        return F.leaky_relu(self.bn(e, train, groups), 0.2)
+        return F.leaky_relu(self.bn(e, train, groups, sync), 0.2)
 
 
 class EdgeConv(nn.Module):
@@ -214,7 +250,8 @@ class EdgeConv(nn.Module):
                                                 bn_mode=modes[i]))
         self.n_layers = len(widths)
 
-    def forward(self, x: torch.Tensor, train: bool = False, groups: int = 1) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, groups: int = 1,
+                sync=None) -> torch.Tensor:
         xd = x.detach()
         if self.knn_impl == "xla":
             idx = knn_indices(xd.float(), self.k)
@@ -222,9 +259,9 @@ class EdgeConv(nn.Module):
             idx = cuda_knn.knn(xd, self.k, packed=True)
         else:
             idx = cuda_knn.knn(xd, self.k)
-        e = self.layer0(x, idx, train, groups)
+        e = self.layer0(x, idx, train, groups, sync)
         for i in range(1, self.n_layers):
-            e = getattr(self, f"layer{i}")(e, train, groups)
+            e = getattr(self, f"layer{i}")(e, train, groups, sync)
         return e.amax(dim=2)
 
 
@@ -259,15 +296,15 @@ class DGCNN(nn.Module):
         self.n_edgeconv = len(edgeconv_widths)
         self.n_mlp = len(mlp_widths)
 
-    def forward(self, x: torch.Tensor, train: bool = False, groups: int = 1):
+    def forward(self, x: torch.Tensor, train: bool = False, groups: int = 1, sync=None):
         outs = []
         h = x
         for i in range(self.n_edgeconv):
-            h = getattr(self, f"edgeconv{i}")(h, train, groups)
+            h = getattr(self, f"edgeconv{i}")(h, train, groups, sync)
             outs.append(h)
         h = torch.cat(outs, dim=-1)
         for i in range(self.n_mlp):
-            h = getattr(self, f"mlp{i}")(h, train, groups)
+            h = getattr(self, f"mlp{i}")(h, train, groups, sync)
         return (outs if self.return_edgeconvs else outs[0]), h
 
 
@@ -305,7 +342,8 @@ class SelfAttention(nn.Module):
 
     In training with dropout each call draws its mask seed from
     ``generator`` (a CPU `torch.Generator`, so no device sync), as the JAX
-    module draws `make_rng("dropout")`.
+    module draws `make_rng("dropout")`; with a ``shard`` (x is rows of a
+    data-parallel batch) the mask is those rows of the whole batch's.
 
     With a bf16 ``dtype`` the maps give bf16 q, k, v, which go to the
     attention as they are (the kernels' bf16 forms, or their plain
@@ -328,7 +366,8 @@ class SelfAttention(nn.Module):
         self.attn_f32 = attn_f32
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[Shard] = None) -> torch.Tensor:
         q, k, v = (dense(x, m, self.dtype) for m in (self.q_map, self.k_map, self.v_map))
         if self.attn_f32:
             q, k, v = q.float(), k.float(), v.float()
@@ -340,7 +379,7 @@ class SelfAttention(nn.Module):
                                  "for the mask seed")
             seed = int(torch.randint(0, 2**62, (), generator=generator))
         y = cuda_attention.fused_attention(q, k, v, seed, tau, self.attn_dropout, train,
-                                           self.attn_impl)
+                                           self.attn_impl, 0 if shard is None else shard.offset)
         return y.to(x.dtype)
 
 
@@ -383,13 +422,15 @@ class FeatureExtractor(nn.Module):
                    bn_mode=c.bn_mode, attn_f32=c.attn_f32, gather_impl=c.follower_impl)
 
     def forward(self, x: torch.Tensor, train: bool = False, groups: int = 1,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[Shard] = None) -> torch.Tensor:
         """``groups`` > 1 (episode batching) keeps BatchNorm's statistics
-        per episode; ``generator`` seeds the attention dropout."""
+        per episode; ``generator`` seeds the attention dropout; ``shard``
+        places x's clouds in a data-parallel batch."""
         feat1, feat2 = self.encoder(x, train, groups)
         feat3 = self.base_learner(feat2, train, groups)
         if self.use_attention:
-            mid = self.att_learner(feat2, train, generator)
+            mid = self.att_learner(feat2, train, generator, shard)
         else:
             mid = self.linear_mapper(feat2.float())     # a Dense without dtype: f32
         return torch.cat([feat1, mid, feat3], dim=-1).float()
@@ -409,19 +450,27 @@ def init_linear_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def seeded_dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
-                   shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+                   shape: Optional[Sequence[int]] = None,
+                   shard: Optional[Shard] = None) -> torch.Tensor:
     """Flax's `Dropout` in training: each entry kept with probability
     1 - ``rate`` and scaled by 1 / (1 - rate), else 0.  The mask comes from
     a generator on ``x``'s device seeded from ``generator`` (a CPU one, so
     no device sync), as the attention draws its mask seed; it has
     ``shape`` (default x's) and broadcasts against x, as Flax's
-    `broadcast_dropout` mask does."""
+    `broadcast_dropout` mask does.  With a ``shard`` (x is rows of a
+    data-parallel batch along its leading axis) the mask of x's shape is
+    drawn for the whole batch and x's rows taken from it, so the shards
+    draw the unsharded call's mask."""
     if rate <= 0.0:
         return x
     g = torch.Generator(device=x.device)
     g.manual_seed(int(torch.randint(0, 2**62, (), generator=generator)))
-    keep = torch.rand(x.shape if shape is None else tuple(shape), generator=g,
-                      device=x.device) >= rate
+    if shape is None and shard is not None:
+        keep = torch.rand((shard.total, *x.shape[1:]), generator=g, device=x.device)
+        keep = keep[shard.offset:shard.offset + x.shape[0]] >= rate
+    else:
+        keep = torch.rand(x.shape if shape is None else tuple(shape), generator=g,
+                          device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -437,8 +486,11 @@ class DGCNNSegAttention(nn.Module):
     and the attention features.  (B, N, C_in) -> (B, N, num_classes)
     logits; with ``return_feat`` also the few-shot features
     concat(first block, attention).  In training the attention's and the
-    segmenter's dropout masks come from ``generator``.  knn_impl,
-    attn_impl and gather_impl as `FeatureExtractor`'s."""
+    segmenter's dropout masks come from ``generator``.  Under scene-batch
+    data parallelism x is a rank's rows of the batch: ``shard`` places them
+    (the dropout masks are the whole batch's rows), and ``sync``, a process
+    group, takes every BatchNorm's statistics over the whole batch.
+    knn_impl, attn_impl and gather_impl as `FeatureExtractor`'s."""
 
     def __init__(self, in_features: int, num_classes: int,
                  edgeconv_widths: Sequence[Sequence[int]] = ((64, 64), (64, 64), (64, 64)),
@@ -460,19 +512,20 @@ class DGCNNSegAttention(nn.Module):
         self.v2 = v2
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None, return_feat: bool = False):
-        outs, h = self.encoder(x, train)
-        h = self.att_learner(h, train, generator)
+                generator: Optional[torch.Generator] = None, return_feat: bool = False,
+                shard: Optional[Shard] = None, sync=None):
+        outs, h = self.encoder(x, train, sync=sync)
+        h = self.att_learner(h, train, generator, shard)
         if self.v2:
             pc_feat = torch.cat([outs[0], h], dim=-1)
         else:
             g = h.amax(dim=1, keepdim=True).expand_as(h)        # the global feature
             pc_feat = torch.cat([*outs, g], dim=-1)
-        z = self.seg1(self.seg0(pc_feat, train), train)
+        z = self.seg1(self.seg0(pc_feat, train, sync=sync), train, sync=sync)
         if train and self.dropout > 0.0:
             if generator is None:
                 raise ValueError("DGCNNSegAttention: training with dropout needs a generator")
-            z = seeded_dropout(z, self.dropout, generator)
+            z = seeded_dropout(z, self.dropout, generator, shard=shard)
         logits = self.seg_out(z)
         if return_feat:
             return logits, torch.cat([outs[0], h], dim=-1)

@@ -13,7 +13,11 @@ makes of them there.
 The dropout mask (`csrc/philox.cuh`) is a pure function of (seed, b, i, j):
 Philox4x32-10 at counter (j // 4, i, b, 0) with key (seed_lo, seed_hi),
 word j % 4; keep iff (word >> 8) >= ceil(rate * 2^24); a kept entry is
-scaled by 1 / (1 - rate).  The TPU kernel seeds per (batch, query tile)
+scaled by 1 / (1 - rate).  b is the cloud's index in the whole batch: every
+function here takes ``b0``, the batch offset of its first cloud (a
+data-parallel rank's rows start at b0 = rank * rows), and its cloud b draws
+cloud b0 + b's mask, so a shard's call equals those rows of the whole
+batch's call.  The TPU kernel seeds per (batch, query tile)
 instead, so its bits differ: the port's tests compare with JAX at rate 0
 and test the mask inside the port.  `dropout_words_reference` computes the
 same bits in plain PyTorch on any device.
@@ -160,27 +164,28 @@ def philox4x32_10(ctr, key):
     return c0, c1, c2, c3
 
 
-def dropout_words_reference(b: int, n: int, seed: int, device) -> torch.Tensor:
+def dropout_words_reference(b: int, n: int, seed: int, device, b0: int = 0) -> torch.Tensor:
     """The mask's Philox words, (B, N, N) int64 in [0, 2^32): word (b, i, j)
-    is element j % 4 of Philox4x32-10 at counter (j // 4, i, b, 0)."""
+    is element j % 4 of Philox4x32-10 at counter (j // 4, i, b0 + b, 0)."""
     kw = dict(dtype=torch.int64, device=device)
     j4 = torch.arange((n + 3) // 4, **kw)[None, None, :]
     i = torch.arange(n, **kw)[None, :, None]
-    bb = torch.arange(b, **kw)[:, None, None]
+    bb = torch.arange(b0, b0 + b, **kw)[:, None, None] & _U32
     zero = torch.zeros((), **kw)
     c0, c1, c2, c3 = torch.broadcast_tensors(j4, i, bb, zero)
     words = philox4x32_10((c0, c1, c2, c3), _seed_words(seed))
     return torch.stack(words, -1).reshape(b, n, -1)[..., :n]
 
 
-def dropout_mask_reference(b: int, n: int, rate: float, seed: int, device) -> torch.Tensor:
+def dropout_mask_reference(b: int, n: int, rate: float, seed: int, device,
+                           b0: int = 0) -> torch.Tensor:
     """(B, N, N) f32 mask factors: 0 for a dropped entry, 1 / (1 - rate)
     for a kept one."""
-    keep = (dropout_words_reference(b, n, seed, device) >> 8) >= dropout_threshold(rate)
+    keep = (dropout_words_reference(b, n, seed, device, b0) >> 8) >= dropout_threshold(rate)
     return keep.float() * keep_scale(rate)
 
 
-def dropout_words(b: int, n: int, seed: int, device) -> torch.Tensor:
+def dropout_words(b: int, n: int, seed: int, device, b0: int = 0) -> torch.Tensor:
     """The same words from the kernel `r3d_dropout_mask`, (B, N, N) int32
     holding the uint32 bits.  For checking the kernel's bits; the model
     never calls it."""
@@ -189,10 +194,10 @@ def dropout_words(b: int, n: int, seed: int, device) -> torch.Tensor:
         raise ValueError(f"dropout_words: no kernel for device {device}")
     out = torch.empty((b, n, n), dtype=torch.int32, device=device)
     fn = build.function("r3d_dropout_mask", [build.P, build.I, build.I, build.U, build.U,
-                                             build.P])
+                                             build.U, build.P])
     lo, hi = _seed_words(seed)
     with torch.cuda.device(device):
-        err = fn(out.data_ptr(), b, n, lo, hi, build.stream_ptr(device))
+        err = fn(out.data_ptr(), b, n, lo, hi, b0, build.stream_ptr(device))
     build.check(err, "r3d_dropout_mask")
     return out
 
@@ -238,37 +243,37 @@ def _pv(p, v):
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tau: float,
-                        rate: float = 0.0, seed: int = 0,
-                        kernel_scale: bool = False) -> torch.Tensor:
+                        rate: float = 0.0, seed: int = 0, kernel_scale: bool = False,
+                        b0: int = 0) -> torch.Tensor:
     """softmax(q k^T / tau) [* mask] v for (B, N, D) tensors, f32 or bf16,
     -> f32, the plain version (differentiable by torch autograd; no
     log-sum-exp pass).  ``kernel_scale``: bf16 q scaled as the kernels
     scale it."""
     p = torch.softmax(_scores(q, k, tau, kernel_scale), dim=-1)
     if rate > 0.0:
-        p = p * dropout_mask_reference(q.shape[0], q.shape[1], rate, seed, q.device)
+        p = p * dropout_mask_reference(q.shape[0], q.shape[1], rate, seed, q.device, b0)
     return _pv(p, v)
 
 
 def attention_fwd_reference(q, k, v, tau: float, rate: float = 0.0, seed: int = 0,
-                            kernel_scale: bool = False):
+                            kernel_scale: bool = False, b0: int = 0):
     """(y, lse): the output and the (B, N) row log-sum-exp of the scores."""
     s = _scores(q, k, tau, kernel_scale)
     p = torch.softmax(s, dim=-1)
     if rate > 0.0:
-        p = p * dropout_mask_reference(q.shape[0], q.shape[1], rate, seed, q.device)
+        p = p * dropout_mask_reference(q.shape[0], q.shape[1], rate, seed, q.device, b0)
     return _pv(p, v), torch.logsumexp(s, dim=-1)
 
 
 def attention_bwd_reference(q, k, v, y, dy, lse, tau: float, rate: float = 0.0,
-                            seed: int = 0, kernel_scale: bool = False):
+                            seed: int = 0, kernel_scale: bool = False, b0: int = 0):
     """(dq, dk, dv), f32, by the kernel's algebra: P = exp(s - lse), Pd = P
     * M, dV = Pd^T dY, dS = P * (dY V^T * M - rowsum(dY * Y)), dQ = dS K /
     tau, dK = dS^T Q / tau.  For bf16 q, k, v: dY, Pd and dS rounded to
     bf16 before their products, f32 sums, and 1 / tau an f32 factor, as in
     the TPU kernel."""
     p = torch.exp(_scores(q, k, tau, kernel_scale) - lse[..., None])
-    m = (dropout_mask_reference(q.shape[0], q.shape[1], rate, seed, q.device)
+    m = (dropout_mask_reference(q.shape[0], q.shape[1], rate, seed, q.device, b0)
          if rate > 0.0 else None)
     pd = p if m is None else p * m
     lowp = q.dtype == torch.bfloat16
@@ -414,12 +419,12 @@ _FWD_NAMES = {("tuned", False): "r3d_attn_fwd", ("tuned", True): "r3d_attn_fwd_b
               ("wide_tf32", False): "r3d_attn_wide_tf32_fwd"}
 
 
-def _kernel_fwd(q, k, v, tau, rate, seed, want_lse):
+def _kernel_fwd(q, k, v, tau, rate, seed, want_lse, b0):
     global launches, bf16_launches, wide_tf32_launches, wide_tc_bf16_launches
     global wide_group_bf16_launches
     pad = _layout(q)
     if pad > 0:
-        y, lse = _kernel_fwd(*_pad(pad, q, k, v), tau, rate, seed, want_lse)
+        y, lse = _kernel_fwd(*_pad(pad, q, k, v), tau, rate, seed, want_lse, b0)
         return y[..., :q.shape[-1]].contiguous(), lse
     q, k, v = _staged(q), _staged(k), _staged(v)
     b, n, d = q.shape
@@ -434,14 +439,14 @@ def _kernel_fwd(q, k, v, tau, rate, seed, want_lse):
     cluster = [fwd_bf16_cluster(b, n, torch.cuda.get_device_properties(q.device)
                                 .multi_processor_count)] if (route, lowp) == ("tuned", True) else []
     fn = build.function(name, [build.P] * (5 + len(scratch)) + [build.I] * (3 + len(cluster))
-                        + [build.F, build.I] + [build.U] * 3 + [build.F, build.P])
+                        + [build.F, build.I] + [build.U] * 3 + [build.F, build.U, build.P])
     lo, hi = _seed_words(seed)
     scale = bf16_value(1.0 / tau) if lowp else 1.0 / tau
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
                  lse.data_ptr() if want_lse else None, *(t.data_ptr() for t in scratch),
                  b, n, d, *cluster, scale, int(rate > 0.0), lo, hi, dropout_threshold(rate),
-                 keep_scale(rate), build.stream_ptr(q.device))
+                 keep_scale(rate), b0, build.stream_ptr(q.device))
     build.check(err, name)
     if route == "wide_tf32":
         wide_tf32_launches += 1
@@ -456,25 +461,26 @@ def _kernel_fwd(q, k, v, tau, rate, seed, want_lse):
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tau: float,
-              rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+              rate: float = 0.0, seed: int = 0, b0: int = 0) -> torch.Tensor:
     """softmax(q k^T / tau) [* mask] v; q, k, v (B, N, D) f32 or bf16 ->
     (B, N, D) f32, forward only."""
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, tau, rate, seed)
+        return attention_reference(q, k, v, tau, rate, seed, b0=b0)
     _check("attention", q, k, v)
-    return _kernel_fwd(q, k, v, tau, rate, seed, want_lse=False)[0]
+    return _kernel_fwd(q, k, v, tau, rate, seed, False, b0)[0]
 
 
-def attention_fwd(q, k, v, tau: float, rate: float = 0.0, seed: int = 0):
+def attention_fwd(q, k, v, tau: float, rate: float = 0.0, seed: int = 0, b0: int = 0):
     """(y, lse (B, N) f32), the forward that training saves for the
     backward."""
     if q.device.type == "cpu":
-        return attention_fwd_reference(q, k, v, tau, rate, seed)
+        return attention_fwd_reference(q, k, v, tau, rate, seed, b0=b0)
     _check("attention", q, k, v)
-    return _kernel_fwd(q, k, v, tau, rate, seed, want_lse=True)
+    return _kernel_fwd(q, k, v, tau, rate, seed, True, b0)
 
 
-def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int = 0):
+def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int = 0,
+                  b0: int = 0):
     """(dq, dk, dv), f32, of the forward's f32 output cotangent dy.  On
     bf16 q, k, v at D <= 64 the call takes a scratch of B ceil(N / 64)^2
     4096 bf16 entries for dS (`bwd_bf16_ds_elems`: memory that grows as B
@@ -482,14 +488,14 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
     global bwd_launches, bwd_bf16_launches, wide_tf32_bwd_launches, wide_tc_bwd_bf16_launches
     global wide_group_bwd_bf16_launches
     if q.device.type == "cpu":
-        return attention_bwd_reference(q, k, v, y, dy, lse, tau, rate, seed)
+        return attention_bwd_reference(q, k, v, y, dy, lse, tau, rate, seed, b0=b0)
     _check("attention_bwd", q, k, v, y, dy)
     b, n, d = q.shape
     if lse.shape != (b, n) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"attention_bwd: want a ({b}, {n}) float32 lse on {q.device}")
     pad = _layout(q)
     if pad > 0:
-        grads = attention_bwd(*_pad(pad, q, k, v, y, dy), lse, tau, rate, seed)
+        grads = attention_bwd(*_pad(pad, q, k, v, y, dy), lse, tau, rate, seed, b0)
         return tuple(g[..., :d].contiguous() for g in grads)
     lowp = q.dtype == torch.bfloat16
     route = _route(q)
@@ -498,7 +504,7 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
                   for _ in range(3))
     delta = torch.empty((b, n), dtype=torch.float32, device=q.device)
     lo, hi = _seed_words(seed)
-    tail = (int(rate > 0.0), lo, hi, dropout_threshold(rate), keep_scale(rate),
+    tail = (int(rate > 0.0), lo, hi, dropout_threshold(rate), keep_scale(rate), b0,
             build.stream_ptr(q.device))
     if lowp:
         # the bf16 routes' backward kernels: the prep pass's scratch, and at
@@ -518,7 +524,7 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
         scales = (1.0 / tau,)
     fn = build.function(name, [build.P] * len(ptrs) + [build.I] * 3
                         + [build.F] * len(scales) + [build.I] + [build.U] * 3
-                        + [build.F, build.P])
+                        + [build.F, build.U, build.P])
     with torch.cuda.device(q.device):
         err = fn(*(t.data_ptr() for t in ptrs), b, n, d, *scales, *tail)
     build.check(err, name)
@@ -537,36 +543,40 @@ def attention_bwd(q, k, v, y, dy, lse, tau: float, rate: float = 0.0, seed: int 
 # --------------------------------------------------------------- autograd --
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seed, tau, rate, plain):
+    def forward(ctx, q, k, v, seed, tau, rate, plain, b0):
         fwd = attention_fwd_reference if plain else attention_fwd
-        y, lse = fwd(q, k, v, tau, rate, seed)
+        y, lse = fwd(q, k, v, tau, rate, seed, b0=b0)
         ctx.save_for_backward(q, k, v, y, lse)
-        ctx.args = (seed, tau, rate, plain)
+        ctx.args = (seed, tau, rate, plain, b0)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        seed, tau, rate, plain = ctx.args
+        seed, tau, rate, plain, b0 = ctx.args
         bwd = attention_bwd_reference if plain else attention_bwd
         q, k, v, y, lse = ctx.saved_tensors
-        dq, dk, dv = bwd(q, k, v, y, dy.float().contiguous(), lse, tau, rate, seed)
+        dq, dk, dv = bwd(q, k, v, y, dy.float().contiguous(), lse, tau, rate, seed, b0=b0)
         # f32 sums, cotangents in the primal dtype (pallas_attention.py:233-237)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: int,
-                    tau: float, rate: float, train: bool, impl: str = "auto") -> torch.Tensor:
+                    tau: float, rate: float, train: bool, impl: str = "auto",
+                    b0: int = 0) -> torch.Tensor:
     """softmax(q k^T / tau) [dropout] v, f32, with the kernels' backward,
     the counterpart of the JAX package's `fused_attention`: q, k, v f32, or
     bf16 for the bf16 forms (cotangents in bf16).  Dropout runs when
     ``train`` and ``rate > 0``, its mask drawn from ``seed``.  impl 'auto'
     (or 'pallas') takes the kernels on CUDA tensors, 'xla' the plain
-    versions everywhere.
+    versions everywhere.  ``b0``: the batch offset of q's first cloud
+    (module docstring).
     Without autograd only the forward runs (no lse)."""
     if impl not in IMPLS:
         raise NotImplementedError(f"attn_impl {impl!r}: the port has {IMPLS}")
     rate = rate if train else 0.0
     plain = impl == "xla"
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
-        return (attention_reference if plain else attention)(q, k, v, tau, rate, seed)
-    return _FusedAttention.apply(q, k, v, seed, tau, rate, plain)
+        if plain:
+            return attention_reference(q, k, v, tau, rate, seed, b0=b0)
+        return attention(q, k, v, tau, rate, seed, b0)
+    return _FusedAttention.apply(q, k, v, seed, tau, rate, plain, b0)

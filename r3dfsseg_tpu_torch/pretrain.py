@@ -20,24 +20,34 @@ assembled on a background thread and copied to the device a batch ahead.
 The model runs in float32 whatever the config's compute dtype, as the JAX
 model does.  It writes ``log_dir/pretrain_checkpoint.tar`` in the
 original code's ``{'params': encoder.state_dict()}`` schema.
+
+``--mesh N`` pretrains on N data-parallel ranks (`parallel/launch.py`)
+where N divides the batch, as the JAX package's scene-batch DP: each rank
+takes its rows of every batch, BatchNorm takes its statistics over the
+whole batch (`nn/dgcnn.py:BatchNorm`'s ``sync``), the dropout masks are
+the whole batch's rows, and the gradient is averaged over the ranks; rank
+0 alone writes the log, the scalars and the checkpoint.
 """
 from __future__ import annotations
 
 import itertools
 import os
 import time
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from r3dfsseg_tpu_torch import pin_f32_matmul
 from r3dfsseg_tpu_torch.cli import args_to_config, build_parser
 from r3dfsseg_tpu_torch.config import R3DConfig
-from r3dfsseg_tpu_torch.learners.base import resolve_device
 from r3dfsseg_tpu_torch.nn.dgcnn import DGCNNSegAttention, init_linear_weights
-from r3dfsseg_tpu_torch.utils.logger import ScalarWriter, init_logger
+from r3dfsseg_tpu_torch.parallel import Mesh, Shard, launch, make_mesh, replicate
+from r3dfsseg_tpu_torch.parallel.mesh import (all_reduce_grads_, all_reduce_mean, divides,
+                                              mesh_size, shard_rows, sync_group)
+from r3dfsseg_tpu_torch.utils.logger import ScalarWriter, Silent, init_logger
 
 LOG_EVERY = 10      # steps between log lines, as in the JAX package
 
@@ -85,35 +95,52 @@ def seg_model(cfg: R3DConfig, num_classes: int) -> DGCNNSegAttention:
 
 
 def pretrain_step(model: DGCNNSegAttention, optimizer: torch.optim.Optimizer,
-                  x: torch.Tensor, y: torch.Tensor, generator: torch.Generator
+                  x: torch.Tensor, y: torch.Tensor, generator: torch.Generator,
+                  mesh: Optional[Mesh] = None, offset: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One optimizer step on a batch: the mean cross-entropy over every
     point, backward and ``optimizer.step()``.  Returns (loss, accuracy) as
-    0-d tensors on the device, without a host sync."""
+    0-d tensors on the device, without a host sync.  With a ``mesh`` of
+    more than one rank, x and y are this rank's rows of the batch from
+    ``offset``: BatchNorm's statistics and the dropout masks are the whole
+    batch's, the gradient and the returned figures the mean over the
+    ranks."""
+    dp = mesh is not None and mesh.size > 1
+    shard = Shard(offset, x.shape[0] * mesh.size) if dp else None
     optimizer.zero_grad(set_to_none=True)
-    logits = model(x, train=True, generator=generator)
+    logits = model(x, train=True, generator=generator, shard=shard, sync=sync_group(mesh))
     y = y.long()
     loss = -F.log_softmax(logits, -1).gather(-1, y[..., None]).mean()
     loss.backward()
+    if dp:
+        all_reduce_grads_(list(model.parameters()), mesh)
     optimizer.step()
     acc = (logits.detach().argmax(-1) == y).float().mean()
+    if dp:
+        return tuple(all_reduce_mean([loss.detach(), acc], mesh))
     return loss.detach(), acc
 
 
 def pretrain(cfg: R3DConfig, *, batch_size: int = 16, lr: float = 0.001,
              device=None) -> str:
     """Pretrain (or, with ``cfg.pretrain_checkpoint_path``, finetune) for
-    ``cfg.n_iters`` steps on ``device`` ("cuda" when None); returns the
-    path of the encoder checkpoint written."""
+    ``cfg.n_iters`` steps on ``device`` ("cuda" when None), on `mesh_size`
+    ranks (started here unless this is a rank already); returns the path
+    of the encoder checkpoint written."""
     from r3dfsseg_tpu_torch.data.loader import device_prefetch, prefetch_iter
     from r3dfsseg_tpu_torch.utils.checkpoint import (load_pretrain_checkpoint,
                                                      save_pretrain_checkpoint)
 
+    n_dev = mesh_size(cfg, device)
+    if n_dev > 1 and not dist.is_initialized():
+        return launch(pretrain, n_dev, cfg, batch_size=batch_size, lr=lr, device=device)
     pin_f32_matmul()
-    device = resolve_device(device)
+    mesh = make_mesh(n_dev, device)
+    device = mesh.device
+    lead = mesh.rank == 0
     phase = cfg.phase if cfg.phase in ("pretrain", "finetune") else "pretrain"
-    logger = init_logger(cfg.log_dir, cfg, phase=phase)
-    writer = ScalarWriter(cfg.log_dir)
+    logger = init_logger(cfg.log_dir, cfg, phase=phase) if lead else Silent()
+    writer = ScalarWriter(cfg.log_dir) if lead else Silent()
     try:
         classes, scans = pretrain_scans(cfg)
         logger.cprint(f"pretrain classes: {classes} (+bg)")
@@ -128,13 +155,26 @@ def pretrain(cfg: R3DConfig, *, batch_size: int = 16, lr: float = 0.001,
             logger.cprint("finetune: loaded encoder from %s" % cfg.pretrain_checkpoint_path)
         model.to(device)
         optimizer = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        host = itertools.islice(batches, cfg.n_iters)
+        dp = divides(mesh, batch_size)
+        if dp:
+            gen = generator.get_state()
+            replicate([*model.parameters(), *model.buffers(), gen], mesh)
+            generator.set_state(gen)
+            host = ((shard_rows(x, mesh), shard_rows(y, mesh)) for x, y in host)
+            logger.cprint("pretrain DP: %d-scene batches sharded over %d devices"
+                          % (batch_size, mesh.size))
+        elif mesh.size > 1:
+            logger.cprint("WARNING: pretrain DP disabled — batch_size %d does not divide the "
+                          "%d visible devices" % (batch_size, mesh.size))
+        offset = mesh.rank * (batch_size // mesh.size) if dp else 0
 
         t0 = time.perf_counter()
         t_first = None
-        stream = device_prefetch(prefetch_iter(itertools.islice(batches, cfg.n_iters),
-                                               prefetch=4), device, n=2)
+        stream = device_prefetch(prefetch_iter(host, prefetch=4), device, n=2)
         for it, (x, y) in enumerate(stream):
-            loss, acc = pretrain_step(model, optimizer, x, y, generator)
+            loss, acc = pretrain_step(model, optimizer, x, y, generator,
+                                      mesh if dp else None, offset)
             if it == 0 and device.type == "cuda":
                 torch.cuda.synchronize(device)
             if it == 0:
@@ -152,7 +192,8 @@ def pretrain(cfg: R3DConfig, *, batch_size: int = 16, lr: float = 0.001,
             logger.cprint("== throughput: %.2f clouds/s (from the end of the first step) =="
                           % (batch_size * (cfg.n_iters - 1) / (time.perf_counter() - t_first)))
         out = os.path.join(cfg.log_dir, "pretrain_checkpoint.tar")
-        save_pretrain_checkpoint(out, model)
+        if lead:
+            save_pretrain_checkpoint(out, model)
         logger.cprint(f"saved encoder checkpoint to {out}")
         return out
     finally:

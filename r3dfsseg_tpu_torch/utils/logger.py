@@ -61,6 +61,24 @@ class ScalarWriter:
             self.tb.close()
 
 
+class Silent:
+    """The log and the scalar writer of a data-parallel rank other than
+    rank 0, which writes nothing: `IOStream`'s and `ScalarWriter`'s calls,
+    doing nothing."""
+
+    def cprint(self, text: str):
+        pass
+
+    def add_scalar(self, tag: str, value, step: int):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
 def init_logger(log_dir: str, cfg, phase: Optional[str] = None) -> IOStream:
     os.makedirs(log_dir, exist_ok=True)
     phase = phase or getattr(cfg, "phase", "train")

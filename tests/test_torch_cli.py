@@ -107,9 +107,7 @@ def test_args_to_config_equals_jax(argv, eval_mode):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
-REFUSED = [(["--knn_impl", "approx"], "Not queued"), (["--mesh", "2"], "item 7a"),
-           (["--phase", "pretrain", "--mesh", "2"], "item 7a"),
-           (["--phase", "finetune", "--mesh", "4"], "item 7a"),
+REFUSED = [(["--knn_impl", "approx"], "Not queued"),
            (["--wire_format", "f16"], "Not queued")]
 
 
@@ -117,6 +115,18 @@ REFUSED = [(["--knn_impl", "approx"], "Not queued"), (["--mesh", "2"], "item 7a"
 def test_flags_the_port_does_not_run_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         cli.args_to_config(cli.build_parser(False).parse_args(argv), False)
+
+
+MESHES = [["--mesh", "2"], ["--phase", "pretrain", "--mesh", "2"],
+          ["--phase", "finetune", "--mesh", "4"]]
+
+
+@pytest.mark.parametrize("argv", MESHES, ids=[" ".join(a) for a in MESHES])
+def test_mesh_flags_are_taken(argv):
+    """`--mesh N` runs data-parallel ranks (tests/test_torch_parallel.py):
+    the config carries the mesh as the JAX CLI's does."""
+    cfg = cli.args_to_config(cli.build_parser(False).parse_args(argv), False)
+    assert cfg.mesh_shape == (int(argv[-1]),)
 
 
 def test_episode_batch_auto_is_one():

@@ -63,8 +63,9 @@ def test_fuse_edge_on_is_refused_by_both_packages(mode):
 def test_port_imports_no_jax():
     """Importing the port, its serving path, its training step, its data
     pipeline, its CLIs, its pretraining, its Flax checkpoints, the
-    baselines (models, learners, ccns; both served) and whole-scene
-    serving (`predict_scene` on the dense, blocked and sparse graphs) pulls in
+    baselines (models, learners, ccns; both served), whole-scene
+    serving (`predict_scene` on the dense, blocked and sparse graphs) and
+    data parallelism (`parallel/`) pulls in
     neither jax nor the JAX package, nor flax, h5py or msgpack (a fresh
     interpreter, so this process's jax does not count)."""
     code = (
@@ -82,6 +83,7 @@ def test_port_imports_no_jax():
         "from r3dfsseg_tpu_torch.learners import base, proto_learner, transformer_learner\n"
         "from r3dfsseg_tpu_torch.models import protonet, transformer\n"
         "from r3dfsseg_tpu_torch.ops import ccns, segment, lp_blocked\n"
+        "from r3dfsseg_tpu_torch.parallel import launch, mesh, make_mesh\n"
         "from r3dfsseg_tpu_torch.ops import cuda_attention, cuda_cheby, cuda_fps, cuda_knn, "
         "cuda_kth, cuda_scatter, cuda_gather, cuda_fused_edge, fused_edge\n"
         "from r3dfsseg_tpu_torch.utils.convert import state_dict_from_jax\n"
