@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N] [--requests N]
                           [--only knn,fps | cheby,scatter | kth | bf16 | f1 | f2 | fused
                                   | attn | probe | parity | cli | pretrain | baselines
-                                  | scene | parallel]
+                                  | scene | parallel | sp]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc.  Phases, each of which raises (exit code != 0) on failure:
@@ -264,6 +264,28 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      device times of each
      step at W = 1 and of rank 0's at W = 2 (two processes sharing one
      card: not a scaling figure);
+  4k. the node-sharded scene graph (`sp_phase`, `parallel/sp.py` under
+     `predict_scene(mesh=...)`), on phase 4i's seeded weights, flagship
+     support and synthetic scenes: (1) in a NCCL process group of world
+     size 1, the dense sharded scene at 16,384 points (16,684 nodes) and
+     the blocked one at 32,768 (stored f32), each called SP_CALLS times,
+     labels against the unsharded `predict_scene` on the same card and
+     weights (>= SCENE_BLOCKED_GATE) and each launching SP_LAUNCHES (kNN 6,
+     attention forward 2, FPS 2, kernels 4 and 7 none: the sharded radius
+     is the plain bisection over one shared bracket); (2) W = 2 (two
+     processes on cuda:0 over gloo, all-gathers staged through the host),
+     the same scenes, labels against W = 1 (>= SCENE_REPEAT_GATE), Z's
+     largest relative difference, and the node-feature entries in which
+     each rank's own prototypes differed from rank 0's before the
+     broadcast; (3) W = 4 on the card at 65,536 points (blk 16,896 x Mp
+     67,584 stored f32 a rank), one call, argmax against the single-device
+     stored f32 Z on the same scene (>= SCENE_REPEAT_GATE), and against its
+     split-stored Z (the single-device path at that size, printed: the
+     split store's bf16 selection moves about 1% of argmaxes there); (4) rank 0's
+     body alone at SP_PROJECTION (131,072 points over 4 ranks: blk 33,280
+     x Mp 133,120, split bf16) with the collectives replaced by local
+     stand-ins (`local_collectives`), Z finite; each part prints host ms,
+     device ms of encode, build and solve, and every rank's peak memory;
   2c. the F2 paths, at shapes the archived TPU kernels 8-11 take and the
      tuned kernels do not (`check_f2`): the general kernel 9
      (`csrc/fused_edge_general.cu`) at FUSED_F2_SHAPES, f32 and bf16, every
@@ -303,7 +325,7 @@ PROBE_DIGEST_COLS columns beside `torch.mm` with each case's device time,
 and its us per step over a range of M (`probe_sweep`); `--only parity`
 phase 4e alone, `--only cli` phase 4f alone, `--only pretrain` phase 4g
 alone, `--only baselines` phase 4h alone, `--only scene` phase 4i alone,
-`--only parallel` phase 4j alone.
+`--only parallel` phase 4j alone, `--only sp` phase 4k alone.
 The `launches_pretrain` entry of
 every kernel row counts phase 4g's pretraining run, the f32 wide attention
 pair's main path; `launches_baselines_proto` and
@@ -312,7 +334,9 @@ kernel-path training steps of each baseline, `launches_scene_<name>` each
 scene of phase 4i, `launches_parallel_w1` and
 `launches_parallel_pretrain_w1` phase 4j's W = 1 DP training and
 pretraining steps, `launches_parallel_w2` and
-`launches_parallel_pretrain_w2` rank 0's at W = 2; the attention rows'
+`launches_parallel_pretrain_w2` rank 0's at W = 2, `launches_scene_sp_w1_<scene>`
+phase 4k's sharded scenes at W = 1, `launches_scene_sp_w2_<scene>` and
+`launches_scene_sp_w4` rank 0's at W = 2 and 4; the attention rows'
 `batch_offsets` are phase 4j's offset checks.
 """
 from __future__ import annotations
@@ -4745,9 +4769,11 @@ def scene_stages(torch, predictor):
     """CUDA events around the scene program's stages: the encoder's calls
     (forward hooks), the dense affinity (`lp.local_constrained_affinity`)
     and solve (`lp.label_propagate`), the blocked or sparse graph's whole
-    call and its Chebyshev solve (`cuda_cheby.chebyshev`).  Yields a dict
-    of stage -> [(start, end)]."""
+    call and its Chebyshev solve (`cuda_cheby.chebyshev`); the sharded
+    graph's (`parallel/sp.py`) as the blocked one's.  Yields a dict of
+    stage -> [(start, end)]."""
     from r3dfsseg_tpu_torch.ops import cuda_cheby, lp, lp_blocked
+    from r3dfsseg_tpu_torch.parallel import sp
 
     spans = {name: [] for name in ("encode", "affinity", "label_propagate", "scene_lp",
                                    "chebyshev")}
@@ -4755,6 +4781,8 @@ def scene_stages(torch, predictor):
                (lp, "label_propagate", "label_propagate"),
                (lp_blocked, "blocked_label_propagate", "scene_lp"),
                (lp_blocked, "sparse_label_propagate", "scene_lp"),
+               (sp, "sp_label_propagate", "scene_lp"),
+               (sp, "sp_blocked_label_propagate", "scene_lp"),
                (cuda_cheby, "chebyshev", "chebyshev")]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
 
@@ -4795,8 +4823,9 @@ def stage_ms(spans) -> dict:
     """Device ms of each stage from `scene_stages`' events (synchronised):
     encode, graph build and solve.  On the dense graph the build is the
     affinity and the solve `label_propagate` (S and the Chebyshev steps); on
-    the blocked graph the solve is the Chebyshev steps and the build the
-    rest of its call."""
+    the blocked and the sharded graphs the solve is the Chebyshev steps (a
+    sharded one's all-gathers included) and the build the rest of its
+    call."""
     ms = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in spans.items()}
     if spans["scene_lp"]:
         return dict(encode_ms=ms["encode"], build_ms=ms["scene_lp"] - ms["chebyshev"],
@@ -5630,6 +5659,342 @@ def parallel_phase(torch, kernels, episodes, seed) -> dict:
     return dict(launches=launched, figures=figures)
 
 
+# ------------------------------------------ the node-sharded scene graph --
+# phase 4k: `parallel/sp.py` under `FewShotPredictor.predict_scene(mesh=...)`
+# (name, points, the path `serve.scene_lp_path` must name over a mesh of 1 and 2)
+SP_SCENES = (("dense", 16384, "sharded-dense"), ("blocked", 32768, "sharded-blocked-stored"))
+SP_W4_POINTS = 65536        # W = 4 on the card: blk 16,896 x Mp 67,584 stored f32 a rank
+SP_PROJECTION = (131072, 4, "split")   # rank 0's body alone: blk 33,280 x Mp 133,120, bf16
+SP_CALLS = 2                # calls a sharded scene at W = 1, 2: the first's Z and launches
+SP_LAUNCHES = {"knn": 6, "attention_fwd": 2, "fps": 2, "kth": 0, "cheby": 0}   # a scene, a rank
+
+
+def sp_request(torch, predictor, support, scene, kernels, mesh, what: str,
+               calls: int = SP_CALLS) -> dict:
+    """``calls`` `predict_scene(mesh=mesh)` calls, each with its launches
+    counted from zero, host ms, stage device ms (`scene_stages`) and peak
+    memory; the first call's Z (the sharded graph's output, kept by
+    `capture_calls`) and the count of this rank's node-feature entries that
+    differed from rank 0's before the broadcast.  Later calls' labels must
+    equal the first's on SCENE_REPEAT_GATE of points and launch as many
+    kernels."""
+    from r3dfsseg_tpu_torch import serve
+    from r3dfsseg_tpu_torch.parallel import sp
+
+    c = predictor.cfg
+    p = len(scene[0])
+    blocks = -(-p // c.pc_npts)
+    blocks = -(-blocks // mesh.size) * mesh.size     # zero blocks up to a multiple of W
+    nodes = c.n_classes * c.n_subprototypes + blocks * c.pc_npts
+    targets = {"z": (sp, "sp_label_propagate", lambda a: True),
+               "z_blocked": (sp, "sp_blocked_label_propagate", lambda a: True),
+               "differed": (serve, "replicate_scene_nodes", lambda a: True)}
+    timed = []
+    for i in range(calls):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with scene_stages(torch, predictor) as spans, \
+                capture_calls(torch, targets if i == 0 else {}) as calls:
+            zero_counts(kernels)
+            t0 = time.perf_counter()
+            labels = predictor.predict_scene(*support, *scene, mesh=mesh)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            launched = counts(kernels)
+        timed.append(dict(host_ms=host_ms, peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                          launched=launched, labels=labels, **stage_ms(spans)))
+        if i == 0:
+            (args, kw, z), = calls["z"] + calls["z_blocked"]
+            z, valid, entries = z.cpu().numpy(), kw["valid"].cpu().numpy(), args[0].numel()
+            differed = calls["differed"][0][2] if calls["differed"] else 0
+            del calls, args, kw
+    labels, launched = timed[0]["labels"], timed[0]["launched"]
+    repeat = min((float((t["labels"] == labels).mean()) for t in timed[1:]), default=1.0)
+    if labels.shape != (p,) or any(t["launched"] != launched for t in timed[1:]) or \
+            repeat < SCENE_REPEAT_GATE or not np.isfinite(z).all() or z.shape[0] != nodes:
+        raise AssertionError(f"[4k] {what}: labels {labels.shape}, Z {z.shape} (want {nodes} "
+                             f"rows) finite {np.isfinite(z).all()}, launches "
+                             f"{[t['launched'] for t in timed]}, repeat agreement {repeat}")
+    return dict(points=p, nodes=nodes, path=serve.scene_lp_path(nodes, c, mesh),
+                labels=labels, z=z, valid=valid, launched=launched, differed=int(differed),
+                feature_entries=entries,
+                repeat_agreement=repeat,
+                **{key: [t[key] for t in timed]
+                   for key in ("host_ms", "encode_ms", "build_ms", "solve_ms", "peak_mib")})
+
+
+def expect_sp_launches(what: str, launched: dict) -> None:
+    """A sharded scene on a rank launches kNN 6 times (three calls on its
+    blocks, three on the support), the attention forward twice and FPS
+    twice (the prototypes), and neither kernel 4 nor 7 (SP_LAUNCHES), nor
+    anything else."""
+    want = {n: SP_LAUNCHES.get(n, 0) for n in launched}
+    if launched != want:
+        raise AssertionError(f"[4k] {what}: launches {launched}, want {want}")
+
+
+def sp_log(what: str, r: dict, mesh_size: int) -> None:
+    log(f"  [4k] {what}: {r['points']} points, {r['nodes']} nodes over {mesh_size} rank(s), "
+        f"path {r['path']}; launches " + ", ".join(f"{n} {r['launched'][n]}" for n in SP_LAUNCHES)
+        + "; host " + " / ".join(f"{v:.1f}" for v in r["host_ms"]) + " ms, device encode "
+        + " / ".join(f"{v:.2f}" for v in r["encode_ms"]) + ", build "
+        + " / ".join(f"{v:.2f}" for v in r["build_ms"]) + ", solve "
+        + " / ".join(f"{v:.2f}" for v in r["solve_ms"]) + " ms; peak "
+        + " / ".join(f"{v:.1f}" for v in r["peak_mib"]) + " MiB")
+
+
+def sp_rank(payload: dict, device=None) -> dict:
+    """Phase 4k's rank body, which `parallel.launch` runs in each of W
+    processes sharing the card over gloo: `sp_request` on each of
+    ``payload['scenes']``.  Returns rank 0's results, with every rank's
+    node-feature count, host ms, stage ms and peak memory (`differed`,
+    `ranks`)."""
+    import torch
+    import torch.distributed as dist
+
+    from r3dfsseg_tpu_torch import pin_f32_matmul
+    from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
+    from r3dfsseg_tpu_torch.parallel import make_mesh
+    from r3dfsseg_tpu_torch.serve import FewShotPredictor
+
+    pin_f32_matmul()
+    mesh = make_mesh(device=device)
+    kernels = all_counters()
+    pred = FewShotPredictor(payload["cfg"], MPTILearner(payload["cfg"], mesh.device))
+    pred._learner.model.load_state_dict(payload["state"])     # the parent's weights
+    out = {}
+    for name, scene in payload["scenes"].items():
+        r = sp_request(torch, pred, payload["support"], scene, kernels, mesh,
+                       f"{name} scene, W = {mesh.size}, rank {mesh.rank}", payload["calls"])
+        mine = {k: r[k] for k in ("differed", "host_ms", "encode_ms", "build_ms", "solve_ms",
+                                  "peak_mib")}
+        every = [None] * mesh.size
+        dist.all_gather_object(every, mine, group=mesh.group)
+        out[name] = dict(r, ranks=every, staged_all_gather=mesh.staged_all_gather,
+                         backend=dist.get_backend(mesh.group))
+    return out
+
+
+@contextlib.contextmanager
+def local_collectives(sp_mod):
+    """`parallel/sp.py`'s collectives replaced by local stand-ins of the
+    same shapes, as `scripts/bench_scene.py:34 sharded_projection` does:
+    an all-gather is this rank's rows tiled over the mesh, the max
+    all-reduce this rank's value.  One rank's body then runs alone at a
+    mesh's shapes (its Z is not the mesh's)."""
+    saved = sp_mod.all_gather_rows, sp_mod.all_reduce_max
+    sp_mod.all_gather_rows = lambda t, mesh: t.repeat(mesh.size, *[1] * (t.dim() - 1))
+    sp_mod.all_reduce_max = lambda t, mesh: t
+    try:
+        yield
+    finally:
+        sp_mod.all_gather_rows, sp_mod.all_reduce_max = saved
+
+
+def sp_projection(torch, predictor, support, scene, kernels) -> dict:
+    """Phase 4k (4): rank 0's body of `sp_blocked_label_propagate` over
+    SP_PROJECTION's mesh alone on this card (`local_collectives`), on the
+    scene's nodes (encoded here in one batch): build and solve device ms,
+    peak memory; Z must be finite."""
+    from r3dfsseg_tpu_torch.parallel import Mesh, sp
+    from r3dfsseg_tpu_torch.serve import scene_blocks
+
+    c = predictor.cfg
+    p, w, mode = SP_PROJECTION
+    blocks, pad_mask, _ = scene_blocks(*scene, c.pc_npts)
+    node_feat, node_valid, y0, _ = predictor.scene_nodes(blocks, pad_mask, *support)
+    m = node_feat.shape[0]
+    blk, got_mode = sp.sp_blocked_plan(m, w)
+    if got_mode != mode:
+        raise AssertionError(f"[4k] projection: {m} nodes over {w} take {got_mode}, want {mode}")
+    mesh = Mesh(None, 0, w, node_feat.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    with local_collectives(sp), scene_stages(torch, predictor) as spans, torch.inference_mode():
+        t0 = time.perf_counter()
+        z = sp.sp_blocked_label_propagate(node_feat, y0, mesh=mesh, k=c.k_connect, sigma=c.sigma,
+                                          alpha=c.lp_alpha, valid=node_valid,
+                                          iters=c.lp_cg_iters)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    ms = stage_ms(spans)
+    launched = counts(kernels)
+    out = dict(points=p, nodes=m, ranks=w, blk=blk, m_pad=blk * w, mode=got_mode,
+               graph_gb=blk * blk * w * (2 if got_mode == "split" else 4) / 1e9, host_ms=host_ms, build_ms=ms["build_ms"],
+               solve_ms=ms["solve_ms"], peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+               finite=bool(torch.isfinite(z).all()))
+    log(f"  [4k] rank 0's body alone, {p} points ({m} nodes) over {w} ranks: blk {blk} x Mp "
+        f"{blk * w}, {got_mode} ({out['graph_gb']:.2f} GB a rank); host {host_ms:.1f} ms, device "
+        f"build {out['build_ms']:.2f} ms, solve {out['solve_ms']:.2f} ms; peak "
+        f"{out['peak_mib']:.1f} MiB; Z finite {out['finite']}")
+    if not out["finite"] or z.shape != (m, c.n_classes) or any(launched.values()):
+        raise AssertionError(f"[4k] projection: {out}, launches {launched}")
+    return out
+
+
+def sp_phase(torch, kernels, episodes, seed) -> dict:
+    """Phase 4k: the node-sharded scene graph (module docstring).  Returns
+    the main-path launches (`scene_sp_w1_<scene>`, rank 0's
+    `scene_sp_w2_<scene>` and `scene_sp_w4`) and the figures."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from r3dfsseg_tpu_torch.config import R3DConfig
+    from r3dfsseg_tpu_torch.learners.mpti_learner import MPTILearner
+    from r3dfsseg_tpu_torch.ops import lp_blocked
+    from r3dfsseg_tpu_torch.parallel import launch, make_mesh
+    from r3dfsseg_tpu_torch.serve import FewShotPredictor
+
+    t0 = time.perf_counter()
+    cfg = R3DConfig()
+    rng = np.random.default_rng(seed + 404)
+    support = tuple(episodes[0][:2])
+    pred = FewShotPredictor(cfg, MPTILearner(cfg, "cuda", torch.Generator().manual_seed(seed)))
+    state = {k: v.cpu() for k, v in pred._learner.model.state_dict().items()}
+    scenes = {name: synthetic_scene(rng, p) for name, p, _ in SP_SCENES}
+    scenes["w4"] = synthetic_scene(rng, SP_W4_POINTS)
+    projection = synthetic_scene(rng, SP_PROJECTION[0])
+    log(f"[4k] {describe(cfg)}: the node-sharded scene graph, scenes of "
+        + ", ".join(f"{len(v[0])}" for v in scenes.values()) + f" points and rank 0's body of "
+        f"{SP_PROJECTION[0]} points over {SP_PROJECTION[1]} ranks")
+    figures, launched = {}, {}
+
+    def mark(part):
+        figures[f"{part}_done_s"] = time.perf_counter() - t0
+        log(f"  [4k] {part} done {figures[f'{part}_done_s']:.1f} s into the phase")
+
+    # ---- the unsharded references on the same card and weights; the W = 4
+    # scene's single-device Z split-stored (its path) and stored f32
+    scene_request(torch, pred, support, synthetic_scene(rng, SCENE_STREAM_POINTS), kernels,
+                  "auto", "[4k] warm-up")
+    ref = {name: pred.predict_scene(*support, *scenes[name]) for name, *_ in SP_SCENES}
+    with capture_calls(torch, {"z": (lp_blocked, "blocked_label_propagate",
+                                     lambda a: True)}) as calls:
+        ref["w4"] = pred.predict_scene(*support, *scenes["w4"])
+    (ref_args, ref_kw, ref_split), = calls["z"]
+    with torch.inference_mode():
+        ref_f32 = lp_blocked.blocked_label_propagate(*ref_args, **dict(ref_kw, store_graph=True))
+    ref_split, ref_f32 = ref_split.cpu().numpy(), ref_f32.cpu().numpy()
+    ref_valid = ref_kw["valid"].cpu().numpy()
+    del calls, ref_args, ref_kw
+    torch.cuda.empty_cache()      # the ranks below share the card
+    ref_split_f32 = float((ref_split.argmax(-1) == ref_f32.argmax(-1))[ref_valid].mean())
+    log(f"  [4k] {SP_W4_POINTS}-point scene on one device: the split-stored Z against the "
+        f"stored f32 Z, argmax equal on {ref_split_f32:.5f} of valid nodes")
+    mark("references")
+
+    # ---- (1) W = 1 in a NCCL group of one
+    w1 = {}
+    with tempfile.TemporaryDirectory(prefix="r3d_sp_") as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "store"),
+                                world_size=1, rank=0, timeout=timedelta(seconds=120))
+        try:
+            mesh = make_mesh(1, "cuda")
+            for name, p, path in SP_SCENES:
+                r = sp_request(torch, pred, support, scenes[name], kernels, mesh,
+                               f"{name} scene, W = 1")
+                if r["path"] != path:
+                    raise AssertionError(f"[4k] {name}, W = 1: path {r['path']}, want {path}")
+                expect_sp_launches(f"{name} scene, W = 1", r["launched"])
+                r["unsharded_agreement"] = float((r["labels"] == ref[name]).mean())
+                sp_log(f"{name} scene, W = 1 (NCCL)", r, 1)
+                log(f"  [4k] {name} scene, W = 1: labels equal the unsharded predict_scene's on "
+                    f"{r['unsharded_agreement']:.5f} of points (gate {SCENE_BLOCKED_GATE}); the "
+                    f"later call's on {r['repeat_agreement']:.5f}")
+                if r["unsharded_agreement"] < SCENE_BLOCKED_GATE:
+                    raise AssertionError(f"[4k] {name}, W = 1 against unsharded: "
+                                         f"{r['unsharded_agreement']}")
+                w1[name] = r
+                launched[f"scene_sp_w1_{name}"] = r["launched"]
+        finally:
+            dist.destroy_process_group()
+
+    mark("w1")
+
+    # ---- (2) W = 2 on the one card over gloo, the same two scenes
+    payload = dict(cfg=cfg, state=state, support=support, calls=SP_CALLS,
+                   scenes={name: scenes[name] for name, *_ in SP_SCENES})
+    t = time.perf_counter()
+    two = launch(sp_rank, 2, payload, device="cuda:0", timeout_s=600)
+    figures["w2_launch_s"] = time.perf_counter() - t
+    for name, _, path in SP_SCENES:
+        r, one = two[name], w1[name]
+        if r["path"] != path:
+            raise AssertionError(f"[4k] {name}, W = 2: path {r['path']}, want {path}")
+        expect_sp_launches(f"{name} scene, W = 2 rank 0", r["launched"])
+        r["w1_agreement"] = float((r["labels"] == one["labels"]).mean())
+        diff = np.abs(r["z"] - one["z"])
+        r["z_max_rel_diff"] = float((diff / np.maximum(np.abs(one["z"]), 1e-30)).max())
+        r["z_max_abs_diff_of_max"] = float(diff.max() / np.abs(one["z"]).max())
+        sp_log(f"{name} scene, W = 2 rank 0 ({r['backend']}, staged through the host: "
+               f"{r['staged_all_gather']})", r, 2)
+        log(f"  [4k] {name} scene, W = 2: labels equal W = 1's on {r['w1_agreement']:.5f} of "
+            f"points (gate {SCENE_REPEAT_GATE}); Z's largest relative difference "
+            f"{r['z_max_rel_diff']:.3e} ({r['z_max_abs_diff_of_max']:.3e} of max |Z|); "
+            f"node-feature entries that differed from rank 0's before the broadcast, per rank "
+            f"{[x['differed'] for x in r['ranks']]} of {r['feature_entries']}; rank 1 "
+            f"host {r['ranks'][1]['host_ms']}, peak {r['ranks'][1]['peak_mib']} MiB")
+        if r["w1_agreement"] < SCENE_REPEAT_GATE:
+            raise AssertionError(f"[4k] {name}, W = 2 against W = 1: {r['w1_agreement']}")
+        launched[f"scene_sp_w2_{name}"] = r["launched"]
+
+    mark("w2")
+
+    # ---- (3) W = 4 on the one card: the stored f32 graph a rank, one call
+    t = time.perf_counter()
+    four = launch(sp_rank, 4, dict(payload, scenes={"w4": scenes["w4"]}, calls=1),
+                  device="cuda:0", timeout_s=600)["w4"]
+    figures["w4_launch_s"] = time.perf_counter() - t
+    expect_sp_launches("W = 4 rank 0", four["launched"])
+    if four["path"] != "sharded-blocked-stored":
+        raise AssertionError(f"[4k] W = 4: path {four['path']}")
+    if four["z"].shape != ref_f32.shape or not (four["valid"] == ref_valid).all():
+        raise AssertionError(f"[4k] W = 4: Z {four['z'].shape} against {ref_f32.shape}, valid "
+                             f"masks equal {(four['valid'] == ref_valid).all()}")
+    for key, z in (("f32_agreement", ref_f32), ("split_agreement", ref_split)):
+        four[key] = float((four["z"].argmax(-1) == z.argmax(-1))[ref_valid].mean())
+    four["unsharded_label_agreement"] = float((four["labels"] == ref["w4"]).mean())
+    sp_log(f"{SP_W4_POINTS}-point scene, W = 4 rank 0", four, 4)
+    log(f"  [4k] W = 4: argmax equal to the single-device stored f32 Z on "
+        f"{four['f32_agreement']:.5f} of valid nodes (gate {SCENE_REPEAT_GATE}), to its "
+        f"split-stored Z on {four['split_agreement']:.5f} (the split store's own agreement "
+        f"with f32 {ref_split_f32:.5f}); labels against the unsharded predict_scene "
+        f"{four['unsharded_label_agreement']:.5f}; node-feature entries that differed from "
+        f"rank 0's, per rank {[x['differed'] for x in four['ranks']]} of "
+        f"{four['feature_entries']}; host per rank "
+        f"{[round(x['host_ms'][0], 1) for x in four['ranks']]} ms, peak per rank "
+        f"{[round(x['peak_mib'][0], 1) for x in four['ranks']]} MiB")
+    if four["f32_agreement"] < SCENE_REPEAT_GATE:
+        raise AssertionError(f"[4k] W = 4 against the stored f32 graph: {four['f32_agreement']}")
+    launched["scene_sp_w4"] = four["launched"]
+    mark("w4")
+
+    # ---- (4) rank 0's body alone at a four-card mesh's shapes
+    figures["projection"] = sp_projection(torch, pred, support, projection, kernels)
+
+    keep = ("points", "nodes", "path", "host_ms", "encode_ms", "build_ms", "solve_ms",
+            "peak_mib", "differed", "feature_entries", "repeat_agreement")
+    figures.update(
+        {f"w1_{name}": dict({k: r[k] for k in keep}, unsharded_agreement=r["unsharded_agreement"])
+         for name, r in w1.items()},
+        **{f"w2_{name}": dict({k: two[name][k] for k in keep}, ranks=two[name]["ranks"],
+                              w1_agreement=two[name]["w1_agreement"],
+                              z_max_rel_diff=two[name]["z_max_rel_diff"],
+                              z_max_abs_diff_of_max=two[name]["z_max_abs_diff_of_max"])
+           for name, *_ in SP_SCENES},
+        w4=dict({k: four[k] for k in keep}, ranks=four["ranks"],
+                f32_agreement=four["f32_agreement"], split_agreement=four["split_agreement"],
+                single_device_split_vs_f32=ref_split_f32,
+                unsharded_label_agreement=four["unsharded_label_agreement"]),
+        phase_s=time.perf_counter() - t0)
+    log(f"[4k] phase {figures['phase_s']:.1f} s (launches W = 2 {figures['w2_launch_s']:.1f} s, "
+        f"W = 4 {figures['w4_launch_s']:.1f} s)")
+    return dict(launches=launched, figures=figures)
+
+
 def all_counters() -> dict:
     """Every kernel counter, by the name of its row: (module, attribute).
     The bf16 forms' counters count their calls apart, within their
@@ -5668,7 +6033,7 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--only", choices=["knn,fps", "cheby,scatter", "kth", "bf16", "f1", "f2",
                                        "fused", "attn", "probe", "parity", "cli", "pretrain",
-                                       "baselines", "scene", "parallel"],
+                                       "baselines", "scene", "parallel", "sp"],
                     help="build, then only the kNN and FPS (or the Chebyshev and scatter-add, "
                          "the k-th distance, the bf16 forms of kernels 1, 2, 5 and 6, the "
                          "F1 kernels: general kNN, packed kNN, wide attention, wide-row k-th "
@@ -5687,7 +6052,8 @@ def main() -> int:
                          "from it, the .msgpack checkpoints); baselines: phase 4h alone "
                          "(ProtoNet_Contrast and the transformer); scene: phase 4i alone "
                          "(whole-scene serving on the dense and blocked graphs); parallel: "
-                         "phase 4j alone (data parallelism)")
+                         "phase 4j alone (data parallelism); sp: phase 4k alone (the "
+                         "node-sharded scene graph)")
     args = ap.parse_args()
 
     import torch
@@ -5885,6 +6251,11 @@ def main() -> int:
         rows = {"parallel": parallel_phase(torch, all_counters(), episodes, args.seed)}
         log(smi)
         log(json.dumps(rows))
+        return 0
+    if args.only == "sp":
+        rows = {"sp": sp_phase(torch, all_counters(), episodes, args.seed)}
+        log(smi)
+        log(json.dumps(rows, default=str))
         return 0
     if args.only == "parity":
         counters = {"knn": (cuda_knn, "launches"), "attention_fwd": (cuda_attention, "launches"),
@@ -6118,6 +6489,11 @@ def main() -> int:
     par = parallel_phase(torch, kernels, episodes, args.seed)
     phases.update(par["launches"])
     log("[4j] figures " + json.dumps(par["figures"]))
+    # ---- 4k. the node-sharded scene graph: W = 1 under NCCL, W = 2 and 4
+    # on the card, rank 0's body alone at a four-card mesh's shapes
+    sharded = sp_phase(torch, kernels, episodes, args.seed)
+    phases.update(sharded["launches"])
+    log("[4k] figures " + json.dumps(sharded["figures"], default=str))
     for name in ("attention_fwd", "attention_bwd"):
         rows[name]["batch_offsets"] = par["figures"]["attention_offsets"]
     attn16, dev16 = pre["figures"]["attention_b16"], pre["figures"]["wide_pair_device_ms"]

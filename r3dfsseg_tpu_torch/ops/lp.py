@@ -30,6 +30,7 @@ _BIG = cuda_kth.SENTINEL     # self/invalid exclusion sentinel
 _EPS = 2.220446049250313e-16  # np.finfo(np.float64).eps, as the reference adds it
 _IMPLS = ("auto", "xla")
 AFFINITY_IMPLS = ("threshold", "topk")
+AFFINITY_METHODS = ("gaussian", "cosine")
 SOLVERS = ("cheby", "cg", "solve")
 
 
@@ -73,6 +74,20 @@ def _masked(d: torch.Tensor, valid: torch.Tensor | None) -> torch.Tensor:
     return d if valid is None else d.masked_fill(~valid[None, :], _BIG)
 
 
+def auto_sigma2(radius: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The auto bandwidth: sigma^2 = the median of the valid rows' k-th
+    distances (radius (N,)) / 4, floored at 1e-12 (the lower median, as
+    the JAX package takes it)."""
+    srt = torch.sort(torch.where(valid, radius, torch.inf)).values
+    mid = ((valid.sum() - 1) // 2).clamp(0, radius.shape[0] - 1)
+    return (srt[mid] / 4.0).clamp_min(1e-12)
+
+
+def cosine_rows(f32: torch.Tensor) -> torch.Tensor:
+    """Each row over its L2 norm + 1e-12: the cosine weights' factors."""
+    return f32 / (torch.linalg.vector_norm(f32, dim=-1, keepdim=True) + 1e-12)
+
+
 def graph_distances(node_feat: torch.Tensor, valid: torch.Tensor | None = None,
                     compare_dtype: torch.dtype | None = None):
     """(sqd, sel): the f32 squared distances (N, N) that the gaussian
@@ -111,9 +126,10 @@ def local_constrained_affinity(node_feat: torch.Tensor, k: int, sigma: float = 1
                                valid: torch.Tensor | None = None,
                                compare_dtype: torch.dtype | None = None,
                                impl: str = "threshold",
-                               kth_impl: str = "auto") -> torch.Tensor:
+                               kth_impl: str = "auto",
+                               method: str = "gaussian") -> torch.Tensor:
     """Symmetric kNN affinity with zero diagonal, (N, C) -> (N, N): the JAX
-    package's method='gaussian' with impl 'threshold' or 'topk'.
+    package's method 'gaussian' or 'cosine' with impl 'threshold' or 'topk'.
 
     'threshold': each row keeps the entries within its k-th-distance radius
     (found by the per-row bisection of `ops/cuda_kth.py`; ties at the radius
@@ -126,12 +142,16 @@ def local_constrained_affinity(node_feat: torch.Tensor, k: int, sigma: float = 1
     distances), symmetrised as A + A^T; the affinity is f32 and kernel 4
     is not called, as in the JAX package.
 
-    The weights are exp(-0.5 d^2 / sigma^2).  sigma <= 0 selects the auto
-    bandwidth: sigma^2 = median valid-row k-th distance / 4.  Invalid nodes
-    get zero rows and columns and are never neighbours.
+    The gaussian weights are exp(-0.5 d^2 / sigma^2); sigma <= 0 selects
+    the auto bandwidth: sigma^2 = median valid-row k-th distance / 4.  The
+    cosine weights are the inner products of the f32 rows scaled to unit
+    norm (+ 1e-12), and ignore sigma.  Invalid nodes get zero rows and
+    columns and are never neighbours.
     """
     if impl not in AFFINITY_IMPLS:
         raise NotImplementedError(f"affinity impl {impl!r}: one of {AFFINITY_IMPLS}")
+    if method not in AFFINITY_METHODS:
+        raise NotImplementedError(f"affinity method {method!r}: one of {AFFINITY_METHODS}")
     if kth_impl not in _IMPLS:
         raise NotImplementedError(f"kth impl {kth_impl!r}: the port has 'auto' and 'xla'")
     n = node_feat.shape[0]
@@ -148,14 +168,17 @@ def local_constrained_affinity(node_feat: torch.Tensor, k: int, sigma: float = 1
         topk_mask, radius = exact_topk_select(sel, k)
         out_dtype = torch.float32
 
-    if sigma <= 0:
-        ok = valid if valid is not None else torch.ones(n, dtype=torch.bool, device=sqd.device)
-        srt = torch.sort(torch.where(ok, radius.reshape(-1), torch.inf)).values
-        mid = ((ok.sum() - 1) // 2).clamp(0, n - 1)
-        sigma2 = (srt[mid] / 4.0).clamp_min(1e-12)
+    if method == "cosine":
+        unit = cosine_rows(node_feat.float())
+        sim = torch.mm(unit, unit.t()).to(out_dtype)
     else:
-        sigma2 = sigma * sigma
-    sim = torch.exp(-0.5 * sqd / sigma2).to(out_dtype)   # f32 exp, one rounding
+        if sigma <= 0:
+            ok = valid if valid is not None else torch.ones(n, dtype=torch.bool,
+                                                            device=sqd.device)
+            sigma2 = auto_sigma2(radius.reshape(-1), ok)
+        else:
+            sigma2 = sigma * sigma
+        sim = torch.exp(-0.5 * sqd / sigma2).to(out_dtype)   # f32 exp, one rounding
 
     if impl == "threshold":
         # Symmetrise without a transpose: sqd is exactly symmetric, so

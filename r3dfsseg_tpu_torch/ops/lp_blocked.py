@@ -39,13 +39,20 @@ from __future__ import annotations
 import torch
 
 from r3dfsseg_tpu_torch.ops import cuda_cheby, cuda_kth
-
-_BIG = cuda_kth.SENTINEL      # self/invalid exclusion sentinel
-_EPS = 2.220446049250313e-16  # np.finfo(np.float64).eps, taken in float32
+from r3dfsseg_tpu_torch.ops.lp import _BIG, _EPS, auto_sigma2
 # the stored graph's byte budget and the row tile: the JAX package's
 # numbers, so that the port takes the JAX package's branch for a scene
 STORE_BUDGET = 9.2e9
 ROW_TILE = 512
+
+
+def tile_sqdist(fi: torch.Tensor, f_all: torch.Tensor, ni: torch.Tensor,
+                n_all: torch.Tensor) -> torch.Tensor:
+    """(R, M) squared distances of the row tile fi (R, d) to f_all (M, d),
+    float32, from their norms ni (R,) and n_all (M,) and one Gram, clamped
+    at 0: the JAX package's `_tile_sqdist`."""
+    gram = torch.mm(fi, f_all.t())
+    return ((ni[:, None] + n_all[None, :]) - 2.0 * gram).clamp_min_(0.0)
 
 
 def _graph_build(node_feat: torch.Tensor, valid: torch.Tensor, *, k: int, sigma: float,
@@ -85,8 +92,7 @@ def _graph_build(node_feat: torch.Tensor, valid: torch.Tensor, *, k: int, sigma:
         """(R, M_pad) distances of row tile t with self, invalid and pad
         entries at the sentinel, and the mask of those entries."""
         s = slice(t * r_t, (t + 1) * r_t)
-        gram = torch.mm(fpad[s], fpad.t())
-        dist = ((npad[s, None] + npad[None, :]) - 2.0 * gram).clamp_min_(0.0)
+        dist = tile_sqdist(fpad[s], fpad, npad[s], npad)
         dead = (iota[s, None] == iota[None, :]) | ~vpad[None, :] | ~vpad[s, None]
         return dist.masked_fill_(dead, _BIG), dead
 
@@ -107,9 +113,7 @@ def _graph_build(node_feat: torch.Tensor, valid: torch.Tensor, *, k: int, sigma:
     radii = torch.where(vpad, radii, _BIG)
 
     if sigma <= 0:
-        rv = torch.sort(torch.where(vpad, radii, torch.inf)).values
-        med = rv[((vpad.sum() - 1) // 2).clamp(0, m_pad - 1)]
-        sigma2 = (med / 4.0).clamp_min(1e-12)
+        sigma2 = auto_sigma2(radii, vpad)
     else:
         sigma2 = torch.tensor(sigma * sigma, dtype=torch.float32, device=dev)
 
@@ -129,9 +133,10 @@ def _graph_build(node_feat: torch.Tensor, valid: torch.Tensor, *, k: int, sigma:
     return m_pad, n_tiles, affinity_tile
 
 
-def _padded(y: torch.Tensor, m_pad: int) -> torch.Tensor:
-    out = torch.zeros((m_pad, y.shape[1]), dtype=torch.float32, device=y.device)
-    out[:y.shape[0]] = y
+def padded(x: torch.Tensor, rows: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x (R, ...) in a zero tensor of ``rows`` rows and ``dtype``."""
+    out = torch.zeros((rows, *x.shape[1:]), dtype=dtype, device=x.device)
+    out[:x.shape[0]] = x
     return out
 
 
@@ -221,7 +226,7 @@ def blocked_label_propagate(node_feat: torch.Tensor, y: torch.Tensor, *, k: int,
             sz = product(zt)
         return z - alpha * sz * rinv
 
-    z = cuda_cheby.chebyshev(matvec, _padded(y.float(), m_pad), alpha, max(iters, 1))
+    z = cuda_cheby.chebyshev(matvec, padded(y.float(), m_pad), alpha, max(iters, 1))
     return z[:node_feat.shape[0]]
 
 
@@ -246,5 +251,5 @@ def sparse_label_propagate(node_feat: torch.Tensor, y: torch.Tensor, *, k: int, 
         g = (z * rinv)[idx].reshape(m_pad, w, -1)
         return z - alpha * ((g * vals[..., None]).sum(1) * rinv)
 
-    z = cuda_cheby.chebyshev(matvec, _padded(y.float(), m_pad), alpha, max(iters, 1))
+    z = cuda_cheby.chebyshev(matvec, padded(y.float(), m_pad), alpha, max(iters, 1))
     return z[:node_feat.shape[0]]

@@ -189,13 +189,28 @@ def all_reduce_grads_(params: List[torch.nn.Parameter], mesh: Mesh) -> None:
 def all_gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Every rank's ``t`` (equal shapes) concatenated along the leading
     axis in rank order; through host copies where the backend gathers
-    host tensors only (`Mesh.staged_all_gather`)."""
+    host tensors only (`Mesh.staged_all_gather`).  A mesh with no group
+    returns ``t``."""
+    if mesh.group is None:
+        return t
     src = t.detach().contiguous()
     if mesh.staged_all_gather:
         src = src.cpu()
     parts = [torch.empty_like(src) for _ in range(mesh.size)]
     dist.all_gather(parts, src, group=mesh.group)
     return torch.cat(parts).to(t.device)
+
+
+def all_reduce_max(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The largest of every rank's 0-d ``t`` (a new tensor on ``t``'s
+    device; `jax.lax.pmax`), through a host copy where the backend reduces
+    host tensors only.  A mesh with no group returns ``t``."""
+    if mesh.group is None:
+        return t
+    out = t.detach().clone()
+    staged = out.cpu() if mesh.staged_all_gather else out
+    dist.all_reduce(staged, op=dist.ReduceOp.MAX, group=mesh.group)
+    return staged.to(t.device)
 
 
 def replicate(tensors: Iterable[torch.Tensor], mesh: Mesh) -> None:

@@ -29,6 +29,20 @@ float32 up to 47,616 nodes, then split-stored in bf16).  The environment
 variable ``R3D_SCENE_LP``, read at each call, selects the path: ``auto``
 (the default) by size, ``blocked`` or ``sparse`` that graph, any other
 value the dense graph.
+
+``predict_scene(..., mesh=mesh)`` shards the graph by rows over a mesh
+(`parallel/sp.py`), so that its node count grows with the mesh's memory.
+Every rank calls it with the same host inputs: the blocks are padded to a
+multiple of the mesh's size with zero blocks, each rank encodes its own
+blocks and the scene's features are all-gathered in block order; the
+support, MDNS and prototypes are computed on every rank and rank 0's nodes
+broadcast (`replicate_scene_nodes`).  The sharded graph is dense up to
+18,000 nodes and blocked past them or under ``R3D_SCENE_LP=blocked``
+(``sparse`` takes the dense one), as in the JAX package; every rank
+returns the whole scene's labels.
+
+    mesh = make_mesh(device="cuda")        # in each rank (parallel.launch, torchrun)
+    labels = predictor.predict_scene(support_x, support_y, xyz, rgb, mesh=mesh)
 """
 from __future__ import annotations
 
@@ -44,6 +58,8 @@ from r3dfsseg_tpu_torch.learners.base import Learner
 from r3dfsseg_tpu_torch.models import mpti
 from r3dfsseg_tpu_torch.models.episode import Episode
 from r3dfsseg_tpu_torch.ops import lp, lp_blocked
+from r3dfsseg_tpu_torch.parallel import sp
+from r3dfsseg_tpu_torch.parallel.mesh import Mesh, all_gather_rows, replicate, shard_rows
 from r3dfsseg_tpu_torch.utils.checkpoint import restore
 
 # past this many nodes the dense graph's several M^2 float32 build buffers
@@ -84,11 +100,29 @@ def scene_blocks(scene_xyz: np.ndarray, scene_rgb: Optional[np.ndarray], n: int,
     return blocks, pad_mask, order
 
 
-def scene_lp_path(m: int, cfg: R3DConfig) -> str:
+def pad_blocks(blocks: np.ndarray, pad_mask: np.ndarray, size: int):
+    """(blocks, pad_mask) with zero blocks (and False nodes) appended up to
+    a multiple of ``size`` blocks, the JAX package's mesh-divisible batch."""
+    nb, n = blocks.shape[:2]
+    more = -(-nb // size) * size - nb
+    if not more:
+        return blocks, pad_mask
+    return (np.concatenate([blocks, np.zeros((more, *blocks.shape[1:]), blocks.dtype)]),
+            np.concatenate([pad_mask, np.zeros(more * n, bool)]))
+
+
+def scene_lp_path(m: int, cfg: R3DConfig, mesh: Optional[Mesh] = None) -> str:
     """The scene graph a graph of m nodes takes under ``R3D_SCENE_LP``
     (default "auto"): "dense", "sparse", or "blocked-" and
-    `lp_blocked.scene_lp_mode`'s "stored", "split" or "stream"."""
+    `lp_blocked.scene_lp_mode`'s "stored", "split" or "stream"; over a
+    ``mesh``, "sharded-dense", or "sharded-blocked-" and
+    `sp.sp_blocked_plan`'s mode."""
     impl = os.environ.get("R3D_SCENE_LP", "auto")
+    if mesh is not None:
+        if impl == "blocked" or m > DENSE_MAX_NODES:
+            lowp = torch.bfloat16 if cfg.graph_bf16 else None
+            return "sharded-blocked-" + sp.sp_blocked_plan(m, mesh.size, compute_dtype=lowp)[1]
+        return "sharded-dense"
     if impl == "sparse":
         return "sparse"
     if impl == "blocked" or (impl == "auto" and m > DENSE_MAX_NODES):
@@ -98,25 +132,52 @@ def scene_lp_path(m: int, cfg: R3DConfig) -> str:
 
 
 def scene_label_propagate(node_feat: torch.Tensor, y0: torch.Tensor, node_valid: torch.Tensor,
-                          cfg: R3DConfig) -> torch.Tensor:
+                          cfg: R3DConfig, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Z (M, n_classes) of the scene graph, on the path `scene_lp_path`
     names: the dense threshold affinity and Chebyshev solve at the graph
     dtype (`graph_dtype`, "auto" following `compute_dtype`), or
     `lp_blocked`'s blocked or sparse graph.  Kernels 4 and 7 follow
-    ``cfg.follower_impl``, as on the episode graph."""
+    ``cfg.follower_impl``, as on the episode graph.  Over a ``mesh``, this
+    rank's part of the sharded graph (`parallel/sp.py`): the dense one in
+    float32 (no graph dtype, as in the JAX package), or the blocked one,
+    bf16 where the graph dtype is."""
     c = cfg
     lowp = torch.bfloat16 if c.graph_bf16 else None
-    path = scene_lp_path(node_feat.shape[0], c)
+    path = scene_lp_path(node_feat.shape[0], c, mesh)
+    kw = dict(k=c.k_connect, sigma=c.sigma, alpha=c.lp_alpha, valid=node_valid,
+              iters=c.lp_cg_iters)
+    if path == "sharded-dense":
+        return sp.sp_label_propagate(node_feat, y0, mesh=mesh, **kw)
+    if path.startswith("sharded-blocked"):
+        return sp.sp_blocked_label_propagate(node_feat, y0, mesh=mesh, compute_dtype=lowp, **kw)
     if path != "dense":
         fn = (lp_blocked.sparse_label_propagate if path == "sparse"
               else lp_blocked.blocked_label_propagate)
-        return fn(node_feat, y0, k=c.k_connect, sigma=c.sigma, alpha=c.lp_alpha,
-                  valid=node_valid, iters=c.lp_cg_iters, compute_dtype=lowp)
+        return fn(node_feat, y0, compute_dtype=lowp, **kw)
     a = lp.local_constrained_affinity(node_feat, c.k_connect, c.sigma, valid=node_valid,
                                       compare_dtype=lowp, impl="threshold",
                                       kth_impl=c.follower_impl)
     return lp.label_propagate(a, y0, c.lp_alpha, solver="cheby", cg_iters=c.lp_cg_iters,
                               matvec_dtype=lowp, impl=c.follower_impl)
+
+
+def replicate_scene_nodes(node_feat: torch.Tensor, node_valid: torch.Tensor, y0: torch.Tensor,
+                          mesh: Mesh) -> int:
+    """Rank 0's scene nodes on every rank, in place, in one broadcast: the
+    ranks compute the prototypes each on their own, and a device's
+    reductions (`index_add_` adds in atomic order on CUDA) may differ by
+    rounding between them.  Returns the number of this rank's node-feature
+    entries that differed from rank 0's."""
+    if mesh.group is None:
+        return 0
+    flat = torch.cat([node_feat.reshape(-1), y0.reshape(-1), node_valid.float()])
+    replicate([flat], mesh)
+    nf, ny = node_feat.numel(), y0.numel()
+    differed = int((node_feat.reshape(-1) != flat[:nf]).sum())
+    node_feat.copy_(flat[:nf].view_as(node_feat))
+    y0.copy_(flat[nf:nf + ny].view_as(y0))
+    node_valid.copy_(flat[nf + ny:] > 0.5)
+    return differed
 
 
 class FewShotPredictor:
@@ -174,33 +235,39 @@ class FewShotPredictor:
         support_x / support_y as `predict`; scene_xyz (P, 3) raw
         coordinates, scene_rgb (P, 3) colours in [0, 1] (zeros if
         omitted); ``cell`` the metres of the sort's (x, y) cells that group
-        the points into blocks (`scene_blocks`).  ``mesh`` (the JAX
-        package's node-sharded graph) is not ported yet and raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "predict_scene(mesh=...): the node-sharded scene graph is ROADMAP.md §1 "
-                "item 7b, not ported yet")
+        the points into blocks (`scene_blocks`).  ``mesh`` (`parallel.Mesh`,
+        this rank's; every rank calls with the same inputs) shards the
+        encoder's blocks and the graph over its ranks (module docstring)."""
         c = self.cfg
         if c.pc_in_dim != 9:
             raise NotImplementedError("predict_scene assembles xyzrgbXYZ attributes (9-d)")
         blocks, pad_mask, order = scene_blocks(scene_xyz, scene_rgb, c.pc_npts, cell=cell)
-        pred = self.scene_labels(blocks, pad_mask, support_x, support_y)
+        if mesh is not None:
+            blocks, pad_mask = pad_blocks(blocks, pad_mask, mesh.size)
+        pred = self.scene_labels(blocks, pad_mask, support_x, support_y, mesh)
         out = np.empty(order.shape[0], np.int32)
         out[order] = pred[:order.shape[0]]
         return out
 
-    def scene_nodes(self, blocks, pad_mask, support_x, support_y):
+    def scene_nodes(self, blocks, pad_mask, support_x, support_y, mesh: Optional[Mesh] = None):
         """The scene graph's nodes on the device: the learner model's
         encoder on the blocks and on the support, MDNS (``eval_mdns``) and
-        MPTI's prototypes.  Returns (node_feat (M, d) float32, node_valid
-        (M,), y0 (M, n_classes), the number of prototype nodes)."""
+        MPTI's prototypes.  Over a ``mesh`` this rank encodes its rows of
+        the blocks (their number a multiple of the mesh's size) and the
+        features are all-gathered in block order.  Returns (node_feat (M,
+        d) float32, node_valid (M,), y0 (M, n_classes), the number of
+        prototype nodes)."""
         c = self.cfg
         dev = self._learner.device
         features = self._learner.model.features
         with torch.inference_mode():
-            blocks = torch.as_tensor(np.asarray(blocks, np.float32), device=dev)
+            blocks = np.asarray(blocks, np.float32)
             nbk, n = blocks.shape[:2]
-            scene_feat = features(blocks, False)
+            if mesh is None:
+                scene_feat = features(torch.as_tensor(blocks, device=dev), False)
+            else:
+                own = torch.as_tensor(shard_rows(blocks, mesh), device=dev)
+                scene_feat = all_gather_rows(features(own, False), mesh)
             d = scene_feat.shape[-1]
             sup_x = torch.as_tensor(np.asarray(support_x, np.float32), device=dev)
             sup_y = torch.as_tensor(np.asarray(support_y, np.int32), device=dev)
@@ -218,12 +285,16 @@ class FewShotPredictor:
                             torch.zeros((nbk * n, c.n_classes), dtype=torch.float32, device=dev)])
         return node_feat, node_valid, y0, protos.shape[0]
 
-    def scene_labels(self, blocks, pad_mask, support_x, support_y) -> np.ndarray:
+    def scene_labels(self, blocks, pad_mask, support_x, support_y,
+                     mesh: Optional[Mesh] = None) -> np.ndarray:
         """The scene program on assembled blocks: (nb * n,) int32 labels of
-        the blocks' nodes, in block order."""
+        the blocks' nodes, in block order; over a ``mesh`` from rank 0's
+        nodes and the sharded graph."""
         node_feat, node_valid, y0, n_protos = self.scene_nodes(blocks, pad_mask, support_x,
-                                                               support_y)
+                                                               support_y, mesh)
         with torch.inference_mode():
-            z = scene_label_propagate(node_feat, y0, node_valid, self.cfg)
+            if mesh is not None:
+                replicate_scene_nodes(node_feat, node_valid, y0, mesh)
+            z = scene_label_propagate(node_feat, y0, node_valid, self.cfg, mesh)
             return z[n_protos:].argmax(-1).to(torch.int32).cpu().numpy()
 

@@ -153,8 +153,6 @@ def test_scene_lp_path_follows_jax_rule(monkeypatch):
 def test_predict_scene_refuses_mesh_and_other_attributes(weights):
     sx, sy, xyz, rgb = weights[2]
     _, port = _predictors(weights)
-    with pytest.raises(NotImplementedError, match="7b"):
-        port.predict_scene(sx, sy, xyz, rgb, mesh=object())
     port.cfg = port.cfg.replace(pc_attribs="xyzrgb")
     with pytest.raises(NotImplementedError, match="9-d"):
         port.predict_scene(sx[..., :6], sy, xyz, rgb)
