@@ -116,8 +116,10 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
 
   2b. the F1 kernels, at shapes the JAX package's Pallas kernels run and
      the tuned kernels do not take (`check_f1`): the general kNN (k = 40
-     at C = 9 and 64, C = 320), the packed-key kNN (knn_impl "pallas") at
-     a request's six calls, attention (B = 10 and 2, rate 0.1 and 0,
+     at C = 9 and 64, B = 2 and the F1 step's B = 10, C = 320), the
+     packed-key kNN (knn_impl "pallas") at a request's six calls (each
+     with a sha256 of its output on seeded inputs and the tuned exact
+     kernel's time beside it), attention (B = 10 and 2, rate 0.1 and 0,
      forward and backward) in f32 at D = 128, 100, 256, 320 and 512 (the
      3xTF32 kernels in channel groups of 128) and in bf16 at D = 128, 100
      (the zero pad to 104) and 256 (the wide tensor-core kernels) and 320,
@@ -307,7 +309,8 @@ runs the build and the kNN and FPS checks alone and prints their rows,
 `--only cheby,scatter` the Chebyshev and scatter-add checks, and `--only
 kth` the k-th distance's three checks (f32, adversarial rows, bf16), `--only
 bf16` the checks of the bf16 forms of kernels 1, 2, 5 and 6, `--only f1`
-phase 2b alone, `--only f2` phase 2c alone, `--only fused` a digest
+phase 2b alone (its kNN digests, `sha_*`, hold two trees' general and
+packed kNN bit for bit), `--only f2` phase 2c alone, `--only fused` a digest
 of kernel 9's f32 passes' output bits at the flagship shape on seeded
 inputs with their times (the same on two trees shows the f32 form
 unchanged), and `--only attn` the same for the attention kernels
@@ -1586,6 +1589,16 @@ def check_knn_bf16(torch, knn_mod):
 # take: each goes to its own simple kernel (or, for attention at an
 # unaligned D <= 64, to the tuned kernels after an exact zero pad).
 KNN_F1_SHAPES = [(2, 9, 40), (2, 64, 40), (2, 320, 20)]     # (B, C, k) at N = 2048
+KNN_F1_STEP = [(10, 9, 40), (10, 64, 40)]    # the F1 step's support batch (C = 64 twice)
+
+
+def digest(outs) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def expect_launches(counters: dict, call, want: dict, what: str):
@@ -1602,40 +1615,63 @@ def expect_launches(counters: dict, call, want: dict, what: str):
 
 
 def check_knn_general(torch, knn_mod):
-    """The general kNN kernel at k = 40 (N = 2048, C = 9 and 64, B = 2) and
-    C = 320 (k = 20): the general counter moves once per call and the tuned
-    one not; the lists held to kernel 1's criterion (`knn_agreement`: sets
-    differ on at most 1e-3 of the rows, each differing neighbour within
-    NEAR_TIE of xx_i + xx_j of the k-th distance), two calls bit-equal.
-    Times: the three calls, kernel and plain version; no single PyTorch
-    call computes a kNN.  Bound: the products 2 B N^2 C as three tf32
-    tensor-core passes, as kernel 1's row (the FFMA bound, what this
-    kernel runs, beside it); x read and the lists written."""
+    """The general kNN kernel at k = 40 (N = 2048, C = 9 and 64, B = 2 and
+    10) and C = 320 (k = 20, B = 2): the general counter moves once per
+    call and the tuned one not; the lists held to kernel 1's criterion
+    (`knn_agreement`: sets differ on at most 1e-3 of the rows, each
+    differing neighbour within NEAR_TIE of xx_i + xx_j of the k-th
+    distance), two calls bit-equal; a sha256 of each shape's output on
+    seeded inputs (`sha_*`: two trees' kernels held bit for bit, see the
+    module docstring).  Times: the B = 2 calls together (`ms`), each call
+    (`ms_*`, B = 10 among them), the plain version, and beside each C <= 256
+    the tuned kernel at k = 32, the most it takes (`tuned_k32_ms_*`); no
+    single PyTorch call computes a kNN.  Bound: the products 2 B N^2 C as
+    three tf32 tensor-core passes, as kernel 1's row (the FFMA bound, what
+    this kernel runs, beside it; `bound_ms_step`, the B = 10 calls'); x
+    read and the lists written."""
     counters = {"general": (knn_mod, "general_launches"), "tuned": (knn_mod, "launches")}
     g = torch.Generator(device="cuda").manual_seed(21)
-    xs = [(torch.randn((b, 2048, c), generator=g, device="cuda"), k) for b, c, k in KNN_F1_SHAPES]
-    err, rates = 0.0, {}
+    xs = [(torch.randn((b, 2048, c), generator=g, device="cuda"), k)
+          for b, c, k in KNN_F1_SHAPES + KNN_F1_STEP]
+    err, rates, shas = 0.0, {}, {}
     for x, k in xs:
+        b, _, c = x.shape
         got = expect_launches(counters, lambda: knn_mod.knn(x, k), {"general": 1, "tuned": 0},
                               f"knn general {tuple(x.shape)} k={k}")
         same = torch.equal(got, knn_mod.knn(x, k))
         a = knn_agreement(torch, x, got.long(), knn_mod.knn_reference(x, k).long())
         err = max(err, a["err"])
-        rates[f"mismatch_c{x.shape[-1]}_k{k}"] = a["mismatch"]
+        rates[f"mismatch_b{b}_c{c}_k{k}"] = a["mismatch"]
+        shas[f"sha_b{b}_c{c}_k{k}"] = digest([got])
         log(f"  knn general {tuple(x.shape)} k={k}: row mismatch rate {a['mismatch']:.3e} "
             f"(bound 1e-3); worst differing neighbour {a['gap']:.3e} of xx_i + xx_j (bound "
-            f"{NEAR_TIE:.0e}); a second call bit-equal {same}")
+            f"{NEAR_TIE:.0e}); a second call bit-equal {same}; sha256 "
+            f"{shas[f'sha_b{b}_c{c}_k{k}']}")
         if a["mismatch"] > 1e-3 or a["gap"] > NEAR_TIE or not same:
             raise AssertionError(f"knn general {tuple(x.shape)} k={k}: {a}, repeat {same}")
-    ms = cuda_ms(lambda: [knn_mod.knn(x, k) for x, k in xs], 5)
-    plain = cuda_ms(lambda: [knn_mod.knn_reference(x, k) for x, k in xs], 5)
-    per = {f"ms_c{x.shape[-1]}_k{k}": cuda_ms(lambda x=x, k=k: knn_mod.knn(x, k), 5)
-           for x, k in xs}
-    log("  knn general ms per call: " + ", ".join(f"{n[3:]} {v:.4f}" for n, v in per.items()))
-    flops = sum(2.0 * x.shape[0] * x.shape[1] ** 2 * x.shape[2] for x, _ in xs)
-    nbytes = sum(4.0 * x.numel() + 4.0 * x.shape[0] * x.shape[1] * k for x, k in xs)
+    f1 = xs[:len(KNN_F1_SHAPES)]
+    ms = cuda_ms(lambda: [knn_mod.knn(x, k) for x, k in f1], 5)
+    plain = cuda_ms(lambda: [knn_mod.knn_reference(x, k) for x, k in f1], 5)
+    per = {}
+    for x, k in xs:
+        b, _, c = x.shape
+        per[f"ms_b{b}_c{c}_k{k}"] = cuda_ms(lambda x=x, k=k: knn_mod.knn(x, k), 5)
+        if c <= knn_mod.MAX_C:
+            per[f"tuned_k32_ms_b{b}_c{c}"] = cuda_ms(
+                lambda x=x: knn_mod.knn(x, knn_mod.MAX_K), 5)
+    log("  knn general ms per call (tuned_k32: the tuned kernel at k = 32 on the same x): " +
+        ", ".join(f"{n} {v:.4f}" for n, v in per.items()))
+
+    def work(calls):
+        flops = sum(2.0 * x.shape[0] * x.shape[1] ** 2 * x.shape[2] for x, _ in calls)
+        return flops, sum(4.0 * x.numel() + 4.0 * x.shape[0] * x.shape[1] * k for x, k in calls)
+
+    flops, nbytes = work(f1)
+    step = work([xs[-2], xs[-1], xs[-1]])
     return row(err, ms, plain, None, 3 * flops, nbytes, TF32_TC_FLOPS,
-               bound_ms_ffma=bound(flops, nbytes)[0], **rates, **per)
+               bound_ms_ffma=bound(flops, nbytes)[0],
+               bound_ms_step=bound(3 * step[0], step[1], TF32_TC_FLOPS)[0],
+               bound_ms_step_ffma=bound(*step)[0], **rates, **per, **shas)
 
 
 def check_knn_packed(torch, knn_mod, sx):
@@ -1644,10 +1680,13 @@ def check_knn_packed(torch, knn_mod, sx):
     to `knn_packed_reference`; on the episode's points and random features
     at most PACKED_MISMATCH of the rows differ from it and each differing
     row is explained by the rounding of the distances (`packed_agreement`),
-    two calls bit-equal, one packed launch per call and no tuned one.
-    Times: the six calls, kernel and plain version (no single PyTorch
-    call).  Bound: the products 2 B N^2 C as three tf32 tensor-core passes,
-    as kernel 1's row (FFMA beside it); x read, the lists written."""
+    two calls bit-equal, one packed launch per call and no tuned one; a
+    sha256 of the output on the episode's points and at each shape on
+    seeded features (`sha_*`).  Times: the six calls, kernel, the tuned
+    exact kernel on the same inputs (`tuned_ms`) and plain version (no
+    single PyTorch call), and each call (`ms_*`, `tuned_ms_*`).  Bound:
+    the products 2 B N^2 C as three tf32 tensor-core passes, as kernel 1's
+    row (FFMA beside it); x read, the lists written."""
     k = 20
     counters = {"packed": (knn_mod, "packed_launches"), "tuned": (knn_mod, "launches")}
     rng = np.random.default_rng(22)
@@ -1657,7 +1696,7 @@ def check_knn_packed(torch, knn_mod, sx):
     g = torch.Generator(device="cuda").manual_seed(23)
     xs = {9: torch.from_numpy(sx.reshape(-1, *sx.shape[2:])).cuda(),
           64: torch.randn((10, 2048, 64), generator=g, device="cuda")}
-    rates = {}
+    rates, shas = {}, {}
     for c, x in xs.items():
         got = expect_launches(counters, lambda: knn_mod.knn(x, k, packed=True),
                               {"packed": 1, "tuned": 0}, f"knn packed C={c}")
@@ -1665,6 +1704,8 @@ def check_knn_packed(torch, knn_mod, sx):
         a = packed_agreement(torch, knn_mod, x, got, knn_mod.knn_packed_reference(x, k))
         rates[f"mismatch_c{c}"] = a["mismatch"]
         rates[f"tol_share_c{c}"] = a["tol_share"]
+        if c == 9:
+            shas["sha_episode"] = digest([got])
         log(f"  knn packed {tuple(x.shape)}: equal to plain on integer points; rows that differ "
             f"from plain {a['mismatch']:.3e} (bound {PACKED_MISMATCH:.0e}), of them unexplained "
             f"by rounding {a['unexplained']}, explained within {a['tol_share']} of the rounding "
@@ -1672,16 +1713,23 @@ def check_knn_packed(torch, knn_mod, sx):
         if a["unexplained"] or a["mismatch"] > PACKED_MISMATCH or not same:
             raise AssertionError(f"knn packed C={c}: {a}, repeat {same}")
     feats = {(b, c): torch.randn((b, 2048, c), generator=g, device="cuda")
-             for b, c in set(KNN_SHAPES)}
+             for b, c in sorted(set(KNN_SHAPES))}
+    for (b, c), x in feats.items():
+        shas[f"sha_b{b}_c{c}"] = digest([knn_mod.knn(x, k, packed=True)])
+    log("  knn packed sha256: " + ", ".join(f"{n[4:]} {v}" for n, v in shas.items()))
     ms = cuda_ms(lambda: [knn_mod.knn(feats[s], k, packed=True) for s in KNN_SHAPES], 10)
+    tuned = cuda_ms(lambda: [knn_mod.knn(feats[s], k) for s in KNN_SHAPES], 10)
     plain = cuda_ms(lambda: [knn_mod.knn_packed_reference(feats[s], k) for s in KNN_SHAPES], 10)
-    per = {f"ms_b{b}_c{c}": cuda_ms(lambda x=feats[(b, c)]: knn_mod.knn(x, k, packed=True), 5)
-           for b, c in sorted(feats)}
-    log("  knn packed ms per call: " + ", ".join(f"{n[3:]} {v:.4f}" for n, v in per.items()))
+    per = {}
+    for (b, c), x in feats.items():
+        per[f"ms_b{b}_c{c}"] = cuda_ms(lambda x=x: knn_mod.knn(x, k, packed=True), 5)
+        per[f"tuned_ms_b{b}_c{c}"] = cuda_ms(lambda x=x: knn_mod.knn(x, k), 5)
+    log(f"  knn packed ms, a request's six calls: {ms:.4f} (tuned exact kernel {tuned:.4f}); "
+        "per call: " + ", ".join(f"{n} {v:.4f}" for n, v in per.items()))
     flops = sum(2.0 * b * 2048 ** 2 * c for b, c in KNN_SHAPES)
     nbytes = sum(4.0 * b * 2048 * (c + k) for b, c in KNN_SHAPES)
     return row(0.0, ms, plain, None, 3 * flops, nbytes, TF32_TC_FLOPS,
-               bound_ms_ffma=bound(flops, nbytes)[0], **rates, **per)
+               bound_ms_ffma=bound(flops, nbytes)[0], tuned_ms=tuned, **rates, **per, **shas)
 
 
 # Attention past the tuned kernels' 64 channels: (dtype, D, the route's

@@ -25,14 +25,21 @@ exact); `bf16_launches` counts those calls apart.
 
 Shapes that kernel does not take (k > MAX_K or C > MAX_C; the TPU kernel
 takes any k <= N and any C) go to the general kernel `csrc/knn_general.cu`
-(`general_launches`): simple FFMA distances and per-row lists of the k
-smallest keys, with exact keys bits(d) << 32 | col, so it equals
+(`general_launches`), with exact keys bits(d) << 32 | col, so it equals
 `knn_indices` wherever the distances agree.  The same kernel runs the TPU
 kernel's packed mode (`packed=True`, knn_impl "pallas", `packed_launches`)
 at every shape: d = max((qq - 2 inner) + kk, 0) with the low
 bit_length(N - 1) bits of its f32 pattern replaced by the column, the k
 smallest such keys in order (`knn_packed_reference`), so neighbours whose
-distances agree to about 2^-12 relative may swap.
+distances agree to about 2^-12 relative may swap.  Its distances are FFMA
+chains over the channels in order, from 64 x 64 register micro-tiles fed
+by a cp.async ring; a key below its row's current k-th joins a batch that
+is merged into the row's list after each key tile (in registers up to k =
+64, in shared memory past it, in device memory past about k = 400), and
+the same `splits` cut the keys of small batches, the last block of a row
+tile merging the splits' lists by key.  Keys are unique within a row, so
+the lists, and the output, do not depend on the order keys arrive in: it
+is bit-equal to the simple kernel this design replaced.
 
 Dispatch: a CPU tensor takes `knn_reference` (`knn_packed_reference` when
 packed); a CUDA tensor launches a kernel or raises.
@@ -142,17 +149,22 @@ def knn(x: torch.Tensor, k: int, packed: bool = False) -> torch.Tensor:
 
 
 def _knn_general(x: torch.Tensor, k: int, packed: bool) -> torch.Tensor:
-    """One call of `csrc/knn_general.cu` on a contiguous f32 CUDA x."""
+    """One call of `csrc/knn_general.cu` on a contiguous f32 CUDA x, with
+    `splits` key splits per row tile."""
     b, n, c = x.shape
     dev = x.device
+    s = splits(b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty((b, n, k), dtype=torch.int32, device=dev)
     nrm = torch.empty((b, n), dtype=torch.float32, device=dev)
-    nbytes = build.function("r3d_knn_general_scratch", [build.I] * 3, ctypes.c_longlong)(b, n, k)
-    lists = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
-    fn = build.function("r3d_knn_general", [build.P] * 4 + [build.I] * 5 + [build.P])
+    nbytes = build.function("r3d_knn_general_scratch", [build.I] * 6, ctypes.c_longlong)(
+        b, n, c, k, int(packed), s)
+    part = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
+    arrived = torch.zeros((b, -(-n // ROWS)), dtype=torch.int32, device=dev) if s > 1 else None
+    fn = build.function("r3d_knn_general", [build.P] * 5 + [build.I] * 6 + [build.P])
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), out.data_ptr(), nrm.data_ptr(),
-                 lists.data_ptr() if lists is not None else None, b, n, c, k, int(packed),
+                 part.data_ptr() if part is not None else None,
+                 arrived.data_ptr() if arrived is not None else None, b, n, c, k, int(packed), s,
                  build.stream_ptr(dev))
     build.check(err, "r3d_knn_general")
     return out

@@ -44,6 +44,7 @@ from r3dfsseg_tpu_torch.ops.knn import knn_indices, pairwise_sqdist
 from r3dfsseg_tpu_torch.serve import FewShotPredictor
 from r3dfsseg_tpu_torch.utils.convert import state_dict_from_jax
 from test_torch_gather import _jax_scatter_kernel as jax_scatter_kernel
+from test_torch_knn_general import emulate as emulate_general
 from torch_port_helpers import (episode_arrays, jax_graph_margin, jax_knn_kernel,
                                 random_flax_weights)
 
@@ -130,49 +131,21 @@ def _packed_keys(x: torch.Tensor) -> torch.Tensor:
     return ((d.view(torch.int32) & ~low) | col).to(torch.int64)
 
 
-def emulate_lists(keys: np.ndarray, k: int) -> list:
-    """One warp of csrc/knn_general.cu on one row's keys, as it moves them:
-    tiles of 64 keys, lane l holding keys l and l + 32; per half, the keys
-    below the row's k-th (every key while the list is short) enter in lane
-    order; a key goes to the place counted by the keys below it, the larger
-    ones move up one slot in chunks of 32 from the top (each chunk read,
-    then written), a full list drops its last."""
-    n, big = len(keys), 1 << 64
-    lst, length = [0] * k, 0
-    for key0 in range(0, n, 64):
-        for h in (0, 1):
-            thr = lst[k - 1] if length == k else big
-            cands = [int(keys[j]) for j in range(key0 + 32 * h, min(key0 + 32 * h + 32, n))
-                     if int(keys[j]) < thr]
-            for key in cands:
-                if length == k and key >= lst[k - 1]:
-                    continue
-                pos = sum(1 for i in range(length) if lst[i] < key)
-                hi = length if length < k else k - 1
-                while hi > pos:
-                    moved = [(i, lst[i]) for i in (hi - 1 - lane for lane in range(32)) if i >= pos]
-                    for i, v in moved:
-                        lst[i + 1] = v
-                    hi -= 32
-                lst[pos] = key
-                length = min(length + 1, k)
-    return lst[:k]
-
-
 @pytest.mark.parametrize("n,c,k", [(128, 300, 40), (300, 9, 70), (130, 64, 130)])
 def test_general_knn_exact_keys_equal_knn_indices(n, c, k):
-    """The exact keys bits(d) << 32 | col, taken through the kernel's list
-    moves, give `knn_indices` (and the JAX exact Pallas kernel where N is
-    a power of two) on the same distances: k above a warp (40), above two
-    (70), k = N, ragged N, C past the tuned kernel's 256, exact ties."""
+    """The exact keys bits(d) << 32 | col, taken through the kernel's
+    tiles, batches and list merges (`test_torch_knn_general.emulate`, one
+    and two key splits), give `knn_indices` (and the JAX exact Pallas
+    kernel where N is a power of two) on the same distances: k in
+    registers (40) and in memory (70, and k = N), ragged N, C past the
+    tuned kernel's 256, exact ties."""
     x = np.random.default_rng(n + c + k).normal(size=(2, n, c)).astype(np.float32)
     x[0, 11] = x[0, 40]                                  # a distance tie
     xt = torch.from_numpy(x)
     want = knn_indices(xt, k).numpy()
-    keys = _exact_keys(pairwise_sqdist(xt)).numpy()
-    got = np.array([[[v & 0xFFFFFFFF for v in emulate_lists(keys[b, i], k)]
-                     for i in range(n)] for b in range(2)])
-    np.testing.assert_array_equal(got, want)
+    keys = _exact_keys(pairwise_sqdist(xt)).numpy().astype(np.uint64)
+    for splits in (1, 2):
+        np.testing.assert_array_equal(emulate_general(keys, k, splits, packed=False), want)
     if n & (n - 1) == 0:     # cloud 1, without the duplicate: JAX rounds its own distances
         jx = jnp.asarray(x[1:])
         np.testing.assert_array_equal(want[1:], np.asarray(jax_knn_kernel(jx, k, 64)))
@@ -181,13 +154,13 @@ def test_general_knn_exact_keys_equal_knn_indices(n, c, k):
 
 @pytest.mark.parametrize("n,k", [(128, 40), (200, 70)])
 def test_general_knn_packed_keys_through_the_lists(n, k):
-    """The packed keys through the same list moves give the plain packed
-    version."""
+    """The packed keys through the same tiles, batches and merges give the
+    plain packed version."""
     x = torch.from_numpy(np.random.default_rng(n).normal(size=(1, n, 12)).astype(np.float32))
-    keys = _packed_keys(x).numpy()
-    low = (1 << cuda_knn.packed_bits(n)) - 1
-    got = np.array([[v & low for v in emulate_lists(keys[0, i], k)] for i in range(n)])
-    np.testing.assert_array_equal(got, cuda_knn.knn_packed_reference(x, k)[0].numpy())
+    keys = _packed_keys(x).numpy().astype(np.uint64)
+    for splits in (1, 2):
+        np.testing.assert_array_equal(emulate_general(keys, k, splits, packed=True),
+                                      cuda_knn.knn_packed_reference(x, k).numpy())
 
 
 def _fma_chain_packed_knn(x: np.ndarray, k: int) -> torch.Tensor:

@@ -1066,6 +1066,36 @@ def test_knn_packed_kernel_on_card(b, n, c, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,k,packed", [
+    (2, 2048, 9, 20, True), (2, 2048, 64, 40, False),      # key splits; registers, shared lists
+    (2, 2048, 64, 100, True), (10, 2048, 9, 70, False),    # shared-memory lists past k = 64
+    (2, 1000, 300, 40, False), (2, 2048, 300, 20, True),   # C past 256: queries staged per chunk
+])
+def test_knn_general_kernel_splits_long_lists_and_wide_rows_on_card(b, n, c, k, packed):
+    """The general kernel's paths: key splits at B = 2 (the last block of a
+    row tile merging the splits' lists) and none at B = 10, lists in
+    shared memory past k = 64, and C past 256.  On a grid
+    of multiples of 1/8 every distance is exact in f32 and ties abound:
+    equal to the plain version (ties to the lowest index, or the packed
+    keys' column order), one launch of the route's counter per call, two
+    calls bit-equal."""
+    dev = cuda_or_skip()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (cuda_knn.splits(b, n, sms) > 1) == (b == 2)
+    x = np.random.default_rng(b + n + c + k).integers(-4, 5, size=(b, n, c)).astype(np.float32)
+    x = torch.from_numpy(x / 8).to(dev)
+    counter = "packed_launches" if packed else "general_launches"
+    before = (cuda_knn.launches, getattr(cuda_knn, counter))
+    got = cuda_knn.knn(x, k, packed=packed)
+    again = cuda_knn.knn(x, k, packed=packed)
+    torch.cuda.synchronize()
+    assert (cuda_knn.launches, getattr(cuda_knn, counter)) == (before[0], before[1] + 2)
+    assert torch.equal(got, again)
+    want = cuda_knn.knn_packed_reference(x, k) if packed else cuda_knn.knn_reference(x, k)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d,dtype,rate,route", [
     (10, 2048, 128, torch.float32, 0.1, "wide_tf32"),
     (2, 2048, 128, torch.float32, 0.0, "wide_tf32"),
