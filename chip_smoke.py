@@ -57,8 +57,10 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      SDPA pinned to flash on the same bf16 inputs as the yardstick), the
      scatter-add on a bf16 cotangent (bit-equal to the f32 form on its
      upcast, to its emulated order and across calls) and kNN on a bf16
-     input (equal to kNN on its f32 upcast, and to its plain version up to
-    rounding-level ties);
+     input (the kernel's bf16 route: equal to kNN on its f32 upcast, and
+     to its plain version up to rounding-level ties; sha256 digests of
+     both routes, the upcast path timed beside, the route's registers,
+     local bytes and blocks an SM);
   3. serve flagship episodes (R3DConfig(): 2-way 5-shot, 2048 points x 9,
      a 4396-node graph) through `FewShotPredictor.predict` with seeded
      random weights, count each kernel's launches (FPS: exactly two, one
@@ -293,7 +295,9 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      (`csrc/fused_edge_general.cu`) at FUSED_F2_SHAPES, f32 and bf16, every
      pass in train and eval, within the tuned tolerances of its plain
      version and, at the flagship shape, of the tuned kernel; kernel 8 on
-     rows that are not a multiple of 16 bytes; kernel 10 at 16 and 128
+     rows that are not a multiple of 16 bytes (GATHER_F2 and, on an odd
+     B M, GATHER_F2_RAGGED: bit-equal, sha256 digests, beside
+     `index_select`); kernel 10 at 16 and 128
      columns (groups of 8); kernel 11 at 12 columns (a 32-column block); each
      path's own counter moves and the tuned one's not, repeats bit-equal;
 
@@ -308,7 +312,9 @@ CUDA device it exits with code 1 and prints no result.  `--only knn,fps`
 runs the build and the kNN and FPS checks alone and prints their rows,
 `--only cheby,scatter` the Chebyshev and scatter-add checks, and `--only
 kth` the k-th distance's three checks (f32, adversarial rows, bf16), `--only
-bf16` the checks of the bf16 forms of kernels 1, 2, 5 and 6, `--only f1`
+bf16` the checks of the bf16 forms of kernels 1, 2, 5 and 6 (the kNN
+digests, `sha_bf16_*` and `sha_f32_*`, hold two trees' kNN routes equal),
+`--only f1`
 phase 2b alone (its kNN digests, `sha_*`, hold two trees' general and
 packed kNN bit for bit), `--only f2` phase 2c alone, `--only fused` a digest
 of kernel 9's f32 passes' output bits at the flagship shape on seeded
@@ -1552,17 +1558,23 @@ def check_knn_bf16(torch, knn_mod):
     """Kernel 1 on a bf16 input (under the 'stats', 'relaxed' and 'hybrid'
     BN modes the second and third EdgeConv blocks take a bf16 block
     output): equal to kNN on its f32 upcast, one launch per call, and to
-    the plain version up to rounding-level ties (`knn_agreement`).  Times:
-    those four calls of a request (B = 10 and 2, C = 64), kernel and plain
-    version, both on the bf16 input.  Bound: the distances' products on
-    the bf16 tensor cores, 2 B N^2 C operations: bf16 fits in tf32, so the
-    lo parts of the kernel's 3xTF32 split are zero and one bf16 pass with
-    f32 sums gives the same sums; bytes: x bf16 read, indices written."""
+    the plain version up to rounding-level ties (`knn_agreement`).  Digests
+    (`digest`) of the bf16 outputs at those shapes and of the f32 route's
+    at KNN_SHAPES on seeded f32 points, to hold a tree against another.
+    Times: those four calls of a request (B = 10 and 2, C = 64), kernel
+    and plain version, both on the bf16 input, and the upcast and the f32
+    route on it (`x.float()` then kNN) in the same call; each batch per
+    call.  The bf16 route's registers, local (spill) bytes and blocks an
+    SM, where the tree has `kernel_attributes`.  Bound: the distances'
+    products on the bf16 tensor cores, 2 B N^2 C operations: bf16 fits in
+    tf32, so one pass with f32 sums gives the 3xTF32 sums; bytes: x bf16
+    read, indices written."""
     k = 20
     g = torch.Generator(device="cuda").manual_seed(16)
     xs = [torch.randn((b, 2048, 64), generator=g, device="cuda").to(torch.bfloat16)
           for b in (10, 10, 2, 2)]
     err = 0.0
+    shas = {}
     for x in xs[::2]:
         before = knn_mod.bf16_launches
         got = knn_mod.knn(x, k)
@@ -1570,18 +1582,41 @@ def check_knn_bf16(torch, knn_mod):
         equal = torch.equal(got, knn_mod.knn(x.float(), k))
         a = knn_agreement(torch, x.float(), got.long(), knn_mod.knn_reference(x, k).long())
         err = max(err, a["err"])
+        shas[f"sha_bf16_b{x.shape[0]}"] = digest([got])
         log(f"  knn bf16 input {tuple(x.shape)}: equal to the kNN of its f32 upcast {equal}; "
             f"against the plain version: row mismatch rate {a['mismatch']:.3e}, sorted "
-            f"distances off by {a['err']:.3e}")
+            f"distances off by {a['err']:.3e}; sha256 {shas[f'sha_bf16_b{x.shape[0]}']}")
         if not equal or knn_mod.bf16_launches != before + 1 or a["gap"] > NEAR_TIE:
             raise AssertionError(f"knn bf16: differs from its upcast, or not one launch, or "
                                  f"from the plain version beyond a tie ({a['gap']})")
+    g32 = torch.Generator(device="cuda").manual_seed(17)
+    for b, c in dict.fromkeys(KNN_SHAPES):
+        x = torch.randn((b, 2048, c), generator=g32, device="cuda")
+        shas[f"sha_f32_b{b}_c{c}"] = digest([knn_mod.knn(x, k)])
+    log("  knn f32 route sha256: " + ", ".join(f"{n[8:]} {v}" for n, v in shas.items()
+                                               if n.startswith("sha_f32")))
     ms = cuda_ms(lambda: [knn_mod.knn(x, k) for x in xs], 10)
+    upcast = cuda_ms(lambda: [knn_mod.knn(x.float(), k) for x in xs], 10)
     plain = cuda_ms(lambda: [knn_mod.knn_reference(x, k) for x in xs], 10)
-    log(f"  knn bf16: a request's four calls {ms:.4f} ms (plain {plain:.4f})")
+    per_call = {}
+    for x in xs[::2]:
+        b = x.shape[0]
+        per_call[f"ms_b{b}"] = cuda_ms(lambda x=x: knn_mod.knn(x, k), 10, per=5)
+        per_call[f"upcast_ms_b{b}"] = cuda_ms(lambda x=x: knn_mod.knn(x.float(), k), 10, per=5)
+    log(f"  knn bf16: a request's four calls {ms:.4f} ms (upcast and the f32 route "
+        f"{upcast:.4f}; plain {plain:.4f}); per call " + ", ".join(
+            f"{n} {v:.4f}" for n, v in per_call.items()))
+    attrs = {}
+    if hasattr(knn_mod, "kernel_attributes"):
+        attrs = {f"{route}_k{k}": knn_mod.kernel_attributes(k, route == "bf16")
+                 for route in ("bf16", "f32")}
+        log("  knn kernel, k = 20: " + "; ".join(
+            f"{n[:-4]} route {a['registers']} registers, {a['local_bytes']} local bytes, "
+            f"{a['blocks_per_sm']} blocks an SM" for n, a in attrs.items()))
     flops = sum(2.0 * x.shape[0] * 2048 ** 2 * 64 for x in xs)
     nbytes = sum(2.0 * x.numel() + 4.0 * x.shape[0] * 2048 * k for x in xs)
-    return row(err, ms, plain, None, flops, nbytes, BF16_TC_FLOPS)
+    return row(err, ms, plain, None, flops, nbytes, BF16_TC_FLOPS, upcast_ms=upcast,
+               **per_call, **shas, attributes=attrs)
 
 
 # ------------------------------------------------------------ F1 kernels --
@@ -1595,9 +1630,13 @@ KNN_F1_STEP = [(10, 9, 40), (10, 64, 40)]    # the F1 step's support batch (C = 
 def digest(outs) -> str:
     """The first 16 hex digits of the sha256 of the tensors' bytes, in order."""
     import hashlib
+
+    import torch
     h = hashlib.sha256()
     for o in outs:
-        h.update(o.contiguous().cpu().numpy().tobytes())
+        o = o.contiguous()
+        h.update((o.view(torch.int16) if o.dtype == torch.bfloat16 else o).cpu().numpy()
+                 .tobytes())
     return h.hexdigest()[:16]
 
 
@@ -2095,7 +2134,11 @@ def check_f1(torch, mods, sx, qx) -> dict:
 FUSED_F2_SHAPES = [(10, 2048, 20, 32), (10, 2048, 20, 128), (2, 2048, 20, 63),
                    (2, 2048, 20, 256), (2, 2048, 64, 64), (1, 100, 20, 64)]
 FUSED_F2_TIMED = (10, 2048, 20, 128)      # the general kernel's timed shape
-GATHER_F2 = [(63, "float32"), (60, "bfloat16"), (63, "bfloat16")]   # C: 4- and 2-byte pieces
+# kernel 8's narrow groups: C = 63 f32 (G = 4 rows), 60 bf16 (2), 63 bf16 (8),
+# 1 f32 (4: a chunk of 4 rows), 7 bf16 (8); ragged: an odd B M
+GATHER_F2 = [(63, "float32"), (60, "bfloat16"), (63, "bfloat16"), (1, "float32"),
+             (7, "bfloat16")]
+GATHER_F2_RAGGED = [(63, "bfloat16"), (60, "bfloat16"), (1, "float32")]
 PROTO_F2_COLS = (16, 128)                 # kernel 10, groups of 8 columns
 PROBE_F2_COLS = 12                        # kernel 11, a 32-column block
 
@@ -2218,33 +2261,52 @@ def check_fused_general(torch, cfe, seed) -> dict:
 
 def check_gather_narrow(torch, gather_mod, sx) -> dict:
     """Kernel 8 on rows that are not a multiple of 16 bytes (GATHER_F2: C =
-    63 f32 and 60 bf16 in 4-byte pieces, 63 bf16 in 2-byte ones) on the
-    flagship support batch's kNN idx (the first EdgeConv block's, (10, 2048,
-    20)): bit-equal to the plain version, the narrow counter moving once per
-    call and the 16-byte one not, and timed."""
+    63 f32, 60 and 63 bf16, 1 f32, 7 bf16; the groups of G = 4, 2, 8, 4, 8
+    rows) on the flagship support batch's kNN idx (the first EdgeConv
+    block's, (10, 2048, 20)), and at GATHER_F2_RAGGED on its (9, 2047, 19)
+    corner (an odd B M: a ragged last group, the tail's halfwords):
+    bit-equal to the plain version, the narrow counter moving once per call
+    and the 16-byte one not, each output's sha256, and timed beside one
+    `index_select` call: one call between CUDA events (host enqueue
+    included), ten back to back, and the device time of the kernels
+    (`device_ms`: names holding "gather"; every kernel of the index_select call)."""
     from r3dfsseg_tpu_torch.ops import cuda_knn
     idx = cuda_knn.knn(sx, 20)
     g = torch.Generator(device="cuda").manual_seed(23)
     counters = {"gather_onehot": (gather_mod, "launches"),
                 "gather_onehot_narrow": (gather_mod, "narrow_launches")}
     out = {}
-    for c, dt in GATHER_F2:
+    cases = [(c, dt, False) for c, dt in GATHER_F2] + [(c, dt, True) for c, dt in GATHER_F2_RAGGED]
+    for c, dt, ragged in cases:
         dtype = getattr(torch, dt)
         a = torch.randn((*sx.shape[:2], c), generator=g, device="cuda").to(dtype)
-        got = expect_launches(counters, lambda: gather_mod.gather_onehot(a, idx),
+        ids = idx[:9, :2047, :19].contiguous() if ragged else idx
+        if ragged:
+            a = a[:9]
+        name = f"C{c}_{dt}{'_ragged' if ragged else ''}"
+        got = expect_launches(counters, lambda: gather_mod.gather_onehot(a, ids),
                               {"gather_onehot": 0, "gather_onehot_narrow": 1},
-                              f"gather C = {c} {dt}")
-        if not torch.equal(got, gather_mod.gather_onehot_reference(a, idx)):
-            raise AssertionError(f"gather C = {c} {dt}: kernel and plain differ")
+                              f"gather {name}")
+        if not torch.equal(got, gather_mod.gather_onehot_reference(a, ids)):
+            raise AssertionError(f"gather {name}: kernel and plain differ")
         off = (torch.arange(a.shape[0], device="cuda") * a.shape[1])[:, None, None]
-        flat = (idx.long() + off).reshape(-1)
-        ms = cuda_ms(lambda: gather_mod.gather_onehot(a, idx), 10)
-        plain = cuda_ms(lambda: gather_mod.gather_onehot_reference(a, idx), 10)
-        lib = cuda_ms(lambda: a.reshape(-1, c).index_select(0, flat), 10)
-        nbytes = a.element_size() * (idx.numel() * c + a.numel()) + 4.0 * idx.numel()
-        out[f"C{c}_{dt}"] = row(0.0, ms, plain, lib, 0.0, nbytes)
-        log(f"  gather narrow C = {c} {dt}: bit-equal; {ms:.3f} ms (plain {plain:.3f}, "
-            f"index_select {lib:.3f}, bound {out[f'C{c}_{dt}']['bound_ms']:.4f})")
+        flat = (ids.long() + off).reshape(-1)
+        calls = {"": lambda: gather_mod.gather_onehot(a, ids),
+                 "plain_": lambda: gather_mod.gather_onehot_reference(a, ids),
+                 "library_": lambda: a.reshape(-1, c).index_select(0, flat)}
+        ms, plain, lib = (cuda_ms(f, 10) for f in calls.values())
+        b2b = {f"{pre}ms_back_to_back": cuda_ms(f, 10, per=10) for pre, f in calls.items()}
+        dev = {"device_ms": device_ms(calls[""], "gather"),
+               "library_device_ms": device_ms(calls["library_"], "")}
+        nbytes = a.element_size() * (ids.numel() * c + a.numel()) + 4.0 * ids.numel()
+        out[name] = row(0.0, ms, plain, lib, 0.0, nbytes, sha=digest([got]),
+                        shape=[*ids.shape, c], **b2b, **dev)
+        log(f"  gather narrow {name} {tuple(ids.shape)}: bit-equal, sha256 {out[name]['sha']}; "
+            f"{ms:.4f} ms (plain {plain:.4f}, index_select {lib:.4f}, bound "
+            f"{out[name]['bound_ms']:.4f}); ten back to back, each: {b2b['ms_back_to_back']:.4f} "
+            f"(plain {b2b['plain_ms_back_to_back']:.4f}, index_select "
+            f"{b2b['library_ms_back_to_back']:.4f}); device {dev['device_ms']:.4f} (index_select "
+            f"{dev['library_device_ms']:.4f})")
     first = out[f"C{GATHER_F2[0][0]}_{GATHER_F2[0][1]}"]
     return {**first, "cases": out}
 

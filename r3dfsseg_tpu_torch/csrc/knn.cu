@@ -3,28 +3,49 @@
 // Replaces the TPU kernel r3dfsseg_tpu/ops/pallas_knn.py:_knn_kernel in its
 // exact mode (exact=True): squared L2 distances (qq + kk) - 2 * inner,
 // clamped at 0, self included, k smallest per row with ties to the lowest
-// index.  The packed-mantissa mode of the TPU kernel was a VPU economy;
-// the H100 does not need it.
+// index.  The TPU kernel upcasts its input on load (:52-53), so a bf16 x is
+// searched in its f32 upcast.  The packed-mantissa mode of the TPU kernel
+// was a VPU economy; the H100 does not need it.
 //
-// Layout: x (B, N, C) f32 contiguous -> out (B, N, k) int32, k <= 32,
-// C <= 256.
+// Layout: x (B, N, C) f32 (r3d_knn, r3d_knn_split) or bf16 (the _bf16
+// entries) contiguous -> out (B, N, k) int32, k <= 32, C <= 256.
 //
 // What bounds it on the H100: the inner products, 2 B N^2 C operations,
-// taken as three tf32 tensor-core passes (3xTF32, common.cuh), and the
-// selection of k of N keys per row, which no peak rate covers: most keys
-// are rejected by one compare, and about k ln(N / k) per row are merged.
+// taken as three tf32 tensor-core passes on f32 (3xTF32, common.cuh) and
+// one on bf16, and the selection of k of N keys per row, which no peak
+// rate covers: most keys are rejected by one compare, and about k ln(N /
+// k) per row are merged.  The selection sets the pace at the flagship
+// shapes; the products and the staging are the rest.
 //
 // Design.  Grid (ceil(N / 64), B, S), blocks of 4 warps; a warp owns 16
-// query rows and keeps their channels in registers (the A operand, split
-// into tf32 hi and lo per k-step, attention.cuh).  Key tiles of 64 points
-// stream through a two-stage cp.async ring, row-major with attention.cuh's
-// swizzle, 16-byte copies where C % 4 == 0 (C = 9 takes 4-byte copies and
-// is zero-padded to 16 channels; C > 64 runs in 64-channel chunks, the
-// query rows reloaded per chunk).  One pass of the block splits an arrived
-// tile in place into tf32 hi and lo and takes the keys' norms, four
-// threads per key.  Per key tile and warp:
-//   1. inner products: a 16 x 64 accumulator tile of 3xTF32
-//      mma.sync.m16n8k8 (attention.cuh:product_along_channels);
+// query rows and keeps their channels in registers (the A operand,
+// attention.cuh's layout).  Key tiles of 64 points stream through a
+// cp.async ring, row-major and swizzled, C > 64 in 64-channel chunks (the
+// query rows reloaded per chunk), C = 9 zero-padded to 16 channels.  The
+// kernel is a template on the staged element, one source for the two
+// routes:
+//   - f32: a two-stage ring of f32 tiles (attention.cuh's swizzle, 16-byte
+//     copies where C % 4 == 0, else 4-byte ones); one pass of the block
+//     splits an arrived tile in place into tf32 hi and a lo tile and takes
+//     the keys' norms, four threads per key; the query rows are f32 and are
+//     split at each fragment load; 3xTF32 mma.sync.m16n8k8 products
+//     (attention.cuh:product_along_channels); three blocks an SM.
+//   - bf16: bf16 tiles as they are, 128 bytes a key (8-channel chunk q of
+//     key r at chunk q ^ (r % 8)), a three-stage ring (16-byte copies where
+//     C % 8 == 0, else 2-byte loads), no split pass and no lo tile; the
+//     query rows are bf16 pairs in registers, widened at fragment load;
+//     one tf32 mma.sync.m16n8k8 a k-step on the widened values, in the f32
+//     route's k-grouping: a bf16 value is a tf32 value, so the f32 route on
+//     the upcast adds two all-zero products and then these, and the sums,
+//     the distances and the lists are the f32 route's bit for bit (the sign
+//     of an exact zero aside, which the clamp and the compares ignore).
+//     Half the registers for the rows and half the shared memory for the
+//     tiles: the launch bounds ask four blocks an SM.
+// Norms of queries and of keys are the same function of a point's
+// channels (`group_norm`, a fixed tree over 4-channel groups, on the f32
+// values or the widened bf16 ones), so duplicate points tie bit for bit
+// and a bf16 point's norm is its upcast's.  Per key tile and warp:
+//   1. inner products: a 16 x 64 accumulator tile;
 //   2. d = max((qq + kk) - 2 * inner, 0) in registers, ops/knn.py's
 //      grouping; a key survives if d is below its row's current k-th
 //      distance, held in registers;
@@ -41,9 +62,7 @@
 // Keys reach a list in increasing index order (a split's partial lists: in
 // split order, each in (d, index) order), so a newcomer is the last of the
 // keys at its distance: comparing distances alone orders by (d, index),
-// and ties go to the lowest index exactly.  Norms of queries and of keys
-// are the same function of a point's channels (`group_norm`, a fixed tree
-// over 4-channel groups), so duplicate points tie bit for bit.
+// and ties go to the lowest index exactly.
 //
 // Where B x ceil(N / 64) blocks would leave SMs idle (B = 2 at N = 2048),
 // the wrapper asks for S key splits (r3d_knn_split): each block scans N / S
@@ -62,11 +81,42 @@ using namespace r3d_attn;  // kWarps = 4, kThreads = 128, kChunk = 64 keys, kDP 
 constexpr int kMaxC = 256;
 constexpr int kMaxK = 32;
 constexpr int kStride = kChunk + 1;  // floats per batch row (a tile's columns)
+constexpr int kKeyBytes = 2 * kDP;   // a key's row of a staged bf16 tile: 8 chunks of 16 bytes
 
-// ring: 2 stages of a key tile, the lo half of the current one, key and
-// query norms; then each warp's 16 candidate batches
-constexpr size_t kSmem =
-    sizeof(float) * (3 * kTileF + 2 * kChunk + kWarps * 16 * kStride);
+// The two routes, by the staged element: f32 (`float`), or bf16 bits
+// (`uint16_t`).  The ring holds kStages key tiles (the f32 route also the
+// lo half of the current one); then key and query norms and each warp's
+// 16 candidate batches.  kBlocks: blocks an SM the launch bounds ask for.
+template <typename T>
+struct Route;
+
+template <>
+struct Route<float> {
+  static constexpr int kStages = 2;
+  static constexpr int kBlocks = 3;
+  static constexpr size_t kTile = sizeof(float) * kTileF;
+  static constexpr size_t kRing = (kStages + 1) * kTile;
+  using Query = float4[4][2];        // the warp's rows, as attention.cuh's load_rows
+};
+
+template <>
+struct Route<uint16_t> {
+  static constexpr int kStages = 3;
+  static constexpr int kBlocks = 4;  // 120-128 registers, no spill
+  static constexpr size_t kTile = kChunk * kKeyBytes;
+  static constexpr size_t kRing = kStages * kTile;
+  using Query = uint32_t[4][2][2];   // the same channels as bf16 pairs
+};
+
+template <typename T>
+constexpr size_t smem_bytes() {
+  return Route<T>::kRing + sizeof(float) * (2 * kChunk + kWarps * 16 * kStride);
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
 
 // Width of 64-channel chunk h of c channels: 16 where at most 16 are
 // left (C = 9), else 64.
@@ -81,7 +131,8 @@ __device__ __forceinline__ float group_norm(float4 v) {
 // + w) of the cloud, into a staged tile (attention.cuh's layout); channels
 // past c and keys past `end` are zeros.
 __device__ __forceinline__ void stage_keys(const float* xb, int key0, int end, int c, int ch0,
-                                           int w, bool vec, float* dst) {
+                                           int w, bool vec, unsigned char* tile) {
+  float* dst = reinterpret_cast<float*>(tile);
   if (vec) {  // c % 4 == 0 and a 16-byte aligned base: whole groups
     const int lg = w == 16 ? 2 : 4;  // log2 of the groups per key
     for (int e = threadIdx.x; e < kChunk * w / 4; e += kThreads) {
@@ -101,6 +152,37 @@ __device__ __forceinline__ void stage_keys(const float* xb, int key0, int end, i
       const bool ok = key0 + r < end && ch < c;
       const float* from = ok ? xb + static_cast<size_t>(key0 + r) * c + ch : xb;
       r3d::cp_async4(dst + r * kDP + (((cc >> 2) ^ swz(r)) << 2) + (cc & 3), from, ok);
+    }
+  }
+}
+
+// The bf16 route's tile: key r's channels [8q, 8q + 8) are the 16 bytes at
+// r * 128 + ((q ^ (r % 8)) << 4).  A fragment load (8 bytes: row 8j + g,
+// channels 16kk + 4t ..) then spreads a warp over all 32 banks twice.
+// 16-byte copies where c % 8 == 0 on a 16-byte aligned base (C = 64: one
+// 128-byte line a key), else 2-byte loads stored as they arrive (C = 9).
+__device__ __forceinline__ void stage_keys(const uint16_t* xb, int key0, int end, int c, int ch0,
+                                           int w, bool vec, unsigned char* tile) {
+  if (vec) {
+    const int lg = w == 16 ? 1 : 3;  // log2 of the 16-byte chunks per key
+    for (int e = threadIdx.x; e < kChunk * w / 8; e += kThreads) {
+      const int r = e >> lg;
+      const int q = e & ((w >> 3) - 1);
+      const int ch = ch0 + 8 * q;
+      const bool ok = key0 + r < end && ch < c;
+      const uint16_t* from = ok ? xb + static_cast<size_t>(key0 + r) * c + ch : xb;
+      r3d::cp_async16(tile + r * kKeyBytes + ((q ^ (r & 7)) << 4), from, ok);
+    }
+  } else {
+    const int lg = w == 16 ? 4 : 6;
+    for (int e = threadIdx.x; e < kChunk * w; e += kThreads) {
+      const int r = e >> lg;
+      const int cc = e & (w - 1);
+      const int ch = ch0 + cc;
+      const bool ok = key0 + r < end && ch < c;
+      const uint16_t v = ok ? __ldg(xb + static_cast<size_t>(key0 + r) * c + ch) : uint16_t{0};
+      *reinterpret_cast<uint16_t*>(tile + r * kKeyBytes + (((cc >> 3) ^ (r & 7)) << 4) +
+                                   2 * (cc & 7)) = v;
     }
   }
 }
@@ -141,21 +223,8 @@ __device__ __forceinline__ void chunk_norms(Group group, float* out, bool first)
   }
 }
 
-// Split an arrived tile of width w in place into tf32 hi and `lo`, and
-// take its keys' norms over the chunk into kk_s.
-__device__ __forceinline__ void split_keys(float* hi, float* lo, int w, float* kk_s, bool first) {
-  auto group = [&](int r, int q) {
-    const int at = r * kDP + ((q ^ swz(r)) << 2);
-    const float4 v = *reinterpret_cast<const float4*>(hi + at);
-    uint32_t h[4], l[4];
-    r3d::split_tf32(v.x, h[0], l[0]);
-    r3d::split_tf32(v.y, h[1], l[1]);
-    r3d::split_tf32(v.z, h[2], l[2]);
-    r3d::split_tf32(v.w, h[3], l[3]);
-    *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
-    return v;
-  };
+template <typename Group>
+__device__ __forceinline__ void tile_norms(Group group, int w, float* kk_s, bool first) {
   if (w == 16) {
     chunk_norms<4>(group, kk_s, first);
   } else {
@@ -163,23 +232,55 @@ __device__ __forceinline__ void split_keys(float* hi, float* lo, int w, float* k
   }
 }
 
-// The norms of the block's 64 query rows into qq_s, by split_keys' rule
+// An arrived tile of width w: the f32 route splits it in place into tf32 hi
+// and `lo`; both take its keys' norms over the chunk into kk_s, from the
+// values as staged (a bf16 value widened: the bits of its f32 upcast).
+__device__ __forceinline__ void prepare_keys(float* hi, float* lo, int w, float* kk_s, bool first) {
+  tile_norms(
+      [&](int r, int q) {
+        const int at = r * kDP + ((q ^ swz(r)) << 2);
+        const float4 v = *reinterpret_cast<const float4*>(hi + at);
+        uint32_t h[4], l[4];
+        r3d::split_tf32(v.x, h[0], l[0]);
+        r3d::split_tf32(v.y, h[1], l[1]);
+        r3d::split_tf32(v.z, h[2], l[2]);
+        r3d::split_tf32(v.w, h[3], l[3]);
+        *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+        return v;
+      },
+      w, kk_s, first);
+}
+
+__device__ __forceinline__ void prepare_keys(const unsigned char* tile, int w, float* kk_s,
+                                             bool first) {
+  tile_norms(
+      [&](int r, int q) {
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            tile + r * kKeyBytes + (((q >> 1) ^ (r & 7)) << 4) + 8 * (q & 1));
+        return make_float4(r3d::bf16_lo(v.x), r3d::bf16_hi(v.x), r3d::bf16_lo(v.y),
+                           r3d::bf16_hi(v.y));
+      },
+      w, kk_s, first);
+}
+
+// The norms of the block's 64 query rows into qq_s, by prepare_keys' rule
 // (the same bits a key of the same point gets).
-__device__ __forceinline__ void query_norms(const float* xb, int row0, int n, int c,
-                                            int nchunk, float* qq_s) {
+template <typename T>
+__device__ __forceinline__ void query_norms(const T* xb, int row0, int n, int c, int nchunk,
+                                            float* qq_s) {
   for (int h = 0; h < nchunk; ++h) {
-    auto group = [&](int r, int q) {
-      const int ch = h * kDP + 4 * q;
-      const float* src = xb + static_cast<size_t>(row0 + r) * c + ch;
-      const bool live = row0 + r < n;
-      return make_float4(live && ch < c ? src[0] : 0.f, live && ch + 1 < c ? src[1] : 0.f,
-                         live && ch + 2 < c ? src[2] : 0.f, live && ch + 3 < c ? src[3] : 0.f);
-    };
-    if (chunk_width(c, h) == 16) {
-      chunk_norms<4>(group, qq_s, h == 0);
-    } else {
-      chunk_norms<16>(group, qq_s, h == 0);
-    }
+    tile_norms(
+        [&](int r, int q) {
+          const int ch = h * kDP + 4 * q;
+          const T* src = xb + static_cast<size_t>(row0 + r) * c + ch;
+          const bool live = row0 + r < n;
+          return make_float4(live && ch < c ? widen(src[0]) : 0.f,
+                             live && ch + 1 < c ? widen(src[1]) : 0.f,
+                             live && ch + 2 < c ? widen(src[2]) : 0.f,
+                             live && ch + 3 < c ? widen(src[3]) : 0.f);
+        },
+        chunk_width(c, h), qq_s, h == 0);
     __syncthreads();  // chunks of another width give a point to another thread
   }
 }
@@ -203,6 +304,67 @@ __device__ __forceinline__ void load_query(const float* xb, int row0, int n, int
       x[kk][hf] = make_float4(live && ch < c ? src[0] : 0.f, live && ch + 1 < c ? src[1] : 0.f,
                               live && ch + 2 < c ? src[2] : 0.f, live && ch + 3 < c ? src[3] : 0.f);
     }
+}
+
+// The same channels of the same rows as bf16 pairs: q[kk][hf][0] holds
+// channels 16kk + 4t and + 1 (low half first), q[kk][hf][1] + 2 and + 3.
+__device__ __forceinline__ void load_query(const uint16_t* xb, int row0, int n, int c, int ch0,
+                                           uint32_t (&q)[4][2][2]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = row0 + g + 8 * hf;
+      const int ch = ch0 + 16 * kk + 4 * t;
+      const uint16_t* src = xb + static_cast<size_t>(r) * c + ch;
+      const bool live = r < n;
+      uint32_t e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) e[i] = live && ch + i < c ? src[i] : 0u;
+      q[kk][hf][0] = e[0] | e[1] << 16;
+      q[kk][hf][1] = e[2] | e[3] << 16;
+    }
+}
+
+// The f32 route's inner products: 3xTF32 (attention.cuh).
+__device__ __forceinline__ void inner_products(float (&acc)[8][4], const float4 (&qr)[4][2],
+                                               const unsigned char* tile, const float* lo, int w,
+                                               const Lane& ln) {
+  product_along_channels<8, false>(acc, qr, reinterpret_cast<const float*>(tile), lo, 0, w, ln);
+}
+
+// The bf16 route's: acc[j] += X Y^T over the channels, X the warp's rows
+// (bf16 pairs), Y the tile's keys 8j + g, one tf32 mma.sync.m16n8k8 per
+// 8-channel k-step in the f32 route's k-grouping (k-step 2kk + h takes
+// channels 16kk + 4t + 2h and + 1).  A bf16 value widened (its bits << 16)
+// is a tf32 value, its 3xTF32 split has hi = the value and lo = 0, and the
+// f32 route's three passes add two all-zero products before hi hi: this
+// one pass adds the same products to the same sums in the same order.
+__device__ __forceinline__ void inner_products(float (&acc)[8][4], const uint32_t (&q)[4][2][2],
+                                               const unsigned char* tile, const float*, int w,
+                                               const Lane& ln) {
+  const unsigned char* row = tile + ln.g * kKeyBytes + 8 * (ln.t & 1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (16 * kk >= w) break;
+    const int chunk = ((2 * kk + (ln.t >> 1)) ^ ln.g) << 4;
+    uint2 b[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const uint2*>(row + 8 * kKeyBytes * j + chunk);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t a[4] = {q[kk][0][h] << 16, q[kk][1][h] << 16, q[kk][0][h] & 0xffff0000u,
+                             q[kk][1][h] & 0xffff0000u};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t bw = h ? b[j].y : b[j].x;
+        r3d::mma_tf32(acc[j], a, bw << 16, bw & 0xffff0000u);
+      }
+    }
+  }
 }
 
 // A row's list: its k nearest keys so far, the largest first, K = 2 H
@@ -317,16 +479,19 @@ __device__ __forceinline__ void first_tile_bound(const float (&d)[8][4], float (
   }
 }
 
-// Three blocks per SM (12 warps): 168 registers, a few bytes of spill,
-// faster than two blocks without spill (PERF.md, section 6).
-template <int K>
-__global__ void __launch_bounds__(kThreads, 3)
-knn_kernel(const float* __restrict__ x, int* __restrict__ out, int2* part, unsigned* arrived, int n,
+// T: the staged element (Route).  The f32 route runs three blocks an SM
+// (12 warps): 168 registers, a few bytes of spill, faster than two blocks
+// without spill (PERF.md, section 6).
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads, Route<T>::kBlocks)
+knn_kernel(const T* __restrict__ x, int* __restrict__ out, int2* part, unsigned* arrived, int n,
            int c, int k, int vec) {
+  constexpr int kStages = Route<T>::kStages;
   extern __shared__ __align__(16) float smem[];
   __shared__ int last_block;
-  float* lo = smem + 2 * kTileF;
-  float* kk_s = smem + 3 * kTileF;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem);
+  float* lo = reinterpret_cast<float*>(ring + kStages * Route<T>::kTile);  // f32 route only
+  float* kk_s = reinterpret_cast<float*>(ring + Route<T>::kRing);
   float* qq_s = kk_s + kChunk;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -338,7 +503,7 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ out, int2* part, unsig
   const int splits = gridDim.z;
   const int row0 = blockIdx.x * kChunk;
   const int row0w = row0 + 16 * warp;
-  const float* xb = x + static_cast<size_t>(b) * n * c;
+  const T* xb = x + static_cast<size_t>(b) * n * c;
   const int tiles = (n + kChunk - 1) / kChunk;
   const int per_split = (tiles + splits - 1) / splits;
   const int t0 = blockIdx.z * per_split;
@@ -346,11 +511,19 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ out, int2* part, unsig
   const int end = min(n, t1 * kChunk);
   const int nchunk = (c + kDP - 1) / kDP;
   const int units = max(0, t1 - t0) * nchunk;  // (key tile, channel chunk) pairs
+  // issue unit v's copy into its stage
+  auto stage = [&](int v) {
+    const int hv = v % nchunk;
+    stage_keys(xb, (t0 + v / nchunk) * kChunk, end, c, hv * kDP, chunk_width(c, hv), vec,
+               ring + (v % kStages) * Route<T>::kTile);
+  };
 
-  if (units > 0) stage_keys(xb, t0 * kChunk, end, c, 0, chunk_width(c, 0), vec, smem);
-  r3d::cp_async_commit();
+  for (int v = 0; v + 1 < kStages; ++v) {
+    if (v < units) stage(v);
+    r3d::cp_async_commit();
+  }
   query_norms(xb, row0, n, c, nchunk, qq_s);
-  float4 qr[4][2];
+  typename Route<T>::Query qr;
   if (nchunk == 1) load_query(xb, row0w, n, c, 0, qr);
 
   List<K / 2> list;  // lanes r and r + 16: row row0w + r
@@ -360,17 +533,17 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ out, int2* part, unsig
   for (int u = 0; u < units; ++u) {
     const int tile = t0 + u / nchunk;
     const int h = u - (u / nchunk) * nchunk;
-    float* hi = smem + (u & 1) * kTileF;
-    r3d::cp_async_wait_all();
+    unsigned char* keys = ring + (u % kStages) * Route<T>::kTile;
+    r3d::cp_async_wait<kStages - 2>();
     __syncthreads();  // unit u has arrived; every warp is done with unit u - 1
-    if (u + 1 < units) {
-      const int hn = (u + 1) % nchunk;
-      stage_keys(xb, (t0 + (u + 1) / nchunk) * kChunk, end, c, hn * kDP, chunk_width(c, hn), vec,
-                 smem + ((u + 1) & 1) * kTileF);
-    }
+    if (u + kStages - 1 < units) stage(u + kStages - 1);
     r3d::cp_async_commit();
     const int w = chunk_width(c, h);
-    split_keys(hi, lo, w, kk_s, h == 0);
+    if constexpr (kStages == 2) {
+      prepare_keys(reinterpret_cast<float*>(keys), lo, w, kk_s, h == 0);
+    } else {
+      prepare_keys(keys, w, kk_s, h == 0);
+    }
     __syncthreads();
 
     // 1. inner products
@@ -381,7 +554,7 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ out, int2* part, unsig
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
     }
-    product_along_channels<8, false>(acc, qr, hi, lo, 0, w, ln);
+    inner_products(acc, qr, keys, lo, w, ln);
     if (h + 1 < nchunk) continue;
 
     // 2. distances and survivors; e < 2: row g, e >= 2: row g + 8
@@ -473,42 +646,85 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ out, int2* part, unsig
   if (threadIdx.x == 0) *counter = 0u;
 }
 
-template <int K>
-cudaError_t launch(const float* x, int* out, int2* part, unsigned* arrived, int b, int n, int c,
-                   int k, int splits, cudaStream_t st) {
-  const int vec = c % 4 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+template <typename T, int K>
+cudaError_t launch(const T* x, int* out, int2* part, unsigned* arrived, int b, int n, int c, int k,
+                   int splits, cudaStream_t st) {
+  // whole 16-byte copies: 4 f32 or 8 bf16 channels, on a 16-byte aligned base
+  const int vec = c % (16 / sizeof(T)) == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
   const dim3 grid((n + kChunk - 1) / kChunk, b, splits);
-  return r3d_launch(knn_kernel<K>, grid, dim3(kThreads), kSmem, st, x, out, part, arrived, n, c,
-                    k, vec);
+  return r3d_launch(knn_kernel<T, K>, grid, dim3(kThreads), smem_bytes<T>(), st, x, out, part,
+                    arrived, n, c, k, vec);
 }
 
+template <typename T>
 cudaError_t knn(const void* x, void* out, void* part, void* arrived, int b, int n, int c, int k,
                 int splits, void* stream) {
   if (b < 1 || b > 65535 || n < 1 || c < 1 || c > kMaxC || k < 1 || k > kMaxK || k > n ||
       splits < 1 || splits > 64 || (splits > 1 && (part == nullptr || arrived == nullptr))) {
     return cudaErrorInvalidValue;
   }
-  const auto xp = static_cast<const float*>(x);
+  const auto xp = static_cast<const T*>(x);
   const auto op = static_cast<int*>(out);
   const auto pp = static_cast<int2*>(part);
   const auto ap = static_cast<unsigned*>(arrived);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (k <= 8) return launch<8>(xp, op, pp, ap, b, n, c, k, splits, st);
-  if (k <= 16) return launch<16>(xp, op, pp, ap, b, n, c, k, splits, st);
-  if (k <= 20) return launch<20>(xp, op, pp, ap, b, n, c, k, splits, st);
-  return launch<32>(xp, op, pp, ap, b, n, c, k, splits, st);
+  if (k <= 8) return launch<T, 8>(xp, op, pp, ap, b, n, c, k, splits, st);
+  if (k <= 16) return launch<T, 16>(xp, op, pp, ap, b, n, c, k, splits, st);
+  if (k <= 20) return launch<T, 20>(xp, op, pp, ap, b, n, c, k, splits, st);
+  return launch<T, 32>(xp, op, pp, ap, b, n, c, k, splits, st);
+}
+
+template <typename T>
+cudaError_t attributes(int k, int* regs, int* local_bytes, int* blocks_per_sm) {
+  cudaFuncAttributes a;
+  const auto kernel = k <= 8    ? &knn_kernel<T, 8>
+                      : k <= 16 ? &knn_kernel<T, 16>
+                      : k <= 20 ? &knn_kernel<T, 20>
+                                : &knn_kernel<T, 32>;
+  cudaError_t err = r3d_set_smem(kernel, smem_bytes<T>());
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads,
+                                                        smem_bytes<T>());
+  }
+  if (err != cudaSuccess) return err;
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// One scan of all keys per row tile.
+// One scan of all keys per row tile; x f32, or bf16 (the _bf16 entries).
 R3D_EXPORT int r3d_knn(const void* x, void* out, int b, int n, int c, int k, void* stream) {
-  return knn(x, out, nullptr, nullptr, b, n, c, k, 1, stream);
+  return knn<float>(x, out, nullptr, nullptr, b, n, c, k, 1, stream);
+}
+
+R3D_EXPORT int r3d_knn_bf16(const void* x, void* out, int b, int n, int c, int k, void* stream) {
+  return knn<uint16_t>(x, out, nullptr, nullptr, b, n, c, k, 1, stream);
 }
 
 // `splits` key splits per row tile.  part: (b, splits, n, k) 8-byte
 // scratch ((d, index) pairs); arrived: (b, ceil(n / 64)) uint32, zero on entry and on return.
 R3D_EXPORT int r3d_knn_split(const void* x, void* out, void* part, void* arrived, int b, int n,
                              int c, int k, int splits, void* stream) {
-  return knn(x, out, part, arrived, b, n, c, k, splits, stream);
+  return knn<float>(x, out, part, arrived, b, n, c, k, splits, stream);
+}
+
+R3D_EXPORT int r3d_knn_split_bf16(const void* x, void* out, void* part, void* arrived, int b,
+                                  int n, int c, int k, int splits, void* stream) {
+  return knn<uint16_t>(x, out, part, arrived, b, n, c, k, splits, stream);
+}
+
+// The kernel that a call with this k launches (bf16: the bf16 route's):
+// its registers a thread, local memory (spill) bytes a thread, and blocks
+// an SM at its shared memory.
+R3D_EXPORT int r3d_knn_attributes(int bf16, int k, int* regs, int* local_bytes,
+                                  int* blocks_per_sm) {
+  return bf16 ? attributes<uint16_t>(k, regs, local_bytes, blocks_per_sm)
+              : attributes<float>(k, regs, local_bytes, blocks_per_sm);
 }

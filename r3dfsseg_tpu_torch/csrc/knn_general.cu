@@ -87,11 +87,6 @@ constexpr int kMaxRegK = 64;         // lists in registers up to this k
 constexpr int kBatchLd = kTile + 1;  // keys per batch row: a warp's 16 rows on distinct banks
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // The two key forms; `make` is the earlier kernel's arithmetic, operation
 // for operation.
 template <bool kPacked>
@@ -468,7 +463,7 @@ knn_general_kernel(const float* __restrict__ x, const float* __restrict__ nrm,
 
   float acc[4][8];
   for (int u = 0; u < units; ++u) {
-    cp_async_wait<kStages - 2>();
+    r3d::cp_async_wait<kStages - 2>();
     __syncthreads();  // unit u has arrived; every warp is done with unit u - 1
     if (u + kStages - 1 < units) stage_unit(u + kStages - 1);
     r3d::cp_async_commit();

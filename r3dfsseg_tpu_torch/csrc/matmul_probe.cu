@@ -132,13 +132,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
                : "memory");
 }
 
-// Wait until at most `kPending` of this thread's latest groups of copies
-// are in flight.
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait_pending() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
 // Entry offset of piece p (8 entries) of row r of a stage tile of `rows`
 // rows: K block p / 8, each rows x 128 bytes with the 16-byte pieces of a
 // row XOR-swizzled by row % 8, the layout wgmma's 128-byte swizzle reads.
@@ -372,7 +365,7 @@ __global__ void __launch_bounds__(kThreads, 1) matmul_probe_kernel(Args a) {
     Pos cur = first;  // the unit to multiply
     for (int u = lo; u < hi; ++u) {
       const int i = u - lo;
-      cp_async_wait_pending<kStages - 2>();
+      r3d::cp_async_wait<kStages - 2>();
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
       __syncthreads();  // for every thread, and the stage refilled below is free
       if (u + kStages - 1 < hi) {

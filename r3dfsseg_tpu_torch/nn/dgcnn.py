@@ -231,8 +231,10 @@ class EdgeConv(nn.Module):
     (its plain version on CPU tensors), 'xla' the plain version;
     ``gather_impl`` 'auto' runs the scatter-add kernel in the backward,
     'xla' `index_add_` (`R3DConfig.follower_impl`).  A bf16 input (a bf16 block's
-    output under 'stats', 'relaxed' or 'hybrid') is searched in its exact
-    f32 upcast, as the TPU kernel loads it.  ``bn_modes`` gives each
+    output under 'stats', 'relaxed' or 'hybrid') is searched as its exact
+    f32 upcast, as the TPU kernel loads it: on the card by the kNN
+    kernel's bf16 route with no f32 copy (bit for bit the f32 route on the
+    upcast), past k = 32 or C = 256 by the general kernel on the upcast.  ``bn_modes`` gives each
     layer's BN mode (default 'exact')."""
 
     def __init__(self, in_features: int, widths: Sequence[int], k: int = 20,

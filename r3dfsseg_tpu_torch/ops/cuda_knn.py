@@ -6,8 +6,9 @@ L2, self included, ties to the lowest index).
 
 What bounds it on the H100: the inner products (10 + 2 clouds x 2048^2 x
 C multiply-adds per encoder block at the flagship shapes, C = 9 and 64,
-k = 20), taken as three tf32 tensor-core passes each (3xTF32, f32-level
-accuracy), and the per-row top-k selection.  The plain version writes the
+k = 20), taken as three tf32 tensor-core passes each on f32 (3xTF32,
+f32-level accuracy) and one on bf16, and the per-row top-k selection,
+which sets the pace.  The plain version writes the
 (B, N, N) distance matrix (168 MB for the 10 support clouds) to device
 memory and sorts every row.  The kernel computes 16 x 64 distance tiles per
 warp in registers and compares each distance with its row's current k-th
@@ -19,9 +20,14 @@ last block to finish merges.
 
 A bf16 input (the bf16 encoder's EdgeConv output under the 'stats',
 'relaxed' and 'hybrid' BN modes) is searched in its f32 upcast, as the TPU
-kernel upcasts on load (`pallas_knn.py:52-53`).  The wrapper upcasts, which
-gives the same bits as an upcast on the kernel's load (the upcast is
-exact); `bf16_launches` counts those calls apart.
+kernel upcasts on load (`pallas_knn.py:52-53`).  Up to MAX_K and MAX_C it
+goes to the kernel's bf16 route (`r3d_knn_bf16`, `r3d_knn_split_bf16`)
+with no f32 copy: bf16 key tiles staged as they are and one tf32
+tensor-core pass a k-step on the widened values, which adds the same
+products to the same sums as the f32 route's three passes on the upcast
+(the lo parts of a bf16 value are zero), so its output is the f32
+route's on `x.float()` bit for bit.  `bf16_launches` counts those calls
+apart.  Past those limits a bf16 input goes, upcast, to the general kernel.
 
 Shapes that kernel does not take (k > MAX_K or C > MAX_C; the TPU kernel
 takes any k <= N and any C) go to the general kernel `csrc/knn_general.cu`
@@ -123,29 +129,42 @@ def knn(x: torch.Tensor, k: int, packed: bool = False) -> torch.Tensor:
     if not (b > 0 and 0 < k <= n and c > 0):
         raise ValueError(f"knn: unsupported shape B={b} N={n} C={c} k={k}")
     bf16 = x.dtype == torch.bfloat16
-    x = x.float().contiguous()
     dev = x.device
     if packed or k > MAX_K or c > MAX_C:
-        out = _knn_general(x, k, packed)
+        out = _knn_general(x.float().contiguous(), k, packed)
         packed_launches += packed
         general_launches += not packed
         return out
+    x = x.contiguous()
+    route = "_bf16" if bf16 else ""
     out = torch.empty((b, n, k), dtype=torch.int32, device=dev)
     s = splits(b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
     with torch.cuda.device(dev):
         if s == 1:
-            fn = build.function("r3d_knn", [build.P, build.P] + [build.I] * 4 + [build.P])
+            fn = build.function(f"r3d_knn{route}", [build.P, build.P] + [build.I] * 4 + [build.P])
             err = fn(x.data_ptr(), out.data_ptr(), b, n, c, k, build.stream_ptr(dev))
         else:
             part = torch.empty((b, s, n, k), dtype=torch.int64, device=dev)
             arrived = torch.zeros((b, -(-n // ROWS)), dtype=torch.int32, device=dev)
-            fn = build.function("r3d_knn_split", [build.P] * 4 + [build.I] * 5 + [build.P])
+            fn = build.function(f"r3d_knn_split{route}", [build.P] * 4 + [build.I] * 5 + [build.P])
             err = fn(x.data_ptr(), out.data_ptr(), part.data_ptr(), arrived.data_ptr(), b, n, c,
                      k, s, build.stream_ptr(dev))
-    build.check(err, "r3d_knn")
+    build.check(err, f"r3d_knn{route}")
     launches += 1
     bf16_launches += bf16
     return out
+
+
+def kernel_attributes(k: int, bf16: bool) -> dict:
+    """The registers a thread, local (spill) bytes a thread and blocks an
+    SM of the kernel a call with this k launches, on its route (f32 or
+    bf16), from `cudaFuncGetAttributes` and the occupancy API on the
+    current card."""
+    regs, local, blocks = (ctypes.c_int() for _ in range(3))
+    fn = build.function("r3d_knn_attributes", [build.I, build.I] + [build.P] * 3)
+    build.check(fn(int(bf16), k, ctypes.addressof(regs), ctypes.addressof(local),
+                   ctypes.addressof(blocks)), "r3d_knn_attributes")
+    return dict(registers=regs.value, local_bytes=local.value, blocks_per_sm=blocks.value)
 
 
 def _knn_general(x: torch.Tensor, k: int, packed: bool) -> torch.Tensor:

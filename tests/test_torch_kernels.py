@@ -873,6 +873,108 @@ def test_gather_kernel_narrow_rows_bit_equal_on_card(c, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,dtype", [(c, dt) for c in (1, 3, 7, 60, 63)
+                                     for dt in (torch.float32, torch.bfloat16)
+                                     if (c, dt) != (60, torch.float32)])
+def test_gather_kernel_narrow_ragged_and_misaligned_on_card(c, dtype):
+    """Kernel 8's narrow groups on 333 rows (a ragged last group at every
+    G: the tail's halfwords), ids outside [0, N) (zero rows), on a table
+    one element past an aligned start (bf16: 2 bytes past a 4-byte
+    boundary) and on an aligned one:
+    bit-equal to the plain version on the ids in [0, N), one narrow launch a
+    call, and the bytes past the output untouched."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + 100)
+    b, n, nq, k = 3, 50, 37, 3
+    vals = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)).to(dev, dtype)
+    idx = rng.integers(0, n, size=(b, nq, k)).astype(np.int32)
+    idx[0, 0, 0], idx[-1, -1, -1], idx[1, 2, 1] = -1, n, 2**31 - 1
+    ok = torch.from_numpy((idx >= 0) & (idx < n)).to(dev)
+    idx = torch.from_numpy(idx).to(dev)
+    want = torch.where(ok[..., None], cuda_gather.gather_onehot_reference(
+        vals, torch.where(ok, idx, 0)), torch.zeros((), dtype=dtype, device=dev))
+    for shift in (0, 1):        # elements: a bf16 table 2 bytes off a 4-byte boundary
+        store = torch.empty(vals.numel() + shift, dtype=dtype, device=dev)
+        x = store[shift:].view(b, n, c)
+        x.copy_(vals)
+        before = (cuda_gather.launches, cuda_gather.narrow_launches)
+        got = cuda_gather.gather_onehot(x, idx)
+        torch.cuda.synchronize()
+        assert (cuda_gather.launches, cuda_gather.narrow_launches) == (before[0], before[1] + 1)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    out = torch.full((b * nq * k * c + 64,), 7, dtype=dtype, device=dev)
+    fn = cuda_gather.build.function("r3d_gather_rows_narrow",
+                                    [cuda_gather.build.P] * 3 + [cuda_gather.build.I] * 4
+                                    + [cuda_gather.build.P])
+    vc = vals.contiguous()
+    cuda_gather.build.check(fn(vc.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, nq * k,
+                               c * vals.element_size(), cuda_gather.build.stream_ptr(dev)),
+                            "r3d_gather_rows_narrow")
+    torch.cuda.synchronize()
+    assert torch.equal(out[:b * nq * k * c].view(b, nq, k, c), want)
+    assert bool((out[b * nq * k * c:] == 7).all())
+
+
+def _bf16_points(seed, b, n, c, dev):
+    """bf16 points with an exact duplicate (a distance tie)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, n, c), generator=g, device=dev).to(torch.bfloat16)
+    x[0, 11] = x[0, n // 2]
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 20, 32])
+@pytest.mark.parametrize("n", [130, 1000, 2048])
+@pytest.mark.parametrize("c", [9, 63, 64, 200])
+def test_knn_bf16_route_bit_equals_the_upcast_route_on_card(c, n, k):
+    """Kernel 1's bf16 route (bf16 tiles, one tensor-core pass) against the
+    f32 route on the input's upcast: bit-equal, at B = 2 (key splits) and
+    at the least B that takes one scan (no splits); one launch and one
+    bf16 launch a call, no general kernel."""
+    dev = cuda_or_skip()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = -(-n // cuda_knn.ROWS)
+    many = -(-9 * sms // (5 * tiles))
+    assert cuda_knn.splits(2, n, sms) > 1 and cuda_knn.splits(many, n, sms) == 1
+    for b in (2, many):
+        x = _bf16_points(c * n + k + b, b, n, c, dev)
+        before = (cuda_knn.launches, cuda_knn.bf16_launches, cuda_knn.general_launches)
+        got = cuda_knn.knn(x, k)
+        torch.cuda.synchronize()
+        assert (cuda_knn.launches, cuda_knn.bf16_launches, cuda_knn.general_launches) == \
+            (before[0] + 1, before[1] + 1, before[2])
+        assert torch.equal(got, cuda_knn.knn(x.float(), k)), (b, n, c, k)
+
+
+@pytest.mark.cuda
+def test_knn_bf16_route_past_its_limits_takes_the_general_kernel_on_card():
+    """A bf16 input with k > 32 or C > 256 goes, upcast, to the general
+    kernel, as an f32 input does, with the same output."""
+    dev = cuda_or_skip()
+    for c, k in ((64, 40), (300, 20)):
+        x = _bf16_points(c + k, 2, 300, c, dev)
+        before = (cuda_knn.bf16_launches, cuda_knn.general_launches)
+        got = cuda_knn.knn(x, k)
+        torch.cuda.synchronize()
+        assert (cuda_knn.bf16_launches, cuda_knn.general_launches) == (before[0],
+                                                                       before[1] + 1)
+        assert torch.equal(got, cuda_knn.knn(x.float(), k))
+
+
+@pytest.mark.cuda
+def test_knn_kernel_attributes_on_card():
+    """Both routes report registers, no more spill than the f32 route's few
+    bytes, and at least the f32 route's three blocks an SM."""
+    cuda_or_skip()
+    for k in (8, 20, 32):
+        f32 = cuda_knn.kernel_attributes(k, bf16=False)
+        bf16 = cuda_knn.kernel_attributes(k, bf16=True)
+        assert f32["registers"] > 0 and bf16["registers"] > 0
+        assert bf16["blocks_per_sm"] >= f32["blocks_per_sm"] >= 3, (f32, bf16)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c", [9, 16, 128])
 def test_proto_cheby_more_than_eight_columns_on_card(c):
     """Kernel 10 on more than 8 columns: one launch per group of 8, equal

@@ -126,3 +126,46 @@ def test_knn_key_splits_by_batch():
     assert cuda_knn.splits(2, 2048, 132) == 4
     assert cuda_knn.splits(2, 130, 132) == 2
     assert cuda_knn.splits(1, 64, 132) == 1
+
+
+# ---- csrc/knn.cu's bf16 route: one tensor-core pass on bf16 values ----
+def _bf16_points(seed, b, n, c):
+    """bf16 points as f32 tensors (their exact upcast)."""
+    x = np.random.default_rng(seed).normal(size=(b, n, c)).astype(np.float32)
+    return torch.from_numpy(x).to(torch.bfloat16).float()
+
+
+def test_split_tf32_of_every_bf16_value_has_no_lo_part():
+    """Every finite bf16 bit pattern (subnormals and both zeros included)
+    widened to f32 is a tf32 value: the 3xTF32 split keeps it whole in hi
+    and leaves lo = +0, so two of the f32 route's three products are zero
+    on a bf16 input."""
+    u = np.arange(1 << 16, dtype=np.uint32)
+    u = u[(u >> 7 & 0xFF) != 0xFF]                         # finite: exponent below all ones
+    x = torch.from_numpy((u << 16).view(np.int32)).view(torch.float32)
+    hi, lo = cuda_attention.split_tf32(x)
+    assert torch.equal(hi.view(torch.int32), x.view(torch.int32))
+    assert not bool(lo.view(torch.int32).any())
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+def test_knn_emulation_one_pass_equals_three_on_bf16(splits):
+    """At the query batch's flagship shape (B = 2, N = 2048, C = 64, k =
+    20) on bf16 points, the emulated kernel with one tf32 pass (hi hi, the
+    bf16 route) equals the three-pass one (the f32 route on the upcast) bit
+    for bit, with and without key splits."""
+    x = _bf16_points(splits, 2, 2048, 64)
+    one = _knn_emulated(x, 20, splits, passes=1)
+    np.testing.assert_array_equal(one.numpy(), _knn_emulated(x, 20, splits, passes=3).numpy())
+
+
+def test_knn_emulation_one_pass_on_integer_bf16_points_equals_pallas_exact():
+    """On integer points (exact in bf16, every distance exact, ties exact)
+    at N = 256, the one-pass emulation at 1 and 4 key splits equals
+    `_knn_kernel(exact=True)` in interpret mode on the bf16 input, which
+    it upcasts on load."""
+    xi = np.random.default_rng(9).integers(-6, 7, size=(2, 256, 9)).astype(np.float32)
+    x = torch.from_numpy(xi).to(torch.bfloat16)
+    want = np.asarray(jax_knn_kernel_exact(jnp.asarray(xi).astype(jnp.bfloat16), 20, tile_n=128))
+    for splits in (1, 4):
+        np.testing.assert_array_equal(_knn_emulated(x.float(), 20, splits, passes=1).numpy(), want)
