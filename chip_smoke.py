@@ -129,7 +129,9 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      and at D = 12 (f32, and bf16 through the zero pad: the tuned
      kernels), the k-th distance on
      rows of 60000 f32 and 120000 bf16 entries, the scatter-add at C = 63
-     and at N = 32768; each shape's own counter moves and the tuned
+     (the flagship kNN graphs at K = 20 and the F1 step's K = 40) and at N
+     = 32768, f32 and bf16, each call's device time split by kernel beside
+     `index_add_`'s; each shape's own counter moves and the tuned
      kernel's not, against the plain versions (kNN as kernel 1, the packed
      kNN's differing rows at most 1e-2, each explained by the rounding of
      the distances, attention
@@ -140,7 +142,8 @@ nvcc.  Phases, each of which raises (exit code != 0) on failure:
      the float32 encoder and a step on the bf16 encoder, against their
      plain paths, through the general kNN, the wide attention (the 3xTF32
      pair in f32, the wide bf16 tensor-core pair on the bf16 encoder) and
-     the general scatter-add (the tuned kNN and attention launch no time);
+     the general scatter-add (twice a step: block 1's two batches; the
+     tuned kNN and attention launch no time), with a profile of each step;
      then a
      step of the bf16 encoder at output_dim 320 (the grouped tensor-core
      pair, two launches of each per step: the support and query batches),
@@ -310,13 +313,17 @@ gather's), and as its
 last line {"ok": true, "device": {...}}.  Without a
 CUDA device it exits with code 1 and prints no result.  `--only knn,fps`
 runs the build and the kNN and FPS checks alone and prints their rows,
-`--only cheby,scatter` the Chebyshev and scatter-add checks, and `--only
+`--only cheby,scatter` the Chebyshev and scatter-add checks (the tuned
+kernel in f32 and bf16 and the general one of phase 2b, each output's
+sha256 digest, `sha*`, holding two trees' scatter-adds bit for bit), and `--only
 kth` the k-th distance's three checks (f32, adversarial rows, bf16), `--only
 bf16` the checks of the bf16 forms of kernels 1, 2, 5 and 6 (the kNN
 digests, `sha_bf16_*` and `sha_f32_*`, hold two trees' kNN routes equal),
 `--only f1`
-phase 2b alone (its kNN digests, `sha_*`, hold two trees' general and
-packed kNN bit for bit), `--only f2` phase 2c alone, `--only fused` a digest
+phase 2b alone (its kNN and scatter-add digests, `sha_*`, hold two trees'
+general and packed kNN and general scatter-add bit for bit) and then phase
+4c's training steps on the float32 and the bf16 encoder with their
+profiles, `--only f2` phase 2c alone, `--only fused` a digest
 of kernel 9's f32 passes' output bits at the flagship shape on seeded
 inputs with their times (the same on two trees shows the f32 form
 unchanged), and `--only attn` the same for the attention kernels
@@ -450,7 +457,7 @@ def describe(cfg) -> str:
 PTXAS_NAMES = ("knn_kernel", "fps_kernel", "cheby_kernel", "scatter_add_kernel", "kth_kernel",
                "attn_fwd_bf16", "attn_bwd_dkdv_bf16", "attn_bwd_dq_bf16", "knn_general_kernel",
                "attn_wide_tc", "attn_wide", "attn_group", "attn_scale", "kth_wide_kernel",
-               "fill_kernel", "sum_kernel", "fused_edge_kernel", "edge_route_kernel",
+               "scatter_general_kernel", "fused_edge_kernel", "edge_route_kernel",
                "edge_rows_kernel", "gather_rows_kernel", "matmul_probe_kernel")
 
 
@@ -1458,7 +1465,8 @@ def check_scatter(torch, knn_mod, scatter_mod, sx, qx):
     (B, 2048, 20, 64) cotangent.  Within 1e-5 * sum |g| of `index_add_` per
     entry, bit-equal to the kernel's order of sums emulated in PyTorch
     (`scatter_add_ordered_reference`) and across two calls, one launch per
-    call.  Each call is timed (five back to back; and the kernel's device
+    call; a sha256 of each output (`sha`: two trees' kernels held bit for
+    bit).  Each call is timed (five back to back; and the kernel's device
     time from the profiler) and the six calls of a training step (three
     EdgeConv blocks per batch), beside `index_add_`."""
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -1494,15 +1502,16 @@ def check_scatter(torch, knn_mod, scatter_mod, sx, qx):
         call = (lambda: scatter_mod.scatter_add(gr, idx, 2048))
         per_call[f"B{gr.shape[0]}"] = dict(   # five calls back to back: see `cuda_ms`
             ms=cuda_ms(call, 10, per=5), device_ms=device_ms(call, "scatter_add"),
-            library_ms=cuda_ms(lambda: index_add(torch, gr, idx), 10, per=5), hub=hub)
+            library_ms=cuda_ms(lambda: index_add(torch, gr, idx), 10, per=5), hub=hub,
+            sha=digest([got]))
     step = calls * 3                        # three EdgeConv blocks per batch
     ms = cuda_ms(lambda: [scatter_mod.scatter_add(gr, idx, 2048) for gr, idx in step], 10)
     plain = cuda_ms(lambda: [scatter_mod.scatter_add_reference(gr, idx, 2048)
                              for gr, idx in step], 10)
     lib = cuda_ms(lambda: [index_add(torch, gr, idx) for gr, idx in step], 10)
     log("  scatter-add per call: " + ", ".join(
-        f"{k} {v['ms']:.4f} ms, device {v['device_ms']:.4f} (index_add_ {v['library_ms']:.4f})"
-        for k, v in per_call.items()) +
+        f"{k} {v['ms']:.4f} ms, device {v['device_ms']:.4f} (index_add_ {v['library_ms']:.4f}), "
+        f"sha256 {v['sha']}" for k, v in per_call.items()) +
         f"; a training step's six calls {ms:.4f} ms (index_add_ {lib:.4f})")
     nbytes = sum(4.0 * (gr.numel() + idx.numel() + gr.shape[0] * 2048 * 64) for gr, idx in step)
     return row(err, ms, plain, lib, sum(float(gr.numel()) for gr, _ in step), nbytes,
@@ -1514,7 +1523,7 @@ def check_scatter_bf16(torch, knn_mod, scatter_mod, sx, qx):
     step's shapes: bit-equal to the f32 form on its upcast, to the ordered
     emulation and across two calls, one launch per call.  Times: a step's
     six calls, kernel and plain version (the f32 `index_add_` of the
-    upcast).  No one PyTorch call computes it: `index_add_` wants the
+    upcast); a sha256 of each output (`sha_b*`).  No one PyTorch call computes it: `index_add_` wants the
     table's dtype, and a bf16 table would round its sums.  Bound: bytes, g
     read at 2 bytes an entry."""
     g = torch.Generator(device="cuda").manual_seed(15)
@@ -1524,7 +1533,7 @@ def check_scatter_bf16(torch, knn_mod, scatter_mod, sx, qx):
         idx = knn_mod.knn(xt, 20)
         gr = torch.randn((*idx.shape, 64), generator=g, device="cuda").to(torch.bfloat16)
         calls.append((gr, idx))
-    err = 0.0
+    err, shas = 0.0, {}
     for gr, idx in calls:
         before = scatter_mod.bf16_launches
         got = scatter_mod.scatter_add(gr, idx, 2048)
@@ -1540,6 +1549,7 @@ def check_scatter_bf16(torch, knn_mod, scatter_mod, sx, qx):
         if scatter_mod.bf16_launches != before + 2 or not (upcast and emulated and same):
             raise AssertionError("scatter-add bf16: not bit-equal, or not one launch per call")
         err = max(err, e)
+        shas[f"sha_b{gr.shape[0]}"] = digest([got])
     step = calls * 3
     ms = cuda_ms(lambda: [scatter_mod.scatter_add(gr, idx, 2048) for gr, idx in step], 10)
     plain = cuda_ms(lambda: [scatter_mod.scatter_add_reference(gr, idx, 2048)
@@ -1547,11 +1557,12 @@ def check_scatter_bf16(torch, knn_mod, scatter_mod, sx, qx):
     per_call = {f"ms_b{gr.shape[0]}": cuda_ms(lambda gr=gr, idx=idx: scatter_mod.scatter_add(
         gr, idx, 2048), 10, per=5) for gr, idx in calls}
     log(f"  scatter-add bf16: a training step's six calls {ms:.4f} ms (plain {plain:.4f}); "
-        + ", ".join(f"{k[3:]} {v:.4f} ms per call" for k, v in per_call.items()))
+        + ", ".join(f"{k[3:]} {v:.4f} ms per call" for k, v in per_call.items())
+        + "; sha256 " + ", ".join(f"{k[4:]} {v}" for k, v in shas.items()))
     nbytes = sum(2.0 * gr.numel() + 4.0 * (idx.numel() + gr.shape[0] * 2048 * 64)
                  for gr, idx in step)
     return row(err, ms, plain, None, sum(float(gr.numel()) for gr, _ in step), nbytes,
-               **per_call)
+               **per_call, **shas)
 
 
 def check_knn_bf16(torch, knn_mod):
@@ -2065,27 +2076,63 @@ def check_kth_wide(torch, kth_mod):
     return out
 
 
+# The general scatter-add's shapes (B, K, C, N): the flagship kNN graphs of
+# the support and query batches (N = 2048) at K = 20 and at the F1 step's K
+# = 40 with its odd first EdgeConv width, and one cloud of 32768 random
+# points (the radix build)
+SCATTER_GENERAL_SHAPES = [(10, 20, 63, 2048), (2, 20, 63, 2048), (1, 20, 64, 32768),
+                          (10, 40, 63, 2048), (2, 40, 63, 2048)]
+
+
+def stage_name(name: str) -> str:
+    """A kernel's name from the profiler without its namespace and
+    arguments: "scatter_general_kernel<LaneF32>"."""
+    return re.sub(r"^void |\(anonymous namespace\)::", "", name).split("(")[0].strip() or name
+
+
+def profiled_stages(torch, fn, reps: int = 10) -> dict:
+    """Device ms per call of fn()'s kernels by `stage_name`, from
+    `device_kernels`; asked up to three times, as a profiler window may
+    record no kernel; {} if none did."""
+    stages = {}
+    for _ in range(3):
+        for kname, kms in device_kernels(torch, fn, reps=reps):
+            stages[stage_name(kname)] = stages.get(stage_name(kname), 0.0) + kms
+        if stages:
+            break
+    return stages
+
+
 def check_scatter_general(torch, knn_mod, scatter_mod, sx, qx):
-    """The general scatter-add at C = 63 on a training step's kNN graphs
-    (support B = 10 and query B = 2, N = 2048, K = 20), f32 and bf16 g, and
-    at N = 32768 with C = 64 (one cloud's kNN graph of random points, K =
-    20): the general counter moves once per call and the tuned one's not,
+    """The general scatter-add at SCATTER_GENERAL_SHAPES, f32 and bf16 g:
+    the general counter moves once per call and the tuned one's not,
     bit-equal to the ordered emulation and across two calls (bf16 g: also to
-    the f32 form on the upcast).  Times: the three f32 calls, kernel, plain
-    version and `index_add_`; each call alone.  Bound: g and idx read, dx
+    the f32 form on the upcast); a sha256 of each output (`sha_*`: two
+    trees' kernels held bit for bit).  Times: the first three f32 calls
+    together (the row's `ms`; kernel, plain version and `index_add_`); per
+    call and dtype (`per_call`), five back to back between CUDA events and
+    the device time from the profiler, by kernel (`stages`: the one
+    cooperative launch), beside
+    `index_add_` (f32 g; events and profiled device time of the call's
+    kernels) and the call's bound, and the device time on the same graph at
+    C = 1 (`c1_device_ms`: the build and each piece's chain of dependent
+    loads, with 4 bytes of g a row to sum); the medians over seven calls
+    of each phase's time by block 0's clock (`general_phases`, `phases`).
+    The kernel's registers and local bytes.  Bound: g and idx read, dx
     written."""
     counters = {"general": (scatter_mod, "general_launches"), "tuned": (scatter_mod, "launches")}
     g = torch.Generator(device="cuda").manual_seed(26)
-    calls = []
-    for x in (sx.reshape(-1, *sx.shape[2:]), qx):
-        idx = knn_mod.knn(torch.from_numpy(np.ascontiguousarray(x)).cuda(), 20)
-        calls.append((torch.randn((*idx.shape, 63), generator=g, device="cuda"), idx, 2048))
-    pts = torch.rand((1, 32768, 9), generator=g, device="cuda")
-    idx = knn_mod.knn(pts, 20)
-    calls.append((torch.randn((*idx.shape, 64), generator=g, device="cuda"), idx, 32768))
-    err = 0.0
-    for gr, idx, n in calls:
-        for gg in (gr, gr.to(torch.bfloat16)):
+    clouds = {10: sx.reshape(-1, *sx.shape[2:]), 2: qx}
+    calls = {}
+    for b, k, c, n in SCATTER_GENERAL_SHAPES:
+        x = torch.from_numpy(np.ascontiguousarray(clouds[b])).cuda() if n == 2048 else \
+            torch.rand((b, n, 9), generator=g, device="cuda")
+        idx = knn_mod.knn(x, k)
+        calls[f"b{b}_k{k}_c{c}_n{n}"] = (torch.randn((*idx.shape, c), generator=g, device="cuda"),
+                                         idx, n)
+    err, shas, per = 0.0, {}, {}
+    for name, (gr, idx, n) in calls.items():
+        for tag, gg in (("", gr), ("_bf16", gr.to(torch.bfloat16))):
             got = expect_launches(counters, lambda: scatter_mod.scatter_add(gg, idx, n),
                                   {"general": 1, "tuned": 0},
                                   f"scatter general {tuple(gg.shape)} {gg.dtype} N={n}")
@@ -2094,24 +2141,53 @@ def check_scatter_general(torch, knn_mod, scatter_mod, sx, qx):
             upcast = (gg.dtype == torch.float32
                       or torch.equal(got, scatter_mod.scatter_add(gg.float(), idx, n)))
             e = (got - scatter_mod.scatter_add_reference(gg, idx, n)).abs().max().item()
+            shas[f"sha_{name}{tag}"] = digest([got])
             log(f"  scatter general {tuple(gg.shape)} {gg.dtype} N={n}: bit-equal to the "
                 f"ordered emulation {emulated}, across two calls {same}, to the f32 form on the "
-                f"upcast {upcast}; max abs err against index_add_ {e:.3e}")
+                f"upcast {upcast}; max abs err against index_add_ {e:.3e}; sha256 "
+                f"{shas[f'sha_{name}{tag}']}")
             if not (same and emulated and upcast):
                 raise AssertionError("scatter general: not bit-equal")
             err = max(err, e)
-    ms = cuda_ms(lambda: [scatter_mod.scatter_add(gr, idx, n) for gr, idx, n in calls], 5)
+            call = (lambda gg=gg, idx=idx, n=n: scatter_mod.scatter_add(gg, idx, n))
+            stages = profiled_stages(torch, call)
+            nbytes = gg.element_size() * gg.numel() + 4.0 * (idx.numel() + gr.shape[0] * n *
+                                                              gr.shape[-1])
+            per[f"{name}{tag}"] = dict(ms=cuda_ms(call, 10, per=5),
+                                       device_ms=sum(stages.values()), stages=stages,
+                                       bound_ms=bound(0.0, nbytes)[0])
+            runs = [scatter_mod.general_phases(gg, idx, n) for _ in range(7)]
+            per[f"{name}{tag}"]["phases"] = {
+                k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        lib = (lambda gr=gr, idx=idx, n=n: index_add(torch, gr, idx, n))
+        g1 = gr[..., :1].contiguous()
+        per[name].update(library_ms=cuda_ms(lib, 10, per=5),
+                         library_device_ms=sum(profiled_stages(torch, lib).values()),
+                         c1_device_ms=sum(profiled_stages(
+                             torch, lambda g1=g1, idx=idx, n=n: scatter_mod.scatter_add(
+                                 g1, idx, n)).values()))
+    for name, r in per.items():
+        log(f"  scatter general {name}: {r['ms']:.4f} ms per call, device {r['device_ms']:.4f} "
+            f"(" + ", ".join(f"{k} {v:.4f}" for k, v in r["stages"].items()) + f"), bound "
+            f"{r['bound_ms']:.4f}" + (f"; index_add_ {r['library_ms']:.4f}, device "
+                                      f"{r['library_device_ms']:.4f}; at C = 1 device "
+                                      f"{r['c1_device_ms']:.4f}" if "library_ms" in r else "")
+            + "; phases " + ", ".join(f"{k} {v:.4f}" for k, v in r["phases"].items()))
+    attrs = {dt: scatter_mod.kernel_attributes(dt == "bf16") for dt in ("f32", "bf16")}
+    log("  scatter general kernel: " + "; ".join(
+        f"{dt} {a['registers']} registers, {a['local_bytes']} local bytes"
+        for dt, a in attrs.items()))
+    three = list(calls.values())[:3]
+    ms = cuda_ms(lambda: [scatter_mod.scatter_add(gr, idx, n) for gr, idx, n in three], 5)
     plain = cuda_ms(lambda: [scatter_mod.scatter_add_reference(gr, idx, n)
-                             for gr, idx, n in calls], 5)
-    lib = cuda_ms(lambda: [index_add(torch, gr, idx, n) for gr, idx, n in calls], 5)
-    per = {f"ms_b{gr.shape[0]}_c{gr.shape[-1]}_n{n}": cuda_ms(
-        lambda gr=gr, idx=idx, n=n: scatter_mod.scatter_add(gr, idx, n), 5)
-        for gr, idx, n in calls}
-    log("  scatter general ms per call: " + ", ".join(f"{k[3:]} {v:.4f}" for k, v in per.items())
-        + f"; the three {ms:.4f} (index_add_ {lib:.4f})")
+                             for gr, idx, n in three], 5)
+    lib = cuda_ms(lambda: [index_add(torch, gr, idx, n) for gr, idx, n in three], 5)
+    log(f"  scatter general: the first three f32 calls {ms:.4f} ms (plain {plain:.4f}, "
+        f"index_add_ {lib:.4f})")
     nbytes = sum(4.0 * (gr.numel() + idx.numel() + gr.shape[0] * n * gr.shape[-1])
-                 for gr, idx, n in calls)
-    return row(err, ms, plain, lib, sum(float(gr.numel()) for gr, _, _ in calls), nbytes, **per)
+                 for gr, idx, n in three)
+    return row(err, ms, plain, lib, sum(float(gr.numel()) for gr, _, _ in three), nbytes,
+               per_call=per, attributes=attrs, **shas)
 
 
 def check_f1(torch, mods, sx, qx) -> dict:
@@ -3488,16 +3564,17 @@ def train(torch, cfg, episodes, kernels, seed, required, per_step=None, steps=TR
     peak = torch.cuda.max_memory_allocated()
     out = dict(step_ms=statistics.median(times), times=times, launches=launches, peak=peak,
                stages=train_stages(torch, fast, episodes[0]), metrics=metrics)
-    profile_train(torch, fast, episodes)
+    out["profile"] = profile_train(torch, fast, episodes)
     return out
 
 
-def profile_train(torch, learner, episodes, steps: int = 3, top: int = 12) -> None:
+def profile_train(torch, learner, episodes, steps: int = 3, top: int = 12) -> dict:
     """`torch.profiler` over ``steps`` kernel-path training steps: the
     device time by kernel (the CUDA events, largest first) and the
     device's busy share of the window (kernel time over wall time;
     overlapping kernels would count twice, and the profiler's own host
-    overhead lengthens the window)."""
+    overhead lengthens the window).  Returns the wall and busy ms per step
+    and each kernel family's device ms per step."""
     from torch.profiler import ProfilerActivity, profile
     learner.train(episodes[0])
     torch.cuda.synchronize()
@@ -3514,13 +3591,15 @@ def profile_train(torch, learner, episodes, steps: int = 3, top: int = 12) -> No
         f"largest device times per step:")
     for name, ms, n in rows[:top]:
         log(f"  {ms:8.3f} ms  x{n:<4d} {name[:90]}")
+    families = {}
     for what, key in (("attention kernels (2, 5)", "attn_"), ("kNN kernel (1)", "knn_kernel"),
                       ("FPS kernel (3)", "fps_kernel"), ("scatter-add kernel (6)", "scatter_add"),
                       ("Chebyshev kernel (7)", "cheby_kernel"),
                       ("general and packed kNN (1)", "knn_general"),
-                      ("general scatter-add, its sum pass (6)", "sum_kernel")):
+                      ("general scatter-add (6)", "scatter_general_kernel")):
         mine = [r for r in rows if key in r[0]]
-        log(f"[profile] {what}: {sum(r[1] for r in mine):.3f} ms per step")
+        families[what] = sum(r[1] for r in mine)
+        log(f"[profile] {what}: {families[what]:.3f} ms per step")
         for name, ms, n in mine:
             log(f"  {ms:8.3f} ms  x{n:<4d} {name[:90]}")
     fps_calls = sum(n for name, _, n in rows if "fps_kernel" in name)
@@ -3530,6 +3609,7 @@ def profile_train(torch, learner, episodes, steps: int = 3, top: int = 12) -> No
     cheby_calls = sum(n for name, _, n in rows if "cheby_kernel" in name)
     if cheby_calls != (2 if learner.cfg.graph_bf16 else 0):
         raise AssertionError(f"profile: {cheby_calls} Chebyshev kernels per step")
+    return dict(wall_ms=wall / steps, busy_ms=kernel_ms, device_ms=families)
 
 
 def train_stages(torch, learner, episode, reps: int = 3) -> dict:
@@ -6105,6 +6185,33 @@ def sp_phase(torch, kernels, episodes, seed) -> dict:
     return dict(launches=launched, figures=figures)
 
 
+def f1_config(cfg):
+    """Phase 4c's configuration past the tuned kernels' shapes (F1)."""
+    return cfg.replace(dgcnn_k=40, output_dim=128, edgeconv_widths=((63, 64), (64, 64),
+                                                                   (64, 64)))
+
+
+def f1_train(torch, cfg_f1, episodes, kernels, seed):
+    """Phase 4c's training steps on the float32 and on the bf16 encoder of
+    the F1 configuration, each against the plain path, with its launch
+    gates (the general scatter-add twice a step, for block 1's two batches,
+    the tuned one's not at all: the 64-wide blocks 2 and 3 keep the tuned
+    scatter-add, which the launch gates leave free) and its profile."""
+    not_tuned = {"knn": 0, "attention_fwd": 0, "attention_bwd": 0}   # the 64-wide blocks
+    tr = train_phase(torch, cfg_f1, episodes, kernels, seed,
+                     ("knn_general", "attention_wide_tf32_fwd", "attention_wide_tf32_bwd",
+                      "fps", "kth", "scatter_general"),
+                     per_step={"fps": 3, "scatter_general": 2, **not_tuned}, steps=1)
+    not_bf16 = {"attention_fwd_bf16": 0, "attention_bwd_bf16": 0}
+    tr_enc = train_phase(
+        torch, cfg_f1.replace(compute_dtype="bfloat16"), episodes, kernels, seed,
+        ("knn_general", "attention_wide_tc_fwd_bf16", "attention_wide_tc_bwd_bf16", "fps", "kth",
+         "scatter_general", "cheby"),
+        per_step={"fps": 3, "cheby": 2, "scatter_general": 2, "attention_wide_group_fwd_bf16": 0,
+                  "attention_wide_group_bwd_bf16": 0, **not_bf16, **not_tuned}, steps=1)
+    return tr, tr_enc
+
+
 def all_counters() -> dict:
     """Every kernel counter, by the name of its row: (module, attribute).
     The bf16 forms' counters count their calls apart, within their
@@ -6276,9 +6383,11 @@ def main() -> int:
     cfg16 = cfg.replace(graph_dtype="bfloat16")
     if args.only == "cheby,scatter":
         _, s16, b16, _, _ = flagship_graph(torch, cfg16, episodes[0], args.seed)
+        sx, qx = episodes[0][0], episodes[0][2]
         rows = {"cheby": check_cheby(torch, cuda_cheby, s16, b16, cfg.lp_alpha, cfg.lp_cg_iters),
-                "scatter_add": check_scatter(torch, cuda_knn, cuda_scatter, episodes[0][0],
-                                             episodes[0][2])}
+                "scatter_add": check_scatter(torch, cuda_knn, cuda_scatter, sx, qx),
+                "scatter_add_bf16": check_scatter_bf16(torch, cuda_knn, cuda_scatter, sx, qx),
+                "scatter_general": check_scatter_general(torch, cuda_knn, cuda_scatter, sx, qx)}
         log(smi)
         log(json.dumps(rows))
         return 0
@@ -6320,6 +6429,10 @@ def main() -> int:
         return 0
     if args.only == "f1":
         rows = check_f1(torch, f1_mods, episodes[0][0], episodes[0][2])
+        steps = f1_train(torch, f1_config(cfg), episodes, all_counters(), args.seed)
+        rows["train_f1"] = {enc: dict(step_ms=tr["step_ms"], stages=tr["stages"],
+                                      profile=tr["profile"])
+                            for enc, tr in zip(("f32", "bf16enc"), steps)}
         log(smi)
         log(json.dumps(rows))
         return 0
@@ -6531,24 +6644,13 @@ def main() -> int:
     # the bf16 encoder with a 320-wide head (the grouped tensor-core pair),
     # against a plain path that scales q as the kernels do
     # (`plain_attention_as_kernels`)
-    cfg_f1 = cfg.replace(dgcnn_k=40, output_dim=128, edgeconv_widths=((63, 64), (64, 64),
-                                                                      (64, 64)))
-    not_tuned = {"knn": 0, "attention_fwd": 0, "attention_bwd": 0}   # the 64-wide blocks
-    # 2 and 3 keep the tuned scatter-add
+    cfg_f1 = f1_config(cfg)
     _, serve_launches_f1, _ = serve_phase(torch, cfg_f1, episodes[:2], kernels, args.seed,
                                           ("knn_general", "attention_wide_tf32_fwd", "fps",
                                            "kth"))
-    tr_f1 = train_phase(torch, cfg_f1, episodes, kernels, args.seed,
-                        ("knn_general", "attention_wide_tf32_fwd", "attention_wide_tf32_bwd",
-                         "fps", "kth", "scatter_general"), per_step={"fps": 3, **not_tuned},
-                        steps=1)
+    tr_f1, tr_f1_enc = f1_train(torch, cfg_f1, episodes, kernels, args.seed)
+    not_tuned = {"knn": 0, "attention_fwd": 0, "attention_bwd": 0}
     not_bf16 = {"attention_fwd_bf16": 0, "attention_bwd_bf16": 0}
-    tr_f1_enc = train_phase(
-        torch, cfg_f1.replace(compute_dtype="bfloat16"), episodes, kernels, args.seed,
-        ("knn_general", "attention_wide_tc_fwd_bf16", "attention_wide_tc_bwd_bf16", "fps", "kth",
-         "scatter_general", "cheby"),
-        per_step={"fps": 3, "cheby": 2, "attention_wide_group_fwd_bf16": 0,
-                  "attention_wide_group_bwd_bf16": 0, **not_bf16, **not_tuned}, steps=1)
     tr_f1_320 = train_phase(
         torch, cfg_f1.replace(compute_dtype="bfloat16", output_dim=320), episodes, kernels,
         args.seed, ("knn_general", "attention_wide_group_fwd_bf16",

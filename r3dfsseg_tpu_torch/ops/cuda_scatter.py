@@ -28,8 +28,13 @@ An odd C, or more targets than the build's histograms hold in one block's
 shared memory (about 28k, `r3d_scatter_add_warps`; the TPU kernel takes
 any C and n), goes to `csrc/scatter_general.cu` (`general_launches`): the
 same function and order of sums (bit-equal to
-`scatter_add_ordered_reference` too), the inverse graph built in device
-memory by five simple launches, one warp per target, a lane per channel.
+`scatter_add_ordered_reference` too) and the same design, one cooperative
+launch per call, with two changes: a lane reads channels lane and lane +
+32 of a row (4-byte or 2-byte loads, any C), and past one histogram row
+of shared memory the inverse graph is built by a stable LSD radix sort
+over the target's bits (`wide_plan` there) and the records placed by binary
+searches (the CSR is `inverse_graph_reference`'s either way).
+`general_phases` times one call's phases by block 0's clock.
 
 Dispatch: a CPU tensor takes `scatter_add_reference` (`index_add_` in
 f32); a CUDA tensor launches a kernel or raises.
@@ -42,7 +47,7 @@ import torch
 
 from r3dfsseg_tpu_torch.kernels import build
 
-PIECE = 32                   # csrc/scatter_add.cu kPiece: rows per piece
+PIECE = 32                   # csrc/scatter.cuh kPiece: rows per piece
 
 launches = 0
 bf16_launches = 0          # of them, calls on a bf16 cotangent
@@ -109,11 +114,75 @@ def scatter_add_ordered_reference(g: torch.Tensor, idx: torch.Tensor, n: int) ->
     return out
 
 
+def kernel_attributes(bf16: bool) -> dict:
+    """The general kernel's registers and local (spill) bytes a thread, f32
+    or bf16 g, from `cudaFuncGetAttributes` on the current card."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    fn = build.function("r3d_scatter_general_attributes", [build.I] + [build.P] * 2)
+    build.check(fn(int(bf16), ctypes.addressof(regs), ctypes.addressof(local)),
+                 "r3d_scatter_general_attributes")
+    return dict(registers=regs.value, local_bytes=local.value)
+
+
+MARKS = 16                   # csrc/scatter.cuh kMarks: a timed call's clock stamps
+
+
+def _general(g: torch.Tensor, idx: torch.Tensor, n: int,
+             stamps: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of `csrc/scatter_general.cu` on contiguous CUDA g (B, NQ,
+    K, C) and idx (B, NQ, K) int32; with `stamps` (MARKS int64 on the
+    device), its phases timed (`r3d_scatter_general_phases`)."""
+    global general_launches
+    b, nq, k, c = g.shape
+    m = nq * k
+    bf16 = g.dtype == torch.bfloat16
+    if stamps is None:
+        name = "r3d_scatter_general" + ("_bf16" if bf16 else "")
+        fn = build.function(name, [build.P] * 4 + [build.I] * 4 + [build.P])
+    else:
+        name = "r3d_scatter_general_phases"
+        fn = build.function(name, [build.P] * 4 + [build.I] * 5 + [build.P] * 2)
+    with torch.cuda.device(g.device):
+        nbytes = build.function("r3d_scatter_general_scratch", [build.I] * 4,
+                                ctypes.c_longlong)(b, n, m, c)
+        if nbytes < 0:
+            raise RuntimeError("scatter_add: the device takes no cooperative launch")
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=g.device)
+        dx = torch.empty((b, n, c), dtype=torch.float32, device=g.device)
+        args = [g.data_ptr(), idx.data_ptr(), dx.data_ptr(), scratch.data_ptr(), b, n, m, c]
+        if stamps is not None:
+            args += [int(bf16), stamps.data_ptr()]
+        err = fn(*args, build.stream_ptr(g.device))
+    build.check(err, name)
+    general_launches += 1
+    return dx
+
+
+def general_phases(g: torch.Tensor, idx: torch.Tensor, n: int) -> dict:
+    """One call of the general kernel (`csrc/scatter_general.cu`) with its
+    phases timed by block 0's clock after each grid barrier: ms by phase,
+    the narrow build's count, reduce, scan and fill, or the wide build's
+    count, starts and place of each radix pass and its records, then the
+    sum.  g and idx as `scatter_add` takes them, on the card."""
+    stamps = torch.zeros(MARKS, dtype=torch.int64, device=g.device)
+    _general(g.contiguous(), idx.contiguous(), n, stamps)
+    t = stamps.tolist()
+    if build.function("r3d_scatter_add_warps", [build.I])(n) >= 1:
+        names = ["count", "reduce", "scan", "fill"]
+    else:
+        passes = (max(i for i in range(MARKS - 1) if t[i]) - 1) // 3
+        names = [f"{s} {p}" for p in range(passes) for s in ("count", "starts", "place")]
+        names.append("records")
+    out = {name: (t[i + 1] - t[i]) / 1e6 for i, name in enumerate(names)}
+    out["sum"] = (t[MARKS - 1] - t[len(names)]) / 1e6
+    return out
+
+
 def scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """g (B, NQ, K, C) f32 or bf16, idx (B, NQ, K) int32 -> dx (B, n, C)
     f32: one cooperative launch of the tuned kernel where C is even and n
     fits its build, else the general kernel."""
-    global launches, bf16_launches, general_launches
+    global launches, bf16_launches
     if g.device.type == "cpu":
         return scatter_add_reference(g, idx, n)
     if g.device.type != "cuda":
@@ -129,18 +198,7 @@ def scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     g, idx = g.contiguous(), idx.contiguous()
     m = nq * k
     if c % 2 or build.function("r3d_scatter_add_warps", [build.I])(n) < 1:
-        nbytes = build.function("r3d_scatter_general_scratch", [build.I] * 3,
-                                ctypes.c_longlong)(b, n, m)
-        scratch = torch.empty(nbytes, dtype=torch.uint8, device=g.device)
-        dx = torch.empty((b, n, c), dtype=torch.float32, device=g.device)
-        name = "r3d_scatter_general" + ("" if g.dtype == torch.float32 else "_bf16")
-        fn = build.function(name, [build.P] * 4 + [build.I] * 4 + [build.P])
-        with torch.cuda.device(g.device):
-            err = fn(g.data_ptr(), idx.data_ptr(), dx.data_ptr(), scratch.data_ptr(), b, n, m, c,
-                     build.stream_ptr(g.device))
-        build.check(err, name)
-        general_launches += 1
-        return dx
+        return _general(g, idx, n)
     if g.data_ptr() % 16:                 # a view: the kernel loads g in 4- or 8-byte pairs
         g = g.clone()
     nbytes = build.function("r3d_scatter_add_scratch", [build.I] * 4, ctypes.c_longlong)

@@ -45,6 +45,7 @@ from r3dfsseg_tpu_torch.serve import FewShotPredictor
 from r3dfsseg_tpu_torch.utils.convert import state_dict_from_jax
 from test_torch_gather import _jax_scatter_kernel as jax_scatter_kernel
 from test_torch_knn_general import emulate as emulate_general
+from test_torch_scatter import general_build
 from torch_port_helpers import (episode_arrays, jax_graph_margin, jax_knn_kernel,
                                 random_flax_weights)
 
@@ -470,36 +471,26 @@ def test_scatter_plain_matches_pallas_at_odd_c_and_wide_n(b, nq, k, c, n):
 
 
 def emulate_general_build(idx: np.ndarray, n: int):
-    """csrc/scatter_general.cu's build on the CPU: per cloud, G units of
-    rows count their targets; a prefix over the units gives each unit's
-    start in a target's list, a scan over the targets the offsets; each
-    unit, 32 rows at a time in order, puts each row at the target's offset
-    + its unit's running start + its rank among the batch's rows of that
-    target.  -> (offsets (B, n + 1), perm (B, M))."""
+    """csrc/scatter_general.cu's build on the CPU
+    (`test_torch_scatter.general_build`): per cloud, where a histogram row
+    of n fits in shared memory, the tuned kernel's build (units of rows
+    counted per target, per-warp histograms, rows placed 32 at a time
+    ranked by target) and its records in target order; else stable LSD
+    radix passes over the target's bits placed the same way, and each
+    target's offset by binary search with its records at slots offset / 32
+    + target.  The offsets are the records' -> (offsets (B, n + 1), perm
+    (B, M))."""
     b, m = idx.shape
-    units = max(1, min(128, -(-m // 4096)))
     offs = np.zeros((b, n + 1), np.int64)
     perm = np.full((b, m), -1, np.int64)
     for cb in range(b):
-        bounds = [gi * m // units for gi in range(units + 1)]
-        cnt = np.zeros((units, n), np.int64)
-        for gi in range(units):
-            ids = idx[cb, bounds[gi]:bounds[gi + 1]]
-            ids = ids[(ids >= 0) & (ids < n)]
-            np.add.at(cnt[gi], ids, 1)
-        start = np.cumsum(cnt, 0) - cnt
-        offs[cb, 1:] = np.cumsum(cnt.sum(0))
-        for gi in range(units):
-            run = start[gi].copy()
-            for r0 in range(bounds[gi], bounds[gi + 1], 32):
-                batch = idx[cb, r0:min(r0 + 32, bounds[gi + 1])]
-                seen = {}
-                for lane, j in enumerate(batch):
-                    if 0 <= j < n:
-                        perm[cb, offs[cb, j] + run[j] + seen.get(j, 0)] = r0 + lane
-                        seen[j] = seen.get(j, 0) + 1
-                for j, cnt_j in seen.items():
-                    run[j] += cnt_j
+        rows, rec = general_build(idx[cb], n, b)
+        rows = rows[rows >= 0]
+        perm[cb, :len(rows)] = rows
+        live = rec[rec[:, 0] >= 0]
+        first = live[np.searchsorted(live[:, 0], np.arange(n))]
+        offs[cb, :n] = first[:, 1]
+        offs[cb, n] = first[-1, 1] + first[-1, 2]
     return offs, perm
 
 

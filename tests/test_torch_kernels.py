@@ -1280,31 +1280,70 @@ def test_kth_wide_kernel_adversarial_rows_on_card(kind, dtype, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,c,dtype", [(10, 2048, 63, torch.float32),
-                                         (2, 2048, 63, torch.bfloat16),
-                                         (1, 32768, 64, torch.float32),
-                                         (2, 40000, 7, torch.bfloat16)])
-def test_scatter_general_kernel_on_card(b, n, c, dtype):
-    """An odd C at the flagship kNN graph, and N past the tuned build's
-    shared memory: the general kernel, bit-equal to the ordered emulation
-    and across two calls (a bf16 g also to the f32 form on its upcast),
-    with ids out of range dropped; one general launch per call."""
+@pytest.mark.parametrize("b,nq,k,c,n,dtype,graph", [
+    (10, 2048, 20, 63, 2048, torch.float32, "knn"), (2, 2048, 20, 63, 2048, torch.bfloat16, "knn"),
+    (10, 2048, 40, 63, 2048, torch.float32, "knn"), (2, 2048, 40, 63, 2048, torch.float32, "knn"),
+    (10, 2048, 40, 63, 2048, torch.bfloat16, "knn"), (2, 2048, 40, 63, 2048, torch.bfloat16, "knn"),
+    (2, 2048, 20, 1, 2048, torch.float32, "random"), (2, 2048, 20, 3, 2048, torch.bfloat16, "random"),
+    (2, 2048, 20, 129, 2048, torch.float32, "random"),
+    (1, 8192, 20, 320, 32768, torch.bfloat16, "random"),
+    (2, 2048, 20, 63, 2048, torch.float32, "hub"), (1, 8192, 20, 64, 32768, torch.float32, "random"),
+    (1, 8192, 20, 65, 32768, torch.bfloat16, "random"), (2, 10000, 20, 7, 40000, torch.bfloat16,
+                                                         "random"),
+    (1, 17500, 20, 3, 70000, torch.float32, "hub"), (1, 17500, 20, 129, 70000, torch.float32,
+                                                      "random"),
+    (2, 0, 20, 63, 2048, torch.float32, "random"), (1, 0, 20, 5, 40000, torch.bfloat16, "random"),
+    (2, 64, 5, 3, 40000, torch.float32, "out_of_range")])
+def test_scatter_general_kernel_on_card(b, nq, k, c, n, dtype, graph):
+    """An odd C (1, 3, 7, 63, 65, 129), and N past the tuned build's shared
+    memory (32768, 40000, 70000: the radix build; C = 64 and 320 there): at the
+    flagship kNN graphs at K = 20 and the F1 step's K = 40, with a hub of
+    5000 rows, with no rows (M = 0) and with every id outside [0, N); the
+    general kernel, bit-equal to the ordered emulation and across two calls
+    (a bf16 g also to the f32 form on its upcast), ids out of range
+    dropped; one general launch per call and none of the tuned one."""
     dev = cuda_or_skip()
-    rng = np.random.default_rng(b + n + c)
-    x = torch.from_numpy(rng.normal(size=(b, n, 9)).astype(np.float32)).to(dev)
-    idx = cuda_knn.knn(x, 20) if n == 2048 else torch.from_numpy(
-        rng.integers(-2, n + 2, size=(b, n // 4, 20)).astype(np.int32)).to(dev)
-    idx[:, :, 1] = 5                                   # a hub
+    rng = np.random.default_rng(b + nq + k + c + n)
+    if graph == "knn":
+        x = torch.from_numpy(rng.normal(size=(b, n, 9)).astype(np.float32)).to(dev)
+        idx = cuda_knn.knn(x, k)
+        idx[:, :, 1] = 5                                # a hub of nq rows
+    else:
+        idx = torch.from_numpy(rng.integers(-2, n + 2, size=(b, nq, k)).astype(np.int32)).to(dev)
+    if graph == "hub":
+        idx[:, :5000 // k] = 5                          # 5000 rows: 157 pieces
+    elif graph == "out_of_range":
+        idx = torch.where(idx % 2 == 0, -idx.abs() - 1, idx.abs() + n)
     g = torch.from_numpy(rng.normal(size=(*idx.shape, c)).astype(np.float32)).to(dev, dtype)
     counts = (cuda_scatter.launches, cuda_scatter.general_launches)
     got = cuda_scatter.scatter_add(g, idx, n)
     again = cuda_scatter.scatter_add(g, idx, n)
     torch.cuda.synchronize()
     assert (cuda_scatter.launches, cuda_scatter.general_launches) == (counts[0], counts[1] + 2)
-    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert got.dtype == torch.float32 and got.shape == (b, n, c) and torch.equal(got, again)
     assert torch.equal(got, cuda_scatter.scatter_add_ordered_reference(g, idx, n))
     if dtype == torch.bfloat16:
         assert torch.equal(got, cuda_scatter.scatter_add(g.float(), idx, n))
+    if graph == "out_of_range" or nq == 0:
+        assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_add_kernel_hub_at_an_odd_row_count_on_card(dtype):
+    """The tuned kernel with B * M odd (1, 25, 3) and a hub of 75 rows (three
+    pieces): the hubs' partial rows are read and written in pairs of
+    channels, and start 16-byte aligned whatever B * M; bit-equal to the
+    ordered emulation, one launch."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(25)
+    g = torch.from_numpy(rng.normal(size=(1, 25, 3, 8)).astype(np.float32)).to(dev, dtype)
+    idx = torch.full((1, 25, 3), 4, dtype=torch.int32, device=dev)
+    before = cuda_scatter.launches
+    got = cuda_scatter.scatter_add(g, idx, 10)
+    torch.cuda.synchronize()
+    assert cuda_scatter.launches == before + 1
+    assert torch.equal(got, cuda_scatter.scatter_add_ordered_reference(g, idx, 10))
 
 
 # ------------------------------------------------ the bf16 encoder's forms --

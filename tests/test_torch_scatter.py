@@ -1,9 +1,12 @@
 """Kernel 6's plain pieces (`ops/cuda_scatter.py`): the inverse graph the
 kernel builds (`inverse_graph_reference`), the kernel's order of sums
-(`scatter_add_ordered_reference`), and a CPU emulation of the kernel's build
-(per-warp histograms, a scan, the fill in batches of 32 ranked by target),
-held against `index_add_`, the JAX package's exact `_scatter_exact`
-(segment sum) and its Pallas `_scatter_kernel` in interpret mode.
+(`scatter_add_ordered_reference`), and CPU emulations of the kernels'
+builds (the narrow one: per-warp histograms, a scan, the fill in batches
+of 32 ranked by target; the general kernel's wide one: stable LSD radix
+passes over the target's bits, the same fill on digits, records placed by
+binary searches) and of the sum phase over their piece records, held
+against `index_add_`, the JAX package's exact `_scatter_exact` (segment
+sum) and its Pallas `_scatter_kernel` in interpret mode.
 
 g is made bf16-representable, so the Pallas kernel's bf16 rounding of g is
 exact and every version is the same f32 sum in some order: rtol 1e-6, atol
@@ -21,6 +24,22 @@ import torch
 from r3dfsseg_tpu.ops import fast_gather as jax_fg
 from r3dfsseg_tpu_torch.ops import cuda_scatter
 from test_torch_gather import _jax_scatter_kernel as jax_scatter_kernel
+
+
+MAX_BITS = 11                # csrc/scatter_general.cu kMaxBits: a radix pass's digit bits
+WIDE_ROWS = 16 * 512         # csrc/scatter_general.cu kWideRows: a wide unit's elements
+
+
+def radix_plan(n: int, m: int, b: int, sms: int) -> tuple[int, int, int]:
+    """The general kernel's wide build (`csrc/scatter_general.cu:wide_plan`)
+    for n targets, M rows a cloud, B clouds on `sms` SMs: (passes, digit
+    bits, units of a cloud).  The keys [0, n) take kb bits, cut into
+    ceil(kb / MAX_BITS) passes of equal bits; the units are a multiple of
+    SMs / B with at most WIDE_ROWS elements each."""
+    kb = max(1, (n - 1).bit_length())
+    passes = -(-kb // MAX_BITS)
+    per = max(1, sms // b)
+    return passes, -(-kb // passes), per * max(1, -(-m // (WIDE_ROWS * per)))
 
 
 def _case(seed, b, nq, k, c, n, hub=3, bad=0):
@@ -71,6 +90,156 @@ def _emulate_build(idx, n, units, hw):
                 for j in {j for _, j in batch}:
                     pos[w, j] += sum(1 for _, jj in batch if jj == j)
     return perm
+
+
+def _narrow_warps(n):
+    """csrc/scatter.cuh:narrow_warps: the (n,) histogram rows that fit in
+    shared memory (232448 bytes) beside the scan's n + 96 ints, at most 16."""
+    return max(0, min(16, (232448 - 4 * (n + 96)) // (4 * n)))
+
+
+def _pieces(rows):
+    return np.where(rows > cuda_scatter.PIECE, -(-rows // cuda_scatter.PIECE), 1)
+
+
+def _place(keys, rows, digit, units):
+    """One pass of the placing: the elements (keys, rows; key -1 dropped),
+    in order, cut into `units` units; each unit's digit counts; per digit
+    each unit's start, as `unit_starts` takes it (lane l sums a run of
+    units, the runs scanned across 32 lanes); the digits' bases; then in
+    each unit warp w < hw owns a run of its elements, counts them into its
+    histogram row and places them 32 at a time, a lane ranked among the
+    earlier lanes of its batch with the same digit."""
+    size = len(keys)
+    d_of = np.where(keys >= 0, digit(keys), -1)
+    digits = int(d_of.max(initial=0)) + 1
+    cuts = [u * size // units for u in range(units + 1)]
+    cnt = np.zeros((units, digits), np.int64)
+    for u in range(units):
+        d = d_of[cuts[u]:cuts[u + 1]]
+        np.add.at(cnt[u], d[d >= 0], 1)
+    starts = np.zeros_like(cnt)
+    runs = [(lane * units // 32, (lane + 1) * units // 32) for lane in range(32)]
+    sums = np.array([cnt[g0:g1].sum(0) for g0, g1 in runs])
+    lane_base = np.cumsum(sums, 0) - sums
+    for (g0, g1), base in zip(runs, lane_base):
+        starts[g0:g1] = base + np.cumsum(cnt[g0:g1], 0) - cnt[g0:g1]
+    tot = cnt.sum(0)
+    base = np.cumsum(tot) - tot
+    out_k = np.full(int(tot.sum()), -1, np.int64)
+    out_r = np.full(int(tot.sum()), -1, np.int64)
+    for u in range(units):
+        lo, hi = cuts[u], cuts[u + 1]
+        hw = min(16, max(1, (hi - lo) // 128))
+        ranges = [(lo + w * (hi - lo) // hw, lo + (w + 1) * (hi - lo) // hw) for w in range(hw)]
+        hist = np.zeros((hw, digits), np.int64)
+        for w, (a, b) in enumerate(ranges):
+            d = d_of[a:b]
+            np.add.at(hist[w], d[d >= 0], 1)
+        pos = np.cumsum(hist, 0) - hist + base + starts[u]
+        for w, (a, b) in enumerate(ranges):
+            h = pos[w]
+            for e0 in range(a, b, 32):
+                d = d_of[e0:min(e0 + 32, b)]
+                ok = d >= 0
+                rank = ((d[:, None] == d[None, :]) & np.tri(len(d), k=-1, dtype=bool)).sum(1)
+                at = h[d[ok]] + rank[ok]
+                out_k[at] = keys[e0:e0 + len(d)][ok]
+                out_r[at] = rows[e0:e0 + len(d)][ok]
+                np.add.at(h, d[ok], 1)
+    return out_k, out_r
+
+
+def _emulate_wide(ids, n, units, bits, passes):
+    """csrc/scatter_general.cu's wide build for one cloud, step by step:
+    `passes` LSD passes of `bits` bits (`_place` each; pass 0 drops the ids
+    outside [0, n)), then each target's offset and count by binary search
+    over the sorted keys and its records at slots offset // PIECE + j + q,
+    every other slot empty.  -> (keys, perm) of the kept rows and the
+    records (cap, 4): (target, offset, rows, first slot), target -1 empty."""
+    keys = np.where((ids >= 0) & (ids < n), ids, -1).astype(np.int64)
+    rows = np.arange(ids.size)
+    for p in range(passes):
+        keys, rows = _place(keys, rows, lambda k, s=p * bits: (k >> s) & ((1 << bits) - 1),
+                            units)
+    targets = np.arange(n)
+    lo = np.searchsorted(keys, targets, "left")
+    cnt = np.searchsorted(keys, targets, "right") - lo
+    first = lo // cuda_scatter.PIECE + targets
+    return keys, rows, _records(ids.size, lo, cnt, first)
+
+
+def _records(m, offs, cnt, first):
+    """The record slots (n + ceil(m / PIECE), 4) with target j's pieces at
+    first[j] + q, each (j, offs[j], cnt[j], first[j]), the rest (-1, 0, 0, 0)."""
+    n = len(cnt)
+    npc = _pieces(cnt)
+    rec = np.tile(np.array([-1, 0, 0, 0], np.int64), (n + -(-m // cuda_scatter.PIECE), 1))
+    j = np.repeat(np.arange(n), npc)
+    q = np.arange(len(j)) - np.repeat(np.cumsum(npc) - npc, npc)
+    rec[first[j] + q] = np.stack([j, offs[j], cnt[j], first[j]], 1)
+    return rec
+
+
+def _narrow_records(ids, n):
+    """The narrow build's scan (`scan_cloud`): the offsets, and one record
+    per piece, the pieces of the targets in order from slot 0; -> records
+    (cap, 4) as `_emulate_wide`'s."""
+    ok = (ids >= 0) & (ids < n)
+    cnt = np.bincount(ids[ok], minlength=n)
+    npc = _pieces(cnt)
+    first = np.cumsum(npc) - npc
+    offs = np.cumsum(cnt) - cnt
+    return _records(ids.size, offs, cnt, first)
+
+
+def _emulate_sum(g, perm, rec, n):
+    """The sum phase (`sum_pieces`) over one cloud's records: each live
+    slot's piece, rows perm[offset + PIECE q + r] for r < its length added
+    in order from 0 in f32; a target of one piece takes its piece, a hub
+    its partials added in piece order from 0.  g (M, C) -> dx (n, C)."""
+    piece = cuda_scatter.PIECE
+    t = np.nonzero(rec[:, 0] >= 0)[0]
+    j, off, rows, first = rec[t].T
+    q = t - first
+    length = np.clip(rows - piece * q, 0, piece)
+    part = np.zeros((len(t), g.shape[1]), np.float32)
+    for r in range(piece):
+        sel = length > r
+        part[sel] = part[sel] + g[perm[off[sel] + piece * q[sel] + r]]
+    dx = np.zeros((n, g.shape[1]), np.float32)
+    hub = _pieces(rows) > 1
+    dx[j[~hub]] = part[~hub]
+    slot = {int(s): i for i, s in enumerate(t)}
+    for i in np.nonzero(hub & (q == 0))[0]:
+        total = np.zeros(g.shape[1], np.float32)
+        for k in range(int(_pieces(rows[i]))):
+            total = total + part[slot[int(first[i]) + k]]
+        dx[j[i]] = total
+    return dx
+
+
+def general_build(ids, n, b, sms=132):
+    """csrc/scatter_general.cu's build of one of B clouds of rows `ids` on
+    `sms` SMs: the narrow build where a histogram row of n fits
+    (`_emulate_build` with the kernel's units and warps, `_narrow_records`),
+    else the wide one with `radix_plan`'s passes, bits and
+    units.  -> (perm, records)."""
+    if _narrow_warps(n) >= 1:
+        perm = _emulate_build(ids, n, max(1, min(16, sms // b)), _narrow_warps(n))
+        return perm, _narrow_records(ids, n)
+    passes, bits, units = radix_plan(n, ids.size, b, sms)
+    _, perm, rec = _emulate_wide(ids, n, units, bits, passes)
+    return perm, rec
+
+
+def emulate_general(g, idx, n):
+    """csrc/scatter_general.cu on the CPU: each cloud's build
+    (`general_build`), then the sum over its records.  g (B, NQ, K, C), idx
+    (B, NQ, K) -> dx (B, n, C) f32."""
+    b, nq, k, c = g.shape
+    gf, ids = g.reshape(b, nq * k, c).astype(np.float32), idx.reshape(b, nq * k)
+    return np.stack([_emulate_sum(gf[cb], *general_build(ids[cb], n, b), n) for cb in range(b)])
 
 
 def _loop_sum(g, idx, n, piece):
@@ -127,9 +296,30 @@ def test_kernel_build_emulated_equals_the_inverse_graph(units, hw, bad):
 
 def test_piece_matches_the_kernel():
     """The ordered emulation cuts each target's rows into pieces as the
-    kernel does: PIECE is the kernel source's kPiece."""
-    src = (Path(cuda_scatter.__file__).parents[1] / "csrc" / "scatter_add.cu").read_text()
+    kernels do: PIECE is kPiece of their shared source (csrc/scatter.cuh)."""
+    src = (Path(cuda_scatter.__file__).parents[1] / "csrc" / "scatter.cuh").read_text()
     assert re.search(r"constexpr int kPiece = (\d+);", src).group(1) == str(cuda_scatter.PIECE)
+
+
+def test_radix_plan_matches_the_kernel():
+    """`radix_plan` mirrors csrc/scatter_general.cu:wide_plan: its constants
+    are the source's, the passes hold every key bit, each a digit of at
+    most MAX_BITS bits, and the units a multiple of SMs / B with at most
+    WIDE_ROWS elements."""
+    src = (Path(cuda_scatter.__file__).parents[1] / "csrc" / "scatter_general.cu").read_text()
+    assert re.search(r"constexpr int kMaxBits = (\d+);", src).group(1) == str(MAX_BITS)
+    assert re.search(r"constexpr int kWideRows = kWarps \* (\d+);", src).group(1) == str(
+        WIDE_ROWS // 16)
+    for n, m, b, sms, want in [(32768, 655360, 1, 132, (2, 8, 132)), (32768, 2000000, 1, 132,
+                                                                       (2, 8, 264)),
+                               (40000, 10000, 2, 132, (2, 8, 66)),
+                               (70000, 350000, 1, 132, (2, 9, 132)), (2 ** 22, 100, 3, 132,
+                                                                      (2, 11, 44)),
+                               (2 ** 22 + 1, 5, 200, 114, (3, 8, 1))]:
+        passes, bits, units = radix_plan(n, m, b, sms)
+        assert (passes, bits, units) == want
+        assert passes * bits >= (n - 1).bit_length() and bits <= MAX_BITS
+        assert units % max(1, sms // b) == 0 and -(-m // units) <= WIDE_ROWS
 
 
 @pytest.mark.parametrize("b,nq,k,c,n", [(1, 40, 5, 8, 40), (2, 32, 4, 8, 32), (2, 64, 5, 16, 64),
@@ -184,3 +374,54 @@ def test_ordered_sum_is_the_kernels_order_bit_for_bit(seed):
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
     assert (idx == 7).sum(axis=(1, 2)).min() > 2 * cuda_scatter.PIECE
     assert not got[:, 0].any()
+
+
+@pytest.mark.parametrize("n,units,bits,passes,bad", [(300, 1, 3, 3, 0), (300, 7, 5, 2, 17),
+                                                     (2048, 3, 11, 1, 5), (2048, 66, 6, 2, 0),
+                                                     (40000, 2, 8, 2, 9), (40000, 40, 11, 2, 3)])
+def test_wide_build_emulated_is_the_inverse_graph(n, units, bits, passes, bad):
+    """The general kernel's wide build (`_emulate_wide`: LSD passes placed
+    as the fill places rows, records by binary search) gives the stable-sort
+    CSR exactly for any count of units, digit bits and passes, with a hub of
+    more than five pieces and ids out of range; each target's records cover
+    its pieces at distinct slots within cap."""
+    rng = np.random.default_rng(n + units + bits)
+    ids = rng.integers(0, n, size=3000)
+    ids[::13] = 5                                        # a hub of 231 rows: 8 pieces
+    ids[rng.choice(3000, size=bad, replace=False)] = rng.choice([-1, -9, n, n + 3], size=bad)
+    keys, perm, rec = _emulate_wide(ids, n, units, bits, passes)
+    counts, offsets, want = cuda_scatter.inverse_graph_reference(torch.from_numpy(ids[None]), n)
+    kept = int(counts.sum())
+    np.testing.assert_array_equal(perm, want[0, :kept].numpy())
+    np.testing.assert_array_equal(keys, ids[perm])
+    live = rec[rec[:, 0] >= 0]                           # no slot taken twice:
+    assert len(live) == _pieces(counts[0].numpy()).sum()  # every piece's record is there
+    firsts = live[np.searchsorted(live[:, 0], np.arange(n))]
+    np.testing.assert_array_equal(firsts[:, 1], offsets[0, :n].numpy())
+    np.testing.assert_array_equal(firsts[:, 2], counts[0].numpy())
+    assert int(counts[0, 5]) > 5 * cuda_scatter.PIECE
+
+
+@pytest.mark.parametrize("n,c", [(300, 129), (2048, 63), (2048, 1), (40000, 3)])
+def test_general_kernel_emulated_is_the_ordered_sum(n, c):
+    """The general kernel emulated (`emulate_general`: the narrow build at n
+    = 300 and 2048, two radix passes at 40000, then the sum over the
+    records) equals `scatter_add_ordered_reference` bit for bit, on values
+    whose f32 sums depend on the order, with a hub of six pieces and ids
+    out of range; and the JAX package's `_scatter_kernel` (interpret mode)
+    and `_scatter_exact` (on the kept rows) within rtol = atol = 1e-6 on a
+    bf16-representable cotangent."""
+    g, idx = _case(n + c, 2, 64, 20, c, n, hub=7, bad=5)
+    idx[:, :, 1:3] = 7                                   # 192 rows: six pieces
+    wide = g * 2.0 ** np.random.default_rng(c).integers(-20, 20, size=g.shape)
+    tw, ti = torch.from_numpy(wide.astype(np.float32)), torch.from_numpy(idx)
+    got = emulate_general(wide, idx, n)
+    want = cuda_scatter.scatter_add_ordered_reference(tw, ti, n).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    got = emulate_general(g, idx, n)
+    kernel = np.asarray(jax_scatter_kernel(jnp.asarray(g), jnp.asarray(idx), n, tm=256))
+    ok = (idx >= 0) & (idx < n)
+    exact = np.asarray(jax_fg._scatter_exact(jnp.asarray(g * ok[..., None]),
+                                             jnp.asarray(np.where(ok, idx, 0)), n))
+    for other in (kernel, exact):
+        np.testing.assert_allclose(got, other, rtol=1e-6, atol=1e-6)
